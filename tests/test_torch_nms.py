@@ -1,0 +1,179 @@
+"""Port NMS path vs the JAX package on the CPU: the greedy keep mask's plain
+version against the Pallas kernel (interpret mode) and the XLA blocked
+scan, the head-score plain version against postprocess_raw's stage 1, and
+the whole postprocess_raw."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vision_kit_tpu.ops import boxes as jax_boxes
+from vision_kit_tpu.ops.nms import _greedy_keep_blocked
+from vision_kit_tpu.ops.nms import postprocess_raw as jax_postprocess_raw
+from vision_kit_tpu.ops.pallas_nms import pallas_greedy_keep
+from vision_kit_tpu_torch.ops.boxes import box_iou_pairwise, cxcywh_to_xyxy
+from vision_kit_tpu_torch.ops.greedy_nms import greedy_keep, greedy_keep_reference
+from vision_kit_tpu_torch.ops.head_scores import head_scores, head_scores_reference
+from vision_kit_tpu_torch.ops.nms import postprocess_raw
+from test_torch_model import jax_v5, port_v5
+
+torch.set_num_threads(2)
+
+
+def make_boxes(rng, b, k, case):
+    """(B, K, 4) xyxy f32 in score order and (B, K) valid. `crowded` puts
+    every box near one of a few centres, with the class offset of one of
+    two classes added, so suppression chains are long."""
+    if case == "crowded":
+        centres = rng.uniform(50, 400, (b, 6, 2))
+        pick = rng.integers(0, 6, (b, k))
+        c = np.take_along_axis(centres, pick[..., None], axis=1)
+        c = c + rng.normal(0, 6, (b, k, 2))
+        wh = rng.uniform(30, 60, (b, k, 2))
+        boxes = np.concatenate([c - wh / 2, c + wh / 2], -1)
+        boxes = boxes + (rng.integers(0, 2, (b, k, 1)) * 7680.0)
+    else:
+        x1y1 = rng.uniform(0, 500, (b, k, 2))
+        wh = rng.uniform(10, 150, (b, k, 2))
+        boxes = np.concatenate([x1y1, x1y1 + wh], -1)
+    valid = np.ones((b, k), bool)
+    if case == "invalid_tail":
+        valid[:, k - k // 3:] = False
+    return boxes.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-9])
+def test_boxes_match_jax(eps):
+    """cxcywh -> xyxy and the pairwise IoU, zero-area boxes included (where
+    the union clamp decides), equal the JAX package's bit for bit."""
+    rng = np.random.default_rng(13)
+    cxcywh = np.concatenate([rng.uniform(0, 300, (2, 40, 2)),
+                             rng.uniform(0, 80, (2, 40, 2))], -1).astype(np.float32)
+    cxcywh[:, :5, 2] = 0.0
+    want_xyxy = np.asarray(jax_boxes.cxcywh_to_xyxy(jnp.asarray(cxcywh)))
+    got_xyxy = cxcywh_to_xyxy(torch.from_numpy(cxcywh)).numpy()
+    np.testing.assert_array_equal(got_xyxy, want_xyxy)
+    want = np.asarray(jax_boxes.box_iou_pairwise(
+        jnp.asarray(want_xyxy), jnp.asarray(want_xyxy[:, ::-1]), eps=eps))
+    got = box_iou_pairwise(torch.from_numpy(got_xyxy),
+                           torch.from_numpy(got_xyxy[:, ::-1].copy()), eps=eps)
+    assert got.shape == (2, 40, 40)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["random", "invalid_tail"])
+def test_greedy_reference_matches_pallas_kernel(case):
+    rng = np.random.default_rng(11)
+    boxes, valid = make_boxes(rng, 3, 96, case)
+    want = np.asarray(pallas_greedy_keep(jnp.asarray(boxes), jnp.asarray(valid),
+                                         0.5, interpret=True))
+    got = greedy_keep_reference(torch.from_numpy(boxes),
+                                torch.from_numpy(valid), 0.5).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [252, 512])
+@pytest.mark.parametrize("case", ["random", "crowded", "invalid_tail"])
+def test_greedy_reference_matches_blocked_scan(k, case):
+    rng = np.random.default_rng(k)
+    boxes, valid = make_boxes(rng, 4, k, case)
+    want = np.asarray(jax.vmap(
+        lambda bx, v: _greedy_keep_blocked(bx, v, 0.45))(boxes, valid)) & valid
+    got = greedy_keep_reference(torch.from_numpy(boxes),
+                                torch.from_numpy(valid), 0.45).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < valid.sum()
+
+
+def test_greedy_keep_on_cpu_is_the_plain_version():
+    boxes, valid = make_boxes(np.random.default_rng(2), 2, 64, "crowded")
+    bt, vt = torch.from_numpy(boxes), torch.from_numpy(valid)
+    before = greedy_keep.launches
+    assert torch.equal(greedy_keep(bt, vt, 0.45),
+                       greedy_keep_reference(bt, vt, 0.45))
+    assert greedy_keep.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        greedy_keep(bt.to("meta"), vt.to("meta"), 0.45)
+
+
+def _jax_stage1(raws, conf, classes=None):
+    """postprocess_raw stage 1 (vision_kit_tpu/ops/nms.py), plus the gate."""
+    score_parts, cls_parts = [], []
+    for raw in raws:
+        b = raw.shape[0]
+        cls_logits = raw[..., 5:]
+        if classes is not None:
+            cls_logits = jnp.where(classes.reshape(1, 1, 1, 1, -1), cls_logits,
+                                   -jnp.inf)
+        cls_parts.append(jnp.argmax(cls_logits, axis=-1).reshape(b, -1))
+        best = jnp.max(cls_logits, axis=-1).reshape(b, -1)
+        obj = raw[..., 4].reshape(b, -1)
+        score_parts.append(jax.nn.sigmoid(obj.astype(jnp.float32))
+                           * jax.nn.sigmoid(best.astype(jnp.float32)))
+    s = jnp.concatenate(score_parts, axis=1)
+    return np.asarray(s), np.asarray(jnp.concatenate(cls_parts, axis=1))
+
+
+@pytest.mark.parametrize("with_classes", [False, True])
+def test_head_scores_reference_matches_jax_stage1(with_classes):
+    rng = np.random.default_rng(5)
+    # logits on a 0.25 grid: many exact ties, which must pick the first index
+    raws = [np.round(rng.normal(0, 2, (2, n, n, 3, 85)) * 4).astype(np.float32) / 4
+            for n in (8, 4, 2)]
+    classes = rng.uniform(size=80) < 0.5 if with_classes else None
+    conf = 0.25
+    want_s, want_c = _jax_stage1([jnp.asarray(r) for r in raws], conf,
+                                 None if classes is None else jnp.asarray(classes))
+    got_s, got_c = head_scores(
+        [torch.from_numpy(r) for r in raws], conf,
+        None if classes is None else torch.from_numpy(classes))
+    got_s, got_c = got_s.numpy(), got_c.numpy()
+    assert got_c.dtype == np.int32
+    np.testing.assert_array_equal(got_c, want_c)
+    near = np.abs(want_s - conf) <= 1e-6
+    gate = want_s > conf
+    np.testing.assert_array_equal((got_s > -1)[~near], gate[~near])
+    np.testing.assert_allclose(got_s[gate & ~near], want_s[gate & ~near],
+                               rtol=1e-6, atol=0)
+    assert np.all(got_s[~gate & ~near] == -1e9)
+
+
+def assert_same_detections(want, got):
+    """Detection sets: same count, and each wanted row matches a distinct
+    got row of the same class with score within 1e-5 and box within 1e-3 px
+    (rows whose scores tie to 1e-7 may come in either order)."""
+    assert want.shape == got.shape, (want.shape, got.shape)
+    free = np.ones(len(got), bool)
+    for row in want:
+        ok = (free & (got[:, 5] == row[5])
+              & (np.abs(got[:, 4] - row[4]) <= 1e-5)
+              & (np.abs(got[:, :4] - row[:4]).max(axis=1) <= 1e-3))
+        assert ok.any(), f"no match for {row}"
+        free[np.argmax(ok)] = False
+
+
+@pytest.mark.parametrize("mode", ["default", "agnostic", "classes"])
+def test_postprocess_raw_matches_jax(mode):
+    jm, v = jax_v5("n", 64)
+    tm = port_v5("n", v)
+    x = np.random.default_rng(9).integers(0, 255, (2, 64, 64, 3), dtype=np.uint8)
+    _, jr = jm.apply(v, jnp.asarray(x), training=False)
+    with torch.no_grad():
+        _, tr = tm(torch.from_numpy(x))
+    classes = np.arange(80) % 3 == 0 if mode == "classes" else None
+    kw = dict(conf_thres=0.25, iou_thres=0.45, max_det=100, max_cand=512,
+              agnostic=mode == "agnostic")
+    jd, jv = jax_postprocess_raw(
+        jr, jm.anchors_px, approx_topk=False,
+        classes=None if classes is None else jnp.asarray(classes), **kw)
+    td, tv = postprocess_raw(
+        tr, tm.anchors_px,
+        classes=None if classes is None else torch.from_numpy(classes), **kw)
+    jd, jv = np.asarray(jd), np.asarray(jv)
+    assert td.shape == jd.shape and tv.shape == jv.shape
+    for i in range(2):
+        assert jv[i].sum() > 10
+        assert_same_detections(jd[i][jv[i]], td[i][tv[i]].numpy())

@@ -1,0 +1,3 @@
+from vision_kit_tpu_torch.models.architectures import YOLOV5, build_model
+
+__all__ = ["YOLOV5", "build_model"]

@@ -1,0 +1,48 @@
+"""General helpers: variant multipliers and device resolution.
+
+Counterpart of vision_kit_tpu/utils/general.py (the subset the serving path
+needs).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dw_multiple_generator(version: str = "s") -> tuple[float, float]:
+    """(width_mul, depth_mul) for YOLOv5 variants.
+
+    n=(0.25, 0.33), s=(0.50, 0.33), m=(0.75, 0.67), l=(1.00, 1.00),
+    x=(1.25, 1.33).
+    """
+    width, depth = 0.25, 0.33
+    v = version.lower()
+    if v == "s":
+        depth *= 1.01
+        width *= 2
+    elif v == "m":
+        depth *= 2.02
+        width *= 3
+    elif v == "l":
+        depth *= 3.03
+        width *= 4
+    elif v == "x":
+        depth *= 4.04
+        width *= 5
+    elif v == "n":
+        pass
+    else:
+        raise ValueError(f"YOLOv5 variant {version!r} is not supported")
+    return width, round(depth, 2)
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on. A CUDA device without CUDA raises:
+    nothing silently carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' explicitly to run the "
+            "plain PyTorch path on the CPU"
+        )
+    return device
