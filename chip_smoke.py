@@ -5,11 +5,13 @@
 
 Phases, each printing its own line; any failure exits non-zero:
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: builds the CUDA kernel from csrc/ (the Triton kernel compiles
-     at its first launch); TF32 off for the f32 comparisons;
+  2. build: builds every CUDA source in csrc/ (one nvcc each, in parallel)
+     and prints each kernel's registers, shared memory and spills; TF32 off
+     for the f32 comparisons;
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the serving path's shapes, and timed beside the plain
-     version and the card's bound;
+     the card, at both serving paths' shapes (greedy NMS bit-equal at K up
+     to 2048, head scores in bf16, f16 and f32 with ragged tiles), one
+     launch counted per call;
   4. main path: YOLOv5s (80 classes, 640, bf16, seeded random weights)
      behind Predictor.predict_batch for 3 requests of 8 720x1280 frames,
      with the kernels' launch counts read around it; detections equal those
@@ -17,8 +19,10 @@ Phases, each printing its own line; any failure exits non-zero:
      agrees with the same model on the CPU on a small input; then the
      median and p99 request latency over 200 requests;
   5. throughput: run_detector_bench for v5s@640, batch 128, bf16, on the
-     calibrated head and on the seeded random head as built, then the
-     device time of a step by kernel group and its idle share (profiler).
+     calibrated head and on the seeded random head as built; then each
+     kernel timed at both paths' shapes beside the plain version and the
+     card's bound (utils/kernel_bench.py), and the device time of a step by
+     kernel group and its idle share (profiler).
 Then one JSON line with each kernel's numbers and, last,
 {"ok": true, "device": ...}.
 
@@ -33,7 +37,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -41,12 +44,14 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_F32_FLOP_S = 67e12      # f32 outside the tensor cores, H100 SXM
 H100_BF16_FLOP_S = 989e12    # bf16 tensor cores, dense, H100 SXM
-NMS_OPS_PER_PAIR = 14        # min/max x4, sub x3, clamp x3, mul, add, div, cmp
-CONF = 0.25
-IOU = 0.45
+NMS_KS = (252, 512, 1024, 1280, 2048)
+NMS_CHECK_CASES = ("random", "crowded", "invalid_tail", "all_invalid")
+HEAD_CHECK_SHAPES = (
+    (128, ((80, 80), (40, 40), (20, 20))),   # throughput path, v5s@640
+    (8, ((80, 80), (40, 40), (20, 20))),     # request path, v5s@640
+    (1, ((5, 5), (7, 3), (1, 1))),           # ragged last tiles
+)
 
 
 def check(cond, msg: str) -> None:
@@ -54,147 +59,135 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `reps` launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def build_kernels() -> None:
+    """Build every csrc/*.cu at once (one nvcc each, in parallel) and print
+    each kernel's registers, shared memory and spills from ptxas."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from vision_kit_tpu_torch import _cuda_build
 
-def make_boxes(rng, b, k, case):
-    """(B, K, 4) xyxy f32 in score order (class offset added) and (B, K)
-    valid; `crowded` clusters boxes of two classes around a few centres."""
-    if case == "crowded":
-        centres = rng.uniform(50, 600, (b, 6, 2))
-        pick = rng.integers(0, 6, (b, k))
-        c = np.take_along_axis(centres, pick[..., None], axis=1)
-        c = c + rng.normal(0, 6, (b, k, 2))
-        wh = rng.uniform(30, 60, (b, k, 2))
-        boxes = np.concatenate([c - wh / 2, c + wh / 2], -1)
-        boxes = boxes + rng.integers(0, 2, (b, k, 1)) * 7680.0
-    else:
-        x1y1 = rng.uniform(0, 600, (b, k, 2))
-        wh = rng.uniform(10, 150, (b, k, 2))
-        boxes = np.concatenate([x1y1, x1y1 + wh], -1)
-    valid = np.ones((b, k), bool)
-    if case == "invalid_tail":
-        valid[:, k - k // 3:] = False
-    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
-            torch.from_numpy(valid).cuda())
-
-
-def nms_pairs_needed(keep: torch.Tensor, valid: torch.Tensor) -> int:
-    """IoU pairs the greedy result needs: each kept box against every valid
-    later box."""
-    later_valid = valid.flip(1).cumsum(1).flip(1) - valid.long()
-    return int((later_valid * keep).sum())
+    names = sorted(f[:-3] for f in os.listdir(_cuda_build.CSRC) if f.endswith(".cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(_cuda_build.build, names))
+    print(f"build: {', '.join(n + '.cu' for n in names)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, lib in zip(names, libs):
+        kernel, info = None, {}
+        with open(lib + ".log") as f:
+            for line in f:
+                if "Compiling entry function" in line:
+                    kernel = line.split("'")[1]
+                    info[kernel] = []
+                elif kernel and ("registers" in line or "spill" in line):
+                    info[kernel].append(line.split(":", 1)[-1].strip()
+                                        if "registers" in line else line.strip())
+        for kernel, lines in info.items():
+            short = next((w for w in ("nms_mask_kernel", "nms_walk_kernel",
+                                      "head_scores_kernel") if w in kernel), kernel)
+            if short == "head_scores_kernel":
+                dtype = ("bf16" if "bfloat16" in kernel else
+                         "f16" if "__half" in kernel else "f32")
+                short += f"<{dtype}{', masked' if 'Lb1E' in kernel else ''}>"
+            print(f"build: {name}.cu {short}: {'; '.join(lines)}", flush=True)
 
 
 def phase_kernels(rng):
+    from vision_kit_tpu_torch.ops.boxes import box_iou_pairwise
     from vision_kit_tpu_torch.ops.greedy_nms import greedy_keep, greedy_keep_reference
     from vision_kit_tpu_torch.ops.head_scores import head_scores, head_scores_reference
+    from vision_kit_tpu_torch.utils import kernel_bench as kb
 
-    rows = {}
     # -- greedy NMS: bit-equal masks -------------------------------------
-    for b, k in ((128, 252), (128, 512), (128, 1024), (128, 1280)):
-        for case in ("random", "crowded", "invalid_tail"):
-            boxes, valid = make_boxes(rng, b, k, case)
-            got = greedy_keep(boxes, valid, IOU)
-            want = greedy_keep_reference(boxes, valid, IOU)
-            torch.cuda.synchronize()
-            n_diff = int((got != want).sum())
-            check(n_diff == 0, f"greedy_nms: {n_diff} mask bits differ at "
-                  f"B={b} K={k} {case}")
-            check(not bool((got & ~valid).any()), "greedy_nms kept an invalid box")
-        print(f"kernels: greedy_nms B={b} K={k} masks bit-equal "
-              "(random, crowded, invalid_tail)", flush=True)
-    boxes, valid = make_boxes(rng, 2, 2048, "random")
-    try:
-        greedy_keep(boxes, valid, IOU)
-    except ValueError:
-        print("kernels: greedy_nms refuses K=2048 (mask beyond shared memory)",
-              flush=True)
-    else:
-        raise RuntimeError("greedy_nms accepted K=2048 beyond its shared memory")
-    boxes, valid = make_boxes(rng, 128, 512, "random")
-    keep = greedy_keep(boxes, valid, IOU)
-    pairs = nms_pairs_needed(keep, valid)
-    nbytes = boxes.numel() * 4 + valid.numel() * 2
-    bound_ops = pairs * NMS_OPS_PER_PAIR / H100_F32_FLOP_S * 1e3
-    bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    ms = time_ms(lambda: greedy_keep(boxes, valid, IOU))
-    plain_ms = time_ms(lambda: greedy_keep_reference(boxes, valid, IOU), reps=3,
-                       warmup=1)
-    rows["greedy_nms"] = {
-        "name": "greedy_nms", "route": "cuda",
-        "source": "vision_kit_tpu_torch/csrc/greedy_nms.cu",
-        "replaces": "vision_kit_tpu/ops/pallas_nms.py:32",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-        "library_ms": None,
-    }
-    print(f"kernels: greedy_nms B=128 K=512 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {rows['greedy_nms']['bound_ms']:.4f} ms "
-          f"({pairs} IoU pairs needed)", flush=True)
+    for b in (8, 128):
+        for k in NMS_KS:
+            for case in NMS_CHECK_CASES:
+                boxes, valid = kb.make_boxes(rng, b, k, case)
+                before = greedy_keep.launches
+                got = greedy_keep(boxes, valid, kb.IOU)
+                check(greedy_keep.launches == before + 1,
+                      "greedy_nms counted other than one launch per call")
+                want = greedy_keep_reference(boxes, valid, kb.IOU)
+                torch.cuda.synchronize()
+                n_diff = int((got != want).sum())
+                check(n_diff == 0, f"greedy_nms: {n_diff} mask bits differ at "
+                      f"B={b} K={k} {case}")
+                check(not bool((got & ~valid).any()), "greedy_nms kept an invalid box")
+            print(f"kernels: greedy_nms B={b} K={k} masks bit-equal "
+                  f"({', '.join(NMS_CHECK_CASES)})", flush=True)
+    boxes, valid = kb.make_boxes(rng, 8, 300, "grid")
+    ious = torch.unique(box_iou_pairwise(boxes[:1], boxes[:1], eps=1e-9))
+    n_thres = 0
+    for t in ious[(ious > 0.05) & (ious < 0.95)][::7].tolist():
+        for thres in (*np.nextafter(np.float32(t), [np.float32(0), np.float32(1)]).tolist(), t):
+            n_diff = int((greedy_keep(boxes, valid, thres)
+                          != greedy_keep_reference(boxes, valid, thres)).sum())
+            check(n_diff == 0, f"greedy_nms: {n_diff} bits differ at thres {thres!r}")
+            n_thres += 1
+    print(f"kernels: greedy_nms bit-equal on grid boxes at {n_thres} thresholds "
+          "on and beside exact IoU values", flush=True)
 
-    # -- head scores: v5s@640 b128 level shapes --------------------------
+    # -- head scores: both paths' level shapes and ragged tiles -----------
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        raws = [
-            (torch.randn(128, n, n, 255, generator=gen, device="cuda") * 2)
-            .to(dtype).view(128, n, n, 3, 85)
-            for n in (80, 40, 20)
-        ]
-        for classes in (None, torch.arange(80, device="cuda") % 3 != 1):
-            ks, kc = head_scores(raws, CONF, classes)
-            rs, rc = head_scores_reference(raws, CONF, classes)
-            torch.cuda.synchronize()
-            check(torch.equal(kc, rc), f"head_scores classes differ ({dtype})")
-            kv, rv = ks > -1, rs > -1
-            flip = kv != rv
-            if bool(flip.any()):
-                near = torch.where(kv, ks, rs)[flip]
-                check(bool(((near - CONF).abs() <= 1e-6).all()),
-                      f"head_scores gate differs away from conf ({dtype})")
-            both = kv & rv
-            check(torch.allclose(ks[both], rs[both], rtol=1e-6, atol=0),
-                  f"head_scores scores differ beyond rtol 1e-6 ({dtype})")
-            err = float((ks[both] - rs[both]).abs().max()) if bool(both.any()) else 0.0
-            ulp = int((ks[both].view(torch.int32) - rs[both].view(torch.int32))
-                      .abs().max()) if bool(both.any()) else 0
-            max_err = max(max_err, err)
-            print(f"kernels: head_scores {str(dtype)[6:]} "
-                  f"classes={'mask' if classes is not None else 'all'} "
-                  f"max_abs_err {err:.3g} ({ulp} ulp), classes equal, "
-                  f"{int(flip.sum())} gate flips within 1e-6 of conf", flush=True)
-    raws = [(torch.randn(128, n, n, 255, generator=gen, device="cuda") * 2)
-            .to(torch.bfloat16).view(128, n, n, 3, 85) for n in (80, 40, 20)]
-    ms = time_ms(lambda: head_scores(raws, CONF))
-    plain_ms = time_ms(lambda: head_scores_reference(raws, CONF))
-    n_out = sum(r.shape[0] * r.shape[1] * r.shape[2] * 3 for r in raws)
-    nbytes = sum(r.numel() * r.element_size() for r in raws) + n_out * 8
-    rows["head_scores"] = {
-        "name": "head_scores", "route": "triton",
-        "source": "vision_kit_tpu_torch/ops/head_scores.py",
-        "replaces": "tools/archive/bench_pallas_score.py:59",
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None,
+    for batch, grids in HEAD_CHECK_SHAPES:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            raws = kb.head_maps(gen, batch, dtype, grids)
+            for classes in (None, torch.arange(80, device="cuda") % 3 != 1):
+                before = head_scores.launches
+                got = head_scores(raws, kb.CONF, classes)
+                check(head_scores.launches == before + 1,
+                      "head_scores counted other than one launch per call")
+                want = head_scores_reference(raws, kb.CONF, classes)
+                torch.cuda.synchronize()
+                agree = kb.head_scores_agree(got, want)
+                max_err = max(max_err, agree["max_abs_err"])
+                print(f"kernels: head_scores b{batch} {grids[0][0]}x{grids[0][1]}.. "
+                      f"{str(dtype)[6:]} classes={'mask' if classes is not None else 'all'} "
+                      f"max_abs_err {agree['max_abs_err']:.3g} ({agree['ulp']} ulp), "
+                      f"classes equal, {agree['flips']} gate flips within 1e-6 of conf",
+                      flush=True)
+            del raws
+    shifted = torch.zeros(2 * 4 * 4 * 255 + 1, device="cuda",
+                          dtype=torch.bfloat16)[1:].view(2, 4, 4, 3, 85)
+    try:
+        head_scores([shifted], kb.CONF)
+    except ValueError:
+        print("kernels: head_scores refuses a base off the 16-byte boundary", flush=True)
+    else:
+        raise RuntimeError("head_scores accepted a misaligned base")
+    return max_err
+
+
+def kernel_times(head_max_err: float):
+    """Each kernel's times at both paths' shapes (utils/kernel_bench.py),
+    and its JSON row. Runs after the latency phase: the profiler that
+    kernel_bench uses for its per-kernel split may leave the host's launch
+    path slower for the rest of the process."""
+    from vision_kit_tpu_torch.utils import kernel_bench as kb
+
+    bench = kb.run()
+    nms = next(r for r in bench["greedy_nms"]
+               if (r["batch"], r["k"], r["case"]) == (128, 512, "random"))
+    head = next(r for r in bench["head_scores"] if r["batch"] == 128)
+    return {
+        "greedy_nms": {
+            "name": "greedy_nms", "route": "cuda",
+            "source": "vision_kit_tpu_torch/csrc/greedy_nms.cu",
+            "replaces": "vision_kit_tpu/ops/pallas_nms.py:32",
+            "max_abs_err": 0.0, "ms": float(np.mean(nms["current_ms"])),
+            "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
+            "bound_by": nms["bound_by"], "library_ms": None,
+        },
+        "head_scores": {
+            "name": "head_scores", "route": "cuda",
+            "source": "vision_kit_tpu_torch/csrc/head_scores.cu",
+            "replaces": "tools/archive/bench_pallas_score.py:59",
+            "max_abs_err": head_max_err, "ms": float(np.mean(head["current_ms"])),
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+        },
     }
-    print(f"kernels: head_scores bf16 b128 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {rows['head_scores']['bound_ms']:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB)", flush=True)
-    return rows
 
 
 @contextlib.contextmanager
@@ -335,7 +328,7 @@ PROFILE_GROUPS = (
     ("batchnorm", ("batch_norm", "batchnorm", "bn_fw")),
     ("conv", ("conv", "gemm", "xmma", "cudnn", "implicit", "cutlass")),
     ("head_scores", ("head_scores",)),
-    ("greedy_nms", ("greedy_nms",)),
+    ("greedy_nms", ("nms_mask_kernel", "nms_walk_kernel")),
     ("topk_sort", ("topk", "radix", "sort", "select")),
     ("concat", ("catarray",)),
     ("elementwise", ("elementwise", "vectorized", "silu", "unrolled")),
@@ -418,31 +411,20 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
-        REPO, "vision_kit_tpu_torch", "_build", "triton"))
     t_start = time.perf_counter()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from vision_kit_tpu_torch.utils.kernel_bench import card
+
+    smi = card()
     print(smi, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-
-    from vision_kit_tpu_torch import _cuda_build
-
-    t0 = time.perf_counter()
-    lib = _cuda_build.build("greedy_nms")
-    with open(lib + ".log") as f:
-        ptxas = " ".join(line.strip() for line in f if "registers" in line)
+    build_kernels()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"build: greedy_nms.cu in {time.perf_counter() - t0:.1f} s ({ptxas})",
-          flush=True)
 
     rng = np.random.default_rng(0)
-    rows = phase_kernels(rng)
+    head_max_err = phase_kernels(rng)
     model, counts = phase_main_path(rng, smi)
 
     from vision_kit_tpu_torch.models import build_model
@@ -461,6 +443,7 @@ def main() -> int:
               f"in 10 steps) on {smi}; launches {bench_counts}", flush=True)
     del as_built
 
+    rows = kernel_times(head_max_err)
     prof = profile_steps(model)
     print("profile: v5s@640 b128 bf16, per step, device ms by kernel group: "
           + json.dumps(prof), flush=True)

@@ -11,32 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from vision_kit_tpu_torch.ops.boxes import box_iou_pairwise
 from vision_kit_tpu_torch.ops.greedy_nms import greedy_keep, greedy_keep_reference
 from vision_kit_tpu_torch.ops.head_scores import head_scores, head_scores_reference
+from vision_kit_tpu_torch.utils.kernel_bench import head_maps, head_scores_agree, make_boxes
 
 
 pytestmark = pytest.mark.cuda
-
-
-def make_boxes(rng, b, k, case):
-    """(B, K, 4) xyxy f32 in score order and (B, K) valid; `crowded`
-    clusters boxes of two classes (class offset added) around few centres."""
-    if case == "crowded":
-        centres = rng.uniform(50, 400, (b, 6, 2))
-        pick = rng.integers(0, 6, (b, k))
-        c = np.take_along_axis(centres, pick[..., None], axis=1)
-        c = c + rng.normal(0, 6, (b, k, 2))
-        wh = rng.uniform(30, 60, (b, k, 2))
-        boxes = np.concatenate([c - wh / 2, c + wh / 2], -1)
-        boxes = boxes + (rng.integers(0, 2, (b, k, 1)) * 7680.0)
-    else:
-        x1y1 = rng.uniform(0, 500, (b, k, 2))
-        wh = rng.uniform(10, 150, (b, k, 2))
-        boxes = np.concatenate([x1y1, x1y1 + wh], -1)
-    valid = np.ones((b, k), bool)
-    if case == "invalid_tail":
-        valid[:, k - k // 3:] = False
-    return boxes.astype(np.float32), valid
 
 
 @pytest.fixture
@@ -48,51 +29,87 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k", [252, 512, 1024, 1280])
-@pytest.mark.parametrize("case", ["random", "crowded", "invalid_tail"])
-def test_greedy_kernel_bit_equal_to_plain(cuda, k, case):
-    boxes, valid = make_boxes(np.random.default_rng(k), 8, k, case)
-    bt = torch.from_numpy(boxes).to(cuda)
-    vt = torch.from_numpy(valid).to(cuda)
+@pytest.mark.parametrize("b", [8, 128])
+@pytest.mark.parametrize("k", [252, 512, 1024, 1280, 2048])
+@pytest.mark.parametrize("case", ["random", "crowded", "invalid_tail", "all_invalid"])
+def test_greedy_kernel_bit_equal_to_plain(cuda, b, k, case):
+    boxes, valid = make_boxes(np.random.default_rng(k), b, k, case, device=cuda)
     before = greedy_keep.launches
-    got = greedy_keep(bt, vt, 0.45)
+    got = greedy_keep(boxes, valid, 0.45)
     assert greedy_keep.launches == before + 1
-    assert torch.equal(got, greedy_keep_reference(bt, vt, 0.45))
+    assert torch.equal(got, greedy_keep_reference(boxes, valid, 0.45))
+
+
+def test_greedy_kernel_bit_equal_at_the_threshold(cuda):
+    # integer boxes on a small grid give exact IoU ties; thresholds at,
+    # just below and just above those values test the kernel's IoU
+    # comparison where it is tightest
+    boxes, valid = make_boxes(np.random.default_rng(7), 8, 300, "grid", device=cuda)
+    ious = torch.unique(box_iou_pairwise(boxes[:1], boxes[:1], eps=1e-9))
+    for t in ious[(ious > 0.05) & (ious < 0.95)][::7].tolist():
+        for thres in np.nextafter(np.float32(t), [np.float32(0), np.float32(1)]).tolist() + [t]:
+            assert torch.equal(greedy_keep(boxes, valid, thres),
+                               greedy_keep_reference(boxes, valid, thres)), thres
 
 
 def test_greedy_kernel_rejects_bad_input(cuda):
     boxes = torch.zeros(2, 8, 4, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         greedy_keep(boxes, torch.ones(2, 8, dtype=torch.bool, device=cuda), 0.5)
+    shifted = torch.zeros(2 * 8 * 4 + 1, device=cuda)[1:].view(2, 8, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        greedy_keep(shifted, torch.ones(2, 8, dtype=torch.bool, device=cuda), 0.5)
 
 
 def test_greedy_kernel_refuses_k_beyond_shared_memory(cuda):
-    boxes = torch.zeros(2, 2048, 4, device=cuda)
+    # two 64-row strips of the mask (512 W bytes each) must fit in a block
+    k = 15000
     before = greedy_keep.launches
     with pytest.raises(ValueError, match="shared memory"):
-        greedy_keep(boxes, torch.ones(2, 2048, dtype=torch.bool, device=cuda), 0.5)
+        greedy_keep(torch.zeros(1, k, 4, device=cuda),
+                    torch.ones(1, k, dtype=torch.bool, device=cuda), 0.5)
     assert greedy_keep.launches == before
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("masked", [False, True])
-def test_head_scores_kernel_matches_plain(cuda, dtype, masked):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    raws = [(torch.randn(2, n, n, 255, generator=gen, device=cuda) * 2)
-            .to(dtype).view(2, n, n, 3, 85) for n in (16, 8, 4)]
+@pytest.mark.parametrize("batch,grids", [
+    (8, [(80, 80), (40, 40), (20, 20)]),     # the request path at 640
+    (128, [(80, 80), (40, 40), (20, 20)]),   # the throughput path at 640
+    (1, [(5, 5), (7, 3), (1, 1)]),           # ragged last tiles: 25, 21, 1 rows
+    (3, [(16, 16), (8, 8), (4, 4)]),
+])
+def test_head_scores_kernel_matches_plain(cuda, dtype, masked, batch, grids):
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    raws = head_maps(gen, batch, dtype, grids)
     classes = (torch.arange(80, device=cuda) % 3 != 1) if masked else None
     before = head_scores.launches
-    ks, kc = head_scores(raws, 0.25, classes)
-    assert head_scores.launches == before + 3
-    rs, rc = head_scores_reference(raws, 0.25, classes)
-    assert torch.equal(kc, rc)
-    both = (ks > -1) & (rs > -1)
-    flip = (ks > -1) != (rs > -1)
-    assert bool(((torch.where(ks > -1, ks, rs)[flip] - 0.25).abs() <= 1e-6).all())
-    torch.testing.assert_close(ks[both], rs[both], rtol=1e-6, atol=0)
+    got = head_scores(raws, 0.25, classes)
+    assert head_scores.launches == before + 1
+    head_scores_agree(got, head_scores_reference(raws, 0.25, classes), 0.25)
+
+
+def test_head_scores_kernel_every_class_masked(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    raws = head_maps(gen, 2, torch.bfloat16, [(8, 8), (4, 4)])
+    classes = torch.zeros(80, dtype=torch.bool, device=cuda)
+    ks, kc = head_scores(raws, 0.0, classes)
+    rs, rc = head_scores_reference(raws, 0.0, classes)
+    assert torch.equal(kc, rc) and torch.equal(ks, rs)
 
 
 def test_head_scores_kernel_rejects_relayout(cuda):
     raw = torch.zeros(1, 85, 3, 4, 4, device=cuda).permute(0, 3, 4, 2, 1)
     with pytest.raises(ValueError, match="contiguous"):
         head_scores([raw], 0.25)
+
+
+def test_head_scores_kernel_rejects_misaligned_base(cuda):
+    n = 2 * 4 * 4 * 255
+    raw = torch.zeros(n + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    raw = raw.view(2, 4, 4, 3, 85)
+    assert raw.is_contiguous() and raw.data_ptr() % 16
+    before = head_scores.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        head_scores([raw], 0.25)
+    assert head_scores.launches == before

@@ -15,8 +15,10 @@ from vision_kit_tpu.ops.nms import _greedy_keep_blocked
 from vision_kit_tpu.ops.nms import postprocess_raw as jax_postprocess_raw
 from vision_kit_tpu.ops.pallas_nms import pallas_greedy_keep
 from vision_kit_tpu_torch.ops.boxes import box_iou_pairwise, cxcywh_to_xyxy
-from vision_kit_tpu_torch.ops.greedy_nms import greedy_keep, greedy_keep_reference
-from vision_kit_tpu_torch.ops.head_scores import head_scores, head_scores_reference
+from vision_kit_tpu_torch.ops.greedy_nms import (
+    greedy_keep, greedy_keep_reference, mask_scratch_shape)
+from vision_kit_tpu_torch.ops.head_scores import (
+    TILE_ROWS, head_scores, head_scores_reference, level_table)
 from vision_kit_tpu_torch.ops.nms import postprocess_raw
 from test_torch_model import jax_v5, port_v5
 
@@ -42,6 +44,11 @@ def make_boxes(rng, b, k, case):
     valid = np.ones((b, k), bool)
     if case == "invalid_tail":
         valid[:, k - k // 3:] = False
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "invalid_rows":
+        valid[:, 64:128] = False          # one whole 64-row block
+        valid[:, 3::7] = False
     return boxes.astype(np.float32), valid
 
 
@@ -97,6 +104,119 @@ def test_greedy_keep_on_cpu_is_the_plain_version():
     assert greedy_keep.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         greedy_keep(bt.to("meta"), vt.to("meta"), 0.45)
+
+
+def blocked_walk_numpy(boxes, valid, thres, seed=0):
+    """numpy transcription of csrc/greedy_nms.cu. The mask build writes, for
+    each valid row i and each 64-column block cb at or above i's block, the
+    64-bit word mask[b, i, cb] with bit c set iff column j = 64 cb + c has
+    IoU > thres (f32, the kernel's operation order), for j > i off the
+    diagonal and j != i on it; every other word of the (B, 64 W, W)
+    scratch keeps the garbage it was allocated with. The walk then resolves
+    one 64-row block at a time: each step keeps every live row that no live
+    earlier row of the block overlaps, and clears those rows and the later
+    rows they overlap from live, until none is left; the kept rows' words
+    then mark the later blocks removed."""
+    b, k = valid.shape
+    _, rows, words = mask_scratch_shape(b, k)
+    garbage = np.random.default_rng(seed).integers(0, 2 ** 63, (b, rows, words))
+    mask = [[[int(x) for x in row] for row in img] for img in garbage]
+    x1, y1, x2, y2 = (boxes[..., i] for i in range(4))
+    area = (x2 - x1) * (y2 - y1)
+    iw = np.maximum(np.minimum(x2[:, :, None], x2[:, None, :])
+                    - np.maximum(x1[:, :, None], x1[:, None, :]), np.float32(0))
+    ih = np.maximum(np.minimum(y2[:, :, None], y2[:, None, :])
+                    - np.maximum(y1[:, :, None], y1[:, None, :]), np.float32(0))
+    inter = iw * ih
+    union = (area[:, :, None] + area[:, None, :]) - inter
+    over = inter / np.maximum(union, np.float32(1e-9)) > np.float32(thres)
+    for img in range(b):
+        for i in np.flatnonzero(valid[img]).tolist():
+            for cb in range(i // 64, words):
+                cols = [j for j in range(64 * cb, min(64 * cb + 64, k))
+                        if j > i or (cb == i // 64 and j != i)]
+                mask[img][i][cb] = sum(1 << (j - 64 * cb) for j in cols
+                                       if over[img, i, j])
+    keep = np.zeros((b, k), bool)
+    for img in range(b):
+        removed = [0] * words
+        for w in range(words):
+            block = valid[img, 64 * w:64 * w + 64]
+            live = sum(1 << c for c in np.flatnonzero(block).tolist()) & ~removed[w]
+            kept = 0
+            diag = [mask[img][64 * w + c][w] for c in range(64)]
+            while live:
+                safe = [c for c in range(64) if live >> c & 1
+                        and not diag[c] & ((1 << c) - 1) & live]
+                assert safe and safe[0] == (live & -live).bit_length() - 1
+                gone = 0
+                for c in safe:
+                    gone |= diag[c] & ~((1 << (c + 1)) - 1)
+                    kept |= 1 << c
+                live &= ~(sum(1 << c for c in safe) | gone)
+            for w2 in range(w + 1, words):
+                for c in range(64):
+                    if kept >> c & 1:
+                        removed[w2] |= mask[img][64 * w + c][w2]
+            for c in range(len(block)):
+                keep[img, 64 * w + c] = bool(kept >> c & 1)
+    return keep
+
+
+@pytest.mark.parametrize("k,case", [(150, "random"), (150, "crowded"),
+                                    (200, "invalid_tail"), (200, "invalid_rows"),
+                                    (64, "all_invalid"), (1, "random")])
+def test_blocked_walk_matches_plain_version(k, case):
+    boxes, valid = make_boxes(np.random.default_rng(k + len(case)), 3, k, case)
+    want = greedy_keep_reference(torch.from_numpy(boxes),
+                                 torch.from_numpy(valid), 0.45).numpy()
+    np.testing.assert_array_equal(blocked_walk_numpy(boxes, valid, 0.45), want)
+    if case == "crowded":
+        assert 0 < want.sum() < valid.sum() // 2
+
+
+@pytest.mark.parametrize("case", ["random", "crowded", "invalid_rows"])
+def test_blocked_walk_matches_pallas_kernel(case):
+    boxes, valid = make_boxes(np.random.default_rng(21), 2, 160, case)
+    want = np.asarray(pallas_greedy_keep(jnp.asarray(boxes), jnp.asarray(valid),
+                                         0.5, interpret=True))
+    np.testing.assert_array_equal(blocked_walk_numpy(boxes, valid, 0.5), want)
+
+
+def test_mask_scratch_shape():
+    assert mask_scratch_shape(8, 1024) == (8, 1024, 16)
+    assert mask_scratch_shape(128, 512) == (128, 512, 8)
+    assert mask_scratch_shape(2, 2048) == (2, 2048, 32)
+    assert mask_scratch_shape(3, 65) == (3, 128, 2)
+    # every 64-row block is one strip of 64 W words, 16-byte multiple
+    for k in (1, 63, 64, 65, 252, 1280):
+        _, rows, words = mask_scratch_shape(1, k)
+        assert rows % 64 == 0 and rows >= k and words * 64 == rows
+        assert (64 * words * 8) % 16 == 0
+
+
+def test_level_table_v5s_at_640():
+    shapes = [(8, n, n, 3, 85) for n in (80, 40, 20)]
+    t = level_table(shapes)
+    assert t.rows == [51200, 12800, 3200]
+    assert t.cells == [6400, 1600, 400]
+    assert t.out_offsets == [0, 19200, 24000]
+    assert t.n_total == 25200
+    assert t.tile_begin == [0, 800, 1000] and t.n_tiles == 1050
+    # a tile of 64 bf16 or f32 rows is a 16-byte multiple: the bulk copy
+    # of every whole tile needs no plain tail
+    for itemsize in (2, 4):
+        assert TILE_ROWS * 255 * itemsize % 16 == 0
+
+
+def test_level_table_ragged_tiles():
+    t = level_table([(1, 5, 5, 3, 85), (3, 7, 3, 3, 85), (2, 1, 1, 3, 85)])
+    assert t.rows == [25, 63, 2]
+    assert t.tile_begin == [0, 1, 2] and t.n_tiles == 3
+    assert t.out_offsets == [0, 75, 138] and t.n_total == 141
+    # the last tile of each level holds the rows left over
+    for rows, begin, end in zip(t.rows, t.tile_begin, t.tile_begin[1:] + [t.n_tiles]):
+        assert (end - begin - 1) * TILE_ROWS < rows <= (end - begin) * TILE_ROWS
 
 
 def _jax_stage1(raws, conf, classes=None):

@@ -7,7 +7,8 @@ mask as the XLA blocked scan `_greedy_keep_blocked` on the JAX serving path.
 
 The kernel is csrc/greedy_nms.cu; its note says what bounds it on the H100
 and how the design meets that. `greedy_keep` takes the plain version for a
-CPU tensor only; a CUDA tensor launches the kernel or raises.
+CPU tensor only; a CUDA tensor launches the kernel pair (mask build, then
+walk; counted as one launch) or raises.
 """
 
 from __future__ import annotations
@@ -41,11 +42,19 @@ def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+def mask_scratch_shape(b: int, k: int) -> tuple[int, int, int]:
+    """Shape of the kernel's 64-bit suppression mask: (B, 64 W, W) words
+    for W = ceil(K / 64). Rows are padded to whole 64-row blocks so that
+    each block's rows are one strip of 64 W words."""
+    w = -(-k // 64)
+    return (b, 64 * w, w)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _cuda_build.load("greedy_nms")
     lib.greedy_nms_keep.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     lib.greedy_nms_keep.restype = ctypes.c_int
@@ -64,15 +73,24 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError("boxes and valid must be on the same device")
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("boxes and valid must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must start on a 16-byte boundary (read as "
+                         f"float4); got address {boxes.data_ptr():#x}")
     b, k = valid.shape
     keep = torch.empty_like(valid)
     with torch.cuda.device(boxes.device):
+        mask = torch.empty(mask_scratch_shape(b, k), dtype=torch.int64,
+                           device=boxes.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().greedy_nms_keep(boxes.data_ptr(), valid.data_ptr(),
-                                     keep.data_ptr(), b, k, iou_thres, stream)
+                                     keep.data_ptr(), mask.data_ptr(), b, k,
+                                     iou_thres, stream)
     if err == -1:
-        raise ValueError(f"K={k} candidates: the suppression mask does not fit "
-                         "in the shared memory of one block (K <= 1280 on an H100)")
+        raise ValueError(f"K={k} candidates: the walk's mask strips "
+                         f"({512 * mask.shape[2]} bytes each, two in flight) "
+                         "exceed the shared memory of a block")
+    if err == -2:
+        raise ValueError(f"B={b} images exceed the mask kernel's grid")
     if err != 0:
         raise RuntimeError(f"greedy_nms_keep launch failed: CUDA error {err}")
     greedy_keep.launches += 1

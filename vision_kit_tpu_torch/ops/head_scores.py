@@ -1,4 +1,4 @@
-"""Head-map candidate scores: a hand-written Triton kernel and its plain
+"""Head-map candidate scores: a hand-written CUDA kernel and its plain
 PyTorch version.
 
 Counterpart of the TPU kernel in tools/archive/bench_pallas_score.py (the
@@ -12,23 +12,26 @@ conf gate (a score <= conf becomes -1e9), so the top-k reads the kernel's
 output directly. Output: (B, N) f32 scores and (B, N) i32 classes over all
 levels, each level at its offset in native (iy, ix, ia) order.
 
-Bound on the H100: bytes. Each 255-wide row (3 anchors x 85) is read once
-in the head conv's channels_last layout, in place, and 8 bytes per anchor
-are written; the arithmetic (three 80-wide max/first-argmax reductions
-and two sigmoids per anchor) is far below the card's rate. The kernel therefore
-reads a tile of rows once, does all three anchors' reductions from it in
-registers and writes only the gated score and class.
+The kernel is csrc/head_scores.cu, one launch for all levels; its note
+says what bounds it on the H100 and how the design meets that.
+`head_scores` takes the plain version for a CPU tensor only; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
+from vision_kit_tpu_torch import _cuda_build
+
 NEG_INF = -1e9
-# a few rows per one-warp program: measured fastest on the H100 at the
-# v5s@640 b128 shapes (chip_smoke.py's kernel phase times this setting)
-BLOCK_ROWS = 4
-NUM_WARPS = 1
+TILE_ROWS = 64      # rows of one level per tile (csrc/head_scores.cu)
+MAX_LEVELS = 4
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def head_scores_reference(raws, conf_thres: float,
@@ -54,105 +57,105 @@ def head_scores_reference(raws, conf_thres: float,
     return gated, torch.cat(cls_parts, dim=1)
 
 
-_kernel = None
+class LevelTable(NamedTuple):
+    """The kernel's view of the levels: per level its rows (B * ny * nx),
+    cells (ny * nx), first output column and first tile of the flat tile
+    list that the kernel's blocks walk; then the output width N and the
+    number of tiles."""
+    rows: list[int]
+    cells: list[int]
+    out_offsets: list[int]
+    tile_begin: list[int]
+    n_total: int
+    n_tiles: int
 
 
-def _triton_kernel():
-    """Define the kernel on first use: triton is imported only here."""
-    global _kernel
-    if _kernel is not None:
-        return _kernel
-    import triton
-    import triton.language as tl
-    from triton.language.extra import libdevice
-
-    # rows are 255 elements apart, so no row start is vector-aligned: keep
-    # Triton from assuming divisibility of the integer arguments
-    @triton.jit(do_not_specialize=["n_rows", "out_stride_b", "out_offset",
-                                   "cells"])
-    def head_scores_kernel(
-        x_ptr, classes_ptr, score_ptr, cls_ptr,
-        n_rows, cells, out_stride_b, out_offset, conf,
-        NA: tl.constexpr, NO: tl.constexpr, NC: tl.constexpr,
-        ROW_PAD: tl.constexpr, BLOCK: tl.constexpr, HAS_CLASSES: tl.constexpr,
-    ):
-        # one tile = BLOCK whole rows of NA*NO channels: a single contiguous
-        # span of memory, read once, coalesced
-        pid = tl.program_id(0)
-        rows = pid * BLOCK + tl.arange(0, BLOCK)
-        rmask = rows < n_rows
-        cols = tl.arange(0, ROW_PAD)
-        ptrs = x_ptr + rows.to(tl.int64)[:, None] * (NA * NO) + cols[None, :]
-        x = tl.load(ptrs, mask=rmask[:, None] & (cols < NA * NO)[None, :],
-                    other=float("-inf")).to(tl.float32)
-        b = rows // cells
-        out_base = b.to(tl.int64) * out_stride_b + out_offset \
-            + (rows - b * cells) * NA
-        for a in tl.static_range(NA):
-            lo = a * NO + 5
-            in_cls = (cols >= lo) & (cols < lo + NC)
-            if HAS_CLASSES:
-                allowed = tl.load(classes_ptr + (cols - lo), mask=in_cls,
-                                  other=0) != 0
-                in_cls = in_cls & allowed
-            xa = tl.where(in_cls[None, :], x, float("-inf"))
-            best = tl.max(xa, axis=1)
-            # first class index attaining the max, as argmax does on ties;
-            # a row with every class masked gives class 0, as argmax does
-            hit = tl.where((xa == best[:, None]) & (cols >= lo)[None, :],
-                           cols[None, :] - lo, NC)
-            best_cls = tl.min(hit, axis=1)
-            obj = tl.sum(tl.where((cols == lo - 1)[None, :], x, 0.0), axis=1)
-            s_obj = libdevice.div_rn(1.0, 1.0 + libdevice.exp(-obj))
-            s_cls = libdevice.div_rn(1.0, 1.0 + libdevice.exp(-best))
-            score = s_obj * s_cls
-            score = tl.where(score > conf, score, -1e9)
-            tl.store(score_ptr + out_base + a, score, mask=rmask)
-            tl.store(cls_ptr + out_base + a, best_cls.to(tl.int32), mask=rmask)
-
-    _kernel = head_scores_kernel
-    return _kernel
+def level_table(shapes, tile_rows: int = TILE_ROWS) -> LevelTable:
+    """LevelTable for per-level map shapes (B, ny, nx, na, no)."""
+    rows, cells, offsets, begins = [], [], [], []
+    n_total = n_tiles = 0
+    for b, ny, nx, na, _ in shapes:
+        rows.append(b * ny * nx)
+        cells.append(ny * nx)
+        offsets.append(n_total)
+        begins.append(n_tiles)
+        n_total += ny * nx * na
+        n_tiles += -(-b * ny * nx // tile_rows)
+    return LevelTable(rows, cells, offsets, begins, n_total, n_tiles)
 
 
-def _launch(raws, conf_thres: float, classes: torch.Tensor | None):
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("head_scores")
+    i64p = ctypes.POINTER(ctypes.c_longlong)
+    i32p = ctypes.POINTER(ctypes.c_int)
+    lib.head_scores_launch.argtypes = [
+        i64p, i64p, i32p, i32p, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_void_p,
+    ]
+    lib.head_scores_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(raws, classes):
     dev = raws[0].device
-    b = raws[0].shape[0]
+    b, dtype = raws[0].shape[0], raws[0].dtype
     na, no = raws[0].shape[3], raws[0].shape[4]
-    nc = no - 5
+    if not 1 <= len(raws) <= MAX_LEVELS:
+        raise ValueError(f"1 to {MAX_LEVELS} levels expected, got {len(raws)}")
     for raw in raws:
         if raw.dim() != 5 or raw.shape[0] != b or tuple(raw.shape[3:]) != (na, no):
             raise ValueError(f"raw maps (B, ny, nx, {na}, {no}) expected, "
                              f"got {tuple(raw.shape)}")
-        if raw.device != dev or raw.dtype not in (torch.bfloat16, torch.float16,
-                                                  torch.float32):
-            raise ValueError(f"raw maps must be float on {dev}")
+        if raw.device != dev or raw.dtype != dtype or dtype not in _DTYPE_CODES:
+            raise ValueError(f"raw maps must share one float type (bf16, f16 "
+                             f"or f32) and device {dev}")
         if not raw.is_contiguous():
             raise ValueError("raw maps must be contiguous NHWC views with "
                              "channel stride 1 (the channels_last conv "
                              f"output); got strides {raw.stride()}")
-    n_total = sum(r.shape[1] * r.shape[2] * na for r in raws)
-    scores = torch.empty(b, n_total, dtype=torch.float32, device=dev)
-    cls = torch.empty(b, n_total, dtype=torch.int32, device=dev)
+        if raw.data_ptr() % 16:
+            raise ValueError("raw maps must start on a 16-byte boundary (the "
+                             "kernel copies whole tiles with TMA); got "
+                             f"address {raw.data_ptr():#x}")
+        if raw.shape[0] * raw.shape[1] * raw.shape[2] >= 2 ** 31:
+            raise ValueError(f"a level of {tuple(raw.shape)} has too many rows")
+    if classes is not None and classes.shape != (no - 5,):
+        raise ValueError(f"classes must be ({no - 5},), got {tuple(classes.shape)}")
+
+
+def _launch(raws, conf_thres: float, classes: torch.Tensor | None):
+    _check(raws, classes)
+    dev = raws[0].device
+    b, na, no = raws[0].shape[0], raws[0].shape[3], raws[0].shape[4]
+    table = level_table([tuple(r.shape) for r in raws])
+    scores = torch.empty(b, table.n_total, dtype=torch.float32, device=dev)
+    cls = torch.empty(b, table.n_total, dtype=torch.int32, device=dev)
     if classes is not None:
-        if classes.shape != (nc,):
-            raise ValueError(f"classes must be ({nc},), got {tuple(classes.shape)}")
         classes = classes.to(device=dev, dtype=torch.uint8).contiguous()
-    kernel = _triton_kernel()
-    row_pad = 1 << (na * no - 1).bit_length()
-    offset = 0
+    n = len(raws)
     with torch.cuda.device(dev):
-        for raw in raws:
-            _, ny, nx = raw.shape[:3]
-            n_rows = b * ny * nx
-            grid = ((n_rows + BLOCK_ROWS - 1) // BLOCK_ROWS,)
-            kernel[grid](
-                raw, classes if classes is not None else scores, scores, cls,
-                n_rows, ny * nx, n_total, offset, float(conf_thres),
-                NA=na, NO=no, NC=nc, ROW_PAD=row_pad, BLOCK=BLOCK_ROWS,
-                HAS_CLASSES=classes is not None, num_warps=NUM_WARPS,
-            )
-            head_scores.launches += 1
-            offset += ny * nx * na
+        err = _lib().head_scores_launch(
+            (ctypes.c_longlong * n)(*[r.data_ptr() for r in raws]),
+            (ctypes.c_longlong * n)(*table.rows),
+            (ctypes.c_int * n)(*table.cells),
+            (ctypes.c_int * n)(*table.out_offsets),
+            (ctypes.c_int * n)(*table.tile_begin),
+            n, table.n_tiles, TILE_ROWS,
+            None if classes is None else classes.data_ptr(),
+            scores.data_ptr(), cls.data_ptr(), _DTYPE_CODES[raws[0].dtype],
+            na, no, table.n_total, conf_thres,
+            torch.cuda.current_stream().cuda_stream)
+    if err == -1:
+        raise ValueError(f"rows of {na} x {no} {raws[0].dtype} do not fit two "
+                         f"{TILE_ROWS}-row tiles in the shared memory of a block")
+    if err == -2:
+        raise ValueError(f"the kernel does not take na={na}, no={no}")
+    if err != 0:
+        raise RuntimeError(f"head_scores_launch failed: CUDA error {err}")
+    head_scores.launches += 1
     return scores, cls
 
 
@@ -161,7 +164,8 @@ def head_scores(raws, conf_thres: float, classes: torch.Tensor | None = None):
 
     raws: per-level (B, ny, nx, na, 5+nc) maps (views of channels_last conv
     outputs on the card). Returns ((B, N) f32, (B, N) i32). CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel, once for all
+    levels."""
     dev = raws[0].device
     if dev.type == "cpu":
         return head_scores_reference(raws, conf_thres, classes)
