@@ -113,3 +113,44 @@ def test_head_scores_kernel_rejects_misaligned_base(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         head_scores([raw], 0.25)
     assert head_scores.launches == before
+
+
+def test_eval_postprocess_kernel_equals_plain_keep(cuda, monkeypatch):
+    """The eval protocol's postprocess at B=4 (K=2048 candidates of a
+    crowded decoded map of v5s@640's shape) through the greedy-NMS kernel
+    equals the same call on the plain keep."""
+    from vision_kit_tpu_torch.ops import nms
+    from vision_kit_tpu_torch.train.step import EVAL_POSTPROCESS
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, n = 4, 25200
+    cxcy = torch.rand(b, n, 2, generator=gen, device=cuda) * 640
+    wh = 10 + torch.rand(b, n, 2, generator=gen, device=cuda) * 190
+    conf = torch.rand(b, n, 81, generator=gen, device=cuda)
+    preds = torch.cat([cxcy, wh, conf], dim=-1)
+    before = greedy_keep.launches
+    got = nms.postprocess(preds, **EVAL_POSTPROCESS)
+    assert greedy_keep.launches == before + 1
+    monkeypatch.setattr(nms, "greedy_keep", greedy_keep_reference)
+    want = nms.postprocess(preds, **EVAL_POSTPROCESS)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    assert int(got[1].sum(1).min()) > 100
+
+
+@pytest.mark.parametrize("shape,k", [((256, 80), 20), ((64, 2048), 300),
+                                     ((4, 504000), 2048)])
+def test_topk_stable_orders_ties_on_the_card(cuda, shape, k):
+    """Both routes of topk_stable, and the choice between them, give a
+    stable argsort's order of ties on the card as on the CPU, at the eval
+    path's widths (80 classes, a 2048-candidate max_det cut, 504,000
+    candidates)."""
+    from vision_kit_tpu_torch.ops import nms
+
+    rng = np.random.default_rng(3)
+    x = (rng.integers(0, 8, shape) / 8).astype(np.float32)
+    x[rng.random(shape) < 0.15] = nms.NEG_INF
+    want = np.argsort(-x, axis=-1, kind="stable")[..., :k]
+    xt = torch.from_numpy(x)
+    for fn in (nms._topk_by_sort, nms._topk_by_int64, nms.topk_stable):
+        np.testing.assert_array_equal(fn(xt.to(cuda), k)[1].cpu().numpy(), want)
+        np.testing.assert_array_equal(fn(xt, k)[1].numpy(), want)

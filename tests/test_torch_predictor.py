@@ -81,7 +81,11 @@ def test_load_predictor_from_config_on_cpu():
     dets, _ = pred.predict_batch(np.zeros((1, 64, 64, 3), np.uint8))
     assert dets[0].shape[1] == 6
     with pytest.raises(NotImplementedError):
-        Predictor(pred.model, device="cpu", multi_label=True)
+        Predictor(pred.model, device="cpu", spatial=True)
+    multi = Predictor(pred.model, img_size=64, device="cpu", multi_label=True,
+                      conf_thres=0.001, max_cand=256)
+    dets, _ = multi.predict_batch(np.zeros((1, 64, 64, 3), np.uint8))
+    assert dets[0].shape[1] == 6
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

@@ -7,6 +7,7 @@ frames on the device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -82,12 +83,14 @@ def letterbox_device(
 
 def scale_coords(
     img1_hw: tuple[int, int],
-    coords: torch.Tensor,
+    coords: torch.Tensor | np.ndarray,
     img0_hw: tuple[int, int],
     ratio_pad=None,
-) -> torch.Tensor:
+) -> torch.Tensor | np.ndarray:
     """Rescale xyxy coords (..., >=4) from letterboxed img1 space back to
-    the original img0 and clip to it; columns past the fourth pass through."""
+    the original img0 and clip to it; columns past the fourth pass through.
+    Takes a torch tensor or a numpy array (the evaluator's host path) and
+    returns the same kind."""
     if ratio_pad is None:
         gain = min(img1_hw[0] / img0_hw[0], img1_hw[1] / img0_hw[1])
         pad = (
@@ -97,13 +100,17 @@ def scale_coords(
     else:
         gain = ratio_pad[0][0] if isinstance(ratio_pad[0], (tuple, list)) else ratio_pad[0]
         pad = ratio_pad[1]
+    if isinstance(coords, np.ndarray):
+        cat, clip = np.concatenate, np.clip
+    else:
+        cat, clip = torch.cat, torch.clamp
     h, w = img0_hw
-    box = torch.cat([
-        ((coords[..., 0:1] - pad[0]) / gain).clamp(0, w),
-        ((coords[..., 1:2] - pad[1]) / gain).clamp(0, h),
-        ((coords[..., 2:3] - pad[0]) / gain).clamp(0, w),
-        ((coords[..., 3:4] - pad[1]) / gain).clamp(0, h),
-    ], dim=-1)
+    box = cat([
+        clip((coords[..., 0:1] - pad[0]) / gain, 0, w),
+        clip((coords[..., 1:2] - pad[1]) / gain, 0, h),
+        clip((coords[..., 2:3] - pad[0]) / gain, 0, w),
+        clip((coords[..., 3:4] - pad[1]) / gain, 0, h),
+    ], -1)
     if coords.shape[-1] > 4:
-        box = torch.cat([box, coords[..., 4:]], dim=-1)
+        box = cat([box, coords[..., 4:]], -1)
     return box

@@ -1,9 +1,11 @@
 """Batched predictor: uint8 frames in, detections in source-frame pixels out.
 
 Counterpart of vision_kit_tpu/predictor.py:Predictor. Letterbox, forward,
-the raw-map postprocess (with the port's two kernels) and the rescale/clip
-to the source frame all run on the device; the only transfers are the
-frames in and the padded (max_det, 6) result out.
+the postprocess and the rescale/clip to the source frame all run on the
+device; the only transfers are the frames in and the padded (max_det, 6)
+result out. The postprocess is the raw-map one (with the port's two
+kernels), or with multi_label the decoded-output one (ops/nms.py:postprocess,
+with the greedy-NMS kernel).
 
 As in the JAX predictor, the model gets the letterboxed image as float,
 normalised by /255 in f32 (bench-style uint8 input, which the stem scales,
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from vision_kit_tpu_torch.ops.letterbox import letterbox_device
-from vision_kit_tpu_torch.ops.nms import postprocess_raw
+from vision_kit_tpu_torch.ops.nms import postprocess, postprocess_raw
 from vision_kit_tpu_torch.utils.general import resolve_device
 
 
@@ -37,19 +39,16 @@ class Predictor:
         spatial: bool = False,
         device: str | torch.device = "cuda",
     ):
-        """model: a port YOLOV5 (moved to `device` here). multi_label needs
-        the decoded-output postprocess, and mesh/spatial are multi-chip
-        serving; none of them is ported yet, and each raises if set.
-        approx_topk is accepted; the top-k is exact (see ops/nms.py)."""
+        """model: a port YOLOV5 (moved to `device` here). multi_label runs
+        the model's decode and the decoded-output postprocess with every
+        (anchor, class) pair a candidate. mesh/spatial are multi-chip
+        serving, not ported yet; each raises if set. approx_topk is
+        accepted; the top-k is exact (see ops/nms.py)."""
         if mesh is not None or spatial:
             raise NotImplementedError(
                 "multi-chip serving (mesh/spatial) is not ported yet "
                 "(ROADMAP.md, Queue 1: multi-GPU)")
-        if multi_label:
-            raise NotImplementedError(
-                "multi_label needs ops.nms.postprocess, not ported yet "
-                "(ROADMAP.md, Queue 1: eval postprocess)")
-        if model.decode_order != "native":
+        if not multi_label and model.decode_order != "native":
             raise ValueError("the serving path takes native-order raw maps; "
                              "build the model with decode_order='native'")
         self.device = resolve_device(device)
@@ -61,6 +60,7 @@ class Predictor:
         self.iou_thres = iou_thres
         self.max_det = max_det
         self.max_cand = max_cand
+        self.multi_label = multi_label
         self.approx_topk = approx_topk
         self.anchors_px = torch.as_tensor(model.anchors_px, dtype=torch.float32,
                                           device=self.device)
@@ -72,13 +72,16 @@ class Predictor:
         valid (B, max_det)) in source-frame pixels, without synchronising."""
         h0, w0 = imgs_u8.shape[1:3]
         x, (ratio, pad) = letterbox_device(imgs_u8, self.img_size)
-        raws = self.model(x, decode=False)
-        dets, valid = postprocess_raw(
-            raws, self.anchors_px, strides=self.strides,
-            conf_thres=self.conf_thres, iou_thres=self.iou_thres,
-            max_det=self.max_det, max_cand=self.max_cand,
-            approx_topk=self.approx_topk,
-        )
+        kwargs = dict(conf_thres=self.conf_thres, iou_thres=self.iou_thres,
+                      max_det=self.max_det, max_cand=self.max_cand,
+                      approx_topk=self.approx_topk)
+        if self.multi_label:
+            decoded, _ = self.model(x)
+            dets, valid = postprocess(decoded, multi_label=True, **kwargs)
+        else:
+            raws = self.model(x, decode=False)
+            dets, valid = postprocess_raw(raws, self.anchors_px,
+                                          strides=self.strides, **kwargs)
         pad_t = torch.tensor([pad[0], pad[1], pad[0], pad[1]],
                              dtype=torch.float32, device=self.device)
         hi = torch.tensor([w0, h0, w0, h0], dtype=torch.float32,

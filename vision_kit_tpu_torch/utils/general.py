@@ -1,7 +1,8 @@
-"""General helpers: variant multipliers and device resolution.
+"""General helpers: variant multipliers, device resolution and the COCO
+class-id table.
 
-Counterpart of vision_kit_tpu/utils/general.py (the subset the serving path
-needs).
+Counterpart of vision_kit_tpu/utils/general.py (the subset the serving and
+eval paths need).
 """
 
 from __future__ import annotations
@@ -46,3 +47,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "plain PyTorch path on the CPU"
         )
     return device
+
+
+def coco80_to_coco91_class() -> list[int]:
+    """Map contiguous 80-class index -> original COCO-91 category id
+    (reference utils/dataset_utils.py:10-33)."""
+    return [
+        1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20,
+        21, 22, 23, 24, 25, 27, 28, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40,
+        41, 42, 43, 44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58,
+        59, 60, 61, 62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79,
+        80, 81, 82, 84, 85, 86, 87, 88, 89, 90,
+    ]

@@ -1,13 +1,14 @@
-"""Kernel times on the card at both serving paths' shapes, beside an
-earlier design of the same kernels when one is given.
+"""Kernel times on the card at the serving and eval paths' shapes, beside
+an earlier design of the same kernels when one is given.
 
     python -m vision_kit_tpu_torch.utils.kernel_bench [--baseline DIR] [--json FILE]
 
 Head scores run on v5s@640 head maps (3 levels, 255 channels, bf16) at
 batch 128 (the throughput path, run_detector_bench) and at batch 8 (the
 request path, Predictor.predict_batch); greedy NMS at B=128, K=512 and at
-B=8, K=1024 (the two paths' max_cand), each on random, crowded and
-all-invalid boxes. The batch-8 maps are 34 MB, under the 50 MB L2, so the
+B=8, K=1024 (the two serving paths' max_cand) and at B=64, K=2048 (the
+eval step's batch and max_cand), each on random, crowded and all-invalid
+boxes. The batch-8 maps are 34 MB, under the 50 MB L2, so the
 timing rotates 4 distinct inputs to read them from device memory as the
 request path does; the b128 maps (548 MB) exceed the L2 on their own.
 
@@ -39,7 +40,7 @@ NMS_OPS_PER_PAIR = 14        # min/max x4, sub x3, clamp x3, mul, add, div, cmp
 CONF = 0.25
 IOU = 0.45
 HEAD_BATCHES = (128, 8)
-NMS_SHAPES = ((128, 512), (8, 1024))
+NMS_SHAPES = ((128, 512), (8, 1024), (64, 2048))
 NMS_CASES = ("random", "crowded", "all_invalid")
 
 

@@ -1,21 +1,35 @@
-"""Detector throughput on the card: forward + raw-map postprocess.
+"""Detector and eval-step throughput on the card.
 
-Counterpart of vision_kit_tpu/utils/stream_bench.py:run_detector_bench.
-uint8 frames go straight into the model (the stem normalises), then
-postprocess_raw runs with the JAX bench's arguments. Timed with CUDA events
-after warmup; the input is perturbed on every iteration so no step repeats
-another's input.
+run_detector_bench is the counterpart of
+vision_kit_tpu/utils/stream_bench.py:run_detector_bench: uint8 frames go
+straight into the model (the stem normalises), then postprocess_raw runs
+with the JAX bench's arguments. run_eval_bench is the counterpart of
+tools/bench_eval.py: the eval step (train/step.py) with the eval protocol,
+and beside it the host time of the evaluator on the bench's detections.
+Both time with CUDA events after warmup; the input is perturbed on every
+iteration so no step repeats another's input.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from vision_kit_tpu_torch.data.loader import pad_targets
 from vision_kit_tpu_torch.ops.nms import postprocess_raw
 
 POSTPROCESS_ARGS = dict(conf_thres=0.25, iou_thres=0.45, max_det=300,
                         max_cand=512, approx_topk=True)
+
+
+def _cuda_device(model, what: str) -> torch.device:
+    dev = next(model.parameters()).device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{what} measures on a CUDA device; the model is "
+                           f"on {dev}")
+    return dev
 
 
 @torch.inference_mode()
@@ -31,10 +45,7 @@ def run_detector_bench(model, batch: int, size: int = 640, iters: int = 20,
     """Images per second of `model` (on a CUDA device) at (batch, size,
     size, 3) uint8 input. Returns a record with the rate, the mean step
     time and the device it ran on."""
-    dev = next(model.parameters()).device
-    if dev.type != "cuda":
-        raise RuntimeError("run_detector_bench measures on a CUDA device; "
-                           f"the model is on {dev}")
+    dev = _cuda_device(model, "run_detector_bench")
     anchors = torch.as_tensor(model.anchors_px, dtype=torch.float32, device=dev)
     rng = np.random.default_rng(seed)
     images = torch.from_numpy(
@@ -60,5 +71,81 @@ def run_detector_bench(model, batch: int, size: int = 640, iters: int = 20,
         "batch": batch,
         "size": size,
         "detections": int(n_valid.item()),
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+def pseudo_targets(dets: np.ndarray, valid: np.ndarray, img_hw,
+                   rng) -> np.ndarray:
+    """Ground truth that a detector's own output half matches: each image's
+    5 highest detections with every coordinate moved by up to 2 px, plus 2
+    boxes of random COCO classes (2-10 % of the image a side), packed by
+    pad_targets. dets (B, max_det, 6) and valid (B, max_det) on the host."""
+    h, w = img_hw
+    labels = []
+    for d, v in zip(dets, valid):
+        best = d[v][:5]
+        boxes = best[:, :4] + rng.uniform(-2.0, 2.0, (len(best), 4))
+        x1y1 = rng.uniform(0, 0.9, (2, 2)) * [w, h]
+        wh = rng.uniform(0.02, 0.1, (2, 2)) * [w, h]
+        rand = np.concatenate([x1y1, x1y1 + wh], 1)
+        labels.append(np.concatenate([
+            np.concatenate([boxes, best[:, 5:6]], 1),
+            np.concatenate([rand, rng.integers(0, 80, (2, 1))], 1),
+        ]).astype(np.float32))
+    return pad_targets(labels, img_hw)
+
+
+def run_eval_bench(model, batch: int = 64, size: int = 640, iters: int = 10,
+                   warmup: int = 3, seed: int = 0) -> dict:
+    """Images per second of the eval step (train/step.py:make_eval_step,
+    the eval protocol) over `model` on a CUDA device, at (batch, size, size,
+    3) uint8 input, and the host ms per batch of DetEvaluator.update on the
+    bench's own detections (pseudo_targets as ground truth), with and
+    without the COCO-protocol accumulation (each the mean of two passes,
+    timed in turns)."""
+    from vision_kit_tpu_torch.classes import COCO
+    from vision_kit_tpu_torch.train.evaluator import DetEvaluator
+    from vision_kit_tpu_torch.train.step import make_eval_step
+
+    dev = _cuda_device(model, "run_eval_bench")
+    eval_step = make_eval_step(model)
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(
+        rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8)).to(dev)
+    for i in range(warmup):
+        eval_step(images + i)
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    outs = []
+    start.record()
+    for i in range(iters):
+        outs.append(eval_step(images + (warmup + i)))
+    end.record()
+    torch.cuda.synchronize(dev)
+    ms = start.elapsed_time(end) / iters
+
+    host = [(d.cpu().numpy(), v.cpu().numpy()) for d, v in outs]
+    targets = [pseudo_targets(d, v, (size, size), rng) for d, v in host]
+    infos = [(size, size, 1.0, (0.0, 0.0), i) for i in range(batch)]
+    evaluator = DetEvaluator(COCO, img_size=size)
+    update_ms = {False: [], True: []}
+    for collect_coco in (False, True, True, False):   # in turns
+        evaluator.reset(collect_coco=collect_coco)
+        t0 = time.perf_counter()
+        for (d, v), t in zip(host, targets):
+            evaluator.update(d, v, t, infos)
+        update_ms[collect_coco].append((time.perf_counter() - t0) * 1e3 / iters)
+    return {
+        "metric": "eval_images_per_sec",
+        "value": batch * 1000.0 / ms,
+        "unit": "img/s",
+        "step_ms": ms,
+        "batch": batch,
+        "size": size,
+        "detections": int(sum(v.sum() for _, v in host)),
+        "evaluator_update_ms": float(np.mean(update_ms[False])),
+        "evaluator_update_coco_ms": float(np.mean(update_ms[True])),
         "device": torch.cuda.get_device_name(dev),
     }
