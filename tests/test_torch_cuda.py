@@ -154,3 +154,49 @@ def test_topk_stable_orders_ties_on_the_card(cuda, shape, k):
     for fn in (nms._topk_by_sort, nms._topk_by_int64, nms.topk_stable):
         np.testing.assert_array_equal(fn(xt.to(cuda), k)[1].cpu().numpy(), want)
         np.testing.assert_array_equal(fn(xt, k)[1].numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v7_deploy_predictor_kernels_equal_plain(cuda, dtype, monkeypatch):
+    """A deploy v7 base folded from a calibrated training structure (as
+    chip_smoke's v7 phase makes it), behind Predictor at 128: both
+    structures' raw maps pass head_scores' layout check, each kernel
+    launches once a request, and the detections equal those of the plain
+    versions."""
+    from vision_kit_tpu_torch.convert import deploy_state_dict
+    from vision_kit_tpu_torch.models import YOLOV7
+    from vision_kit_tpu_torch.models.architectures import init_weights
+    from vision_kit_tpu_torch.ops import nms
+    from vision_kit_tpu_torch.ops.head_scores import _check
+    from vision_kit_tpu_torch.predictor import Predictor
+    from vision_kit_tpu_torch.utils.stream_bench import (
+        calibrate_bn,
+        calibrate_head,
+        same_detections,
+    )
+
+    train = YOLOV7("base")
+    init_weights(train, torch.Generator().manual_seed(0))
+    train = train.to(cuda, memory_format=torch.channels_last).eval()
+    calibrate_bn(train, 128, seed=2)
+    calibrate_head(train, 128, seed=1)
+    deploy = YOLOV7("base", deploy=True)
+    deploy.load_state_dict(deploy_state_dict(train.state_dict()), strict=True)
+    deploy = deploy.to(cuda, dtype, memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 255, (2, 128, 128, 3), dtype=np.uint8)).to(cuda)
+    with torch.no_grad():
+        for model in (train, deploy):
+            _check(model(x, decode=False), None)
+
+    pred = Predictor(deploy, img_size=128, device=cuda)
+    frames = rng.integers(0, 255, (2, 96, 160, 3), dtype=np.uint8)
+    before = greedy_keep.launches, head_scores.launches
+    got, _ = pred.predict_batch(frames)
+    assert (greedy_keep.launches, head_scores.launches) == (before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(nms, "head_scores", head_scores_reference)
+    monkeypatch.setattr(nms, "greedy_keep", greedy_keep_reference)
+    want, _ = pred.predict_batch(frames)
+    assert sum(len(w) for w in want) > 20
+    for w, g in zip(want, got):
+        assert same_detections(w, g), (w, g)

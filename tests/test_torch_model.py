@@ -19,6 +19,7 @@ from vision_kit_tpu.models import layers as jl
 from vision_kit_tpu_torch.convert import state_dict_from_jax_variables
 from vision_kit_tpu_torch.models import YOLOV5, build_model
 from vision_kit_tpu_torch.models import layers as tl
+from vision_kit_tpu_torch.models.heads import head_bias_prior
 from vision_kit_tpu_torch.utils.config import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -184,7 +185,37 @@ def test_build_model_is_seeded_and_channels_last():
     assert not a.training
 
 
-def test_build_model_rejects_v7():
+def test_build_model_v7_tiny_raises():
+    """The reference's v7 "tiny" has a backbone table but no neck or
+    anchors: building it fails at construction, as in the JAX package."""
     cfg = load_config(os.path.join(REPO, "configs/yolov7.yaml"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.model.version = "tiny"
+    with pytest.raises(ValueError, match="tiny"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["base", "x"])
+def test_build_model_v7_is_seeded_and_channels_last(variant):
+    cfg = load_config(os.path.join(REPO, "configs/yolov7.yaml"))
+    cfg.model.version, cfg.model.deploy = variant, True
+    a = build_model(cfg, device="cpu", seed=1)
+    b = build_model(cfg, device="cpu", seed=1)
+    for (k, ta), tb in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(ta, tb), k
+    cfg.model.deploy = False
+    train = build_model(cfg, device="cpu", seed=1)
+    assert not a.training and not train.training
+    w = train.backbone.stem.conv.weight
+    assert w.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(w, a.backbone.stem.conv.weight)
+    head = train.head
+    assert "ia" not in dict(a.head.named_children())
+    ia = torch.cat([m.implicit.detach().flatten() for m in head.ia])
+    im = torch.cat([m.implicit.detach().flatten() for m in head.im])
+    assert abs(float(ia.mean())) < 0.005 and abs(float(im.mean()) - 1) < 0.005
+    assert 0.015 < float(ia.std()) < 0.025 and 0.015 < float(im.std()) < 0.025
+    for i, conv in enumerate(head.m):
+        prior = head_bias_prior(head.stride[i], head.na, head.num_classes)
+        np.testing.assert_array_equal(conv.bias.detach().numpy(), prior)
+    if variant == "base":
+        assert not a.neck.pan_conv0.rbr_reparam.bias.any()

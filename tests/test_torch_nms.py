@@ -20,6 +20,7 @@ from vision_kit_tpu_torch.ops.greedy_nms import (
 from vision_kit_tpu_torch.ops.head_scores import (
     TILE_ROWS, head_scores, head_scores_reference, level_table)
 from vision_kit_tpu_torch.ops.nms import postprocess_raw
+from vision_kit_tpu_torch.utils.stream_bench import same_detections
 from test_torch_model import jax_v5, port_v5
 
 torch.set_num_threads(2)
@@ -261,18 +262,10 @@ def test_head_scores_reference_matches_jax_stage1(with_classes):
     assert np.all(got_s[~gate & ~near] == -1e9)
 
 
-def assert_same_detections(want, got):
-    """Detection sets: same count, and each wanted row matches a distinct
-    got row of the same class with score within 1e-5 and box within 1e-3 px
-    (rows whose scores tie to 1e-7 may come in either order)."""
-    assert want.shape == got.shape, (want.shape, got.shape)
-    free = np.ones(len(got), bool)
-    for row in want:
-        ok = (free & (got[:, 5] == row[5])
-              & (np.abs(got[:, 4] - row[4]) <= 1e-5)
-              & (np.abs(got[:, :4] - row[:4]).max(axis=1) <= 1e-3))
-        assert ok.any(), f"no match for {row}"
-        free[np.argmax(ok)] = False
+def assert_same_detections(want, got, box_rtol=0.0):
+    """Detection sets equal: class exact, score within 1e-5, every box
+    coordinate within 1e-3 px + box_rtol of the box's longer side."""
+    assert same_detections(want, got, box_rtol=box_rtol), (want, got)
 
 
 @pytest.mark.parametrize("mode", ["default", "agnostic", "classes"])

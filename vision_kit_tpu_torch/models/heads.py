@@ -1,10 +1,12 @@
-"""YOLOv5 Detect head with static-grid decode, in PyTorch.
+"""YOLOv5 and YOLOv7 Detect heads with static-grid decode, in PyTorch.
 
-Counterpart of vision_kit_tpu/models/heads.py:YoloV5Head. Each level's 1x1
-conv writes (B, na*no, ny, nx) in channels_last memory, so its NHWC view
-(B, ny, nx, na, no) -- the raw map in the JAX package's native layout -- is
-a `permute` and `view` with no copy. With decode_order="reference" the raw
-maps are transposed to the anchor-major (B, na, ny, nx, no) order instead.
+Counterparts of vision_kit_tpu/models/heads.py:YoloV5Head and YoloV7Head.
+Each level's 1x1 conv writes (B, na*no, ny, nx) in channels_last memory, so
+its NHWC view (B, ny, nx, na, no) -- the raw map in the JAX package's
+native layout -- is a `permute` and `view` with no copy (the v7 head's
+implicit multiply keeps channels_last). With decode_order="reference" the
+raw maps are transposed to the anchor-major (B, na, ny, nx, no) order
+instead.
 """
 
 from __future__ import annotations
@@ -15,10 +17,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from vision_kit_tpu_torch.models.layers import Implicit
+
 V5_ANCHORS = (
     (10, 13, 16, 30, 33, 23),
     (30, 61, 62, 45, 59, 119),
     (116, 90, 156, 198, 373, 326),
+)
+V7_ANCHORS = (
+    (12, 16, 19, 36, 40, 28),
+    (36, 75, 76, 55, 72, 146),
+    (142, 110, 192, 243, 459, 401),
 )
 
 
@@ -51,21 +60,22 @@ def head_bias_prior(stride: float, na: int, nc: int) -> np.ndarray:
     return b.reshape(-1)
 
 
-def _make_grid(ny: int, nx: int, offset: float) -> np.ndarray:
-    """Static (1, 1, ny, nx, 2) xy grid with the given offset."""
+def _make_grid(ny: int, nx: int) -> np.ndarray:
+    """Static (1, 1, ny, nx, 2) integer xy grid."""
     yv, xv = np.meshgrid(
         np.arange(ny, dtype=np.float32), np.arange(nx, dtype=np.float32),
         indexing="ij",
     )
-    return np.stack([xv, yv], axis=-1).reshape(1, 1, ny, nx, 2) + offset
+    return np.stack([xv, yv], axis=-1).reshape(1, 1, ny, nx, 2)
 
 
 def _decode_level(raw: torch.Tensor, stride: float, anchors_px: np.ndarray,
-                  anchor_axis: int) -> torch.Tensor:
+                  anchor_axis: int, centre) -> torch.Tensor:
     """Sigmoid-decode one level into (B, na*ny*nx, no). anchor_axis=1 takes
     the anchor-major (B, na, ny, nx, no) map, anchor_axis=3 the native
-    (B, ny, nx, na, no) one. Grid and anchors are f32, so a bf16 map decodes
-    to f32, as under JAX's type promotion."""
+    (B, ny, nx, na, no) one. centre(s2, grid, stride) gives the box centres
+    from 2*sigmoid(xy) and the integer grid. Grid and anchors are f32, so a
+    bf16 map decodes to f32, as under JAX's type promotion."""
     y = raw.sigmoid()
     if anchor_axis == 1:
         b, na, ny, nx, no = raw.shape
@@ -73,9 +83,9 @@ def _decode_level(raw: torch.Tensor, stride: float, anchors_px: np.ndarray,
     else:
         b, ny, nx, na, no = raw.shape
         grid_shape, anc_shape = (1, ny, nx, 1, 2), (1, 1, 1, na, 2)
-    grid = torch.from_numpy(_make_grid(ny, nx, -0.5)).to(raw.device)
+    grid = torch.from_numpy(_make_grid(ny, nx)).to(raw.device).reshape(grid_shape)
     anchor_grid = torch.from_numpy(anchors_px.astype(np.float32)).to(raw.device)
-    xy = (y[..., 0:2] * 2.0 + grid.reshape(grid_shape)) * stride
+    xy = centre(y[..., 0:2] * 2.0, grid, stride)
     wh = (y[..., 2:4] * 2.0) ** 2 * anchor_grid.reshape(anc_shape)
     out = torch.cat([xy, wh, y[..., 4:].to(xy.dtype)], dim=-1)
     return out.reshape(b, na * ny * nx, no)
@@ -102,11 +112,27 @@ class YoloV5Head(nn.Module):
             nn.Conv2d(c, self.no * self.na, 1, bias=True) for c in in_chs
         )
 
+    @property
+    def anchors_px(self) -> np.ndarray:
+        """(nl, na, 2) pixel-unit anchors exactly as the decode uses them."""
+        return self.grid_anchors * np.asarray(self.stride, np.float32).reshape(-1, 1, 1)
+
+    def level_map(self, i: int, f: torch.Tensor) -> torch.Tensor:
+        """Level i's conv output (B, na*no, ny, nx)."""
+        return self.m[i](f)
+
+    @staticmethod
+    def centre(s2: torch.Tensor, grid: torch.Tensor, stride: float) -> torch.Tensor:
+        """Box centres from s2 = 2*sigmoid(xy), in v5's order of operations:
+        (s2 + (grid - 0.5)) * stride (the grid offset is exact in f32)."""
+        return (s2 + (grid - 0.5)) * stride
+
     def forward(self, feats, decode: bool = True):
         raws, decoded = [], []
         reference = self.decode_order == "reference"
+        anchors_px = self.anchors_px
         for i, f in enumerate(feats):
-            y = self.m[i](f)
+            y = self.level_map(i, f)
             b, _, ny, nx = y.shape
             # the channel axis is anchor-major (na*no), like the JAX conv
             raw = y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no)
@@ -114,9 +140,46 @@ class YoloV5Head(nn.Module):
                 raw = raw.permute(0, 3, 1, 2, 4)
             raws.append(raw)
             if decode:
-                anchors_px = self.grid_anchors[i] * self.stride[i]
-                decoded.append(_decode_level(raw, self.stride[i], anchors_px,
-                                             anchor_axis=1 if reference else 3))
+                decoded.append(_decode_level(raw, self.stride[i], anchors_px[i],
+                                             anchor_axis=1 if reference else 3,
+                                             centre=self.centre))
         if not decode:
             return raws
         return torch.cat(decoded, dim=1), raws
+
+
+class YoloV7Head(YoloV5Head):
+    """YOLOv7 Detect with implicit knowledge: without deploy, level i runs
+    ia_i (add), the 1x1 conv m_i, then im_i (multiply); with deploy (the
+    implicits folded into m_i by convert.deploy_state_dict) m_i alone.
+
+    The decode takes the raw pixel anchors V7_ANCHORS (the reference clones
+    them before its anchor-order check), and the v7 centre formula."""
+
+    def __init__(self, in_chs: Sequence[int], num_classes: int = 80,
+                 anchors: Sequence[Sequence[float]] = V7_ANCHORS,
+                 stride: Sequence[float] = (8.0, 16.0, 32.0),
+                 deploy: bool = False, decode_order: str = "native"):
+        super().__init__(in_chs, num_classes, anchors, stride, decode_order)
+        self.deploy = deploy
+        self.raw_anchors = np.asarray(anchors, np.float32).reshape(
+            len(anchors), self.na, 2)
+        if not deploy:
+            self.ia = nn.ModuleList(Implicit(c, "add") for c in in_chs)
+            self.im = nn.ModuleList(Implicit(self.no * self.na, "multiply")
+                                    for _ in in_chs)
+
+    @property
+    def anchors_px(self) -> np.ndarray:
+        return self.raw_anchors
+
+    @staticmethod
+    def centre(s2: torch.Tensor, grid: torch.Tensor, stride: float) -> torch.Tensor:
+        """v7's order, (s2 - 0.5 + grid) * stride: equal to v5's in exact
+        arithmetic, rounded differently in f32."""
+        return (s2 - 0.5 + grid) * stride
+
+    def level_map(self, i: int, f: torch.Tensor) -> torch.Tensor:
+        if self.deploy:
+            return self.m[i](f)
+        return self.im[i](self.m[i](self.ia[i](f)))

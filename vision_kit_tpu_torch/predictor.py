@@ -39,7 +39,8 @@ class Predictor:
         spatial: bool = False,
         device: str | torch.device = "cuda",
     ):
-        """model: a port YOLOV5 (moved to `device` here). multi_label runs
+        """model: a port YOLOV5 or YOLOV7 (moved to `device` here; a v7 in
+        the training or the deploy structure). multi_label runs
         the model's decode and the decoded-output postprocess with every
         (anchor, class) pair a candidate. mesh/spatial are multi-chip
         serving, not ported yet; each raises if set. approx_topk is
@@ -120,8 +121,9 @@ def load_predictor_from_config(cfg, weights: str | None = None,
                                device: str | torch.device = "cuda",
                                dtype: torch.dtype = torch.float32,
                                seed: int = 0, **kwargs):
-    """Build the config's model with weights drawn from `seed` and wrap it
-    in a Predictor at cfg.model.input_size."""
+    """Build the config's model (YOLOv5, or YOLOv7 in the structure that
+    cfg.model.deploy names) with weights drawn from `seed` and wrap it in a
+    Predictor at cfg.model.input_size."""
     from vision_kit_tpu_torch.models import build_model
 
     if weights:

@@ -3,14 +3,16 @@ an earlier design of the same kernels when one is given.
 
     python -m vision_kit_tpu_torch.utils.kernel_bench [--baseline DIR] [--json FILE]
 
-Head scores run on v5s@640 head maps (3 levels, 255 channels, bf16) at
-batch 128 (the throughput path, run_detector_bench) and at batch 8 (the
-request path, Predictor.predict_batch); greedy NMS at B=128, K=512 and at
-B=8, K=1024 (the two serving paths' max_cand) and at B=64, K=2048 (the
-eval step's batch and max_cand), each on random, crowded and all-invalid
+Head scores run on 640-px head maps (3 levels of 80x80, 40x40 and
+20x20, 255 channels, bf16: v5s's and v7 base's alike) at batch 128 (the
+v5s throughput path, run_detector_bench), 64 (the v7 throughput path) and
+8 (the request path, Predictor.predict_batch); greedy NMS at B=128, K=512,
+B=64, K=512 and B=8, K=1024 (the serving paths' batch and max_cand) and at
+B=64, K=2048 (the eval step's), each on random, crowded and all-invalid
 boxes. The batch-8 maps are 34 MB, under the 50 MB L2, so the
 timing rotates 4 distinct inputs to read them from device memory as the
-request path does; the b128 maps (548 MB) exceed the L2 on their own.
+request path does; the b64 and b128 maps (274 and 548 MB) exceed the L2
+on their own.
 
 DIR holds an earlier design: greedy_nms.cu with the C entry
 `greedy_nms_keep(boxes, valid, keep, B, K, thres, stream)` and
@@ -39,8 +41,8 @@ H100_F32_FLOP_S = 67e12      # f32 outside the tensor cores, H100 SXM
 NMS_OPS_PER_PAIR = 14        # min/max x4, sub x3, clamp x3, mul, add, div, cmp
 CONF = 0.25
 IOU = 0.45
-HEAD_BATCHES = (128, 8)
-NMS_SHAPES = ((128, 512), (8, 1024), (64, 2048))
+HEAD_BATCHES = (128, 64, 8)
+NMS_SHAPES = ((128, 512), (64, 512), (8, 1024), (64, 2048))
 NMS_CASES = ("random", "crowded", "all_invalid")
 
 

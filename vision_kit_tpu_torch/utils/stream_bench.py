@@ -8,6 +8,12 @@ tools/bench_eval.py: the eval step (train/step.py) with the eval protocol,
 and beside it the host time of the evaluator on the bench's detections.
 Both time with CUDA events after warmup; the input is perturbed on every
 iteration so no step repeats another's input.
+
+calibrate_head and calibrate_bn make the synthetic loads of seeded random
+weights: without them a seeded model scores every candidate below conf
+(head as built), or, for v7, every anchor of a level alike.
+same_detections is the check that two runs of a path gave the same
+detections, used by chip_smoke.py and the tests.
 """
 
 from __future__ import annotations
@@ -22,6 +28,70 @@ from vision_kit_tpu_torch.ops.nms import postprocess_raw
 
 POSTPROCESS_ARGS = dict(conf_thres=0.25, iou_thres=0.45, max_det=300,
                         max_cand=512, approx_topk=True)
+
+# calibrate_bn's probe batch, and the weight it gives every BatchNorm. With
+# the seeded init's identity statistics, v7's depth shrinks the features'
+# spatial variation to ~1e-7 of their mean by the head, so every anchor of a
+# level scores alike; normalising each layer on data keeps it, and a weight
+# below 1 keeps the network contractive: at 1 its f32 rounding grows to
+# ~1e-3 of the logits, at 0.25 ~5e-5 (CPU, f32 against f64).
+BN_PROBE_BATCH = 8
+BN_SCALE = 0.25
+
+
+@torch.no_grad()
+def calibrate_head(model, size: int, seed: int) -> None:
+    """Zero the head biases and scale each level's kernel to unit logit
+    spread on a seeded probe batch."""
+    dev = next(model.parameters()).device
+    probe = np.random.default_rng(seed).integers(0, 255, (2, size, size, 3),
+                                                 dtype=np.uint8)
+    for conv in model.head.m:
+        conv.bias.zero_()
+    raws = model(torch.from_numpy(probe).to(dev), decode=False)
+    for conv, raw in zip(model.head.m, raws):
+        conv.weight.div_(raw.float().std().to(conv.weight.dtype))
+
+
+@torch.no_grad()
+def calibrate_bn(model, size: int, seed: int) -> None:
+    """Give every BatchNorm the statistics of a seeded probe batch of
+    BN_PROBE_BATCH images, as training would estimate them, and the weight
+    BN_SCALE."""
+    dev = next(model.parameters()).device
+    probe = np.random.default_rng(seed).integers(
+        0, 255, (BN_PROBE_BATCH, size, size, 3), dtype=np.uint8)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momentum = [bn.momentum for bn in bns]
+    for bn in bns:
+        bn.reset_running_stats()
+        bn.weight.fill_(BN_SCALE)
+        bn.momentum = None          # one batch: its own statistics
+    model.train()
+    model(torch.from_numpy(probe).to(dev), decode=False)
+    model.eval()
+    for bn, m in zip(bns, momentum):
+        bn.momentum = m
+
+
+def same_detections(want: np.ndarray, got: np.ndarray, score_tol: float = 1e-5,
+                    box_tol: float = 1e-3, box_rtol: float = 0.0) -> bool:
+    """Two detection sets (n, 6) agree: same count, and each wanted row
+    matches a distinct got row of its class, score within score_tol and
+    every coordinate within box_tol + box_rtol * the box's longer side (rows
+    whose scores tie may come in either order)."""
+    if want.shape != got.shape:
+        return False
+    free = np.ones(len(got), bool)
+    for row in want:
+        tol = box_tol + box_rtol * max(row[2] - row[0], row[3] - row[1])
+        ok = (free & (got[:, 5] == row[5])
+              & (np.abs(got[:, 4] - row[4]) <= score_tol)
+              & (np.abs(got[:, :4] - row[:4]).max(axis=1) <= tol))
+        if not ok.any():
+            return False
+        free[np.argmax(ok)] = False
+    return True
 
 
 def _cuda_device(model, what: str) -> torch.device:
