@@ -40,15 +40,28 @@ Phases, each printing its own line; any failure exits non-zero:
      multi_label for one; an f32 v7 base@128 on the card against the CPU;
      request latency over 100 requests; run_detector_bench and
      run_eval_bench at batch 64 in bf16;
+  8. train: make_train_step on v5s@640 (f32 parameters, bf16 autocast,
+     YoloLoss, batch 64, tools/bench_train.py's batch and hyperparameters)
+     for 20 steps on one batch, whose loss must fall; the EMA model through
+     make_eval_step on a batch of 64 (one greedy_nms launch, detections
+     equal to the plain keep's); run_train_bench plain, with device
+     augmentation, accum_steps=2 and remat (which must lower the peak
+     memory), and warp_augment's time alone; v7 base@640 in the training
+     structure with YoloLossOTA at batch 16 for 10 steps (the loss falls)
+     and run_train_bench; an f32 v5n@128 step on the card against the CPU
+     and the OTA loss on the same v7 base@128 maps on both;
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
-with the idle share and the convolutions' bound (profiler). Then one JSON
-line with each kernel's numbers, a row for each path's shape
-(greedy_nms_eval is the greedy-NMS kernel at the eval step's shape, with
-the eval path's launches; head_scores_v7 and greedy_nms_v7 the kernels at
-v7's b64 serving shape, with the v7 throughput run's launches) and, last,
-{"ok": true, "device": ...}.
+with the idle share and the convolutions' bound (profiler), and of three
+training steps (v5s, v5s with device augmentation, v7 with SimOTA) by
+kernel group and by the step's profiler ranges. Then one JSON line with
+each kernel's numbers, a row for each path's shape (greedy_nms_eval is the
+greedy-NMS kernel at the eval step's shape, with the eval path's launches;
+greedy_nms_train_eval the same shape with the launches of the EMA model's
+eval step; head_scores_v7 and greedy_nms_v7 the kernels at v7's b64 serving
+shape, with the v7 throughput run's launches) and, last, {"ok": true,
+"device": ...}.
 
 The main path's head has its biases zeroed and its kernels scaled to unit
 logit spread (from a probe batch), so that seeded random weights yield
@@ -188,8 +201,9 @@ def phase_kernels(rng):
 def kernel_times(head_max_err: dict):
     """Each kernel's JSON row at the shape of the path it runs on
     (utils/kernel_bench.py): greedy_nms at the v5s serving step's B=128,
-    K=512, as greedy_nms_eval at the eval step's B=64, K=2048 and as
-    greedy_nms_v7 at the v7 serving step's B=64, K=512; head_scores at
+    K=512, as greedy_nms_eval and greedy_nms_train_eval at the eval step's
+    B=64, K=2048 and as greedy_nms_v7 at the v7 serving step's B=64, K=512;
+    head_scores at
     b128 and, as head_scores_v7, at b64. `head_max_err` holds head_scores'
     largest error against its plain version at each batch. Runs after the
     latency phases: the profiler that kernel_bench uses for its per-kernel
@@ -200,6 +214,7 @@ def kernel_times(head_max_err: dict):
     bench = kb.run()
     rows = {}
     for name, shape in (("greedy_nms", (128, 512)), ("greedy_nms_eval", (64, 2048)),
+                        ("greedy_nms_train_eval", (64, 2048)),
                         ("greedy_nms_v7", (64, 512))):
         nms = next(r for r in bench["greedy_nms"]
                    if (r["batch"], r["k"], r["case"]) == (*shape, "random"))
@@ -355,57 +370,73 @@ def conv_flops(model, x: torch.Tensor) -> int:
 
     hooks = [m.register_forward_hook(count) for m in model.modules()
              if isinstance(m, torch.nn.Conv2d)]
+    training = model.training
+    model.eval()              # a training forward would move the statistics
     model(x, decode=False)
+    model.train(training)
     for h in hooks:
         h.remove()
     return total
 
 
-def profile_steps(model, step, batch: int, size: int = 640,
-                  steps: int = 3) -> dict:
-    """Device time per step(x) on a uint8 (batch, size, size, 3) input by
-    kernel group (torch.profiler, kernel events only), the device's idle
-    share of the wall time, and the convolutions' bound at the card's bf16
-    tensor-core peak."""
+def profile_device(run, steps: int = 3, groups=PROFILE_GROUPS, ranges=()) -> dict:
+    """Device time per run() by kernel group (torch.profiler, kernel events
+    only), the device's idle share of the wall time and, for each profiler
+    range named in `ranges`, the device time of the kernels launched inside
+    it (from the host thread that opened it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    dev = next(model.parameters()).device
-    x = torch.randint(0, 255, (batch, size, size, 3), dtype=torch.uint8,
-                      device=dev)
-    flops = conv_flops(model, x)
-    step(x)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(x)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
-    groups["other"] = 0.0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    totals = {name: 0.0 for name, _ in groups}
+    totals["other"] = 0.0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     top = [[e.key[:70], e.self_device_time_total / 1e3 / steps] for e in kernels[:8]]
     for e in kernels:
         ms = e.self_device_time_total / 1e3 / steps
         key = e.key.lower()
-        for name, words in PROFILE_GROUPS:
+        for name, words in groups:
             if any(w in key for w in words):
-                groups[name] += ms
+                totals[name] += ms
                 break
         else:
-            groups["other"] += ms
-    busy = sum(groups.values())
+            totals["other"] += ms
+    busy = sum(totals.values())
     if busy == 0:
         return {"device_ms": "not measured"}
     check(busy <= wall_ms * 1.02, f"profile counts {busy:.2f} ms of device time "
           f"in {wall_ms:.2f} ms of wall time: kernels counted twice?")
-    return {"wall_ms": wall_ms, "device_ms": busy,
-            "idle_share": 1 - busy / wall_ms,
-            "conv_gflop": flops / 1e9,
-            "conv_bound_ms": flops / H100_BF16_FLOP_S * 1e3,
-            **{f"{k}_ms": v for k, v in groups.items()}, "top_kernels": top}
+    spans = {f"{name}_range_ms": sum(e.device_time_total for e in events
+                                     if e.key == name and e.device_type == DeviceType.CPU)
+             / 1e3 / steps for name in ranges}
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+            **{f"{k}_ms": v for k, v in totals.items()}, **spans, "top_kernels": top}
+
+
+def profile_steps(model, step, batch: int, size: int = 640,
+                  steps: int = 3) -> dict:
+    """Device time per step(x) on a uint8 (batch, size, size, 3) input by
+    kernel group, the device's idle share of the wall time, and the
+    convolutions' bound at the card's bf16 tensor-core peak."""
+    dev = next(model.parameters()).device
+    x = torch.randint(0, 255, (batch, size, size, 3), dtype=torch.uint8,
+                      device=dev)
+    flops = conv_flops(model, x)
+    prof = profile_device(lambda: step(x), steps)
+    if "wall_ms" in prof:
+        prof.update(conv_gflop=flops / 1e9,
+                    conv_bound_ms=flops / H100_BF16_FLOP_S * 1e3)
+    return prof
 
 
 def recording(step, outs: list):
@@ -757,6 +788,209 @@ def phase_v7(rng, smi: str):
     return deploy, bench_counts
 
 
+# the training step's kernel groups, tried in order: foreach updates are the
+# optimizer and EMA; the convolutions' backward kernels are named for their
+# gradient (dgrad, wgrad), the rest of "conv" is their forward;
+# index/scatter/sort kernels are the losses' gathers, scatter-max,
+# index_add backward and SimOTA's stable top-k
+TRAIN_PROFILE_GROUPS = (
+    ("optimizer_ema", ("multi_tensor",)),
+    ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("conv_wgrad", ("wgrad",)),
+    ("conv_dgrad", ("dgrad",)),
+    ("conv", ("conv", "gemm", "xmma", "cudnn", "implicit", "cutlass", "fprop")),
+    ("loss_index", ("index", "scatter", "gather", "sort", "radix", "topk")),
+    ("concat", ("catarray",)),
+    ("pool_upsample", ("pool", "upsample")),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "silu", "unrolled")),
+)
+# the training step's profiler ranges (train/step.py, train/ota.py)
+TRAIN_RANGES = ("warp_augment", "loss", "ota_assign", "optimizer", "ema")
+TRAIN_BATCH, V7_TRAIN_BATCH = 64, 16   # v7: the paper's 128 over 8 GPUs
+
+
+def calibrated_v5s():
+    """v5s@640 in f32 (the master weights) with its BatchNorm statistics
+    and head calibrated on probe batches: the head's unit logit spread then
+    holds in training mode too (with the seeded init's identity statistics
+    the eval-mode features are tiny, a head scaled to them gives logits of
+    ~1e5 once batch statistics normalise, and losses of ~1e10), and the EMA
+    model's eval finds crowded detections."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.utils.stream_bench import calibrate_bn, calibrate_head
+
+    model = build_model(v5s_config(), device="cuda", seed=0)
+    calibrate_bn(model, 640, seed=2)
+    calibrate_head(model, 640, seed=1)
+    return model
+
+
+def descend(step, state, data, n: int, what: str):
+    """n steps on one batch: every metric finite, the loss of the last below
+    the first's. Returns (state, losses, ms a step on the host clock)."""
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, data)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          f"{what}: a non-finite metric in {metrics}")
+    losses = [m["loss"] for m in metrics]
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
+    return state, losses, ms
+
+
+def train_card_vs_cpu() -> str:
+    """One f32 step of v5n@128, B=2, on the card and on the CPU from the
+    same state, and YoloLossOTA on the same v7 base@128 training maps on
+    both (stream_bench's train_step_card_vs_cpu and ota_card_vs_cpu, with
+    their tolerances). Returns a summary."""
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+
+    cfg = v5s_config()
+    cfg.model.version, cfg.model.input_size = "n", [128, 128]
+    bad, rel = sb.train_step_card_vs_cpu(cfg)
+    check(not bad, f"f32 train step card vs CPU: {bad[:5]}")
+    bad, ota = sb.ota_card_vs_cpu(v7_config(False, 128))
+    check(not bad, f"OTA loss on the card vs CPU: {bad}")
+    return (f"v5n@128 step: metrics within {max(rel.values()):.2g} relative, every state "
+            f"tensor within 1e-4 of its magnitude + 2e-3 of the step's change; v7 "
+            f"base@128 OTA on the same maps: assignment equal ({ota['fg']} fg), "
+            f"loss {ota['loss_rel']:.2g} relative, gradients {ota['grad_rel']:.2g} of "
+            "their max")
+
+
+def phase_train(rng, smi: str) -> dict:
+    """The training step on the card; returns the greedy_nms and head_scores
+    launches of the EMA model's eval step."""
+    from vision_kit_tpu_torch.data.device_aug import warp_augment
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.train.ota import YoloLossOTA
+    from vision_kit_tpu_torch.train.step import make_eval_step
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+    from vision_kit_tpu_torch.utils.kernel_bench import time_ms
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    t_phase = time.perf_counter()
+    model = calibrated_v5s()
+    step, state, data = sb.train_bench_setup(
+        model, YoloLoss(80, model.head.grid_anchors, sb.TRAIN_HYP), TRAIN_BATCH)
+    state, losses, ms = descend(step, state, data, 20, "v5s train")
+    print(f"train: v5s@640 b{TRAIN_BATCH} bf16 autocast (f32 parameters), YoloLoss, "
+          f"20 steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{ms:.1f} ms a step on the host clock (first steps included)", flush=True)
+
+    # the EMA model through the eval protocol and the greedy-NMS kernel
+    eval_step = make_eval_step(model, state=state)
+    images = rng.integers(0, 255, (64, 640, 640, 3), dtype=np.uint8)
+    eval_step(images)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [eval_step(images)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == {"greedy_nms": 1, "head_scores": 0},
+          f"EMA eval launched {counts}, not one greedy_nms a batch and no head_scores")
+    with plain_kernels():
+        want = [eval_step(images)]
+    n_det = 0
+    for w, g in zip(host_detections(want), host_detections(outs)):
+        check(g.shape[1:] == (6,) and np.isfinite(g).all(), "non-finite EMA detections")
+        check(same_detections(w, g, 1e-5, 1e-3),
+              f"EMA eval detections differ from the plain keep's ({len(w)} vs {len(g)})")
+        n_det += len(g)
+    check(n_det > 0, "the EMA eval produced no detections")
+    print(f"train: EMA model (after {state.ema.updates} updates) through make_eval_step, "
+          f"one batch of 64 at 640 in f32, eval protocol: launches {counts}; {n_det} "
+          "detections equal to the plain keep's (class exact, score 1e-5, box 1e-3 px)",
+          flush=True)
+    del eval_step, outs, want
+
+    recs = {}
+    for name, kw in (("plain", {}), ("daug", {"device_aug": True}),
+                     ("accum2", {"accum_steps": 2}), ("remat", {"remat": True})):
+        torch.cuda.empty_cache()
+        recs[name] = sb.run_train_bench(model, YoloLoss(80, model.head.grid_anchors,
+                                                        sb.TRAIN_HYP),
+                                        batch=TRAIN_BATCH, iters=10, warmup=3, **kw)
+    aug = sb.daug_batch(rng, TRAIN_BATCH, 640)
+    aug = {k: torch.from_numpy(v).cuda() for k, v in aug.items()}
+    aug_ms = time_ms(lambda: warp_augment(aug["tiles"], aug["tile_hw"], aug["params"],
+                                          dtype=torch.bfloat16), reps=10)
+    check(recs["remat"]["peak_mem_gib"] < recs["plain"]["peak_mem_gib"],
+          f"remat did not lower the peak memory: {recs}")
+    for name, r in recs.items():
+        check(np.isfinite(r["loss"]), f"train bench {name}: loss {r['loss']}")
+    print(f"train: run_train_bench v5s@640 b{TRAIN_BATCH} bf16 (3 warmup, 10 timed): "
+          + "; ".join(f"{n} {r['value']:.1f} img/s, {r['step_ms']:.3f} ms a step, peak "
+                      f"{r['peak_mem_gib']:.2f} GiB" for n, r in recs.items())
+          + f"; warp_augment alone {aug_ms:.3f} ms a b{TRAIN_BATCH} batch "
+          f"(5 tiles, mixup, fractional affine, HSV, bf16) on {smi}", flush=True)
+    del model, step, state, data, aug
+    torch.cuda.empty_cache()
+
+    v7 = build_model(v7_config(False), device="cuda", seed=0)
+    step, state, data = sb.train_bench_setup(
+        v7, YoloLossOTA(80, v7.head.grid_anchors, sb.TRAIN_HYP), V7_TRAIN_BATCH)
+    state, losses, ms = descend(step, state, data, 10, "v7 OTA train")
+    print(f"train: v7 base@640 training structure b{V7_TRAIN_BATCH} bf16, YoloLossOTA, "
+          f"10 steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    del step, state, data
+    rec = sb.run_train_bench(v7, YoloLossOTA(80, v7.head.grid_anchors, sb.TRAIN_HYP),
+                             batch=V7_TRAIN_BATCH, iters=10, warmup=3)
+    print(f"train: run_train_bench v7 base@640 b{V7_TRAIN_BATCH} bf16 OTA: "
+          f"{rec['value']:.1f} img/s, {rec['step_ms']:.3f} ms a step, peak "
+          f"{rec['peak_mem_gib']:.2f} GiB on {smi}", flush=True)
+    del v7
+    torch.cuda.empty_cache()
+
+    print("train: f32 card vs CPU: " + train_card_vs_cpu(), flush=True)
+    print(f"train: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def profile_train(smi: str) -> None:
+    """Device time of 3 training steps by kernel group and by the step's
+    profiler ranges, with the idle share and the convolutions' bound (3x
+    the forward's conv FLOP at the bf16 peak): v5s b64, v5s b64 with
+    device augmentation, v7 base b16 with SimOTA."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.train.ota import YoloLossOTA
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+
+    for name, make, loss_cls, batch, kw in (
+            ("v5s@640 b64", calibrated_v5s, YoloLoss, TRAIN_BATCH, {}),
+            ("v5s@640 b64 daug", calibrated_v5s, YoloLoss, TRAIN_BATCH, {"device_aug": True}),
+            ("v7 base@640 b16 OTA", lambda: build_model(v7_config(False), device="cuda",
+                                                         seed=0),
+             YoloLossOTA, V7_TRAIN_BATCH, {})):
+        model = make()
+        flops = conv_flops(model, torch.zeros(batch, 640, 640, 3, dtype=torch.uint8,
+                                              device="cuda"))
+        step, state, data = sb.train_bench_setup(
+            model, loss_cls(80, model.head.grid_anchors, sb.TRAIN_HYP), batch, **kw)
+        holder = [state]
+
+        def run():
+            holder[0] = step(holder[0], data)[0]
+
+        prof = profile_device(run, 3, TRAIN_PROFILE_GROUPS, TRAIN_RANGES)
+        if "wall_ms" in prof:
+            prof.update(conv_gflop=3 * flops / 1e9,
+                        conv_bound_ms=3 * flops / H100_BF16_FLOP_S * 1e3)
+        print(f"profile: train step {name} bf16, per step, device ms by kernel group "
+              f"and range on {smi}: " + json.dumps(prof), flush=True)
+        del model, step, holder, data
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -800,6 +1034,7 @@ def main() -> int:
 
     eval_counts = phase_eval(model, rng, smi)
     v7, v7_counts = phase_v7(rng, smi)
+    train_counts = phase_train(rng, smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -819,14 +1054,18 @@ def main() -> int:
     prof = profile_steps(v7, make_eval_step(v7), batch=64)
     print("profile: eval step v7 base@640 b64 bf16 deploy, per step, device ms "
           "by kernel group: " + json.dumps(prof), flush=True)
+    del model, v7
+    profile_train(smi)
 
     # each row counts the launches of the path whose shape it times:
     # predict_batch for greedy_nms and head_scores, validate for
-    # greedy_nms_eval (validate launches no head_scores: checked), the v7
-    # run_detector_bench for greedy_nms_v7 and head_scores_v7
+    # greedy_nms_eval (validate launches no head_scores: checked), the EMA
+    # model's eval step after training for greedy_nms_train_eval (the eval
+    # shape), the v7 run_detector_bench for greedy_nms_v7 and head_scores_v7
     rows["greedy_nms"]["launches"] = counts["greedy_nms"]
     rows["head_scores"]["launches"] = counts["head_scores"]
     rows["greedy_nms_eval"]["launches"] = eval_counts["greedy_nms"]
+    rows["greedy_nms_train_eval"]["launches"] = train_counts["greedy_nms"]
     rows["greedy_nms_v7"]["launches"] = v7_counts["greedy_nms"]
     rows["head_scores_v7"]["launches"] = v7_counts["head_scores"]
     print(json.dumps({"kernels": list(rows.values())}))

@@ -200,3 +200,65 @@ def test_v7_deploy_predictor_kernels_equal_plain(cuda, dtype, monkeypatch):
     assert sum(len(w) for w in want) > 20
     for w, g in zip(want, got):
         assert same_detections(w, g), (w, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_subclass_eval_bit_equal_on_the_card(cuda, dtype):
+    """The port's BatchNorm2d in eval mode is nn.BatchNorm2d's forward: the
+    same cuDNN call, bit-equal, so the eval and serving paths do not move."""
+    from torch import nn
+
+    from vision_kit_tpu_torch.models.layers import BatchNorm2d
+
+    gen = torch.Generator().manual_seed(4)
+    bn, ref = BatchNorm2d(64, eps=1e-3, momentum=0.03), nn.BatchNorm2d(64, eps=1e-3, momentum=0.03)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(64, generator=gen) + 0.5)
+        bn.bias.copy_(torch.randn(64, generator=gen))
+        bn.running_mean.copy_(torch.randn(64, generator=gen))
+        bn.running_var.copy_(torch.rand(64, generator=gen) + 0.5)
+    ref.load_state_dict(bn.state_dict())
+    x = torch.randn(8, 64, 40, 40, generator=gen).to(cuda, dtype,
+                                                     memory_format=torch.channels_last)
+    bn, ref = bn.to(cuda, dtype).eval(), ref.to(cuda, dtype).eval()
+    with torch.no_grad():
+        assert torch.equal(bn(x), ref(x))
+
+
+def _config(name: str, **model):
+    import os
+
+    from vision_kit_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", name))
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    return cfg
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """One f32 step of v5n@128, B=2, from the same state on the card and
+    on the CPU: the losses to 1e-4 relative, the gradient norm to 1e-3, and
+    every parameter, statistic, momentum buffer and EMA tensor to 1e-4 of
+    its largest magnitude plus 2e-3 of the step's largest change to it
+    (stream_bench.train_step_card_vs_cpu)."""
+    from vision_kit_tpu_torch.utils.stream_bench import train_step_card_vs_cpu
+
+    cfg = _config("yolov5.yaml", version="n", num_classes=80, input_size=[128, 128])
+    bad, _ = train_step_card_vs_cpu(cfg)
+    assert bad == []
+
+
+def test_ota_loss_card_matches_cpu(cuda):
+    """YoloLossOTA on the same raw maps of v7 base@128 (training
+    structure, training forward on the CPU) on the card and on the CPU: the
+    assignment equal (fg mask and matched label), the loss and its parts
+    to 1e-5 relative, each map's gradient to 1e-4 of its largest element
+    (stream_bench.ota_card_vs_cpu)."""
+    from vision_kit_tpu_torch.utils.stream_bench import ota_card_vs_cpu
+
+    cfg = _config("yolov7.yaml", version="base", num_classes=80, deploy=False,
+                  input_size=[128, 128])
+    bad, errors = ota_card_vs_cpu(cfg)
+    assert bad == [] and errors["fg"] > 0

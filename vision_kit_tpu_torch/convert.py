@@ -91,6 +91,60 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict:
     return out
 
 
+def _split(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """A bridged state_dict -> (params, running statistics), without
+    num_batches_tracked."""
+    params = {k: v for k, v in sd.items()
+              if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+    stats = {k: v for k, v in sd.items() if k.endswith(("running_mean", "running_var"))}
+    return params, stats
+
+
+def train_state_tensors_from_jax(state) -> dict:
+    """A JAX TrainState (train/step.py, numpy leaves as `jax.device_get`
+    returns them) -> its parts under the port's names: {"params",
+    "batch_stats", "momentum" (the SGD momentum buffers, by parameter),
+    "ema" (the averaged params and statistics), "ema_updates",
+    "opt_step", "step"}. The optimizer state may be the SGD state or a
+    chain holding it (make_optimizer's)."""
+    params, stats = _split(state_dict_from_jax_variables(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+    opt = state.opt_state
+    sgd = opt if hasattr(opt, "momentum_buf") else next(
+        s for s in opt if hasattr(s, "momentum_buf"))
+    momentum, _ = _split(state_dict_from_jax_variables({"params": sgd.momentum_buf}))
+    ema_params, ema_stats = _split(state_dict_from_jax_variables(state.ema.tree))
+    return {"params": params, "batch_stats": stats, "momentum": momentum,
+            "ema": {**ema_params, **ema_stats},
+            "ema_updates": int(state.ema.updates), "opt_step": int(sgd.step),
+            "step": int(state.step)}
+
+
+def load_jax_train_state(model: torch.nn.Module, tx, state):
+    """The port's TrainState (train/step.py) equal to a JAX TrainState: its
+    params and statistics loaded into `model` (strict), the momentum
+    buffers, the EMA and the step counts carried across. `tx` is the port's
+    optimizer (train/optim.py)."""
+    from vision_kit_tpu_torch.train.ema import EMAState
+    from vision_kit_tpu_torch.train.optim import SGDState
+    from vision_kit_tpu_torch.train.step import create_train_state
+
+    parts = train_state_tensors_from_jax(state)
+    sd = {**parts["params"], **parts["batch_stats"]}
+    sd.update({k: v for k, v in model.state_dict().items()
+               if k.endswith("num_batches_tracked")})
+    model.load_state_dict(sd, strict=True)
+    out = create_train_state(model, tx)
+    dev = next(model.parameters()).device
+    sgd = SGDState(step=parts["opt_step"], momentum_buf={
+        k: parts["momentum"][k].to(dev) for k in out.params})
+    opt_state = (tuple(sgd if isinstance(s, SGDState) else s for s in out.opt_state)
+                 if isinstance(out.opt_state, tuple) else sgd)
+    ema = EMAState(updates=parts["ema_updates"],
+                   tree={k: parts["ema"][k].to(dev) for k in out.ema.tree})
+    return out._replace(opt_state=opt_state, ema=ema, step=parts["step"])
+
+
 def fuse_conv_bn(weight: torch.Tensor, bn_weight: torch.Tensor,
                  bn_bias: torch.Tensor, bn_mean: torch.Tensor,
                  bn_var: torch.Tensor):

@@ -40,8 +40,39 @@ def auto_pad(kernel: int, padding: int | None = None) -> int:
     return kernel // 2 if padding is None else padding
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training update of the running variance uses the
+    biased batch variance, as Flax's BatchNorm does (torch's uses the
+    unbiased one, n/(n-1) larger in the momentum term). Eval mode, and a
+    cumulative average (momentum None), are nn.BatchNorm2d's own forward.
+
+    `freeze_stats` set: a training forward normalises with the batch
+    statistics and leaves the running ones alone (the recompute of an
+    activation checkpoint, train/step.py)."""
+
+    freeze_stats = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.freeze_stats:
+            # momentum 0 leaves the running statistics as they are, and the
+            # op saves for its backward what the unfrozen forward saved
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, True, 0.0, self.eps)
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # From old * n/(n-1), torch stores n/(n-1) ((1-m) old + m v), which
+        # (n-1)/n takes back to Flax's (1-m) old + m v. Through .data: the
+        # batch norm's backward holds the running variance (unused there)
+        # and would refuse a version bump.
+        self.running_var.data.mul_(n / (n - 1))
+        y = super().forward(x)
+        self.running_var.data.mul_((n - 1) / n)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBn(nn.Module):

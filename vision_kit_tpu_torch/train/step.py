@@ -1,15 +1,39 @@
-"""The eval step: forward with decode, then the eval-protocol postprocess,
-on one device.
+"""The training step and the eval step, on one device, over an explicit
+TrainState.
 
-Counterpart of vision_kit_tpu/train/step.py:make_eval_step (without a mesh
-or spatial partitioning). The training step comes with the training slice.
+Counterpart of vision_kit_tpu/train/step.py (without a mesh or spatial
+partitioning, which raise). The parameters and BatchNorm running
+statistics are the model's own tensors, which the step updates in place;
+the state names them and carries the optimizer state, the EMA and the step
+count:
+
+    state, batch -> state', metrics
+
+Precision: the parameters stay f32 (master weights); compute_dtype bf16
+runs the forward under torch.autocast, and the loss outside it, in the
+dtypes of the raw maps (train/losses.py).
+
+The step's parts are profiler ranges (warp_augment, loss, optimizer, ema;
+train/ota.py adds ota_assign), so a torch.profiler trace splits a step's
+device time by part (chip_smoke.py's train phase).
 """
 
 from __future__ import annotations
 
-import torch
+import contextlib
+import functools
+from typing import Any, NamedTuple
 
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
+
+from vision_kit_tpu_torch.models.layers import BatchNorm2d
 from vision_kit_tpu_torch.ops.nms import postprocess
+from vision_kit_tpu_torch.train.ema import EMAState, ema_init, ema_update
+from vision_kit_tpu_torch.train.optim import global_norm
 
 # the eval protocol: per-anchor top-20 class truncation gives the same mAP
 # as the full N*nc expansion for any model whose anchors contribute <= 20
@@ -19,25 +43,202 @@ EVAL_POSTPROCESS = dict(conf_thres=0.001, iou_thres=0.6, multi_label=True,
                         max_det=300, max_cand=2048, multi_label_top=20)
 
 
-def make_eval_step(model, postprocess_kwargs: dict | None = None):
-    """Eval step over `model`, which is put in eval mode.
+class TrainState(NamedTuple):
+    params: dict[str, torch.Tensor]       # the model's parameters, by name
+    batch_stats: dict[str, torch.Tensor]  # its BatchNorm running statistics
+    opt_state: Any
+    ema: EMAState
+    step: int
 
-    The JAX step evaluates the EMA weights of its TrainState by default;
-    the port has no TrainState or EMA yet, so this step evaluates the model
-    it is given (the EMA copy, once training is ported).
+
+def create_train_state(model: nn.Module, tx) -> TrainState:
+    """The state of `model`: its parameters and its floating buffers (the
+    BatchNorm running mean and variance; num_batches_tracked is not state
+    here, as the JAX tree has none), by state_dict name, with tx's state,
+    an EMA of both and step 0."""
+    params = dict(model.named_parameters())
+    stats = {k: v for k, v in model.named_buffers() if v.is_floating_point()}
+    return TrainState(params=params, batch_stats=stats, opt_state=tx.init(params),
+                      ema=ema_init({**params, **stats}), step=0)
+
+
+def _blocks(module: nn.Module):
+    """The blocks under `module`, looking through nn.Sequential."""
+    for child in module.children():
+        if isinstance(child, nn.Sequential):
+            yield from _blocks(child)
+        else:
+            yield child
+
+
+@contextlib.contextmanager
+def _frozen_stats(block: nn.Module):
+    bns = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.freeze_stats = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.freeze_stats = False
+
+
+def _recompute_contexts(block: nn.Module):
+    return contextlib.nullcontext(), _frozen_stats(block)
+
+
+@contextlib.contextmanager
+def _checkpointed(model: nn.Module):
+    """Activation checkpointing of every backbone and neck block while the
+    forward runs: a block keeps only its input, and the backward recomputes
+    its activations. The recompute normalises with the batch statistics
+    but leaves the running ones alone: the forward has updated them once."""
+    blocks = [b for part in (model.backbone, model.neck) for b in _blocks(part)]
+    for block in blocks:
+        block.forward = functools.partial(
+            checkpoint, block.forward, use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=functools.partial(_recompute_contexts, block))
+    try:
+        yield
+    finally:
+        for block in blocks:
+            del block.forward
+
+
+def _device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
+                    remat: bool = False, accum_steps: int = 1,
+                    device_aug: bool = False, scale_to: int | None = None,
+                    compute_dtype: torch.dtype = torch.float32):
+    """Build train_step(state, batch) -> (state', metrics).
+
+    batch: {"image": (B, H, W, 3) float in [0, 1] or uint8, "targets": (B,
+    M, 5)}; with device_aug=True instead {"tiles": (B, 5, H, W, 3) uint8,
+    "tile_hw": (B, 5, 2) int, "params": (B, N_PARAMS) float32, "targets"},
+    and data/device_aug.py:warp_augment runs at the head of the step, on the
+    whole batch, in compute_dtype. Numpy arrays or tensors on any device.
+
+    scale_to: multi-scale training; the batch is resized to (scale_to,
+    scale_to) on the device in compute_dtype (bilinear, antialiased when it
+    downscales, as jax.image.resize; uint8 is normalised first). Targets are
+    normalised and need no change.
+
+    accum_steps > 1: the batch runs as accum_steps microbatches in turn,
+    the applied gradient is their mean, and the BatchNorm statistics update
+    after each microbatch (the resize, if any, runs per microbatch).
+
+    remat: activation checkpointing of the forward (see _checkpointed).
+
+    metrics: loss, loss_box, loss_obj, loss_cls and grad_norm (the norm of
+    the mean gradient before clipping), as tensors on the device.
+    """
+    if mesh is not None or spatial:
+        raise NotImplementedError("make_train_step runs on one device; the "
+                                  "mesh and spatial partitioning are not ported")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps {accum_steps} < 1")
+    dev = _device(model)
+    autocast = (contextlib.nullcontext if compute_dtype == torch.float32 else
+                functools.partial(torch.autocast, dev.type, dtype=compute_dtype))
+
+    def maybe_scale(x):
+        if scale_to is None or tuple(x.shape[1:3]) == (scale_to, scale_to):
+            return x
+        xf = x.to(compute_dtype)
+        if x.dtype == torch.uint8:
+            xf = xf * (1.0 / 255.0)
+        y = F.interpolate(xf.permute(0, 3, 1, 2), size=(scale_to, scale_to),
+                          mode="bilinear", align_corners=False, antialias=True)
+        return y.permute(0, 2, 3, 1)
+
+    def forward_backward(x, tgt):
+        with autocast(), (_checkpointed(model) if remat else contextlib.nullcontext()):
+            raws = model(x, decode=False)
+        with record_function("loss"):
+            total, parts = loss_fn(raws, tgt)
+        total.backward()
+        return total.detach().float(), parts
+
+    def train_step(state: TrainState, batch):
+        model.train()
+        targets = torch.as_tensor(batch["targets"], device=dev)
+        if device_aug:
+            from vision_kit_tpu_torch.data.device_aug import warp_augment
+
+            with record_function("warp_augment"):
+                imgs = warp_augment(torch.as_tensor(batch["tiles"], device=dev),
+                                    torch.as_tensor(batch["tile_hw"], device=dev),
+                                    torch.as_tensor(batch["params"], device=dev),
+                                    dtype=compute_dtype)
+        else:
+            imgs = torch.as_tensor(batch["image"], device=dev)
+
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        b = imgs.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
+        total = 0.0
+        parts = 0.0
+        for x, tgt in zip(imgs.chunk(accum_steps), targets.chunk(accum_steps)):
+            t, pp = forward_backward(maybe_scale(x), tgt)
+            total, parts = total + t, parts + pp
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            torch._foreach_mul_(list(grads.values()), inv)
+            total, parts = total * inv, parts * inv
+        grad_norm = global_norm(grads.values())
+
+        with torch.no_grad(), record_function("optimizer"):
+            opt_state = tx.update(grads, state.opt_state, params, grad_norm)
+        with torch.no_grad(), record_function("ema"):
+            ema = ema_update(state.ema, {**params, **state.batch_stats})
+        for p in params.values():
+            p.grad = None
+        metrics = {"loss": total, "loss_box": parts[0], "loss_obj": parts[1],
+                   "loss_cls": parts[2], "grad_norm": grad_norm}
+        return state._replace(opt_state=opt_state, ema=ema,
+                              step=state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
+                   state: TrainState | None = None, use_ema: bool = True):
+    """Eval step: forward with decode, then the eval-protocol postprocess.
+
+    With a TrainState, as the JAX step, it evaluates the state's EMA
+    weights (use_ema=True) in place of the model's own, or the model's own
+    (use_ema=False); the training step updates the state's tensors in place,
+    so the eval step always sees the latest. Without one it evaluates the
+    model as it is.
 
     Returns eval_step(imgs): imgs (B, H, W, 3) uint8, a numpy array or a
-    tensor on any device, goes straight into the model (the stem scales
-    it), and eval_step returns (dets (B, max_det, 6), valid (B, max_det))
-    on the model's device without synchronising.
+    tensor on any device, goes straight into the model (the stem scales it),
+    and eval_step returns (dets (B, max_det, 6), valid (B, max_det)) on the
+    model's device without synchronising. The model runs in eval mode.
     """
     kwargs = {**EVAL_POSTPROCESS, **(postprocess_kwargs or {})}
     model.eval()
-    dev = next(model.parameters()).device
+    dev = _device(model)
+    tree = state.ema.tree if state is not None and use_ema else None
 
     @torch.inference_mode()
     def eval_step(imgs):
-        decoded, _ = model(torch.as_tensor(imgs, device=dev))
+        if model.training:
+            model.eval()
+        x = torch.as_tensor(imgs, device=dev)
+        if tree is None:
+            decoded, _ = model(x)
+        else:
+            decoded, _ = torch.func.functional_call(model, tree, (x,), strict=False)
         return postprocess(decoded, **kwargs)
 
     return eval_step

@@ -1,4 +1,4 @@
-"""Detector and eval-step throughput on the card.
+"""Detector, eval-step and training-step throughput on the card.
 
 run_detector_bench is the counterpart of
 vision_kit_tpu/utils/stream_bench.py:run_detector_bench: uint8 frames go
@@ -7,7 +7,15 @@ with the JAX bench's arguments. run_eval_bench is the counterpart of
 tools/bench_eval.py: the eval step (train/step.py) with the eval protocol,
 and beside it the host time of the evaluator on the bench's detections.
 Both time with CUDA events after warmup; the input is perturbed on every
-iteration so no step repeats another's input.
+iteration so no step repeats another's input. run_train_bench is the
+counterpart of tools/bench_train.py: the training step on its synthetic
+batch (bench_targets, daug_batch) with its hyperparameters (TRAIN_HYP),
+the same batch every step, as there; train_bench_setup builds that step,
+state and batch for chip_smoke.py's other training runs too.
+
+train_state_tensors and state_disagreements compare two training states;
+train_step_card_vs_cpu and ota_card_vs_cpu hold a training step and the
+SimOTA loss on the card against the CPU (chip_smoke.py, the cuda tests).
 
 calibrate_head and calibrate_bn make the synthetic loads of seeded random
 weights: without them a seeded model scores every candidate below conf
@@ -94,6 +102,116 @@ def same_detections(want: np.ndarray, got: np.ndarray, score_tol: float = 1e-5,
     return True
 
 
+STATE_PARTS = ("params", "batch_stats", "momentum", "ema")
+
+
+def train_state_tensors(state) -> dict:
+    """A TrainState's (train/step.py) tensors on the host, by part:
+    {"params", "batch_stats", "momentum", "ema"}."""
+    from vision_kit_tpu_torch.train.optim import sgd_state
+
+    parts = (state.params, state.batch_stats,
+             sgd_state(state.opt_state).momentum_buf, state.ema.tree)
+    return {name: {k: t.detach().float().cpu() for k, t in part.items()}
+            for name, part in zip(STATE_PARTS, parts)}
+
+
+def state_disagreements(want: dict, got: dict, before: dict,
+                        value_rel: float = 1e-4, step_rel: float = 2e-3) -> list:
+    """The tensors of two training states (train_state_tensors' layout) that
+    differ by more than value_rel of the wanted tensor's largest magnitude
+    plus step_rel of the largest change the step made to it (`before`:
+    the state before the step), as (part, name, error, tolerance)."""
+    out = []
+    for part in STATE_PARTS:
+        if set(got[part]) != set(want[part]):
+            out.append((part, "keys differ", None, None))
+            continue
+        for k, w in want[part].items():
+            err = float((got[part][k] - w).abs().max())
+            tol = (value_rel * float(w.abs().max())
+                   + step_rel * float((w - before[part][k]).abs().max()) + 1e-7)
+            if not err <= tol:
+                out.append((part, k, err, tol))
+    return out
+
+
+def train_step_card_vs_cpu(cfg) -> tuple[list, dict]:
+    """One f32 step of `cfg`'s model with YoloLoss, B=2 at its input size,
+    from the same seeded state on the CPU and on the card (bench_targets,
+    TRAIN_HYP). Returns (disagreements, errors): each metric beyond 1e-4
+    relative (the grad norm 1e-3) as (metric, card, CPU), then
+    state_disagreements' rows (the gradients of two f32 runs agree to
+    ~1e-3 of each tensor's largest element); and each metric's relative
+    error."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.train.optim import make_optimizer
+    from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
+
+    size = cfg.model.input_size[0]
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.integers(0, 255, (2, size, size, 3), dtype=np.uint8),
+             "targets": bench_targets(rng, 2)}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev, seed=0)
+        tx = make_optimizer(model, TRAIN_HYP, 3, 10)
+        state = create_train_state(model, tx)
+        before = train_state_tensors(state)
+        loss = YoloLoss(cfg.model.num_classes, model.head.grid_anchors, TRAIN_HYP)
+        state, metrics = make_train_step(model, loss, tx)(state, batch)
+        runs[dev] = (train_state_tensors(state), {k: float(v) for k, v in metrics.items()})
+    (want, wm), (got, gm) = runs["cpu"], runs["cuda"]
+    rel = {k: abs(gm[k] / wm[k] - 1) for k in wm}
+    bad = [(k, gm[k], wm[k]) for k, r in rel.items()
+           if not r <= (1e-3 if k == "grad_norm" else 1e-4)]
+    return bad + state_disagreements(want, got, before), rel
+
+
+def ota_card_vs_cpu(cfg) -> tuple[list, dict]:
+    """YoloLossOTA on the same raw maps (a training forward of `cfg`'s
+    seeded model on the CPU, B=2 at its input size, bench_targets) on the
+    CPU and on the card. Returns (disagreements, errors): the assignment
+    must be equal (fg mask, and the matched label of every fg candidate)
+    with some fg, the loss to 1e-5 relative and its parts to 1e-5 relative
+    plus 1e-7, each map's gradient to 1e-4 of its largest element."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.train.ota import YoloLossOTA
+
+    size = cfg.model.input_size[0]
+    model = build_model(cfg, device="cpu", seed=0).train()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 255, (2, size, size, 3), dtype=np.uint8))
+    targets = torch.from_numpy(bench_targets(rng, 2))
+    with torch.no_grad():
+        raws = [r.contiguous() for r in model(x, decode=False)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        loss = YoloLossOTA(cfg.model.num_classes, model.head.grid_anchors, TRAIN_HYP,
+                           strides=model.strides)
+        assigned = []
+        assign = loss.assign      # record the assignment of the call below
+        loss.assign = lambda *a: assigned.append(assign(*a)) or assigned[-1]
+        maps = [r.detach().to(dev).requires_grad_() for r in raws]
+        total, parts = loss(maps, targets.to(dev))
+        total.backward()
+        out[dev] = (float(total.detach()), parts.cpu(), [m.grad.cpu() for m in maps],
+                    [t.cpu() for t in assigned[0]])
+    (wt, wp, wg, (wfg, wmg)), (gt, gp, gg, (gfg, gmg)) = out["cpu"], out["cuda"]
+    errors = {"fg": int(wfg.sum()), "loss_rel": abs(gt / wt - 1),
+              "grad_rel": max(float((g - w).abs().max() / w.abs().max())
+                              for g, w in zip(gg, wg))}
+    bad = []
+    if not (torch.equal(gfg, wfg) and torch.equal(gmg[wfg], wmg[wfg]) and wfg.sum() > 0):
+        bad.append(("assignment", int(gfg.sum()), int(wfg.sum())))
+    if not (errors["loss_rel"] <= 1e-5 and torch.allclose(gp, wp, rtol=1e-5, atol=1e-7)):
+        bad.append(("loss", gt, wt, gp.tolist(), wp.tolist()))
+    if not errors["grad_rel"] <= 1e-4:
+        bad.append(("gradients", errors["grad_rel"]))
+    return bad, errors
+
+
 def _cuda_device(model, what: str) -> torch.device:
     dev = next(model.parameters()).device
     if dev.type != "cuda":
@@ -141,6 +259,114 @@ def run_detector_bench(model, batch: int, size: int = 640, iters: int = 20,
         "batch": batch,
         "size": size,
         "detections": int(n_valid.item()),
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+def bench_targets(rng, batch: int) -> np.ndarray:
+    """tools/bench_train.py's targets: (batch, 32, 5) rows, 4 labels an
+    image of random class (of 80), centre and size in [0.2, 0.6)."""
+    targets = np.full((batch, 32, 5), -1, np.float32)
+    targets[:, :4, 0] = rng.integers(0, 80, (batch, 4))
+    targets[:, :4, 1:] = rng.uniform(0.2, 0.6, (batch, 4, 4))
+    return targets
+
+
+def daug_batch(rng, batch: int, size: int) -> dict:
+    """tools/bench_train.py's device-augmentation batch: 5 full tiles of
+    random bytes an image, mosaic centre, fractional scale and translate,
+    HSV on and mixup on (every tap bilinear, the costliest regime)."""
+    from vision_kit_tpu_torch.data import device_aug as da
+
+    targets = bench_targets(rng, batch)
+    tiles = rng.integers(0, 255, (batch, da.N_TILES, size, size, 3), dtype=np.uint8)
+    tile_hw = np.full((batch, da.N_TILES, 2), size, np.int32)
+    params = np.zeros((batch, da.N_PARAMS), np.float32)
+    params[:, da.P_XC] = rng.integers(size // 2, 3 * size // 2, batch)
+    params[:, da.P_YC] = rng.integers(size // 2, 3 * size // 2, batch)
+    params[:, da.P_SCALE] = rng.uniform(0.6, 1.4, batch)
+    params[:, da.P_TX] = rng.uniform(-0.1, 0.1, batch) * size
+    params[:, da.P_TY] = rng.uniform(-0.1, 0.1, batch) * size
+    params[:, da.P_HSV_H] = rng.uniform(0.985, 1.015, batch)
+    params[:, da.P_HSV_S] = rng.uniform(0.5, 1.5, batch)
+    params[:, da.P_HSV_V] = rng.uniform(0.6, 1.4, batch)
+    params[:, da.P_MIX_W] = 0.5
+    params[:, da.P_MIX_JIT] = rng.uniform(1.0, 1.5, batch)
+    params[:, da.P_MIX_OW] = (size * params[:, da.P_MIX_JIT]).astype(int)
+    params[:, da.P_MIX_OH] = params[:, da.P_MIX_OW]
+    return {"tiles": tiles, "tile_hw": tile_hw, "params": params,
+            "targets": targets}
+
+
+# tools/bench_train.py's program: its hyperparameters, optimizer horizon
+# included (linear schedule), its input size, and bf16 compute; the data
+# come from a fixed seed
+TRAIN_HYP = {
+    "lr0": 0.01, "lrf": 0.01, "momentum": 0.937, "weight_decay": 0.0005,
+    "warmup_epochs": 3.0, "warmup_bias_lr": 0.1, "warmup_momentum": 0.8,
+    "box": 0.05, "cls": 0.5, "obj": 1.0, "cls_pw": 1.0, "obj_pw": 1.0,
+    "anchor_t": 4.0, "label_smoothing": 0.0,
+}
+TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH = 300, 1000
+TRAIN_SIZE, TRAIN_DTYPE, TRAIN_DATA_SEED = 640, torch.bfloat16, 0
+
+
+def train_bench_setup(model, loss_fn, batch: int, device_aug: bool = False,
+                      remat: bool = False, accum_steps: int = 1):
+    """(step, state, data) of tools/bench_train.py's program over `model`
+    on its device: make_train_step in TRAIN_DTYPE with TRAIN_HYP, a fresh
+    state, and the batch at TRAIN_SIZE (images uniform in [0, 1] in f32,
+    or with device_aug the tiles batch, daug_batch) on the device."""
+    from vision_kit_tpu_torch.train.optim import make_optimizer
+    from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
+
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(TRAIN_DATA_SEED)
+    tx = make_optimizer(model, TRAIN_HYP, TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH)
+    step = make_train_step(model, loss_fn, tx, remat=remat, accum_steps=accum_steps,
+                           device_aug=device_aug, compute_dtype=TRAIN_DTYPE)
+    if device_aug:
+        data = daug_batch(rng, batch, TRAIN_SIZE)
+    else:
+        data = {"image": rng.uniform(0, 1, (batch, TRAIN_SIZE, TRAIN_SIZE, 3)
+                                     ).astype(np.float32),
+                "targets": bench_targets(rng, batch)}
+    data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    return step, create_train_state(model, tx), data
+
+
+def run_train_bench(model, loss_fn, batch: int = 64, iters: int = 10,
+                    warmup: int = 3, device_aug: bool = False, remat: bool = False,
+                    accum_steps: int = 1) -> dict:
+    """Images per second of tools/bench_train.py's program
+    (train_bench_setup) over `model` (on a CUDA device; it trains the model
+    in place), the same batch every step. CUDA events over `iters` steps
+    after `warmup`. Returns the rate, the mean step time and the peak
+    device memory of the timed steps."""
+    dev = _cuda_device(model, "run_train_bench")
+    step, state, data = train_bench_setup(model, loss_fn, batch, device_aug=device_aug,
+                                          remat=remat, accum_steps=accum_steps)
+    for _ in range(warmup):
+        state, metrics = step(state, data)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        state, metrics = step(state, data)
+    end.record()
+    torch.cuda.synchronize(dev)
+    ms = start.elapsed_time(end) / iters
+    return {
+        "metric": "train_images_per_sec",
+        "value": batch * 1000.0 / ms,
+        "unit": "img/s",
+        "step_ms": ms,
+        "batch": batch,
+        "size": TRAIN_SIZE,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "loss": float(metrics["loss"]),
         "device": torch.cuda.get_device_name(dev),
     }
 
