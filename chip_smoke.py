@@ -10,7 +10,8 @@ Phases, each printing its own line; any failure exits non-zero:
      for the f32 comparisons;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at both serving paths' shapes (greedy NMS bit-equal at K up
-     to 2048, head scores in bf16, f16 and f32 with ragged tiles), one
+     to 2048, head scores in bf16, f16 and f32 with ragged tiles, and
+     anchor-major at b128, b8 over four inputs and ragged tiles), one
      launch counted per call;
   4. main path: YOLOv5s (80 classes, 640, bf16, seeded random weights)
      behind Predictor.predict_batch for 3 requests of 8 720x1280 frames,
@@ -49,7 +50,22 @@ Phases, each printing its own line; any failure exits non-zero:
      memory), and warp_augment's time alone; v7 base@640 in the training
      structure with YoloLossOTA at batch 16 for 10 steps (the loss falls)
      and run_train_bench; an f32 v5n@128 step on the card against the CPU
-     and the OTA loss on the same v7 base@128 maps on both;
+     and the OTA loss on the same v7 base@128 maps on both; the EMA eval
+     runs in bf16 (autocast over the f32 EMA tree);
+  9. weights: the phase-4 model written as a plain .pt, a Lightning
+     checkpoint (EMA beside stale weights) and an upstream-ordered .pt
+     (zipped back by convert.upstream_to_vision_kit), and a TrainState
+     after two v5s training steps, each loaded by
+     load_predictor_from_config on the card: 3 requests of 8 720x1280
+     frames give detections equal to the in-memory model's (the EMA model
+     for the TrainState), each kernel launched once a request;
+     load_weights timed once; v7 base training weights loaded into a deploy
+     model (folded on load) equal to the in-memory fold in f32; the same
+     v5s weights in a decode_order="reference" model behind Predictor,
+     launching the anchor-major head_scores and greedy_nms, its detections
+     equal to the native order's and to the plain versions', and its
+     request latency in turns with the native order's; run_export of
+     v5s@640 in f32 on the card, each artifact's check or skip printed;
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -60,7 +76,9 @@ each kernel's numbers, a row for each path's shape (greedy_nms_eval is the
 greedy-NMS kernel at the eval step's shape, with the eval path's launches;
 greedy_nms_train_eval the same shape with the launches of the EMA model's
 eval step; head_scores_v7 and greedy_nms_v7 the kernels at v7's b64 serving
-shape, with the v7 throughput run's launches) and, last, {"ok": true,
+shape, with the v7 throughput run's launches; head_scores_anchor_major the
+kernel on a reference-order head's b128 maps, with the reference-order
+serving run's launches) and, last, {"ok": true,
 "device": ...}.
 
 The main path's head has its biases zeroed and its kernels scaled to unit
@@ -90,6 +108,13 @@ HEAD_CHECK_SHAPES = (
     (64, ((80, 80), (40, 40), (20, 20))),    # throughput path, v7 base@640
     (8, ((80, 80), (40, 40), (20, 20))),     # request path, v5s@640
     (1, ((5, 5), (7, 3), (1, 1))),           # ragged last tiles
+)
+# anchor-major head scores: (batch, grids, distinct inputs), as kernel_bench
+# times them (b8 rotates four inputs)
+ANCHOR_MAJOR_CHECKS = (
+    (128, ((80, 80), (40, 40), (20, 20)), 1),
+    (8, ((80, 80), (40, 40), (20, 20)), 4),
+    (1, ((5, 5), (7, 3), (1, 1)), 1),
 )
 
 
@@ -187,6 +212,33 @@ def phase_kernels(rng):
                       f"classes equal, {agree['flips']} gate flips within 1e-6 of conf",
                       flush=True)
             del raws
+    # the anchor-major variant: a reference-order head's permuted views
+    for batch, grids, n_inputs in ANCHOR_MAJOR_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for _ in range(n_inputs):
+                raws = [r.permute(0, 3, 1, 2, 4) for r in kb.head_maps(gen, batch, dtype, grids)]
+                for classes in (None, torch.arange(80, device="cuda") % 3 != 1):
+                    before = head_scores.launches
+                    got = head_scores(raws, kb.CONF, classes, anchor_major=True)
+                    check(head_scores.launches == before + 1,
+                          "head_scores counted other than one launch per call")
+                    want = head_scores_reference(raws, kb.CONF, classes, anchor_major=True)
+                    torch.cuda.synchronize()
+                    agree = kb.head_scores_agree(got, want)
+                    key = f"anchor_major_{batch}"
+                    max_err[key] = max(max_err.get(key, 0.0), agree["max_abs_err"])
+                del raws
+            print(f"kernels: head_scores anchor-major b{batch} {grids[0][0]}x{grids[0][1]}.. "
+                  f"{str(dtype)[6:]}, {n_inputs} input(s), classes all and mask: "
+                  f"max_abs_err {max_err[key]:.3g}, classes equal", flush=True)
+    try:
+        head_scores([torch.zeros(1, 3, 4, 4, 85, device="cuda")], kb.CONF,
+                    anchor_major=True)
+    except ValueError:
+        print("kernels: head_scores refuses anchor-major maps that are not views "
+              "of the native memory", flush=True)
+    else:
+        raise RuntimeError("head_scores accepted anchor-major maps of other memory")
     shifted = torch.zeros(2 * 4 * 4 * 255 + 1, device="cuda",
                           dtype=torch.bfloat16)[1:].view(2, 4, 4, 3, 85)
     try:
@@ -203,9 +255,10 @@ def kernel_times(head_max_err: dict):
     (utils/kernel_bench.py): greedy_nms at the v5s serving step's B=128,
     K=512, as greedy_nms_eval and greedy_nms_train_eval at the eval step's
     B=64, K=2048 and as greedy_nms_v7 at the v7 serving step's B=64, K=512;
-    head_scores at
-    b128 and, as head_scores_v7, at b64. `head_max_err` holds head_scores'
-    largest error against its plain version at each batch. Runs after the
+    head_scores at b128, as head_scores_v7 at b64, and as
+    head_scores_anchor_major at b128 on a reference-order head's maps.
+    `head_max_err` holds head_scores' largest error against its plain
+    version at each batch (anchor-major under "anchor_major_<batch>"). Runs after the
     latency phases: the profiler that kernel_bench uses for its per-kernel
     split may leave the host's launch path slower for the rest of the
     process."""
@@ -226,13 +279,17 @@ def kernel_times(head_max_err: dict):
             "plain_ms": nms["plain_ms"], "bound_ms": nms["bound_ms"],
             "bound_by": nms["bound_by"], "library_ms": None,
         }
-    for name, batch in (("head_scores", 128), ("head_scores_v7", 64)):
-        head = next(r for r in bench["head_scores"] if r["batch"] == batch)
+    for name, batch, anchor_major in (("head_scores", 128, False),
+                                      ("head_scores_v7", 64, False),
+                                      ("head_scores_anchor_major", 128, True)):
+        head = next(r for r in bench["head_scores"]
+                    if (r["batch"], r["anchor_major"]) == (batch, anchor_major))
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "vision_kit_tpu_torch/csrc/head_scores.cu",
             "replaces": "tools/archive/bench_pallas_score.py:59",
-            "max_abs_err": head_max_err[batch],
+            "max_abs_err": head_max_err[f"anchor_major_{batch}" if anchor_major
+                                        else batch],
             "ms": float(np.mean(head["current_ms"])),
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
@@ -887,7 +944,7 @@ def phase_train(rng, smi: str) -> dict:
           f"{ms:.1f} ms a step on the host clock (first steps included)", flush=True)
 
     # the EMA model through the eval protocol and the greedy-NMS kernel
-    eval_step = make_eval_step(model, state=state)
+    eval_step = make_eval_step(model, state=state, compute_dtype=torch.bfloat16)
     images = rng.integers(0, 255, (64, 640, 640, 3), dtype=np.uint8)
     eval_step(images)
     torch.cuda.synchronize()
@@ -907,7 +964,8 @@ def phase_train(rng, smi: str) -> dict:
         n_det += len(g)
     check(n_det > 0, "the EMA eval produced no detections")
     print(f"train: EMA model (after {state.ema.updates} updates) through make_eval_step, "
-          f"one batch of 64 at 640 in f32, eval protocol: launches {counts}; {n_det} "
+          f"one batch of 64 at 640 in bf16 (autocast over the f32 EMA), eval protocol: "
+          f"launches {counts}; {n_det} "
           "detections equal to the plain keep's (class exact, score 1e-5, box 1e-3 px)",
           flush=True)
     del eval_step, outs, want
@@ -953,6 +1011,190 @@ def phase_train(rng, smi: str) -> dict:
     print("train: f32 card vs CPU: " + train_card_vs_cpu(), flush=True)
     print(f"train: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
+
+
+def serve_requests(pred, requests):
+    """Predictor.predict_batch on each request, with the kernels' launch
+    counts set to 0 before and read after. Returns (per-image detections,
+    counts)."""
+    reset_counts()
+    dets = []
+    for frames in requests:
+        dets += pred.predict_batch(frames)[0]
+    return dets, read_counts()
+
+
+def check_same(want, got, what: str, box_rtol: float = 0.0) -> int:
+    """Per-image detection sets equal (class exact, score 1e-5, box 1e-3 px
+    + box_rtol of the box's longer side); returns the detections."""
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    for w, g in zip(want, got, strict=True):
+        check(g.shape[1:] == (6,) and np.isfinite(g).all(),
+              f"{what}: non-finite or misshapen detections")
+        check(same_detections(w, g, 1e-5, 1e-3, box_rtol),
+              f"{what}: detections differ ({len(w)} vs {len(g)})")
+    n = sum(len(g) for g in got)
+    check(n > 0, f"{what}: no detections")
+    return n
+
+
+def upstream_ordered(sd: dict, model) -> dict:
+    """`sd` as an upstream checkpoint holds it: `model.<i>.<leaf>` names in
+    the reference's declaration order (convert.vision_kit_key_order), with
+    the head's anchors and anchor_grid buffers ahead of its convs."""
+    from vision_kit_tpu_torch.convert import vision_kit_key_order
+
+    out = {}
+    for i, key in enumerate(vision_kit_key_order(model)):
+        if key == "head.m.0.weight":
+            out["model.24.anchors"] = torch.ones(3, 3, 2)
+            out["model.24.anchor_grid"] = torch.ones(3, 1, 3, 1, 1, 2)
+        out[f"model.{i}.{key.rsplit('.', 1)[1]}"] = sd[key]
+    return out
+
+
+def phase_weights(model, rng, smi: str) -> dict:
+    """Checkpoints, reference-order serving and export on the card, from the
+    phase-4 model (v5s@640 bf16, calibrated head). Returns the launches of
+    the reference-order serving run."""
+    import tempfile
+
+    from vision_kit_tpu_torch.convert import load_upstream_checkpoint, upstream_to_vision_kit
+    from vision_kit_tpu_torch.export import run_export
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.predictor import (
+        Predictor,
+        load_predictor_from_config,
+        load_weights,
+        merge_matching,
+    )
+    from vision_kit_tpu_torch.train.checkpoint import save_checkpoint
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+
+    t_phase = time.perf_counter()
+    cfg = v5s_config()
+    requests = [rng.integers(0, 255, (8, 720, 1280, 3), dtype=np.uint8)
+                for _ in range(3)]
+    pred = Predictor(model, img_size=640, device="cuda")
+    pred.warmup((720, 1280), 8)
+    want, _ = serve_requests(pred, requests)
+    sd = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    tmp = tempfile.TemporaryDirectory()
+    files = {"plain": os.path.join(tmp.name, "plain.pt"),
+             "lightning": os.path.join(tmp.name, "lightning.pt"),
+             "upstream": os.path.join(tmp.name, "upstream.pt"),
+             "train_state": os.path.join(tmp.name, "last.pt")}
+    torch.save(sd, files["plain"])
+    # the training weights (head kernels halved) beside the EMA, which wins
+    lightning = {f"model.{k}": v * 0.5 if k.startswith("head.m.") else v
+                 for k, v in sd.items()}
+    lightning.update({f"ema_model.{k}": v for k, v in sd.items()})
+    torch.save({"state_dict": lightning, "epoch": 3}, files["lightning"])
+    torch.save({"model": upstream_ordered(sd, model)}, files["upstream"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_weights(files["plain"], model)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    print(f"weights: load_weights of a v5s .pt ({os.path.getsize(files['plain']) / 1e6:.1f} "
+          f"MB, {len(sd)} entries) into the bf16 model on the card: {load_ms:.1f} ms "
+          f"(host clock) on {smi}", flush=True)
+
+    for form in ("plain", "lightning", "upstream"):
+        if form == "upstream":    # the zip-map, then a vision_kit .pt
+            mapped = upstream_to_vision_kit(load_upstream_checkpoint(files[form]), model)
+            torch.save({"model": mapped}, files[form])
+        loaded = load_predictor_from_config(cfg, weights=files[form], device="cuda",
+                                            dtype=torch.bfloat16, seed=3)
+        got, counts = serve_requests(loaded, requests)
+        n = check_same(want, got, f"{form} checkpoint")
+        check(counts == {"greedy_nms": 3, "head_scores": 3},
+              f"{form} checkpoint served with launches {counts}")
+        print(f"weights: {form} .pt through load_predictor_from_config, 3 requests of "
+              f"8x720x1280: {n} detections equal to the in-memory model's (class "
+              f"exact, score 1e-5, box 1e-3 px), launches {counts}", flush=True)
+        del loaded
+
+    # a TrainState after two training steps: the loader serves its EMA
+    train = calibrated_v5s()
+    step, state, data = sb.train_bench_setup(
+        train, YoloLoss(80, train.head.grid_anchors, sb.TRAIN_HYP), 16)
+    for _ in range(2):
+        state, _ = step(state, data)
+    save_checkpoint(files["train_state"], state, epoch=0)
+    ema = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    ema.load_state_dict(merge_matching(ema.state_dict(), state.ema.tree), strict=True)
+    want_ema, _ = serve_requests(Predictor(ema, img_size=640, device="cuda"), requests)
+    loaded = load_predictor_from_config(cfg, weights=files["train_state"], device="cuda",
+                                        dtype=torch.bfloat16, seed=3)
+    got, counts = serve_requests(loaded, requests)
+    n = check_same(want_ema, got, "TrainState checkpoint")
+    check(counts == {"greedy_nms": 3, "head_scores": 3},
+          f"TrainState checkpoint served with launches {counts}")
+    print(f"weights: TrainState after 2 v5s training steps (EMA {state.ema.updates} "
+          f"updates) through load_predictor_from_config: {n} detections equal to the "
+          f"in-memory EMA model's, launches {counts}", flush=True)
+    del train, step, state, data, ema, loaded
+    torch.cuda.empty_cache()
+
+    # v7 base training weights into a deploy model, folded at load time
+    v7_train, v7_deploy = folded_v7(640, "cuda")
+    torch.save({"model": {k: v.cpu() for k, v in v7_train.state_dict().items()}},
+               files["plain"])
+    v7_loaded = load_weights(files["plain"], build_model(v7_config(True), device="cuda"))
+    want_v7, _ = serve_requests(Predictor(v7_deploy, img_size=640, device="cuda"), requests)
+    got, counts = serve_requests(Predictor(v7_loaded, img_size=640, device="cuda"), requests)
+    n = check_same(want_v7, got, "v7 training weights into deploy", box_rtol=1e-4)
+    check(counts == {"greedy_nms": 3, "head_scores": 3},
+          f"v7 deploy from training weights served with launches {counts}")
+    print(f"weights: v7 base training-structure .pt loaded into a deploy model (folded "
+          f"on load), f32: {n} detections equal to the in-memory fold's (class exact, "
+          f"score 1e-5, box 1e-3 px + 1e-4 of its longer side), launches {counts}",
+          flush=True)
+    del v7_train, v7_deploy, v7_loaded
+    torch.cuda.empty_cache()
+
+    # the same v5s weights in a decode_order="reference" model
+    ref = build_model(cfg, device="cuda", dtype=torch.bfloat16, decode_order="reference")
+    ref.load_state_dict(model.state_dict(), strict=True)
+    ref_pred = Predictor(ref, img_size=640, device="cuda")
+    ref_pred.warmup((720, 1280), 8)
+    got, ref_counts = serve_requests(ref_pred, requests)
+    check(ref_counts == {"greedy_nms": 3, "head_scores": 3},
+          f"reference-order serving launched {ref_counts}")
+    n = check_same(want, got, "reference-order serving")
+    with plain_kernels():
+        plain, _ = serve_requests(ref_pred, requests)
+    check_same(plain, got, "reference-order serving against the plain versions")
+    print(f"weights: reference-order v5s through Predictor, 3 requests: launches "
+          f"{ref_counts} (anchor-major head_scores); {n} detections equal to the "
+          "native order's and to the plain versions' (class exact, score 1e-5, box "
+          "1e-3 px)", flush=True)
+    lat = {"native": [], "reference": []}
+    for name in ("native", "reference", "reference", "native"):
+        p = pred if name == "native" else ref_pred
+        lat[name] += [p.predict_batch(requests[i % 3])[1] for i in range(50)]
+    print("weights: request latency of 8x720x1280, native and reference order in "
+          "turns (native, reference, reference, native; 50 requests each, host "
+          "clock): " + ", ".join(
+              f"{k} median {np.median(v):.3f} ms, p99 {np.percentile(v, 99):.3f} ms"
+              for k, v in lat.items()) + f" on {smi}", flush=True)
+    del ref, ref_pred
+
+    t0 = time.perf_counter()
+    res = run_export(cfg, model, os.path.join(tmp.name, "export"))
+    export_s = time.perf_counter() - t0
+    for kind in ("weights", "torch_export", "torchscript"):
+        check(kind in res.artifacts, f"export: no checked {kind} artifact "
+              f"({res.skipped.get(kind)})")
+    print(f"weights: run_export v5s@640 f32 on the card in {export_s:.1f} s: checks "
+          + json.dumps(res.checks) + "; skipped " + json.dumps(res.skipped), flush=True)
+    tmp.cleanup()
+    print(f"weights: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ref_counts
 
 
 def profile_train(smi: str) -> None:
@@ -1035,6 +1277,7 @@ def main() -> int:
     eval_counts = phase_eval(model, rng, smi)
     v7, v7_counts = phase_v7(rng, smi)
     train_counts = phase_train(rng, smi)
+    ref_counts = phase_weights(model, rng, smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -1061,13 +1304,15 @@ def main() -> int:
     # predict_batch for greedy_nms and head_scores, validate for
     # greedy_nms_eval (validate launches no head_scores: checked), the EMA
     # model's eval step after training for greedy_nms_train_eval (the eval
-    # shape), the v7 run_detector_bench for greedy_nms_v7 and head_scores_v7
+    # shape), the v7 run_detector_bench for greedy_nms_v7 and head_scores_v7,
+    # the reference-order requests for head_scores_anchor_major
     rows["greedy_nms"]["launches"] = counts["greedy_nms"]
     rows["head_scores"]["launches"] = counts["head_scores"]
     rows["greedy_nms_eval"]["launches"] = eval_counts["greedy_nms"]
     rows["greedy_nms_train_eval"]["launches"] = train_counts["greedy_nms"]
     rows["greedy_nms_v7"]["launches"] = v7_counts["greedy_nms"]
     rows["head_scores_v7"]["launches"] = v7_counts["head_scores"]
+    rows["head_scores_anchor_major"]["launches"] = ref_counts["head_scores"]
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -89,6 +89,35 @@ def test_head_scores_kernel_matches_plain(cuda, dtype, masked, batch, grids):
     head_scores_agree(got, head_scores_reference(raws, 0.25, classes), 0.25)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch,grids", [
+    (8, [(80, 80), (40, 40), (20, 20)]),     # the request path at 640
+    (128, [(80, 80), (40, 40), (20, 20)]),   # the throughput path at 640
+    (1, [(5, 5), (7, 3), (1, 1)]),           # ragged last tiles
+])
+def test_head_scores_kernel_anchor_major_matches_plain(cuda, dtype, masked, batch, grids):
+    """A decode_order="reference" head's (B, na, ny, nx, no) views of the
+    same maps: the kernel reads the native memory and writes the columns
+    in (ia, iy, ix) order, as the plain version does on the views."""
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    raws = [r.permute(0, 3, 1, 2, 4) for r in head_maps(gen, batch, dtype, grids)]
+    classes = (torch.arange(80, device=cuda) % 3 != 1) if masked else None
+    before = head_scores.launches
+    got = head_scores(raws, 0.25, classes, anchor_major=True)
+    assert head_scores.launches == before + 1
+    head_scores_agree(got, head_scores_reference(raws, 0.25, classes,
+                                                 anchor_major=True), 0.25)
+
+
+def test_head_scores_kernel_refuses_anchor_major_of_other_memory(cuda):
+    raw = torch.zeros(1, 3, 4, 4, 85, device=cuda)
+    before = head_scores.launches
+    with pytest.raises(ValueError, match="permuted views"):
+        head_scores([raw], 0.25, anchor_major=True)
+    assert head_scores.launches == before
+
+
 def test_head_scores_kernel_every_class_masked(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
     raws = head_maps(gen, 2, torch.bfloat16, [(8, 8), (4, 4)])

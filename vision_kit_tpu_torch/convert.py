@@ -13,12 +13,19 @@ carries; an Implicit's (1, 1, 1, C) -> (1, C, 1, 1).
 The folds are counterparts of vision_kit_tpu/convert.py:fuse_conv_bn,
 fuse_repconv_params and reparameterize_v7, on torch keys and OIHW kernels;
 `deploy_state_dict` applies whichever of them a state_dict needs.
+
+The checkpoint readers are counterparts of vision_kit_tpu/convert.py's:
+`load_torch_checkpoint` (vision_kit-format files, Lightning wrappers and
+prefixes), `load_upstream_checkpoint` with `upstream_to_vision_kit`
+(ultralytics / WongKinYiu state_dicts zipped by position onto
+`vision_kit_key_order`). The port's keys are the reference's, so a
+vision_kit-format state_dict loads with no translation.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -224,3 +231,151 @@ def deploy_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
     the implicits), as the JAX predictor's load-time `_maybe_deploy_fold`
     does. A state_dict that needs neither comes back as a copy."""
     return reparameterize_v7(fuse_repconv_params(sd))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint readers
+# ---------------------------------------------------------------------------
+
+_CONV_CHILD = re.compile(r"^conv(\d+)$")
+_HEAD_RANK = {"m": 0, "ia": 1, "im": 2}
+
+
+def _declaration_order(node: dict) -> list[str]:
+    """The children of one module, by name, in the reference's
+    registration order.
+
+    The port registers children as its blocks are built; the reference
+    declares them otherwise in three blocks (vision_kit_tpu/convert.py:
+    _declaration_order): C3Bottleneck declares conv1, conv2, conv3, then m
+    (the port builds m before conv3); SPPCSPC declares conv1..conv7 in
+    numeric order; YoloV7Head declares m before ia and im. A module whose
+    children are all `conv<N>` and a container `m` (children 0, 1, ...)
+    takes the first order, one whose children are among m, ia, im the
+    last; every other keeps the port's."""
+    names = [n for n, child in node.items() if isinstance(child, dict)]
+
+    def container(n):
+        return all(k.isdigit() for k, v in node[n].items() if isinstance(v, dict))
+
+    if names and all(_CONV_CHILD.match(n) or (n == "m" and container(n))
+                     for n in names):
+        return sorted(names, key=lambda n: (1, 0) if n == "m"
+                      else (0, int(_CONV_CHILD.match(n).group(1))))
+    if names and all(n in _HEAD_RANK for n in names):
+        return sorted(names, key=_HEAD_RANK.get)
+    return names
+
+
+def vision_kit_key_order(keys: Iterable[str] | torch.nn.Module) -> list[str]:
+    """The reference torch model's state_dict key order for a port model
+    (or its state_dict keys): each module's own tensors in the port's order
+    (weight, bias, implicit, running_mean, running_var,
+    num_batches_tracked, as torch and the reference emit them), then its
+    children in `_declaration_order`. Equal to
+    vision_kit_tpu/convert.py:vision_kit_key_order of the same model's
+    Flax init tree (tests/test_torch_checkpoint.py): the order the
+    upstream positional zip-map needs."""
+    if isinstance(keys, torch.nn.Module):
+        keys = keys.state_dict().keys()
+    tree: dict = {}
+    for key in keys:
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = key
+
+    out: list[str] = []
+
+    def walk(node):
+        out.extend(v for v in node.values() if isinstance(v, str))
+        for name in _declaration_order(node):
+            walk(node[name])
+
+    walk(tree)
+    return out
+
+
+def upstream_to_vision_kit(upstream_sd: Mapping[str, Any],
+                           model: Iterable[str] | torch.nn.Module) -> dict:
+    """Positional zip-map of an upstream (ultralytics YOLOv5 / WongKinYiu
+    YOLOv7) state_dict onto the port's keys: the `anchors`/`anchor_grid`
+    buffers are dropped, then the values are zipped in order onto
+    `vision_kit_key_order(model)`. A count mismatch (wrong variant or
+    family, extra buffers) raises, naming the leftovers; the shapes are
+    checked where the result is loaded."""
+    up_items = [(k, v) for k, v in upstream_sd.items()
+                if not k.endswith((".anchors", ".anchor_grid"))]
+    vk_keys = vision_kit_key_order(model)
+    if len(up_items) != len(vk_keys):
+        up_tail = [k for k, _ in up_items[len(vk_keys):]][:5]
+        vk_tail = vk_keys[len(up_items):][:5]
+        raise ValueError(
+            f"upstream checkpoint has {len(up_items)} tensors but the model "
+            f"expects {len(vk_keys)} — wrong variant/family? "
+            f"(unmatched upstream: {up_tail or 'none'}, "
+            f"unmatched model: {vk_tail or 'none'})")
+    return {new: val for new, (_, val) in zip(vk_keys, up_items)}
+
+
+def _torch_load(path: str):
+    """torch.load on the CPU of tensors, dicts, lists and numbers only
+    (weights_only: unpickling runs no code, so a pickled nn.Module, the
+    torch.hub form, is refused; save its state_dict instead)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_upstream_checkpoint(path: str) -> dict:
+    """A local upstream `.pt` (a state_dict, or one under "ema", "model" or
+    "state_dict") as an order-preserving {key: f32 tensor}, for
+    `upstream_to_vision_kit`. No prefix is stripped and nothing is merged:
+    any re-keying would scramble the order the zip-map relies on."""
+    obj = _torch_load(path)
+    if isinstance(obj, dict):
+        for key in ("ema", "model", "state_dict"):
+            if isinstance(obj.get(key), dict):
+                obj = obj[key]
+                break
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path}: no state_dict found in checkpoint")
+    out = {k: v.detach().float() for k, v in obj.items()
+           if isinstance(v, torch.Tensor)}
+    if not out:
+        raise ValueError(f"{path}: checkpoint contains no tensors")
+    return out
+
+
+def checkpoint_state_dict(ckpt) -> dict:
+    """A loaded vision_kit-format checkpoint -> flat {key: f32 tensor}: the
+    state_dict under "model", "state_dict" or "ema" when it is wrapped, the
+    Lightning prefixes stripped (`model.`, and `ema_model.` with an inner
+    `module.`), and the EMA's entries winning over the model's (the
+    reference evaluates the EMA)."""
+    if isinstance(ckpt, dict):
+        for key in ("model", "state_dict", "ema"):
+            if isinstance(ckpt.get(key), dict):
+                ckpt = ckpt[key]
+                break
+    sd, ema = {}, {}
+    for k, v in ckpt.items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        v = v.detach().float()
+        if k.startswith("ema_model."):
+            k = k[len("ema_model."):]
+            if k.startswith("module."):
+                k = k[len("module."):]
+            ema[k] = v
+        elif k.startswith("model."):
+            sd[k[len("model."):]] = v
+        else:
+            sd[k] = v
+    sd.update(ema)
+    return sd
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A vision_kit-format `.pt`/`.pth`/`.ckpt` file as flat {key: f32
+    tensor} (`checkpoint_state_dict`)."""
+    return checkpoint_state_dict(_torch_load(path))

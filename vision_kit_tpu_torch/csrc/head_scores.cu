@@ -9,7 +9,11 @@
 // class is 0 and the score 0, as argmax and sigmoid(-inf) give) and the conf
 // gate (a score <= conf becomes -1e9). Output: (B, N) f32 scores and (B, N)
 // i32 classes over all levels, each level at its offset in (iy, ix, ia)
-// order.
+// order, or with anchor_major in (ia, iy, ix) order: the column order of a
+// decode_order="reference" model's (B, na, ny, nx, no) maps, which are
+// permuted views of the same channels_last conv output. Either way the
+// kernel reads the rows from that native memory; only the column a score
+// lands in differs.
 //
 // Bound on the H100: bytes. Each row (one cell: na anchors x (5 + nc)
 // channels, 255 for YOLOv5 at 80 classes) is read once from the head conv's
@@ -40,7 +44,8 @@
 //   after 8 rounds lane l holds segment l and computes its two sigmoids:
 //   one sigmoid pass for 32 segments, not one per group.
 // - Output: lane l writes segment l's score and class, so a warp writes
-//   two contiguous 128-byte runs.
+//   two contiguous 128-byte runs; anchor-major, na interleaved runs of
+//   32 / na columns each (the same bytes, in shorter pieces).
 // - The classes mask is copied into shared memory once per block.
 //
 // Exactness: classes equal the plain version's; the sigmoid is
@@ -117,8 +122,8 @@ template <typename T, bool kMasked>
 __global__ void __launch_bounds__(1024)
 head_scores_kernel(const Levels lv, const uint8_t* __restrict__ classes,
                    float* __restrict__ scores, int* __restrict__ best_cls,
-                   int na, int no, long long n_total, float conf, int stages,
-                   int stage_bytes) {
+                   int na, int no, long long n_total, float conf,
+                   int anchor_major, int stages, int stage_bytes) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + stages * stage_bytes);
   uint8_t* allow = reinterpret_cast<uint8_t*>(bars + kMaxStages);
@@ -198,7 +203,10 @@ head_scores_kernel(const Levels lv, const uint8_t* __restrict__ classes,
         const unsigned row = static_cast<unsigned>(tile.row0) + s / na;
         const unsigned b = row / level.cells;
         const unsigned cell = row - b * level.cells;
-        long long o = b * n_total + level.out_offset + cell * na + s % na;
+        const int ia = s % na;
+        long long o = b * n_total + level.out_offset +
+                      (anchor_major ? static_cast<long long>(ia) * level.cells + cell
+                                    : static_cast<long long>(cell) * na + ia);
         scores[o] = score > conf ? score : kGated;
         best_cls[o] = mine_cls < nc ? mine_cls : 0;
       }
@@ -216,7 +224,7 @@ head_scores_kernel(const Levels lv, const uint8_t* __restrict__ classes,
 }
 
 using KernelFn = void (*)(const Levels, const uint8_t*, float*, int*, int, int,
-                          long long, float, int, int);
+                          long long, float, int, int, int);
 
 KernelFn pick(int dtype, bool masked) {
   switch (dtype) {
@@ -269,7 +277,8 @@ extern "C" {
 // aligned), rows (B * ny * nx), cells (ny * nx), output column offset and
 // first flat tile index; the wrapper computes them. dtype: 0 bf16, 1 f16,
 // 2 f32. classes: (nc,) uint8 mask or null. scores (B, n_total) f32 and
-// best_cls (B, n_total) i32 out. Launches on `stream`. Returns 0 on
+// best_cls (B, n_total) i32 out; anchor_major: columns in (ia, iy, ix)
+// order within a level, else (iy, ix, ia). Launches on `stream`. Returns 0 on
 // success, -1 if a tile does not fit the shared memory of a block, -2 for
 // arguments the kernel does not take, else the CUDA error code.
 int head_scores_launch(const long long* bases, const long long* rows,
@@ -277,7 +286,8 @@ int head_scores_launch(const long long* bases, const long long* rows,
                        const int* tile_begin, int n_levels, int n_tiles,
                        int tile_rows, const void* classes, void* scores,
                        void* best_cls, int dtype, int na, int no,
-                       long long n_total, float conf, void* stream) {
+                       long long n_total, float conf, int anchor_major,
+                       void* stream) {
   if (n_tiles == 0) return 0;
   static const int kSize[3] = {2, 2, 4};
   if (n_levels < 1 || n_levels > kMaxLevels || dtype < 0 || dtype > 2 ||
@@ -327,7 +337,8 @@ int head_scores_launch(const long long* bases, const long long* rows,
   if (grid > n_tiles) grid = n_tiles;
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       lv, static_cast<const uint8_t*>(classes), static_cast<float*>(scores),
-      static_cast<int*>(best_cls), na, no, n_total, conf, stages, stage_bytes);
+      static_cast<int*>(best_cls), na, no, n_total, conf, anchor_major, stages,
+      stage_bytes);
   return int(cudaGetLastError());
 }
 

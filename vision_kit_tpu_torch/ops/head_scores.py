@@ -10,7 +10,11 @@ sigmoid(obj) * sigmoid(best logit) in f32.
 Fused here: the optional `classes` mask (masked logits become -inf) and the
 conf gate (a score <= conf becomes -1e9), so the top-k reads the kernel's
 output directly. Output: (B, N) f32 scores and (B, N) i32 classes over all
-levels, each level at its offset in native (iy, ix, ia) order.
+levels, each level at its offset in native (iy, ix, ia) order, or with
+anchor_major=True in (ia, iy, ix) order: the order of a
+decode_order="reference" model's (B, na, ny, nx, no) maps, which are
+permuted views of the same conv output; the kernel reads that native
+memory in both cases.
 
 The kernel is csrc/head_scores.cu, one launch for all levels; its note
 says what bounds it on the H100 and how the design meets that.
@@ -35,10 +39,14 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def head_scores_reference(raws, conf_thres: float,
-                          classes: torch.Tensor | None = None):
+                          classes: torch.Tensor | None = None,
+                          anchor_major: bool = False):
     """Plain version, transcribing postprocess_raw stage 1 plus the gate.
-    raws: per-level (B, ny, nx, na, 5+nc) maps. Returns (scores f32,
-    classes i32), both (B, N)."""
+    raws: per-level (B, ny, nx, na, 5+nc) maps, or with anchor_major
+    (B, na, ny, nx, 5+nc); each level's columns follow its map's order, so
+    the flag only names the layout. Returns (scores f32, classes i32),
+    both (B, N)."""
+    del anchor_major
     score_parts, cls_parts = [], []
     for raw in raws:
         b = raw.shape[0]
@@ -93,7 +101,7 @@ def _lib() -> ctypes.CDLL:
         i64p, i64p, i32p, i32p, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.head_scores_launch.restype = ctypes.c_int
     return lib
@@ -126,7 +134,30 @@ def _check(raws, classes):
         raise ValueError(f"classes must be ({no - 5},), got {tuple(classes.shape)}")
 
 
-def _launch(raws, conf_thres: float, classes: torch.Tensor | None):
+def native_views(raws):
+    """Anchor-major (B, na, ny, nx, no) maps -> the (B, ny, nx, na, no)
+    views of the same memory, which must be the native contiguous layout
+    (a decode_order="reference" head's permute of the channels_last conv
+    output); a view of any other memory raises."""
+    out = []
+    for raw in raws:
+        if raw.dim() != 5:
+            raise ValueError(f"raw maps (B, na, ny, nx, no) expected, got "
+                             f"{tuple(raw.shape)}")
+        native = raw.permute(0, 2, 3, 1, 4)
+        if not native.is_contiguous():
+            raise ValueError(
+                "anchor-major maps must be permuted views of a contiguous "
+                "(B, ny, nx, na, no) map (the channels_last conv output); got "
+                f"shape {tuple(raw.shape)}, strides {raw.stride()}")
+        out.append(native)
+    return out
+
+
+def _launch(raws, conf_thres: float, classes: torch.Tensor | None,
+            anchor_major: bool = False):
+    if anchor_major:
+        raws = native_views(raws)
     _check(raws, classes)
     dev = raws[0].device
     b, na, no = raws[0].shape[0], raws[0].shape[3], raws[0].shape[4]
@@ -146,7 +177,7 @@ def _launch(raws, conf_thres: float, classes: torch.Tensor | None):
             n, table.n_tiles, TILE_ROWS,
             None if classes is None else classes.data_ptr(),
             scores.data_ptr(), cls.data_ptr(), _DTYPE_CODES[raws[0].dtype],
-            na, no, table.n_total, conf_thres,
+            na, no, table.n_total, conf_thres, int(anchor_major),
             torch.cuda.current_stream().cuda_stream)
     if err == -1:
         raise ValueError(f"rows of {na} x {no} {raws[0].dtype} do not fit two "
@@ -159,19 +190,21 @@ def _launch(raws, conf_thres: float, classes: torch.Tensor | None):
     return scores, cls
 
 
-def head_scores(raws, conf_thres: float, classes: torch.Tensor | None = None):
+def head_scores(raws, conf_thres: float, classes: torch.Tensor | None = None,
+                anchor_major: bool = False):
     """Gated candidate scores and best classes over all levels.
 
     raws: per-level (B, ny, nx, na, 5+nc) maps (views of channels_last conv
-    outputs on the card). Returns ((B, N) f32, (B, N) i32). CPU tensors take
-    the plain version; CUDA tensors launch the kernel, once for all
-    levels."""
+    outputs on the card), or with anchor_major the (B, na, ny, nx, 5+nc)
+    permuted views of such maps, whose columns then come in (ia, iy, ix)
+    order. Returns ((B, N) f32, (B, N) i32). CPU tensors take the plain
+    version; CUDA tensors launch the kernel, once for all levels."""
     dev = raws[0].device
     if dev.type == "cpu":
-        return head_scores_reference(raws, conf_thres, classes)
+        return head_scores_reference(raws, conf_thres, classes, anchor_major)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch(raws, conf_thres, classes)
+    return _launch(raws, conf_thres, classes, anchor_major)
 
 
 head_scores.launches = 0

@@ -224,12 +224,17 @@ def postprocess_raw(
     max_cand: int = 1024,
     classes: torch.Tensor | None = None,
     approx_topk: bool = True,
+    anchor_major: bool = False,
 ):
     """Raw head maps -> padded detections.
 
     Args:
       raws: per-level raw maps in the head's native (B, ny, nx, na, 5+nc)
-        layout.
+        layout, or with anchor_major=True the (B, na, ny, nx, 5+nc) maps of
+        a decode_order="reference" model: permuted views of the same
+        native memory, which the head-score kernel and the survivors'
+        gather read in place. The candidates' indices, and so the order of
+        ties, follow the given layout, as in JAX.
       anchors_px: (nl, na, 2) anchors in pixel units.
       classes: optional (nc,) bool mask of allowed classes.
       approx_topk: accepted for the JAX signature. The candidate top-k is
@@ -243,10 +248,16 @@ def postprocess_raw(
     dev = raws[0].device
     b = raws[0].shape[0]
     anchors = torch.as_tensor(anchors_px, dtype=torch.float32, device=dev)
-    shapes = [(r.shape[3], r.shape[1], r.shape[2]) for r in raws]  # na, ny, nx
+    if anchor_major:
+        shapes = [(r.shape[1], r.shape[2], r.shape[3]) for r in raws]
+        native = [r.permute(0, 2, 3, 1, 4) for r in raws]
+    else:
+        shapes = [(r.shape[3], r.shape[1], r.shape[2]) for r in raws]
+        native = raws                                           # na, ny, nx
 
     # Stage 1: gated scores and best classes of every anchor, one global top-k
-    scores_all, cls_all = head_scores(raws, conf_thres, classes)
+    scores_all, cls_all = head_scores(raws, conf_thres, classes,
+                                      anchor_major=anchor_major)
     n_total = scores_all.shape[1]
     k = min(max_cand, n_total)
     # torch.topk here and at the max_det cut, not topk_stable: this
@@ -264,19 +275,22 @@ def postprocess_raw(
     hh = torch.zeros_like(top_s)
     levels = []
     off = 0
-    for raw, (na, ny, nx) in zip(raws, shapes):
+    for raw, (na, ny, nx) in zip(native, shapes):
         n = na * ny * nx
         in_level = (top_i >= off) & (top_i < off + n)
         local = (top_i - off).clamp(0, n - 1)
-        flat = raw.reshape(b, n, raw.shape[4])
-        xywh = torch.gather(flat, 1, local[..., None].expand(-1, -1, 4))
+        if anchor_major:                                        # (ia, iy, ix)
+            ia, cell = local // (ny * nx), local % (ny * nx)
+            row = cell * na + ia                                # native index
+        else:                                                   # (iy, ix, ia)
+            ia, cell, row = local % na, local // na, local
+        flat = raw.reshape(b, n, raw.shape[4])                  # a view
+        xywh = torch.gather(flat, 1, row[..., None].expand(-1, -1, 4))
         sel = torch.where(in_level[..., None], xywh, sel)
-        levels.append((in_level, local, na, nx))
+        levels.append((in_level, ia, cell, nx))
         off += n
     s = torch.sigmoid(sel.float())
-    for li, (in_level, local, na, nx) in enumerate(levels):
-        ia = local % na
-        cell = local // na
+    for li, (in_level, ia, cell, nx) in enumerate(levels):
         iy = (cell // nx).float()
         ix = (cell % nx).float()
         stride = float(strides[li])

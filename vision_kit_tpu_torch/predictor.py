@@ -9,11 +9,21 @@ with the greedy-NMS kernel).
 
 As in the JAX predictor, the model gets the letterboxed image as float,
 normalised by /255 in f32 (bench-style uint8 input, which the stem scales,
-rounds differently; see utils/stream_bench.py).
+rounds differently; see utils/stream_bench.py). A model built with
+decode_order="reference" serves through the same kernels: its raw maps are
+anchor-major views of the same conv output (ops/nms.py:postprocess_raw).
+
+Weights (counterparts of vision_kit_tpu/predictor.py:load_weights and its
+helpers): `load_weights` reads a vision_kit-format `.pt`/`.pth`/`.ckpt` or
+a port TrainState checkpoint (train/checkpoint.py) into a model, folds
+training weights into a deploy model, and copies every entry whose name
+and shape match.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 
 import numpy as np
@@ -44,14 +54,12 @@ class Predictor:
         the model's decode and the decoded-output postprocess with every
         (anchor, class) pair a candidate. mesh/spatial are multi-chip
         serving, not ported yet; each raises if set. approx_topk is
-        accepted; the top-k is exact (see ops/nms.py)."""
+        accepted; the top-k is exact (see ops/nms.py). The raw maps' order
+        follows the model's decode_order, as in the JAX predictor."""
         if mesh is not None or spatial:
             raise NotImplementedError(
                 "multi-chip serving (mesh/spatial) is not ported yet "
                 "(ROADMAP.md, Queue 1: multi-GPU)")
-        if not multi_label and model.decode_order != "native":
-            raise ValueError("the serving path takes native-order raw maps; "
-                             "build the model with decode_order='native'")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.img_size = (
@@ -81,8 +89,9 @@ class Predictor:
             dets, valid = postprocess(decoded, multi_label=True, **kwargs)
         else:
             raws = self.model(x, decode=False)
-            dets, valid = postprocess_raw(raws, self.anchors_px,
-                                          strides=self.strides, **kwargs)
+            dets, valid = postprocess_raw(
+                raws, self.anchors_px, strides=self.strides,
+                anchor_major=self.model.decode_order == "reference", **kwargs)
         pad_t = torch.tensor([pad[0], pad[1], pad[0], pad[1]],
                              dtype=torch.float32, device=self.device)
         hi = torch.tensor([w0, h0, w0, h0], dtype=torch.float32,
@@ -122,13 +131,108 @@ def load_predictor_from_config(cfg, weights: str | None = None,
                                dtype: torch.dtype = torch.float32,
                                seed: int = 0, **kwargs):
     """Build the config's model (YOLOv5, or YOLOv7 in the structure that
-    cfg.model.deploy names) with weights drawn from `seed` and wrap it in a
-    Predictor at cfg.model.input_size."""
+    cfg.model.deploy names) with weights drawn from `seed`, load `weights`
+    into it when given (load_weights, strict), and wrap it in a Predictor
+    at cfg.model.input_size."""
     from vision_kit_tpu_torch.models import build_model
 
-    if weights:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet; weights come from `seed`")
     model = build_model(cfg, device=device, dtype=dtype, seed=seed)
+    if weights:
+        load_weights(weights, model)
     return Predictor(model, img_size=tuple(cfg.model.input_size),
                      device=device, **kwargs)
+
+
+def _read_weights(path: str) -> dict:
+    """The weights in a checkpoint file as {key: f32 tensor on the CPU}."""
+    from vision_kit_tpu_torch.convert import checkpoint_state_dict
+    from vision_kit_tpu_torch.train.checkpoint import is_train_state, train_state_weights
+
+    if path.endswith(".msgpack") or os.path.isdir(path):
+        raise ValueError(
+            f"{path}: Flax msgpack and orbax checkpoints are not read by the "
+            "port; convert one to a .pt with the JAX package's "
+            "scripts/convert.py --to-torch (a msgpack) and load the .pt")
+    if not path.endswith((".pt", ".pth", ".ckpt")):
+        raise ValueError(f"{path}: expected a .pt, .pth or .ckpt file")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if is_train_state(ckpt):
+        return {k: v.float() for k, v in train_state_weights(ckpt).items()}
+    return checkpoint_state_dict(ckpt)
+
+
+def load_weights(path: str, model: torch.nn.Module, partial: bool = False):
+    """Load a checkpoint into `model` in place and return it.
+
+    `path`: a vision_kit-format `.pt`/`.pth`/`.ckpt` (a state_dict, or one
+    wrapped as Lightning and the reference save it;
+    convert.checkpoint_state_dict), or a port TrainState checkpoint
+    (train/checkpoint.py; its EMA once updated, else its parameters).
+    Training weights loaded into a deploy model are folded first
+    (_maybe_deploy_fold). Every model entry whose key and shape the
+    checkpoint has is copied, cast to the model's dtype and device;
+    num_batches_tracked stays the model's own.
+
+    partial=False raises when the checkpoint misses or mis-shapes any
+    entry, with their count (JAX's count of template leaves for the same
+    file); partial=True keeps the model's values there (the reference's
+    shape-checked partial load, the fine-tune path to another number of
+    classes)."""
+    loaded = _maybe_deploy_fold(_read_weights(path), model)
+    if partial:
+        sd = merge_matching(model.state_dict(), loaded)
+    else:
+        sd, skipped = _merge_counting(model.state_dict(), loaded)
+        if skipped:
+            raise ValueError(
+                f"checkpoint {path} does not cover the model: {skipped} model "
+                "entries missing or shape-mismatched (use partial=True for a "
+                "shape-checked partial load)")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _maybe_deploy_fold(loaded: dict, model: torch.nn.Module) -> dict:
+    """Training weights for a deploy model, folded as the JAX predictor
+    does at load time: RepConv branches (`rbr_dense`) into `rbr_reparam`
+    when the model has it, and the head's implicit layers into its convs
+    when the model's head has none (v7 x differs from its deploy structure
+    by the implicits alone)."""
+    from vision_kit_tpu_torch.convert import fuse_repconv_params, reparameterize_v7
+
+    keys = model.state_dict().keys()
+    if (any("rbr_dense." in k for k in loaded)
+            and any("rbr_reparam." in k for k in keys)):
+        loaded = fuse_repconv_params(loaded)
+    if ("head.ia.0.implicit" in loaded and "head.ia.0.implicit" not in keys
+            and "head.m.0.weight" in keys):
+        loaded = reparameterize_v7(loaded)
+    return loaded
+
+
+def _merge_counting(template: dict, loaded: dict) -> tuple[dict, int]:
+    """merge_matching and the number of template entries (without
+    num_batches_tracked) that the checkpoint missed or mis-shaped."""
+    out, kept, skipped = {}, 0, 0
+    for k, v in template.items():
+        lv = loaded.get(k)
+        if k.endswith("num_batches_tracked"):
+            out[k] = v
+        elif lv is not None and lv.shape == v.shape:
+            out[k] = lv.to(device=v.device, dtype=v.dtype)
+            kept += 1
+        else:
+            out[k] = v
+            skipped += 1
+    if skipped:
+        logging.getLogger("vision_kit_tpu_torch").info(
+            "partial load: %d entries copied, %d kept from the model", kept, skipped)
+    return out, skipped
+
+
+def merge_matching(template: dict, loaded: dict) -> dict:
+    """`template` (a model's state_dict) with every entry whose key and
+    shape `loaded` has replaced by the loaded value in the template's dtype
+    and device (the reference's load_ckpt); num_batches_tracked stays the
+    template's."""
+    return _merge_counting(template, loaded)[0]

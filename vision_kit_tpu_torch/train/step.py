@@ -110,6 +110,13 @@ def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _autocast(dev: torch.device, compute_dtype: torch.dtype):
+    """A context factory: torch.autocast in compute_dtype, none for f32."""
+    if compute_dtype == torch.float32:
+        return contextlib.nullcontext
+    return functools.partial(torch.autocast, dev.type, dtype=compute_dtype)
+
+
 def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
                     remat: bool = False, accum_steps: int = 1,
                     device_aug: bool = False, scale_to: int | None = None,
@@ -142,8 +149,7 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
     dev = _device(model)
-    autocast = (contextlib.nullcontext if compute_dtype == torch.float32 else
-                functools.partial(torch.autocast, dev.type, dtype=compute_dtype))
+    autocast = _autocast(dev, compute_dtype)
 
     def maybe_scale(x):
         if scale_to is None or tuple(x.shape[1:3]) == (scale_to, scale_to):
@@ -211,14 +217,20 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
 
 
 def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
-                   state: TrainState | None = None, use_ema: bool = True):
+                   state: TrainState | None = None, use_ema: bool = True,
+                   compute_dtype: torch.dtype = torch.float32):
     """Eval step: forward with decode, then the eval-protocol postprocess.
 
     With a TrainState, as the JAX step, it evaluates the state's EMA
     weights (use_ema=True) in place of the model's own, or the model's own
     (use_ema=False); the training step updates the state's tensors in place,
-    so the eval step always sees the latest. Without one it evaluates the
-    model as it is.
+    so the eval step always sees the latest. It captures the state's EMA
+    tree when it is built: build it again after a checkpoint restore
+    (train/checkpoint.py). Without a state it evaluates the model as it is.
+
+    compute_dtype: the forward runs under torch.autocast in this dtype
+    (bf16: the f32 EMA tree applied through a bf16 forward, as JAX's
+    Trainer evaluates its bf16 model), as make_train_step's does.
 
     Returns eval_step(imgs): imgs (B, H, W, 3) uint8, a numpy array or a
     tensor on any device, goes straight into the model (the stem scales it),
@@ -229,16 +241,19 @@ def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
     model.eval()
     dev = _device(model)
     tree = state.ema.tree if state is not None and use_ema else None
+    autocast = _autocast(dev, compute_dtype)
 
     @torch.inference_mode()
     def eval_step(imgs):
         if model.training:
             model.eval()
         x = torch.as_tensor(imgs, device=dev)
-        if tree is None:
-            decoded, _ = model(x)
-        else:
-            decoded, _ = torch.func.functional_call(model, tree, (x,), strict=False)
+        with autocast():
+            if tree is None:
+                decoded, _ = model(x)
+            else:
+                decoded, _ = torch.func.functional_call(model, tree, (x,),
+                                                        strict=False)
         return postprocess(decoded, **kwargs)
 
     return eval_step

@@ -6,7 +6,9 @@ an earlier design of the same kernels when one is given.
 Head scores run on 640-px head maps (3 levels of 80x80, 40x40 and
 20x20, 255 channels, bf16: v5s's and v7 base's alike) at batch 128 (the
 v5s throughput path, run_detector_bench), 64 (the v7 throughput path) and
-8 (the request path, Predictor.predict_batch); greedy NMS at B=128, K=512,
+8 (the request path, Predictor.predict_batch), and anchor-major at batch
+128 (a decode_order="reference" model's permuted views of the same maps;
+current design only); greedy NMS at B=128, K=512,
 B=64, K=512 and B=8, K=1024 (the serving paths' batch and max_cand) and at
 B=64, K=2048 (the eval step's), each on random, crowded and all-invalid
 boxes. The batch-8 maps are 34 MB, under the 50 MB L2, so the
@@ -233,28 +235,36 @@ def run(baseline: str | None = None) -> dict:
            "head_scores": [], "greedy_nms": []}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for batch in HEAD_BATCHES:
+    cases = [(b, False, heads) for b in HEAD_BATCHES]
+    cases.append((128, True, {"current": head_scores}))
+    for batch, anchor_major, designs in cases:
         n_sets = 1 if batch >= 32 else 4
         sets = [head_maps(gen, batch) for _ in range(n_sets)]
-        ref = head_scores_reference(sets[0], CONF)
-        for fn in heads.values():
-            head_scores_agree(fn(sets[0], CONF), ref)
+        if anchor_major:
+            sets = [[r.permute(0, 3, 1, 2, 4) for r in raws] for raws in sets]
+        kw = {"anchor_major": True} if anchor_major else {}
+        ref = head_scores_reference(sets[0], CONF, **kw)
+        for fn in designs.values():
+            head_scores_agree(fn(sets[0], CONF, **kw), ref)
 
         def timer(fn, hold=True):
             it = itertools.cycle(sets)
-            return time_ms(lambda: fn(next(it), CONF), reps=20 * n_sets, hold=hold)
+            return time_ms(lambda: fn(next(it), CONF, **kw), reps=20 * n_sets,
+                           hold=hold)
 
-        times = in_turns(heads, timer)
-        calls = in_turns(heads, lambda fn: timer(fn, hold=False))
+        times = in_turns(designs, timer)
+        calls = in_turns(designs, lambda fn: timer(fn, hold=False))
         it = itertools.cycle(sets)
-        plain = time_ms(lambda: head_scores_reference(next(it), CONF), reps=4 * n_sets)
-        split = kernel_ms(lambda: head_scores(next(it), CONF), reps=4 * n_sets)
-        rec = {"batch": batch, "distinct_inputs": n_sets,
+        plain = time_ms(lambda: head_scores_reference(next(it), CONF, **kw),
+                        reps=4 * n_sets)
+        split = kernel_ms(lambda: head_scores(next(it), CONF, **kw), reps=4 * n_sets)
+        rec = {"batch": batch, "anchor_major": anchor_major, "distinct_inputs": n_sets,
                "bound_ms": head_bound_ms(sets[0]), "plain_ms": plain,
                **{f"{n}_ms": t for n, t in times.items()},
                **{f"{n}_call_ms": t for n, t in calls.items()}, "kernels_ms": split}
         out["head_scores"].append(rec)
-        print(f"head_scores b{batch} bf16, device: " + ", ".join(
+        label = " anchor-major" if anchor_major else ""
+        print(f"head_scores b{batch} bf16{label}, device: " + ", ".join(
             f"{n} {np.mean(t):.4f} ms ({t[0]:.4f}/{t[1]:.4f})" for n, t in times.items())
             + "; back-to-back calls: " + ", ".join(
             f"{n} {np.mean(t):.4f} ms" for n, t in calls.items())
