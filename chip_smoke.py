@@ -66,6 +66,23 @@ Phases, each printing its own line; any failure exits non-zero:
      equal to the native order's and to the plain versions', and its
      request latency in turns with the native order's; run_export of
      v5s@640 in f32 on the card, each artifact's check or skip printed;
+ 10. serve: nvJPEG's header, library and version; each sample of
+     vision_kit_tpu_torch/data/samples/ decoded on the card (nvJPEG for a
+     JPEG, the host decoder uploaded for a PNG) against the plain decoder
+     on the host (JPEGs within decode.NVJPEG_TOLERANCE, PNGs bit-equal,
+     EXIF shapes equal, the progressive and truncated samples refused on
+     both), a scan naming an undefined Huffman table refused by nvJPEG and
+     the next decode equal to the first; letterbox_u8 bit-equal on the
+     card and the CPU; the synchronising calls of one Predictor.run; the
+     phase-4 model behind InferenceServer (batch 8, max_wait 5 ms): 64
+     engine requests equal Predictor.run on the same device-decoded
+     frames (class exact, score 1e-5, box 1e-3 px), 64 POSTs from 16
+     clients equal it within the JSON's rounding with each kernel launched
+     once a batch, a garbage body answered 400; then utils/serve_bench.py:
+     the engine over the decoded samples, HTTP from 32 clients beside one
+     request's decode alone, a load curve at 0.5, 0.8 and 0.95 of the
+     engine's capacity, and the engine with synthetic_ingest 4 at batch 8
+     and 64;
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -78,7 +95,9 @@ greedy_nms_train_eval the same shape with the launches of the EMA model's
 eval step; head_scores_v7 and greedy_nms_v7 the kernels at v7's b64 serving
 shape, with the v7 throughput run's launches; head_scores_anchor_major the
 kernel on a reference-order head's b128 maps, with the reference-order
-serving run's launches) and, last, {"ok": true,
+serving run's launches; greedy_nms_serve and head_scores_serve the kernels
+at the server's batch 8, K=1024, with the launches of the server's HTTP
+run) and, last, {"ok": true,
 "device": ...}.
 
 The main path's head has its biases zeroed and its kernels scaled to unit
@@ -268,7 +287,8 @@ def kernel_times(head_max_err: dict):
     rows = {}
     for name, shape in (("greedy_nms", (128, 512)), ("greedy_nms_eval", (64, 2048)),
                         ("greedy_nms_train_eval", (64, 2048)),
-                        ("greedy_nms_v7", (64, 512))):
+                        ("greedy_nms_v7", (64, 512)),
+                        ("greedy_nms_serve", (SERVE_BATCH, 1024))):
         nms = next(r for r in bench["greedy_nms"]
                    if (r["batch"], r["k"], r["case"]) == (*shape, "random"))
         rows[name] = {
@@ -281,7 +301,8 @@ def kernel_times(head_max_err: dict):
         }
     for name, batch, anchor_major in (("head_scores", 128, False),
                                       ("head_scores_v7", 64, False),
-                                      ("head_scores_anchor_major", 128, True)):
+                                      ("head_scores_anchor_major", 128, True),
+                                      ("head_scores_serve", SERVE_BATCH, False)):
         head = next(r for r in bench["head_scores"]
                     if (r["batch"], r["anchor_major"]) == (batch, anchor_major))
         rows[name] = {
@@ -1197,6 +1218,244 @@ def phase_weights(model, rng, smi: str) -> dict:
     return ref_counts
 
 
+SERVE_BATCH = 8
+
+
+def undefined_table_jpeg(data: bytes) -> bytes:
+    """`data` with its scan's first component pointed at Huffman tables 3,
+    which no DHT defines: the host header check passes it, nvJPEG must
+    refuse it."""
+    sos = data.index(b"\xff\xda")
+    return data[:sos + 6] + bytes([0x33]) + data[sos + 7:]
+
+
+def post(url: str, data: bytes, timeout: float = 60.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_decode(smi: str) -> dict:
+    """Each sample decoded on the card against the plain decoder on the
+    host, refusals alike, a corrupt JPEG refused by nvJPEG and the next
+    decode still right, letterbox_u8 equal on the card and the CPU.
+    Returns the card's decoded frames by file name."""
+    from vision_kit_tpu_torch import _cuda_build
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.ops.letterbox import letterbox_u8
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+
+    header, lib = _cuda_build.nvjpeg_paths()
+    print(f"serve: nvjpeg.h {header}, libnvjpeg.so {lib}, nvJPEG "
+          f"{dec.nvjpeg_version()}", flush=True)
+    frames = {}
+    for name, meta, data in svb.samples():
+        want = dec.decode_image(data)
+        got = dec.decode_to(data, "cuda")
+        if meta["shape"] is None:
+            check(want is None and got is None,
+                  f"serve: {name} ({meta['kind']}) decoded; both devices must refuse it")
+            print(f"serve: {name} ({meta['kind']}) refused on the card and on the host",
+                  flush=True)
+            continue
+        check(want is not None and got is not None, f"serve: {name} not decoded")
+        check(tuple(got.shape) == want.shape == (*meta["shape"], 3),
+              f"serve: {name} decoded to {tuple(got.shape)} / {want.shape}, "
+              f"manifest {meta['shape']}")
+        agree = dec.pixel_agreement(got, want)
+        print(f"serve: {name} ({meta['kind']}, {meta['bytes']} B) card against "
+              f"plain: max |d| {agree['max_abs']}, mean |d| {agree['mean_abs']:.4f}, "
+              f"share |d| > 2 {agree['share_over_2']:.6f}", flush=True)
+        if meta["kind"].startswith("png"):
+            check(agree["max_abs"] == 0, f"serve: {name} differs on the card")
+        else:
+            check(dec.within_nvjpeg_tolerance(agree), f"serve: {name}: nvJPEG "
+                  f"outside its tolerance {dec.NVJPEG_TOLERANCE}")
+        frames[name] = got
+    good = next(d for n, m, d in svb.samples() if m["kind"] == "jpeg_720p")
+    calls = dec.decode_jpeg_cuda.calls
+    check(dec.decode_to(undefined_table_jpeg(good), "cuda") is None
+          and dec.decode_image(undefined_table_jpeg(good)) is None,
+          "serve: a scan naming an undefined Huffman table decoded")
+    check(dec.decode_jpeg_cuda.calls == calls + 1,
+          "serve: the corrupt JPEG did not reach nvJPEG")
+    check(dec.decode_to(b"\xff\xd8garbage body", "cuda") is None,
+          "serve: garbage bytes decoded")
+    after = dec.decode_to(good, "cuda")
+    torch.cuda.synchronize()
+    check(after is not None and torch.equal(after, frames["frame0_720x1280_420_q90.jpg"]),
+          "serve: the decode after a corrupt JPEG differs")
+    print("serve: nvJPEG refused a scan naming an undefined Huffman table "
+          "(None, as on the host), garbage bytes gave None, and the next decode "
+          "equals the first (no CUDA error left)", flush=True)
+    for name, img in frames.items():
+        a, ra = letterbox_u8(img, 640)
+        b, rb = letterbox_u8(img.cpu(), 640)
+        check(torch.equal(a.cpu(), b) and ra == rb,
+              f"serve: letterbox_u8 of {name} differs between the card and the CPU")
+    print(f"serve: letterbox_u8 to 640 bit-equal on the card and the CPU for "
+          f"{len(frames)} decoded samples", flush=True)
+    return frames
+
+
+def phase_serve(model, smi: str) -> dict:
+    """The serving daemon on the card: decode, the server end to end, and
+    its load (utils/serve_bench.py). Returns the kernels' launches in the
+    HTTP run."""
+    import threading
+
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.ops.letterbox import scale_coords
+    from vision_kit_tpu_torch.predictor import Predictor
+    from vision_kit_tpu_torch.serve import InferenceServer, _Request, decode_request_bytes
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    t_phase = time.perf_counter()
+    frames = serve_decode(smi)
+    size = (640, 640)
+    payloads = [d for _, m, d in svb.samples() if m["shape"] is not None]
+    pred = Predictor(model, img_size=640, device="cuda")
+    server = InferenceServer(pred, batch_size=SERVE_BATCH, max_wait_ms=5.0, port=0,
+                             queue_size=4096)
+    server.start()
+    try:
+        # the engine's result for each payload against Predictor.run on the
+        # same device-decoded frame (slot 0 of a zero batch)
+        want, lb = [], []
+        for data in payloads:
+            img, (ratio, pad), hw0 = decode_request_bytes(data, size, "cuda")
+            batch = torch.zeros((SERVE_BATCH, *size, 3), dtype=torch.uint8, device="cuda")
+            batch[0] = img
+            dets, valid = pred.run(batch)
+            want.append(scale_coords(size, dets[0][valid[0]].cpu().numpy(), hw0,
+                                     ratio_pad=(ratio, pad)))
+            lb.append((img, ratio, pad, hw0))
+        syncs = sync_points(lambda: pred.run(batch))
+        print("serve: synchronising calls in one Predictor.run (torch sync debug "
+              f"mode): {json.dumps(syncs) if syncs else 'none'}", flush=True)
+        reqs = [_Request(*lb[i % len(lb)][:4], None) for i in range(64)]
+        for r in reqs:
+            server._queue.put(r)
+        for i, r in enumerate(reqs):
+            check(r.event.wait(120) and r.error is None, f"serve: engine request {i} "
+                  f"failed: {r.error}")
+            check(same_detections(want[i % len(want)], r.dets, 1e-5, 1e-3),
+                  f"serve: engine result {i} differs from Predictor.run")
+        check(sum(len(w) for w in want) > 0, "serve: no detections")
+        print(f"serve: 64 engine requests over {len(payloads)} samples equal "
+              "Predictor.run on the same device-decoded frames (class exact, score "
+              "1e-5, box 1e-3 px)", flush=True)
+
+        url = f"http://127.0.0.1:{server.port}"
+        b0 = server._stats()["batches"]
+        reset_counts()
+        dec.decode_jpeg_cuda.calls = 0
+        got = [None] * 64
+
+        def client(k):
+            for i in range(k, 64, 16):
+                got[i] = post(url + "/predict", payloads[i % len(payloads)])
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads), "serve: a client hung")
+        counts = read_counts()
+        stats = server._stats()
+        batches = stats["batches"] - b0
+        for i, (code, body) in enumerate(got):
+            check(code == 200, f"serve: POST {i} answered {code}: {body}")
+            dets = np.array([d["box"] + [d["score"], d["class"]]
+                             for d in body["detections"]], np.float32).reshape(-1, 6)
+            check(same_detections(want[i % len(want)], dets, 2e-5, 1e-2),
+                  f"serve: response {i} differs from Predictor.run beyond its rounding")
+        n_jpeg = sum(1 for i in range(64) if dec.image_kind(payloads[i % len(payloads)]) == "jpeg")
+        check(counts["head_scores"] == counts["greedy_nms"] == batches > 0,
+              f"serve: launches {counts} against {batches} batches")
+        check(dec.decode_jpeg_cuda.calls == n_jpeg,
+              f"serve: {dec.decode_jpeg_cuda.calls} nvJPEG decodes for {n_jpeg} JPEGs")
+        print(f"serve: v5s@640 bf16 server, batch {SERVE_BATCH}, max_wait 5 ms: 64 "
+              f"POSTs from 16 clients answered 200, each equal to Predictor.run "
+              f"within the JSON's rounding; {batches} batches (avg "
+              f"{stats['avg_batch']}), launches {counts}, {n_jpeg} nvJPEG decodes",
+              flush=True)
+        code, body = post(url + "/predict", b"this is not an image")
+        check(code == 400, f"serve: garbage body answered {code}")
+        code, body = post(url + "/predict", payloads[0])
+        check(code == 200, "serve: no answer after a garbage body")
+        print("serve: a garbage body gave 400 and the server still answers", flush=True)
+
+        # -- load (utils/serve_bench.py) ---------------------------------
+        sample_frames = [img for img, _, _, _ in lb]
+        cap, p50, p99 = svb.bench_engine(server, 1600, frames=sample_frames)
+        print(f"serve load: engine over {len(sample_frames)} decoded samples, batch "
+              f"{SERVE_BATCH}: {cap:.1f} img/s, request p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms on {smi}", flush=True)
+        jpegs = svb.sample_bytes("jpeg_720p")
+        ips, h50, h99 = svb.bench_http(server, 512, 32, payloads=jpegs)
+        t_dec = svb.decode_ms(lambda d: decode_request_bytes(d, size, "cuda"),
+                             jpegs, "cuda")
+        t_nvjpeg = svb.decode_ms(lambda d: dec.decode_to(d, "cuda"), jpegs, "cuda")
+        print(f"serve load: HTTP, 32 clients, 512 POSTs of the 720x1280 samples: "
+              f"{ips:.1f} img/s, request p50 {h50:.3f} ms, p99 {h99:.3f} ms; one "
+              f"request's decode alone (host clock, synchronised): nvJPEG + "
+              f"orientation {t_nvjpeg:.3f} ms, + letterbox_u8 {t_dec:.3f} ms; the "
+              f"engine's p50 {p50:.3f} ms on {smi}", flush=True)
+        rows = svb.bench_load_curve(server, cap, (0.5, 0.8, 0.95), 480,
+                                   frames=sample_frames)
+        print("serve load: load curve at batch 8 against the engine's "
+              f"{cap:.1f} img/s: " + "; ".join(
+                  f"{f:.0%} offered {o:.1f} img/s, achieved {a:.1f}, p50 {q50:.3f} "
+                  f"ms, p99 {q99:.3f} ms" for f, o, a, q50, q99 in rows)
+              + f" on {smi}", flush=True)
+    finally:
+        server.stop()
+    for batch in (8, 64):
+        srv = InferenceServer(Predictor(model, img_size=640, device="cuda"),
+                              batch_size=batch, max_wait_ms=2.0, port=0,
+                              queue_size=8192, synthetic_ingest=4)
+        srv.start()
+        try:
+            ips, p50, p99 = svb.bench_engine(srv, 200 * batch if batch == 8 else 6400)
+        finally:
+            srv.stop()
+        print(f"serve load: engine with synthetic_ingest 4, batch {batch}: "
+              f"{ips:.1f} img/s, request p50 {p50:.3f} ms, p99 {p99:.3f} ms on {smi}",
+              flush=True)
+    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def sync_points(fn) -> dict:
+    """Where `fn` makes the host wait for the card: torch's sync debug mode
+    warns at each synchronising call; returns {file:line: count}."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
 def profile_train(smi: str) -> None:
     """Device time of 3 training steps by kernel group and by the step's
     profiler ranges, with the idle share and the convolutions' bound (3x
@@ -1278,6 +1537,7 @@ def main() -> int:
     v7, v7_counts = phase_v7(rng, smi)
     train_counts = phase_train(rng, smi)
     ref_counts = phase_weights(model, rng, smi)
+    serve_counts = phase_serve(model, smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -1313,6 +1573,8 @@ def main() -> int:
     rows["greedy_nms_v7"]["launches"] = v7_counts["greedy_nms"]
     rows["head_scores_v7"]["launches"] = v7_counts["head_scores"]
     rows["head_scores_anchor_major"]["launches"] = ref_counts["head_scores"]
+    rows["greedy_nms_serve"]["launches"] = serve_counts["greedy_nms"]
+    rows["head_scores_serve"]["launches"] = serve_counts["head_scores"]
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

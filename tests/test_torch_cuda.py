@@ -15,6 +15,7 @@ from vision_kit_tpu_torch.ops.boxes import box_iou_pairwise
 from vision_kit_tpu_torch.ops.greedy_nms import greedy_keep, greedy_keep_reference
 from vision_kit_tpu_torch.ops.head_scores import head_scores, head_scores_reference
 from vision_kit_tpu_torch.utils.kernel_bench import head_maps, head_scores_agree, make_boxes
+from vision_kit_tpu_torch.utils.serve_bench import samples
 
 
 pytestmark = pytest.mark.cuda
@@ -291,3 +292,53 @@ def test_ota_loss_card_matches_cpu(cuda):
                   input_size=[128, 128])
     bad, errors = ota_card_vs_cpu(cfg)
     assert bad == [] and errors["fg"] > 0
+
+
+def test_letterbox_u8_card_equals_cpu(cuda):
+    from vision_kit_tpu_torch.ops.letterbox import letterbox_u8
+
+    rng = np.random.default_rng(5)
+    for hw in ((720, 1280), (333, 517), (1280, 1280), (100, 100), (1000, 3)):
+        img = torch.from_numpy(rng.integers(0, 256, (*hw, 3), np.uint8))
+        for dst in (64, 640):
+            if min(hw) * dst < max(hw):
+                continue   # a resize to zero width or height
+            got, g = letterbox_u8(img.to(cuda), dst)
+            want, w = letterbox_u8(img, dst)
+            assert g == w
+            assert torch.equal(got.cpu(), want)
+
+
+def test_nvjpeg_against_the_plain_decoder(cuda):
+    """Each committed sample decoded on the card (nvJPEG for a JPEG, the
+    host decoder uploaded for a PNG) against decode_image: refusals alike,
+    shapes equal (EXIF applied), PNGs bit-equal, JPEGs within
+    NVJPEG_TOLERANCE."""
+    from vision_kit_tpu_torch.data import decode as dec
+
+    for name, meta, data in samples():
+        got, want = dec.decode_to(data, cuda), dec.decode_image(data)
+        if meta["shape"] is None:
+            assert got is None and want is None, name
+            continue
+        assert tuple(got.shape) == want.shape == (*meta["shape"], 3), name
+        agree = dec.pixel_agreement(got, want)
+        if meta["kind"].startswith("png"):
+            assert agree["max_abs"] == 0, name
+        else:
+            assert dec.within_nvjpeg_tolerance(agree), (name, agree)
+
+
+def test_nvjpeg_decodes_after_a_corrupt_jpeg(cuda):
+    from vision_kit_tpu_torch.data import decode as dec
+
+    data = next(d for _, m, d in samples() if m["kind"] == "jpeg_720p")
+    first = dec.decode_to(data, cuda)
+    sos = data.index(b"\xff\xda")
+    corrupt = data[:sos + 6] + bytes([0x33]) + data[sos + 7:]   # undefined tables
+    calls = dec.decode_jpeg_cuda.calls
+    assert dec.decode_to(corrupt, cuda) is None
+    assert dec.decode_jpeg_cuda.calls == calls + 1
+    again = dec.decode_to(data, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)

@@ -1,4 +1,9 @@
-"""Command line of the port: export and weight conversion.
+"""Command line of the port: serving, export and weight conversion.
+
+    python -m vision_kit_tpu_torch serve [-m yolov5|yolov7] [-v s] [-w WEIGHTS]
+        [-c CONFIG] [--num-classes N] [--labels a,b] [--conf 0.25] [--iou 0.45]
+        [--host 127.0.0.1] [--port 8000] [--batch-size 8] [--max-wait-ms 5]
+        [--device cuda]
 
     python -m vision_kit_tpu_torch export -c CONFIG [--ckpt PATH] [--output-dir DIR]
         [--onnx] [--torchscript] [--device cuda]
@@ -19,8 +24,13 @@ key and shape for shape against the model and written as a
 head's implicit layers into its convs. The JAX package's --to-torch has no
 counterpart: the port's weights are torch already.
 
-`train`, `eval` and `serve` wait for the loaders, the Trainer and the
-server to be ported (ROADMAP.md, Queue 1 items 2-4) and raise.
+`serve` is the counterpart of scripts/serve.py: the batched HTTP server
+(serve.py:InferenceServer) over the model that -m/-v, or --config, name,
+with the flags of scripts/demo.py:resolve_model_spec; weights from -w
+(predictor.load_weights; a YOLOv7 serves deploy-folded), else seeded ones.
+
+`train` and `eval` wait for the loaders and the Trainer to be ported
+(ROADMAP.md, Queue 1 item 4) and raise.
 """
 
 from __future__ import annotations
@@ -28,6 +38,63 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def resolve_model_spec(args):
+    """model/variant/num_classes/labels/img_size from -m/-v defaults,
+    --config, and the --num-classes/--labels overrides: the port's copy of
+    scripts/demo.py:resolve_model_spec."""
+    from vision_kit_tpu_torch.classes import COCO
+
+    model_name, variant = args.model, args.variant
+    num_classes, labels, img_size = 80, list(COCO), (640, 640)
+    if args.config:
+        from vision_kit_tpu_torch.utils.config import load_config
+
+        cfg = load_config(args.config)
+        model_name = "yolov7" if "7" in str(cfg.model.name) else "yolov5"
+        variant = str(cfg.model.version)
+        num_classes = int(cfg.model.num_classes)
+        labels = list(cfg.data.class_labels)
+        img_size = tuple(cfg.model.input_size)
+    if args.num_classes is not None:
+        num_classes = args.num_classes
+        if len(labels) != num_classes:
+            labels = [str(i) for i in range(num_classes)]
+    if args.labels is not None:
+        labels = [s.strip() for s in args.labels.split(",") if s.strip()]
+        if args.num_classes is None:
+            num_classes = len(labels)
+    return model_name, variant, num_classes, labels, img_size
+
+
+def _serve(args) -> int:
+    from vision_kit_tpu_torch.predictor import load_predictor_from_config
+    from vision_kit_tpu_torch.serve import InferenceServer
+    from vision_kit_tpu_torch.utils.config import load_config
+
+    model_name, variant, num_classes, labels, img_size = resolve_model_spec(args)
+    cfg = load_config(os.path.join(REPO, "configs", f"{model_name}.yaml"))
+    cfg.model.version, cfg.model.num_classes = variant, num_classes
+    cfg.model.input_size = list(img_size)
+    if model_name == "yolov7":
+        cfg.model.deploy = True   # serves folded, as scripts/demo.py loads it
+    predictor = load_predictor_from_config(
+        cfg, weights=args.weights, device=args.device,
+        conf_thres=args.conf, iou_thres=args.iou)
+    server = InferenceServer(
+        predictor, class_labels=labels, batch_size=args.batch_size,
+        max_wait_ms=args.max_wait_ms, host=args.host, port=args.port)
+    print(f"warming up the serving shape (batch={args.batch_size}, "
+          f"img={img_size}) ...", flush=True)
+    server.start()
+    print(f"serving {model_name}-{variant} on http://{args.host}:{server.port}"
+          f"  (POST /predict, GET /healthz, GET /stats)", flush=True)
+    server.wait()  # blocks; KeyboardInterrupt shuts down cleanly
+    return 0
 
 
 def _export(args) -> int:
@@ -117,16 +184,36 @@ def main(argv=None) -> int:
                            "zip-map onto the reference's key order")
     conv.add_argument("--reparameterize", action="store_true",
                       help="fold a YOLOv7 head's implicit layers into its convs")
-    for task in ("train", "eval", "serve"):
+    srv = sub.add_parser("serve", help="batched HTTP inference server")
+    srv.add_argument("--model", "-m", default="yolov5", choices=["yolov5", "yolov7"])
+    srv.add_argument("--variant", "-v", default="s")
+    srv.add_argument("--weights", "-w", default=None)
+    srv.add_argument("--config", "-c", default=None,
+                     help="training config YAML: model/classes/img-size read from it")
+    srv.add_argument("--num-classes", type=int, default=None)
+    srv.add_argument("--labels", default=None, help="comma-separated class names")
+    srv.add_argument("--conf", type=float, default=0.25)
+    srv.add_argument("--iou", type=float, default=0.45)
+    srv.add_argument("--host", default="127.0.0.1")
+    srv.add_argument("--port", type=int, default=8000)
+    srv.add_argument("--batch-size", type=int, default=8,
+                     help="serving batch (one fixed shape; partial batches are padded)")
+    srv.add_argument("--max-wait-ms", type=float, default=5.0,
+                     help="max dispatcher wait for batch coalescing after the "
+                          "first request arrives")
+    srv.add_argument("--device", default="cuda")
+    for task in ("train", "eval"):
         sub.add_parser(task, help="not ported yet")
     args = parser.parse_args(argv)
     if args.task == "export":
         return _export(args)
     if args.task == "convert":
         return _convert(args)
+    if args.task == "serve":
+        return _serve(args)
     raise NotImplementedError(
-        f"'{args.task}' is not ported yet: it waits for the image decoder, the "
-        "loaders, the Trainer and the server (ROADMAP.md, Queue 1 items 2-4)")
+        f"'{args.task}' is not ported yet: it waits for the loaders and the "
+        "Trainer (ROADMAP.md, Queue 1 item 4)")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Device letterbox (resize + pad + normalise) and coordinate rescale.
+"""Letterbox (resize + pad) and coordinate rescale.
 
 Counterpart of vision_kit_tpu/ops/letterbox.py: letterbox_params is the
 same pure-Python geometry; letterbox_device runs on a batch of uint8 NHWC
-frames on the device.
+frames on the device; letterbox_u8 is letterbox_np (cv2.resize INTER_LINEAR
++ copyMakeBorder) bit for bit, in torch integer ops on either device.
 """
 
 from __future__ import annotations
@@ -79,6 +80,69 @@ def letterbox_device(
         x = x / 255.0
     x = x.contiguous(memory_format=torch.channels_last)
     return x.permute(0, 2, 3, 1), (ratio, pad)
+
+
+RESIZE_COEF_SCALE = 2048   # cv2's INTER_RESIZE_COEF_SCALE (11 fractional bits)
+
+
+def _linear_taps(src: int, dst: int, clamp: bool):
+    """cv2.resize INTER_LINEAR's taps along one axis for uint8: (index of
+    the first and second source sample, their 11-bit weights) per output.
+    The source coordinate is f = float32((d + 0.5) * scale - 0.5) with
+    scale = 1 / (dst / src) in double; each weight is rounded on its own
+    (they need not sum to 2048). Along x (clamp) a coordinate left of the
+    first or right of the last sample takes that sample whole; along y only
+    the row indices are clamped, and the weights stay as computed."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= src - 1)
+        f = np.where(edge, np.float32(0), f)
+        s = np.clip(s, 0, src - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(RESIZE_COEF_SCALE)).astype(np.int32)
+    w1 = np.rint(f * np.float32(RESIZE_COEF_SCALE)).astype(np.int32)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
+
+
+def resize_u8(img: torch.Tensor, dst_wh: tuple[int, int]) -> torch.Tensor:
+    """cv2.resize(img, dst_wh, interpolation=INTER_LINEAR) of an (H, W, C)
+    uint8 tensor, bit for bit: a horizontal pass into exact int32 sums
+    (S[x0] * w0 + S[x1] * w1), then cv2's vertical fixed-point rounding,
+    (((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16) + 2) >> 2. An exact 2x
+    shrink, which cv2 hands to its area path, comes out the same: (a + b +
+    c + d + 2) >> 2."""
+    h, w = img.shape[:2]
+    dw, dh = dst_wh
+    dev = img.device
+    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(w, dw, True))
+    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(h, dh, False))
+    rows = torch.unique(torch.cat([y0, y1]))       # source rows in use
+    src = img.index_select(0, rows).to(torch.int32)
+    horiz = (src.index_select(1, x0) * a0[None, :, None]
+             + src.index_select(1, x1) * a1[None, :, None])
+    pos = torch.searchsorted(rows, torch.cat([y0, y1]))
+    r0 = horiz.index_select(0, pos[:dh]) >> 4
+    r1 = horiz.index_select(0, pos[dh:]) >> 4
+    out = (((r0 * b0[:, None, None]) >> 16) + ((r1 * b1[:, None, None]) >> 16) + 2) >> 2
+    return out.clamp(0, 255).to(torch.uint8)
+
+
+def letterbox_u8(img: torch.Tensor, dst_hw: tuple[int, int] | int):
+    """letterbox_np on an (H, W, 3) uint8 tensor, on its own device: the
+    cv2-exact resize (a copy when the size already fits) and pad 114.
+    Returns ((dst_h, dst_w, 3) uint8, (ratio, (dw, dh)))."""
+    if isinstance(dst_hw, int):
+        dst_hw = (dst_hw, dst_hw)
+    new_unpad, (top, bottom, left, right), ratio, pad = letterbox_params(
+        tuple(img.shape[:2]), dst_hw)
+    if (img.shape[1], img.shape[0]) != new_unpad:
+        img = resize_u8(img, new_unpad)
+    out = torch.full((new_unpad[1] + top + bottom, new_unpad[0] + left + right,
+                      img.shape[2]), PAD_VALUE, dtype=torch.uint8, device=img.device)
+    out[top:top + new_unpad[1], left:left + new_unpad[0]] = img
+    return out, (ratio, pad)
 
 
 def scale_coords(

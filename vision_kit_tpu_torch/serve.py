@@ -1,0 +1,493 @@
+"""Batched HTTP inference server: counterpart of vision_kit_tpu/serve.py.
+
+Requests are coalesced by a dispatcher into fixed-shape batches (padded to
+`batch_size`), run by `Predictor.run` on the card, and read back by a
+completion thread, so that one batch's readback can overlap the next
+one's dispatch (as far as `Predictor.run` lets it: it returns only once
+its batch is done, since it builds its pad and bound tensors from Python
+values with blocking copies). Each request's bytes decode and letterbox on the request's
+device before it is queued (`decode_request_bytes`): on the card a JPEG
+through nvJPEG, a PNG on the host and uploaded, then `letterbox_u8` (cv2's
+letterbox, bit for bit) on the card; on the CPU the plain decoder. So the
+model sees one (B, S, S, 3) uint8 shape whatever the clients' image sizes,
+and detections rescale to each client's frame with `scale_coords`, as in
+the JAX server.
+
+On the card each handler thread decodes on a stream of its own; an event
+recorded after its letterbox travels with the request, and the dispatcher's
+stream waits on it before copying the frame into the batch. The dispatcher
+queues each batch's results for an asynchronous copy into pinned host
+memory right behind its forward, and records an event there: the
+completion thread waits on that event alone, not on the batch dispatched
+after it.
+
+HTTP API (stdlib http.server, threaded), the JAX server's:
+  POST /predict            body = encoded image (JPEG/PNG)
+                           optional ?conf= post-filter (>= server conf)
+                           -> {"detections": [{"box", "score", "class",
+                               "label"}], "width", "height", "batched"}
+  GET  /healthz            -> {"ok": true, "platform": "gpu" or "cpu", ...}
+  GET  /stats              -> request/batch counters + latency percentiles
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from vision_kit_tpu_torch.data.decode import decode_to
+from vision_kit_tpu_torch.ops.letterbox import letterbox_u8, scale_coords
+from vision_kit_tpu_torch.utils.general import resolve_device
+
+
+def decode_request_bytes(data: bytes, dst_hw: tuple[int, int],
+                         device: str | torch.device = "cuda"):
+    """Encoded image bytes -> (letterboxed (H, W, 3) uint8 RGB tensor on
+    `device`, (ratio, (dw, dh)), (h0, w0)) or None. On a CUDA device a JPEG
+    decodes through nvJPEG and a PNG on the host, uploaded; on the CPU both
+    decode on the host (data/decode.py:decode_to). The letterbox is
+    letterbox_u8 on `device`."""
+    img = decode_to(data, resolve_device(device))
+    if img is None:
+        return None
+    out, (ratio, pad) = letterbox_u8(img, dst_hw)
+    return out, (ratio, pad), tuple(img.shape[:2])
+
+
+class _Request:
+    __slots__ = ("img", "ratio", "pad", "hw0", "conf", "event", "dets",
+                 "batched", "error", "deadline", "ready")
+
+    def __init__(self, img, ratio, pad, hw0, conf, deadline=None, ready=None):
+        self.img = img
+        self.ratio = ratio
+        self.pad = pad
+        self.hw0 = hw0
+        self.conf = conf
+        self.event = threading.Event()
+        self.dets = None
+        self.batched = 0
+        self.error = None
+        # monotonic time after which the waiter has already 504'd; the
+        # dispatcher drops expired requests instead of spending batch
+        # slots on results nobody reads (overload must drain, not amplify)
+        self.deadline = deadline
+        # CUDA event recorded after the frame's decode and letterbox on the
+        # handler's stream (None on the CPU or for a frame already ready)
+        self.ready = ready
+
+
+_STOP = object()
+
+
+class InferenceServer:
+    """Dynamic-batching HTTP server over a Predictor.
+
+    One fixed (batch_size, S, S, 3) shape serves every request: the
+    dispatcher drains the queue up to `batch_size` items (waiting at most
+    `max_wait_ms` after the first), zero-pads the remainder, and runs the
+    batch as one `Predictor.run`. Padded slots are discarded.
+    """
+
+    def __init__(
+        self,
+        predictor,
+        class_labels=None,
+        batch_size: int = 8,
+        max_wait_ms: float = 5.0,
+        host: str = "127.0.0.1",
+        port: int = 8000,
+        queue_size: int = 256,
+        request_timeout_s: float = 60.0,
+        synthetic_ingest: int = 0,
+    ):
+        self.predictor = predictor
+        self.device = resolve_device(predictor.device)
+        self.labels = list(class_labels) if class_labels else None
+        # BENCHMARK-ONLY ingest mode: with synthetic_ingest=K > 0, start()
+        # pre-stages K random uint8 batches on the device and _submit_batch
+        # rotates through them instead of assembling request pixels. This
+        # measures the engine itself (queueing, batching, dispatch/readback
+        # overlap, completion) without the per-batch frame copies. Request
+        # results then correspond to the synthetic pixels, so this must
+        # never be enabled on a production server.
+        self.synthetic_ingest = int(synthetic_ingest)
+        self._synth_batches = None
+        self._synth_i = 0
+        self.batch_size = int(batch_size)
+        self.max_wait_s = float(max_wait_ms) / 1000.0
+        self.request_timeout_s = float(request_timeout_s)
+        self.img_size = predictor.img_size
+        self._queue: queue.Queue = queue.Queue(maxsize=queue_size)
+        # dispatch/completion pipeline: the dispatcher submits batches to
+        # the device (asynchronous on the card) and hands the in-flight
+        # results to a completion thread that pays the device->host wait;
+        # the next batch dispatches while the previous one's results are
+        # still in flight. maxsize bounds the device queue depth.
+        self._inflight: queue.Queue = queue.Queue(maxsize=2)
+        self._fn = None  # Predictor.run, set in start() after the warmup
+        self._streams = threading.local()  # each handler thread's decode stream
+        self._stats_mu = threading.Lock()
+        self._n_requests = 0
+        self._n_errors = 0
+        self._n_batches = 0
+        self._n_batched_imgs = 0
+        self._lat_ms: list[float] = []  # rolling window
+        self._dispatcher = threading.Thread(target=self._dispatch_loop,
+                                            daemon=True)
+        self._completer = threading.Thread(target=self._completion_loop,
+                                           daemon=True)
+        self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
+        self._httpd.daemon_threads = True
+        self._serve_thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True
+        )
+        self._started = False
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self):
+        """Warm the serving shape up (kernel builds, cuDNN's choices) and
+        accept connections."""
+        self.predictor.warmup(self.img_size, self.batch_size)
+        self._fn = self.predictor.run
+        if self.synthetic_ingest > 0:
+            h, w = self.img_size
+            rng = np.random.default_rng(0)
+            self._synth_batches = [
+                torch.from_numpy(rng.integers(
+                    0, 256, (self.batch_size, h, w, 3), np.uint8)).to(self.device)
+                for _ in range(self.synthetic_ingest)
+            ]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self._dispatcher.start()
+        self._completer.start()
+        self._serve_thread.start()
+        self._started = True
+        return self
+
+    def stop(self):
+        if self._started:
+            self._queue.put(_STOP)
+            self._httpd.shutdown()
+            self._dispatcher.join(timeout=10)
+            self._completer.join(timeout=10)
+        self._httpd.server_close()
+        self._started = False
+
+    def wait(self):
+        """Block until KeyboardInterrupt, then shut down."""
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self.stop()
+
+    def serve_forever(self):
+        """Blocking variant for the CLI."""
+        self.start()
+        self.wait()
+
+    # -- batching core -----------------------------------------------------
+
+    EXPIRED = "expired before dispatch"
+
+    def _expired(self, req: _Request) -> bool:
+        if req.deadline is not None and time.monotonic() >= req.deadline:
+            req.error = self.EXPIRED
+            req.event.set()  # waiter already timed out; unblock bookkeeping
+            with self._stats_mu:
+                self._n_errors += 1
+            return True
+        return False
+
+    def _dispatch_loop(self):
+        while True:
+            first = self._queue.get()
+            if first is _STOP:
+                self._inflight.put(_STOP)
+                return
+            if self._expired(first):
+                continue
+            reqs = [first]
+            deadline = time.monotonic() + self.max_wait_s
+            stop = False
+            while len(reqs) < self.batch_size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if item is _STOP:
+                    stop = True
+                    break
+                if not self._expired(item):
+                    reqs.append(item)
+            self._submit_batch(reqs)
+            if stop:
+                self._inflight.put(_STOP)
+                return
+
+    def _submit_batch(self, reqs: list[_Request]):
+        """Dispatch one padded batch without waiting for it; readback
+        happens in the completion thread so the next batch can dispatch
+        immediately."""
+        t0 = time.perf_counter()
+        try:
+            if self._synth_batches is not None:  # bench-only device ingest
+                batch = self._synth_batches[
+                    self._synth_i % len(self._synth_batches)]
+                self._synth_i += 1
+            else:
+                h, w = self.img_size
+                batch = torch.zeros((self.batch_size, h, w, 3),
+                                    dtype=torch.uint8, device=self.device)
+                cuda = self.device.type == "cuda"
+                stream = torch.cuda.current_stream(self.device) if cuda else None
+                for i, r in enumerate(reqs):
+                    if r.ready is not None:
+                        stream.wait_event(r.ready)
+                    batch[i].copy_(r.img)
+                    if cuda:
+                        r.img.record_stream(stream)
+            dets, valid = self._fn(batch)
+            if self.device.type == "cuda":
+                # queued right behind this batch's forward, ahead of the next
+                dets = dets.to("cpu", non_blocking=True)
+                valid = valid.to("cpu", non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            else:
+                done = None
+        except Exception as e:  # shape or launch errors surface here
+            for r in reqs:
+                r.error = f"inference failed: {e}"
+                r.event.set()
+            with self._stats_mu:
+                self._n_errors += len(reqs)
+            return
+        # blocks when 2 batches are already in flight (bounds device queue)
+        self._inflight.put((reqs, (dets, valid, done), t0))
+
+    def _completion_loop(self):
+        while True:
+            item = self._inflight.get()
+            if item is _STOP:
+                return
+            reqs, (dets_dev, valid_dev, done), t0 = item
+            try:
+                if done is not None:
+                    done.synchronize()  # pays the device->host wait
+                dets = dets_dev.numpy()
+                valid = valid_dev.numpy()
+            except Exception as e:  # asynchronous device failure lands here
+                for r in reqs:
+                    r.error = f"inference failed: {e}"
+                    r.event.set()
+                with self._stats_mu:
+                    self._n_errors += len(reqs)
+                continue
+            ms = (time.perf_counter() - t0) * 1000
+            for i, r in enumerate(reqs):
+                # per-request firewall: one bad rescale/filter must fail
+                # that request, not kill this thread (a dead completer
+                # wedges the bounded pipeline and 504s everything after)
+                try:
+                    boxes = scale_coords(
+                        self.img_size, dets[i][valid[i]], r.hw0,
+                        ratio_pad=(r.ratio, r.pad),
+                    )
+                    if r.conf is not None:
+                        boxes = boxes[boxes[:, 4] >= r.conf]
+                    r.dets = boxes
+                    r.batched = len(reqs)
+                except Exception as e:
+                    r.error = f"postprocess failed: {e}"
+                    with self._stats_mu:
+                        self._n_errors += 1
+                r.event.set()
+            with self._stats_mu:
+                self._n_batches += 1
+                self._n_batched_imgs += len(reqs)
+                self._lat_ms.append(ms)
+                if len(self._lat_ms) > 512:
+                    self._lat_ms = self._lat_ms[-512:]
+
+    # -- request handling --------------------------------------------------
+
+    def _decode(self, body: bytes):
+        """decode_request_bytes on this thread's own stream on the card, and
+        the event that marks its frame ready (None on the CPU)."""
+        if self.device.type != "cuda":
+            return decode_request_bytes(body, self.img_size, self.device), None
+        stream = getattr(self._streams, "stream", None)
+        if stream is None:
+            stream = self._streams.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            decoded = decode_request_bytes(body, self.img_size, self.device)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return decoded, ready
+
+    def _predict(self, body: bytes, conf: float | None):
+        decoded, ready = self._decode(body)
+        if decoded is None:
+            raise ValueError("could not decode image bytes")
+        img, (ratio, pad), hw0 = decoded
+        req = _Request(img, ratio, pad, hw0, conf,
+                       deadline=time.monotonic() + self.request_timeout_s,
+                       ready=ready)
+        try:
+            self._queue.put_nowait(req)
+        except queue.Full:
+            raise OverflowError("server overloaded (queue full)")
+        if not req.event.wait(self.request_timeout_s):
+            raise TimeoutError("inference timed out")
+        if req.error == self.EXPIRED:
+            # the dispatcher's clock crossed the deadline marginally before
+            # this waiter's own wait() would have: same outcome, same code
+            raise TimeoutError("inference timed out")
+        if req.error is not None:
+            raise RuntimeError(req.error)
+        with self._stats_mu:
+            self._n_requests += 1
+        dets = req.dets
+        out = []
+        for row in dets:
+            cls = int(row[5])
+            out.append({
+                "box": [round(float(v), 2) for v in row[:4]],
+                "score": round(float(row[4]), 5),
+                "class": cls,
+                "label": (self.labels[cls]
+                          if self.labels and 0 <= cls < len(self.labels)
+                          else str(cls)),
+            })
+        return {
+            "detections": out,
+            "width": int(req.hw0[1]),
+            "height": int(req.hw0[0]),
+            "batched": req.batched,
+        }
+
+    def _stats(self):
+        with self._stats_mu:
+            lat = sorted(self._lat_ms)
+            n = len(lat)
+            pct = (lambda q: round(lat[min(n - 1, int(q * n))], 2)) if n else (
+                lambda q: None)
+            return {
+                "requests": self._n_requests,
+                "errors": self._n_errors,
+                "batches": self._n_batches,
+                "avg_batch": (round(self._n_batched_imgs / self._n_batches, 2)
+                              if self._n_batches else 0.0),
+                "batch_size": self.batch_size,
+                "p50_batch_ms": pct(0.50),
+                "p99_batch_ms": pct(0.99),
+            }
+
+    def _healthz(self):
+        return {
+            "ok": True,
+            "platform": "gpu" if self.device.type == "cuda" else "cpu",
+            "img_size": list(self.img_size),
+            "batch_size": self.batch_size,
+        }
+
+    def _make_handler(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):  # silence per-request spam
+                pass
+
+            def _json(self, code: int, payload: dict):
+                try:
+                    body = json.dumps(payload).encode()
+                    self.send_response(code)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    if self.close_connection:
+                        # tell keep-alive clients the stream ends here
+                        # (set on paths that left the request body unread)
+                        self.send_header("Connection", "close")
+                    self.end_headers()
+                    self.wfile.write(body)
+                except (BrokenPipeError, ConnectionResetError):
+                    pass  # client went away; nothing to tell it
+
+            def do_GET(self):
+                path = self.path.split("?", 1)[0]
+                if path == "/healthz":
+                    self._json(200, server._healthz())
+                elif path == "/stats":
+                    self._json(200, server._stats())
+                else:
+                    self._json(404, {"error": f"unknown path {path}"})
+
+            MAX_BODY = 32 * 1024 * 1024  # one encoded image; 413 beyond
+
+            def do_POST(self):
+                path, _, query = self.path.partition("?")
+                if path != "/predict":
+                    # body not consumed: the keep-alive stream is no longer
+                    # framed correctly, so close after responding
+                    self.close_connection = True
+                    self._json(404, {"error": f"unknown path {path}"})
+                    return
+                length = int(self.headers.get("Content-Length") or 0)
+                if length <= 0:
+                    # absent Content-Length (e.g. a chunked body): frames
+                    # are left unread on the stream, so close it
+                    self.close_connection = True
+                    self._json(400, {"error": "empty body (a body requires "
+                                     "Content-Length; chunked unsupported)"})
+                    return
+                if length > self.MAX_BODY:
+                    self.close_connection = True  # refuse to buffer/drain it
+                    self._json(413, {"error": f"body over {self.MAX_BODY} B"})
+                    return
+                body = self.rfile.read(length)
+                if len(body) != length:
+                    # truncated upload; stream is desynced, close it
+                    self.close_connection = True
+                    self._json(400, {"error": "truncated body"})
+                    return
+                conf = None
+                for kv in query.split("&"):
+                    if kv.startswith("conf="):
+                        try:
+                            conf = float(kv[5:])
+                        except ValueError:
+                            self._json(400, {"error": "bad conf value"})
+                            return
+                try:
+                    self._json(200, server._predict(body, conf))
+                except ValueError as e:
+                    self._json(400, {"error": str(e)})
+                except OverflowError as e:
+                    self._json(503, {"error": str(e)})
+                except TimeoutError as e:
+                    self._json(504, {"error": str(e)})
+                except Exception as e:
+                    self._json(500, {"error": str(e)})
+
+        return Handler
