@@ -83,6 +83,19 @@ Phases, each printing its own line; any failure exits non-zero:
      request's decode alone, a load curve at 0.5, 0.8 and 0.95 of the
      engine's capacity, and the engine with synthetic_ingest 4 at batch 8
      and 64;
+ 11. fit: utils/loader_bench.py:write_dataset's YOLO dataset (the samples
+     under several names, PNG rectangle scenes, the two refused samples)
+     through Trainer.fit for v5s@640 bf16, 2 classes, 2 epochs at batch 64
+     with configs/yolov5_tpu.yaml's device augmentation and RAM cache on
+     the card, then test(): one greedy_nms launch per validation batch and
+     none of head_scores, the checkpoints, the best weights served by
+     load_predictor_from_config; the card's TrainLoader and ValLoader
+     against a CPU dataset's (loader_bench.loader_disagreements); a twin
+     run's distance in the default mode; in a child process in
+     deterministic mode (--resume-check), a crash after step 3 resumed from
+     ckpts/last, bit-identical to an uninterrupted run; the train CLI as a
+     subprocess; an epoch under the profiler and the sample grid alone; the
+     loader's rates and ms a batch, and the step alone on the fit's model;
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -97,7 +110,8 @@ shape, with the v7 throughput run's launches; head_scores_anchor_major the
 kernel on a reference-order head's b128 maps, with the reference-order
 serving run's launches; greedy_nms_serve and head_scores_serve the kernels
 at the server's batch 8, K=1024, with the launches of the server's HTTP
-run) and, last, {"ok": true,
+run; greedy_nms_fit the eval shape with the launches of fit's
+validations) and, last, {"ok": true,
 "device": ...}.
 
 The main path's head has its biases zeroed and its kernels scaled to unit
@@ -287,6 +301,7 @@ def kernel_times(head_max_err: dict):
     rows = {}
     for name, shape in (("greedy_nms", (128, 512)), ("greedy_nms_eval", (64, 2048)),
                         ("greedy_nms_train_eval", (64, 2048)),
+                        ("greedy_nms_fit", (64, 2048)),
                         ("greedy_nms_v7", (64, 512)),
                         ("greedy_nms_serve", (SERVE_BATCH, 1024))):
         nms = next(r for r in bench["greedy_nms"]
@@ -1435,6 +1450,276 @@ def phase_serve(model, smi: str) -> dict:
     return counts
 
 
+FIT_BATCH, FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 64, 128, 64, 2
+
+
+def fit_config(data_dir: str, out: str, epochs: int = FIT_EPOCHS):
+    """configs/yolov5_tpu.yaml (device augmentation, RAM cache, batch 64,
+    val_interval 1) for v5s@640 bf16 with 2 classes on a write_dataset
+    dataset, seeded weights, the loss gains scaled as the CLI scales them."""
+    from vision_kit_tpu_torch.utils.config import load_config
+    from vision_kit_tpu_torch.utils.general import update_loss_cfg
+
+    cfg = load_config(os.path.join(REPO, "configs", "yolov5_tpu.yaml"))
+    cfg.model.update(version="s", num_classes=2, input_size=[640, 640], weight="")
+    cfg.data.update(data_dir=data_dir, output_dir=out, train_path="train",
+                    val_path="valid", test_path="valid", batch_size=FIT_BATCH,
+                    max_epochs=epochs, class_labels=["red", "green"])
+    cfg.testing.val_interval = 1
+    return update_loss_cfg(cfg)
+
+
+class CrashingLoader:
+    """A TrainLoader whose iterator raises after `after` batches."""
+
+    def __init__(self, loader, after: int):
+        self.loader, self.after = loader, after
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.loader):
+            if i == self.after:
+                raise RuntimeError("crash injected by chip_smoke")
+            yield batch
+
+
+def state_distance(got: dict, want: dict, before: dict) -> dict:
+    """|got - want| / |want - before| by part of two train_state_tensors
+    layouts (the Euclidean norms over each part's tensors)."""
+    out = {}
+    for p in want:
+        num = sum(float(((got[p][k] - w) ** 2).sum()) for k, w in want[p].items())
+        den = sum(float(((w - before[p][k]) ** 2).sum()) for k, w in want[p].items())
+        out[p] = (num / max(den, 1e-30)) ** 0.5
+    return out
+
+
+def resume_check(data_dir: str, out: str) -> dict:
+    """`python3 chip_smoke.py --resume-check DATA OUT`, with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts: in deterministic
+    mode, an uninterrupted fit, then a fit that crashes after step 3 (a
+    loader that raises) resumed from its ckpts/last. Returns the step the
+    crash saved, the batch ids the resume trained on, both runs' final
+    steps, whether every state tensor is bit-identical, and the
+    uninterrupted run's img/s by epoch."""
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ref = Trainer(fit_config(data_dir, os.path.join(out, "ref")), use_tensorboard=False,
+                  seed=0, device="cuda")
+    ref.fit()
+    cfg = fit_config(data_dir, os.path.join(out, "crash"))
+    crashed = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
+    crashed.train_loader = CrashingLoader(crashed.train_loader, 3)
+    try:
+        crashed.fit()
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    crashed.train_loader.close()
+    last = os.path.join(cfg.data.output_dir, "ckpts", "last")
+    with open(last + ".meta.json") as f:
+        saved = json.load(f)["step"]
+    resumed = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
+    seen, orig = [], resumed.train_step
+
+    def recording(state, batch):
+        seen.append(resumed.train_loader._next_bid - 1)
+        return orig(state, batch)
+
+    resumed.train_step = recording
+    resumed.fit(resume=last)
+    want, got = sb.train_state_tensors(ref.state), sb.train_state_tensors(resumed.state)
+    differ = [f"{p} {k}" for p in sb.STATE_PARTS for k in want[p]
+              if not torch.equal(want[p][k], got[p][k])]
+    return {"saved_step": saved, "seen": seen, "step": resumed.state.step,
+            "ref_step": ref.state.step, "identical": not differ, "differ": differ[:5],
+            "ref_img_s": [e["img_s"] for e in ref.epoch_stats]}
+
+
+def phase_fit(smi: str) -> dict:
+    """Training from a dataset: Trainer.fit of v5s@640 bf16 for 2 epochs on
+    write_dataset's files (JPEG samples on nvJPEG, PNG scenes, the refused
+    samples dropped by the scan), then test(); the card's loaders against
+    the plain ones; a crash after step 3 resumed on the card; the train CLI
+    as a subprocess; the loader's numbers. Returns the greedy_nms and
+    head_scores launches of fit."""
+    import glob
+    import subprocess
+    import tempfile
+
+    from vision_kit_tpu_torch.data.datasets import YOLODataset
+    from vision_kit_tpu_torch.predictor import load_predictor_from_config
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+    from vision_kit_tpu_torch.utils.config import save_config
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "ds")
+        made = lb.write_dataset(data_dir, FIT_TRAIN, FIT_VAL)
+        cfg = fit_config(data_dir, os.path.join(tmp, "run"))
+        tr = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
+        check(len(tr.train_loader.planner.dataset) == FIT_TRAIN,
+              f"the scan kept {len(tr.train_loader.planner.dataset)} of {FIT_TRAIN} + "
+              f"{len(made['refused'])} refused train images")
+        check(tr.train_loader.device.type == "cuda", "the train dataset is not on the card")
+        before = sb.train_state_tensors(tr.state)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        n_val = FIT_EPOCHS * len(tr.val_loader)
+        check(counts == {"greedy_nms": n_val, "head_scores": 0},
+              f"fit launched {counts}, not one greedy_nms per validation batch ({n_val})")
+        check(tr.global_step == tr.state.step == FIT_EPOCHS * FIT_TRAIN // FIT_BATCH,
+              f"fit ended at step {tr.global_step}")
+        run = cfg.data.output_dir
+        best = sorted(glob.glob(os.path.join(run, "weights", "best-map50_*.pt")))
+        for path in ("ckpts/last", "ckpts/last.meta.json", "train.png", "val.png"):
+            check(os.path.exists(os.path.join(run, path)), f"fit wrote no {path}")
+        check(len(best) > 0, "fit exported no best weights")
+        reset_counts()
+        result = tr.test()
+        test_counts = read_counts()
+        check(test_counts["greedy_nms"] == len(tr.val_loader),
+              f"test() launched {test_counts}")
+        check(all(np.isfinite(result[k]) for k in ("map50", "map50_95")),
+              f"test() mAP {result['map50']}, {result['map50_95']}")
+        pred = load_predictor_from_config(cfg, weights=best[-1], device="cuda")
+        ema = torch.load(best[-1], weights_only=True)["model"]
+        for k, v in pred.model.state_dict().items():
+            if k in ema:
+                check(torch.equal(v.cpu(), ema[k].float()), f"best weights {k} not served")
+        frames = next(iter(tr.val_loader))["image"][:4].cpu().numpy()
+        dets, _ = pred.predict_batch(frames)
+        check(all(np.isfinite(d).all() for d in dets), "best weights: non-finite detections")
+        stats = tr.epoch_stats
+        print(f"fit: v5s@640 b{FIT_BATCH} bf16 (2 classes), {FIT_EPOCHS} epochs of "
+              f"{tr.steps_per_epoch} steps on {FIT_TRAIN} train images ({len(made['refused'])} "
+              f"refused ones dropped by the scan), RAM cache on the card, device aug with "
+              f"mosaic: fit {fit_s:.1f} s; per epoch "
+              + "; ".join(f"{e['img_s']:.1f} img/s ({e['seconds']:.2f} s, loader wait "
+                          f"{100 * e['loader_wait_s'] / e['seconds']:.1f} %), validation "
+                          f"{e['val_s']:.2f} s" for e in stats)
+              + f"; launches {counts}; test() mAP@.5 {result['map50']:.4f} launches "
+              f"{test_counts}; best weights served by load_predictor_from_config on {smi}",
+              flush=True)
+
+        # the card's loaders against the plain ones, over the same files
+        card_ds = tr.train_loader.planner.dataset
+        plain_ds = YOLODataset(os.path.join(data_dir, "train"), img_size=640, device="cpu",
+                               cache_images="ram")
+        bad = lb.loader_disagreements(card_ds, plain_ds, batch=16, size=640, n_batches=2,
+                                      aug={"enable_mixup": True, "mixup_prob": 1.0})
+        check(bad == [], f"card loaders disagree with the plain ones: {bad[:5]}")
+        print("fit: card loaders vs plain (2 TrainLoader batches of 16 with mixup, 2 "
+              "ValLoader batches of 16): params, tile_hw, targets and infos equal, PNG "
+              "pixels bit-equal, JPEG pixels within decode.NVJPEG_TOLERANCE", flush=True)
+        del plain_ds
+
+        # a second uninterrupted run from the same seed, in the default
+        # (non-deterministic) mode: how far apart two runs land
+        twin = Trainer(fit_config(data_dir, os.path.join(tmp, "twin")),
+                       use_tensorboard=False, seed=0, device="cuda")
+        twin.fit()
+        twin_dist = state_distance(sb.train_state_tensors(twin.state),
+                                   sb.train_state_tensors(tr.state), before)
+        print("fit: a twin run from the same seed, default mode: |twin - run| / |run's "
+              "change| by part " + json.dumps({k: round(v, 6) for k, v in twin_dist.items()}),
+              flush=True)
+        del twin
+
+        # a crash after step 3, resumed from ckpts/last, in a child process
+        # in deterministic mode beside an uninterrupted run
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                            "--resume-check", data_dir, os.path.join(tmp, "resume")],
+                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESUME ")]
+        check(r.returncode == 0 and lines,
+              f"the resume check exited {r.returncode}: {r.stderr[-2000:]}")
+        res = json.loads(lines[-1][len("RESUME "):])
+        want_steps = FIT_EPOCHS * FIT_TRAIN // FIT_BATCH
+        check(res["saved_step"] == 3, f"the crash saved step {res['saved_step']}, not 3")
+        check(res["seen"] == list(range(3, want_steps)), f"the resume saw batches {res['seen']}")
+        check(res["step"] == res["ref_step"] == want_steps,
+              f"the resume ended at step {res['step']}, the run at {res['ref_step']}")
+        check(res["identical"], f"the resumed state differs from the run's: {res['differ']}")
+        print(f"fit: deterministic mode (torch.use_deterministic_algorithms, "
+              f"CUBLAS_WORKSPACE_CONFIG=:4096:8), a child process: a crash after step 3 "
+              f"saved step {res['saved_step']}; the resume saw batches {res['seen']} and "
+              f"ended at step {res['step']}, every state tensor bit-identical to an "
+              f"uninterrupted run's; that run's epochs "
+              + ", ".join(f"{v:.1f}" for v in res["ref_img_s"]) + " img/s", flush=True)
+
+        # the CLI, as a user runs it
+        cli_cfg = fit_config(data_dir, os.path.join(tmp, "cli"), epochs=1)
+        save_config(cli_cfg, os.path.join(tmp, "cli.yaml"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "vision_kit_tpu_torch", "train", "-c",
+                            os.path.join(tmp, "cli.yaml")], cwd=REPO, capture_output=True,
+                           text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        logs = glob.glob(os.path.join(tmp, "cli", "YOLOv5", "train", "*", "log.log"))
+        check(r.returncode == 0, f"train CLI exited {r.returncode}: {r.stderr[-2000:]}")
+        check(len(logs) == 1 and "mAP@.5" in open(logs[0]).read(),
+              "the train CLI logged no mAP@.5")
+        print(f"fit: python -m vision_kit_tpu_torch train -c <cfg> (1 epoch): exit 0 in "
+              f"{cli_s:.1f} s, mAP@.5 logged", flush=True)
+
+        # where an epoch's wall goes: one more epoch at a time through
+        # fit(resume=last) (a warm-up epoch, then one under the profiler),
+        # and the sample grid alone
+        def one_more_epoch():
+            tr.max_epochs += 1
+            tr.fit(resume=os.path.join(run, "ckpts", "last"))
+
+        prof = profile_device(one_more_epoch, 1, TRAIN_PROFILE_GROUPS, TRAIN_RANGES)
+        batch = next(iter(tr.train_loader))
+        tr.train_loader.close()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._save_grid(batch, "probe")
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        print(f"fit: one epoch (2 steps, the validation, a checkpoint; resumed from "
+              f"ckpts/last) under the profiler, device ms by kernel group and range: "
+              f"{json.dumps(prof)}; the sample grid alone (warp of 16 tiles, PNG) "
+              f"{grid_s:.3f} s on {smi}", flush=True)
+        del batch
+
+        # the loader alone, and the step alone on the fit's model
+        uncached = YOLODataset(os.path.join(data_dir, "train"), img_size=640, device="cuda")
+        rates = {"uncached (nvJPEG)": lb.train_loader_rate(uncached, FIT_BATCH, 640, 2),
+                 "RAM cache": lb.train_loader_rate(card_ds, FIT_BATCH, 640, 2)}
+        val_img_s = lb.val_loader_rate(
+            YOLODataset(os.path.join(data_dir, "valid"), img_size=640, device="cuda"),
+            FIT_BATCH, 640)
+        step_alone = sb.run_train_bench(tr.model, tr.loss, batch=FIT_BATCH, iters=10,
+                                        warmup=3, device_aug=True)
+        print("fit: loader at b64@640 on the card: "
+              + "; ".join(f"{n} {r['img_s']:.1f} img/s with its prefetch thread, "
+                          f"{r['batch_ms']:.1f} ms a batch alone" for n, r in rates.items())
+              + f"; ValLoader uncached {val_img_s:.1f} img/s; run_train_bench of the fit's "
+              f"model (device aug) {step_alone['value']:.1f} img/s beside fit's "
+              + ", ".join(f"{e['img_s']:.1f}" for e in stats) + f" img/s on {smi}",
+              flush=True)
+    del tr, pred
+    torch.cuda.empty_cache()
+    print(f"fit: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def sync_points(fn) -> dict:
     """Where `fn` makes the host wait for the card: torch's sync debug mode
     warns at each synchronising call; returns {file:line: count}."""
@@ -1493,6 +1778,12 @@ def profile_train(smi: str) -> None:
 
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--resume-check":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, REPO)
+        print("RESUME " + json.dumps(resume_check(sys.argv[2], sys.argv[3])), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1538,6 +1829,7 @@ def main() -> int:
     train_counts = phase_train(rng, smi)
     ref_counts = phase_weights(model, rng, smi)
     serve_counts = phase_serve(model, smi)
+    fit_counts = phase_fit(smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -1574,6 +1866,7 @@ def main() -> int:
     rows["head_scores_v7"]["launches"] = v7_counts["head_scores"]
     rows["head_scores_anchor_major"]["launches"] = ref_counts["head_scores"]
     rows["greedy_nms_serve"]["launches"] = serve_counts["greedy_nms"]
+    rows["greedy_nms_fit"]["launches"] = fit_counts["greedy_nms"]
     rows["head_scores_serve"]["launches"] = serve_counts["head_scores"]
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

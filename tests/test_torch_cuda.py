@@ -342,3 +342,47 @@ def test_nvjpeg_decodes_after_a_corrupt_jpeg(cuda):
     again = dec.decode_to(data, cuda)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+def test_card_loaders_agree_with_the_plain_ones(cuda, tmp_path):
+    """write_dataset's files (JPEG samples and PNG scenes) through a card
+    dataset and a CPU one: TrainLoader params, tile_hw and targets equal,
+    PNG tiles bit-equal and JPEG tiles within NVJPEG_TOLERANCE in their
+    valid regions, and the same for ValLoader's images and infos
+    (loader_bench.loader_disagreements)."""
+    from vision_kit_tpu_torch.data.datasets import YOLODataset
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    lb.write_dataset(str(tmp_path), n_train=16, n_val=8)
+    split = str(tmp_path / "train")
+    card = YOLODataset(split, img_size=320, device=cuda)
+    plain = YOLODataset(split, img_size=320, device="cpu", cache_images="ram")
+    assert len(card) == 16 and card.decoder == "nvjpeg"
+    mixup = {"enable_mixup": True, "mixup_prob": 1.0}
+    assert lb.loader_disagreements(card, plain, batch=4, size=320, aug=mixup) == []
+
+
+def test_two_step_fit_on_the_card(cuda, tmp_path):
+    """Trainer.fit of v5n@320 in bf16 on the card, one epoch of 2 steps
+    with the RAM cache in device memory, then test(): the greedy-NMS kernel
+    launched once per validation batch, the checkpoint and best weights
+    written."""
+    from vision_kit_tpu_torch.ops.greedy_nms import greedy_keep
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    lb.write_dataset(str(tmp_path / "ds"), n_train=8, n_val=8)
+    cfg = _config("yolov5_tpu.yaml", version="n", num_classes=2, input_size=[320, 320],
+                  weight="")
+    cfg.data.update(data_dir=str(tmp_path / "ds"), output_dir=str(tmp_path / "out"),
+                    train_path="train", val_path="valid", test_path="valid",
+                    batch_size=4, max_epochs=1, class_labels=["a", "b"])
+    tr = Trainer(cfg, use_tensorboard=False, seed=0, device=cuda)
+    assert tr.train_loader.device.type == "cuda"
+    before = greedy_keep.launches
+    tr.fit()
+    assert greedy_keep.launches == before + len(tr.val_loader)
+    result = tr.test()
+    assert np.isfinite(result["map50"])
+    assert (tmp_path / "out" / "ckpts" / "last").exists()
+    assert list((tmp_path / "out" / "weights").glob("best-map50_*.pt"))

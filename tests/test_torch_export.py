@@ -180,5 +180,6 @@ def test_cli_convert_then_export(tmp_path, capsys):
                          weights_only=True)["model"]
     for k, t in sd.items():
         assert torch.equal(weights[k], t), k
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(["train"])
+    # train runs on the card unless --device cpu is given
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train", "-c", cfg_path])

@@ -1,4 +1,8 @@
-"""Command line of the port: serving, export and weight conversion.
+"""Command line of the port: training, evaluation, serving, export and
+weight conversion.
+
+    python -m vision_kit_tpu_torch train -c CONFIG [-d CKPT_DIR] [-s SEED] [--device cuda]
+    python -m vision_kit_tpu_torch eval -c CONFIG [-d CKPT_DIR] [-s SEED] [--device cuda]
 
     python -m vision_kit_tpu_torch serve [-m yolov5|yolov7] [-v s] [-w WEIGHTS]
         [-c CONFIG] [--num-classes N] [--labels a,b] [--conf 0.25] [--iou 0.45]
@@ -29,8 +33,14 @@ counterpart: the port's weights are torch already.
 with the flags of scripts/demo.py:resolve_model_spec; weights from -w
 (predictor.load_weights; a YOLOv7 serves deploy-folded), else seeded ones.
 
-`train` and `eval` wait for the loaders and the Trainer to be ported
-(ROADMAP.md, Queue 1 item 4) and raise.
+`train` and `eval` are the counterparts of scripts/main.py's tasks: the
+seed is --seed, else the config's data.seed, else 21; the run writes into
+<cfg.data.output_dir>/<model>/<task>/<YYYYmmddHHMM> (log.log, ckpts/,
+weights/, the sample grids), with the loss gains scaled by
+update_loss_cfg. `train` runs Trainer.fit (resuming from <ckpt-dir>/last
+when -d is given and it exists), then Trainer.test; `eval` loads
+<ckpt-dir>/best when it exists, then runs Trainer.test. The config must set
+data.device_aug: true (the host-augmentation route is not ported).
 """
 
 from __future__ import annotations
@@ -94,6 +104,49 @@ def _serve(args) -> int:
     print(f"serving {model_name}-{variant} on http://{args.host}:{server.port}"
           f"  (POST /predict, GET /healthz, GET /stats)", flush=True)
     server.wait()  # blocks; KeyboardInterrupt shuts down cleanly
+    return 0
+
+
+def _train_or_eval(args) -> int:
+    import numpy as np
+
+    from vision_kit_tpu_torch.train.evaluator import DetEvaluator
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils.config import load_config
+    from vision_kit_tpu_torch.utils.general import (
+        mk_output_dir,
+        resolve_device,
+        update_loss_cfg,
+    )
+    from vision_kit_tpu_torch.utils.logging_utils import logger, setup_logger
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    seed = args.seed
+    if seed is None:
+        cfg_seed = getattr(cfg.data, "seed", None)
+        seed = int(cfg_seed) if cfg_seed is not None else 21
+    np.random.seed(seed)
+    cfg.data.output_dir = mk_output_dir(cfg.data.output_dir, cfg.model.name, args.task)
+    setup_logger(cfg.data.output_dir)
+    logger.info("Global seed set to %d", seed)
+    cfg = update_loss_cfg(cfg)
+    evaluator = DetEvaluator(class_labels=list(cfg.data.class_labels),
+                             img_size=tuple(cfg.model.input_size),
+                             gt_json=getattr(cfg.data, "gt_json", None))
+    ckpt_path = None
+    if args.ckpt_dir:
+        ckpt_path = os.path.join(args.ckpt_dir, "last" if args.task == "train" else "best")
+        if not os.path.exists(ckpt_path):
+            logger.info("no checkpoint at %s: starting fresh", ckpt_path)
+            ckpt_path = None
+    trainer = Trainer(cfg, evaluator=evaluator, seed=seed, device=device)
+    if args.task == "train":
+        logger.info("Start Training...")
+        trainer.fit(resume=ckpt_path)
+    elif ckpt_path:
+        trainer.load_checkpoint(ckpt_path)
+    trainer.test()
     return 0
 
 
@@ -202,18 +255,23 @@ def main(argv=None) -> int:
                      help="max dispatcher wait for batch coalescing after the "
                           "first request arrives")
     srv.add_argument("--device", default="cuda")
-    for task in ("train", "eval"):
-        sub.add_parser(task, help="not ported yet")
+    for task, what in (("train", "Trainer.fit, then Trainer.test"),
+                       ("eval", "Trainer.test of <ckpt-dir>/best")):
+        p = sub.add_parser(task, help=what)
+        p.add_argument("--config", "-c", default="./configs/yolov5.yaml")
+        p.add_argument("--ckpt-dir", "-d", default=None,
+                       help="train: resume from <dir>/last; eval: load <dir>/best")
+        p.add_argument("--seed", "-s", type=int, default=None,
+                       help="default: the config's data.seed, else 21")
+        p.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    if args.task in ("train", "eval"):
+        return _train_or_eval(args)
     if args.task == "export":
         return _export(args)
     if args.task == "convert":
         return _convert(args)
-    if args.task == "serve":
-        return _serve(args)
-    raise NotImplementedError(
-        f"'{args.task}' is not ported yet: it waits for the loaders and the "
-        "Trainer (ROADMAP.md, Queue 1 item 4)")
+    return _serve(args)
 
 
 if __name__ == "__main__":

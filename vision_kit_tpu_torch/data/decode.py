@@ -677,9 +677,11 @@ def _png_samples(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndar
     return (bits * weights).sum(-1, dtype=np.uint8)[:, :, None]
 
 
-def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
-    pos, ihdr, plte, idat, orientation = 8, None, None, [], 1
-    n = len(data)
+def _png_chunks(data: bytes):
+    """(type, body) of each chunk after the signature up to IEND or the end
+    of the bytes. A truncated chunk, or a critical chunk whose CRC fails,
+    raises ValueError; an ancillary chunk whose CRC fails is skipped."""
+    pos, n = 8, len(data)
     while pos + 8 <= n:
         length = struct.unpack(">I", data[pos:pos + 4])[0]
         ctype = data[pos + 4:pos + 8]
@@ -688,11 +690,58 @@ def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
         pos += 12 + length
         if len(body) != length or len(crc) != 4:
             raise ValueError("truncated chunk")
-        critical = not (ctype[0] & 0x20)
         if zlib.crc32(ctype + body) != struct.unpack(">I", crc)[0]:
-            if critical:
+            if not ctype[0] & 0x20:
                 raise ValueError(f"CRC error in {ctype!r}")
             continue
+        if ctype == b"IEND":
+            return
+        yield ctype, body
+
+
+def png_header(data: bytes) -> dict:
+    """height, width and the eXIf orientation of a PNG, from its chunks
+    (every CRC checked, no pixel inflated). Raises ValueError for bytes that
+    are no PNG, end inside a chunk, or hold no IHDR or IDAT."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG")
+    info, idat = {"orientation": 1}, False
+    for ctype, body in _png_chunks(data):
+        if ctype == b"IHDR":
+            if len(body) != 13:
+                raise ValueError("malformed IHDR")
+            info["width"], info["height"] = struct.unpack(">II", body[:8])
+        elif ctype == b"IDAT":
+            idat = True
+        elif ctype == b"eXIf":
+            info["orientation"] = parse_exif_orientation(body)
+    if "width" not in info or not idat:
+        raise ValueError("no IHDR or IDAT")
+    return info
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> PNG bytes (colour type 2, depth 8, filter
+    None, zlib level 1): the port's image writer for sample grids and
+    synthetic datasets, where no JPEG encoder is at hand."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    h, w = rgb.shape[:2]
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
+    ihdr, plte, idat, orientation = None, None, [], 1
+    for ctype, body in _png_chunks(data):
         if ctype == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
@@ -701,8 +750,6 @@ def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
             idat.append(body)
         elif ctype == b"eXIf":
             orientation = parse_exif_orientation(body)
-        elif ctype == b"IEND":
-            break
     if ihdr is None or not idat:
         raise ValueError("no IHDR or IDAT")
     w, h, depth, ctype, comp, filt, interlace = ihdr

@@ -1,10 +1,11 @@
 """Device-side train augmentation: mosaic + affine + mixup + HSV + flips, at
 the head of the training step.
 
-Counterpart of vision_kit_tpu/data/device_aug.py:warp_augment (the host
-planner that draws the parameters and computes the labels, DeviceAugPlanner,
-comes with the loaders). Every sample is determined by its parameter row;
-there is no randomness on the device.
+Counterpart of vision_kit_tpu/data/device_aug.py: warp_augment on the
+device, and DeviceAugPlanner, the host half that draws each sample's
+parameters and computes its labels (numpy, the JAX planner's draw order).
+Every sample is determined by its parameter row; there is no randomness on
+the device.
 
 The warp is separable (no rotation or shear), so each tile's resample is
 two bilinear weight-matrix products: out = sum_t A_t @ tile_t @ B_t^T +
@@ -19,6 +20,7 @@ reversed axes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PAD_VALUE = 114.0
@@ -177,3 +179,222 @@ def _apply_mixup(out, tiles, p, xo, yo, H, W, dtype):
     mix = torch.where(ok[..., None], mix, 0.0)
     mixw = p[:, P_MIX_W][:, None, None, None].to(dtype)
     return out * (1.0 - mixw) + mix * mixw
+
+
+# ======================================================================
+# Host-side planner
+# ======================================================================
+
+
+def _label_count(dataset, idx: int) -> int:
+    """Number of labels of `idx` WITHOUT decoding the image: from the
+    label table (YOLODataset's rows, filtered as load_anno filters them;
+    COCODataset's items), else load_anno."""
+    labs = getattr(dataset, "labels", None)
+    if labs is not None:
+        rows = labs[idx]
+        fc = getattr(dataset, "filter_classes", None)
+        if fc and len(rows):
+            return int(np.isin(rows[:, 0], fc).sum())
+        return len(rows)
+    items = getattr(dataset, "items", None)
+    if items is not None:
+        return len(items[idx]["labels"])
+    return len(dataset.load_anno(idx))
+
+
+class DeviceAugPlanner:
+    """Host half of the device augmentation: RNG decisions + label math.
+
+    plan(rng, idx) -> (tile_idxs, draws); after the loader decodes every
+    tile, finalize(draws, items) -> (params_row, tile_hw_row, labels,
+    tile_imgs) with labels in the final SxS frame (abs xyxy+cls). The
+    per-sample draw order is the JAX planner's, so one seed gives the same
+    parameters and labels in both packages."""
+
+    def __init__(self, dataset, img_size=(640, 640), enable_mosaic=True,
+                 enable_mixup=False, mosaic_prob=1.0, mixup_prob=1.0,
+                 degrees=0.0, translate=0.1, mosaic_scale=(0.5, 1.5),
+                 mixup_scale=(0.5, 1.5), shear=0.0, flip_lr_prob=0.5,
+                 flip_ud_prob=0.0, hsv_prob=1.0,
+                 hsv_gains=(0.015, 0.7, 0.4), no_aug=False):
+        if degrees or shear:
+            raise ValueError(
+                "device augmentation supports degrees=0, shear=0 only "
+                "(rotation/shear make the warp non-separable); the host "
+                "augmentation route that takes them is not ported")
+        self.dataset = dataset
+        # label counts are immutable per idx; memoised so that datasets
+        # without a label table pay load_anno's decode at most once per
+        # index instead of once per mixup-retry probe
+        self._label_counts: dict[int, int] = {}
+        self.input_dim = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
+        self.enable_mosaic = enable_mosaic and not no_aug
+        self.enable_mixup = enable_mixup and not no_aug
+        self.mosaic_prob = mosaic_prob
+        self.mixup_prob = mixup_prob
+        self.translate = translate
+        self.mosaic_scale = tuple(mosaic_scale)
+        self.mixup_scale = tuple(mixup_scale)
+        self.flip_lr_prob = 0.0 if no_aug else flip_lr_prob
+        self.flip_ud_prob = 0.0 if no_aug else flip_ud_prob
+        self.hsv_prob = 0.0 if no_aug else hsv_prob
+        self.hsv_gains = tuple(hsv_gains)
+        # mixup off -> 4-slot tile buffers (the warp skips the slot-4 resample)
+        self.n_tiles = N_TILES if self.enable_mixup else 4
+
+    def plan(self, rng: np.random.Generator, idx: int):
+        """Draw order: mosaic gate, (yc, xc, 3 extra indices), affine
+        (scale, tx, ty), mixup gate + retry indices + (jit, flip), then HSV
+        and the flips. Returns (tile_idxs to decode, draws dict)."""
+        H, W = self.input_dim
+        draws: dict = {"idx": idx}
+        mosaic = self.enable_mosaic and rng.random() < self.mosaic_prob
+        draws["mosaic"] = mosaic
+        if mosaic:
+            draws["yc"] = int(rng.uniform(0.5 * H, 1.5 * H))
+            draws["xc"] = int(rng.uniform(0.5 * W, 1.5 * W))
+            tile_idxs = [idx] + [int(rng.integers(0, len(self.dataset))) for _ in range(3)]
+            draws["scale"] = float(rng.uniform(*self.mosaic_scale))
+            draws["tx"] = float(rng.uniform(-self.translate, self.translate) * W)
+            draws["ty"] = float(rng.uniform(-self.translate, self.translate) * H)
+            if self.enable_mixup and rng.random() < self.mixup_prob:
+                # up to 30 tries for a labelled sample, counted from the
+                # label table without a decode
+                cp = -1
+                for _ in range(30):
+                    cand = int(rng.integers(0, len(self.dataset)))
+                    n = self._label_counts.get(cand)
+                    if n is None:
+                        n = self._label_counts[cand] = _label_count(self.dataset, cand)
+                    if n:
+                        cp = cand
+                        break
+                if cp >= 0:
+                    draws["mix_idx"] = cp
+                    draws["mix_jit"] = float(rng.uniform(*self.mixup_scale))
+                    draws["mix_flip"] = bool(rng.random() > 0.5)
+                    tile_idxs = tile_idxs + [cp]
+        else:
+            tile_idxs = [idx]
+        if rng.random() < self.hsv_prob:
+            draws["hsv"] = tuple(float(v) for v in rng.uniform(-1, 1, 3) * self.hsv_gains + 1)
+        else:
+            draws["hsv"] = (1.0, 1.0, 1.0)
+        draws["flip_lr"] = rng.random() < self.flip_lr_prob
+        draws["flip_ud"] = rng.random() < self.flip_ud_prob
+        draws["_rng"] = rng  # mixup crop offsets need post-decode draws
+        return tile_idxs, draws
+
+    def finalize(self, draws: dict, items):
+        """items: (img, labels_resized_xyxy, hw0, id) for each of plan()'s
+        tile_idxs. Returns (params (N_PARAMS,) f32, tile_hw (n_tiles, 2)
+        i32, labels (n, 5) abs xyxy+cls in the final frame, tile_imgs list
+        aligned to slots)."""
+        H, W = self.input_dim
+        params = np.zeros(N_PARAMS, np.float32)
+        tile_hw = np.zeros((self.n_tiles, 2), np.int32)
+        params[P_SCALE] = 1.0
+        params[P_MIX_JIT] = 1.0
+        params[P_MIX_OW], params[P_MIX_OH] = W, H
+        tile_imgs: list = [None] * self.n_tiles
+
+        if draws["mosaic"]:
+            xc, yc = draws["xc"], draws["yc"]
+            s, tx, ty = draws["scale"], draws["tx"], draws["ty"]
+            params[P_XC], params[P_YC] = xc, yc
+            params[P_SCALE], params[P_TX], params[P_TY] = s, tx, ty
+            all_labels = []
+            for t in range(4):
+                img, lab, _, _ = items[t]
+                h, w = img.shape[:2]
+                tile_imgs[t] = img
+                tile_hw[t] = (h, w)
+                padw = (xc - w) if t in (0, 2) else xc
+                padh = (yc - h) if t in (0, 1) else yc
+                if len(lab):
+                    l2 = lab.copy()
+                    l2[:, [0, 2]] += padw
+                    l2[:, [1, 3]] += padh
+                    all_labels.append(l2)
+            if all_labels:
+                labels = np.concatenate(all_labels, 0)
+                labels[:, 0] = labels[:, 0].clip(0, 2 * W)
+                labels[:, 1] = labels[:, 1].clip(0, 2 * H)
+                labels[:, 2] = labels[:, 2].clip(0, 2 * W)
+                labels[:, 3] = labels[:, 3].clip(0, 2 * H)
+                # scale + translate on the corners (no rotation), then clip
+                labels[:, [0, 2]] = (labels[:, [0, 2]] * s + tx).clip(0, W)
+                labels[:, [1, 3]] = (labels[:, [1, 3]] * s + ty).clip(0, H)
+                wh = labels[:, 2:4] - labels[:, 0:2]
+                labels = labels[(wh > 1.0).all(1)]
+            else:
+                labels = np.zeros((0, 5), np.float32)
+
+            if "mix_idx" in draws and len(labels):
+                labels = self._finalize_mixup(draws, items[4], labels, params,
+                                              tile_hw, tile_imgs)
+            else:
+                params[P_MIX_W] = 0.0
+        else:
+            img, lab, _, _ = items[0]
+            h, w = img.shape[:2]
+            tile_imgs[0] = img
+            tile_hw[0] = (h, w)
+            left, top = (W - w) // 2, (H - h) // 2
+            # degenerate params: xc=2W, yc=2H puts every in-bounds tap in
+            # quadrant 0, whose paste offset is 2W - w; folding the centred
+            # pad into the integer translate makes every tap exact
+            params[P_XC], params[P_YC] = 2 * W, 2 * H
+            params[P_SCALE] = 1.0
+            params[P_TX] = left - (2 * W - w)
+            params[P_TY] = top - (2 * H - h)
+            labels = lab.copy() if len(lab) else np.zeros((0, 5), np.float32)
+            if len(labels):
+                labels[:, [0, 2]] += left
+                labels[:, [1, 3]] += top
+
+        # flips last, on the final frame
+        if draws["flip_lr"] and len(labels):
+            x1 = labels[:, 0].copy()
+            labels[:, 0] = W - labels[:, 2]
+            labels[:, 2] = W - x1
+        if draws["flip_ud"] and len(labels):
+            y1 = labels[:, 1].copy()
+            labels[:, 1] = H - labels[:, 3]
+            labels[:, 3] = H - y1
+        params[P_FLIP_LR] = float(draws["flip_lr"])
+        params[P_FLIP_UD] = float(draws["flip_ud"])
+        params[P_HSV_H], params[P_HSV_S], params[P_HSV_V] = draws["hsv"]
+        return params, tile_hw, labels, tile_imgs
+
+    def _finalize_mixup(self, draws, cp_item, labels, params, tile_hw, tile_imgs):
+        """Mixup geometry + labels. Post-decode draw order: y_off, x_off."""
+        H, W = self.input_dim
+        rng = draws["_rng"]
+        img, cp_lab, _, _ = cp_item
+        h, w = img.shape[:2]
+        tile_imgs[4] = img
+        tile_hw[4] = (h, w)
+        jit, flip = draws["mix_jit"], draws["mix_flip"]
+        ow, oh = int(W * jit), int(H * jit)
+        y_off = int(rng.integers(0, oh - H)) if oh > H else 0
+        x_off = int(rng.integers(0, ow - W)) if ow > W else 0
+        params[P_MIX_W] = 0.5
+        params[P_MIX_JIT] = jit
+        params[P_MIX_OW], params[P_MIX_OH] = ow, oh
+        params[P_MIX_FLIP] = float(flip)
+        params[P_MIX_XOFF] = x_off
+        params[P_MIX_YOFF] = y_off
+
+        boxes = cp_lab[:, :4] * jit
+        boxes[:, 0::2] = boxes[:, 0::2].clip(0, ow)
+        boxes[:, 1::2] = boxes[:, 1::2].clip(0, oh)
+        if flip:
+            boxes[:, 0::2] = ow - boxes[:, 0::2][:, ::-1]
+        boxes[:, 0::2] = (boxes[:, 0::2] - x_off).clip(0, W)
+        boxes[:, 1::2] = (boxes[:, 1::2] - y_off).clip(0, H)
+        mix_labels = np.concatenate([boxes, cp_lab[:, 4:5]], axis=1)
+        wh = mix_labels[:, 2:4] - mix_labels[:, 0:2]
+        mix_labels = mix_labels[(wh > 1.0).all(1)]
+        return np.concatenate([labels, mix_labels], axis=0)

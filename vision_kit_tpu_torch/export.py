@@ -31,7 +31,6 @@ Export runs on the device the model is on.
 
 from __future__ import annotations
 
-import logging
 import os
 import shutil
 import warnings
@@ -41,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-logger = logging.getLogger("vision_kit_tpu_torch")
+from vision_kit_tpu_torch.utils.logging_utils import logger
 
 #: A replay of the same graph against the eager forward: |delta| within
 #: REPLAY_ATOL + REPLAY_RTOL * |eager| (a few f32 ulps of the pixel-valued

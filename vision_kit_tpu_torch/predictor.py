@@ -22,7 +22,6 @@ and shape match.
 
 from __future__ import annotations
 
-import logging
 import os
 import time
 
@@ -32,6 +31,7 @@ import torch
 from vision_kit_tpu_torch.ops.letterbox import letterbox_device
 from vision_kit_tpu_torch.ops.nms import postprocess, postprocess_raw
 from vision_kit_tpu_torch.utils.general import resolve_device
+from vision_kit_tpu_torch.utils.logging_utils import logger
 
 
 class Predictor:
@@ -225,7 +225,7 @@ def _merge_counting(template: dict, loaded: dict) -> tuple[dict, int]:
             out[k] = v
             skipped += 1
     if skipped:
-        logging.getLogger("vision_kit_tpu_torch").info(
+        logger.info(
             "partial load: %d entries copied, %d kept from the model", kept, skipped)
     return out, skipped
 

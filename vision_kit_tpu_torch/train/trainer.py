@@ -1,13 +1,36 @@
-"""Validation and test loops: the metric part of
-vision_kit_tpu/train/trainer.py:Trainer.validate and Trainer.test.
+"""Training orchestration: the imperative loop around the train and eval
+steps, and the validation and test loops.
 
-Batches are in ValLoader's format: {"image": (B, S, S, 3) uint8,
-"targets": (B, M, 5), "info": [(h0, w0, ratio, pad, img_id)], "count"}.
-The Trainer class, its sample grids, loggers and tables come with the
-training slice.
+Counterpart of vision_kit_tpu/train/trainer.py: epochs over the infinite
+TrainLoader, validation of the EMA weights every `val_interval` epochs
+through ValLoader and make_eval_step (whose postprocess runs the greedy-NMS
+kernel on the card), best/last checkpoints monitored on mAP@.5, early
+stopping, exact-step resume, multi-scale size draws, sample grids, per-class
+tables, TensorBoard when it imports and WandB when credentials are set.
+
+On one device (a mesh raises), on the device-augmentation route (data.
+device_aug: true; the host route and degrees/shear raise). Precision: f32
+master weights, and model.precision bf16 (the default) runs the forwards of
+both steps under torch.autocast in bf16. Checkpoints are train/checkpoint.py
+files, ckpts/last and ckpts/best with the JAX meta beside each; the best
+EMA weights are an fp16 {"model": state_dict} .pt that
+predictor.load_weights reads. Sample grids are PNGs (<split>.png).
+
+Batches are in ValLoader's format for `validate` and `test` below: {"image":
+(B, S, S, 3) uint8, "targets": (B, M, 5), "info": [(h0, w0, ratio, pad,
+img_id)], "count"}.
 """
 
 from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from vision_kit_tpu_torch.utils.logging_utils import logger
+from vision_kit_tpu_torch.utils.table import RichTable
 
 
 def validate(eval_step, batches, evaluator, collect_coco: bool = False) -> dict:
@@ -30,3 +53,538 @@ def test(eval_step, batches, evaluator) -> dict:
     result = validate(eval_step, batches, evaluator, collect_coco=True)
     result["coco"] = evaluator.summarize_coco()
     return result
+
+
+def _wandb_netrc_login() -> bool:
+    """True when `wandb login` stored credentials in ~/.netrc."""
+    import netrc
+
+    try:
+        return netrc.netrc().authenticators("api.wandb.ai") is not None
+    except (OSError, netrc.NetrcParseError):
+        return False
+
+
+def _compute_dtype(cfg) -> torch.dtype:
+    precision = str(getattr(cfg.model, "precision", "bf16"))
+    return torch.bfloat16 if precision in ("bf16", "bfloat16", "16") else torch.float32
+
+
+class Trainer:
+    MS_INTERVAL = 10  # steps between multi-scale size draws
+
+    def __init__(self, cfg, evaluator=None, mesh=None, use_tensorboard: bool = True,
+                 seed: int | None = None, device: str | torch.device = "cuda"):
+        from vision_kit_tpu_torch.models import build_model
+        from vision_kit_tpu_torch.train.evaluator import DetEvaluator
+        from vision_kit_tpu_torch.train.optim import make_optimizer
+        from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
+        from vision_kit_tpu_torch.utils.general import resolve_device
+
+        if mesh is not None:
+            raise NotImplementedError("the port's Trainer runs on one device; the mesh "
+                                      "is not ported (ROADMAP.md, Queue 1 item 6)")
+        self.cfg = cfg
+        # one seed drives model init, the loader's index stream and every
+        # per-sample augmentation draw; the CLI's --seed lands here
+        if seed is None:
+            seed = getattr(cfg.data, "seed", None)  # a config seed of 0 is valid
+        self.seed = int(seed) if seed is not None else 21
+        self.device = resolve_device(device)
+        self.compute_dtype = _compute_dtype(cfg)
+        self.model = build_model(cfg, device=self.device, seed=self.seed)
+        self.img_size = tuple(cfg.model.input_size)
+        self.max_epochs = int(cfg.data.max_epochs)
+        self.val_interval = int(cfg.testing.val_interval)
+        self.output_dir = cfg.data.output_dir
+        os.makedirs(os.path.join(self.output_dir, "ckpts"), exist_ok=True)
+        self.batch_size = int(cfg.data.batch_size)
+
+        aug = dict(cfg.augmentations)
+        self.device_aug = bool(getattr(cfg.data, "device_aug", False))
+        for key in ("degrees", "shear"):
+            if self.device_aug and float(aug.get(key, 0) or 0):
+                raise NotImplementedError(
+                    f"augmentations.{key} needs the host-augmentation route, which "
+                    "is not ported (ROADMAP.md, Queue 1 item 4); set it to 0 for "
+                    "data.device_aug")
+
+        self.train_loader, self.val_loader = self._build_loaders()
+        steps_per_epoch = self.train_loader.steps_per_epoch
+
+        weight = getattr(cfg.model, "weight", None)
+        if weight and os.path.exists(str(weight)):
+            from vision_kit_tpu_torch.predictor import load_weights
+
+            try:
+                # shape-checked partial load: mismatched heads (another
+                # num_classes) keep their fresh init
+                load_weights(str(weight), self.model, partial=True)
+                logger.info("loaded pretrained weights from %s", weight)
+            except (OSError, ValueError, RuntimeError) as e:
+                logger.warning("pretrained load failed (%s); training from scratch", e)
+
+        self.cosine = cfg.model.name == "YOLOv7"
+        hyp = dict(cfg.hypermeters)
+        self.tx = make_optimizer(self.model, hyp, self.max_epochs, steps_per_epoch,
+                                 cosine=self.cosine)
+        # explicit layout: the head's training maps follow decode_order
+        layout = ("anchor_major" if getattr(self.model, "decode_order", "native")
+                  == "reference" else "native")
+        if self.cosine and int(hyp.get("loss_ota", 0)):
+            from vision_kit_tpu_torch.train.ota import YoloLossOTA as loss_cls
+        else:
+            from vision_kit_tpu_torch.train.losses import YoloLoss as loss_cls
+        self.loss = loss_cls(int(cfg.model.num_classes), self.model.head.grid_anchors,
+                             hyp, layout=layout)
+        self.state = create_train_state(self.model, self.tx)
+        self.train_step = make_train_step(self.model, self.loss, self.tx,
+                                          **self._step_options())
+        # multi-scale training (data.multiscale: true -> base +/- {64, 128},
+        # or a list of sizes): the batch resizes on the device inside the
+        # step, redrawn every MS_INTERVAL steps from a seeded stream
+        self.ms_sizes = self._parse_multiscale(cfg)
+        self._ms_steps: dict[int, object] = {}
+        self.evaluator = evaluator or DetEvaluator(
+            list(cfg.data.class_labels), self.img_size,
+            gt_json=getattr(cfg.data, "gt_json", None))
+        self.eval_step = self._build_eval_step()
+        self.steps_per_epoch = steps_per_epoch
+        self.ckpt_interval = int(getattr(cfg.data, "ckpt_interval", 1) or 1)
+        self.best_map50 = -1.0
+        self.epochs_no_improve = 0
+        self.patience = int(getattr(cfg.testing, "patience", 5) or 5)
+        # completed train steps reflected in self.state: the resume cursor
+        self.global_step = 0
+        # True while a validation's side effects (best checkpoint, patience)
+        # are in flight; persisted so that a crash inside validate() re-runs it
+        self._val_pending = False
+        # per epoch: seconds, img/s, seconds waiting on the loader, and the
+        # validation's wall seconds (None when it did not validate)
+        self.epoch_stats: list[dict] = []
+
+        self.tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.tb = SummaryWriter(os.path.join(self.output_dir, "tb"))
+            except (ImportError, OSError):
+                self.tb = None
+        # WandB only when credentials or a mode are configured: an
+        # unconditional wandb.init blocks on a login prompt
+        self.wandb = None
+        if (os.environ.get("WANDB_API_KEY") or os.environ.get("WANDB_MODE")
+                or _wandb_netrc_login()):
+            try:
+                import wandb
+
+                self.wandb = wandb.init(project="VisionKit", dir=self.output_dir,
+                                        config=cfg.to_dict(), reinit=True)
+            except Exception as e:  # any failure of an optional logger
+                logger.warning("wandb disabled: %s", e)
+                self.wandb = None
+
+    def _step_options(self) -> dict:
+        data = self.cfg.data
+        return dict(accum_steps=int(getattr(data, "accum_steps", 1) or 1),
+                    remat=bool(getattr(data, "remat", False)),
+                    device_aug=self.device_aug, compute_dtype=self.compute_dtype)
+
+    def _build_eval_step(self):
+        """The eval step over this state's EMA, in the compute dtype. It
+        captures the state's EMA tree: built again by use_state."""
+        from vision_kit_tpu_torch.train.step import make_eval_step
+
+        return make_eval_step(
+            self.model, state=self.state, compute_dtype=self.compute_dtype,
+            postprocess_kwargs=dict(conf_thres=float(self.cfg.testing.conf_thresh),
+                                    iou_thres=float(self.cfg.testing.iou_thresh)))
+
+    def use_state(self, state) -> None:
+        """Make `state` (a TrainState of this model and optimizer) the
+        trainer's, with an eval step over its EMA."""
+        self.state = state
+        self.eval_step = self._build_eval_step()
+
+    def _parse_multiscale(self, cfg):
+        """cfg data.multiscale -> sorted size list or None (off)."""
+        ms = getattr(cfg.data, "multiscale", False)
+        if not ms:
+            return None
+        if self.img_size[0] != self.img_size[1]:
+            raise ValueError("data.multiscale requires a square input_size")
+        base = int(self.img_size[0])
+        if isinstance(ms, (list, tuple)):
+            sizes = sorted({int(s) for s in ms})
+        else:
+            sizes = sorted({max(64, base + d) for d in (-128, -64, 0, 64, 128)})
+        for s in sizes:
+            if s % 32:
+                # the stride-32 pyramid needs whole cells at every level
+                raise ValueError(f"multiscale size {s} not a multiple of 32")
+        if base not in sizes:
+            sizes.append(base)
+            sizes.sort()
+        return sizes
+
+    def _train_step_for(self, gstep: int):
+        """The (possibly size-jittered) train step for global step `gstep`."""
+        from vision_kit_tpu_torch.train.step import make_train_step
+
+        if not self.ms_sizes:
+            return self.train_step
+        rng = np.random.default_rng([self.seed, 4242, gstep // self.MS_INTERVAL])
+        size = self.ms_sizes[int(rng.integers(len(self.ms_sizes)))]
+        if size == int(self.img_size[0]):
+            return self.train_step
+        step = self._ms_steps.get(size)
+        if step is None:
+            step = self._ms_steps[size] = make_train_step(
+                self.model, self.loss, self.tx, scale_to=size, **self._step_options())
+        return step
+
+    def _log_scalar(self, name: str, value: float, step: int):
+        if self.tb:
+            self.tb.add_scalar(name, value, step)
+        if self.wandb:
+            self.wandb.log({name: value}, step=step)
+
+    def _log_image(self, tag: str, img_rgb, step: int):
+        """Push an HWC uint8 RGB image to TensorBoard and WandB."""
+        if self.tb:
+            self.tb.add_image(tag, img_rgb, step, dataformats="HWC")
+        if self.wandb:
+            import wandb
+
+            self.wandb.log({tag: wandb.Image(img_rgb)})
+
+    # -- data -------------------------------------------------------------
+    def _dataset(self, split_path: str, coco_json: str | None = None):
+        from vision_kit_tpu_torch.data.datasets import COCODataset, YOLODataset
+
+        cfg = self.cfg
+        kw = dict(img_size=self.img_size,
+                  filter_classes=list(cfg.data.filter_classes or []),
+                  cache_images=getattr(cfg.data, "cache_images", None) or None,
+                  fast_decode=bool(getattr(cfg.data, "fast_decode", False)),
+                  device=self.device)
+        fmt = cfg.data.data_format
+        if fmt == "yolo":
+            return YOLODataset(os.path.join(cfg.data.data_dir, split_path), **kw)
+        if fmt == "coco":
+            return COCODataset(cfg.data.data_dir, json_file=coco_json, name=split_path,
+                               **kw)
+        raise ValueError(f"unknown data_format {fmt!r}")
+
+    def _build_loaders(self):
+        from vision_kit_tpu_torch.data.loader import TrainLoader, ValLoader
+
+        cfg = self.cfg
+        train_ds = self._dataset(str(cfg.data.train_path), "instances_train2017.json")
+        val_ds = self._eval_dataset(str(cfg.data.val_path))
+        train_loader = TrainLoader(
+            train_ds, self.batch_size, img_size=self.img_size,
+            aug_cfg=dict(cfg.augmentations), seed=self.seed,
+            num_workers=int(getattr(cfg.data, "num_workers", 0) or 0),
+            device_aug=self.device_aug)
+        return train_loader, ValLoader(val_ds, self.batch_size, img_size=self.img_size)
+
+    def _eval_dataset(self, split_path: str):
+        """Eval-split dataset for a `val_path`/`test_path` config value; a
+        COCO split prefers instances_<split>.json, else instances_val2017.json."""
+        json_file = None
+        if self.cfg.data.data_format == "coco":
+            for json_file in (f"instances_{split_path}.json", "instances_val2017.json"):
+                if os.path.exists(os.path.join(self.cfg.data.data_dir, "annotations",
+                                               json_file)):
+                    break
+        return self._dataset(split_path, json_file)
+
+    # -- checkpointing ----------------------------------------------------
+    def save_checkpoint(self, name: str, epoch: int):
+        """The state to ckpts/<name> and the meta beside it (the step saved is
+        global_step, which the state's step equals)."""
+        from vision_kit_tpu_torch.train import checkpoint
+
+        path = os.path.join(self.output_dir, "ckpts", name)
+        checkpoint.save_checkpoint(path, self.state, epoch, best_map50=self.best_map50,
+                                   epochs_no_improve=self.epochs_no_improve,
+                                   val_pending=self._val_pending)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore ckpts/<name> into the state, and the early-stop and
+        pending-validation counters from its meta; returns the step to
+        resume at. The eval step is built again over the restored EMA."""
+        from vision_kit_tpu_torch.train import checkpoint
+
+        state, meta = checkpoint.load_checkpoint(path, self.state)
+        self.use_state(state)
+        step = state.step
+        if meta is not None:
+            self.best_map50 = float(meta.get("best_map50", -1.0))
+            # early-stop patience survives a resume (an uninterrupted run
+            # would still be counting)
+            self.epochs_no_improve = int(meta.get("epochs_no_improve", 0))
+            step = int(meta.get("step", step))
+            self._val_pending = bool(meta.get("val_pending", False))
+        self.global_step = step
+        return step
+
+    # -- loops ------------------------------------------------------------
+    def fit(self, resume: str | None = None):
+        """Training loop. On any exception (an interrupt included) the state
+        is saved as the `last` checkpoint and the best weights exported
+        before it re-raises.
+
+        The crash-save records global_step, the train steps reflected in the
+        saved state, so fit(resume=...) continues the data stream, the
+        schedules and the optimizer and EMA state at the EXACT step, even
+        mid-epoch. A crash inside validate() also marks the validation
+        pending; the resume re-runs it (same weights, deterministic eval)
+        before training goes on."""
+        try:
+            self._fit(resume)
+        except BaseException:
+            try:
+                # the epoch field is informational (the last COMPLETED epoch);
+                # the resume cursor is meta["step"]
+                self.save_checkpoint("last", self.global_step // self.steps_per_epoch - 1)
+                if self.best_map50 > 0:
+                    self._export_best_weights(self.best_map50)
+                logger.warning("exception: saved last checkpoint before exit")
+            except Exception as e:  # the original exception is re-raised below
+                logger.warning("crash-save failed: %s", e)
+            raise
+
+    def _fit(self, resume: str | None = None):
+        from vision_kit_tpu_torch.train.optim import lr_schedules
+
+        start_step = 0
+        if resume:
+            start_step = self.load_checkpoint(resume)
+            logger.info("resumed from %s at step %d (epoch %d)", resume, start_step,
+                        start_step // self.steps_per_epoch)
+            # the batches are deterministic per batch id and the restored
+            # state has consumed exactly start_step of them; close() makes
+            # the loader idle so that seek is valid on a re-fit Trainer too
+            self.train_loader.close()
+            self.train_loader.seek(start_step)
+        self.global_step = start_step
+        start_epoch = start_step // self.steps_per_epoch
+
+        lr_weight, _, _ = lr_schedules(dict(self.cfg.hypermeters), self.max_epochs,
+                                       self.steps_per_epoch, cosine=self.cosine)
+        it = iter(self.train_loader)
+
+        # a crash inside validate() left its side effects (best checkpoint,
+        # patience counter) unapplied: replay the interrupted epoch tail
+        if (resume and self._val_pending and start_step
+                and start_step % self.steps_per_epoch == 0):
+            logger.info("resume: re-running the interrupted validation")
+            self._cur_epoch = start_epoch - 1
+            if self._epoch_tail(start_epoch - 1):
+                self._finish_fit()
+                return
+
+        for epoch in range(start_epoch, self.max_epochs):
+            self._cur_epoch = epoch
+            t0 = time.perf_counter()
+            wait = 0.0
+            first = max(start_step - epoch * self.steps_per_epoch, 0)
+            losses = None
+            for step in range(first, self.steps_per_epoch):
+                tw = time.perf_counter()
+                batch = next(it)
+                wait += time.perf_counter() - tw
+                if step == first:
+                    # the first batch's sample grid, every epoch
+                    self._save_grid(batch, "train", step=epoch)
+                step_fn = self._train_step_for(epoch * self.steps_per_epoch + step)
+                self.state, losses = step_fn(self.state, batch)
+                self.global_step += 1
+            # one synchronisation an epoch
+            losses = {k: float(v) for k, v in losses.items()}
+            dt = time.perf_counter() - t0
+            n_steps = self.steps_per_epoch - first
+            stats = {"epoch": epoch, "seconds": dt, "img_s": n_steps * self.batch_size / dt,
+                     "loader_wait_s": wait, "val_s": None}
+            self.epoch_stats.append(stats)
+            logger.info("epoch %d/%d loss %.4f (box %.4f obj %.4f cls %.4f) "
+                        "%.1fs %.1f img/s, loader wait %.1f%%",
+                        epoch + 1, self.max_epochs, losses["loss"], losses["loss_box"],
+                        losses["loss_obj"], losses["loss_cls"], dt, stats["img_s"],
+                        100 * wait / dt)
+            self._log_scalar("loss", losses["loss"], epoch)
+            self._log_scalar("loss/box", losses["loss_box"], epoch)
+            self._log_scalar("loss/obj", losses["loss_obj"], epoch)
+            self._log_scalar("loss/cls", losses["loss_cls"], epoch)
+            self._log_scalar("lr", float(lr_weight((epoch + 1) * self.steps_per_epoch)),
+                             epoch)
+            if self._epoch_tail(epoch):
+                break
+        self._finish_fit()
+
+    def _epoch_tail(self, epoch: int) -> bool:
+        """Per-epoch validation + checkpointing; True => early stop."""
+        if (epoch + 1) % self.val_interval == 0:
+            self._val_pending = True
+            self._run_validation(epoch)
+        if (epoch + 1) % self.ckpt_interval == 0 or epoch + 1 == self.max_epochs:
+            self.save_checkpoint("last", epoch)
+        if self.epochs_no_improve >= self.patience:
+            logger.info("early stopping: no mAP@.5 improvement in %d validations",
+                        self.patience)
+            return True
+        return False
+
+    def _run_validation(self, epoch: int):
+        t0 = time.perf_counter()
+        result = self.validate()
+        val_s = time.perf_counter() - t0
+        if self.epoch_stats and self.epoch_stats[-1]["epoch"] == epoch:
+            self.epoch_stats[-1]["val_s"] = val_s
+        map50 = result["map50"]
+        logger.info("epoch %d mAP@.5 %.4f mAP@.5:.95 %.4f (validation %.1fs)",
+                    epoch + 1, map50, result["map50_95"], val_s)
+        if result["per_class"]:
+            logger.info("\n%s", self._per_class_table(result))
+        self._log_scalar("mAP@.5", map50, epoch)
+        self._log_scalar("mAP@.5:.95", result["map50_95"], epoch)
+        improved = map50 > self.best_map50
+        if improved:
+            self.best_map50 = map50
+            self.epochs_no_improve = 0
+        else:
+            self.epochs_no_improve += 1
+        # the counters are final for this epoch: checkpoints written from
+        # here on resume without re-running this validation
+        self._val_pending = False
+        if improved:
+            self.save_checkpoint("best", epoch)
+            self._export_best_weights(map50)
+
+    def _finish_fit(self):
+        self.train_loader.close()
+
+    def validate(self, loader=None, collect_coco: bool = False, split: str = "val"):
+        """Evaluate the EMA over `loader` (default: the val split); the first
+        batch's sample grid is saved. collect_coco: also accumulate the
+        COCO-protocol metric set, which only test() reads."""
+        def batches():
+            for bi, batch in enumerate(loader if loader is not None else self.val_loader):
+                if bi == 0:
+                    self._save_grid(batch, split, step=getattr(self, "_cur_epoch", 0))
+                yield batch
+
+        return validate(self.eval_step, batches(), self.evaluator, collect_coco)
+
+    def _test_loader(self):
+        """The `data.test_path` split when configured, else the val split."""
+        from vision_kit_tpu_torch.data.loader import ValLoader
+
+        test_path = getattr(self.cfg.data, "test_path", None)
+        if not test_path or str(test_path) == str(self.cfg.data.val_path):
+            logger.info("test(): no separate data.test_path — evaluating the val "
+                        "split (%s)", self.cfg.data.val_path)
+            return self.val_loader
+        if not os.path.isdir(os.path.join(self.cfg.data.data_dir, str(test_path))):
+            logger.warning("test(): data.test_path %s does not exist — evaluating the "
+                           "val split (%s) instead", test_path, self.cfg.data.val_path)
+            return self.val_loader
+        logger.info("test(): evaluating the test split (%s)", test_path)
+        return ValLoader(self._eval_dataset(str(test_path)), self.batch_size,
+                         img_size=self.img_size)
+
+    @staticmethod
+    def _per_class_table(result) -> str:
+        table = RichTable("Details Per Class")
+        table.add_headers(["Class", "Images", "Num_Targets", "Precision", "Recall",
+                           "mAP@.5", "mAP@.5:.95"])
+        table.add_content([
+            [r["class"], r["images"], r["targets"], round(r["precision"], 3),
+             round(r["recall"], 3), round(r["ap50"], 3), round(r["ap"], 3)]
+            for r in result["per_class"]])
+        return table.table
+
+    def test(self):
+        result = self.validate(self._test_loader(), collect_coco=True, split="test")
+        logger.info("\n%s", self._per_class_table(result))
+        logger.info("mAP@.5 %.4f  mAP@.5:.95 %.4f", result["map50"], result["map50_95"])
+        coco = self.evaluator.summarize_coco()
+        map_table = RichTable("Average Precision (AP)")
+        map_table.add_headers(["mAP", "mAP(.50)", "mAP(.75)", "mAP(small)",
+                               "mAP(medium)", "mAP(large)"])
+        map_table.add_content([[round(coco[k], 3) for k in (
+            "map", "map_50", "map_75", "map_small", "map_medium", "map_large")]])
+        mar_table = RichTable("Average Recall (AR)")
+        mar_table.add_headers(["mAR", "mAR(max=10)", "mAR(max=100)", "mAR(small)",
+                               "mAR(medium)", "mAR(large)"])
+        mar_table.add_content([[round(coco[k], 3) for k in (
+            "mar_1", "mar_10", "mar_100", "mar_small", "mar_medium", "mar_large")]])
+        logger.info("\n%s", map_table.table)
+        logger.info("\n%s", mar_table.table)
+        result["coco"] = coco
+        if self.evaluator.gt_json:
+            info = self.evaluator.coco_evaluate()
+            if info:
+                logger.info("\n%s", info)
+        return result
+
+    def _export_best_weights(self, map50: float):
+        """The EMA weights as an fp16 {"model": state_dict} .pt, on each new
+        best (predictor.load_weights reads it)."""
+        path = os.path.join(self.output_dir, "weights", f"best-map50_{map50:.4f}.pt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"model": {k: v.detach().half().cpu()
+                              for k, v in self.state.ema.tree.items()}}, path)
+
+    def profile(self, steps: int = 5):
+        """A torch.profiler trace of `steps` train steps (after one untimed
+        step) as a Chrome trace under <output_dir>/profile."""
+        trace_dir = os.path.join(self.output_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        it = iter(self.train_loader)
+        try:
+            batch = next(it)
+            self.state, _ = self.train_step(self.state, batch)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=activities) as prof:
+                for _ in range(steps):
+                    self.state, metrics = self.train_step(self.state, batch)
+                float(metrics["loss"])
+        finally:
+            self.train_loader.close()
+        path = os.path.join(trace_dir, "train_step.json")
+        prof.export_chrome_trace(path)
+        logger.info("profile trace written to %s", path)
+        return path
+
+    def _save_grid(self, batch, split, step: int = 0):
+        """The first batch's sample grid (ground-truth boxes drawn) to
+        <output_dir>/<split>.png, and to TensorBoard/WandB as
+        samples/<split>. A device-augmentation batch is warped for the
+        grid's 16 images on its device. A failure is logged, never raised:
+        the grid is a side product of training."""
+        from vision_kit_tpu_torch.utils.drawing import grid_save
+
+        try:
+            targets = batch["targets"]
+            if "image" in batch:
+                images = batch["image"]
+            else:
+                from vision_kit_tpu_torch.data.device_aug import warp_augment
+
+                n = min(16, len(targets))
+                tiles = batch["tiles"][:n]
+                with torch.no_grad():
+                    images = warp_augment(
+                        tiles, torch.as_tensor(batch["tile_hw"][:n], device=tiles.device),
+                        torch.as_tensor(batch["params"][:n], device=tiles.device))
+                targets = targets[:n]
+            grid = grid_save(images, targets, os.path.join(self.output_dir, f"{split}.png"))
+            self._log_image(f"samples/{split}", grid, step)
+        except Exception as e:  # a boundary that must keep training
+            logger.warning("sample grid save failed: %s", e)

@@ -1,7 +1,8 @@
 """Config loading: YAML with attribute access (the configs/*.yaml schema).
 
 Counterpart of vision_kit_tpu/utils/config.py: nested dicts become
-ConfigNode with dot and item access; lists stay lists.
+ConfigNode with dot and item access; lists stay lists; save_config writes
+one back as YAML.
 """
 
 from __future__ import annotations
@@ -31,7 +32,22 @@ class ConfigNode(dict):
             return [ConfigNode.wrap(v) for v in obj]
         return obj
 
+    def to_dict(self) -> dict:
+        def unwrap(o):
+            if isinstance(o, dict):
+                return {k: unwrap(v) for k, v in o.items()}
+            if isinstance(o, list):
+                return [unwrap(v) for v in o]
+            return o
+
+        return unwrap(self)
+
 
 def load_config(path: str) -> ConfigNode:
     with open(path) as f:
         return ConfigNode.wrap(yaml.safe_load(f))
+
+
+def save_config(cfg: ConfigNode, path: str) -> None:
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)

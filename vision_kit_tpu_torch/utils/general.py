@@ -1,11 +1,14 @@
-"""General helpers: variant multipliers, device resolution and the COCO
+"""General helpers: variant multipliers, device resolution, run
+directories, loss-gain scaling, the EXIF-corrected image size and the COCO
 class-id table.
 
-Counterpart of vision_kit_tpu/utils/general.py (the subset the serving and
-eval paths need).
+Counterpart of vision_kit_tpu/utils/general.py.
 """
 
 from __future__ import annotations
+
+import os
+from datetime import datetime
 
 import torch
 
@@ -47,6 +50,53 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "plain PyTorch path on the CPU"
         )
     return device
+
+
+def update_loss_cfg(cfg, nl: int | None = None):
+    """Scale the loss gains by level count, class count and image size
+    (the reference's general.py:9-15). Mutates and returns cfg. nl, the
+    number of detection levels, comes from the model's anchor table unless
+    given."""
+    if nl is None:
+        from vision_kit_tpu_torch.models.heads import V5_ANCHORS, V7_ANCHORS
+
+        anchors = {"yolov5": V5_ANCHORS, "yolov7": V7_ANCHORS}.get(
+            str(cfg.model.name).lower())
+        if anchors is None:
+            raise ValueError(f"update_loss_cfg cannot derive nl for model "
+                             f"{cfg.model.name!r}; pass nl= explicitly")
+        nl = len(anchors)
+    if nl < 1:
+        raise ValueError(f"nl must be >= 1, got {nl}")
+    cfg.hypermeters.box *= 3 / nl
+    cfg.hypermeters.cls *= cfg.model.num_classes / 80 * 3 / nl
+    cfg.hypermeters.obj *= (cfg.model.input_size[0] / 640) ** 2 * 3 / nl
+    return cfg
+
+
+def mk_output_dir(path: str, model_name: str, task: str) -> str:
+    """<path>/<model>/<task>/<YYYYmmddHHMM>, created."""
+    out = os.path.join(path, model_name, task, datetime.now().strftime("%Y%m%d%H%M"))
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
+def exif_size(data: bytes) -> tuple[int, int]:
+    """(width, height) of an encoded JPEG or PNG as it is displayed, from
+    its header alone: EXIF orientations 5-8 (a transpose) swap the stored
+    dimensions. Counterpart of the PIL-based exif_size; raises ValueError
+    for bytes that are neither, or whose header is malformed."""
+    from vision_kit_tpu_torch.data import decode
+
+    kind = decode.image_kind(data)
+    if kind == "jpeg":
+        info = decode.jpeg_header(data)
+    elif kind == "png":
+        info = decode.png_header(data)
+    else:
+        raise ValueError("not a JPEG or PNG")
+    w, h = info["width"], info["height"]
+    return (h, w) if info["orientation"] in (5, 6, 7, 8) else (w, h)
 
 
 def coco80_to_coco91_class() -> list[int]:

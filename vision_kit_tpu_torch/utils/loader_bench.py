@@ -1,0 +1,273 @@
+"""Loader throughput and the card's loaders against the plain ones.
+
+Counterpart of tools/bench_trainloader.py and tools/bench_valloader.py for
+the routes the port has. On a YOLO dataset (write_dataset's, by default):
+
+- the device-augmentation TrainLoader's batches a second, uncached (every
+  tile decoded: nvJPEG on the card) and from the RAM cache, each with its
+  prefetch thread, and the ms of one batch built alone on the caller's
+  thread (_make_batch, synchronised);
+- ValLoader's images a second over the val split, uncached.
+
+    python -m vision_kit_tpu_torch.utils.loader_bench [--train 128] [--val 64]
+        [--batch 64] [--size 640] [--batches 4] [--device cuda] [--json PATH]
+
+write_dataset also makes the YOLO dataset that chip_smoke.py trains on: the
+committed samples (data/samples/) copied under several names, and seeded
+rectangle scenes written as PNGs, with seeded labels; the two samples the
+decoders refuse go into the train split once each, for the integrity scan
+to drop. loader_disagreements holds a card dataset's TrainLoader and
+ValLoader batches against a CPU dataset's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from vision_kit_tpu_torch.data.decode import (
+    encode_png,
+    pixel_agreement,
+    within_nvjpeg_tolerance,
+)
+
+SCENE_HW = ((480, 640), (720, 1280), (512, 384))
+SCENE_COLORS = ((220, 40, 40), (40, 200, 60))   # class 0, class 1
+
+
+def _scene(rng, hw) -> tuple[np.ndarray, list[str]]:
+    """A gradient background with 1-4 filled rectangles of two classes, and
+    their YOLO label lines."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = rng.integers(40, 160, 3)
+    img = (base + 40 * np.stack([yy / h, xx / w, (yy + xx) / (h + w)], -1)).astype(np.uint8)
+    lines = []
+    for _ in range(int(rng.integers(1, 5))):
+        bw, bh = int(rng.integers(w // 10, w // 3)), int(rng.integers(h // 10, h // 3))
+        x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+        c = int(rng.integers(0, 2))
+        img[y:y + bh, x:x + bw] = SCENE_COLORS[c]
+        lines.append(f"{c} {(x + bw / 2) / w:.6f} {(y + bh / 2) / h:.6f} "
+                     f"{bw / w:.6f} {bh / h:.6f}")
+    return img, lines
+
+
+def write_dataset(root: str, n_train: int = 128, n_val: int = 64, seed: int = 0) -> dict:
+    """A YOLO dataset under root/{train,valid}/{images,labels}: even
+    indices are the committed JPEG and PNG samples the decoders take, in
+    turn, with 1-3 seeded boxes; odd ones rectangle scenes written as PNGs,
+    labelled by their rectangles. The train split also holds the refused
+    samples (progressive, truncated), which the scan drops. Returns
+    {"train": n, "valid": n, "refused": [file names]}."""
+    from vision_kit_tpu_torch.utils.serve_bench import samples
+
+    rng = np.random.default_rng(seed)
+    taken = [(name, data) for name, meta, data in samples() if meta["shape"]]
+    refused = [(name, data) for name, meta, data in samples()
+               if meta["shape"] is None and name.endswith(".jpg")]
+    for split, n in (("train", n_train), ("valid", n_val)):
+        img_dir, lbl_dir = (os.path.join(root, split, d) for d in ("images", "labels"))
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(lbl_dir, exist_ok=True)
+        for i in range(n):
+            stem = f"{split}{i:04d}"
+            if i % 2 == 0:
+                name, data = taken[(i // 2) % len(taken)]
+                stem += "_" + os.path.splitext(name)[0]
+                ext = os.path.splitext(name)[1]
+                lines = [f"{int(rng.integers(0, 2))} {rng.uniform(0.3, 0.7):.6f} "
+                         f"{rng.uniform(0.3, 0.7):.6f} {rng.uniform(0.1, 0.5):.6f} "
+                         f"{rng.uniform(0.1, 0.5):.6f}" for _ in range(int(rng.integers(1, 4)))]
+            else:
+                img, lines = _scene(rng, SCENE_HW[(i // 2) % len(SCENE_HW)])
+                data, ext = encode_png(img), ".png"
+            with open(os.path.join(img_dir, stem + ext), "wb") as f:
+                f.write(data)
+            with open(os.path.join(lbl_dir, stem + ".txt"), "w") as f:
+                f.write("\n".join(lines))
+    for name, data in refused:
+        with open(os.path.join(root, "train", "images", "refused_" + name), "wb") as f:
+            f.write(data)
+    return {"train": n_train, "valid": n_val, "refused": [n for n, _ in refused]}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_loader_rate(dataset, batch: int, size: int, n_batches: int, seed: int = 0,
+                      aug: dict | None = None) -> dict:
+    """{"img_s": the TrainLoader's images a second over n_batches after two
+    warm batches (median gap, with its prefetch thread), "batch_ms": the ms
+    of one batch built alone on this thread}."""
+    from vision_kit_tpu_torch.data.loader import TrainLoader
+
+    loader = TrainLoader(dataset, batch, img_size=size, aug_cfg=aug, seed=seed,
+                         device_aug=True)
+    dev = loader.device
+    try:
+        it = iter(loader)
+        next(it)
+        next(it)
+        gaps, last = [], time.perf_counter()
+        for _ in range(n_batches):
+            next(it)
+            _sync(dev)   # the batch's tiles are ready on the consumer's stream
+            now = time.perf_counter()
+            gaps.append(now - last)
+            last = now
+    finally:
+        loader.close()
+    alone = []
+    for bid in range(n_batches):
+        _sync(dev)
+        t0 = time.perf_counter()
+        loader._make_batch(1000 + bid)
+        _sync(dev)
+        alone.append(time.perf_counter() - t0)
+    return {"img_s": batch / float(np.median(gaps)),
+            "batch_ms": 1e3 * float(np.median(alone))}
+
+
+def val_loader_rate(dataset, batch: int, size: int) -> float:
+    """ValLoader's images a second over the whole dataset (prefetching)."""
+    from vision_kit_tpu_torch.data.loader import ValLoader
+
+    loader = ValLoader(dataset, batch, img_size=size)
+    t0 = time.perf_counter()
+    n = 0
+    for b in loader:
+        n += b["count"]
+    _sync(loader.device)
+    return n / (time.perf_counter() - t0)
+
+
+def run(data_dir: str, batch: int = 64, size: int = 640, n_batches: int = 4,
+        device: str = "cuda") -> dict:
+    """The loader numbers on `device` (see the module docstring)."""
+    from vision_kit_tpu_torch.data.datasets import YOLODataset
+
+    train_dir, val_dir = (os.path.join(data_dir, s) for s in ("train", "valid"))
+    out = {"device": str(device), "batch": batch, "size": size}
+    t0 = time.perf_counter()
+    plain = YOLODataset(train_dir, img_size=size, device=device, cache=False)
+    out["scan_s"] = time.perf_counter() - t0
+    out["uncached"] = train_loader_rate(plain, batch, size, n_batches)
+    t0 = time.perf_counter()
+    cached = YOLODataset(train_dir, img_size=size, device=device, cache_images="ram")
+    _sync(cached.device)
+    out["ram_cache_build_s"] = time.perf_counter() - t0
+    out["ram_cache"] = train_loader_rate(cached, batch, size, n_batches)
+    out["val_img_s"] = val_loader_rate(YOLODataset(val_dir, img_size=size, device=device),
+                                       batch, size)
+    return out
+
+
+def _tile_sources(loader, batch_id: int) -> list[list[int]]:
+    """The dataset index behind each tile slot of batch `batch_id`: the
+    planner's draws replayed (plan has no side effect but its label-count
+    memo)."""
+    out = []
+    for k in range(loader.batch_size):
+        sid = batch_id * loader.batch_size + k
+        rng = np.random.default_rng([loader.seed, 77, sid])
+        out.append(loader.planner.plan(rng, loader.index_stream.at(sid))[0])
+    return out
+
+
+def _image_disagreement(got: torch.Tensor, want: torch.Tensor, path: str) -> str | None:
+    """PNG pixels bit-equal, JPEG pixels within decode.NVJPEG_TOLERANCE."""
+    if got.shape != want.shape:
+        return f"shape {tuple(got.shape)} != {tuple(want.shape)}"
+    if path.lower().endswith(".png"):
+        return None if torch.equal(got.cpu(), want.cpu()) else "PNG pixels differ"
+    agreement = pixel_agreement(got, want.cpu().numpy())
+    return None if within_nvjpeg_tolerance(agreement) else f"JPEG pixels {agreement}"
+
+
+def loader_disagreements(card_ds, plain_ds, batch: int, size: int, seed: int = 0,
+                         n_batches: int = 2, aug: dict | None = None) -> list[str]:
+    """A card dataset's TrainLoader and ValLoader against a CPU dataset's
+    over the same files: params, tile_hw, targets and ValLoader infos
+    exactly equal; each tile's valid region (and the letterboxed val
+    images) bit-equal for a PNG and within decode.NVJPEG_TOLERANCE for a
+    JPEG. Returns the disagreements, empty when they agree."""
+    from vision_kit_tpu_torch.data.loader import TrainLoader, ValLoader
+
+    out = []
+    if card_ds.img_files != plain_ds.img_files:
+        return ["the datasets hold other files"]
+    loaders = [TrainLoader(ds, batch, img_size=size, aug_cfg=aug, seed=seed, prefetch=1,
+                           device_aug=True) for ds in (card_ds, plain_ds)]
+    try:
+        its = [iter(lo) for lo in loaders]
+        for bid in range(n_batches):
+            got, want = next(its[0]), next(its[1])
+            for key in ("params", "tile_hw", "targets"):
+                if not np.array_equal(got[key], want[key]):
+                    out.append(f"train batch {bid}: {key} differ")
+            for k, srcs in enumerate(_tile_sources(loaders[1], bid)):
+                for t, idx in enumerate(srcs):
+                    h, w = (int(v) for v in want["tile_hw"][k, t])
+                    if not h:
+                        continue   # planned but unused (a mixup on no labels)
+                    bad = _image_disagreement(got["tiles"][k, t, :h, :w],
+                                              want["tiles"][k, t, :h, :w],
+                                              plain_ds.img_files[idx])
+                    if bad:
+                        out.append(f"train batch {bid} sample {k} tile {t}: {bad}")
+    finally:
+        for lo in loaders:
+            lo.close()
+    vals = [ValLoader(ds, batch, img_size=size) for ds in (card_ds, plain_ds)]
+    for bid, (got, want) in enumerate(zip(*vals)):
+        if got["info"] != want["info"] or got["count"] != want["count"]:
+            out.append(f"val batch {bid}: info or count differ")
+        if not np.array_equal(got["targets"], want["targets"]):
+            out.append(f"val batch {bid}: targets differ")
+        for k in range(want["count"]):
+            idx = bid * batch + k
+            bad = _image_disagreement(got["image"][k], want["image"][k],
+                                      plain_ds.img_files[idx])
+            if bad:
+                out.append(f"val batch {bid} image {k}: {bad}")
+        if bid + 1 >= n_batches:
+            break
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--data-dir", help="a YOLO dataset with train/ and valid/ "
+                    "(default: write_dataset's, in a temporary directory)")
+    ap.add_argument("--train", type=int, default=128)
+    ap.add_argument("--val", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--size", type=int, default=640)
+    ap.add_argument("--batches", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--json", help="write the numbers here too")
+    args = ap.parse_args(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = args.data_dir
+        if data_dir is None:
+            data_dir = tmp
+            write_dataset(tmp, args.train, args.val)
+        rec = run(data_dir, args.batch, args.size, args.batches, args.device)
+    print(json.dumps(rec))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rec, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
