@@ -96,6 +96,21 @@ Phases, each printing its own line; any failure exits non-zero:
      ckpts/last, bit-identical to an uninterrupted run; the train CLI as a
      subprocess; an epoch under the profiler and the sample grid alone; the
      loader's rates and ms a batch, and the step alone on the fit's model;
+ 12. fit-host: the repo's default config, configs/yolov5.yaml, as it stands
+     (v5s@640 bf16, batch 8, 8 spawned workers, no image cache, no
+     data.device_aug: the host-augmentation route) but for its data and
+     output dirs (write_dataset's files), 2 classes, 2 epochs, and degrees
+     5 and shear 2, so that the rotation/shear warp runs: Trainer.fit (16
+     steps an epoch; img/s and the loader's wait share by epoch; one
+     greedy_nms launch per validation batch and none of head_scores), then
+     test(); each op of ops/imgproc.py on the card against the CPU, bit for
+     bit, on a seeded 640 and 1280 image (the warp under rotation, shear
+     and translation, HSV at three gain draws, blur, median, gray, Lab,
+     CLAHE, the pad); two host-route TrainLoader batches of 8 with mixup
+     from a PNG-only dataset on the card (num_workers 0: every op on the
+     card) against the same files on the CPU, images and targets bit-equal;
+     the host route's img/s with its thread and its ms a batch alone, and
+     its img/s with 8 workers in the steady state, at b8 and b64;
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -287,7 +302,8 @@ def kernel_times(head_max_err: dict):
     """Each kernel's JSON row at the shape of the path it runs on
     (utils/kernel_bench.py): greedy_nms at the v5s serving step's B=128,
     K=512, as greedy_nms_eval and greedy_nms_train_eval at the eval step's
-    B=64, K=2048 and as greedy_nms_v7 at the v7 serving step's B=64, K=512;
+    B=64, K=2048, as greedy_nms_fit_host at the fit-host validations' B=8,
+    K=2048 and as greedy_nms_v7 at the v7 serving step's B=64, K=512;
     head_scores at b128, as head_scores_v7 at b64, and as
     head_scores_anchor_major at b128 on a reference-order head's maps.
     `head_max_err` holds head_scores' largest error against its plain
@@ -302,6 +318,7 @@ def kernel_times(head_max_err: dict):
     for name, shape in (("greedy_nms", (128, 512)), ("greedy_nms_eval", (64, 2048)),
                         ("greedy_nms_train_eval", (64, 2048)),
                         ("greedy_nms_fit", (64, 2048)),
+                        ("greedy_nms_fit_host", (8, 2048)),
                         ("greedy_nms_v7", (64, 512)),
                         ("greedy_nms_serve", (SERVE_BATCH, 1024))):
         nms = next(r for r in bench["greedy_nms"]
@@ -1416,11 +1433,11 @@ def phase_serve(model, smi: str) -> dict:
               f"{SERVE_BATCH}: {cap:.1f} img/s, request p50 {p50:.3f} ms, p99 "
               f"{p99:.3f} ms on {smi}", flush=True)
         jpegs = svb.sample_bytes("jpeg_720p")
-        ips, h50, h99 = svb.bench_http(server, 512, 32, payloads=jpegs)
+        ips, h50, h99 = svb.bench_http(server, 256, 32, payloads=jpegs)
         t_dec = svb.decode_ms(lambda d: decode_request_bytes(d, size, "cuda"),
                              jpegs, "cuda")
         t_nvjpeg = svb.decode_ms(lambda d: dec.decode_to(d, "cuda"), jpegs, "cuda")
-        print(f"serve load: HTTP, 32 clients, 512 POSTs of the 720x1280 samples: "
+        print(f"serve load: HTTP, 32 clients, 256 POSTs of the 720x1280 samples: "
               f"{ips:.1f} img/s, request p50 {h50:.3f} ms, p99 {h99:.3f} ms; one "
               f"request's decode alone (host clock, synchronised): nvJPEG + "
               f"orientation {t_nvjpeg:.3f} ms, + letterbox_u8 {t_dec:.3f} ms; the "
@@ -1700,7 +1717,7 @@ def phase_fit(smi: str) -> dict:
 
         # the loader alone, and the step alone on the fit's model
         uncached = YOLODataset(os.path.join(data_dir, "train"), img_size=640, device="cuda")
-        rates = {"uncached (nvJPEG)": lb.train_loader_rate(uncached, FIT_BATCH, 640, 2),
+        rates = {"uncached (nvJPEG)": lb.train_loader_rate(uncached, FIT_BATCH, 640, 1),
                  "RAM cache": lb.train_loader_rate(card_ds, FIT_BATCH, 640, 2)}
         val_img_s = lb.val_loader_rate(
             YOLODataset(os.path.join(data_dir, "valid"), img_size=640, device="cuda"),
@@ -1717,6 +1734,129 @@ def phase_fit(smi: str) -> dict:
     del tr, pred
     torch.cuda.empty_cache()
     print(f"fit: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+FIT_HOST_EPOCHS = 2
+
+
+def fit_host_config(data_dir: str, out: str):
+    """configs/yolov5.yaml as it stands (v5s@640, batch 8, 8 workers, no
+    image cache, the host-augmentation route) but for data_dir and
+    output_dir, 2 classes and their labels, FIT_HOST_EPOCHS epochs, and
+    degrees 5 and shear 2 (the rotation/shear warp); the loss gains scaled
+    as the CLI scales them."""
+    from vision_kit_tpu_torch.utils.config import load_config
+    from vision_kit_tpu_torch.utils.general import update_loss_cfg
+
+    cfg = load_config(os.path.join(REPO, "configs", "yolov5.yaml"))
+    cfg.model.update(num_classes=2)
+    cfg.data.update(data_dir=data_dir, output_dir=out, max_epochs=FIT_HOST_EPOCHS,
+                    class_labels=["red", "green"])
+    cfg.augmentations.update(degrees=5.0, shear=2.0)
+    return update_loss_cfg(cfg)
+
+
+def phase_fit_host(smi: str) -> dict:
+    """Training on the repo's default config (fit_host_config) through the
+    host-augmentation route, then test(); the route's ops and loader
+    batches on the card against the CPU; its loader rates. Returns the
+    greedy_nms and head_scores launches of fit."""
+    import tempfile
+
+    from vision_kit_tpu_torch.data.datasets import YOLODataset
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "ds")
+        lb.write_dataset(data_dir, FIT_TRAIN, FIT_VAL)
+        cfg = fit_host_config(data_dir, os.path.join(tmp, "run"))
+        batch, workers = int(cfg.data.batch_size), int(cfg.data.num_workers)
+        check((batch, workers, cfg.model.version, getattr(cfg.data, "device_aug", None),
+               getattr(cfg.data, "cache_images", None)) == (8, 8, "s", None, None),
+              "configs/yolov5.yaml is not batch 8, 8 workers, v5s, host route, uncached")
+        tr = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
+        loader = tr.train_loader
+        check(not tr.device_aug and not loader.device_aug, "fit-host took the device route")
+        check(loader.device.type == "cuda" and len(loader.dataset) == FIT_TRAIN,
+              f"the train dataset holds {len(loader.dataset)} images on {loader.device}")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()
+        n_val = len(tr.val_loader)
+        check(counts == {"greedy_nms": FIT_HOST_EPOCHS * n_val, "head_scores": 0},
+              f"fit launched {counts}, not one greedy_nms per validation batch "
+              f"({FIT_HOST_EPOCHS} x {n_val})")
+        check(tr.global_step == tr.state.step == FIT_HOST_EPOCHS * FIT_TRAIN // batch,
+              f"fit ended at step {tr.global_step}")
+        check(all(bool(torch.isfinite(v).all()) for v in tr.state.params.values()),
+              "fit left non-finite parameters")
+        check(os.path.exists(os.path.join(cfg.data.output_dir, "ckpts", "last")),
+              "fit wrote no ckpts/last")
+        reset_counts()
+        result = tr.test()
+        test_counts = read_counts()
+        check(test_counts == {"greedy_nms": n_val, "head_scores": 0},
+              f"test() launched {test_counts}")
+        check(all(np.isfinite(result[k]) for k in ("map50", "map50_95")),
+              f"test() mAP {result['map50']}, {result['map50_95']}")
+        stats = tr.epoch_stats
+        print(f"fit-host: configs/yolov5.yaml (v5s@640 bf16, batch {batch}, {workers} "
+              f"spawned workers, uncached, host augmentation with degrees 5 and shear 2), "
+              f"2 classes, {FIT_HOST_EPOCHS} epochs of {tr.steps_per_epoch} steps on "
+              f"{FIT_TRAIN} train images: fit {fit_s:.1f} s; per epoch "
+              + "; ".join(f"{e['img_s']:.1f} img/s ({e['seconds']:.2f} s, loader wait "
+                          f"{100 * e['loader_wait_s'] / e['seconds']:.1f} %), validation "
+                          f"{e['val_s']:.2f} s" for e in stats)
+              + f"; launches {counts} ({counts['greedy_nms'] / (FIT_HOST_EPOCHS * n_val):.0f}"
+              f" greedy_nms per validation batch of {batch}); test() mAP@.5 "
+              f"{result['map50']:.4f} launches {test_counts} on {smi}", flush=True)
+        del tr
+
+        # the route's ops, and its loader batches, on the card against the CPU
+        t0 = time.perf_counter()
+        bad = lb.imgproc_disagreements("cuda")
+        check(bad == [], f"host-route ops on the card differ from the CPU: {bad[:5]}")
+        ops_s = time.perf_counter() - t0
+        png_dir = os.path.join(tmp, "png")
+        lb.write_dataset(png_dir, 16, 8, png_only=True)
+        split = os.path.join(png_dir, "train", "images")
+        card_ds = YOLODataset(split, img_size=640, device="cuda")
+        plain_ds = YOLODataset(split, img_size=640, device="cpu")
+        check(card_ds.device.type == "cuda", "the PNG dataset is not on the card")
+        bad = lb.host_loader_disagreements(card_ds, plain_ds, batch=batch, size=640,
+                                           aug=dict(lb.HOST_AUG, enable_mixup=True))
+        check(bad == [], f"host-route batches on the card differ from the CPU: {bad[:5]}")
+        print(f"fit-host: card vs CPU, bit for bit: every ops/imgproc.py op at 640 and "
+              f"1280 (warp under rotation/shear/translation x3, HSV x3, blur and median "
+              f"3/5/7, gray, Lab, CLAHE, Lab back, pad; {ops_s:.1f} s), and 2 host-route "
+              f"TrainLoader batches of {batch} with mixup, degrees and shear from PNG "
+              f"scenes on the card (num_workers 0) against the CPU: images and targets "
+              f"equal", flush=True)
+        del card_ds, plain_ds
+
+        # the route's loader alone, uncached, on the card's dataset
+        uncached = YOLODataset(os.path.join(data_dir, "train", "images"), img_size=640,
+                               device="cuda")
+        rates = lb.host_route_rates(uncached, (8, 64), 640, 1, workers)
+        check(all(r["workers"]["img_s"] for r in rates.values()),
+              f"no steady-state round time with {workers} workers: {rates}")
+        print("fit-host: host-route loader uncached at 640 (degrees 5, shear 2, mosaic): "
+              + "; ".join(f"b{b}: {r['thread']['img_s']:.1f} img/s with its thread (ops on "
+                          f"the card), {r['thread']['batch_ms']:.1f} ms a batch alone, "
+                          f"{r['workers']['img_s']:.1f} img/s with {workers} workers (ops on "
+                          f"the host; a round of {workers} batches "
+                          f"{r['workers']['round_s']:.2f} s, spawn "
+                          f"{r['workers']['spawn_s']:.2f} s)" for b, r in rates.items())
+              + f" on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"fit-host: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts
 
 
@@ -1830,6 +1970,7 @@ def main() -> int:
     ref_counts = phase_weights(model, rng, smi)
     serve_counts = phase_serve(model, smi)
     fit_counts = phase_fit(smi)
+    fit_host_counts = phase_fit_host(smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -1867,6 +2008,7 @@ def main() -> int:
     rows["head_scores_anchor_major"]["launches"] = ref_counts["head_scores"]
     rows["greedy_nms_serve"]["launches"] = serve_counts["greedy_nms"]
     rows["greedy_nms_fit"]["launches"] = fit_counts["greedy_nms"]
+    rows["greedy_nms_fit_host"]["launches"] = fit_host_counts["greedy_nms"]
     rows["head_scores_serve"]["launches"] = serve_counts["head_scores"]
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,7 +1,9 @@
 """The port's train and eval commands (python -m vision_kit_tpu_torch) on
 the CPU, as a subprocess on the rectangle set at v5n@64: train exits 0,
 honours the config's data.seed, logs mAP@.5 and writes its run directory
-(log.log, ckpts/, the best weights); eval -d reads the result. Without
+(log.log, ckpts/, the best weights); eval -d reads the result. The
+repo's default config, configs/yolov5.yaml (no data.device_aug: the
+host-augmentation route, spawned workers, bf16), trains too. Without
 --device cpu, and with no card, both raise.
 """
 
@@ -64,6 +66,30 @@ def test_train_then_eval_on_the_cpu(tmp_path):
     assert len(evals) == 1
     log = open(evals[0]).read()
     assert "Global seed set to 3" in log and "mAP@.5" in log
+
+
+def test_train_default_config_on_the_cpu(tmp_path):
+    """configs/yolov5.yaml with its model cut to v5n@64 and 2 classes, its
+    data and output paths on the rectangle set, 1 epoch of batch 4 and 2
+    of its 8 workers: the host-augmentation route trains and tests."""
+    ds, out = str(tmp_path / "ds"), str(tmp_path / "out")
+    build_rectangle_dataset(ds)
+    cfg = yaml.safe_load(open(os.path.join(REPO, "configs", "yolov5.yaml")))
+    assert "device_aug" not in cfg["data"]
+    cfg["model"].update(version="n", num_classes=2, input_size=[64, 64], weight="")
+    cfg["data"].update(data_dir=ds, output_dir=out, train_path="images/train",
+                       val_path="images/val", test_path="images/val", batch_size=4,
+                       max_epochs=1, num_workers=2, class_labels=["red", "green"])
+    path = str(tmp_path / "cfg.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    r = run_cli("train", "-c", path, "--device", "cpu")
+    assert r.returncode == 0, r.stderr[-3000:]
+    logs = glob.glob(os.path.join(out, "YOLOv5", "train", "*", "log.log"))
+    assert len(logs) == 1
+    log = open(logs[0]).read()
+    assert "epoch 1/1 loss" in log and "mAP@.5" in log and "device_aug" not in log
+    assert os.path.exists(os.path.join(os.path.dirname(logs[0]), "train.png"))
 
 
 @pytest.mark.parametrize("task", ["train", "eval"])

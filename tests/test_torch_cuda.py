@@ -386,3 +386,29 @@ def test_two_step_fit_on_the_card(cuda, tmp_path):
     assert np.isfinite(result["map50"])
     assert (tmp_path / "out" / "ckpts" / "last").exists()
     assert list((tmp_path / "out" / "weights").glob("best-map50_*.pt"))
+
+
+def test_host_route_ops_card_equal_cpu(cuda):
+    """Each op of the host-augmentation route (ops/imgproc.py: the warp under
+    rotation, shear and translation, HSV at three gain draws, blur, median,
+    gray, Lab, CLAHE, the pad) on the card equals its CPU result bit for bit
+    on a seeded 640 x 640 and 1280 x 1280 image
+    (loader_bench.imgproc_disagreements)."""
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    assert lb.imgproc_disagreements(cuda) == []
+
+
+def test_host_route_loader_card_equal_cpu(cuda, tmp_path):
+    """The host-augmentation TrainLoader with mixup, rotation and shear over
+    PNG scenes on the card (num_workers 0: every op on the card) against the
+    same files on the CPU: images and targets bit-equal."""
+    from vision_kit_tpu_torch.data.datasets import YOLODataset
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    lb.write_dataset(str(tmp_path), n_train=16, n_val=8, png_only=True)
+    split = str(tmp_path / "train" / "images")
+    card = YOLODataset(split, img_size=320, device=cuda)
+    plain = YOLODataset(split, img_size=320, device="cpu")
+    aug = dict(lb.HOST_AUG, enable_mixup=True)
+    assert lb.host_loader_disagreements(card, plain, batch=4, size=320, aug=aug) == []

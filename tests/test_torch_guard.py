@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX, Flax or vision_kit_tpu import in its
-sources or in chip_smoke.py, and importing and running it loads no jax.
+"""The port stands alone: no JAX, Flax, vision_kit_tpu, OpenCV (cv2) or PIL
+import in its sources or in chip_smoke.py (the card's machine has neither
+OpenCV nor PIL, so such an import would fail only there), and importing
+and running it loads none of them.
 
 Comments may name a JAX counterpart by file path (vision_kit_tpu/ops/...);
 a dotted module name of the JAX package, which an import would need, may not
@@ -12,8 +14,11 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|vision_kit_tpu(?!_torch))\b", re.M)
-DOTTED = re.compile(r"\bvision_kit_tpu\.|[\"']vision_kit_tpu[\"']|[\"'](jax|flax)[\"'.]")
+    r"^\s*(import|from)\s+(jax|flax|cv2|PIL|vision_kit_tpu(?!_torch))\b", re.M)
+# a quoted module name, as importlib and __import__ take it; a docstring
+# may begin with a cv2 function's name ("""cv2.warpAffine ...)
+DOTTED = re.compile(r"\bvision_kit_tpu\.|[\"']vision_kit_tpu[\"']|[\"'](jax|flax)[\"'.]"
+                    r"|[\"']cv2[\"']|[\"']PIL[\"'.]")
 
 
 def _port_sources():
@@ -44,6 +49,18 @@ def test_forbidden_pattern_catches_the_jax_package():
     assert not DOTTED.search("# counterpart of vision_kit_tpu/ops/nms.py")
 
 
+def test_forbidden_pattern_catches_opencv_and_pil():
+    assert FORBIDDEN.search("import cv2")
+    assert FORBIDDEN.search("    import cv2  # in a function")
+    assert FORBIDDEN.search("from PIL import Image")
+    assert FORBIDDEN.search("import PIL.Image")
+    assert DOTTED.search('importlib.import_module("cv2")')
+    assert DOTTED.search("__import__('PIL.Image')")
+    assert not FORBIDDEN.search("# cv2.warpAffine's counterpart")
+    assert not DOTTED.search('"""cv2.warpAffine of an (H, W, C) uint8 tensor"""')
+    assert not FORBIDDEN.search("from vision_kit_tpu_torch.ops import imgproc")
+
+
 def test_port_runs_without_loading_jax():
     code = (
         "import sys, importlib, pkgutil, torch\n"
@@ -57,7 +74,7 @@ def test_port_runs_without_loading_jax():
         "    d, r = m(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))\n"
         "assert d.shape == (1, 252, 85)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'vision_kit_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'vision_kit_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

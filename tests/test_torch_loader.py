@@ -2,9 +2,11 @@
 JAX package on the CPU: the index stream, DeviceAugPlanner's plan and
 finalize over several seeds with and without mixup, the device-augmentation
 TrainLoader's batches (tile regions, the slot-4 fill, tile_hw, params,
-targets) with 0 and 2 workers, seek/close/re-iterate, a worker's crash, and
-ValLoader's batches with the last one padded. Everything is compared
-exactly: on the CPU the port's datasets equal JAX's bit for bit
+targets) with 0 and 2 workers, the host-augmentation TrainLoader's batches
+(images and targets, with mixup, rotation and shear, no_aug) with 0 and 2
+workers and after seek, seek/close/re-iterate, a worker's crash on either
+route, and ValLoader's batches with the last one padded. Everything is
+compared exactly: on the CPU the port's datasets equal JAX's bit for bit
 (tests/test_torch_data.py).
 """
 
@@ -185,9 +187,76 @@ def test_loader_error_propagates(datasets, tmp_path, num_workers):
     lo.close()
 
 
-def test_host_augmentation_route_raises(datasets):
-    with pytest.raises(NotImplementedError, match="device_aug"):
-        port_loader.TrainLoader(datasets[1], 4, img_size=SIZE)
+@pytest.mark.parametrize("num_workers", [0, 1])
+def test_host_augmentation_route_raises(datasets, tmp_path, num_workers):
+    """A host-route batch that fails to build (the images vanish after the
+    scan) raises a RuntimeError in the consumer, from the thread or a
+    worker."""
+    _, _, split = datasets
+    root = tmp_path / "ds"
+    shutil.copytree(os.path.dirname(os.path.dirname(split)), root)
+    ds = port_ds.YOLODataset(str(root / "images" / "train"), img_size=SIZE, device="cpu")
+    for f in (root / "images" / "train").glob("*.jpg"):
+        f.write_bytes(b"not a jpeg")
+    lo = port_loader.TrainLoader(ds, 2, img_size=SIZE, num_workers=num_workers)
+    with pytest.raises(RuntimeError, match="worker"):
+        next(iter(lo))
+    lo.close()
+
+
+HOST_AUGS = {"mosaic": {}, "mixup_rotate_shear": dict(MIXUP, degrees=10.0, shear=4.0),
+             "flip_ud": {"flip_ud_prob": 0.5, "mosaic_prob": 0.5}}
+
+
+@pytest.mark.parametrize("aug", HOST_AUGS, ids=list(HOST_AUGS))
+def test_host_route_batches_equal_jax(datasets, aug):
+    """4 batches of 4 with the prefetch thread: images (B, S, S, 3) uint8
+    tensors and targets equal JAX's."""
+    jds, pds, _ = datasets
+    want = jax_loader.TrainLoader(jds, 4, img_size=SIZE, aug_cfg=HOST_AUGS[aug], seed=3)
+    got = port_loader.TrainLoader(pds, 4, img_size=SIZE, aug_cfg=HOST_AUGS[aug], seed=3)
+    assert got.steps_per_epoch == want.steps_per_epoch == 3
+    try:
+        for _, w, g in zip(range(4), want, got):
+            assert set(g) == {"image", "targets"}
+            assert isinstance(g["image"], torch.Tensor) and g["image"].dtype == torch.uint8
+            np.testing.assert_array_equal(g["image"].numpy(), w["image"])
+            np.testing.assert_array_equal(g["targets"], w["targets"])
+    finally:
+        want.close()
+        got.close()
+
+
+def test_host_route_workers_and_seek_equal_jax(datasets):
+    """Two spawned workers give JAX's stream from batch 0; a loader sought to
+    batch 3 gives JAX's batches 3 and 4; no_aug gives JAX's padded items."""
+    jds, pds, _ = datasets
+    aug = HOST_AUGS["mixup_rotate_shear"]
+    want = jax_loader.TrainLoader(jds, 4, img_size=SIZE, aug_cfg=aug, seed=3)
+    got = port_loader.TrainLoader(pds, 4, img_size=SIZE, aug_cfg=aug, seed=3, num_workers=2)
+    sought = port_loader.TrainLoader(pds, 4, img_size=SIZE, aug_cfg=aug, seed=3)
+    sought.seek(3)
+    try:
+        stream = [next(it) for it in [iter(want)] for _ in range(5)]
+        it = iter(got)
+        for w in stream:
+            g = next(it)
+            np.testing.assert_array_equal(g["image"].numpy(), w["image"])
+            np.testing.assert_array_equal(g["targets"], w["targets"])
+        it = iter(sought)
+        for w in stream[3:]:
+            g = next(it)
+            np.testing.assert_array_equal(g["image"].numpy(), w["image"])
+            np.testing.assert_array_equal(g["targets"], w["targets"])
+    finally:
+        for lo in (want, got, sought):
+            lo.close()
+    assert not got._procs
+    want = jax_loader.TrainLoader(jds, 4, img_size=SIZE, aug_cfg=aug, seed=3, no_aug=True)
+    got = port_loader.TrainLoader(pds, 4, img_size=SIZE, aug_cfg=aug, seed=3, no_aug=True)
+    w, g = want._make_batch(1), got._make_batch(1)
+    np.testing.assert_array_equal(g["image"].numpy(), w["image"])
+    np.testing.assert_array_equal(g["targets"], w["targets"])
 
 
 @pytest.mark.parametrize("prefetch", [0, 2])

@@ -5,6 +5,10 @@ CPU, v5n@64 in f32 on the rectangle set, device augmentation:
   port's Trainer.validate() equals JAX's (mAP within 1e-6), and one epoch of
   fit (3 steps of batch 4, the same batches: the loaders are bit-equal)
   gives losses and a state within tests/test_torch_train.py's tolerances;
+- the same epoch on the host-augmentation route, reached as JAX reaches it
+  from data.device_aug with degrees and shear set: both sides warn and fall
+  back, train on bit-equal batches with losses within the same tolerances,
+  and end in a state within HOST_STEP_REL of JAX's (see there);
 - the multi-scale size draws equal JAX's;
 - port only: a crash mid-epoch and one inside a validation, each resumed,
   end bit-identical to an uninterrupted run (the counterparts of
@@ -20,6 +24,7 @@ import copy
 import glob
 import json
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -35,6 +40,7 @@ from vision_kit_tpu.utils.config import ConfigNode as JaxConfigNode
 from vision_kit_tpu_torch.convert import load_jax_train_state, train_state_tensors_from_jax
 from vision_kit_tpu_torch.predictor import load_weights
 from vision_kit_tpu_torch.train import step as port_step
+from vision_kit_tpu_torch.train import trainer as port_trainer_mod
 from vision_kit_tpu_torch.train.trainer import Trainer
 from vision_kit_tpu_torch.utils.config import ConfigNode
 from vision_kit_tpu_torch.utils.stream_bench import (
@@ -129,6 +135,53 @@ def jax_run(tmp_path_factory):
             "val": val, "metrics": metrics, "state1": state1, "trainer": tr}
 
 
+FALLBACK = "data.device_aug disabled: degrees/shear require the host augmentation pipeline"
+# The host route's epoch: state_disagreements' share of each tensor's change
+# (test_torch_train.py's 2e-3 stays for its value_rel). The step is the
+# device route's, its uint8 input equals float x / 255 bit for bit on both
+# sides and the batches are bit-equal (asserted below); but on these
+# batches the two frameworks' f32 gradients (batch-statistics BN at B=4)
+# differ by up to 2.6e-3 of a tensor's change after one step (median 9e-4),
+# against 1.1e-3 on the device route's batches, and after 3 steps by up to
+# 1.6x of the 2e-3.
+HOST_STEP_REL = 5e-3
+
+
+def host_cfg(d, out):
+    """`d` with degrees 5 and shear 2 under data.device_aug: true."""
+    return dict(d, data=dict(d["data"], output_dir=str(out)),
+                augmentations=dict(d["augmentations"], degrees=5.0, shear=2.0))
+
+
+@pytest.fixture(scope="module")
+def jax_host_run(jax_run):
+    """JAX's Trainer on host_cfg: the fallback's warning, and one epoch of
+    fit from jax_run's initial state with each step's metrics."""
+    d = host_cfg(jax_run["cfg"], jax_run["root"] / "jax_host_out")
+    mesh = make_mesh(n_data=1, n_model=1)
+    with mock.patch.object(jax_trainer_mod.logger, "warning") as warn:
+        tr = JaxTrainer(JaxConfigNode.wrap(copy.deepcopy(d)), mesh=mesh,
+                        use_tensorboard=False, seed=5)
+    try:
+        tr.state = jax.device_put(jax_run["state0"], replicated_sharding(mesh))
+        metrics, batches, orig = [], [], tr.train_step
+
+        def recording(state, batch):
+            batches.append({k: np.array(v) for k, v in batch.items()})
+            state, m = orig(state, batch)
+            metrics.append({k: float(v) for k, v in jax.device_get(m).items()})
+            return state, m
+
+        tr.train_step = recording
+        tr.fit()
+        state1 = jax.device_get(tr.state)
+    finally:
+        tr.train_loader.close()
+    return {"cfg": d, "warnings": [c.args[0] for c in warn.call_args_list],
+            "device_aug": tr.device_aug, "metrics": metrics, "batches": batches,
+            "state1": state1}
+
+
 def test_validate_equals_jax(jax_run):
     tr = port_trainer(jax_run["cfg"])
     tr.use_state(load_jax_train_state(tr.model, tr.tx, jax_run["eval_state"]))
@@ -174,6 +227,45 @@ def test_fit_epoch_equals_jax(jax_run):
     meta = json.load(open(os.path.join(d["data"]["output_dir"], "ckpts",
                                        "last.meta.json")))
     assert meta["step"] == 3 and meta["epoch"] == 0
+    assert os.path.exists(os.path.join(d["data"]["output_dir"], "train.png"))
+
+
+def test_host_route_fit_epoch_equals_jax(jax_run, jax_host_run):
+    """data.device_aug with degrees and shear: both Trainers warn, take the
+    host-augmentation loader, feed their steps bit-equal batches, and one
+    epoch of fit from the carried initial state gives each step's losses
+    within METRIC_RTOL and a state within HOST_STEP_REL."""
+    d = dict(jax_host_run["cfg"], data=dict(jax_host_run["cfg"]["data"],
+                                            output_dir=str(jax_run["root"] / "port_host")))
+    with mock.patch.object(port_trainer_mod.logger, "warning") as warn:
+        tr = port_trainer(d)
+    assert [c.args[0] for c in warn.call_args_list] == jax_host_run["warnings"] == [FALLBACK]
+    assert tr.device_aug is jax_host_run["device_aug"] is False
+    assert not tr.train_loader.device_aug
+    tr.use_state(load_jax_train_state(tr.model, tr.tx, jax_run["state0"]))
+    metrics, batches, orig = [], [], tr.train_step
+
+    def recording(state, batch):
+        batches.append(batch)
+        state, m = orig(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return state, m
+
+    tr.train_step = recording
+    tr.fit()
+    assert tr.global_step == tr.state.step == len(jax_host_run["metrics"]) == 3
+    for g, w in zip(batches, jax_host_run["batches"]):
+        assert set(g) == set(w) == {"image", "targets"}
+        np.testing.assert_array_equal(g["image"].numpy(), w["image"])
+        np.testing.assert_array_equal(g["targets"], w["targets"])
+    for g, w in zip(metrics, jax_host_run["metrics"]):
+        for k, rtol in METRIC_RTOL.items():
+            assert g[k] == pytest.approx(w[k], rel=rtol), k
+    want = train_state_tensors_from_jax(jax_host_run["state1"])
+    before = train_state_tensors_from_jax(jax_run["state0"])
+    assert state_disagreements({p: want[p] for p in STATE_PARTS}, train_state_tensors(tr.state),
+                               {p: before[p] for p in STATE_PARTS},
+                               step_rel=HOST_STEP_REL) == []
     assert os.path.exists(os.path.join(d["data"]["output_dir"], "train.png"))
 
 
@@ -355,11 +447,17 @@ def test_profile_and_guards(resume_cfg, tmp_path):
     assert os.path.getsize(path) > 0
     with pytest.raises(NotImplementedError, match="mesh"):
         port_trainer(resume_cfg, mesh=object())
-    d = copy.deepcopy(resume_cfg)
-    d["augmentations"]["degrees"] = 5.0
-    with pytest.raises(NotImplementedError, match="augmentations.degrees"):
-        port_trainer(d)
+    # rotation or shear under data.device_aug, and device_aug false, both
+    # build the host-augmentation loader
+    for key, value in (("degrees", 5.0), ("shear", 2.0)):
+        d = copy.deepcopy(resume_cfg)
+        d["augmentations"][key] = value
+        with mock.patch.object(port_trainer_mod.logger, "warning") as warn:
+            tr = port_trainer(d)
+        assert [c.args[0] for c in warn.call_args_list] == [FALLBACK]
+        assert not tr.device_aug and not tr.train_loader.device_aug
     d = copy.deepcopy(resume_cfg)
     d["data"]["device_aug"] = False
-    with pytest.raises(NotImplementedError, match="device_aug"):
-        port_trainer(d)
+    tr = port_trainer(d)
+    assert not tr.device_aug and set(next(iter(tr.train_loader))) == {"image", "targets"}
+    tr.train_loader.close()

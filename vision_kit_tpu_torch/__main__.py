@@ -39,8 +39,8 @@ seed is --seed, else the config's data.seed, else 21; the run writes into
 weights/, the sample grids), with the loss gains scaled by
 update_loss_cfg. `train` runs Trainer.fit (resuming from <ckpt-dir>/last
 when -d is given and it exists), then Trainer.test; `eval` loads
-<ckpt-dir>/best when it exists, then runs Trainer.test. The config must set
-data.device_aug: true (the host-augmentation route is not ported).
+<ckpt-dir>/best when it exists, then runs Trainer.test. The loader takes
+the host-augmentation route unless the config sets data.device_aug: true.
 """
 
 from __future__ import annotations

@@ -186,7 +186,7 @@ def _apply_mixup(out, tiles, p, xo, yo, H, W, dtype):
 # ======================================================================
 
 
-def _label_count(dataset, idx: int) -> int:
+def label_count(dataset, idx: int) -> int:
     """Number of labels of `idx` WITHOUT decoding the image: from the
     label table (YOLODataset's rows, filtered as load_anno filters them;
     COCODataset's items), else load_anno."""
@@ -222,7 +222,7 @@ class DeviceAugPlanner:
             raise ValueError(
                 "device augmentation supports degrees=0, shear=0 only "
                 "(rotation/shear make the warp non-separable); the host "
-                "augmentation route that takes them is not ported")
+                "augmentation route (TrainLoader(device_aug=False)) takes them")
         self.dataset = dataset
         # label counts are immutable per idx; memoised so that datasets
         # without a label table pay load_anno's decode at most once per
@@ -266,7 +266,7 @@ class DeviceAugPlanner:
                     cand = int(rng.integers(0, len(self.dataset)))
                     n = self._label_counts.get(cand)
                     if n is None:
-                        n = self._label_counts[cand] = _label_count(self.dataset, cand)
+                        n = self._label_counts[cand] = label_count(self.dataset, cand)
                     if n:
                         cp = cand
                         break

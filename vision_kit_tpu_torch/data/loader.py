@@ -6,15 +6,22 @@ over shards), and each batch is a pure function of its batch id (sample
 sid's augmentation draws from default_rng([seed, 77, sid])), so a resume
 at step s only needs seek(s), and the batches equal JAX's for one seed.
 
-TrainLoader takes the device-augmentation route: the host draws each
-sample's parameters and labels (data/device_aug.py:DeviceAugPlanner), the
-tiles are gathered where the dataset decodes them, and the pixel warp runs
-inside the training step (make_train_step(device_aug=True)). With a
-dataset on the card the tiles are built on the card, on the prefetch
-thread's own stream; an event recorded after them travels with the batch,
-and the consumer's stream waits on it, so no pixel crosses the bus. Spawned
-workers (num_workers > 0) never touch CUDA: they decode on the host with
-the plain decoder and ship numpy tiles, which the consumer uploads.
+TrainLoader takes one of two routes. The host-augmentation route
+(device_aug=False, the default) builds each sample as the JAX package does:
+mosaic and mixup (data/mosaic.py), the affine warp, HSV, pixel augs, flips
+and pad (data/augment.py), through ops/imgproc.py's cv2-exact ops on the
+dataset's device, and yields the finished (B, S, S, 3) images. The
+device-augmentation route (device_aug=True) draws each sample's parameters
+and labels on the host (data/device_aug.py:DeviceAugPlanner), gathers the
+tiles where the dataset decodes them, and leaves the pixel warp to the
+training step (make_train_step(device_aug=True)). With a dataset on the
+card either route's pixels are made on the card, on the prefetch thread's
+own stream; an event recorded after them travels with the batch, and the
+consumer's stream waits on it, so no pixel crosses the bus. Spawned
+workers (num_workers > 0) never touch CUDA: they decode and augment on the
+host with a CPU copy of the dataset and ship numpy pixels, which the
+consumer uploads. A batch is the same for any worker count, and on the
+CPU equals JAX's bit for bit.
 
 ValLoader yields letterboxed images (ops/letterbox.py:letterbox_u8 on the
 dataset's device), padded targets, and the info each image needs to map
@@ -33,8 +40,9 @@ import numpy as np
 import torch
 
 from vision_kit_tpu_torch import _malloc
-from vision_kit_tpu_torch.data.augment import ValAugPipeline
+from vision_kit_tpu_torch.data.augment import TrainAugPipeline, ValAugPipeline
 from vision_kit_tpu_torch.data.device_aug import N_PARAMS, DeviceAugPlanner
+from vision_kit_tpu_torch.data.mosaic import MosaicMixupDataset
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
 MAX_LABELS = 160
@@ -138,27 +146,23 @@ def _await(tensor: torch.Tensor, ready) -> None:
 
 
 class TrainLoader:
-    """Infinite training batches, device-augmentation route.
+    """Infinite training batches.
 
-    Yields {"tiles": (B, T, S, S, 3) uint8 tensor on the dataset's device,
-    "tile_hw": (B, T, 2) int32, "params": (B, N_PARAMS) float32, "targets":
-    (B, M, 5) float32} (numpy but the tiles), with T = 5 with mixup, else
-    4: make_train_step(device_aug=True)'s batch.
-
-    device_aug=False (the host-augmentation route, with cv2's affine warp,
-    HSV LUTs, blur and CLAHE) is not ported and raises."""
+    device_aug=False (the host-augmentation route) yields {"image": (B, S,
+    S, 3) uint8 tensor on the dataset's device, "targets": (B, M, 5)
+    float32 numpy}: make_train_step's plain batch. device_aug=True yields
+    {"tiles": (B, T, S, S, 3) uint8 tensor on the dataset's device,
+    "tile_hw": (B, T, 2) int32, "params": (B, N_PARAMS) float32, "targets"}
+    (numpy but the tiles), with T = 5 with mixup, else 4:
+    make_train_step(device_aug=True)'s batch."""
 
     def __init__(self, dataset, batch_size: int, img_size=(640, 640),
                  aug_cfg: dict | None = None, seed: int = 21, shard: int = 0,
                  num_shards: int = 1, max_labels: int = MAX_LABELS,
                  prefetch: int = 3, no_aug: bool = False, num_workers: int = 0,
                  device_aug: bool = False):
-        if not device_aug:
-            raise NotImplementedError(
-                "TrainLoader(device_aug=False), the host-augmentation route, is "
-                "not ported (ROADMAP.md, Queue 1 item 4); set data.device_aug: "
-                "true")
         aug = dict(aug_cfg or {})
+        self.dataset = dataset
         self.img_size = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
         self.batch_size = batch_size
         self.max_labels = max_labels
@@ -167,22 +171,39 @@ class TrainLoader:
         self.index_stream = _IndexStream(len(dataset), seed=seed, shard=shard,
                                          num_shards=num_shards)
         self.steps_per_epoch = max(len(dataset) // (batch_size * num_shards), 1)
-        self.planner = DeviceAugPlanner(
-            dataset, img_size=self.img_size,
-            enable_mosaic=bool(aug.get("enable_mosaic", True)),
-            enable_mixup=bool(aug.get("enable_mixup", False)),
+        self.device_aug = bool(device_aug)
+        geometry = dict(
             mosaic_prob=float(aug.get("mosaic_prob", 1.0)),
             mixup_prob=float(aug.get("mixup_prob", 1.0)),
             degrees=float(aug.get("degrees", 0.0)),
             translate=float(aug.get("translate", 0.1)),
             mosaic_scale=tuple(aug.get("mosaic_scale", (0.5, 1.5))),
             mixup_scale=tuple(aug.get("mixup_scale", (0.5, 1.5))),
-            shear=float(aug.get("shear", 0.0)),
-            flip_lr_prob=float(aug.get("flip_lr_prob", 0.5)),
-            flip_ud_prob=float(aug.get("flip_ud_prob", 0.0)),
-            hsv_prob=float(aug.get("hsv_prob", 1.0)),
-            no_aug=no_aug)
-        self._batch_fn = partial(_make_device_batch, self.planner)
+            shear=float(aug.get("shear", 0.0)))
+        if self.device_aug:
+            self.planner = DeviceAugPlanner(
+                dataset, img_size=self.img_size,
+                enable_mosaic=bool(aug.get("enable_mosaic", True)),
+                enable_mixup=bool(aug.get("enable_mixup", False)),
+                flip_lr_prob=float(aug.get("flip_lr_prob", 0.5)),
+                flip_ud_prob=float(aug.get("flip_ud_prob", 0.0)),
+                hsv_prob=float(aug.get("hsv_prob", 1.0)),
+                no_aug=no_aug, **geometry)
+            self._batch_fn = partial(_make_device_batch, self.planner)
+            self._pixels, slots = "tiles", self.planner.n_tiles
+        else:
+            self.mosaic_ds = MosaicMixupDataset(
+                dataset, img_size=self.img_size,
+                enable_mosaic=bool(aug.get("enable_mosaic", True)) and not no_aug,
+                enable_mixup=bool(aug.get("enable_mixup", False)) and not no_aug,
+                **geometry)
+            self.pipeline = TrainAugPipeline(
+                flip_lr_prob=0.0 if no_aug else float(aug.get("flip_lr_prob", 0.5)),
+                flip_ud_prob=0.0 if no_aug else float(aug.get("flip_ud_prob", 0.0)),
+                hsv_prob=0.0 if no_aug else float(aug.get("hsv_prob", 1.0)),
+                img_sz=self.img_size)
+            self._batch_fn = partial(_make_batch, self.mosaic_ds, self.pipeline)
+            self._pixels, slots = "image", 1
         self.device = dataset_device(dataset)
         self.num_workers = int(num_workers)
         # queue.Queue(maxsize=0) is unbounded; prefetch <= 0 means one
@@ -190,14 +211,14 @@ class TrainLoader:
         self.prefetch = max(1, int(prefetch))
         if self.num_workers and self.device.type == "cuda":
             logger.warning(
-                "TrainLoader: %d spawned workers decode on the host with the "
-                "plain decoder and ship numpy tiles, which are uploaded to %s; "
-                "num_workers: 0 builds the tiles on the card", self.num_workers,
-                self.device)
+                "TrainLoader: %d spawned workers decode and augment on the host "
+                "(JPEGs with the plain decoder) and ship numpy pixels, which are "
+                "uploaded to %s; num_workers: 0 builds them on the card",
+                self.num_workers, self.device)
         if self.num_workers or self.device.type != "cuda":
             # the batch working set on the host (queued, in production and
             # held by the consumer), faulted in once
-            _malloc.prefault_arena((self.prefetch + 3) * batch_size * self.planner.n_tiles
+            _malloc.prefault_arena((self.prefetch + 3) * batch_size * slots
                                    * self.img_size[0] * self.img_size[1] * 3)
         self._queue: queue.Queue = queue.Queue(maxsize=self.prefetch)
         self._stop = threading.Event()
@@ -286,7 +307,7 @@ class TrainLoader:
             while True:
                 w = (self._next_bid - self._qbase) % self.num_workers
                 batch = self._get_checked(self._mp_queues[w], w)
-                batch["tiles"] = torch.from_numpy(batch["tiles"]).to(self.device)
+                batch[self._pixels] = torch.from_numpy(batch[self._pixels]).to(self.device)
                 self._next_bid += 1
                 yield batch
         if not self._started:
@@ -311,7 +332,7 @@ class TrainLoader:
                 # producer instead of a silent deadlock
                 self._started = False
                 raise RuntimeError(f"data worker failed:\n{ready}")
-            _await(batch["tiles"], ready)
+            _await(batch[self._pixels], ready)
             self._next_bid += 1
             yield batch
 
@@ -334,20 +355,43 @@ class TrainLoader:
 def _worker_main(out_q, batch_fn, index_stream, batch_size, img_size,
                  max_labels, seed, first_bid, stride):
     """Spawned worker: batches first_bid, first_bid + stride, ... with numpy
-    tiles (deterministic per batch id for any worker count). Its dataset
-    came pickled onto the CPU (datasets.py:__getstate__). An exception is
-    shipped to the consumer as an ("__error__", traceback) item."""
-    _malloc.prefault_arena(4 * batch_fn.args[0].n_tiles * batch_size
-                           * img_size[0] * img_size[1] * 3)
+    pixels (deterministic per batch id for any worker count), on one
+    intra-op thread. Its dataset came pickled onto the CPU
+    (datasets.py:__getstate__). An exception is shipped to the consumer as
+    an ("__error__", traceback) item."""
+    torch.set_num_threads(1)
+    device_route = batch_fn.func is _make_device_batch
+    key = "tiles" if device_route else "image"
+    slots = batch_fn.args[0].n_tiles if device_route else 1
+    _malloc.prefault_arena(4 * slots * batch_size * img_size[0] * img_size[1] * 3)
     bid = first_bid
     try:
         while True:
             batch = batch_fn(index_stream, batch_size, img_size, max_labels, seed, bid)
-            batch["tiles"] = batch["tiles"].numpy()
+            batch[key] = batch[key].numpy()
             out_q.put(batch)
             bid += stride
     except Exception:
         out_q.put(("__error__", traceback.format_exc()))
+
+
+def _make_batch(mosaic_ds, pipeline, index_stream, batch_size, img_size, max_labels,
+                seed, batch_id):
+    """Deterministic host-augmentation batch `batch_id`: index-stream
+    positions [bid*B, (bid+1)*B), sample sid augmented with
+    default_rng([seed, 77, sid]) (mosaic and mixup, then the pipeline), on
+    the device the dataset decodes to."""
+    imgs, labels = [], []
+    for k in range(batch_size):
+        sid = batch_id * batch_size + k
+        idx = index_stream.at(sid)
+        rng = np.random.default_rng([seed, 77, sid])
+        img, lab = mosaic_ds.getitem(rng, idx)
+        img, lab = pipeline(rng, img, lab)
+        imgs.append(img)
+        labels.append(lab)
+    return {"image": torch.stack(imgs),
+            "targets": pad_targets(labels, img_size, max_labels)}
 
 
 def _make_device_batch(planner, index_stream, batch_size, img_size, max_labels,

@@ -8,10 +8,11 @@ kernel on the card), best/last checkpoints monitored on mAP@.5, early
 stopping, exact-step resume, multi-scale size draws, sample grids, per-class
 tables, TensorBoard when it imports and WandB when credentials are set.
 
-On one device (a mesh raises), on the device-augmentation route (data.
-device_aug: true; the host route and degrees/shear raise). Precision: f32
-master weights, and model.precision bf16 (the default) runs the forwards of
-both steps under torch.autocast in bf16. Checkpoints are train/checkpoint.py
+On one device (a mesh raises). The loader takes the host-augmentation
+route unless data.device_aug is true; with degrees or shear set the device
+route falls back to the host route with a warning, as in the JAX package.
+Precision: f32 master weights, and model.precision bf16 (the default) runs
+the forwards of both steps under torch.autocast in bf16. Checkpoints are train/checkpoint.py
 files, ckpts/last and ckpts/best with the JAX meta beside each; the best
 EMA weights are an fp16 {"model": state_dict} .pt that
 predictor.load_weights reads. Sample grids are PNGs (<split>.png).
@@ -100,14 +101,15 @@ class Trainer:
         os.makedirs(os.path.join(self.output_dir, "ckpts"), exist_ok=True)
         self.batch_size = int(cfg.data.batch_size)
 
+        # data.device_aug moves the mosaic/mixup/HSV/flip pixel work into the
+        # train step; rotation and shear need the host route
         aug = dict(cfg.augmentations)
         self.device_aug = bool(getattr(cfg.data, "device_aug", False))
-        for key in ("degrees", "shear"):
-            if self.device_aug and float(aug.get(key, 0) or 0):
-                raise NotImplementedError(
-                    f"augmentations.{key} needs the host-augmentation route, which "
-                    "is not ported (ROADMAP.md, Queue 1 item 4); set it to 0 for "
-                    "data.device_aug")
+        if self.device_aug and (float(aug.get("degrees", 0) or 0)
+                                or float(aug.get("shear", 0) or 0)):
+            logger.warning("data.device_aug disabled: degrees/shear require the host "
+                           "augmentation pipeline")
+            self.device_aug = False
 
         self.train_loader, self.val_loader = self._build_loaders()
         steps_per_epoch = self.train_loader.steps_per_epoch

@@ -44,7 +44,7 @@ NMS_OPS_PER_PAIR = 14        # min/max x4, sub x3, clamp x3, mul, add, div, cmp
 CONF = 0.25
 IOU = 0.45
 HEAD_BATCHES = (128, 64, 8)
-NMS_SHAPES = ((128, 512), (64, 512), (8, 1024), (64, 2048))
+NMS_SHAPES = ((128, 512), (64, 512), (8, 1024), (8, 2048), (64, 2048))
 NMS_CASES = ("random", "crowded", "all_invalid")
 
 

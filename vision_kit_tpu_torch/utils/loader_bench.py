@@ -1,23 +1,31 @@
 """Loader throughput and the card's loaders against the plain ones.
 
-Counterpart of tools/bench_trainloader.py and tools/bench_valloader.py for
-the routes the port has. On a YOLO dataset (write_dataset's, by default):
+Counterpart of tools/bench_trainloader.py and tools/bench_valloader.py. On
+a YOLO dataset (write_dataset's, by default):
 
 - the device-augmentation TrainLoader's batches a second, uncached (every
   tile decoded: nvJPEG on the card) and from the RAM cache, each with its
   prefetch thread, and the ms of one batch built alone on the caller's
   thread (_make_batch, synchronised);
+- the host-augmentation TrainLoader (configs/yolov5.yaml's route, with
+  degrees and shear), uncached, at batch 8 and --batch: its batches a
+  second with its prefetch thread (the warp on the dataset's device) and
+  the ms of one batch alone, and with `workers` spawned workers (on the
+  host) in the steady state (host_route_rates);
 - ValLoader's images a second over the val split, uncached.
 
     python -m vision_kit_tpu_torch.utils.loader_bench [--train 128] [--val 64]
-        [--batch 64] [--size 640] [--batches 4] [--device cuda] [--json PATH]
+        [--batch 64] [--size 640] [--batches 4] [--workers 8] [--device cuda]
+        [--json PATH]
 
 write_dataset also makes the YOLO dataset that chip_smoke.py trains on: the
 committed samples (data/samples/) copied under several names, and seeded
 rectangle scenes written as PNGs, with seeded labels; the two samples the
 decoders refuse go into the train split once each, for the integrity scan
-to drop. loader_disagreements holds a card dataset's TrainLoader and
-ValLoader batches against a CPU dataset's.
+to drop (png_only: scenes alone, nothing refused). loader_disagreements
+holds a card dataset's device-route TrainLoader and ValLoader batches
+against a CPU dataset's; host_loader_disagreements its host-route batches;
+imgproc_disagreements each ops/imgproc.py op on the card against the CPU.
 """
 
 from __future__ import annotations
@@ -39,6 +47,12 @@ from vision_kit_tpu_torch.data.decode import (
 
 SCENE_HW = ((480, 640), (720, 1280), (512, 384))
 SCENE_COLORS = ((220, 40, 40), (40, 200, 60))   # class 0, class 1
+# configs/yolov5.yaml's augmentations with rotation and shear on, as
+# chip_smoke's fit-host phase trains
+HOST_AUG = {"degrees": 5.0, "translate": 0.1, "shear": 2.0, "flip_ud_prob": 0.0,
+            "flip_lr_prob": 0.5, "mosaic_prob": 1.0, "mixup_prob": 1.0, "hsv_prob": 1.0,
+            "mosaic_scale": (0.5, 1.5), "mixup_scale": (0.5, 1.5), "enable_mixup": False,
+            "enable_mosaic": True}
 
 
 def _scene(rng, hw) -> tuple[np.ndarray, list[str]]:
@@ -59,26 +73,28 @@ def _scene(rng, hw) -> tuple[np.ndarray, list[str]]:
     return img, lines
 
 
-def write_dataset(root: str, n_train: int = 128, n_val: int = 64, seed: int = 0) -> dict:
+def write_dataset(root: str, n_train: int = 128, n_val: int = 64, seed: int = 0,
+                  png_only: bool = False) -> dict:
     """A YOLO dataset under root/{train,valid}/{images,labels}: even
     indices are the committed JPEG and PNG samples the decoders take, in
     turn, with 1-3 seeded boxes; odd ones rectangle scenes written as PNGs,
     labelled by their rectangles. The train split also holds the refused
-    samples (progressive, truncated), which the scan drops. Returns
-    {"train": n, "valid": n, "refused": [file names]}."""
+    samples (progressive, truncated), which the scan drops. With png_only
+    every index is a scene and nothing is refused. Returns {"train": n,
+    "valid": n, "refused": [file names]}."""
     from vision_kit_tpu_torch.utils.serve_bench import samples
 
     rng = np.random.default_rng(seed)
     taken = [(name, data) for name, meta, data in samples() if meta["shape"]]
-    refused = [(name, data) for name, meta, data in samples()
-               if meta["shape"] is None and name.endswith(".jpg")]
+    refused = [] if png_only else [(name, data) for name, meta, data in samples()
+                                   if meta["shape"] is None and name.endswith(".jpg")]
     for split, n in (("train", n_train), ("valid", n_val)):
         img_dir, lbl_dir = (os.path.join(root, split, d) for d in ("images", "labels"))
         os.makedirs(img_dir, exist_ok=True)
         os.makedirs(lbl_dir, exist_ok=True)
         for i in range(n):
             stem = f"{split}{i:04d}"
-            if i % 2 == 0:
+            if i % 2 == 0 and not png_only:
                 name, data = taken[(i // 2) % len(taken)]
                 stem += "_" + os.path.splitext(name)[0]
                 ext = os.path.splitext(name)[1]
@@ -104,14 +120,14 @@ def _sync(device: torch.device) -> None:
 
 
 def train_loader_rate(dataset, batch: int, size: int, n_batches: int, seed: int = 0,
-                      aug: dict | None = None) -> dict:
+                      aug: dict | None = None, device_aug: bool = True) -> dict:
     """{"img_s": the TrainLoader's images a second over n_batches after two
     warm batches (median gap, with its prefetch thread), "batch_ms": the ms
     of one batch built alone on this thread}."""
     from vision_kit_tpu_torch.data.loader import TrainLoader
 
     loader = TrainLoader(dataset, batch, img_size=size, aug_cfg=aug, seed=seed,
-                         device_aug=True)
+                         device_aug=device_aug)
     dev = loader.device
     try:
         it = iter(loader)
@@ -150,8 +166,59 @@ def val_loader_rate(dataset, batch: int, size: int) -> float:
     return n / (time.perf_counter() - t0)
 
 
+def worker_rounds(dataset, batch: int, size: int, workers: int, rounds: int,
+                  aug: dict | None = None, device_aug: bool = False) -> list[float]:
+    """Seconds from iter() to the arrival of each round's last batch, over
+    `rounds` rounds of a TrainLoader with `workers` spawned workers: worker
+    w makes batches w, w + W, ..., so a round of W batches arrives together
+    and takes one worker's time a batch (the first round adds the spawn)."""
+    from vision_kit_tpu_torch.data.loader import TrainLoader
+
+    loader = TrainLoader(dataset, batch, img_size=size, aug_cfg=aug, seed=0,
+                         device_aug=device_aug, num_workers=workers)
+    out = []
+    try:
+        t0 = time.perf_counter()
+        it = iter(loader)
+        for _ in range(rounds):
+            for _ in range(workers):
+                next(it)
+            _sync(loader.device)
+            out.append(time.perf_counter() - t0)
+    finally:
+        loader.close()
+    return out
+
+
+def host_route_rates(dataset, batches=(8, 64), size: int = 640, n_batches: int = 2,
+                     workers: int = 8) -> dict:
+    """The host-augmentation TrainLoader (HOST_AUG) on `dataset` at each
+    batch size: with its prefetch thread ("thread": img/s and the ms of a
+    batch alone) and with `workers` spawned workers ("workers"). The
+    workers' img/s is W * B over a round in the steady state: two rounds
+    at the first batch size give the round's time and, by difference, the
+    spawn's; a larger batch runs one round (a round of 64-image batches
+    costs tens of seconds) less that spawn time, and its img/s is None when
+    the spawn's variance leaves no positive time."""
+    out, spawn_s = {}, None
+    for b in batches:
+        rounds = worker_rounds(dataset, b, size, workers, 2 if spawn_s is None else 1,
+                               aug=HOST_AUG)
+        if spawn_s is None:
+            round_s = rounds[1] - rounds[0]
+            spawn_s = rounds[0] - round_s
+        else:
+            round_s = rounds[0] - spawn_s
+        out[b] = {"thread": train_loader_rate(dataset, b, size, n_batches, aug=HOST_AUG,
+                                              device_aug=False),
+                  "workers": {"img_s": workers * b / round_s if round_s > 0 else None,
+                              "round_s": round_s, "first_round_s": rounds[0],
+                              "spawn_s": spawn_s}}
+    return out
+
+
 def run(data_dir: str, batch: int = 64, size: int = 640, n_batches: int = 4,
-        device: str = "cuda") -> dict:
+        device: str = "cuda", workers: int = 8) -> dict:
     """The loader numbers on `device` (see the module docstring)."""
     from vision_kit_tpu_torch.data.datasets import YOLODataset
 
@@ -161,6 +228,7 @@ def run(data_dir: str, batch: int = 64, size: int = 640, n_batches: int = 4,
     plain = YOLODataset(train_dir, img_size=size, device=device, cache=False)
     out["scan_s"] = time.perf_counter() - t0
     out["uncached"] = train_loader_rate(plain, batch, size, n_batches)
+    out["host_route"] = host_route_rates(plain, (8, batch), size, n_batches, workers)
     t0 = time.perf_counter()
     cached = YOLODataset(train_dir, img_size=size, device=device, cache_images="ram")
     _sync(cached.device)
@@ -244,6 +312,89 @@ def loader_disagreements(card_ds, plain_ds, batch: int, size: int, seed: int = 0
     return out
 
 
+def _scene_image(rng, h: int, w: int) -> np.ndarray:
+    """Gradients, seeded noise and flat rectangles: every level, flat runs
+    and edges, for the filters and the warp."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([yy * 255 // (h - 1), xx * 255 // (w - 1), (yy + xx) * 127 // (h + w - 2)],
+                   -1) + rng.integers(-24, 25, (h, w, 3))
+    for _ in range(6):
+        y, x = int(rng.integers(0, h)), int(rng.integers(0, w))
+        img[y:y + h // 5, x:x + w // 5] = rng.integers(0, 256, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def imgproc_disagreements(device, sizes=(640, 1280), seed: int = 0) -> list[str]:
+    """Each op of the host route (ops/imgproc.py, through data/augment.py
+    where it draws its parameters) on `device` against the CPU, bit for
+    bit, on a seeded S x S image per size: the warp under rotation, shear
+    and translation (to 640 x 640), HSV at three gain draws, blur and
+    median at ksize 3, 5 and 7, gray, RGB2Lab, CLAHE, Lab2RGB, the pad.
+    Returns the ops that differ, empty when all agree."""
+    from vision_kit_tpu_torch.data import augment
+    from vision_kit_tpu_torch.ops import imgproc
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for size in sizes:
+        host = torch.from_numpy(_scene_image(rng, size, size))
+        card = host.to(device)
+        labels = np.zeros((0, 5), np.float32)
+        ops = {}
+        for k in range(3):
+            draw = int(rng.integers(1 << 30))
+            ops[f"warp {k}"] = lambda x, d=draw: augment.random_affine(
+                np.random.default_rng(d), x, labels, (640, 640), degrees=10.0,
+                translate=0.1, scales=(0.5, 1.5), shear=5.0)[0]
+            ops[f"hsv {k}"] = lambda x, d=draw: augment.augment_hsv(np.random.default_rng(d), x)
+        for k in (3, 5, 7):
+            ops[f"blur {k}"] = lambda x, k=k: imgproc.blur_u8(x, (k, k))
+            ops[f"median {k}"] = lambda x, k=k: imgproc.median_blur_u8(x, k)
+        ops["gray"] = lambda x: imgproc.gray2rgb_u8(imgproc.rgb2gray_u8(x))
+        ops["lab"] = imgproc.rgb2lab_u8
+        ops["clahe"] = lambda x: imgproc.clahe_u8(x[..., 0].contiguous())
+        ops["lab2rgb"] = imgproc.lab2rgb_u8
+        ops["pad"] = lambda x: augment.pad_to(x[: size // 2], labels, (size, size + 8))[0]
+        for name, op in ops.items():
+            got, want = op(card), op(host)
+            if got.device.type != card.device.type:
+                out.append(f"{name} at {size}: ran on {got.device}")
+            elif not torch.equal(got.cpu(), want):
+                n = int((got.cpu() != want).sum())
+                out.append(f"{name} at {size}: {n} of {want.numel()} values differ")
+    return out
+
+
+def host_loader_disagreements(card_ds, plain_ds, batch: int, size: int, seed: int = 0,
+                              n_batches: int = 2, aug: dict | None = None) -> list[str]:
+    """The host-augmentation TrainLoader over a card dataset (num_workers
+    0: every op on the card) against the same files on the CPU: images and
+    targets bit-equal (the datasets must decode alike: PNGs). Returns the
+    disagreements, empty when they agree."""
+    from vision_kit_tpu_torch.data.loader import TrainLoader
+
+    if card_ds.img_files != plain_ds.img_files:
+        return ["the datasets hold other files"]
+    out = []
+    loaders = [TrainLoader(ds, batch, img_size=size, aug_cfg=aug, seed=seed, prefetch=1)
+               for ds in (card_ds, plain_ds)]
+    try:
+        its = [iter(lo) for lo in loaders]
+        for bid in range(n_batches):
+            got, want = next(its[0]), next(its[1])
+            if got["image"].device.type != card_ds.device.type:
+                out.append(f"batch {bid}: images on {got['image'].device}")
+            if not np.array_equal(got["targets"], want["targets"]):
+                out.append(f"batch {bid}: targets differ")
+            if not torch.equal(got["image"].cpu(), want["image"]):
+                n = int((got["image"].cpu() != want["image"]).sum())
+                out.append(f"batch {bid}: {n} pixel values differ")
+    finally:
+        for lo in loaders:
+            lo.close()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data-dir", help="a YOLO dataset with train/ and valid/ "
@@ -253,6 +404,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--size", type=int, default=640)
     ap.add_argument("--batches", type=int, default=4)
+    ap.add_argument("--workers", type=int, default=8,
+                    help="spawned workers of the host route's second rate")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", help="write the numbers here too")
     args = ap.parse_args(argv)
@@ -261,7 +414,7 @@ def main(argv=None) -> int:
         if data_dir is None:
             data_dir = tmp
             write_dataset(tmp, args.train, args.val)
-        rec = run(data_dir, args.batch, args.size, args.batches, args.device)
+        rec = run(data_dir, args.batch, args.size, args.batches, args.device, args.workers)
     print(json.dumps(rec))
     if args.json:
         with open(args.json, "w") as f:
