@@ -111,6 +111,18 @@ Phases, each printing its own line; any failure exits non-zero:
      card) against the same files on the CPU, images and targets bit-equal;
      the host route's img/s with its thread and its ms a batch alone, and
      its img/s with 8 workers in the steady state, at b8 and b64;
+ 13. ddp: data parallelism (vision_kit_tpu_torch/parallel/) in child
+     processes, with cuDNN. A world of 1 over NCCL through
+     init_distributed: a v5s@640 b64 step under the mesh against the same
+     step without it, in float64 and in f32 (mesh_step_failures), and the
+     bf16 step's img/s with and without the mesh in turns. Two ranks
+     sharing the card over gloo on CUDA tensors: the 2x32 step against
+     the 1x64 step likewise, the f32 one held to each rank's rows run
+     alone; the bf16 2x32 step's time; Trainer.fit (the fit phase's
+     config and files, 32 rows a rank) whose ranks end bit-identical with
+     one greedy_nms launch a rank per validation batch; the 2-rank
+     validation against rank 0's alone over whole batches (the same
+     detections, then the metrics to 1e-9);
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -126,7 +138,9 @@ kernel on a reference-order head's b128 maps, with the reference-order
 serving run's launches; greedy_nms_serve and head_scores_serve the kernels
 at the server's batch 8, K=1024, with the launches of the server's HTTP
 run; greedy_nms_fit the eval shape with the launches of fit's
-validations) and, last, {"ok": true,
+validations; greedy_nms_ddp a rank's share of it, B=32, with rank 0's
+launches in the ddp phase's fit and both ranks' under launches_by_rank)
+and, last, {"ok": true,
 "device": ...}.
 
 The main path's head has its biases zeroed and its kernels scaled to unit
@@ -210,8 +224,8 @@ def phase_kernels(rng):
     from vision_kit_tpu_torch.ops.head_scores import head_scores, head_scores_reference
     from vision_kit_tpu_torch.utils import kernel_bench as kb
 
-    # -- greedy NMS: bit-equal masks -------------------------------------
-    for b in (8, 64, 128):
+    # -- greedy NMS: bit-equal masks (B=32: a rank's share of the eval batch)
+    for b in (8, 32, 64, 128):
         for k in NMS_KS:
             for case in NMS_CHECK_CASES:
                 boxes, valid = kb.make_boxes(rng, b, k, case)
@@ -319,6 +333,7 @@ def kernel_times(head_max_err: dict):
                         ("greedy_nms_train_eval", (64, 2048)),
                         ("greedy_nms_fit", (64, 2048)),
                         ("greedy_nms_fit_host", (8, 2048)),
+                        ("greedy_nms_ddp", (DDP_BATCH // 2, 2048)),
                         ("greedy_nms_v7", (64, 512)),
                         ("greedy_nms_serve", (SERVE_BATCH, 1024))):
         nms = next(r for r in bench["greedy_nms"]
@@ -1524,9 +1539,7 @@ def resume_check(data_dir: str, out: str) -> dict:
     from vision_kit_tpu_torch.train.trainer import Trainer
     from vision_kit_tpu_torch.utils import stream_bench as sb
 
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    sb.deterministic()
     ref = Trainer(fit_config(data_dir, os.path.join(out, "ref")), use_tensorboard=False,
                   seed=0, device="cuda")
     ref.fit()
@@ -1860,6 +1873,282 @@ def phase_fit_host(smi: str) -> dict:
     return counts
 
 
+DDP_BATCH = 64   # the global batch of the ddp phase's steps (v5s@640)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_step_failures(res: dict) -> list:
+    """What fails in a data-parallel step's check (stream_bench.
+    mesh_step_disagreements with its float64 referee, cuDNN on, in
+    deterministic mode):
+
+    - the float64 step under the mesh must equal the float64 step without
+      it at test_torch_train.py's tolerances (1e-4 of a tensor plus 2e-3 of
+      its change, losses 1e-4): the data-parallel arithmetic itself;
+    - the f32 step under the mesh must lie no further from the float64 step
+      than the f32 step without a mesh, on the rows of its worst rank
+      alone, lies from its own float64 step. cuDNN's f32 convolutions
+      round by the rows they are given: of the ddp phase's batch, on an
+      H100, rows 32-63 alone lie 56.7x the tolerance from float64, rows
+      0-31 alone 6.0x, the 64 together 3.2x; so a rank's f32 step is held
+      to what its own rows cost without a mesh. At a world of 1 that is the step
+      without a mesh on the whole batch."""
+    m = res["metrics"]
+    out = []
+    if m["f64_disagreements"]:
+        out.append(f"in float64 the mesh step differs from the step without it in "
+                   f"{len(m['f64_disagreements'])} tensors or metrics: "
+                   f"{m['f64_disagreements'][:3]}")
+    bound = max(m["alone_vs_f64"])
+    if not m["mesh_vs_f64"] <= bound:
+        out.append(f"the f32 mesh step lies {m['mesh_vs_f64']:.3f}x the tolerance from the "
+                   f"float64 step, beyond the {bound:.3f}x of its ranks' rows alone")
+    return out
+
+
+def ddp_world1(port: int) -> dict:
+    """`python3 chip_smoke.py --ddp-world1 PORT` (deterministic mode): a
+    world of 1 over NCCL through init_distributed; a v5s@640 step of b64
+    under the mesh against the same step without it, in f32 and float64
+    (stream_bench.mesh_step_disagreements); then the bf16 training step
+    (run_train_bench, b64) with and without the mesh, in turns."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+
+    sb.deterministic()
+    check(init_distributed(f"127.0.0.1:{port}", 1, 0), "init_distributed did not join")
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}, not nccl")
+        mesh = make_mesh()
+        bad, metrics = sb.mesh_step_disagreements(mesh, v5s_config(), batch=DDP_BATCH,
+                                                  referee=True)
+        model = build_model(v5s_config(), device=mesh.device, dtype=torch.bfloat16, seed=0)
+        loss = YoloLoss(80, model.head.grid_anchors, sb.TRAIN_HYP, layout="native")
+        rates = {"mesh": [], "plain": []}
+        for name in ("mesh", "plain", "plain", "mesh"):
+            rec = sb.run_train_bench(model, loss, DDP_BATCH, iters=10, warmup=3,
+                                     mesh=mesh if name == "mesh" else None)
+            rates[name].append(rec["value"])
+        return {"disagreements": [list(map(str, b)) for b in bad[:5]],
+                "n_disagreements": len(bad), "metrics": metrics, "img_s": rates,
+                "backend": torch.distributed.get_backend()}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ddp_rank(rank: int, port: int, data_dir: str, out: str) -> dict:
+    """`python3 chip_smoke.py --ddp-rank RANK PORT DATA OUT`, one of two
+    processes sharing the card over gloo with CUDA tensors (deterministic
+    mode): the v5s@640 step of 2x32 against the 1x64 step in f32 and
+    float64, and each rank's rows alone (mesh_step_disagreements); the bf16
+    step at 32 a rank
+    (run_train_bench); Trainer.fit (fit_config: v5s@640 bf16, global batch
+    64, 2 epochs) with each rank's greedy_nms launches; the validation on
+    both ranks against rank 0 alone over the whole batches, detections and
+    metrics. Returns this rank's numbers and the digest of its state."""
+    import hashlib
+
+    from vision_kit_tpu_torch.data.loader import ValLoader
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
+    from vision_kit_tpu_torch.parallel.mesh import barrier
+    from vision_kit_tpu_torch.train import trainer as trainer_mod
+    from vision_kit_tpu_torch.train.evaluator import DetEvaluator
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.train.step import make_eval_step
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+
+    sb.deterministic()
+    check(init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo"),
+          "init_distributed did not join")
+    try:
+        mesh = make_mesh()
+        check(mesh.device == torch.device("cuda", 0), f"rank {rank} on {mesh.device}")
+        bad, metrics = sb.mesh_step_disagreements(mesh, v5s_config(), batch=DDP_BATCH,
+                                                  referee=True)
+        res = {"rank": rank, "metrics": metrics}
+        torch.cuda.empty_cache()
+        if rank == 0:
+            res["disagreements"] = [list(map(str, b)) for b in bad[:5]]
+            res["n_disagreements"] = len(bad)
+
+        model = build_model(v5s_config(), device=mesh.device, dtype=torch.bfloat16, seed=0)
+        loss = YoloLoss(80, model.head.grid_anchors, sb.TRAIN_HYP, layout="native")
+        rec = sb.run_train_bench(model, loss, DDP_BATCH // 2, iters=5, warmup=2, mesh=mesh)
+        res["step_ms"], res["step_img_s"] = rec["step_ms"], DDP_BATCH * 1000 / rec["step_ms"]
+        del model
+
+        cfg = fit_config(data_dir, out)
+        tr = trainer_mod.Trainer(cfg, use_tensorboard=False, seed=0, device="cuda",
+                                 mesh=mesh)
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.fit()
+        torch.cuda.synchronize()
+        res["fit_s"] = time.perf_counter() - t0
+        res["launches"] = read_counts()
+        res["n_val_batches"] = len(tr.val_loader)
+        res["epochs"] = [{k: e[k] for k in ("img_s", "seconds", "loader_wait_s", "val_s")}
+                         for e in tr.epoch_stats]
+        res["step"] = tr.global_step
+        h = hashlib.sha256()
+        tensors = sb.train_state_tensors(tr.state)
+        for part in sb.STATE_PARTS:
+            for k in sorted(tensors[part]):
+                h.update(tensors[part][k].numpy().tobytes())
+        res["digest"] = h.hexdigest()
+
+        # the validation on both ranks, then on rank 0 alone over whole batches
+        dets = {}
+
+        def recording(step, name):
+            def run(imgs):
+                d, v = step(imgs)
+                dets.setdefault(name, []).append((d.cpu(), v.cpu()))
+                return d, v
+            return run
+
+        tr.eval_step = recording(tr.eval_step, "mesh")
+        both = tr.validate()
+        if rank == 0:
+            one_step = make_eval_step(
+                tr.model, state=tr.state, compute_dtype=tr.compute_dtype,
+                postprocess_kwargs=dict(conf_thres=float(cfg.testing.conf_thresh),
+                                        iou_thres=float(cfg.testing.iou_thresh)))
+            alone = trainer_mod.validate(
+                recording(one_step, "one"),
+                ValLoader(tr.val_loader.dataset, tr.batch_size, img_size=tr.img_size),
+                DetEvaluator(list(cfg.data.class_labels), tr.img_size))
+            pairs = [(g[0][i][g[1][i]].numpy(), w[0][i][w[1][i]].numpy())
+                     for g, w in zip(dets["mesh"], dets["one"]) for i in range(len(w[0]))]
+            res["validate"] = {
+                "n_batches": [len(dets["mesh"]), len(dets["one"])],
+                "same_detections": all(sb.same_detections(w, g, 1e-5, 1e-3)
+                                       for g, w in pairs),
+                "bit_equal": all(np.array_equal(g, w) for g, w in pairs),
+                "n_detections": int(sum(v.sum() for _, v in dets["one"])),
+                "mesh": {k: both[k] for k in ("map50", "map50_95")},
+                "one": {k: alone[k] for k in ("map50", "map50_95")},
+                "max_diff": max([abs(both[k] - alone[k]) for k in ("map50", "map50_95")]
+                                + [abs(g[k] - w[k]) for g, w in zip(both["per_class"],
+                                                                     alone["per_class"])
+                                   for k in ("precision", "recall", "ap50", "ap")])}
+        barrier(mesh)
+        tr.train_loader.close()
+        return res
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_ddp(smi: str) -> dict:
+    """Data-parallel training on the card: a world of 1 over NCCL in a child
+    process (ddp_world1), then two processes sharing the card over gloo on
+    CUDA tensors (ddp_rank) on write_dataset's files. Returns each rank's
+    greedy_nms launches in fit."""
+    import subprocess
+    import tempfile
+
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    script = os.path.join(REPO, "chip_smoke.py")
+
+    def result(stdout: str, tag: str) -> dict:
+        lines = [ln for ln in stdout.splitlines() if ln.startswith(tag + " ")]
+        check(lines, f"no {tag} line")
+        return json.loads(lines[-1][len(tag) + 1:])
+
+    r = subprocess.run([sys.executable, script, "--ddp-world1", str(free_port())],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"the world-1 run exited {r.returncode}: {r.stderr[-3000:]}")
+    w1 = result(r.stdout, "DDP1")
+    fails = mesh_step_failures(w1)
+    check(not fails, "the NCCL world-1 step: " + "; ".join(fails))
+    mesh_img_s, plain_img_s = w1["img_s"]["mesh"], w1["img_s"]["plain"]
+    print(f"ddp: world 1 over {w1['backend']} (init_distributed, deterministic mode, "
+          f"cuDNN): a v5s@640 b{DDP_BATCH} step under the mesh against the step without "
+          f"it, in float64 {len(w1['metrics']['f64_disagreements'])} tensors beyond 1e-4 "
+          f"of a tensor plus 2e-3 of its change (worst "
+          f"{w1['metrics']['f64_worst']:.3g}x that), in f32 {w1['n_disagreements']} "
+          f"{w1['disagreements'][:2]}; f32 worst error against the float64 step over that "
+          f"tolerance, mesh {w1['metrics']['mesh_vs_f64']:.3f}, without "
+          f"{w1['metrics']['plain_vs_f64']:.3f}; loss {w1['metrics']['mesh']['loss']:.6f} "
+          f"vs {w1['metrics']['one_process']['loss']:.6f}; bf16 step b{DDP_BATCH} in turns: mesh "
+          + ", ".join(f"{v:.1f}" for v in mesh_img_s) + " img/s, without "
+          + ", ".join(f"{v:.1f}" for v in plain_img_s) + f" img/s on {smi}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "ds")
+        lb.write_dataset(data_dir, FIT_TRAIN, FIT_VAL)
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, script, "--ddp-rank", str(rank),
+                                   str(port), data_dir, os.path.join(tmp, "run")],
+                                  cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"ddp rank {rank} exited {p.returncode}: {err[-3000:]}")
+        r0, r1 = (result(o, "DDP2") for o, _ in outs)
+    fails = mesh_step_failures(r0)
+    check(not fails, "the 2x32 gloo step: " + "; ".join(fails)
+          + f"; losses {r0['metrics']['mesh']} and {r0['metrics']['one_process']}")
+    check(r0["digest"] == r1["digest"], "the ranks' states differ after fit")
+    want_steps = FIT_EPOCHS * FIT_TRAIN // DDP_BATCH
+    check(r0["step"] == r1["step"] == want_steps, f"fit ended at step {r0['step']}")
+    n_val = r0["n_val_batches"]
+    for r in (r0, r1):
+        check(r["launches"] == {"greedy_nms": FIT_EPOCHS * n_val, "head_scores": 0},
+              f"rank {r['rank']} launched {r['launches']} in fit, not one greedy_nms per "
+              f"validation batch ({FIT_EPOCHS} x {n_val})")
+    val = r0["validate"]
+    check(val["n_batches"][0] == val["n_batches"][1] and val["same_detections"],
+          f"the 2-rank validation's detections differ from rank 0's alone "
+          f"({val['n_batches']} batches; class exact, score 1e-5, box 1e-3 px)")
+    check(val["max_diff"] <= 1e-9,
+          f"2-rank validation metrics differ from one rank's by {val['max_diff']}")
+    m0 = r0["metrics"]
+    print(f"ddp: 2 ranks on the card over gloo with CUDA tensors (deterministic mode, "
+          f"cuDNN): the v5s@640 2x32 step against the 1x64 step, in float64 "
+          f"{len(m0['f64_disagreements'])} tensors beyond 1e-4 + 2e-3 of its change "
+          f"(worst {m0['f64_worst']:.3g}x that), in f32 {r0['n_disagreements']}; f32 worst "
+          f"error against the float64 step, 2x32 {m0['mesh_vs_f64']:.3f}, 1x64 "
+          f"{m0['plain_vs_f64']:.3f}, each rank's 32 rows alone without a mesh "
+          + ", ".join(f"{v:.3f}" for v in m0["alone_vs_f64"])
+          + f"; loss {r0['metrics']['mesh']['loss']:.6f} "
+          f"vs {r0['metrics']['one_process']['loss']:.6f}; bf16 step 2x32 "
+          f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms ({r0['step_img_s']:.1f} img/s of "
+          f"the global batch); Trainer.fit v5s@640 bf16 b{DDP_BATCH} (32 a rank), "
+          f"{FIT_EPOCHS} epochs of {want_steps // FIT_EPOCHS} steps: {r0['fit_s']:.1f} s, "
+          f"per epoch " + "; ".join(f"{e['img_s']:.1f} img/s ({e['seconds']:.2f} s), "
+                                    f"validation {e['val_s']:.2f} s" for e in r0["epochs"])
+          + f"; the ranks bit-identical; greedy_nms launches by rank "
+          f"{[r0['launches']['greedy_nms'], r1['launches']['greedy_nms']]} "
+          f"({FIT_EPOCHS} validations of {n_val} batch); validation on 2 ranks "
+          f"{val['mesh']} vs rank 0 alone {val['one']}: detections "
+          f"{'bit-equal' if val['bit_equal'] else 'equal within tolerance'} "
+          f"({val['n_detections']}), "
+          f"largest metric difference {val['max_diff']:.3g} on {smi}", flush=True)
+    print(f"ddp: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"greedy_nms": [r0["launches"]["greedy_nms"], r1["launches"]["greedy_nms"]]}
+
+
 def sync_points(fn) -> dict:
     """Where `fn` makes the host wait for the card: torch's sync debug mode
     warns at each synchronising call; returns {file:line: count}."""
@@ -1924,6 +2213,19 @@ def main() -> int:
         sys.path.insert(0, REPO)
         print("RESUME " + json.dumps(resume_check(sys.argv[2], sys.argv[3])), flush=True)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--ddp-world1":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, REPO)
+        print("DDP1 " + json.dumps(ddp_world1(int(sys.argv[2]))), flush=True)
+        return 0
+    if len(sys.argv) == 6 and sys.argv[1] == "--ddp-rank":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, REPO)
+        res = ddp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        print("DDP2 " + json.dumps(res), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1971,6 +2273,7 @@ def main() -> int:
     serve_counts = phase_serve(model, smi)
     fit_counts = phase_fit(smi)
     fit_host_counts = phase_fit_host(smi)
+    ddp_counts = phase_ddp(smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -2009,6 +2312,8 @@ def main() -> int:
     rows["greedy_nms_serve"]["launches"] = serve_counts["greedy_nms"]
     rows["greedy_nms_fit"]["launches"] = fit_counts["greedy_nms"]
     rows["greedy_nms_fit_host"]["launches"] = fit_host_counts["greedy_nms"]
+    rows["greedy_nms_ddp"]["launches"] = ddp_counts["greedy_nms"][0]
+    rows["greedy_nms_ddp"]["launches_by_rank"] = ddp_counts["greedy_nms"]
     rows["head_scores_serve"]["launches"] = serve_counts["head_scores"]
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

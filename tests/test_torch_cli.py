@@ -4,7 +4,9 @@ honours the config's data.seed, logs mAP@.5 and writes its run directory
 (log.log, ckpts/, the best weights); eval -d reads the result. The
 repo's default config, configs/yolov5.yaml (no data.device_aug: the
 host-augmentation route, spawned workers, bf16), trains too. Without
---device cpu, and with no card, both raise.
+--device cpu, and with no card, both raise. Under torchrun (python -m
+torch.distributed.run, two processes over gloo) train runs data-parallel:
+one run directory, written by rank 0.
 """
 
 import glob
@@ -66,6 +68,31 @@ def test_train_then_eval_on_the_cpu(tmp_path):
     assert len(evals) == 1
     log = open(evals[0]).read()
     assert "Global seed set to 3" in log and "mAP@.5" in log
+
+
+def test_train_under_torchrun_on_the_cpu(tmp_path):
+    """torchrun --nproc_per_node 2 -m vision_kit_tpu_torch train --device cpu:
+    both ranks join (init_distributed reads torchrun's variables), train one
+    epoch of the global batch 4 and test; rank 0 alone names the run
+    directory and writes the log, the checkpoints and the grid."""
+    ds, out = str(tmp_path / "ds"), str(tmp_path / "out")
+    build_rectangle_dataset(ds)
+    cfg = str(tmp_path / "cfg.yaml")
+    write_cfg(cfg, ds, out, seed=7)
+    env = dict(os.environ, OMP_NUM_THREADS="1", COLUMNS="200")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node", "2", "-m", "vision_kit_tpu_torch", "train",
+                        "-c", cfg, "--device", "cpu"],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    runs = glob.glob(os.path.join(out, "YOLOv5", "train", "*"))
+    assert len(runs) == 1
+    log = open(os.path.join(runs[0], "log.log")).read()
+    assert "mAP@.5" in log and log.count("Start Training") == 1
+    for path in ("ckpts/last", "ckpts/last.meta.json", "train.png"):
+        assert os.path.exists(os.path.join(runs[0], path)), path
 
 
 def test_train_default_config_on_the_cpu(tmp_path):

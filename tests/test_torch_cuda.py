@@ -412,3 +412,33 @@ def test_host_route_loader_card_equal_cpu(cuda, tmp_path):
     plain = YOLODataset(split, img_size=320, device="cpu")
     aug = dict(lb.HOST_AUG, enable_mixup=True)
     assert lb.host_loader_disagreements(card, plain, batch=4, size=320, aug=aug) == []
+
+
+def test_world1_nccl_step_matches_the_step_without_a_mesh(cuda, monkeypatch):
+    """A world of one over NCCL (parallel/distributed.py:init_distributed at
+    a free localhost port): one f32 v5n@128 step of b4 under the mesh
+    equals the same step without it, from the same seeded state and batch
+    (stream_bench.mesh_step_disagreements: state within 1e-4 of a tensor
+    plus 2e-3 of its change, losses 1e-4). Two ranks sharing the card over
+    gloo run in chip_smoke.py's ddp phase."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
+    from vision_kit_tpu_torch.utils.stream_bench import mesh_step_disagreements
+
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        cfg = _config("yolov5.yaml", version="n", num_classes=80, input_size=[128, 128])
+        bad, metrics = mesh_step_disagreements(make_mesh(), cfg, batch=4)
+        assert bad == [], bad
+        assert metrics["mesh"]["loss"] > 0
+    finally:
+        dist.destroy_process_group()

@@ -33,6 +33,9 @@ def _port_sources():
 def test_sources_import_no_jax_flax_or_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 10
+    names = {os.path.relpath(p, REPO) for p in sources}
+    assert {"vision_kit_tpu_torch/parallel/mesh.py",
+            "vision_kit_tpu_torch/parallel/distributed.py"} <= names
     for path in sources:
         with open(path) as f:
             text = f.read()

@@ -445,7 +445,8 @@ def test_profile_and_guards(resume_cfg, tmp_path):
     tr = port_trainer(with_out(resume_cfg, tmp_path))
     path = tr.profile(steps=1)
     assert os.path.getsize(path) > 0
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is a parallel.mesh.Mesh (tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="mesh"):
         port_trainer(resume_cfg, mesh=object())
     # rotation or shear under data.device_aug, and device_aug false, both
     # build the host-augmentation loader
@@ -461,3 +462,38 @@ def test_profile_and_guards(resume_cfg, tmp_path):
     tr = port_trainer(d)
     assert not tr.device_aug and set(next(iter(tr.train_loader))) == {"image", "targets"}
     tr.train_loader.close()
+
+
+def test_two_rank_fit_is_identical_across_ranks_and_resumes_exactly(tmp_path):
+    """Trainer.fit on 2 gloo ranks (tests/torch_dist_lib.py:fit_worker) for
+    one epoch of 3 steps of the global batch 4 on a fresh copy of the
+    rectangle set, validating at its end: the ranks' states are
+    bit-identical; rank 0 alone writes the label caches, the checkpoints,
+    the best weights and the sample grids; a crash of both ranks after step
+    1, resumed from ckpts/last, ends bit-identical to the uninterrupted
+    run."""
+    from torch_dist_lib import run_ranks
+
+    root = tmp_path / "rect"
+    build_rectangle_dataset(str(root))
+    d = cfg_dict(str(root), str(tmp_path / "out"), batch=4, epochs=1, val_interval=1)
+    got = run_ranks(2, "torch_dist_lib:fit_worker", {"cfg": d, "crash_after": 1})
+    run = [r["run"] for r in got]
+    resumed = [r["resumed"] for r in got]
+    assert run[0]["step"] == run[1]["step"] == resumed[0]["step"] == 3
+    assert run[0]["digest"] == run[1]["digest"]
+    assert resumed[0]["digest"] == resumed[1]["digest"] == run[0]["digest"]
+    assert run[0]["best_map50"] == run[1]["best_map50"] >= 0
+    assert run[1]["writes"] == [] and resumed[1]["writes"] == []
+    out = os.path.join(str(tmp_path / "out"), "run")
+    written = sorted((what, os.path.relpath(path, str(tmp_path)))
+                     for what, path in run[0]["writes"])
+    labels = [p for w, p in written if w == "savez_compressed"]
+    assert len(labels) == 2 and all(".vkt_labels_" in p for p in labels)
+    assert [p for w, p in written if w == "grid_save"] == ["out/run/train.png",
+                                                           "out/run/val.png"]
+    saved = [p for w, p in written if w == "torch.save"]
+    assert "out/run/ckpts/last" in saved and "out/run/ckpts/best" in saved
+    assert any(p.startswith("out/run/weights/best-map50_") for p in saved)
+    for path in ("ckpts/last", "ckpts/last.meta.json", "train.png", "val.png"):
+        assert os.path.exists(os.path.join(out, path)), path

@@ -1,0 +1,345 @@
+"""Data-parallel runs of the port on the CPU: N processes over gloo, each a
+rank of a vision_kit_tpu_torch.parallel mesh.
+
+    results = run_ranks(2, "torch_dist_lib:bn_worker", {"seed": 0})
+
+(or Ranks(...), which returns at once, and its results() later) starts
+one process a rank (python tests/torch_dist_lib.py ...), each at
+two intra-op threads, joins the process group at a free localhost port,
+builds make_mesh(device="cpu"), calls the named function as fn(mesh,
+**kwargs) and saves what it returns (torch.save); run_ranks returns the
+ranks' results in rank order, and raises with a rank's stderr when one
+fails. The worker functions below import torch and the port only: a rank
+starts in about two seconds.
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS)
+DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+            "LOCAL_WORLD_SIZE", "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+            "JAX_PROCESS_ID")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """`world` processes running target ("module:function") as gloo ranks,
+    started at construction; results() waits for them."""
+
+    def __init__(self, world: int, target: str, kwargs: dict, threads: int = 2):
+        port = free_port()
+        env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
+        env["PYTHONPATH"] = os.pathsep.join([REPO, TESTS, env.get("PYTHONPATH", "")])
+        env["OMP_NUM_THREADS"] = str(threads)
+        self._tmp = tempfile.TemporaryDirectory()
+        self._outs = [os.path.join(self._tmp.name, f"rank{r}.pt") for r in range(world)]
+        self._procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), target, str(r), str(world),
+             str(port), str(threads), self._outs[r], json.dumps(kwargs)],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+
+    def results(self, timeout: float = 300.0) -> list:
+        """Each rank's result, in rank order; raises with a failed rank's
+        stderr. Every process has ended when it returns."""
+        try:
+            logs = [p.communicate(timeout=timeout) for p in self._procs]
+            for r, (p, (_, err)) in enumerate(zip(self._procs, logs)):
+                if p.returncode != 0:
+                    raise RuntimeError(f"rank {r} exited {p.returncode}:\n{err[-6000:]}")
+            return [torch.load(o, weights_only=False) for o in self._outs]
+        finally:
+            for p in self._procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            self._tmp.cleanup()
+
+
+def run_ranks(world: int, target: str, kwargs: dict, timeout: float = 300.0,
+              threads: int = 2) -> list:
+    """Run target on `world` gloo ranks; returns each rank's result."""
+    return Ranks(world, target, kwargs, threads).results(timeout)
+
+
+def _main(argv) -> int:
+    target, rank, world, port, threads, out, kwargs = argv
+    torch.set_num_threads(int(threads))
+    from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
+
+    assert init_distributed(f"127.0.0.1:{port}", int(world), int(rank), backend="gloo")
+    try:
+        mesh = make_mesh(device="cpu")
+        module, name = target.split(":")
+        fn = getattr(importlib.import_module(module), name)
+        torch.save(fn(mesh, **json.loads(kwargs)), out)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+# -- worker functions: fn(mesh, **kwargs) -> a picklable result -------------
+
+def bn_inputs(seed: int = 0, n: int = 4, c: int = 6, hw: int = 5):
+    """A global batch for a BatchNorm2d, its weight and bias, and the
+    gradient of its output (numpy, seeded)."""
+    rng = np.random.default_rng(seed)
+    return {"x": rng.normal(0.5, 2.0, (n, c, hw, hw)).astype(np.float32),
+            "weight": rng.normal(1.0, 0.2, c).astype(np.float32),
+            "bias": rng.normal(0.0, 0.5, c).astype(np.float32),
+            "gy": rng.normal(0.0, 1.0, (n, c, hw, hw)).astype(np.float32)}
+
+
+def bn_step(bn, x, gy, mesh=None):
+    """Two training forwards of `bn` on x (the running statistics updated
+    twice), the backward of sum(y * gy) after the second; returns y, x's
+    gradient, the weight and bias gradients and the running statistics.
+    Under a mesh the weight and bias gradients are summed over the ranks,
+    as the training step sums a parameter's gradient."""
+    from vision_kit_tpu_torch.parallel import mesh as pmesh
+
+    bn.train()
+    bn.mesh = mesh
+    try:
+        bn(x.detach())
+        x = x.detach().requires_grad_(True)
+        y = bn(x)
+        (y * gy).sum().backward()
+    finally:
+        bn.mesh = None
+    grads = [bn.weight.grad, bn.bias.grad]
+    if mesh is not None:
+        pmesh.all_reduce_(mesh, grads)
+    return {"y": y.detach(), "x_grad": x.grad, "weight_grad": grads[0],
+            "bias_grad": grads[1], "running_mean": bn.running_mean.clone(),
+            "running_var": bn.running_var.clone()}
+
+
+def bn_module(inputs, dtype=torch.float32):
+    from vision_kit_tpu_torch.models.layers import batch_norm
+
+    bn = batch_norm(inputs["x"].shape[1])
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(inputs["weight"]))
+        bn.bias.copy_(torch.from_numpy(inputs["bias"]))
+    return bn.to(dtype)
+
+
+def bn_worker(mesh, seed: int = 0, dtype: str = "float32"):
+    """The synced BatchNorm2d on this rank's rows (bn_step), in `dtype`."""
+    from vision_kit_tpu_torch.parallel.mesh import shard_rows
+
+    dt = getattr(torch, dtype)
+    inputs = bn_inputs(seed)
+    rows = shard_rows(mesh, len(inputs["x"])).numpy()
+    return bn_step(bn_module(inputs, dt), torch.from_numpy(inputs["x"][rows]).to(dt),
+                   torch.from_numpy(inputs["gy"][rows]).to(dt), mesh)
+
+
+def port_v5n(state_path: str):
+    """The v5n (80 classes) of a saved state_dict, in training mode."""
+    from vision_kit_tpu_torch.models import YOLOV5
+
+    model = YOLOV5(variant="n", num_classes=80)
+    model.load_state_dict(torch.load(state_path, weights_only=True), strict=True)
+    return model.train()
+
+
+def state_digest(tensors: dict) -> str:
+    """A digest of a train_state_tensors layout, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in sorted(tensors):
+        for k in sorted(tensors[part]):
+            h.update(k.encode())
+            h.update(tensors[part][k].numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_run(model, batches: list, hyp: dict, epochs: int, steps_per_epoch: int,
+              loss: str = "yolo", mesh=None, **step_kw):
+    """make_train_step over `batches` (this rank's rows under a mesh) from a
+    fresh state of `model`; returns each step's metrics, the state before
+    the last step and after it (train_state_tensors)."""
+    from vision_kit_tpu_torch.train import optim
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.train.ota import YoloLossOTA
+    from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
+    from vision_kit_tpu_torch.utils.stream_bench import train_state_tensors
+
+    tx = optim.make_optimizer(model, hyp, epochs, steps_per_epoch)
+    state = create_train_state(model, tx, mesh=mesh)
+    loss_cls = {"yolo": YoloLoss, "ota": YoloLossOTA}[loss]
+    # explicit layout: a multi-scale grid may be exactly na cells wide
+    step = make_train_step(model, loss_cls(80, model.head.grid_anchors, hyp,
+                                           layout="native"), tx, mesh=mesh, **step_kw)
+    metrics = []
+    for batch in batches:
+        before = train_state_tensors(state)
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "before_last": before,
+            "last": train_state_tensors(state)}
+
+
+def train_worker(mesh, state_path: str, batches_path: str, hyp: dict, epochs: int,
+                 steps_per_epoch: int, loss: str = "yolo", step_kw: dict | None = None,
+                 one_process: bool = False, value_rel: float = 1e-4,
+                 step_rel: float = 2e-3):
+    """train_run on this rank's rows (shard_batch) of saved global batches.
+    Every rank returns its metrics and the digest of its final state; rank
+    0 also the state before its last step and after it, and with
+    one_process the same run without a mesh on the global batches: its
+    metrics and the mesh run's disagreements with it
+    (stream_bench.state_disagreements at value_rel, step_rel)."""
+    from vision_kit_tpu_torch.parallel.mesh import shard_batch
+    from vision_kit_tpu_torch.utils.stream_bench import state_disagreements
+
+    step_kw = dict(step_kw or {})
+    batches = torch.load(batches_path, weights_only=False)
+    local = [shard_batch(mesh, b, step_kw.get("accum_steps", 1)) for b in batches]
+    run = train_run(port_v5n(state_path), local, hyp, epochs, steps_per_epoch, loss,
+                    mesh, **step_kw)
+    out = {"metrics": run["metrics"], "digest": state_digest(run["last"])}
+    if mesh.is_main:
+        out.update(before_last=run["before_last"], last=run["last"])
+        if one_process:
+            ref = train_run(port_v5n(state_path), batches, hyp, epochs, steps_per_epoch,
+                            loss, **step_kw)
+            out["one_process_metrics"] = ref["metrics"]
+            out["one_process_disagreements"] = state_disagreements(
+                ref["last"], run["last"], ref["before_last"], value_rel, step_rel)
+    return out
+
+
+def cases_worker(mesh, cases: dict):
+    """Each case {"target": "module:function", "kwargs": {...}} in turn on
+    this rank; returns {name: result, or {"error": traceback}}. A case that
+    fails on one rank fails on all (their collectives pair up), so a
+    failure leaves the group usable only when it raised before any."""
+    import traceback
+
+    out = {}
+    for name, case in cases.items():
+        module, fn = case["target"].split(":")
+        try:
+            out[name] = getattr(importlib.import_module(module), fn)(mesh, **case["kwargs"])
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+def validate_worker(mesh, state_path: str, data_dir: str, batch: int, size: int = 64,
+                    num_classes: int = 80):
+    """trainer.validate of the saved model on a YOLO split through
+    ValLoader(shard=rank) and make_eval_step(mesh=mesh); returns the result
+    and this rank's batch counts."""
+    from vision_kit_tpu_torch.data.datasets import YOLODataset
+    from vision_kit_tpu_torch.data.loader import ValLoader
+    from vision_kit_tpu_torch.train import trainer
+    from vision_kit_tpu_torch.train.evaluator import DetEvaluator
+    from vision_kit_tpu_torch.train.step import make_eval_step
+
+    model = port_v5n(state_path).eval()
+    ds = YOLODataset(data_dir, img_size=size, device="cpu")
+    loader = ValLoader(ds, batch, img_size=size, shard=mesh.rank, num_shards=mesh.n_data)
+    counts = [b["count"] for b in loader]
+    ev = DetEvaluator([str(i) for i in range(num_classes)], (size, size))
+    result = trainer.validate(make_eval_step(model, {"max_cand": 512}, mesh=mesh),
+                              loader, ev, mesh=mesh)
+    return {"result": result, "counts": counts}
+
+
+class CrashingLoader:
+    """A TrainLoader whose iterator raises after `after` batches."""
+
+    def __init__(self, loader, after: int):
+        self.loader, self.after = loader, after
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.loader):
+            if i == self.after:
+                raise RuntimeError("crash injected")
+            yield batch
+
+
+def fit_worker(mesh, cfg: dict, crash_after: int, seed: int = 5):
+    """Trainer(mesh=mesh).fit on cfg (its output_dir a directory every rank
+    shares): an uninterrupted run under <out>/run, then a run under
+    <out>/crash whose loader raises on every rank after crash_after
+    batches, resumed from its ckpts/last by a new Trainer. Returns the two
+    final states' digests and steps, and the files this rank wrote (the
+    calls of torch.save, numpy.savez_compressed and grid_save) in each."""
+    import copy
+    from unittest import mock
+
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import drawing
+    from vision_kit_tpu_torch.utils.config import ConfigNode
+    from vision_kit_tpu_torch.utils.stream_bench import train_state_tensors
+
+    writes = []
+
+    def record(fn, what, path_arg):
+        def call(*a, **kw):
+            writes.append((what, str(a[path_arg])))
+            return fn(*a, **kw)
+        return call
+
+    def trainer(out):
+        d = copy.deepcopy(cfg)
+        d["data"]["output_dir"] = out
+        return Trainer(ConfigNode.wrap(d), use_tensorboard=False, seed=seed, device="cpu",
+                       mesh=mesh)
+
+    root = cfg["data"]["output_dir"]
+    out = {}
+    with mock.patch.object(torch, "save", record(torch.save, "torch.save", 1)), \
+            mock.patch.object(np, "savez_compressed",
+                              record(np.savez_compressed, "savez_compressed", 0)), \
+            mock.patch.object(drawing, "grid_save",
+                              record(drawing.grid_save, "grid_save", 2)):
+        ref = trainer(os.path.join(root, "run"))
+        ref.fit()
+        out["run"] = {"digest": state_digest(train_state_tensors(ref.state)),
+                      "step": ref.global_step, "writes": list(writes),
+                      "best_map50": ref.best_map50}
+        writes.clear()
+        crashed = trainer(os.path.join(root, "crash"))
+        crashed.train_loader = CrashingLoader(crashed.train_loader, crash_after)
+        try:
+            crashed.fit()
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        crashed.train_loader.close()
+        resumed = trainer(os.path.join(root, "crash"))
+        resumed.fit(resume=os.path.join(root, "crash", "ckpts", "last"))
+        out["resumed"] = {"digest": state_digest(train_state_tensors(resumed.state)),
+                          "step": resumed.global_step, "writes": list(writes)}
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(_main(sys.argv[1:]))

@@ -41,6 +41,13 @@ update_loss_cfg. `train` runs Trainer.fit (resuming from <ckpt-dir>/last
 when -d is given and it exists), then Trainer.test; `eval` loads
 <ckpt-dir>/best when it exists, then runs Trainer.test. The loader takes
 the host-augmentation route unless the config sets data.device_aug: true.
+Both call parallel/distributed.py:init_distributed first, so that
+
+    torchrun --nproc_per_node N -m vision_kit_tpu_torch train -c CONFIG
+
+trains data-parallel on N cards (one process each, NCCL; gloo with
+--device cpu), the global batch being the config's; rank 0 names the run
+directory and alone writes into it.
 """
 
 from __future__ import annotations
@@ -108,8 +115,25 @@ def _serve(args) -> int:
 
 
 def _train_or_eval(args) -> int:
+    import torch
+
+    from vision_kit_tpu_torch.parallel import init_distributed
+
+    on_cpu = torch.device(args.device).type == "cpu"
+    distributed = init_distributed(backend="gloo" if on_cpu else None)
+    try:
+        return _run_task(args, distributed)
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _run_task(args, distributed: bool) -> int:
+    import logging
+
     import numpy as np
 
+    from vision_kit_tpu_torch.parallel import mesh as pmesh
     from vision_kit_tpu_torch.train.evaluator import DetEvaluator
     from vision_kit_tpu_torch.train.trainer import Trainer
     from vision_kit_tpu_torch.utils.config import load_config
@@ -121,14 +145,20 @@ def _train_or_eval(args) -> int:
     from vision_kit_tpu_torch.utils.logging_utils import logger, setup_logger
 
     device = resolve_device(args.device)
+    mesh = pmesh.make_mesh(device=device) if distributed else None
+    main = mesh is None or mesh.is_main
     cfg = load_config(args.config)
     seed = args.seed
     if seed is None:
         cfg_seed = getattr(cfg.data, "seed", None)
         seed = int(cfg_seed) if cfg_seed is not None else 21
     np.random.seed(seed)
-    cfg.data.output_dir = mk_output_dir(cfg.data.output_dir, cfg.model.name, args.task)
-    setup_logger(cfg.data.output_dir)
+    out = mk_output_dir(cfg.data.output_dir, cfg.model.name, args.task) if main else None
+    cfg.data.output_dir = out if mesh is None else pmesh.broadcast_object(mesh, out)
+    if main:
+        setup_logger(cfg.data.output_dir)
+    else:
+        setup_logger(level=logging.WARNING)
     logger.info("Global seed set to %d", seed)
     cfg = update_loss_cfg(cfg)
     evaluator = DetEvaluator(class_labels=list(cfg.data.class_labels),
@@ -140,7 +170,7 @@ def _train_or_eval(args) -> int:
         if not os.path.exists(ckpt_path):
             logger.info("no checkpoint at %s: starting fresh", ckpt_path)
             ckpt_path = None
-    trainer = Trainer(cfg, evaluator=evaluator, seed=seed, device=device)
+    trainer = Trainer(cfg, evaluator=evaluator, seed=seed, device=device, mesh=mesh)
     if args.task == "train":
         logger.info("Start Training...")
         trainer.fit(resume=ckpt_path)

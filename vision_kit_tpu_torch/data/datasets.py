@@ -229,7 +229,8 @@ class _ImageCacheMixin:
                 meta[i] = (h, w, h0, w0)
             # durability order: pixels first, then the meta rows naming them
             mm.flush()
-            tmp = meta_path + ".tmp.npy"
+            # a name of this process's own: two builders never share one
+            tmp = f"{meta_path}.{os.getpid()}.tmp.npy"
             np.save(tmp, meta)
             os.replace(tmp, meta_path)
             now = time.monotonic()
@@ -423,8 +424,12 @@ class YOLODataset(_ImageCacheMixin):
             arr = np.empty(len(labels), dtype=object)
             for i, lab in enumerate(labels):
                 arr[i] = lab
+            # complete under a name of this process's own, then renamed into
+            # place: a reader never sees a half-written cache
+            tmp = f"{path}.{os.getpid()}.tmp.npz"
             try:
-                np.savez_compressed(path, labels=arr, files=np.asarray(kept))
+                np.savez_compressed(tmp, labels=arr, files=np.asarray(kept))
+                os.replace(tmp, path)
             except OSError as e:
                 logger.warning("could not write the label cache %s: %s", path, e)
         return labels

@@ -2,9 +2,10 @@
 
 Counterpart of vision_kit_tpu/data/loader.py. The index stream is the JAX
 package's (per-epoch permutations from default_rng([seed, epoch]), strided
-over shards), and each batch is a pure function of its batch id (sample
-sid's augmentation draws from default_rng([seed, 77, sid])), so a resume
-at step s only needs seek(s), and the batches equal JAX's for one seed.
+over shards), and each batch is a pure function of its batch id (a
+sample's augmentation draws from default_rng([seed, 77, key]), the key its
+row in the global batch: _SampleIds), so a resume at step s only needs
+seek(s), and with one shard the batches equal JAX's for one seed.
 
 TrainLoader takes one of two routes. The host-augmentation route
 (device_aug=False, the default) builds each sample as the JAX package does:
@@ -171,6 +172,9 @@ class TrainLoader:
         self.index_stream = _IndexStream(len(dataset), seed=seed, shard=shard,
                                          num_shards=num_shards)
         self.steps_per_epoch = max(len(dataset) // (batch_size * num_shards), 1)
+        # the key of a sample's draws is its row in the global batch
+        # (batch_size is the shard's share), so shards draw apart
+        self._sid = _SampleIds(batch_size, shard, num_shards)
         self.device_aug = bool(device_aug)
         geometry = dict(
             mosaic_prob=float(aug.get("mosaic_prob", 1.0)),
@@ -240,7 +244,7 @@ class TrainLoader:
         self._next_bid = int(batch_id)
 
     def _make_batch(self, batch_id: int):
-        return self._batch_fn(self.index_stream, self.batch_size, self.img_size,
+        return self._batch_fn(self.index_stream, self._sid, self.img_size,
                               self.max_labels, self.seed, batch_id)
 
     def _worker(self, out_q: queue.Queue, stop: threading.Event, bid: int, stream):
@@ -274,7 +278,7 @@ class TrainLoader:
             q = ctx.Queue(maxsize=max(self.prefetch // self.num_workers, 1))
             p = ctx.Process(
                 target=_worker_main,
-                args=(q, self._batch_fn, self.index_stream, self.batch_size,
+                args=(q, self._batch_fn, self.index_stream, self._sid,
                       self.img_size, self.max_labels, self.seed,
                       self._next_bid + w, self.num_workers),
                 daemon=True)
@@ -352,7 +356,7 @@ class TrainLoader:
         self._mp_queues.clear()
 
 
-def _worker_main(out_q, batch_fn, index_stream, batch_size, img_size,
+def _worker_main(out_q, batch_fn, index_stream, sids, img_size,
                  max_labels, seed, first_bid, stride):
     """Spawned worker: batches first_bid, first_bid + stride, ... with numpy
     pixels (deterministic per batch id for any worker count), on one
@@ -363,11 +367,11 @@ def _worker_main(out_q, batch_fn, index_stream, batch_size, img_size,
     device_route = batch_fn.func is _make_device_batch
     key = "tiles" if device_route else "image"
     slots = batch_fn.args[0].n_tiles if device_route else 1
-    _malloc.prefault_arena(4 * slots * batch_size * img_size[0] * img_size[1] * 3)
+    _malloc.prefault_arena(4 * slots * sids.batch_size * img_size[0] * img_size[1] * 3)
     bid = first_bid
     try:
         while True:
-            batch = batch_fn(index_stream, batch_size, img_size, max_labels, seed, bid)
+            batch = batch_fn(index_stream, sids, img_size, max_labels, seed, bid)
             batch[key] = batch[key].numpy()
             out_q.put(batch)
             bid += stride
@@ -375,17 +379,32 @@ def _worker_main(out_q, batch_fn, index_stream, batch_size, img_size,
         out_q.put(("__error__", traceback.format_exc()))
 
 
-def _make_batch(mosaic_ds, pipeline, index_stream, batch_size, img_size, max_labels,
+class _SampleIds:
+    """Row k of a shard's batch bid: its index-stream position bid*B + k,
+    and the key of its draws, its row in the global batch,
+    (bid*num_shards + shard)*B + k. One shard: both are bid*B + k."""
+
+    def __init__(self, batch_size: int, shard: int = 0, num_shards: int = 1):
+        self.batch_size, self.shard, self.num_shards = batch_size, shard, num_shards
+
+    def rows(self, batch_id: int):
+        """(position, draw key) of each row of batch batch_id."""
+        b = self.batch_size
+        key0 = (batch_id * self.num_shards + self.shard) * b
+        return [(batch_id * b + k, key0 + k) for k in range(b)]
+
+
+def _make_batch(mosaic_ds, pipeline, index_stream, sids, img_size, max_labels,
                 seed, batch_id):
     """Deterministic host-augmentation batch `batch_id`: index-stream
-    positions [bid*B, (bid+1)*B), sample sid augmented with
-    default_rng([seed, 77, sid]) (mosaic and mixup, then the pipeline), on
-    the device the dataset decodes to."""
+    positions [bid*B, (bid+1)*B), each sample augmented with
+    default_rng([seed, 77, key]) (mosaic and mixup, then the pipeline), key
+    its row in the global batch (_SampleIds), on the device the dataset
+    decodes to."""
     imgs, labels = [], []
-    for k in range(batch_size):
-        sid = batch_id * batch_size + k
-        idx = index_stream.at(sid)
-        rng = np.random.default_rng([seed, 77, sid])
+    for pos, key in sids.rows(batch_id):
+        idx = index_stream.at(pos)
+        rng = np.random.default_rng([seed, 77, key])
         img, lab = mosaic_ds.getitem(rng, idx)
         img, lab = pipeline(rng, img, lab)
         imgs.append(img)
@@ -394,21 +413,21 @@ def _make_batch(mosaic_ds, pipeline, index_stream, batch_size, img_size, max_lab
             "targets": pad_targets(labels, img_size, max_labels)}
 
 
-def _make_device_batch(planner, index_stream, batch_size, img_size, max_labels,
+def _make_device_batch(planner, index_stream, sids, img_size, max_labels,
                        seed, batch_id):
     """Deterministic device-augmentation batch `batch_id`: index-stream
-    positions [bid*B, (bid+1)*B), per-sample default_rng([seed, 77, sid])
-    draws. The tiles are gathered on the device the dataset decodes to;
+    positions [bid*B, (bid+1)*B), per-sample default_rng([seed, 77, key])
+    draws (key as _make_batch's). The tiles are gathered on the device the dataset decodes to;
     bytes outside each tile's valid region are left as they were (the warp
     never samples them), but slot 4, the mixup source, reads 114 gray in
     its canvas margin."""
     n_tiles = planner.n_tiles
     h_sz, w_sz = img_size
+    batch_size = sids.batch_size
     plans, decode_idxs, spans = [], [], []
-    for k in range(batch_size):
-        sid = batch_id * batch_size + k
-        idx = index_stream.at(sid)
-        rng = np.random.default_rng([seed, 77, sid])
+    for pos, key in sids.rows(batch_id):
+        idx = index_stream.at(pos)
+        rng = np.random.default_rng([seed, 77, key])
         tile_idxs, draws = planner.plan(rng, idx)
         spans.append((len(decode_idxs), len(tile_idxs)))
         decode_idxs.extend(tile_idxs)
@@ -449,19 +468,30 @@ class ValLoader:
     last partial batch is padded by repeating its final sample; "count" is
     the number of real images. A background thread builds the next batch
     (on its own stream on the card) while the consumer runs the current one.
+
+    shard/num_shards (one process per rank of a data-parallel mesh): each
+    global batch of batch_size rows, padded as above, yields this shard's
+    equal share of its rows, shard-major (parallel/mesh.py:shard_rows);
+    "count" is the shard's real rows, so the shards' counts sum to the
+    global batch's, and a shard whose rows are all padding yields count 0.
+    Every shard yields len(self) batches.
     """
 
     def __init__(self, dataset, batch_size: int, img_size=(640, 640),
-                 max_labels: int = MAX_LABELS, prefetch: int = 2):
+                 max_labels: int = MAX_LABELS, prefetch: int = 2, shard: int = 0,
+                 num_shards: int = 1):
+        if batch_size % num_shards:
+            raise ValueError(f"batch {batch_size} does not split over {num_shards} shards")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard, self.num_shards = shard, num_shards
         self.img_size = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
         self.pipeline = ValAugPipeline(img_sz=self.img_size)
         self.max_labels = max_labels
         self.prefetch = prefetch
         self.device = dataset_device(dataset)
         if self.device.type != "cuda":
-            _malloc.prefault_arena((prefetch + 3) * batch_size
+            _malloc.prefault_arena((prefetch + 3) * (batch_size // num_shards)
                                    * self.img_size[0] * self.img_size[1] * 3)
 
     def __len__(self):
@@ -473,6 +503,10 @@ class ValLoader:
         count = len(idxs)
         while len(idxs) < self.batch_size:
             idxs.append(idxs[-1])
+        share = self.batch_size // self.num_shards
+        first = self.shard * share
+        idxs = idxs[first:first + share]
+        count = min(max(count - first, 0), share)
         puller = getattr(self.dataset, "batch_pull_items", None)
         items = puller(idxs) if puller is not None else [self.dataset.pull_item(i)
                                                          for i in idxs]

@@ -48,11 +48,23 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     `freeze_stats` set: a training forward normalises with the batch
     statistics and leaves the running ones alone (the recompute of an
-    activation checkpoint, train/step.py)."""
+    activation checkpoint, train/step.py).
+
+    `mesh` set (a parallel.mesh.Mesh, by the training step while it runs):
+    a training forward normalises with the statistics of the global batch,
+    as Flax's BatchNorm under a sharded batch axis: each channel's count,
+    sum and sum of squares are summed over the ranks in one collective,
+    the variance is E[x^2] - E[x]^2 (biased), and the gradient flows
+    through the sum. The running statistics then come out equal on every
+    rank. A frozen recompute issues the same collective as the forward, on
+    every rank alike."""
 
     freeze_stats = False
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.mesh is not None and self.momentum is not None:
+            return self._synced_forward(x)
         if self.training and self.freeze_stats:
             # momentum 0 leaves the running statistics as they are, and the
             # op saves for its backward what the unfrozen forward saved
@@ -69,6 +81,32 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = super().forward(x)
         self.running_var.data.mul_((n - 1) / n)
         return y
+
+    def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
+        from vision_kit_tpu_torch.parallel.mesh import all_reduce
+
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        local = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        total = all_reduce(self.mesh, local)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = (total[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        if not self.freeze_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean.detach())
+                self.running_var.mul_(1 - m).add_(m * var.detach())
+                self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps)
+        if self.affine:
+            shift = self.bias.to(xf.dtype) - mean * scale * self.weight.to(xf.dtype)
+            scale = scale * self.weight.to(xf.dtype)
+        else:
+            shift = -mean * scale
+        y = xf * scale[None, :, None, None] + shift[None, :, None, None]
+        return y.to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

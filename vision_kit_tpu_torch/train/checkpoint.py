@@ -35,10 +35,25 @@ def is_train_state(obj) -> bool:
 
 def save_checkpoint(path: str, state, epoch: int = -1,
                     best_map50: float = -1.0, epochs_no_improve: int = 0,
-                    val_pending: bool = False) -> None:
+                    val_pending: bool = False, mesh=None) -> None:
     """Write `state` (train/step.py:TrainState) to `path` and the meta
     to `path + ".meta.json"`. The tensors go to the host as they are (f32
-    master weights and f32 EMA)."""
+    master weights and f32 EMA).
+
+    mesh (parallel.mesh.Mesh): rank 0 writes (the state is the same on
+    every rank), and every rank returns past a barrier once the files are
+    complete, so that any rank may read them."""
+    try:
+        if mesh is None or mesh.is_main:
+            _write(path, state, epoch, best_map50, epochs_no_improve, val_pending)
+    finally:
+        if mesh is not None:
+            from vision_kit_tpu_torch.parallel.mesh import barrier
+
+            barrier(mesh)
+
+
+def _write(path, state, epoch, best_map50, epochs_no_improve, val_pending):
     def host(tensors):
         return {k: v.detach().cpu() for k, v in tensors.items()}
 

@@ -104,21 +104,48 @@ class YoloLoss:
                                          gamma=self.fl_gamma)
         return bce_with_logits(logits, targets, pos_weight)
 
-    def __call__(self, preds: Sequence[torch.Tensor], targets: torch.Tensor):
+    def __call__(self, preds: Sequence[torch.Tensor], targets: torch.Tensor, mesh=None):
         """preds: per-level raw maps; targets: (B, M, 5) padded rows.
 
         Returns (total, parts): total = (box + obj + cls) * batch size, and
-        parts the detached (box, obj, cls) after their gains."""
+        parts the detached (box, obj, cls) after their gains.
+
+        mesh (parallel.mesh.Mesh): preds and targets are this rank's rows of
+        the global batch, and the normalisers are the global batch's (the
+        matched count of each level, the anchors of the objectness mean, the
+        batch size), summed over the ranks in one collective. The result is
+        this rank's share: the ranks' totals and parts sum to the loss of the
+        global batch, and their gradients to its gradient."""
         bs = preds[0].shape[0]
+        anchors = [self._const(("anchors", i), self.anchors[i], targets.device)
+                   for i in range(self.nl)]
+        cands = [self._candidates(targets, anchors[i], *self._grid(preds[i]))
+                 for i in range(self.nl)]
+        norms = [None] * self.nl
+        if mesh is not None:
+            norms = self._global_counts(mesh, [c["valid"] for c in cands], preds)
+            bs *= mesh.n_data
         loss_box = loss_obj = loss_cls = 0.0
         for i in range(self.nl):
-            lb, lo, lc = self._level_loss(
-                preds[i], targets, self._const(("anchors", i), self.anchors[i],
-                                               targets.device))
+            lb, lo, lc = self._level_loss(preds[i], cands[i], anchors[i], norms[i])
             loss_box = loss_box + lb
             loss_obj = loss_obj + lo * self.balance[i]
             loss_cls = loss_cls + lc
         return self._total(loss_box, loss_obj, loss_cls, bs)
+
+    @staticmethod
+    def _global_counts(mesh, matched, preds):
+        """Per level, (matched candidates, anchors) summed over the mesh's
+        ranks: one all-reduce of every level's counts."""
+        from vision_kit_tpu_torch.parallel.mesh import all_reduce
+
+        # the anchor counts by a fill on the device: no host copy to wait on
+        local = torch.stack([m.sum() for m in matched]
+                            + [m.new_full((), p.numel() // p.shape[-1], dtype=torch.int64)
+                               for p, m in zip(preds, matched)])
+        total = all_reduce(mesh, local)
+        nl = len(matched)
+        return [(total[i], total[nl + i]) for i in range(nl)]
 
     def _total(self, loss_box, loss_obj, loss_cls, bs):
         loss_box = loss_box * self.hyp["box"]
@@ -193,15 +220,21 @@ class YoloLoss:
             return pred.shape[1], pred.shape[2]
         return pred.shape[2], pred.shape[3]
 
-    def _obj_loss(self, pred, lin_flat, iou_updates):
+    def _obj_loss(self, pred, lin_flat, iou_updates, n_anchors=None):
         """BCE of every cell's objectness against the scatter-max of the
-        candidates' detached, clamped IoU (in pred's dtype)."""
+        candidates' detached, clamped IoU (in pred's dtype), averaged over
+        the anchors, or summed over n_anchors (the global batch's) when
+        given."""
         no = pred.shape[-1]
         obj_logits = pred.reshape(-1, no)[:, 4]
         tobj = torch.zeros(obj_logits.shape, dtype=pred.dtype, device=pred.device)
         tobj = tobj.scatter_reduce(0, lin_flat, iou_updates.to(pred.dtype), "amax",
                                    include_self=True)
-        return self._bce(obj_logits, tobj, self.hyp.get("obj_pw", 1.0)).mean()
+        bce = self._bce(obj_logits, tobj, self.hyp.get("obj_pw", 1.0))
+        if n_anchors is None:
+            return bce.mean()
+        acc = torch.promote_types(bce.dtype, torch.float32)
+        return (bce.sum(dtype=acc) / n_anchors).to(bce.dtype)
 
     def _cls_targets(self, cls: torch.Tensor) -> torch.Tensor:
         """Smoothed one-hot targets (f32) of class ids (any shape)."""
@@ -209,12 +242,12 @@ class YoloLoss:
         onehot = F.one_hot(cls.clamp(0, nc - 1).long(), nc)
         return torch.where(onehot > 0, self.cp, self.cn).float()
 
-    def _level_loss(self, pred, targets, anchors):
-        ny, nx = self._grid(pred)
+    def _level_loss(self, pred, cand, anchors, norm=None):
+        """One level's (box, obj, cls) over its candidates; norm: the
+        global (matched, anchors) counts under a mesh."""
         nc = self.num_classes
         no = pred.shape[-1]
         b = pred.shape[0]
-        cand = self._candidates(targets, anchors, ny, nx)
         valid = cand["valid"]                                  # (B, M, na, 5)
         m = valid.shape[1]
         lin_flat = self._linear(pred, cand["gi"], cand["gj"]).reshape(-1)
@@ -229,14 +262,15 @@ class YoloLoss:
         pbox = torch.cat([pxy.to(pwh.dtype), pwh], dim=-1)
         tbox = torch.cat([cand["txy"].reshape(-1, 2), cand["twh"].reshape(-1, 2)], dim=-1)
         iou = box_iou_aligned(pbox, tbox, box_format="cxcywh", mode="ciou")
-        n_valid = valid_flat.sum().clamp_min(1).to(pred.dtype)
+        n_valid = (valid_flat.sum() if norm is None else norm[0]).clamp_min(1).to(pred.dtype)
         loss_box = torch.where(valid_flat, 1.0 - iou, 0.0).sum() / n_valid
 
         # objectness target grid: scatter-max of the detached clamped IoU
         iou_det = iou.detach().clamp_min(0.0)
         if self.gr < 1.0:
             iou_det = (1.0 - self.gr) + self.gr * iou_det
-        loss_obj = self._obj_loss(pred, lin_flat, torch.where(valid_flat, iou_det, 0.0))
+        loss_obj = self._obj_loss(pred, lin_flat, torch.where(valid_flat, iou_det, 0.0),
+                                  None if norm is None else norm[1])
 
         # classification
         if nc > 1:

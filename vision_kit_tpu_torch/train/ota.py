@@ -105,7 +105,11 @@ class YoloLossOTA(YoloLoss):
         matched_gt = mm.to(torch.uint8).argmax(dim=1)                 # first claim
         return fg, matched_gt
 
-    def __call__(self, preds, targets):
+    def __call__(self, preds, targets, mesh=None):
+        """As YoloLoss.__call__, mesh included: under a mesh each level's
+        foreground count, the objectness mean's anchors and the batch size
+        are the global batch's; the assignment (dynamic k per image) stays
+        on the rank's own rows."""
         bs = preds[0].shape[0]
         nc = self.num_classes
 
@@ -138,12 +142,19 @@ class YoloLossOTA(YoloLoss):
             fg, matched_gt = self.assign(feats.detach(), gxy, anc, stride,
                                          torch.cat(valids, dim=1), targets, img_wh)
 
+        slices, col = [], 0
+        for _, _, cl, _ in metas:
+            slices.append(slice(col, col + cl))
+            col += cl
+        norms = [None] * len(preds)
+        if mesh is not None:
+            norms = self._global_counts(mesh, [fg[:, sl] for sl in slices], preds)
+            bs *= mesh.n_data
+
         loss_box = loss_obj = loss_cls = 0.0
-        col = 0
         for i, pred in enumerate(preds):
             ny, nx, cl, lin = metas[i]
-            sl = slice(col, col + cl)
-            col += cl
+            sl, norm = slices[i], norms[i]
             fg_l, feats_l, gxy_l, anc_l = fg[:, sl], feats[:, sl], gxy[:, sl], anc[sl]
             gt = torch.gather(targets, 1, matched_gt[:, sl, None].expand(-1, -1, 5))
             tbox = gt[..., 1:5] * self._const(("gain4", nx, ny), [nx, ny, nx, ny],
@@ -156,13 +167,13 @@ class YoloLossOTA(YoloLoss):
             pbox = torch.cat([pxy.to(pwh.dtype), pwh], dim=-1)
             iou = box_iou_aligned(pbox.reshape(-1, 4), tbox_rel.reshape(-1, 4),
                                   box_format="cxcywh", mode="ciou").reshape(fg_l.shape)
-            n_l = fg_l.sum().clamp_min(1).to(pred.dtype)
+            n_l = (fg_l.sum() if norm is None else norm[0]).clamp_min(1).to(pred.dtype)
             loss_box = loss_box + torch.where(fg_l, 1.0 - iou, 0.0).sum() / n_l
 
             iou_det = iou.detach().clamp_min(0.0)
             loss_obj = loss_obj + self._obj_loss(
-                pred, lin.reshape(-1), torch.where(fg_l, iou_det, 0.0).reshape(-1)
-            ) * self.balance[i]
+                pred, lin.reshape(-1), torch.where(fg_l, iou_det, 0.0).reshape(-1),
+                None if norm is None else norm[1]) * self.balance[i]
 
             if nc > 1:
                 ce = self._bce(feats_l[..., 5:], self._cls_targets(gt[..., 0]),

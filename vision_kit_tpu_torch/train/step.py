@@ -1,13 +1,20 @@
-"""The training step and the eval step, on one device, over an explicit
-TrainState.
+"""The training step and the eval step, on one device or data-parallel
+over a mesh, over an explicit TrainState.
 
-Counterpart of vision_kit_tpu/train/step.py (without a mesh or spatial
-partitioning, which raise). The parameters and BatchNorm running
-statistics are the model's own tensors, which the step updates in place;
-the state names them and carries the optimizer state, the EMA and the step
-count:
+Counterpart of vision_kit_tpu/train/step.py (spatial partitioning
+raises). The parameters and BatchNorm running statistics are the model's
+own tensors, which the step updates in place; the state names them and
+carries the optimizer state, the EMA and the step count:
 
     state, batch -> state', metrics
+
+Under a data-parallel mesh (parallel/mesh.py; one process per device, the
+batch this rank's rows) the step keeps the JAX step's numbers, which
+torch's DistributedDataParallel would not: the BatchNorm statistics are
+the global batch's (models/layers.py:BatchNorm2d), the loss's normalisers
+too (train/losses.py), and the gradients and reported losses are summed
+over the ranks in one flat bucket before the clip, the optimizer and the
+EMA, which then run alike on every rank.
 
 Precision: the parameters stay f32 (master weights); compute_dtype bf16
 runs the forward under torch.autocast, and the loss outside it, in the
@@ -32,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vision_kit_tpu_torch.models.layers import BatchNorm2d
 from vision_kit_tpu_torch.ops.nms import postprocess
+from vision_kit_tpu_torch.parallel import mesh as pmesh
 from vision_kit_tpu_torch.train.ema import EMAState, ema_init, ema_update
 from vision_kit_tpu_torch.train.optim import global_norm
 
@@ -51,11 +59,15 @@ class TrainState(NamedTuple):
     step: int
 
 
-def create_train_state(model: nn.Module, tx) -> TrainState:
+def create_train_state(model: nn.Module, tx, mesh=None) -> TrainState:
     """The state of `model`: its parameters and its floating buffers (the
     BatchNorm running mean and variance; num_batches_tracked is not state
     here, as the JAX tree has none), by state_dict name, with tx's state,
-    an EMA of both and step 0."""
+    an EMA of both and step 0. Under a mesh the model's parameters and
+    buffers are rank 0's first (a broadcast), so the EMA is too."""
+    if pmesh.check_mesh(mesh) is not None:
+        with torch.no_grad():
+            pmesh.broadcast_(mesh, [*model.parameters(), *model.buffers()])
     params = dict(model.named_parameters())
     stats = {k: v for k, v in model.named_buffers() if v.is_floating_point()}
     return TrainState(params=params, batch_stats=stats, opt_state=tx.init(params),
@@ -85,6 +97,21 @@ def _frozen_stats(block: nn.Module):
 
 def _recompute_contexts(block: nn.Module):
     return contextlib.nullcontext(), _frozen_stats(block)
+
+
+@contextlib.contextmanager
+def _synced(model: nn.Module, mesh):
+    """Batch statistics over the mesh's global batch in every BatchNorm of
+    `model` while the context is open (the forward, and the backward with
+    its recomputes)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.mesh = mesh
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.mesh = None
 
 
 @contextlib.contextmanager
@@ -140,16 +167,27 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
 
     remat: activation checkpointing of the forward (see _checkpointed).
 
+    mesh (parallel.mesh.Mesh): the batch is this rank's rows of the global
+    batch (parallel/mesh.py:shard_batch; with accum_steps, chunk k of them
+    is the rank's share of microbatch k, as the JAX step shards each
+    microbatch). Augmentation and the resize run on the local rows. The
+    model's device must be the mesh's.
+
     metrics: loss, loss_box, loss_obj, loss_cls and grad_norm (the norm of
-    the mean gradient before clipping), as tensors on the device.
+    the mean gradient before clipping), as tensors on the device; under a
+    mesh those of the global batch, equal on every rank.
     """
-    if mesh is not None or spatial:
-        raise NotImplementedError("make_train_step runs on one device; the "
-                                  "mesh and spatial partitioning are not ported")
+    if spatial:
+        raise NotImplementedError("spatial partitioning (the model axis) is not ported "
+                                  "(ROADMAP.md, Queue 1 item 6)")
+    mesh = pmesh.check_mesh(mesh)
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
     dev = _device(model)
+    if mesh is not None and mesh.device != dev:
+        raise ValueError(f"the model is on {dev}, the mesh's device is {mesh.device}")
     autocast = _autocast(dev, compute_dtype)
+    loss_kw = {} if mesh is None else {"mesh": mesh}
 
     def maybe_scale(x):
         if scale_to is None or tuple(x.shape[1:3]) == (scale_to, scale_to):
@@ -162,11 +200,12 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
         return y.permute(0, 2, 3, 1)
 
     def forward_backward(x, tgt):
-        with autocast(), (_checkpointed(model) if remat else contextlib.nullcontext()):
-            raws = model(x, decode=False)
-        with record_function("loss"):
-            total, parts = loss_fn(raws, tgt)
-        total.backward()
+        with _synced(model, mesh) if mesh is not None else contextlib.nullcontext():
+            with autocast(), (_checkpointed(model) if remat else contextlib.nullcontext()):
+                raws = model(x, decode=False)
+            with record_function("loss"):
+                total, parts = loss_fn(raws, tgt, **loss_kw)
+            total.backward()
         return total.detach().float(), parts
 
     def train_step(state: TrainState, batch):
@@ -196,6 +235,12 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
             total, parts = total + t, parts + pp
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if mesh is not None:
+            # the global gradient and losses: each rank's are its share
+            losses = torch.cat([total.reshape(1), parts])
+            with record_function("all_reduce"):
+                pmesh.all_reduce_(mesh, [*grads.values(), losses])
+            total, parts = losses[0], losses[1:]
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             torch._foreach_mul_(list(grads.values()), inv)
@@ -218,7 +263,7 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
 
 def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
                    state: TrainState | None = None, use_ema: bool = True,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32, mesh=None):
     """Eval step: forward with decode, then the eval-protocol postprocess.
 
     With a TrainState, as the JAX step, it evaluates the state's EMA
@@ -236,8 +281,14 @@ def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
     tensor on any device, goes straight into the model (the stem scales it),
     and eval_step returns (dets (B, max_det, 6), valid (B, max_det)) on the
     model's device without synchronising. The model runs in eval mode.
+
+    mesh (parallel.mesh.Mesh): imgs are this rank's rows of the global
+    batch (an equal share on every rank); each rank runs its rows through
+    the same postprocess, and the step returns the global batch's outputs,
+    in rank order, on every rank.
     """
     kwargs = {**EVAL_POSTPROCESS, **(postprocess_kwargs or {})}
+    mesh = pmesh.check_mesh(mesh)
     model.eval()
     dev = _device(model)
     tree = state.ema.tree if state is not None and use_ema else None
@@ -254,6 +305,9 @@ def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
             else:
                 decoded, _ = torch.func.functional_call(model, tree, (x,),
                                                         strict=False)
-        return postprocess(decoded, **kwargs)
+        dets, valid = postprocess(decoded, **kwargs)
+        if mesh is None:
+            return dets, valid
+        return pmesh.gather_rows(mesh, dets), pmesh.gather_rows(mesh, valid)
 
     return eval_step

@@ -8,9 +8,15 @@ kernel on the card), best/last checkpoints monitored on mAP@.5, early
 stopping, exact-step resume, multi-scale size draws, sample grids, per-class
 tables, TensorBoard when it imports and WandB when credentials are set.
 
-On one device (a mesh raises). The loader takes the host-augmentation
-route unless data.device_aug is true; with degrees or shear set the device
-route falls back to the host route with a warning, as in the JAX package.
+On one device, or data-parallel over a mesh (parallel/mesh.py; one
+process per device, launched by torchrun): each rank trains on its shard
+of every global batch through the mesh's step, rank 0 alone writes
+checkpoints, best weights, sample grids and the logs, and the validation
+is gathered and evaluated on rank 0, its metrics broadcast so that every
+rank takes the same best-checkpoint and early-stop decisions. The loader
+takes the host-augmentation route unless data.device_aug is true; with
+degrees or shear set the device route falls back to the host route with a
+warning, as in the JAX package.
 Precision: f32 master weights, and model.precision bf16 (the default) runs
 the forwards of both steps under torch.autocast in bf16. Checkpoints are train/checkpoint.py
 files, ckpts/last and ckpts/best with the JAX meta beside each; the best
@@ -34,25 +40,71 @@ from vision_kit_tpu_torch.utils.logging_utils import logger
 from vision_kit_tpu_torch.utils.table import RichTable
 
 
-def validate(eval_step, batches, evaluator, collect_coco: bool = False) -> dict:
+def _gather_batch(mesh, batch):
+    """The global batch's targets, infos and count from each rank's share
+    (ValLoader(shard=rank)), in rank order."""
+    from vision_kit_tpu_torch.parallel import mesh as pmesh
+
+    dev = mesh.device
+    targets = pmesh.gather_rows(mesh, torch.as_tensor(batch["targets"], device=dev))
+    info = torch.tensor([[h0, w0, ratio, pad[0], pad[1], img_id]
+                         for h0, w0, ratio, pad, img_id in batch["info"]],
+                        dtype=torch.float64, device=dev)
+    info = pmesh.gather_rows(mesh, info).tolist()
+    count = pmesh.all_reduce(mesh, torch.tensor(batch["count"], device=dev))
+    infos = [(int(h0), int(w0), ratio, (p0, p1), int(img_id))
+             for h0, w0, ratio, p0, p1, img_id in info]
+    return targets.cpu().numpy(), infos, int(count)
+
+
+def validate(eval_step, batches, evaluator, collect_coco: bool = False,
+             mesh=None) -> dict:
     """Reset `evaluator`, run `eval_step` on every batch and accumulate its
     detections, then summarize.
 
     collect_coco: also accumulate the COCO-protocol metric set (float64
     copies of every batch); only `test` reads it.
+
+    mesh (parallel.mesh.Mesh): each rank's batches are its shares of the
+    global batches (ValLoader(shard=rank)) and eval_step a
+    make_eval_step(mesh=mesh); the global batch is gathered and evaluated on
+    rank 0, and its result is returned on every rank.
     """
-    evaluator.reset(collect_coco=collect_coco)
+    if mesh is None:
+        evaluator.reset(collect_coco=collect_coco)
+        for batch in batches:
+            dets, valid = eval_step(batch["image"])
+            evaluator.update(dets.cpu().numpy(), valid.cpu().numpy(),
+                             batch["targets"], batch["info"], batch["count"])
+        return evaluator.summarize()
+    from vision_kit_tpu_torch.parallel import mesh as pmesh
+
+    if mesh.is_main:
+        evaluator.reset(collect_coco=collect_coco)
     for batch in batches:
         dets, valid = eval_step(batch["image"])
-        evaluator.update(dets.cpu().numpy(), valid.cpu().numpy(),
-                         batch["targets"], batch["info"], batch["count"])
-    return evaluator.summarize()
+        targets, infos, count = _gather_batch(mesh, batch)
+        if mesh.is_main:
+            evaluator.update(dets.cpu().numpy(), valid.cpu().numpy(), targets, infos,
+                             count)
+    return pmesh.broadcast_object(mesh, evaluator.summarize() if mesh.is_main else None)
 
 
-def test(eval_step, batches, evaluator) -> dict:
+def summarize_coco(evaluator, mesh=None) -> dict:
+    """evaluator.summarize_coco(), on rank 0 under a mesh and then on every
+    rank."""
+    if mesh is None:
+        return evaluator.summarize_coco()
+    from vision_kit_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.broadcast_object(mesh, evaluator.summarize_coco() if mesh.is_main
+                                  else None)
+
+
+def test(eval_step, batches, evaluator, mesh=None) -> dict:
     """validate with the COCO-protocol metric set under result["coco"]."""
-    result = validate(eval_step, batches, evaluator, collect_coco=True)
-    result["coco"] = evaluator.summarize_coco()
+    result = validate(eval_step, batches, evaluator, collect_coco=True, mesh=mesh)
+    result["coco"] = summarize_coco(evaluator, mesh)
     return result
 
 
@@ -77,29 +129,41 @@ class Trainer:
     def __init__(self, cfg, evaluator=None, mesh=None, use_tensorboard: bool = True,
                  seed: int | None = None, device: str | torch.device = "cuda"):
         from vision_kit_tpu_torch.models import build_model
+        from vision_kit_tpu_torch.parallel import mesh as pmesh
         from vision_kit_tpu_torch.train.evaluator import DetEvaluator
         from vision_kit_tpu_torch.train.optim import make_optimizer
         from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
         from vision_kit_tpu_torch.utils.general import resolve_device
 
-        if mesh is not None:
-            raise NotImplementedError("the port's Trainer runs on one device; the mesh "
-                                      "is not ported (ROADMAP.md, Queue 1 item 6)")
+        # a mesh over the process group when one is initialised (torchrun);
+        # its device is this rank's
+        mesh = pmesh.check_mesh(mesh)
+        if mesh is None and torch.distributed.is_initialized():
+            mesh = pmesh.make_mesh(device=device)
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
+        self.is_main = self.rank == 0
         self.cfg = cfg
         # one seed drives model init, the loader's index stream and every
         # per-sample augmentation draw; the CLI's --seed lands here
         if seed is None:
             seed = getattr(cfg.data, "seed", None)  # a config seed of 0 is valid
         self.seed = int(seed) if seed is not None else 21
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.compute_dtype = _compute_dtype(cfg)
         self.model = build_model(cfg, device=self.device, seed=self.seed)
         self.img_size = tuple(cfg.model.input_size)
         self.max_epochs = int(cfg.data.max_epochs)
         self.val_interval = int(cfg.testing.val_interval)
         self.output_dir = cfg.data.output_dir
-        os.makedirs(os.path.join(self.output_dir, "ckpts"), exist_ok=True)
+        if self.is_main:
+            os.makedirs(os.path.join(self.output_dir, "ckpts"), exist_ok=True)
+        # the global batch, a multiple of the data axis; each rank trains on
+        # its batch_size // n_data rows
+        self.n_data = mesh.n_data if mesh is not None else 1
         self.batch_size = int(cfg.data.batch_size)
+        if self.batch_size % self.n_data:
+            self.batch_size = max(self.batch_size // self.n_data, 1) * self.n_data
 
         # data.device_aug moves the mosaic/mixup/HSV/flip pixel work into the
         # train step; rotation and shear need the host route
@@ -139,7 +203,7 @@ class Trainer:
             from vision_kit_tpu_torch.train.losses import YoloLoss as loss_cls
         self.loss = loss_cls(int(cfg.model.num_classes), self.model.head.grid_anchors,
                              hyp, layout=layout)
-        self.state = create_train_state(self.model, self.tx)
+        self.state = create_train_state(self.model, self.tx, mesh=mesh)
         self.train_step = make_train_step(self.model, self.loss, self.tx,
                                           **self._step_options())
         # multi-scale training (data.multiscale: true -> base +/- {64, 128},
@@ -166,7 +230,7 @@ class Trainer:
         self.epoch_stats: list[dict] = []
 
         self.tb = None
-        if use_tensorboard:
+        if use_tensorboard and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -176,8 +240,8 @@ class Trainer:
         # WandB only when credentials or a mode are configured: an
         # unconditional wandb.init blocks on a login prompt
         self.wandb = None
-        if (os.environ.get("WANDB_API_KEY") or os.environ.get("WANDB_MODE")
-                or _wandb_netrc_login()):
+        if self.is_main and (os.environ.get("WANDB_API_KEY") or os.environ.get("WANDB_MODE")
+                             or _wandb_netrc_login()):
             try:
                 import wandb
 
@@ -191,7 +255,8 @@ class Trainer:
         data = self.cfg.data
         return dict(accum_steps=int(getattr(data, "accum_steps", 1) or 1),
                     remat=bool(getattr(data, "remat", False)),
-                    device_aug=self.device_aug, compute_dtype=self.compute_dtype)
+                    device_aug=self.device_aug, compute_dtype=self.compute_dtype,
+                    mesh=self.mesh)
 
     def _build_eval_step(self):
         """The eval step over this state's EMA, in the compute dtype. It
@@ -199,7 +264,7 @@ class Trainer:
         from vision_kit_tpu_torch.train.step import make_eval_step
 
         return make_eval_step(
-            self.model, state=self.state, compute_dtype=self.compute_dtype,
+            self.model, state=self.state, compute_dtype=self.compute_dtype, mesh=self.mesh,
             postprocess_kwargs=dict(conf_thres=float(self.cfg.testing.conf_thresh),
                                     iou_thres=float(self.cfg.testing.iou_thresh)))
 
@@ -279,18 +344,50 @@ class Trainer:
                                **kw)
         raise ValueError(f"unknown data_format {fmt!r}")
 
+    def _rank0_first(self, make):
+        """make() on rank 0, then, past a barrier, on the other ranks: a
+        dataset's label and disk caches are built once and read by the rest."""
+        if self.mesh is None:
+            return make()
+        from vision_kit_tpu_torch.parallel.mesh import barrier
+
+        out = make() if self.is_main else None
+        barrier(self.mesh)
+        return out if self.is_main else make()
+
+    def _num_workers(self) -> int:
+        """data.num_workers, capped under a mesh at the host's cores over the
+        ranks on it (each rank spawns its own)."""
+        workers = int(getattr(self.cfg.data, "num_workers", 0) or 0)
+        if self.mesh is None or not workers:
+            return workers
+        local = int(os.environ.get("LOCAL_WORLD_SIZE") or self.n_data)
+        cap = max(1, len(os.sched_getaffinity(0)) // local)
+        if workers > cap:
+            logger.warning("data.num_workers %d capped at %d a rank (%d ranks on %d "
+                           "cores)", workers, cap, local, len(os.sched_getaffinity(0)))
+            return cap
+        return workers
+
+    def _val_loader(self, dataset):
+        from vision_kit_tpu_torch.data.loader import ValLoader
+
+        return ValLoader(dataset, self.batch_size, img_size=self.img_size,
+                         shard=self.rank, num_shards=self.n_data)
+
     def _build_loaders(self):
-        from vision_kit_tpu_torch.data.loader import TrainLoader, ValLoader
+        from vision_kit_tpu_torch.data.loader import TrainLoader
 
         cfg = self.cfg
-        train_ds = self._dataset(str(cfg.data.train_path), "instances_train2017.json")
-        val_ds = self._eval_dataset(str(cfg.data.val_path))
+        train_ds, val_ds = self._rank0_first(lambda: (
+            self._dataset(str(cfg.data.train_path), "instances_train2017.json"),
+            self._eval_dataset(str(cfg.data.val_path))))
         train_loader = TrainLoader(
-            train_ds, self.batch_size, img_size=self.img_size,
+            train_ds, self.batch_size // self.n_data, img_size=self.img_size,
             aug_cfg=dict(cfg.augmentations), seed=self.seed,
-            num_workers=int(getattr(cfg.data, "num_workers", 0) or 0),
-            device_aug=self.device_aug)
-        return train_loader, ValLoader(val_ds, self.batch_size, img_size=self.img_size)
+            shard=self.rank, num_shards=self.n_data,
+            num_workers=self._num_workers(), device_aug=self.device_aug)
+        return train_loader, self._val_loader(val_ds)
 
     def _eval_dataset(self, split_path: str):
         """Eval-split dataset for a `val_path`/`test_path` config value; a
@@ -312,7 +409,7 @@ class Trainer:
         path = os.path.join(self.output_dir, "ckpts", name)
         checkpoint.save_checkpoint(path, self.state, epoch, best_map50=self.best_map50,
                                    epochs_no_improve=self.epochs_no_improve,
-                                   val_pending=self._val_pending)
+                                   val_pending=self._val_pending, mesh=self.mesh)
 
     def load_checkpoint(self, path: str) -> int:
         """Restore ckpts/<name> into the state, and the early-stop and
@@ -479,12 +576,11 @@ class Trainer:
                     self._save_grid(batch, split, step=getattr(self, "_cur_epoch", 0))
                 yield batch
 
-        return validate(self.eval_step, batches(), self.evaluator, collect_coco)
+        return validate(self.eval_step, batches(), self.evaluator, collect_coco,
+                        mesh=self.mesh)
 
     def _test_loader(self):
         """The `data.test_path` split when configured, else the val split."""
-        from vision_kit_tpu_torch.data.loader import ValLoader
-
         test_path = getattr(self.cfg.data, "test_path", None)
         if not test_path or str(test_path) == str(self.cfg.data.val_path):
             logger.info("test(): no separate data.test_path — evaluating the val "
@@ -495,8 +591,8 @@ class Trainer:
                            "val split (%s) instead", test_path, self.cfg.data.val_path)
             return self.val_loader
         logger.info("test(): evaluating the test split (%s)", test_path)
-        return ValLoader(self._eval_dataset(str(test_path)), self.batch_size,
-                         img_size=self.img_size)
+        return self._val_loader(self._rank0_first(
+            lambda: self._eval_dataset(str(test_path))))
 
     @staticmethod
     def _per_class_table(result) -> str:
@@ -513,7 +609,7 @@ class Trainer:
         result = self.validate(self._test_loader(), collect_coco=True, split="test")
         logger.info("\n%s", self._per_class_table(result))
         logger.info("mAP@.5 %.4f  mAP@.5:.95 %.4f", result["map50"], result["map50_95"])
-        coco = self.evaluator.summarize_coco()
+        coco = summarize_coco(self.evaluator, self.mesh)
         map_table = RichTable("Average Precision (AP)")
         map_table.add_headers(["mAP", "mAP(.50)", "mAP(.75)", "mAP(small)",
                                "mAP(medium)", "mAP(large)"])
@@ -527,7 +623,7 @@ class Trainer:
         logger.info("\n%s", map_table.table)
         logger.info("\n%s", mar_table.table)
         result["coco"] = coco
-        if self.evaluator.gt_json:
+        if self.is_main and self.evaluator.gt_json:
             info = self.evaluator.coco_evaluate()
             if info:
                 logger.info("\n%s", info)
@@ -536,6 +632,8 @@ class Trainer:
     def _export_best_weights(self, map50: float):
         """The EMA weights as an fp16 {"model": state_dict} .pt, on each new
         best (predictor.load_weights reads it)."""
+        if not self.is_main:
+            return
         path = os.path.join(self.output_dir, "weights", f"best-map50_{map50:.4f}.pt")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         torch.save({"model": {k: v.detach().half().cpu()
@@ -560,7 +658,8 @@ class Trainer:
         finally:
             self.train_loader.close()
         path = os.path.join(trace_dir, "train_step.json")
-        prof.export_chrome_trace(path)
+        if self.is_main:
+            prof.export_chrome_trace(path)
         logger.info("profile trace written to %s", path)
         return path
 
@@ -572,6 +671,8 @@ class Trainer:
         the grid is a side product of training."""
         from vision_kit_tpu_torch.utils.drawing import grid_save
 
+        if not self.is_main:
+            return
         try:
             targets = batch["targets"]
             if "image" in batch:

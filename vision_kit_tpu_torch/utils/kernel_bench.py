@@ -10,7 +10,8 @@ v5s throughput path, run_detector_bench), 64 (the v7 throughput path) and
 128 (a decode_order="reference" model's permuted views of the same maps;
 current design only); greedy NMS at B=128, K=512,
 B=64, K=512 and B=8, K=1024 (the serving paths' batch and max_cand) and at
-B=64, K=2048 (the eval step's), each on random, crowded and all-invalid
+B=64, K=2048 (the eval step's), B=32, K=2048 (a rank's share of it on a
+2-rank mesh) and B=8, K=2048 (fit-host's validation), each on random, crowded and all-invalid
 boxes. The batch-8 maps are 34 MB, under the 50 MB L2, so the
 timing rotates 4 distinct inputs to read them from device memory as the
 request path does; the b64 and b128 maps (274 and 548 MB) exceed the L2
@@ -44,7 +45,7 @@ NMS_OPS_PER_PAIR = 14        # min/max x4, sub x3, clamp x3, mul, add, div, cmp
 CONF = 0.25
 IOU = 0.45
 HEAD_BATCHES = (128, 64, 8)
-NMS_SHAPES = ((128, 512), (64, 512), (8, 1024), (8, 2048), (64, 2048))
+NMS_SHAPES = ((128, 512), (64, 512), (8, 1024), (8, 2048), (32, 2048), (64, 2048))
 NMS_CASES = ("random", "crowded", "all_invalid")
 
 

@@ -15,7 +15,9 @@ state and batch for chip_smoke.py's other training runs too.
 
 train_state_tensors and state_disagreements compare two training states;
 train_step_card_vs_cpu and ota_card_vs_cpu hold a training step and the
-SimOTA loss on the card against the CPU (chip_smoke.py, the cuda tests).
+SimOTA loss on the card against the CPU (chip_smoke.py, the cuda tests);
+mesh_step_disagreements holds a data-parallel step against the step in
+one process on the global batch.
 
 calibrate_head and calibrate_bn make the synthetic loads of seeded random
 weights: without them a seeded model scores every candidate below conf
@@ -106,13 +108,14 @@ STATE_PARTS = ("params", "batch_stats", "momentum", "ema")
 
 
 def train_state_tensors(state) -> dict:
-    """A TrainState's (train/step.py) tensors on the host, by part:
-    {"params", "batch_stats", "momentum", "ema"}."""
+    """Copies of a TrainState's (train/step.py) tensors on the host, in
+    f32, by part: {"params", "batch_stats", "momentum", "ema"}."""
     from vision_kit_tpu_torch.train.optim import sgd_state
 
     parts = (state.params, state.batch_stats,
              sgd_state(state.opt_state).momentum_buf, state.ema.tree)
-    return {name: {k: t.detach().float().cpu() for k, t in part.items()}
+    return {name: {k: t.detach().to("cpu", torch.float32, copy=True)
+                   for k, t in part.items()}
             for name, part in zip(STATE_PARTS, parts)}
 
 
@@ -167,6 +170,118 @@ def train_step_card_vs_cpu(cfg) -> tuple[list, dict]:
     bad = [(k, gm[k], wm[k]) for k, r in rel.items()
            if not r <= (1e-3 if k == "grad_norm" else 1e-4)]
     return bad + state_disagreements(want, got, before), rel
+
+
+def deterministic() -> None:
+    """Deterministic algorithms on the card (CUBLAS_WORKSPACE_CONFIG=:4096:8
+    must be set before CUDA starts), and TF32 off for f32 comparisons: a
+    TF32 conv rounds to 10 mantissa bits, so two f32 runs an ulp apart
+    drift by far more than a step's tolerance."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def worst_step_error(want: dict, got: dict, before: dict,
+                     value_rel: float = 1e-4, step_rel: float = 2e-3) -> float:
+    """The largest error of `got` against `want` over state_disagreements'
+    tolerance (a ratio: 1 is the tolerance), over every tensor."""
+    worst = 0.0
+    for part in STATE_PARTS:
+        for k, w in want[part].items():
+            tol = (value_rel * float(w.abs().max())
+                   + step_rel * float((w - before[part][k]).abs().max()) + 1e-7)
+            worst = max(worst, float((got[part][k] - w).abs().max()) / tol)
+    return worst
+
+
+def mesh_step_disagreements(mesh, cfg, batch: int = 64, seed: int = 0,
+                            referee: bool = False):
+    """One f32 step of `cfg`'s seeded model (YoloLoss, TRAIN_HYP) under
+    `mesh` on this rank's rows (parallel/mesh.py:shard_batch) of a global
+    batch of `batch` seeded uint8 images with bench_targets, then on rank 0
+    the same step without a mesh on the whole batch from the same state.
+
+    Returns, on rank 0, (disagreements, report): the metrics beyond 1e-4
+    relative (the grad norm 1e-3) and state_disagreements' rows, as
+    train_step_card_vs_cpu; and each run's metrics. The other ranks return
+    (None, report).
+
+    With referee, both steps also run in float64, where the rounding of
+    the convolutions' algorithms no longer hides the data-parallel
+    arithmetic, and every rank also runs the step without a mesh on its
+    own rows alone, in f32 and float64. The report then holds
+    "f64_disagreements" (the float64 mesh step against the float64 step
+    without it, as the disagreements above) and "f64_worst" (its worst
+    error over state_disagreements' tolerance: 1 is the tolerance), each
+    f32 step's worst error against the float64 step without a mesh
+    ("mesh_vs_f64", "plain_vs_f64"), and by rank the f32 step on the
+    rank's rows alone against its float64 step ("alone_vs_f64"): the
+    rounding the convolutions make at a rank's batch without any mesh."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.parallel.mesh import gather_rows, shard_batch
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.train.optim import make_optimizer
+    from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
+
+    size = cfg.model.input_size[0]
+    rng = np.random.default_rng(seed)
+    whole = {"image": torch.from_numpy(
+                 rng.integers(0, 255, (batch, size, size, 3), dtype=np.uint8)),
+             "targets": torch.from_numpy(bench_targets(rng, batch))}
+    local = shard_batch(mesh, whole)
+    model = build_model(cfg, device=mesh.device, seed=seed)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    dtypes = (torch.float32, torch.float64) if referee else (torch.float32,)
+    plan = [(("mesh", d), mesh, local) for d in dtypes]
+    if mesh.is_main:
+        plan += [(("one_process", d), None, whole) for d in dtypes]
+    if referee and mesh.n_data > 1:
+        plan += [(("alone", d), None, local) for d in dtypes]
+    runs = {}
+    for (name, dtype), m, data in plan:
+        model.load_state_dict(start)
+        model.to(dtype)
+        tx = make_optimizer(model, TRAIN_HYP, 3, 10)
+        state = create_train_state(model, tx, mesh=m)
+        before = train_state_tensors(state)
+        loss = YoloLoss(cfg.model.num_classes, model.head.grid_anchors, TRAIN_HYP,
+                        layout="native")
+        state, metrics = make_train_step(model, loss, tx, mesh=m)(
+            state, {k: v.to(mesh.device) for k, v in data.items()})
+        runs[name, dtype] = (train_state_tensors(state),
+                             {k: float(v) for k, v in metrics.items()}, before)
+        del state, tx
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+    model.float()
+    f32, f64 = torch.float32, torch.float64
+    report = {name: run[1] for (name, dtype), run in runs.items() if dtype == f32}
+    if referee:
+        # a world of one: the rank's rows alone are the whole batch
+        key = "alone" if mesh.n_data > 1 else "one_process"
+        mine = worst_step_error(runs[key, f64][0], runs[key, f32][0], runs[key, f64][2])
+        report["alone_vs_f64"] = gather_rows(
+            mesh, torch.tensor([mine], dtype=f64, device=mesh.device)).flatten().tolist()
+    if not mesh.is_main:
+        return None, report
+
+    def disagreements(got, want):
+        (gs, gm, _), (ws, wm, before) = got, want
+        bad = [(k, gm[k], wm[k]) for k in wm
+               if not abs(gm[k] / wm[k] - 1) <= (1e-3 if k == "grad_norm" else 1e-4)]
+        return bad + state_disagreements(ws, gs, before)
+
+    if referee:
+        exact = runs["one_process", f64]
+        report["f64_disagreements"] = disagreements(runs["mesh", f64], exact)
+        report["f64_worst"] = worst_step_error(exact[0], runs["mesh", f64][0], exact[2])
+        report["mesh_vs_f64"] = worst_step_error(exact[0], runs["mesh", f32][0], exact[2])
+        report["plain_vs_f64"] = worst_step_error(exact[0], runs["one_process", f32][0],
+                                                  exact[2])
+    return disagreements(runs["mesh", f32], runs["one_process", f32]), report
 
 
 def ota_card_vs_cpu(cfg) -> tuple[list, dict]:
@@ -312,11 +427,13 @@ TRAIN_SIZE, TRAIN_DTYPE, TRAIN_DATA_SEED = 640, torch.bfloat16, 0
 
 
 def train_bench_setup(model, loss_fn, batch: int, device_aug: bool = False,
-                      remat: bool = False, accum_steps: int = 1):
+                      remat: bool = False, accum_steps: int = 1, mesh=None):
     """(step, state, data) of tools/bench_train.py's program over `model`
     on its device: make_train_step in TRAIN_DTYPE with TRAIN_HYP, a fresh
     state, and the batch at TRAIN_SIZE (images uniform in [0, 1] in f32,
-    or with device_aug the tiles batch, daug_batch) on the device."""
+    or with device_aug the tiles batch, daug_batch) on the device. Under a
+    mesh, `batch` is each rank's: the step is data-parallel over the global
+    batch of batch * n_data."""
     from vision_kit_tpu_torch.train.optim import make_optimizer
     from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
 
@@ -324,7 +441,7 @@ def train_bench_setup(model, loss_fn, batch: int, device_aug: bool = False,
     rng = np.random.default_rng(TRAIN_DATA_SEED)
     tx = make_optimizer(model, TRAIN_HYP, TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH)
     step = make_train_step(model, loss_fn, tx, remat=remat, accum_steps=accum_steps,
-                           device_aug=device_aug, compute_dtype=TRAIN_DTYPE)
+                           device_aug=device_aug, compute_dtype=TRAIN_DTYPE, mesh=mesh)
     if device_aug:
         data = daug_batch(rng, batch, TRAIN_SIZE)
     else:
@@ -332,20 +449,21 @@ def train_bench_setup(model, loss_fn, batch: int, device_aug: bool = False,
                                      ).astype(np.float32),
                 "targets": bench_targets(rng, batch)}
     data = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-    return step, create_train_state(model, tx), data
+    return step, create_train_state(model, tx, mesh=mesh), data
 
 
 def run_train_bench(model, loss_fn, batch: int = 64, iters: int = 10,
                     warmup: int = 3, device_aug: bool = False, remat: bool = False,
-                    accum_steps: int = 1) -> dict:
+                    accum_steps: int = 1, mesh=None) -> dict:
     """Images per second of tools/bench_train.py's program
     (train_bench_setup) over `model` (on a CUDA device; it trains the model
     in place), the same batch every step. CUDA events over `iters` steps
     after `warmup`. Returns the rate, the mean step time and the peak
-    device memory of the timed steps."""
+    device memory of the timed steps. Under a mesh `batch` is each rank's,
+    and the rate is this rank's share of the global batch's."""
     dev = _cuda_device(model, "run_train_bench")
     step, state, data = train_bench_setup(model, loss_fn, batch, device_aug=device_aug,
-                                          remat=remat, accum_steps=accum_steps)
+                                          remat=remat, accum_steps=accum_steps, mesh=mesh)
     for _ in range(warmup):
         state, metrics = step(state, data)
     torch.cuda.synchronize(dev)
