@@ -65,7 +65,13 @@ Phases, each printing its own line; any failure exits non-zero:
      launching the anchor-major head_scores and greedy_nms, its detections
      equal to the native order's and to the plain versions', and its
      request latency in turns with the native order's; run_export of
-     v5s@640 in f32 on the card, each artifact's check or skip printed;
+     v5s@640 in f32 on the card, each artifact's check or skip printed,
+     and its Flax msgpack served by load_predictor_from_config: detections
+     bit-equal to the in-memory model's;
+ 9b. demo: python -m vision_kit_tpu_torch demo on the committed samples in
+     a child process, the phase-4 weights handed over as a Flax msgpack:
+     one PNG per sample the port decodes, each printed count equal to an
+     in-process Predictor's;
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card (nvJPEG for a
      JPEG, the host decoder uploaded for a PNG) against the plain decoder
@@ -91,10 +97,14 @@ Phases, each printing its own line; any failure exits non-zero:
      none of head_scores, the checkpoints, the best weights served by
      load_predictor_from_config; the card's TrainLoader and ValLoader
      against a CPU dataset's (loader_bench.loader_disagreements); a twin
-     run's distance in the default mode; in a child process in
-     deterministic mode (--resume-check), a crash after step 3 resumed from
-     ckpts/last, bit-identical to an uninterrupted run; the train CLI as a
-     subprocess; an epoch under the profiler and the sample grid alone; the
+     run's distance in the default mode; decoder "plain" on the card: the
+     host route's batches of 8 bit-equal with 0 and 8 workers; in a child
+     process (--deterministic-check), the default fit and
+     Trainer(deterministic=True)'s in turns (img/s by epoch, the two
+     deterministic runs bit-identical), a deterministic crash after step 3
+     resumed from ckpts/last, bit-identical to an uninterrupted run, and the
+     step alone in both modes in turns; the train CLI as a subprocess; an
+     epoch under the profiler and the sample grid alone; the
      loader's rates and ms a batch, and the step alone on the fit's model;
  12. fit-host: the repo's default config, configs/yolov5.yaml, as it stands
      (v5s@640 bf16, batch 8, 8 spawned workers, no image cache, no
@@ -122,7 +132,14 @@ Phases, each printing its own line; any failure exits non-zero:
      config and files, 32 rows a rank) whose ranks end bit-identical with
      one greedy_nms launch a rank per validation batch; the 2-rank
      validation against rank 0's alone over whole batches (the same
-     detections, then the metrics to 1e-9);
+     detections, then the metrics to 1e-9); then on the same two ranks the
+     main path's v5s@640 bf16 behind Predictor(mesh=...): 8 frames of
+     720x1280 (4 a rank) and 3 (every rank runs them whole), each rank's
+     rows bit-equal to the same rows run alone, rank 0's against one
+     process at b8, one launch of each kernel a rank a request, the
+     request latency; and InferenceServer over the mesh Predictor (rank 0
+     binds HTTP, rank 1 follows) answering each committed sample JPEG as a
+     one-process server at batch 4 does (the rows rank 0 runs);
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -139,7 +156,10 @@ serving run's launches; greedy_nms_serve and head_scores_serve the kernels
 at the server's batch 8, K=1024, with the launches of the server's HTTP
 run; greedy_nms_fit the eval shape with the launches of fit's
 validations; greedy_nms_ddp a rank's share of it, B=32, with rank 0's
-launches in the ddp phase's fit and both ranks' under launches_by_rank)
+launches in the ddp phase's fit and both ranks' under launches_by_rank;
+greedy_nms_mesh_serve and head_scores_mesh_serve the kernels at a rank's
+share of a mesh serving batch, B=4, K=1024, with rank 0's launches in the
+mesh server's HTTP run and both ranks' under launches_by_rank)
 and, last, {"ok": true,
 "device": ...}.
 
@@ -169,6 +189,7 @@ HEAD_CHECK_SHAPES = (
     (128, ((80, 80), (40, 40), (20, 20))),   # throughput path, v5s@640
     (64, ((80, 80), (40, 40), (20, 20))),    # throughput path, v7 base@640
     (8, ((80, 80), (40, 40), (20, 20))),     # request path, v5s@640
+    (4, ((80, 80), (40, 40), (20, 20))),     # a rank's share of a mesh request
     (1, ((5, 5), (7, 3), (1, 1))),           # ragged last tiles
 )
 # anchor-major head scores: (batch, grids, distinct inputs), as kernel_bench
@@ -225,7 +246,7 @@ def phase_kernels(rng):
     from vision_kit_tpu_torch.utils import kernel_bench as kb
 
     # -- greedy NMS: bit-equal masks (B=32: a rank's share of the eval batch)
-    for b in (8, 32, 64, 128):
+    for b in (4, 8, 32, 64, 128):
         for k in NMS_KS:
             for case in NMS_CHECK_CASES:
                 boxes, valid = kb.make_boxes(rng, b, k, case)
@@ -317,9 +338,11 @@ def kernel_times(head_max_err: dict):
     (utils/kernel_bench.py): greedy_nms at the v5s serving step's B=128,
     K=512, as greedy_nms_eval and greedy_nms_train_eval at the eval step's
     B=64, K=2048, as greedy_nms_fit_host at the fit-host validations' B=8,
-    K=2048 and as greedy_nms_v7 at the v7 serving step's B=64, K=512;
-    head_scores at b128, as head_scores_v7 at b64, and as
-    head_scores_anchor_major at b128 on a reference-order head's maps.
+    K=2048, as greedy_nms_v7 at the v7 serving step's B=64, K=512, as
+    greedy_nms_serve at the server's B=8, K=1024 and as
+    greedy_nms_mesh_serve at a mesh rank's B=4, K=1024; head_scores at
+    b128, as head_scores_v7 at b64, as head_scores_anchor_major at b128 on
+    a reference-order head's maps, and at b8 and b4 likewise.
     `head_max_err` holds head_scores' largest error against its plain
     version at each batch (anchor-major under "anchor_major_<batch>"). Runs after the
     latency phases: the profiler that kernel_bench uses for its per-kernel
@@ -334,6 +357,7 @@ def kernel_times(head_max_err: dict):
                         ("greedy_nms_fit", (64, 2048)),
                         ("greedy_nms_fit_host", (8, 2048)),
                         ("greedy_nms_ddp", (DDP_BATCH // 2, 2048)),
+                        ("greedy_nms_mesh_serve", (MESH_FRAMES // 2, 1024)),
                         ("greedy_nms_v7", (64, 512)),
                         ("greedy_nms_serve", (SERVE_BATCH, 1024))):
         nms = next(r for r in bench["greedy_nms"]
@@ -349,7 +373,8 @@ def kernel_times(head_max_err: dict):
     for name, batch, anchor_major in (("head_scores", 128, False),
                                       ("head_scores_v7", 64, False),
                                       ("head_scores_anchor_major", 128, True),
-                                      ("head_scores_serve", SERVE_BATCH, False)):
+                                      ("head_scores_serve", SERVE_BATCH, False),
+                                      ("head_scores_mesh_serve", MESH_FRAMES // 2, False)):
         head = next(r for r in bench["head_scores"]
                     if (r["batch"], r["anchor_major"]) == (batch, anchor_major))
         rows[name] = {
@@ -1128,7 +1153,11 @@ def phase_weights(model, rng, smi: str) -> dict:
     the reference-order serving run."""
     import tempfile
 
-    from vision_kit_tpu_torch.convert import load_upstream_checkpoint, upstream_to_vision_kit
+    from vision_kit_tpu_torch.convert import (
+        deploy_state_dict,
+        load_upstream_checkpoint,
+        upstream_to_vision_kit,
+    )
     from vision_kit_tpu_torch.export import run_export
     from vision_kit_tpu_torch.models import build_model
     from vision_kit_tpu_torch.predictor import (
@@ -1208,10 +1237,15 @@ def phase_weights(model, rng, smi: str) -> dict:
     del train, step, state, data, ema, loaded
     torch.cuda.empty_cache()
 
-    # v7 base training weights into a deploy model, folded at load time
-    v7_train, v7_deploy = folded_v7(640, "cuda")
-    torch.save({"model": {k: v.cpu() for k, v in v7_train.state_dict().items()}},
-               files["plain"])
+    # v7 base training weights into a deploy model, folded at load time; the
+    # in-memory fold is made on the host too, where load_weights folds a
+    # file's weights (a fold on the card rounds its matvec otherwise, and
+    # the seeded v7's NMS near-ties turn on such ulps)
+    v7_train, _ = folded_v7(640, "cuda")
+    train_sd = {k: v.cpu() for k, v in v7_train.state_dict().items()}
+    torch.save({"model": train_sd}, files["plain"])
+    v7_deploy = build_model(v7_config(True), device="cuda", seed=0)
+    v7_deploy.load_state_dict(deploy_state_dict(train_sd), strict=True)
     v7_loaded = load_weights(files["plain"], build_model(v7_config(True), device="cuda"))
     want_v7, _ = serve_requests(Predictor(v7_deploy, img_size=640, device="cuda"), requests)
     got, counts = serve_requests(Predictor(v7_loaded, img_size=640, device="cuda"), requests)
@@ -1255,14 +1289,96 @@ def phase_weights(model, rng, smi: str) -> dict:
     t0 = time.perf_counter()
     res = run_export(cfg, model, os.path.join(tmp.name, "export"))
     export_s = time.perf_counter() - t0
-    for kind in ("weights", "torch_export", "torchscript"):
+    for kind in ("msgpack", "weights", "torch_export", "torchscript"):
         check(kind in res.artifacts, f"export: no checked {kind} artifact "
               f"({res.skipped.get(kind)})")
+    check(res.checks["msgpack"] == 0.0, f"export: msgpack delta {res.checks['msgpack']}")
     print(f"weights: run_export v5s@640 f32 on the card in {export_s:.1f} s: checks "
           + json.dumps(res.checks) + "; skipped " + json.dumps(res.skipped), flush=True)
+    # the msgpack leg (the JAX package's weights format) served on the card
+    t0 = time.perf_counter()
+    loaded = load_predictor_from_config(cfg, weights=res.artifacts["msgpack"], device="cuda",
+                                        dtype=torch.bfloat16, seed=3)
+    torch.cuda.synchronize()
+    msgpack_load_s = time.perf_counter() - t0
+    got, counts = serve_requests(loaded, requests)
+    n = check_same(want, got, "the msgpack export served")
+    check(all(np.array_equal(w, g) for w, g in zip(want, got)),
+          "the msgpack export's detections are not bit-equal to the in-memory model's")
+    check(counts == {"greedy_nms": 3, "head_scores": 3},
+          f"the msgpack export served with launches {counts}")
+    mb = os.path.getsize(res.artifacts["msgpack"]) / 1e6
+    print(f"weights: the export's Flax msgpack ({mb:.1f} MB) through load_predictor_from_config on the card in {msgpack_load_s:.2f} s: "
+          f"3 requests of 8x720x1280, {n} detections bit-equal to the in-memory model's, "
+          f"launches {counts}", flush=True)
+    del loaded
     tmp.cleanup()
     print(f"weights: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return ref_counts
+
+
+def phase_demo(model, smi: str) -> None:
+    """`python -m vision_kit_tpu_torch demo -p vision_kit_tpu_torch/data/samples
+    -o <tmp> -w <msgpack>` on the card in a child process, the phase-4
+    model's weights (calibrated head) handed over as a Flax msgpack: one PNG
+    written per sample the port decodes, each printed count equal to an
+    in-process Predictor of the same weights (f32, as the demo builds it)
+    on the same decoded image."""
+    import re
+    import subprocess
+    import tempfile
+
+    from vision_kit_tpu_torch.convert import jax_variables_from_state_dict
+    from vision_kit_tpu_torch.data.decode import decode_image
+    from vision_kit_tpu_torch.predictor import load_predictor_from_config
+    from vision_kit_tpu_torch.utils import flax_msgpack
+    from vision_kit_tpu_torch.utils.readers import ImageReader
+
+    t_phase = time.perf_counter()
+    samples = os.path.join(REPO, "vision_kit_tpu_torch", "data", "samples")
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "v5s.msgpack")
+        flax_msgpack.write_file(weights, jax_variables_from_state_dict(model.state_dict()))
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "vision_kit_tpu_torch", "demo", "-p",
+                            samples, "-o", out, "-w", weights], cwd=REPO,
+                           capture_output=True, text=True, timeout=300)
+        demo_s = time.perf_counter() - t0
+        check(r.returncode == 0, f"the demo exited {r.returncode}: {r.stderr[-3000:]}")
+        printed = dict(re.findall(r"^(.+): (\d+) detections in [0-9.]+ ms$", r.stdout,
+                                  re.MULTILINE))
+        files = ImageReader(samples).files
+        readable = []
+        for path in files:
+            with open(path, "rb") as f:
+                if decode_image(f.read()) is not None:
+                    readable.append(path)
+        written = sorted(os.listdir(out))
+        check(written == sorted(os.path.splitext(os.path.basename(p))[0] + "_res.png"
+                                for p in readable),
+              f"the demo wrote {written} for {len(readable)} readable samples")
+        check(sorted(printed) == sorted(readable), f"the demo printed {sorted(printed)}")
+        pred = load_predictor_from_config(v5s_config(), weights=weights, device="cuda")
+        want = {}
+        # the child runs with torch's defaults: cuDNN's f32 convs in TF32
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=True):
+            for path in readable:
+                with open(path, "rb") as f:
+                    want[path] = len(pred(decode_image(f.read()))[0])
+        check({p: int(n) for p, n in printed.items()} == want,
+              f"the demo's counts {printed} differ from in-process ones {want}")
+        check(sum(want.values()) > 0, "the demo found no detections")
+        for name in written[:2]:
+            with open(os.path.join(out, name), "rb") as f:
+                check(decode_image(f.read()) is not None, f"the demo's {name} does not decode")
+    print(f"demo: python -m vision_kit_tpu_torch demo -p vision_kit_tpu_torch/data/samples "
+          f"-w <the phase-4 weights as a Flax msgpack>: exit 0 in {demo_s:.1f} s, "
+          f"{len(written)} PNGs for the {len(readable)} of {len(files)} samples the port "
+          f"decodes; detections by image {sorted(want.values())}, equal to an in-process "
+          f"Predictor's on {smi}", flush=True)
+    print(f"demo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 SERVE_BATCH = 8
@@ -1483,6 +1599,7 @@ def phase_serve(model, smi: str) -> dict:
 
 
 FIT_BATCH, FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 64, 128, 64, 2
+FIT_HOST_BATCH = 8   # configs/yolov5.yaml's batch
 
 
 def fit_config(data_dir: str, out: str, epochs: int = FIT_EPOCHS):
@@ -1499,6 +1616,20 @@ def fit_config(data_dir: str, out: str, epochs: int = FIT_EPOCHS):
                     max_epochs=epochs, class_labels=["red", "green"])
     cfg.testing.val_interval = 1
     return update_loss_cfg(cfg)
+
+
+@contextlib.contextmanager
+def restored_determinism():
+    """Put torch's deterministic algorithms and cuDNN's deterministic and
+    benchmark flags back as they were (a Trainer(deterministic=True) sets
+    them for the process)."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
 
 
 class CrashingLoader:
@@ -1528,48 +1659,85 @@ def state_distance(got: dict, want: dict, before: dict) -> dict:
     return out
 
 
-def resume_check(data_dir: str, out: str) -> dict:
-    """`python3 chip_smoke.py --resume-check DATA OUT`, with
-    CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts: in deterministic
-    mode, an uninterrupted fit, then a fit that crashes after step 3 (a
-    loader that raises) resumed from its ckpts/last. Returns the step the
-    crash saved, the batch ids the resume trained on, both runs' final
-    steps, whether every state tensor is bit-identical, and the
-    uninterrupted run's img/s by epoch."""
+def deterministic_check(data_dir: str, out: str) -> dict:
+    """`python3 chip_smoke.py --deterministic-check DATA OUT`, a child with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts: with
+    Trainer(deterministic=True), an uninterrupted fit of fit_config, then a
+    fit that crashes after step 3 (a loader that raises) resumed from its
+    ckpts/last; then, past that warm-up, the default fit and the
+    deterministic one in turns (default, deterministic, deterministic,
+    default), each deterministic run against the first; then the training
+    step alone (run_train_bench, device aug) in both modes, in turns.
+    Returns the step the crash saved, the batch ids the resume trained on,
+    both runs' final steps, the state tensors that differ from the first
+    run's, and each turn's img/s by epoch and the step's img/s by mode."""
     from vision_kit_tpu_torch.train.trainer import Trainer
     from vision_kit_tpu_torch.utils import stream_bench as sb
+    from vision_kit_tpu_torch.utils.general import deterministic_mode
 
-    sb.deterministic()
-    ref = Trainer(fit_config(data_dir, os.path.join(out, "ref")), use_tensorboard=False,
-                  seed=0, device="cuda")
-    ref.fit()
-    cfg = fit_config(data_dir, os.path.join(out, "crash"))
-    crashed = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
-    crashed.train_loader = CrashingLoader(crashed.train_loader, 3)
-    try:
-        crashed.fit()
-    except RuntimeError as e:
-        if "injected" not in str(e):
-            raise
-    crashed.train_loader.close()
-    last = os.path.join(cfg.data.output_dir, "ckpts", "last")
-    with open(last + ".meta.json") as f:
-        saved = json.load(f)["step"]
-    resumed = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
-    seen, orig = [], resumed.train_step
+    def trainer(name: str, deterministic: bool):
+        return Trainer(fit_config(data_dir, os.path.join(out, name)), use_tensorboard=False,
+                       seed=0, device="cuda", deterministic=deterministic)
 
-    def recording(state, batch):
-        seen.append(resumed.train_loader._next_bid - 1)
-        return orig(state, batch)
+    def differ(tr) -> list:
+        got = sb.train_state_tensors(tr.state)
+        return [f"{p} {k}" for p in sb.STATE_PARTS for k in want[p]
+                if not torch.equal(want[p][k], got[p][k])]
 
-    resumed.train_step = recording
-    resumed.fit(resume=last)
-    want, got = sb.train_state_tensors(ref.state), sb.train_state_tensors(resumed.state)
-    differ = [f"{p} {k}" for p in sb.STATE_PARTS for k in want[p]
-              if not torch.equal(want[p][k], got[p][k])]
-    return {"saved_step": saved, "seen": seen, "step": resumed.state.step,
-            "ref_step": ref.state.step, "identical": not differ, "differ": differ[:5],
-            "ref_img_s": [e["img_s"] for e in ref.epoch_stats]}
+    with restored_determinism():
+        ref = trainer("ref", True)
+        ref.fit()
+        ref.train_loader.close()
+        want = sb.train_state_tensors(ref.state)
+        crashed = trainer("crash", True)
+        crashed.train_loader = CrashingLoader(crashed.train_loader, 3)
+        try:
+            crashed.fit()
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        crashed.train_loader.close()
+        last = os.path.join(crashed.output_dir, "ckpts", "last")
+        with open(last + ".meta.json") as f:
+            saved = json.load(f)["step"]
+        del crashed
+        resumed = trainer("crash", True)
+        seen, orig = [], resumed.train_step
+
+        def recording(state, batch):
+            seen.append(resumed.train_loader._next_bid - 1)
+            return orig(state, batch)
+
+        resumed.train_step = recording
+        resumed.fit(resume=last)
+        resumed.train_loader.close()
+    out_ = {"saved_step": saved, "seen": seen, "step": resumed.state.step,
+            "ref_step": ref.state.step, "resume_differ": differ(resumed)[:5]}
+    del resumed
+    torch.cuda.empty_cache()
+
+    img_s, again = {"default": [], "deterministic": []}, []
+    for i, mode in enumerate(("default", "deterministic", "deterministic", "default")):
+        with restored_determinism():
+            tr = trainer(f"turn{i}", mode == "deterministic")
+            tr.fit()
+            torch.cuda.synchronize()
+        tr.train_loader.close()
+        img_s[mode].append([e["img_s"] for e in tr.epoch_stats])
+        if mode == "deterministic":
+            again.append(differ(tr)[:5])
+        del tr
+        torch.cuda.empty_cache()
+
+    step_img_s = {"default": [], "deterministic": []}
+    for mode in ("default", "deterministic", "deterministic", "default"):
+        with restored_determinism():
+            if mode == "deterministic":
+                deterministic_mode()
+            rec = sb.run_train_bench(ref.model, ref.loss, batch=FIT_BATCH, iters=10,
+                                     warmup=3, device_aug=True)
+        step_img_s[mode].append(rec["value"])
+    return {**out_, "again_differ": again, "img_s": img_s, "step_img_s": step_img_s}
 
 
 def phase_fit(smi: str) -> dict:
@@ -1669,28 +1837,58 @@ def phase_fit(smi: str) -> dict:
               flush=True)
         del twin
 
-        # a crash after step 3, resumed from ckpts/last, in a child process
-        # in deterministic mode beside an uninterrupted run
+        # decoder "plain": the same batch bytes with 0 and 8 workers
+        t0 = time.perf_counter()
+        plain_card = YOLODataset(os.path.join(data_dir, "train"), img_size=640,
+                                 device="cuda", decoder="plain")
+        aug = dict(fit_host_config(data_dir, tmp).augmentations)
+        bad = lb.workers_disagreements(plain_card, FIT_HOST_BATCH, 640, workers=8, aug=aug)
+        check(bad == [], f"decoder 'plain': 0 and 8 workers give other batches: {bad[:5]}")
+        print(f"fit: decoder 'plain' on the card, the host route of configs/yolov5.yaml "
+              f"(degrees 5, shear 2): 2 TrainLoader batches of {FIT_HOST_BATCH} with 0 "
+              f"workers (every op on the card) and with 8 (on the host) bit-equal, images "
+              f"and targets; {time.perf_counter() - t0:.1f} s", flush=True)
+        del plain_card
+
+        # in a child process (CUBLAS_WORKSPACE_CONFIG set before CUDA
+        # starts): default fits and Trainer(deterministic=True) ones in turns,
+        # and a crash after step 3 resumed from ckpts/last
+        t0 = time.perf_counter()
         env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
         r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                            "--resume-check", data_dir, os.path.join(tmp, "resume")],
-                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESUME ")]
+                            "--deterministic-check", data_dir,
+                            os.path.join(tmp, "deterministic")],
+                           cwd=REPO, env=env, capture_output=True, text=True, timeout=400)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("DETERMINISTIC ")]
         check(r.returncode == 0 and lines,
-              f"the resume check exited {r.returncode}: {r.stderr[-2000:]}")
-        res = json.loads(lines[-1][len("RESUME "):])
+              f"the deterministic check exited {r.returncode}: {r.stderr[-2000:]}")
+        res = json.loads(lines[-1][len("DETERMINISTIC "):])
+        check(res["again_differ"] == [[], []],
+              f"deterministic fits differ from the first: {res['again_differ']}")
+        img_s, step_img_s = res["img_s"], res["step_img_s"]
+        mean = {m: float(np.mean(v)) for m, v in img_s.items()}
+        print(f"fit: Trainer(deterministic=True) against the default, in turns (default, "
+              f"deterministic, deterministic, default) in a child process, img/s by epoch: "
+              + "; ".join(f"{m} " + ", ".join(f"[{a:.1f}, {b:.1f}]" for a, b in v)
+                          for m, v in img_s.items())
+              + f"; mean {mean['deterministic']:.1f} against {mean['default']:.1f} img/s "
+              f"({100 * (mean['deterministic'] / mean['default'] - 1):+.1f} %); both "
+              f"deterministic runs bit-identical to the first; the step alone "
+              f"(run_train_bench, device "
+              f"aug, b{FIT_BATCH}) in turns: " + "; ".join(
+                  f"{m} " + ", ".join(f"{v:.1f}" for v in r) for m, r in step_img_s.items())
+              + f" img/s; the child {time.perf_counter() - t0:.1f} s on {smi}", flush=True)
         want_steps = FIT_EPOCHS * FIT_TRAIN // FIT_BATCH
         check(res["saved_step"] == 3, f"the crash saved step {res['saved_step']}, not 3")
         check(res["seen"] == list(range(3, want_steps)), f"the resume saw batches {res['seen']}")
         check(res["step"] == res["ref_step"] == want_steps,
               f"the resume ended at step {res['step']}, the run at {res['ref_step']}")
-        check(res["identical"], f"the resumed state differs from the run's: {res['differ']}")
-        print(f"fit: deterministic mode (torch.use_deterministic_algorithms, "
-              f"CUBLAS_WORKSPACE_CONFIG=:4096:8), a child process: a crash after step 3 "
+        check(not res["resume_differ"],
+              f"the resumed state differs from the run's: {res['resume_differ']}")
+        print(f"fit: Trainer(deterministic=True) in a child process: a crash after step 3 "
               f"saved step {res['saved_step']}; the resume saw batches {res['seen']} and "
               f"ended at step {res['step']}, every state tensor bit-identical to an "
-              f"uninterrupted run's; that run's epochs "
-              + ", ".join(f"{v:.1f}" for v in res["ref_img_s"]) + " img/s", flush=True)
+              f"uninterrupted run's", flush=True)
 
         # the CLI, as a user runs it
         cli_cfg = fit_config(data_dir, os.path.join(tmp, "cli"), epochs=1)
@@ -2045,9 +2243,121 @@ def ddp_rank(rank: int, port: int, data_dir: str, out: str) -> dict:
                                    for k in ("precision", "recall", "ap50", "ap")])}
         barrier(mesh)
         tr.train_loader.close()
+        del tr
+        torch.cuda.empty_cache()
+        res["serve"] = mesh_serving(mesh)
         return res
     finally:
         torch.distributed.destroy_process_group()
+
+
+MESH_FRAMES = 8   # a mesh serving request: 8 frames of 720x1280, 4 a rank
+
+
+def matching_detections(want: np.ndarray, got: np.ndarray, score_tol: float,
+                        box_tol: float) -> int:
+    """How many rows of `got` match a distinct row of `want`: the class
+    exact, the score within score_tol, every coordinate within box_tol px."""
+    free = np.ones(len(want), bool)
+    n = 0
+    for row in got:
+        ok = (free & (want[:, 5] == row[5]) & (np.abs(want[:, 4] - row[4]) <= score_tol)
+              & (np.abs(want[:, :4] - row[:4]).max(axis=1) <= box_tol))
+        if ok.any():
+            free[np.argmax(ok)] = False
+            n += 1
+    return n
+
+
+def mesh_serving(mesh) -> dict:
+    """On each of the ddp phase's ranks: the main path's v5s@640 bf16
+    (calibrated head) behind Predictor(mesh=mesh). predict_batch on 8
+    frames of 720x1280 (4 a rank) and on 3 (they do not divide: every rank
+    runs all 3), each rank's detections against the same Predictor without
+    a mesh on the rows it ran, and rank 0's against one process at b8; the
+    request latency and each kernel's launches; then InferenceServer over
+    the mesh Predictor (rank 0 binds HTTP, rank 1 follows) answering each
+    committed sample JPEG one at a time, rank 0's answers against a
+    one-process server at batch 4 on the same card (the rows rank 0 ran)."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.parallel.mesh import shard_rows
+    from vision_kit_tpu_torch.predictor import Predictor
+    from vision_kit_tpu_torch.serve import InferenceServer
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+    from vision_kit_tpu_torch.utils.stream_bench import calibrate_head, same_detections
+
+    t0 = time.perf_counter()
+    model = build_model(v5s_config(), device=mesh.device, dtype=torch.bfloat16, seed=0)
+    calibrate_head(model, 640, seed=1)
+    pred = Predictor(model, img_size=640, mesh=mesh)
+    alone = Predictor(model, img_size=640, device=mesh.device)
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 255, (MESH_FRAMES, 720, 1280, 3), dtype=np.uint8)
+    odd = frames[:3]
+    rows = shard_rows(mesh, MESH_FRAMES).numpy()
+    for p, n in ((pred, MESH_FRAMES), (pred, 3), (alone, len(rows)), (alone, 3)):
+        p.warmup((720, 1280), n)
+    torch.cuda.synchronize()
+    reset_counts()
+    got, _ = pred.predict_batch(frames)
+    counts = read_counts()
+    got_odd, _ = pred.predict_batch(odd)
+    mine, _ = alone.predict_batch(frames[rows])
+    mine_odd, _ = alone.predict_batch(odd)
+    out = {"rows": rows.tolist(), "launches": counts,
+           "shard_equal": all(np.array_equal(got[r], m) for r, m in zip(rows, mine)),
+           "odd_equal": all(np.array_equal(g, m) for g, m in zip(got_odd, mine_odd)),
+           "n_detections": int(sum(len(d) for d in got)),
+           "digest": float(sum(d.astype(np.float64).sum() for d in got))}
+    if mesh.is_main:
+        alone.warmup((720, 1280), MESH_FRAMES)
+        whole, _ = alone.predict_batch(frames)
+        out["vs_b8_equal_images"] = sum(same_detections(w, g, 1e-5, 1e-3)
+                                        for w, g in zip(whole, got))
+        out["vs_b8_detections"] = [int(sum(len(w) for w in whole)), out["n_detections"]]
+        out["vs_b8_matching"] = [
+            sum(matching_detections(w, g, *tol) for w, g in zip(whole, got))
+            for tol in ((1e-5, 1e-3), (1e-2, 2.0))]
+    lat = [pred.predict_batch(frames)[1] for _ in range(30)]
+    out["latency_ms"] = {"median": float(np.median(lat)), "p99": float(np.percentile(lat, 99))}
+    lat = [alone.predict_batch(frames)[1] for _ in range(30)] if mesh.is_main else [0.0]
+    out["alone_b8_latency_ms"] = float(np.median(lat))
+    out["predict_s"] = time.perf_counter() - t0
+
+    # the server over the mesh Predictor
+    t0 = time.perf_counter()
+    payloads = [(name, d) for name, m, d in svb.samples()
+                if m["shape"] is not None and name.endswith(".jpg")]
+    srv = InferenceServer(pred, batch_size=MESH_FRAMES, max_wait_ms=5.0, port=0)
+    srv.start()
+    reset_counts()
+    if not mesh.is_main:
+        srv.wait()   # until rank 0 stops the server
+        out["server"] = {"launches": read_counts(), "batches": srv._stats()["batches"],
+                         "port": srv.port}
+        return out
+    try:
+        url = f"http://127.0.0.1:{srv.port}/predict"
+        answers = [post(url, d) for _, d in payloads]
+        stats = srv._stats()
+    finally:
+        srv.stop()
+    launches = read_counts()
+    one = InferenceServer(alone, batch_size=MESH_FRAMES // mesh.n_data, max_wait_ms=5.0,
+                          port=0)
+    one.start()
+    try:
+        url = f"http://127.0.0.1:{one.port}/predict"
+        want = [post(url, d) for _, d in payloads]
+    finally:
+        one.stop()
+    out["server"] = {
+        "launches": launches, "batches": stats["batches"], "n": len(payloads),
+        "all_200": all(a[0] == 200 for a in answers),
+        "equal": [a == w for a, w in zip(answers, want)],
+        "n_detections": int(sum(len(a[1].get("detections", [])) for a in answers)),
+        "seconds": time.perf_counter() - t0}
+    return out
 
 
 def phase_ddp(smi: str) -> dict:
@@ -2145,8 +2455,60 @@ def phase_ddp(smi: str) -> dict:
           f"{'bit-equal' if val['bit_equal'] else 'equal within tolerance'} "
           f"({val['n_detections']}), "
           f"largest metric difference {val['max_diff']:.3g} on {smi}", flush=True)
+    mesh_serving_checks(r0, r1, smi)
     print(f"ddp: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"greedy_nms": [r0["launches"]["greedy_nms"], r1["launches"]["greedy_nms"]]}
+    return {"greedy_nms": [r0["launches"]["greedy_nms"], r1["launches"]["greedy_nms"]],
+            "serve": [r0["serve"]["server"]["launches"], r1["serve"]["server"]["launches"]]}
+
+
+def mesh_serving_checks(r0: dict, r1: dict, smi: str) -> None:
+    """The ddp ranks' mesh_serving results: each rank's rows equal the same
+    rows run alone exactly, every rank holds the same whole batch, each
+    kernel launched once a rank a request, the server's answers equal the
+    one-process server's on the same shard."""
+    s0, s1 = r0["serve"], r1["serve"]
+    for r, s in ((r0, s0), (r1, s1)):
+        check(s["shard_equal"], f"rank {r['rank']}: its rows {s['rows']} of the mesh batch "
+              "differ from the same rows run alone")
+        check(s["odd_equal"], f"rank {r['rank']}: the 3-frame batch differs from one "
+              "process running it whole")
+        check(s["launches"] == {"greedy_nms": 1, "head_scores": 1},
+              f"rank {r['rank']}: a mesh request launched {s['launches']}")
+    check(s0["rows"] == [0, 1, 2, 3] and s1["rows"] == [4, 5, 6, 7],
+          f"the ranks ran rows {s0['rows']} and {s1['rows']}")
+    check(s0["digest"] == s1["digest"] and s0["n_detections"] == s1["n_detections"] > 0,
+          "the ranks hold different gathered detections")
+    srv0, srv1 = s0["server"], s1["server"]
+    check(srv0["all_200"] and all(srv0["equal"]),
+          f"the mesh server's answers differ from the one-process server's: "
+          f"{srv0['equal']}")
+    check(srv1["port"] is None and srv1["batches"] == srv0["batches"] == srv0["n"],
+          f"rank 1 followed {srv1['batches']} of rank 0's {srv0['batches']} batches")
+    for name, srv in (("rank 0", srv0), ("rank 1", srv1)):
+        want = {"greedy_nms": srv["batches"], "head_scores": srv["batches"]}
+        check(srv["launches"] == want, f"the mesh server's {name} launched "
+              f"{srv['launches']}, not one of each a batch")
+    print(f"ddp: mesh serving, v5s@640 bf16 (calibrated head) behind Predictor(mesh=...) "
+          f"on 2 gloo ranks sharing the card: {MESH_FRAMES} frames of 720x1280, rows "
+          f"{s0['rows']} and {s1['rows']}, each rank's equal to the same rows run alone "
+          f"(bit for bit), both ranks holding the whole batch ({s0['n_detections']} "
+          f"detections); against one process at b{MESH_FRAMES} (bf16 convs round by the "
+          f"rows a call gets): {s0['vs_b8_equal_images']} of {MESH_FRAMES} images equal, "
+          f"{s0['vs_b8_matching'][0]} of {s0['vs_b8_detections'][0]} detections matching "
+          f"(class exact, score 1e-5, box 1e-3 px), {s0['vs_b8_matching'][1]} within score "
+          f"1e-2 and box 2 px (mesh {s0['vs_b8_detections'][1]}); 3 "
+          f"frames run whole on each rank, equal to one process; launches a request by "
+          f"rank {[s0['launches'], s1['launches']]}; request latency median "
+          f"{s0['latency_ms']['median']:.3f} ms, p99 {s0['latency_ms']['p99']:.3f} ms "
+          f"(rank 0, host clock; one process at b{MESH_FRAMES} on the same card "
+          f"{s0['alone_b8_latency_ms']:.3f} ms); {s0['predict_s']:.1f} s", flush=True)
+    print(f"ddp: InferenceServer over the mesh Predictor (rank 0 binds HTTP, rank 1 "
+          f"follows): {srv0['n']} committed sample JPEGs one at a time, every answer "
+          f"equal to a one-process server's at batch {MESH_FRAMES // 2} on the same card "
+          f"({srv0['n_detections']} detections); batches by rank "
+          f"{[srv0['batches'], srv1['batches']]}, launches by rank "
+          f"{[srv0['launches'], srv1['launches']]}; {srv0['seconds']:.1f} s on {smi}",
+          flush=True)
 
 
 def sync_points(fn) -> dict:
@@ -2207,11 +2569,12 @@ def profile_train(smi: str) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--resume-check":
+    if len(sys.argv) == 4 and sys.argv[1] == "--deterministic-check":
         if not torch.cuda.is_available():
             return 1
         sys.path.insert(0, REPO)
-        print("RESUME " + json.dumps(resume_check(sys.argv[2], sys.argv[3])), flush=True)
+        res = deterministic_check(sys.argv[2], sys.argv[3])
+        print("DETERMINISTIC " + json.dumps(res), flush=True)
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ddp-world1":
         if not torch.cuda.is_available():
@@ -2270,6 +2633,7 @@ def main() -> int:
     v7, v7_counts = phase_v7(rng, smi)
     train_counts = phase_train(rng, smi)
     ref_counts = phase_weights(model, rng, smi)
+    phase_demo(model, smi)
     serve_counts = phase_serve(model, smi)
     fit_counts = phase_fit(smi)
     fit_host_counts = phase_fit_host(smi)
@@ -2315,6 +2679,10 @@ def main() -> int:
     rows["greedy_nms_ddp"]["launches"] = ddp_counts["greedy_nms"][0]
     rows["greedy_nms_ddp"]["launches_by_rank"] = ddp_counts["greedy_nms"]
     rows["head_scores_serve"]["launches"] = serve_counts["head_scores"]
+    for name in ("greedy_nms", "head_scores"):
+        by_rank = [c[name] for c in ddp_counts["serve"]]
+        rows[f"{name}_mesh_serve"]["launches"] = by_rank[0]
+        rows[f"{name}_mesh_serve"]["launches_by_rank"] = by_rank
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

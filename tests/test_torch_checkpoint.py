@@ -307,11 +307,23 @@ def test_partial_load_80_to_3_classes(tmp_path):
 
 
 def test_flax_files_are_refused(tmp_path):
+    """An orbax directory is refused; a Flax .msgpack (flax.serialization.
+    to_bytes of the variables) loads, equal to the bridge of the same
+    tree."""
+    from flax import serialization
+
     model = YOLOV5("n")
-    with pytest.raises(ValueError, match="--to-torch"):
-        load_weights(str(tmp_path / "w.msgpack"), model)
     with pytest.raises(ValueError, match="orbax"):
         load_weights(str(tmp_path), model)
+    _, v = seeded_v5n()
+    path = str(tmp_path / "w.msgpack")
+    with open(path, "wb") as f:
+        f.write(serialization.to_bytes(v))
+    load_weights(path, model)
+    want = state_dict_from_jax_variables(v)
+    for k, t in model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(t, want[k]), k
 
 
 def test_load_predictor_from_config_loads_weights(tmp_path):

@@ -442,3 +442,86 @@ def test_world1_nccl_step_matches_the_step_without_a_mesh(cuda, monkeypatch):
         assert metrics["mesh"]["loss"] > 0
     finally:
         dist.destroy_process_group()
+
+
+def _calibrated_v5n_file(path: str, size: int) -> str:
+    """A seeded v5n (80 classes) with its head calibrated to unit logit
+    spread on a probe batch (crowded detections), saved as a state_dict."""
+    from vision_kit_tpu_torch.models import YOLOV5
+    from vision_kit_tpu_torch.utils.stream_bench import calibrate_head
+
+    torch.manual_seed(0)
+    model = YOLOV5("n", num_classes=80).eval()
+    calibrate_head(model, size, seed=1)
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def test_mesh_predictor_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Predictor(mesh=...) on two gloo ranks, both on the card: a batch of 4
+    splits 2 a rank, each rank's rows equal to the same rows run alone on
+    the card bit for bit, both ranks holding the whole batch; a batch of 3
+    runs whole on each rank."""
+    from torch_dist_lib import run_ranks
+
+    path = _calibrated_v5n_file(str(tmp_path / "v5n.pt"), 320)
+    batches = {"divides": (11, 4), "does_not_divide": (12, 3)}
+    r0, r1 = run_ranks(2, "torch_dist_lib:predictor_worker",
+                       {"state_path": path, "size": 320, "batches": batches,
+                        "kw": {"max_cand": 512, "max_det": 100}, "device": "cuda"})
+    for r in (r0, r1):
+        for name, (_, n) in batches.items():
+            got = r[name]["predict_batch"]
+            assert len(got) == n and sum(len(d) for d in got) > 0
+            for a, b in zip(got, r0[name]["predict_batch"]):
+                np.testing.assert_array_equal(a, b)
+            for a, b in zip(got, r[name]["run"]):
+                np.testing.assert_array_equal(a, b)
+        for i, row in enumerate(r["divides"]["rows"]):
+            np.testing.assert_array_equal(r["divides"]["alone"][i],
+                                          r["divides"]["predict_batch"][row])
+    assert r0["divides"]["rows"] == [0, 1] and r1["divides"]["rows"] == [2, 3]
+
+
+def test_msgpack_export_leg_served_on_the_card(cuda, tmp_path):
+    """run_export's Flax msgpack of a model on the card, loaded back by
+    load_predictor_from_config on the card: the same detections, bit for
+    bit, as the in-memory model."""
+    from vision_kit_tpu_torch.export import run_export
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.predictor import Predictor, load_predictor_from_config
+    from vision_kit_tpu_torch.utils.stream_bench import calibrate_head
+
+    cfg = _config("yolov5.yaml", version="n", num_classes=80, input_size=[320, 320])
+    model = build_model(cfg, device=cuda, seed=0)
+    calibrate_head(model, 320, seed=1)
+    res = run_export(cfg, model, str(tmp_path), onnx=False, torchscript=False)
+    assert res.checks["msgpack"] == 0.0
+    frames = np.random.default_rng(3).integers(0, 255, (4, 360, 640, 3), dtype=np.uint8)
+    want, _ = Predictor(model, img_size=320, device=cuda).predict_batch(frames)
+    loaded = load_predictor_from_config(cfg, weights=res.artifacts["msgpack"], device=cuda)
+    got, _ = loaded.predict_batch(frames)
+    assert sum(len(w) for w in want) > 0
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+
+
+def test_plain_decoder_batches_do_not_depend_on_workers(cuda, tmp_path):
+    """decoder "plain" on the card: the host route's TrainLoader batches
+    (rotation, shear, mosaic, mixup) are the same bytes with 0 workers
+    (every op on the card) and with 8 (decode and augmentation on the host)
+    (loader_bench.workers_disagreements); decoder "nvjpeg" with workers
+    raises."""
+    from vision_kit_tpu_torch.data.datasets import YOLODataset
+    from vision_kit_tpu_torch.data.loader import TrainLoader
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    lb.write_dataset(str(tmp_path), n_train=16, n_val=8)
+    split = str(tmp_path / "train")
+    plain = YOLODataset(split, img_size=320, device=cuda, decoder="plain")
+    assert plain.decoder == "plain"
+    aug = dict(lb.HOST_AUG, enable_mixup=True)
+    assert lb.workers_disagreements(plain, 4, 320, workers=8, aug=aug) == []
+    nvjpeg = YOLODataset(split, img_size=320, device=cuda, decoder="nvjpeg")
+    with pytest.raises(ValueError, match="'nvjpeg'"):
+        TrainLoader(nvjpeg, 4, img_size=320, num_workers=2)

@@ -1,0 +1,182 @@
+"""The port's demo and its helpers on the CPU: utils/metrics.py against the
+JAX package's copy, utils/readers.py, utils/drawing.py:Drawing, and
+`python -m vision_kit_tpu_torch demo` on the committed samples against
+JAX's Predictor on the same weights."""
+
+import os
+
+import cv2
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from flax import serialization
+
+from test_torch_model import REPO, jax_v5
+from vision_kit_tpu.predictor import Predictor as JaxPredictor
+from vision_kit_tpu.utils import metrics as jax_metrics
+from vision_kit_tpu.utils.readers import ImageReader as JaxImageReader
+from vision_kit_tpu_torch import __main__ as cli
+from vision_kit_tpu_torch.data.decode import decode_image
+from vision_kit_tpu_torch.utils import metrics
+from vision_kit_tpu_torch.utils.drawing import Drawing, class_color, text_mask
+from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, ImageReader, VideoReader
+from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+torch.set_num_threads(2)
+
+SAMPLES = os.path.join(REPO, "vision_kit_tpu_torch", "data", "samples")
+SIZE = 64
+
+
+def test_meters_equal_jax_on_a_seeded_stream():
+    rng = np.random.default_rng(0)
+    stream = rng.normal(size=200) * 10
+    ours, theirs = metrics.AverageMeter(window_size=30), jax_metrics.AverageMeter(30)
+    for i, x in enumerate(stream):
+        ours.update(x)
+        theirs.update(x)
+        if i % 17 == 0:
+            ours.clear()
+            theirs.clear()
+        for name in ("median", "avg", "global_avg", "latest", "total"):
+            np.testing.assert_equal(getattr(ours, name), getattr(theirs, name))
+    ours.reset()
+    theirs.reset()
+    assert ours.global_avg == theirs.global_avg == 0.0 and np.isnan(ours.latest)
+
+    mb, jb = metrics.MeterBuffer(window_size=7), jax_metrics.MeterBuffer(7)
+    for i, x in enumerate(stream[:60]):
+        values = {"iter_time": x, "data_time": x / 2, "loss": -x}
+        mb.update(dict(values), lr=float(i))
+        jb.update(dict(values), lr=float(i))
+    assert set(mb) == set(jb) == {"iter_time", "data_time", "loss", "lr"}
+    assert set(mb.get_filtered_meter()) == set(jb.get_filtered_meter()) == {
+        "iter_time", "data_time"}
+    for k in mb:
+        assert (mb[k].median, mb[k].avg, mb[k].global_avg) == (
+            jb[k].median, jb[k].avg, jb[k].global_avg), k
+    mb.clear_meters()
+    assert mb["loss"].avg == 0.0 and mb["loss"].global_avg == jb["loss"].global_avg
+    assert metrics.smooth is not None and metrics.smooth_bce(0.1) == jax_metrics.smooth_bce(0.1)
+
+
+def test_image_reader_gives_decode_image_pixels(tmp_path):
+    ours, theirs = ImageReader(SAMPLES), JaxImageReader(SAMPLES)
+    assert ours.files == theirs.files and len(ours) == len(theirs) > 10
+    n_read = 0
+    for (ok, rgb), (_, bgr), path in zip(ours, theirs, ours.files):
+        with open(path, "rb") as f:
+            want = decode_image(f.read())
+        assert ok == (want is not None)
+        if ok:
+            n_read += 1
+            np.testing.assert_array_equal(rgb, want)
+            np.testing.assert_array_equal(rgb, cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    assert n_read == len(ours) - 2   # the progressive and the truncated JPEG
+    one = ImageReader(os.path.join(SAMPLES, "odd_333x517.jpg"), save_path=str(tmp_path))
+    assert one.files == [os.path.join(SAMPLES, "odd_333x517.jpg")]
+    _, img = next(iter(one))
+    out = one.save(img, "odd_333x517.jpg")
+    assert out == str(tmp_path / "odd_333x517_res.png")
+    with open(out, "rb") as f:
+        np.testing.assert_array_equal(decode_image(f.read()), img)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VideoReader("clip.mp4")
+
+
+def test_drawing_boxes_and_labels():
+    img = np.full((60, 80, 3), 7, np.uint8)
+    dets = np.array([[10, 30, 50, 55, 0.87, 2], [-5, -5, 70, 50, 0.5, 99]], np.float32)
+    out = Drawing(["red", "green", "blue"], line_thickness=2).draw(img, dets)
+    assert np.all(img == 7) and out.shape == img.shape
+    color = class_color(2)
+    # the box's left edge, 2 px wide centred on x=10, below the label strip
+    assert np.all(out[36:48, 9:11] == color) and np.all(out[36:48, 12] == 7)
+    mask = text_mask("blue 0.87")
+    assert mask.shape == (7, 6 * 9 - 1)
+    # the strip above the box: the box's colour, the text white inside it
+    strip = out[30 - 11:30, 10:10 + mask.shape[1] + 2]
+    white = np.all(strip == 255, axis=-1)
+    assert white.sum() == mask.sum()
+    assert np.all(strip[~white] == color)
+    # a box past the frame is clipped (its top, left and label lie outside),
+    # a class out of the labels named by its id
+    other = class_color(99)
+    assert np.all(out[2:20, 69:71] == other) and np.all(out[49:51, 20:60] == other)
+    assert np.all(out[2:20, 0:8] == 7)
+    assert text_mask("").shape == (7, 0)
+    assert np.array_equal(text_mask("a"), text_mask("A"))
+    assert np.array_equal(text_mask("~"), text_mask("?"))
+
+
+@pytest.fixture(scope="module")
+def demo_setup(tmp_path_factory):
+    """JAX's v5n@64 (crowded detections), its variables as a Flax msgpack
+    and a config naming the model, 80 classes at 64."""
+    tmp = tmp_path_factory.mktemp("demo")
+    jm, v = jax_v5("n", SIZE)
+    weights = str(tmp / "v5n.msgpack")
+    with open(weights, "wb") as f:
+        f.write(serialization.to_bytes(v))
+    with open(os.path.join(REPO, "configs", "yolov5.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"].update(version="n", num_classes=80, input_size=[SIZE, SIZE])
+    cfg["data"]["class_labels"] = [f"c{i}" for i in range(80)]
+    cfg_path = str(tmp / "cfg.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return jm, v, weights, cfg_path, tmp
+
+
+def test_demo_cli_on_the_samples_matches_jax(demo_setup, monkeypatch, capsys):
+    jm, v, weights, cfg_path, tmp = demo_setup
+    results = []
+    run = cli.demo_images
+    monkeypatch.setattr(cli, "demo_images",
+                        lambda *a, **kw: results.append(run(*a, **kw)) or results[-1])
+    out_dir = str(tmp / "out")
+    assert cli.main(["demo", "-p", SAMPLES, "-o", out_dir, "-c", cfg_path, "-w", weights,
+                     "--device", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    (rows,) = results
+    files = sorted(os.path.join(r, f) for r, _, names in os.walk(SAMPLES) for f in names
+                   if os.path.splitext(f)[1].lower() in IMAGE_EXT)
+    assert [r[0] for r in rows] == files
+    written = sorted(os.listdir(out_dir))
+    read = [r for r in rows if r[1] is not None]
+    assert written == sorted(os.path.basename(r[2]) for r in read)
+    assert len(read) == len(files) - 2
+    jpred = JaxPredictor(jm, v, img_size=SIZE, approx_topk=False)
+    n = 0
+    for path, dets, out_path in rows:
+        if dets is None:
+            assert f"cannot read {path}" in printed
+            continue
+        assert f"{path}: {len(dets)} detections in " in printed
+        rgb = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+        want, _ = jpred(rgb)
+        # 1e-3 px of the model's 64x64 frame, in the source frame's pixels
+        gain = min(SIZE / rgb.shape[0], SIZE / rgb.shape[1])
+        assert same_detections(want, dets, box_tol=1e-3 / gain), (path, want, dets)
+        n += len(dets)
+        with open(out_path, "rb") as f:
+            drawn = decode_image(f.read())
+        assert drawn.shape == rgb.shape and not np.array_equal(drawn, rgb) or not len(dets)
+    assert n > 20
+
+
+def test_demo_single_file_output_and_video(demo_setup, capsys):
+    _, _, weights, cfg_path, tmp = demo_setup
+    src = os.path.join(SAMPLES, "grey_240x320.jpg")
+    out = str(tmp / "single" / "result.jpg")
+    assert cli.main(["demo", "-p", src, "-o", out, "-c", cfg_path, "-w", weights,
+                     "--device", "cpu"]) == 0
+    assert os.listdir(tmp / "single") == ["result.png"]
+    assert f"saved {tmp / 'single' / 'result.png'}" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["demo", "-p", "clip.mp4", "-c", cfg_path, "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["demo", "-p", src, "-o", str(tmp), "-c", cfg_path])

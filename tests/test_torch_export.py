@@ -59,12 +59,12 @@ def test_run_export_checks_every_artifact(tmp_path):
         f.write("an earlier, unchecked export")
     res = export.run_export(cfg, model, save_dir)
 
-    assert set(res.artifacts) >= {"weights", "torch_export", "exported_program_text",
-                                  "torchscript"}
+    assert set(res.artifacts) >= {"msgpack", "weights", "torch_export",
+                                  "exported_program_text", "torchscript"}
     for kind in ("torch_export", "torch_export_batch2", "torchscript",
                  "torchscript_batch2"):
         assert res.checks[kind] <= export.REPLAY_ATOL, (kind, res.checks[kind])
-    assert res.checks["weights"] == 0.0
+    assert res.checks["weights"] == 0.0 and res.checks["msgpack"] == 0.0
     assert "TensorFlow" in res.skipped["savedmodel"]
     if "onnx" in res.artifacts:
         assert res.checks["onnx_runtime_batch2"] <= export.REPLAY_ATOL
@@ -145,11 +145,11 @@ def test_unreplayable_artifacts_are_removed(tmp_path, monkeypatch):
     assert "cannot load here" in res.skipped["torch_export"]
     assert "cannot load here" in res.skipped["torchscript"]
     assert res.skipped["onnx"] == "disabled"
-    assert sorted(os.listdir(save_dir)) == ["yolov5_n.pt"]
+    assert sorted(os.listdir(save_dir)) == ["yolov5_n.msgpack", "yolov5_n.pt"]
     with pytest.raises(RuntimeError, match="cannot load here"):
         export.run_export(cfg, seeded_port(cfg), save_dir, onnx=False,
                           torchscript=True)
-    assert sorted(os.listdir(save_dir)) == ["yolov5_n.pt"]
+    assert sorted(os.listdir(save_dir)) == ["yolov5_n.msgpack", "yolov5_n.pt"]
 
 
 def test_cli_convert_then_export(tmp_path, capsys):

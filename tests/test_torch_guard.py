@@ -14,7 +14,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|cv2|PIL|vision_kit_tpu(?!_torch))\b", re.M)
+    r"^\s*(import|from)\s+(jax|flax|msgpack|cv2|PIL|vision_kit_tpu(?!_torch))\b", re.M)
 # a quoted module name, as importlib and __import__ take it; a docstring
 # may begin with a cv2 function's name ("""cv2.warpAffine ...)
 DOTTED = re.compile(r"\bvision_kit_tpu\.|[\"']vision_kit_tpu[\"']|[\"'](jax|flax)[\"'.]"
@@ -50,6 +50,11 @@ def test_forbidden_pattern_catches_the_jax_package():
     assert DOTTED.search('importlib.import_module("vision_kit_tpu.ops.nms")')
     assert DOTTED.search("__import__('jax')")
     assert not DOTTED.search("# counterpart of vision_kit_tpu/ops/nms.py")
+    # flax's msgpack format is read and written by the port's own code
+    # (an artifact named "msgpack" is no import: the module check below)
+    assert FORBIDDEN.search("import msgpack")
+    assert FORBIDDEN.search("    from msgpack import packb")
+    assert not FORBIDDEN.search("from vision_kit_tpu_torch.utils import flax_msgpack")
 
 
 def test_forbidden_pattern_catches_opencv_and_pil():
@@ -77,7 +82,7 @@ def test_port_runs_without_loading_jax():
         "    d, r = m(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))\n"
         "assert d.shape == (1, 252, 85)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'vision_kit_tpu', 'cv2', 'PIL')]\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'vision_kit_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

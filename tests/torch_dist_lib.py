@@ -341,5 +341,100 @@ def fit_worker(mesh, cfg: dict, crash_after: int, seed: int = 5):
     return out
 
 
+def serving_frames(seed: int, n: int, hw=(96, 128)) -> np.ndarray:
+    """n seeded (h, w, 3) uint8 frames."""
+    return np.random.default_rng(seed).integers(0, 255, (n, *hw, 3), dtype=np.uint8)
+
+
+def predictor_worker(mesh, state_path: str, size: int, batches: dict, kw: dict,
+                     device: str = "cpu"):
+    """Predictor(mesh=mesh) of the saved v5n (eval mode) on each named batch
+    {name: (seed, n)} of serving_frames, through predict_batch and run, and
+    on one frame through __call__; and, as one process would, the same
+    Predictor without a mesh on this rank's rows alone. Returns, by batch,
+    the detections of each route and the rows this rank ran. device
+    "cuda": every rank on the one card (gloo carries CUDA tensors)."""
+    import dataclasses
+
+    from vision_kit_tpu_torch.parallel.mesh import shard_rows
+    from vision_kit_tpu_torch.predictor import Predictor
+
+    if device != "cpu":
+        mesh = dataclasses.replace(mesh, device=torch.device(device, 0))
+    model = port_v5n(state_path).eval()
+    pred = Predictor(model, img_size=size, mesh=mesh, **kw)
+    alone = Predictor(model, img_size=size, device=mesh.device, **kw)
+    out = {}
+    for name, (seed, n) in batches.items():
+        imgs = serving_frames(seed, n)
+        dets, _ = pred.predict_batch(imgs)
+        d, v = pred.run(torch.from_numpy(imgs).to(mesh.device))
+        rec = {"predict_batch": dets,
+               "run": [d[i][v[i]].cpu().numpy() for i in range(n)]}
+        if n % mesh.n_data == 0 and n > 1:
+            rows = shard_rows(mesh, n).numpy()
+            rec["rows"] = rows.tolist()
+            rec["alone"] = alone.predict_batch(imgs[rows])[0]
+        out[name] = rec
+    out["single"] = pred(serving_frames(99, 1)[0])[0]
+    return out
+
+
+def post_image(url: str, data: bytes, timeout: float = 120.0):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def server_worker(mesh, state_path: str, size: int, batch_size: int, images: list,
+                  kw: dict):
+    """InferenceServer over Predictor(mesh=mesh) of the saved v5n: every rank
+    calls start(); rank 0 posts each image file to its own /predict, one
+    at a time and then all at once from a thread each, and stops the server,
+    which ends the other ranks' follow loops. Returns rank 0's answers
+    ({"sequential": [...], "concurrent": [...], "healthz", "stats"}) and
+    each rank's port (None but on rank 0)."""
+    import threading
+    import urllib.request
+
+    from vision_kit_tpu_torch.predictor import Predictor
+    from vision_kit_tpu_torch.serve import InferenceServer
+
+    pred = Predictor(port_v5n(state_path).eval(), img_size=size, mesh=mesh, device="cpu",
+                     **kw)
+    srv = InferenceServer(pred, batch_size=batch_size, max_wait_ms=200.0, port=0)
+    out = {"port": srv.port}
+    if not mesh.is_main:
+        srv.serve_forever()   # returns once rank 0 stops
+        return out
+    srv.start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        bodies = []
+        for path in images:
+            with open(path, "rb") as f:
+                bodies.append(f.read())
+        out["sequential"] = [post_image(url + "/predict", b) for b in bodies]
+        out["concurrent"] = [None] * len(bodies)
+
+        def client(i):
+            out["concurrent"][i] = post_image(url + "/predict", bodies[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            out["healthz"] = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
+            out["stats"] = json.loads(resp.read())
+    finally:
+        srv.stop()
+    return out
+
+
 if __name__ == "__main__":
     sys.exit(_main(sys.argv[1:]))

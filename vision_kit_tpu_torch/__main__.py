@@ -9,6 +9,10 @@ weight conversion.
         [--host 127.0.0.1] [--port 8000] [--batch-size 8] [--max-wait-ms 5]
         [--device cuda]
 
+    python -m vision_kit_tpu_torch demo -p IMAGE_OR_DIR [-m yolov5|yolov7] [-v s]
+        [-w WEIGHTS] [-c CONFIG] [--num-classes N] [--labels a,b] [--conf 0.25]
+        [--iou 0.45] [-o FILE_OR_DIR] [--device cuda]
+
     python -m vision_kit_tpu_torch export -c CONFIG [--ckpt PATH] [--output-dir DIR]
         [--onnx] [--torchscript] [--device cuda]
     python -m vision_kit_tpu_torch convert WEIGHTS [-m yolov5|yolov7] [-v s]
@@ -33,8 +37,21 @@ counterpart: the port's weights are torch already.
 with the flags of scripts/demo.py:resolve_model_spec; weights from -w
 (predictor.load_weights; a YOLOv7 serves deploy-folded), else seeded ones.
 
+`demo` is the counterpart of scripts/demo.py in image mode: the model of
+-m/-v or --config (seeded weights unless -w names a .pt, .ckpt or Flax
+.msgpack), one warmup on the first image's shape, then one Predictor call
+per image of -p (a file, or a directory walked recursively), printing
+`<path>: <n> detections in <ms> ms` and writing each image with its
+detections drawn (utils/drawing.py:Drawing) as a PNG: into -o when it is a
+directory, as -o when -p is one image and -o a file name, else beside the
+input (utils/readers.py:ImageReader). A video or webcam path raises
+(utils/readers.py:VideoReader).
+
 `train` and `eval` are the counterparts of scripts/main.py's tasks: the
-seed is --seed, else the config's data.seed, else 21; the run writes into
+seed is --seed, else the config's data.seed, else 21; --deterministic
+(train) sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before CUDA starts and runs
+Trainer(deterministic=True), whose runs from one seed repeat bit for bit;
+the run writes into
 <cfg.data.output_dir>/<model>/<task>/<YYYYmmddHHMM> (log.log, ckpts/,
 weights/, the sample grids), with the loss gains scaled by
 update_loss_cfg. `train` runs Trainer.fit (resuming from <ckpt-dir>/last
@@ -88,9 +105,12 @@ def resolve_model_spec(args):
     return model_name, variant, num_classes, labels, img_size
 
 
-def _serve(args) -> int:
+def _spec_predictor(args):
+    """(Predictor, labels, model name, variant, img_size) of the model that
+    -m/-v or --config name (resolve_model_spec), with -w's weights or
+    seeded ones; a YOLOv7 is built deploy-folded, as scripts/demo.py loads
+    it."""
     from vision_kit_tpu_torch.predictor import load_predictor_from_config
-    from vision_kit_tpu_torch.serve import InferenceServer
     from vision_kit_tpu_torch.utils.config import load_config
 
     model_name, variant, num_classes, labels, img_size = resolve_model_spec(args)
@@ -98,10 +118,71 @@ def _serve(args) -> int:
     cfg.model.version, cfg.model.num_classes = variant, num_classes
     cfg.model.input_size = list(img_size)
     if model_name == "yolov7":
-        cfg.model.deploy = True   # serves folded, as scripts/demo.py loads it
+        cfg.model.deploy = True
     predictor = load_predictor_from_config(
         cfg, weights=args.weights, device=args.device,
         conf_thres=args.conf, iou_thres=args.iou)
+    return predictor, labels, model_name, variant, img_size
+
+
+def demo_images(predictor, drawer, path: str, output: str | None = None) -> list:
+    """scripts/demo.py's image mode: every image under `path` through
+    `predictor` (one warmup on the first image's shape, then one call per
+    image), printed and written with its detections drawn. Returns
+    [(image path, detections (n, 6) or None when it could not be read,
+    written path or None)]."""
+    from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, ImageReader
+
+    # -o: an exact file name for a single image, a directory otherwise
+    single_file_out = (output if output and not os.path.isdir(path)
+                       and output.lower().endswith(IMAGE_EXT) else None)
+    if single_file_out and not single_file_out.lower().endswith(".png"):
+        single_file_out = os.path.splitext(single_file_out)[0] + ".png"
+    reader = ImageReader(path, save_path=(None if single_file_out else output) or (
+        path if os.path.isdir(path) else os.path.dirname(path) or "."))
+    out, warm = [], False
+    for (ok, rgb), file in zip(reader, reader.files):
+        if not ok:
+            print(f"cannot read {file}", flush=True)
+            out.append((file, None, None))
+            continue
+        if not warm:
+            predictor.warmup(rgb.shape[:2])
+            warm = True
+        dets, ms = predictor(rgb)
+        print(f"{file}: {len(dets)} detections in {ms:.2f} ms", flush=True)
+        drawn = drawer.draw(rgb, dets)
+        if single_file_out:
+            from vision_kit_tpu_torch.data.decode import encode_png
+
+            parent = os.path.dirname(single_file_out)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            with open(single_file_out, "wb") as f:
+                f.write(encode_png(drawn))
+            written = single_file_out
+        else:
+            written = reader.save(drawn, file)
+        print(f"saved {written}", flush=True)
+        out.append((file, dets, written))
+    return out
+
+
+def _demo(args) -> int:
+    from vision_kit_tpu_torch.utils.drawing import Drawing
+    from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, VideoReader
+
+    if not (os.path.isdir(args.path) or args.path.lower().endswith(IMAGE_EXT)):
+        VideoReader(args.path)   # raises: video input is not ported
+    predictor, labels, *_ = _spec_predictor(args)
+    demo_images(predictor, Drawing(labels), args.path, args.output)
+    return 0
+
+
+def _serve(args) -> int:
+    from vision_kit_tpu_torch.serve import InferenceServer
+
+    predictor, labels, model_name, variant, img_size = _spec_predictor(args)
     server = InferenceServer(
         predictor, class_labels=labels, batch_size=args.batch_size,
         max_wait_ms=args.max_wait_ms, host=args.host, port=args.port)
@@ -115,6 +196,11 @@ def _serve(args) -> int:
 
 
 def _train_or_eval(args) -> int:
+    if getattr(args, "deterministic", False):
+        # before anything starts CUDA: cuBLAS reads it once
+        from vision_kit_tpu_torch.utils.general import CUBLAS_WORKSPACE_CONFIG
+
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE_CONFIG
     import torch
 
     from vision_kit_tpu_torch.parallel import init_distributed
@@ -170,7 +256,8 @@ def _run_task(args, distributed: bool) -> int:
         if not os.path.exists(ckpt_path):
             logger.info("no checkpoint at %s: starting fresh", ckpt_path)
             ckpt_path = None
-    trainer = Trainer(cfg, evaluator=evaluator, seed=seed, device=device, mesh=mesh)
+    trainer = Trainer(cfg, evaluator=evaluator, seed=seed, device=device, mesh=mesh,
+                      deterministic=getattr(args, "deterministic", False))
     if args.task == "train":
         logger.info("Start Training...")
         trainer.fit(resume=ckpt_path)
@@ -247,8 +334,9 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="task", required=True)
     exp = sub.add_parser("export", help="checked export of the config's model")
     exp.add_argument("--config", "-c", default="./configs/yolov5.yaml")
-    exp.add_argument("--ckpt", help="weights to load (.pt/.pth/.ckpt, or a "
-                     "TrainState checkpoint); default cfg.model.weight if it exists")
+    exp.add_argument("--ckpt", help="weights to load (.pt/.pth/.ckpt, a "
+                     "TrainState checkpoint or a Flax .msgpack); default "
+                     "cfg.model.weight if it exists")
     exp.add_argument("--output-dir", help="default cfg.data.output_dir")
     exp.add_argument("--onnx", action="store_true",
                      help="require the checked ONNX artifact")
@@ -267,6 +355,26 @@ def main(argv=None) -> int:
                            "zip-map onto the reference's key order")
     conv.add_argument("--reparameterize", action="store_true",
                       help="fold a YOLOv7 head's implicit layers into its convs")
+    demo = sub.add_parser("demo", help="detections drawn on images")
+    demo.add_argument("--path", "-p", required=True,
+                      help="an image, or a directory of images (video is not ported)")
+    demo.add_argument("--model", "-m", default="yolov5", choices=["yolov5", "yolov7"])
+    demo.add_argument("--variant", "-v", default="s")
+    demo.add_argument("--weights", "-w", default=None)
+    demo.add_argument("--config", "-c", default=None,
+                      help="training config YAML: model/classes/img-size/labels read "
+                           "from it")
+    demo.add_argument("--num-classes", type=int, default=None)
+    demo.add_argument("--labels", default=None, help="comma-separated class names")
+    demo.add_argument("--conf", type=float, default=0.25)
+    demo.add_argument("--iou", type=float, default=0.45)
+    demo.add_argument("--output", "-o", default=None,
+                      help="output directory, or a file name for a single image "
+                           "(written as PNG); default beside the input")
+    demo.add_argument("--show", action="store_true",
+                      help="accepted for scripts/demo.py's flags; image mode shows "
+                           "nothing")
+    demo.add_argument("--device", default="cuda")
     srv = sub.add_parser("serve", help="batched HTTP inference server")
     srv.add_argument("--model", "-m", default="yolov5", choices=["yolov5", "yolov7"])
     srv.add_argument("--variant", "-v", default="s")
@@ -294,9 +402,16 @@ def main(argv=None) -> int:
         p.add_argument("--seed", "-s", type=int, default=None,
                        help="default: the config's data.seed, else 21")
         p.add_argument("--device", default="cuda")
+        if task == "train":
+            p.add_argument("--deterministic", action="store_true",
+                           help="deterministic algorithms on the card "
+                                "(Trainer(deterministic=True)): runs from one seed "
+                                "repeat bit for bit, at a cost in speed")
     args = parser.parse_args(argv)
     if args.task in ("train", "eval"):
         return _train_or_eval(args)
+    if args.task == "demo":
+        return _demo(args)
     if args.task == "export":
         return _export(args)
     if args.task == "convert":

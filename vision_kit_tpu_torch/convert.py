@@ -1,5 +1,5 @@
 """Weight bridge (JAX/Flax variables -> a state_dict for the port's
-modules) and the deploy-time folds over a port state_dict.
+modules, and back) and the deploy-time folds over a port state_dict.
 
 The port's module names mirror the torch keys that the JAX package's
 converter emits, so a Flax {"params", "batch_stats"} tree (as numpy arrays,
@@ -9,6 +9,9 @@ RepConv's `rbr_reparam` and a DWConvTranspose2d's (k, k, 1, O) kernel
 included); BN {scale, bias} + {mean, var} -> {weight, bias, running_mean,
 running_var}, plus the zero `num_batches_tracked` that torch BatchNorm
 carries; an Implicit's (1, 1, 1, C) -> (1, C, 1, 1).
+`jax_variables_from_state_dict` is the inverse (the counterpart of
+vision_kit_tpu/convert.py:torch_to_flax): the Flax tree of a port
+state_dict, which flax_msgpack writes as the JAX package's `.msgpack`.
 
 The folds are counterparts of vision_kit_tpu/convert.py:fuse_conv_bn,
 fuse_repconv_params and reparameterize_v7, on torch keys and OIHW kernels;
@@ -49,12 +52,15 @@ def _untranslate_name(name: str, siblings: set[str]) -> list[str]:
 
 
 def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict:
-    """Flax variables (numpy leaves) -> {torch key: float32 tensor}."""
+    """Flax variables (numpy leaves, or torch tensors such as
+    utils/flax_msgpack.py's bfloat16 leaves) -> {torch key: float32
+    tensor}."""
     sd: dict = {}
     bn_paths = set()
 
     def emit(parts, leaf, value, stats):
-        arr = np.asarray(value, dtype=np.float32)
+        arr = (value.detach().float().cpu().numpy() if isinstance(value, torch.Tensor)
+               else np.asarray(value, dtype=np.float32))
         key = ".".join(parts)
 
         def put(name, a):
@@ -95,6 +101,46 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict:
     for key in bn_paths:
         name = f"{key}.num_batches_tracked" if key else "num_batches_tracked"
         out[name] = torch.zeros((), dtype=torch.int64)
+    return out
+
+
+def jax_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """A port state_dict -> the Flax variables {"params", "batch_stats"}
+    of the same model, as float32 numpy arrays (the JAX package's
+    torch_to_flax without a template): a dotted key's numeric parts join
+    their parent as Flax's `name_N`; a 4-d weight goes OIHW -> HWIO, a 1-d
+    weight is a BatchNorm's scale, running_mean/var its statistics, an
+    Implicit's (1, C, 1, 1) -> (1, 1, 1, C); num_batches_tracked has no
+    Flax counterpart and is dropped."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
+        path: list[str] = []
+        for p in parts[:-1]:
+            if p.isdigit() and path:
+                path[-1] = f"{path[-1]}_{p}"
+            else:
+                path.append(p)
+        arr = value.detach().float().cpu().numpy()
+        name = parts[-1]
+        if name == "weight" and arr.ndim == 4:
+            col, leaf, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)
+        elif name == "weight" and arr.ndim == 1:
+            col, leaf = "params", "scale"
+        elif name == "bias":
+            col, leaf = "params", "bias"
+        elif name in ("running_mean", "running_var"):
+            col, leaf = "batch_stats", name[len("running_"):]
+        elif name == "implicit":
+            col, leaf, arr = "params", "implicit", arr.transpose(0, 2, 3, 1)
+        else:
+            raise ValueError(f"no Flax counterpart for {key} (shape {tuple(arr.shape)})")
+        node = out[col]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
     return out
 
 

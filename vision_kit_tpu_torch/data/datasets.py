@@ -7,14 +7,22 @@ sample contract is the JAX package's:
                        [x1, y1, x2, y2, cls] in absolute pixels of img,
                        (h0, w0), item id)
 
-Each dataset lives on a `device`. An image is read from disk, decoded by
-data/decode.py:decode_to on that device (on the card a JPEG through nvJPEG,
-a PNG on the host and uploaded; on the CPU the plain decoder, which equals
-cv2.imread + BGR2RGB bit for bit), and resized by ops/letterbox.py:resize_u8
-(cv2.resize INTER_LINEAR, bit for bit) to (int(w0 * r), int(h0 * r)) with
-r = min(S / h0, S / w0), all on the device. So on the CPU every item equals
-the JAX dataset's; on the card the JPEG pixels differ from it within
-decode.NVJPEG_TOLERANCE.
+Each dataset lives on a `device`. An image is read from disk, decoded, and
+resized by ops/letterbox.py:resize_u8 (cv2.resize INTER_LINEAR, bit for
+bit, on either device) to (int(w0 * r), int(h0 * r)) with r = min(S / h0,
+S / w0) on the device. The `decoder` option picks the decoder:
+
+  * "plain": data/decode.py:decode_image on the host (equal to cv2.imread
+    + BGR2RGB bit for bit), uploaded to the device. Every item then equals
+    the JAX dataset's on either device, and a TrainLoader's batches are the
+    same bytes whatever its num_workers: the canonical route.
+  * "nvjpeg": on the card a JPEG through nvJPEG (decode.decode_to; a PNG
+    on the host), faster, its pixels within decode.NVJPEG_TOLERANCE of the
+    plain decoder's. Spawned loader workers cannot use it (they never touch
+    CUDA), so a TrainLoader with num_workers > 0 refuses such a dataset.
+  * "auto" (the default): "nvjpeg" on the card, "plain" on the CPU, and
+    "plain" in spawned workers; the dataset logs which decoder each route
+    takes.
 
 The integrity scan reads headers only (decode.jpeg_header / png_header):
 the size after EXIF orientation, the < 10 px gate, and a drop, with its
@@ -24,7 +32,7 @@ JPEG without its EOI marker. The JAX package instead re-encodes a truncated
 JPEG in place with PIL; the port has no encoder and never rewrites a file.
 
 Caches live under the port's own names (.vkt_labels_*, .vkt_imgcache_*),
-and the disk cache's key holds the decoder ("plain" or "nvjpeg"), so a JAX
+and the disk cache's key holds the decoder in use ("plain" or "nvjpeg"), so a JAX
 run and a port run, or a CPU run and a card run, never read each other's.
 `cache_images: ram` keeps each resized image where it was decoded (device
 memory on the card); `disk` is a host memmap either way.
@@ -48,6 +56,7 @@ from vision_kit_tpu_torch.utils.general import exif_size, resolve_device
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+DECODERS = ("auto", "plain", "nvjpeg")
 
 
 def _remove_stale_meta(meta_path: str) -> None:
@@ -119,18 +128,29 @@ class _ImageCacheMixin:
 
     cache_build_chunk = 64
 
-    def _init_device(self, device, fast_decode: bool) -> None:
+    def _init_device(self, device, fast_decode: bool, decoder: str = "auto") -> None:
         if fast_decode:
             raise NotImplementedError(
                 "data.fast_decode (libjpeg's reduced-scale DCT decode) is not "
                 "ported: neither the plain decoder nor nvJPEG scales in the DCT "
-                "(ROADMAP.md, Queue 1 item 4)")
+                "(ROADMAP.md, Queue 1 item 3)")
+        if decoder not in DECODERS:
+            raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
         self.device = resolve_device(device)
+        if decoder == "nvjpeg" and self.device.type != "cuda":
+            raise ValueError(f"decoder 'nvjpeg' needs a CUDA device, not {self.device}")
+        self.decode_with = decoder
+        if decoder == "auto" and self.device.type == "cuda":
+            logger.info("decoder auto: JPEGs through nvJPEG on %s in this process; "
+                        "spawned loader workers decode with the plain decoder "
+                        "(decoder 'plain' makes both the plain one)", self.device)
 
     @property
     def decoder(self) -> str:
-        """"nvjpeg" on the card (JPEGs; PNGs decode on the host), else "plain"."""
-        return "nvjpeg" if self.device.type == "cuda" else "plain"
+        """The decoder in use: "nvjpeg" on the card unless the option is
+        "plain" (JPEGs; PNGs decode on the host), else "plain"."""
+        return ("nvjpeg" if self.device.type == "cuda" and self.decode_with != "plain"
+                else "plain")
 
     def _init_img_cache(self, cache_images, cache_key: str, base_dir: str,
                         entries: list):
@@ -321,7 +341,12 @@ class _ImageCacheMixin:
         applied (the _decode_resized hook)."""
         path = self._image_path(idx)
         with open(path, "rb") as f:
-            img = decode.decode_to(f.read(), self.device)
+            data = f.read()
+        if self.decoder == "nvjpeg":
+            img = decode.decode_to(data, self.device)
+        else:
+            rgb = decode.decode_image(data)
+            img = None if rgb is None else torch.from_numpy(rgb).to(self.device)
         if img is None:
             raise IOError(f"image unreadable: {path}")
         return img
@@ -338,7 +363,8 @@ class _ImageCacheMixin:
         """What a spawned loader worker receives: no memmap handle (reopened
         lazily), no RAM cache (pickling it would copy the decoded dataset
         into every worker) and the CPU as the device (a worker never touches
-        CUDA: it decodes with the plain decoder)."""
+        CUDA: it decodes with the plain decoder; the loader refuses workers
+        for decoder "nvjpeg")."""
         state = dict(self.__dict__)
         state["_mm"] = None
         state["_ram_cache"] = None
@@ -351,8 +377,9 @@ class YOLODataset(_ImageCacheMixin):
 
     def __init__(self, data_dir: str, img_size=(640, 640), filter_classes=(),
                  cache: bool = True, cache_images: str | None = None,
-                 fast_decode: bool = False, device: str | torch.device = "cuda"):
-        self._init_device(device, fast_decode)
+                 fast_decode: bool = False, device: str | torch.device = "cuda",
+                 decoder: str = "auto"):
+        self._init_device(device, fast_decode, decoder)
         self.data_dir = data_dir
         self.input_dim = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
         self.filter_classes = list(filter_classes)
@@ -496,8 +523,8 @@ class COCODataset(_ImageCacheMixin):
     def __init__(self, data_dir: str, json_file: str = "instances_train2017.json",
                  name: str = "train2017", img_size=(640, 640), filter_classes=(),
                  cache_images: str | None = None, fast_decode: bool = False,
-                 device: str | torch.device = "cuda"):
-        self._init_device(device, fast_decode)
+                 device: str | torch.device = "cuda", decoder: str = "auto"):
+        self._init_device(device, fast_decode, decoder)
         self.data_dir = data_dir
         self.name = name
         self.input_dim = (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)

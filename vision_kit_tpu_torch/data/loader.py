@@ -113,6 +113,15 @@ def dataset_device(dataset) -> torch.device:
         dataset, "device", torch.device("cpu"))
 
 
+def dataset_decoders(dataset) -> set:
+    """The decoder options ("auto", "plain", "nvjpeg") of a dataset and of
+    every part of a ConcatDataset."""
+    parts = getattr(dataset, "datasets", None)
+    if parts:
+        return set().union(*(dataset_decoders(p) for p in parts))
+    return {getattr(dataset, "decode_with", "auto")}
+
+
 def _side_stream(device: torch.device):
     """A stream for a prefetch thread on the card (None on the CPU), ordered
     after the work the caller has queued so far: a RAM cache built on the
@@ -213,6 +222,12 @@ class TrainLoader:
         # queue.Queue(maxsize=0) is unbounded; prefetch <= 0 means one
         # queued batch and one in production
         self.prefetch = max(1, int(prefetch))
+        if self.num_workers and "nvjpeg" in dataset_decoders(dataset):
+            raise ValueError(
+                f"num_workers {self.num_workers} with a dataset whose decoder is "
+                "'nvjpeg': spawned workers decode on the host with the plain decoder, "
+                "and a run would mix the two; use decoder 'plain' (or 'auto'), or "
+                "num_workers 0")
         if self.num_workers and self.device.type == "cuda":
             logger.warning(
                 "TrainLoader: %d spawned workers decode and augment on the host "

@@ -8,9 +8,14 @@ reference's interface: NCHW float32 images in [0, 1] in, the decoded
 Artifacts, each replayed from disk on a fixed probe and compared with the
 port's eager forward before it counts:
 
+  * msgpack: the weights as Flax variables ({"params", "batch_stats"},
+    convert.jax_variables_from_state_dict) in flax.serialization.to_bytes'
+    format (utils/flax_msgpack.py), the JAX export's first artifact, which
+    the JAX package's load_weights reads; reloaded from disk and compared
+    leaf by leaf, exactly;
   * weights: `{"model": state_dict}` `.pt` (the form the JAX package's
     scripts/convert.py --to-torch writes), reloaded and compared entry by
-    entry, exactly; it stands for the msgpack round trip;
+    entry, exactly;
   * torch.export: the program with a dynamic batch, saved with
     torch.export.save, loaded with torch.export.load and replayed at batch
     1 and 2 (the jax.export leg's counterpart); its text dump stands for
@@ -168,6 +173,37 @@ def _weights_leg(model, path, res, check) -> None:
     res.artifacts["weights"] = path
 
 
+def _msgpack_leg(model, path, res, check) -> None:
+    from vision_kit_tpu_torch.convert import jax_variables_from_state_dict
+    from vision_kit_tpu_torch.utils import flax_msgpack
+
+    variables = jax_variables_from_state_dict(model.state_dict())
+    flax_msgpack.write_file(path, variables)
+    reloaded = flax_msgpack.read_file(path)
+    delta = _tree_delta(variables, reloaded)
+    res.checks["msgpack"] = delta
+    if check and delta > 0.0:
+        _quarantine_artifact(path)
+        raise ExportCheckError(f"msgpack weights round trip is not lossless: max "
+                               f"|delta| = {delta:.3e}")
+    res.artifacts["msgpack"] = path
+
+
+def _tree_delta(want, got) -> float:
+    """max |got - want| over two trees of numpy leaves; inf where their
+    keys, shapes or dtypes differ."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(want) != set(got):
+            return float("inf")
+        return max((_tree_delta(want[k], got[k]) for k in want), default=0.0)
+    if (not isinstance(got, np.ndarray) or got.dtype != want.dtype
+            or got.shape != want.shape):
+        return float("inf")
+    if np.array_equal(got, want):
+        return 0.0
+    return float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
+
+
 def _torch_export_leg(wrapper, probes, want, path, text_path, res, check) -> None:
     from torch.export import Dim
 
@@ -265,12 +301,14 @@ def run_export(cfg, model: nn.Module, save_dir: str, onnx: str | bool = "auto",
     res = ExportResult()
     os.makedirs(save_dir, exist_ok=True)
     stem = os.path.join(save_dir, f"{cfg.model.name.lower()}_{cfg.model.version}")
-    paths = {"weights": stem + ".pt", "torch_export": stem + ".pt2",
+    paths = {"msgpack": stem + ".msgpack", "weights": stem + ".pt",
+             "torch_export": stem + ".pt2",
              "exported_program_text": stem + ".exported.txt",
              "onnx": stem + ".onnx", "torchscript": stem + ".torchscript.pt"}
     for path in paths.values():
         _remove_artifact(path)
 
+    _msgpack_leg(model, paths["msgpack"], res, check)
     _weights_leg(model, paths["weights"], res, check)
 
     wrapper = export_model(cfg, model)

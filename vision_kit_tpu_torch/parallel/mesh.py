@@ -3,8 +3,9 @@
 Counterpart of vision_kit_tpu/parallel/mesh.py. The JAX mesh is a grid of
 devices with a "data" and a "model" axis, and XLA inserts the collectives;
 here a Mesh names this process's rank in the torch.distributed group, its
-device and the group, and the training and eval steps call the collectives
-below themselves (train/step.py, train/losses.py, models/layers.py).
+device and the group, and the training and eval steps, the predictor and
+the server call the collectives below themselves (train/step.py,
+train/losses.py, models/layers.py, predictor.py, serve.py).
 
 Only all_reduce (a sum) and broadcast are used on tensors: gloo carries
 both on CUDA tensors, so two processes can share one card over gloo, where
@@ -55,7 +56,7 @@ def make_mesh(n_data: int | None = None, n_model: int = 1,
     if n_model != 1:
         raise NotImplementedError(
             f"n_model {n_model}: the model axis (spatial partitioning) is not ported "
-            "(ROADMAP.md, Queue 1 item 6)")
+            "(ROADMAP.md, Queue 1 item 5)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(parallel/distributed.py:init_distributed)")

@@ -13,11 +13,20 @@ rounds differently; see utils/stream_bench.py). A model built with
 decode_order="reference" serves through the same kernels: its raw maps are
 anchor-major views of the same conv output (ops/nms.py:postprocess_raw).
 
+Data-parallel serving (mesh=, the counterpart of the JAX predictor's
+"data" axis): one process per device (torchrun; parallel/mesh.py), and
+every rank calls predict_batch / run with the same global batch. A batch of
+more than one frame that divides by the mesh's n_data runs on each rank's
+rows alone (shard_rows), and gather_rows hands every rank the whole
+batch's (dets, valid); a single image, or a batch that does not divide,
+runs whole on every rank, as JAX replicates it.
+
 Weights (counterparts of vision_kit_tpu/predictor.py:load_weights and its
-helpers): `load_weights` reads a vision_kit-format `.pt`/`.pth`/`.ckpt` or
-a port TrainState checkpoint (train/checkpoint.py) into a model, folds
-training weights into a deploy model, and copies every entry whose name
-and shape match.
+helpers): `load_weights` reads a vision_kit-format `.pt`/`.pth`/`.ckpt`, a
+port TrainState checkpoint (train/checkpoint.py) or the JAX package's Flax
+`.msgpack` (its export's variables, or its Trainer's best EMA weights;
+utils/flax_msgpack.py) into a model, folds training weights into a deploy
+model, and copies every entry whose name and shape match.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 
 from vision_kit_tpu_torch.ops.letterbox import letterbox_device
 from vision_kit_tpu_torch.ops.nms import postprocess, postprocess_raw
+from vision_kit_tpu_torch.parallel import mesh as pmesh
 from vision_kit_tpu_torch.utils.general import resolve_device
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
@@ -52,15 +62,18 @@ class Predictor:
         """model: a port YOLOV5 or YOLOV7 (moved to `device` here; a v7 in
         the training or the deploy structure). multi_label runs
         the model's decode and the decoded-output postprocess with every
-        (anchor, class) pair a candidate. mesh/spatial are multi-chip
-        serving, not ported yet; each raises if set. approx_topk is
-        accepted; the top-k is exact (see ops/nms.py). The raw maps' order
-        follows the model's decode_order, as in the JAX predictor."""
-        if mesh is not None or spatial:
+        (anchor, class) pair a candidate. mesh: a parallel.mesh.Mesh
+        (make_mesh) to shard batches over, its device taking the place of
+        `device`. spatial (the model axis) is not ported and raises.
+        approx_topk is accepted; the top-k is exact (see ops/nms.py). The
+        raw maps' order follows the model's decode_order, as in the JAX
+        predictor."""
+        if spatial:
             raise NotImplementedError(
-                "multi-chip serving (mesh/spatial) is not ported yet "
-                "(ROADMAP.md, Queue 1: multi-GPU)")
-        self.device = resolve_device(device)
+                "spatial=True (height-split serving over the mesh's model axis) is "
+                "not ported (ROADMAP.md, Queue 1 item 5)")
+        self.mesh = pmesh.check_mesh(mesh)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model = model.to(self.device).eval()
         self.img_size = (
             (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
@@ -75,10 +88,34 @@ class Predictor:
                                           device=self.device)
         self.strides = tuple(model.strides)
 
-    @torch.inference_mode()
+    def _local_rows(self, n: int) -> torch.Tensor | None:
+        """This rank's rows of an n-frame batch, or None when the batch runs
+        whole (no mesh, one frame, or n not a multiple of n_data)."""
+        if self.mesh is None or n < 2 or n % self.mesh.n_data:
+            return None
+        return pmesh.shard_rows(self.mesh, n)
+
+    def _gather(self, dets: torch.Tensor, valid: torch.Tensor):
+        """The ranks' (dets, valid) stacked in rank order on every rank:
+        one gather_rows, valid riding as a seventh column."""
+        both = torch.cat([dets, valid[..., None].to(dets.dtype)], dim=-1)
+        both = pmesh.gather_rows(self.mesh, both)
+        return both[..., :6], both[..., 6] > 0
+
     def run(self, imgs_u8: torch.Tensor):
         """(B, H, W, 3) uint8 on the device -> (dets (B, max_det, 6),
-        valid (B, max_det)) in source-frame pixels, without synchronising."""
+        valid (B, max_det)) in source-frame pixels. Without a mesh it does
+        not synchronise; under one, every rank passes the same batch, runs
+        its rows of it when B divides by n_data and gathers the whole
+        batch's result."""
+        rows = self._local_rows(len(imgs_u8))
+        if rows is None:
+            return self._run(imgs_u8)
+        return self._gather(*self._run(imgs_u8[rows.to(imgs_u8.device)]))
+
+    @torch.inference_mode()
+    def _run(self, imgs_u8: torch.Tensor):
+        """run on this process's device alone."""
         h0, w0 = imgs_u8.shape[1:3]
         x, (ratio, pad) = letterbox_device(imgs_u8, self.img_size)
         kwargs = dict(conf_thres=self.conf_thres, iou_thres=self.iou_thres,
@@ -102,7 +139,8 @@ class Predictor:
         return torch.cat([boxes, dets[..., 4:]], dim=-1), valid
 
     def warmup(self, src_hw: tuple[int, int], batch: int = 1):
-        """One run on zero frames of this shape (kernel builds, autotune)."""
+        """One run on zero frames of this shape (kernel builds, autotune);
+        under a mesh every rank calls it."""
         dummy = torch.zeros((batch, *src_hw, 3), dtype=torch.uint8,
                             device=self.device)
         dets, _ = self.run(dummy)
@@ -116,10 +154,17 @@ class Predictor:
 
     def predict_batch(self, imgs_rgb: np.ndarray):
         """imgs_rgb: (B, H, W, 3) uint8, one source resolution. Returns
-        (list of (n_i, 6) arrays, elapsed_ms)."""
-        imgs = torch.from_numpy(np.ascontiguousarray(imgs_rgb))
+        (list of (n_i, 6) arrays, elapsed_ms). Under a mesh every rank
+        passes the same frames and gets the whole batch's detections; only
+        its own rows are uploaded."""
+        imgs_rgb = np.asarray(imgs_rgb)
+        rows = self._local_rows(len(imgs_rgb))
+        local = imgs_rgb if rows is None else imgs_rgb[rows.numpy()]
+        imgs = torch.from_numpy(np.ascontiguousarray(local))
         t0 = time.perf_counter()
-        dets, valid = self.run(imgs.to(self.device))
+        dets, valid = self._run(imgs.to(self.device))
+        if rows is not None:
+            dets, valid = self._gather(dets, valid)
         dets = dets.cpu().numpy()
         valid = valid.cpu().numpy()
         ms = (time.perf_counter() - t0) * 1000
@@ -145,16 +190,23 @@ def load_predictor_from_config(cfg, weights: str | None = None,
 
 def _read_weights(path: str) -> dict:
     """The weights in a checkpoint file as {key: f32 tensor on the CPU}."""
-    from vision_kit_tpu_torch.convert import checkpoint_state_dict
+    from vision_kit_tpu_torch.convert import (
+        checkpoint_state_dict,
+        state_dict_from_jax_variables,
+    )
     from vision_kit_tpu_torch.train.checkpoint import is_train_state, train_state_weights
+    from vision_kit_tpu_torch.utils import flax_msgpack
 
-    if path.endswith(".msgpack") or os.path.isdir(path):
+    if os.path.isdir(path):
         raise ValueError(
-            f"{path}: Flax msgpack and orbax checkpoints are not read by the "
-            "port; convert one to a .pt with the JAX package's "
-            "scripts/convert.py --to-torch (a msgpack) and load the .pt")
+            f"{path}: orbax checkpoint directories are not read by the port (their "
+            "arrays are tensorstore files); restore one with the JAX package and "
+            "write its variables with flax.serialization.to_bytes (a .msgpack)")
+    if path.endswith(".msgpack"):
+        return state_dict_from_jax_variables(
+            flax_msgpack.variables_of(flax_msgpack.read_file(path), path))
     if not path.endswith((".pt", ".pth", ".ckpt")):
-        raise ValueError(f"{path}: expected a .pt, .pth or .ckpt file")
+        raise ValueError(f"{path}: expected a .pt, .pth, .ckpt or .msgpack file")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if is_train_state(ckpt):
         return {k: v.float() for k, v in train_state_weights(ckpt).items()}
@@ -166,8 +218,11 @@ def load_weights(path: str, model: torch.nn.Module, partial: bool = False):
 
     `path`: a vision_kit-format `.pt`/`.pth`/`.ckpt` (a state_dict, or one
     wrapped as Lightning and the reference save it;
-    convert.checkpoint_state_dict), or a port TrainState checkpoint
-    (train/checkpoint.py; its EMA once updated, else its parameters).
+    convert.checkpoint_state_dict), a port TrainState checkpoint
+    (train/checkpoint.py; its EMA once updated, else its parameters), or a
+    Flax `.msgpack` of {"params", "batch_stats"} (the JAX export's
+    variables or the JAX Trainer's best EMA weights; bridged by
+    convert.state_dict_from_jax_variables).
     Training weights loaded into a deploy model are folded first
     (_maybe_deploy_fold). Every model entry whose key and shape the
     checkpoint has is copied, cast to the model's dtype and device;

@@ -21,6 +21,17 @@ memory right behind its forward, and records an event there: the
 completion thread waits on that event alone, not on the batch dispatched
 after it.
 
+Over a data-parallel Predictor (Predictor(mesh=...), one process per
+device under torchrun), every rank builds the server and calls start() or
+serve_forever(); rank 0 alone binds HTTP, queues and batches. Before each
+batch its dispatcher broadcasts a control word and the (batch_size, S, S,
+3) uint8 batch; ranks 1..N-1 run a follow loop that receives them and
+calls the same Predictor.run, which shards the batch and gathers the
+detections on every rank. A stop word, sent when rank 0 stops, ends the
+followers. Each rank makes its collectives from one thread (rank 0's
+dispatcher, the others' follow loop, after the warmup in start()), so no
+two ranks can order them differently.
+
 HTTP API (stdlib http.server, threaded), the JAX server's:
   POST /predict            body = encoded image (JPEG/PNG)
                            optional ?conf= post-filter (>= server conf)
@@ -43,6 +54,7 @@ import torch
 
 from vision_kit_tpu_torch.data.decode import decode_to
 from vision_kit_tpu_torch.ops.letterbox import letterbox_u8, scale_coords
+from vision_kit_tpu_torch.parallel import mesh as pmesh
 from vision_kit_tpu_torch.utils.general import resolve_device
 
 
@@ -84,6 +96,9 @@ class _Request:
 
 
 _STOP = object()
+# the control word rank 0 broadcasts before each batch (or to stop the
+# followers) when the server runs over a mesh
+_CTRL_BATCH, _CTRL_STOP = 1, 0
 
 
 class InferenceServer:
@@ -92,7 +107,9 @@ class InferenceServer:
     One fixed (batch_size, S, S, 3) shape serves every request: the
     dispatcher drains the queue up to `batch_size` items (waiting at most
     `max_wait_ms` after the first), zero-pads the remainder, and runs the
-    batch as one `Predictor.run`. Padded slots are discarded.
+    batch as one `Predictor.run`. Padded slots are discarded. Over a mesh
+    Predictor only rank 0 serves HTTP (`port` is None on the others), and
+    `batch_size` should divide by the mesh's n_data for the batch to shard.
     """
 
     def __init__(
@@ -109,6 +126,8 @@ class InferenceServer:
     ):
         self.predictor = predictor
         self.device = resolve_device(predictor.device)
+        self.mesh = getattr(predictor, "mesh", None)
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.labels = list(class_labels) if class_labels else None
         # BENCHMARK-ONLY ingest mode: with synthetic_ingest=K > 0, start()
         # pre-stages K random uint8 batches on the device and _submit_batch
@@ -143,24 +162,35 @@ class InferenceServer:
                                             daemon=True)
         self._completer = threading.Thread(target=self._completion_loop,
                                            daemon=True)
-        self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
-        self._httpd.daemon_threads = True
-        self._serve_thread = threading.Thread(
-            target=self._httpd.serve_forever, daemon=True
-        )
+        self._httpd = None
+        self._follower = None
+        if self.is_main:
+            self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
+            self._httpd.daemon_threads = True
+            self._serve_thread = threading.Thread(
+                target=self._httpd.serve_forever, daemon=True
+            )
+        else:
+            self._follower = threading.Thread(target=self._follow_loop, daemon=True)
         self._started = False
 
     # -- lifecycle ---------------------------------------------------------
 
     @property
-    def port(self) -> int:
-        return self._httpd.server_address[1]
+    def port(self) -> int | None:
+        """The bound port; None on a mesh's ranks 1..N-1, which bind none."""
+        return self._httpd.server_address[1] if self._httpd is not None else None
 
     def start(self):
         """Warm the serving shape up (kernel builds, cuDNN's choices) and
-        accept connections."""
+        accept connections (rank 0), or follow rank 0's batches (the
+        mesh's other ranks)."""
         self.predictor.warmup(self.img_size, self.batch_size)
         self._fn = self.predictor.run
+        if not self.is_main:
+            self._follower.start()
+            self._started = True
+            return self
         if self.synthetic_ingest > 0:
             h, w = self.img_size
             rng = np.random.default_rng(0)
@@ -178,6 +208,13 @@ class InferenceServer:
         return self
 
     def stop(self):
+        """Shut down. On rank 0 of a mesh this also sends the followers
+        their stop word; on the others it waits for that word."""
+        if not self.is_main:
+            if self._started:
+                self._follower.join()
+            self._started = False
+            return
         if self._started:
             self._queue.put(_STOP)
             self._httpd.shutdown()
@@ -187,7 +224,11 @@ class InferenceServer:
         self._started = False
 
     def wait(self):
-        """Block until KeyboardInterrupt, then shut down."""
+        """Block until KeyboardInterrupt (a follower: until rank 0 stops),
+        then shut down."""
+        if not self.is_main:
+            self.stop()
+            return
         try:
             while True:
                 time.sleep(3600)
@@ -214,10 +255,32 @@ class InferenceServer:
             return True
         return False
 
+    def _broadcast_ctrl(self, word: int) -> None:
+        """Rank 0's control word to the followers (a mesh only)."""
+        if self.mesh is not None:
+            pmesh.broadcast_(self.mesh, [torch.tensor([word], device=self.device)])
+
+    def _follow_loop(self):
+        """Ranks 1..N-1: receive each control word and batch from rank 0 and
+        run it (its collectives answering rank 0's), until the stop word."""
+        h, w = self.img_size
+        ctrl = torch.zeros(1, dtype=torch.int64, device=self.device)
+        batch = torch.zeros((self.batch_size, h, w, 3), dtype=torch.uint8,
+                            device=self.device)
+        while True:
+            pmesh.broadcast_(self.mesh, [ctrl])
+            if int(ctrl) == _CTRL_STOP:
+                return
+            pmesh.broadcast_(self.mesh, [batch])
+            self._fn(batch)
+            with self._stats_mu:
+                self._n_batches += 1
+
     def _dispatch_loop(self):
         while True:
             first = self._queue.get()
             if first is _STOP:
+                self._broadcast_ctrl(_CTRL_STOP)
                 self._inflight.put(_STOP)
                 return
             if self._expired(first):
@@ -240,6 +303,7 @@ class InferenceServer:
                     reqs.append(item)
             self._submit_batch(reqs)
             if stop:
+                self._broadcast_ctrl(_CTRL_STOP)
                 self._inflight.put(_STOP)
                 return
 
@@ -265,6 +329,9 @@ class InferenceServer:
                     batch[i].copy_(r.img)
                     if cuda:
                         r.img.record_stream(stream)
+            if self.mesh is not None:
+                self._broadcast_ctrl(_CTRL_BATCH)
+                pmesh.broadcast_(self.mesh, [batch])
             dets, valid = self._fn(batch)
             if self.device.type == "cuda":
                 # queued right behind this batch's forward, ahead of the next

@@ -179,7 +179,7 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
     """
     if spatial:
         raise NotImplementedError("spatial partitioning (the model axis) is not ported "
-                                  "(ROADMAP.md, Queue 1 item 6)")
+                                  "(ROADMAP.md, Queue 1 item 5)")
     mesh = pmesh.check_mesh(mesh)
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")

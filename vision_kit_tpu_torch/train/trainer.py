@@ -127,7 +127,14 @@ class Trainer:
     MS_INTERVAL = 10  # steps between multi-scale size draws
 
     def __init__(self, cfg, evaluator=None, mesh=None, use_tensorboard: bool = True,
-                 seed: int | None = None, device: str | torch.device = "cuda"):
+                 seed: int | None = None, device: str | torch.device = "cuda",
+                 deterministic: bool = False):
+        """deterministic: deterministic algorithms for this process
+        (utils/general.py:deterministic_mode), so that two runs from one
+        seed, and a resumed run, repeat bit for bit on the card; it needs
+        CUBLAS_WORKSPACE_CONFIG=:4096:8 before CUDA starts (set here when
+        CUDA has not started; `train --deterministic` sets it first), and
+        raises when CUDA started without it."""
         from vision_kit_tpu_torch.models import build_model
         from vision_kit_tpu_torch.parallel import mesh as pmesh
         from vision_kit_tpu_torch.train.evaluator import DetEvaluator
@@ -135,6 +142,11 @@ class Trainer:
         from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
         from vision_kit_tpu_torch.utils.general import resolve_device
 
+        self.deterministic = bool(deterministic)
+        if self.deterministic:
+            from vision_kit_tpu_torch.utils.general import deterministic_mode
+
+            deterministic_mode()
         # a mesh over the process group when one is initialised (torchrun);
         # its device is this rank's
         mesh = pmesh.check_mesh(mesh)
@@ -335,6 +347,7 @@ class Trainer:
                   filter_classes=list(cfg.data.filter_classes or []),
                   cache_images=getattr(cfg.data, "cache_images", None) or None,
                   fast_decode=bool(getattr(cfg.data, "fast_decode", False)),
+                  decoder=str(getattr(cfg.data, "decoder", None) or "auto"),
                   device=self.device)
         fmt = cfg.data.data_format
         if fmt == "yolo":

@@ -52,6 +52,30 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return device
 
 
+#: cuBLAS's workspace setting under which its kernels are deterministic;
+#: it must be in the environment before CUDA starts
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+
+
+def deterministic_mode() -> None:
+    """Deterministic algorithms for this process (torch's, cuDNN's without
+    its autotuner), so that a training run on the card repeats bit for bit
+    from its seed. Sets CUBLAS_WORKSPACE_CONFIG when CUDA has not started,
+    and raises when it has without the variable (cuBLAS read its workspace
+    setting then)."""
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in (CUBLAS_WORKSPACE_CONFIG, ":16:8"):
+        if torch.cuda.is_initialized():
+            raise RuntimeError(
+                f"deterministic mode needs CUBLAS_WORKSPACE_CONFIG={CUBLAS_WORKSPACE_CONFIG} "
+                "in the environment before CUDA starts, and CUDA started without it: set "
+                "the variable before the process starts (python -m vision_kit_tpu_torch "
+                "train --deterministic does)")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE_CONFIG
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def update_loss_cfg(cfg, nl: int | None = None):
     """Scale the loss gains by level count, class count and image size
     (the reference's general.py:9-15). Mutates and returns cfg. nl, the

@@ -395,6 +395,41 @@ def host_loader_disagreements(card_ds, plain_ds, batch: int, size: int, seed: in
     return out
 
 
+def workers_disagreements(dataset, batch: int, size: int, workers: int = 8,
+                          seed: int = 0, n_batches: int = 2, aug: dict | None = None,
+                          device_aug: bool = False) -> list[str]:
+    """A TrainLoader over `dataset` with num_workers 0 (every op on the
+    dataset's device) against the same loader with `workers` spawned
+    workers (decode and augmentation on the host): the batches' bytes equal
+    (images or tiles, targets, and the device route's params and tile
+    sizes). A card dataset must decode with decoder "plain" for them to.
+    Returns the disagreements, empty when they agree."""
+    from vision_kit_tpu_torch.data.loader import TrainLoader
+
+    out = []
+    loaders = [TrainLoader(dataset, batch, img_size=size, aug_cfg=aug, seed=seed,
+                           num_workers=w, device_aug=device_aug)
+               for w in (0, workers)]
+    try:
+        its = [iter(lo) for lo in loaders]
+        for bid in range(n_batches):
+            got, want = next(its[0]), next(its[1])
+            for key in sorted(want):
+                a, b = got[key], want[key]
+                if isinstance(a, torch.Tensor):
+                    if a.device != b.device:
+                        out.append(f"batch {bid}: {key} on {a.device} and {b.device}")
+                    same = torch.equal(a.cpu(), b.cpu())
+                else:
+                    same = np.array_equal(np.asarray(a), np.asarray(b))
+                if not same:
+                    out.append(f"batch {bid}: {key} differs")
+    finally:
+        for lo in loaders:
+            lo.close()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--data-dir", help="a YOLO dataset with train/ and valid/ "

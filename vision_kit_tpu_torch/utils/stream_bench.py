@@ -173,13 +173,13 @@ def train_step_card_vs_cpu(cfg) -> tuple[list, dict]:
 
 
 def deterministic() -> None:
-    """Deterministic algorithms on the card (CUBLAS_WORKSPACE_CONFIG=:4096:8
-    must be set before CUDA starts), and TF32 off for f32 comparisons: a
-    TF32 conv rounds to 10 mantissa bits, so two f32 runs an ulp apart
-    drift by far more than a step's tolerance."""
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    """The Trainer's deterministic mode (utils/general.py:deterministic_mode;
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 must be set before CUDA starts), and
+    TF32 off for f32 comparisons: a TF32 conv rounds to 10 mantissa bits, so
+    two f32 runs an ulp apart drift by far more than a step's tolerance."""
+    from vision_kit_tpu_torch.utils.general import deterministic_mode
+
+    deterministic_mode()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
