@@ -140,6 +140,13 @@ Phases, each printing its own line; any failure exits non-zero:
      request latency; and InferenceServer over the mesh Predictor (rank 0
      binds HTTP, rank 1 follows) answering each committed sample JPEG as a
      one-process server at batch 4 does (the rows rank 0 runs);
+ 14. spatial: the mesh's model axis (parallel/spatial.py) on two ranks
+     sharing the card over gloo as a 1x2 mesh, in child processes
+     (--spatial-rank): Predictor(spatial=True) on v5s@640 bf16 against one
+     process, InferenceServer over it, the v5s@640 spatial train step
+     against the unsharded one in float64 and f32, v7 base@128's spatial
+     eval step (a halo taller than a band) against unsharded (see
+     phase_spatial);
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -159,7 +166,10 @@ validations; greedy_nms_ddp a rank's share of it, B=32, with rank 0's
 launches in the ddp phase's fit and both ranks' under launches_by_rank;
 greedy_nms_mesh_serve and head_scores_mesh_serve the kernels at a rank's
 share of a mesh serving batch, B=4, K=1024, with rank 0's launches in the
-mesh server's HTTP run and both ranks' under launches_by_rank)
+mesh server's HTTP run and both ranks' under launches_by_rank;
+greedy_nms_spatial and head_scores_spatial the kernels at a spatial
+single-frame request's B=1, K=1024, with rank 0's launches in one such
+request and both ranks' under launches_by_rank)
 and, last, {"ok": true,
 "device": ...}.
 
@@ -190,6 +200,7 @@ HEAD_CHECK_SHAPES = (
     (64, ((80, 80), (40, 40), (20, 20))),    # throughput path, v7 base@640
     (8, ((80, 80), (40, 40), (20, 20))),     # request path, v5s@640
     (4, ((80, 80), (40, 40), (20, 20))),     # a rank's share of a mesh request
+    (1, ((80, 80), (40, 40), (20, 20))),     # a spatial request's gathered maps
     (1, ((5, 5), (7, 3), (1, 1))),           # ragged last tiles
 )
 # anchor-major head scores: (batch, grids, distinct inputs), as kernel_bench
@@ -245,8 +256,9 @@ def phase_kernels(rng):
     from vision_kit_tpu_torch.ops.head_scores import head_scores, head_scores_reference
     from vision_kit_tpu_torch.utils import kernel_bench as kb
 
-    # -- greedy NMS: bit-equal masks (B=32: a rank's share of the eval batch)
-    for b in (4, 8, 32, 64, 128):
+    # -- greedy NMS: bit-equal masks (B=32: a rank's share of the eval
+    # batch; B=1: a spatial request)
+    for b in (1, 4, 8, 32, 64, 128):
         for k in NMS_KS:
             for case in NMS_CHECK_CASES:
                 boxes, valid = kb.make_boxes(rng, b, k, case)
@@ -340,9 +352,10 @@ def kernel_times(head_max_err: dict):
     B=64, K=2048, as greedy_nms_fit_host at the fit-host validations' B=8,
     K=2048, as greedy_nms_v7 at the v7 serving step's B=64, K=512, as
     greedy_nms_serve at the server's B=8, K=1024 and as
-    greedy_nms_mesh_serve at a mesh rank's B=4, K=1024; head_scores at
+    greedy_nms_mesh_serve at a mesh rank's B=4, K=1024 and as
+    greedy_nms_spatial at a spatial request's B=1, K=1024; head_scores at
     b128, as head_scores_v7 at b64, as head_scores_anchor_major at b128 on
-    a reference-order head's maps, and at b8 and b4 likewise.
+    a reference-order head's maps, and at b8, b4 and b1 likewise.
     `head_max_err` holds head_scores' largest error against its plain
     version at each batch (anchor-major under "anchor_major_<batch>"). Runs after the
     latency phases: the profiler that kernel_bench uses for its per-kernel
@@ -359,7 +372,8 @@ def kernel_times(head_max_err: dict):
                         ("greedy_nms_ddp", (DDP_BATCH // 2, 2048)),
                         ("greedy_nms_mesh_serve", (MESH_FRAMES // 2, 1024)),
                         ("greedy_nms_v7", (64, 512)),
-                        ("greedy_nms_serve", (SERVE_BATCH, 1024))):
+                        ("greedy_nms_serve", (SERVE_BATCH, 1024)),
+                        ("greedy_nms_spatial", (1, 1024))):
         nms = next(r for r in bench["greedy_nms"]
                    if (r["batch"], r["k"], r["case"]) == (*shape, "random"))
         rows[name] = {
@@ -374,7 +388,8 @@ def kernel_times(head_max_err: dict):
                                       ("head_scores_v7", 64, False),
                                       ("head_scores_anchor_major", 128, True),
                                       ("head_scores_serve", SERVE_BATCH, False),
-                                      ("head_scores_mesh_serve", MESH_FRAMES // 2, False)):
+                                      ("head_scores_mesh_serve", MESH_FRAMES // 2, False),
+                                      ("head_scores_spatial", 1, False)):
         head = next(r for r in bench["head_scores"]
                     if (r["batch"], r["anchor_major"]) == (batch, anchor_major))
         rows[name] = {
@@ -2511,6 +2526,434 @@ def mesh_serving_checks(r0: dict, r1: dict, smi: str) -> None:
           flush=True)
 
 
+SPATIAL_FRAMES = 8      # a spatial batch request: 8 frames of 720x1280, whole on each rank
+SPATIAL_STEP_BATCH = 8  # the spatial train step's batch (v5s@640, whole on each rank)
+SPATIAL_STEP_REL = 1e-9
+# bf16 spatial detections matching one process's (class exact, score 1e-2,
+# box 2 px): convolutions on a band-plus-halo shape round otherwise, and an
+# NMS decision near its threshold then flips (PR 11's mesh serving: 2391 of
+# 2400 for 4-row calls against the 8-row call)
+SPATIAL_BF16_MATCH = 0.99
+
+
+def spatial_maps(model, mesh, frames: torch.Tensor, banded_run: bool):
+    """The raw head maps of `model` on letterboxed frames (as Predictor
+    feeds it), banded over the mesh's model axis or whole, in f32."""
+    from vision_kit_tpu_torch.ops.letterbox import letterbox_device
+    from vision_kit_tpu_torch.parallel.spatial import banded
+
+    with torch.inference_mode():
+        x, _ = letterbox_device(frames, (640, 640))
+        if banded_run:
+            with banded(mesh, 640) as bands:
+                raws = model(bands.rows(x), decode=False)
+        else:
+            raws = model(x, decode=False)
+    return [r.float() for r in raws]
+
+
+def maps_error(got, want) -> float:
+    """The largest error of raw maps over the largest magnitude of their
+    level, over the levels."""
+    return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
+
+def answer_rows(answer) -> np.ndarray:
+    """A /predict answer's detections as (n, 6) rows."""
+    dets = answer[1].get("detections", [])
+    return np.array([d["box"] + [d["score"], d["class"]] for d in dets],
+                    np.float64).reshape(-1, 6)
+
+
+def step_relative_error(want: dict, got: dict, before: dict) -> float:
+    """The largest error of a step's state over the step's change in the
+    tensor (tensors the step leaves alone must be equal): a ratio."""
+    from vision_kit_tpu_torch.utils.stream_bench import STATE_PARTS
+
+    worst = 0.0
+    for part in STATE_PARTS:
+        for k, w in want[part].items():
+            err = float((got[part][k] - w).abs().max())
+            change = float((w - before[part][k]).abs().max())
+            worst = max(worst, err / change if change > 0 else (0.0 if err == 0 else 1e30))
+    return worst
+
+
+def request_collectives(pred, frames: np.ndarray, mesh) -> dict:
+    """Where a spatial request's time goes: the all-reduces one request
+    makes (halos and the gather) and their bytes, and the ms of one such
+    all-reduce alone over the model axis (a stem-level halo buffer, bf16,
+    over gloo with CUDA tensors), mean of 50."""
+    import torch.distributed as dist
+
+    from vision_kit_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group
+
+    sizes = []
+    plain = dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        sizes.append(t.numel() * t.element_size())
+        return plain(t, *args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        pred.predict_batch(frames)
+    finally:
+        dist.all_reduce = plain
+    group = axis_group(mesh, MODEL_AXIS)
+    buf = torch.zeros((2, 2, 1, 32, 1, 320), dtype=torch.bfloat16, device=mesh.device)
+    for _ in range(5):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    return {"per_request": len(sizes), "bytes": int(sum(sizes)),
+            "largest_bytes": int(max(sizes)),
+            "ms_each": (time.perf_counter() - t0) * 1000 / 50}
+
+
+def spatial_rank(rank: int, port: int) -> dict:
+    """`python3 chip_smoke.py --spatial-rank RANK PORT`, one of two processes
+    sharing the card over gloo with CUDA tensors as a 1x2 mesh (n_model 2,
+    deterministic mode): the spatial serving path, its server, the spatial
+    train step and v7's spatial eval, each against one process running the
+    same thing unsharded on the same card (see phase_spatial)."""
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
+    from vision_kit_tpu_torch.parallel.mesh import barrier, broadcast_
+    from vision_kit_tpu_torch.predictor import Predictor
+    from vision_kit_tpu_torch.serve import InferenceServer
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.train.optim import make_optimizer
+    from vision_kit_tpu_torch.train.step import (
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+
+    sb.deterministic()
+    check(init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo"),
+          "init_distributed did not join")
+    try:
+        mesh = make_mesh(n_model=2)
+        check(mesh.shape == {"data": 1, "model": 2} and mesh.model_index == rank,
+              f"rank {rank}: mesh {mesh.shape}, model index {mesh.model_index}")
+        res = {"rank": rank}
+        t0 = time.perf_counter()
+
+        # 1. Predictor(spatial=True), v5s@640 bf16, calibrated head
+        model = build_model(v5s_config(), device=mesh.device, dtype=torch.bfloat16, seed=0)
+        sb.calibrate_head(model, 640, seed=1)
+        broadcast_(mesh, [*model.parameters(), *model.buffers()])
+        f32 = build_model(v5s_config(), device=mesh.device, seed=0)
+        f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+        pred = Predictor(model, img_size=640, mesh=mesh, spatial=True)
+        alone = Predictor(model, img_size=640, device=mesh.device)
+        rng = np.random.default_rng(5)
+        frames = rng.integers(0, 255, (SPATIAL_FRAMES, 720, 1280, 3), dtype=np.uint8)
+        one = frames[:1]
+        for p in (pred, alone):
+            p.warmup((720, 1280), 1)
+            p.warmup((720, 1280), SPATIAL_FRAMES)
+        torch.cuda.synchronize()
+        launches = {}
+        got = {}
+        for name, imgs in (("single", one), ("batch", frames)):
+            reset_counts()
+            got[name], _ = pred.predict_batch(imgs)
+            launches[name] = read_counts()
+        want = {name: alone.predict_batch(imgs)[0]
+                for name, imgs in (("single", one), ("batch", frames))}
+        # bf16 detections as sets: class exact, score 1e-2, box 2 px
+        tol = (1e-2, 2.0)
+        res["predict"] = {
+            "launches": launches,
+            "n_detections": {k: int(sum(len(d) for d in v)) for k, v in got.items()},
+            "n_want": {k: int(sum(len(d) for d in v)) for k, v in want.items()},
+            "matching": {k: int(sum(matching_detections(w, g, *tol)
+                                    for w, g in zip(want[k], got[k]))) for k in got},
+            "equal_images": {k: int(sum(sb.same_detections(w, g, *tol)
+                                        for w, g in zip(want[k], got[k]))) for k in got},
+            "digest": float(sum(d.astype(np.float64).sum() for d in got["batch"]))}
+        # the raw maps against one process's: bf16, and f32 against f32
+        dev_frames = torch.from_numpy(frames[:2]).to(mesh.device)
+        ref32 = spatial_maps(f32, mesh, dev_frames, False)
+        res["maps"] = {
+            "bf16_spatial_vs_f32": maps_error(spatial_maps(model, mesh, dev_frames, True),
+                                              ref32),
+            "bf16_whole_vs_f32": maps_error(spatial_maps(model, mesh, dev_frames, False),
+                                            ref32),
+            "f32_spatial_vs_f32": maps_error(spatial_maps(f32, mesh, dev_frames, True),
+                                             ref32)}
+        # f32 detections against one process, to a stated tolerance
+        pred32 = Predictor(f32, img_size=640, mesh=mesh, spatial=True)
+        alone32 = Predictor(f32, img_size=640, device=mesh.device)
+        g32, _ = pred32.predict_batch(frames[:2])
+        w32, _ = alone32.predict_batch(frames[:2])
+        res["predict_f32"] = {
+            "equal_images": int(sum(sb.same_detections(w, g, 1e-4, 1e-2)
+                                    for w, g in zip(w32, g32))),
+            "matching": int(sum(matching_detections(w, g, 1e-4, 1e-2)
+                                for w, g in zip(w32, g32))),
+            "n_want": int(sum(len(w) for w in w32))}
+        del pred32, alone32
+        # request latency, one frame and eight, spatial and one process in turns
+        lat = {"spatial_1": [], "alone_1": [], "spatial_8": [], "alone_8": []}
+        for n, imgs in ((1, one), (SPATIAL_FRAMES, frames)):
+            for name in ("spatial", "alone", "alone", "spatial"):
+                p = pred if name == "spatial" else alone
+                if name == "alone" and not mesh.is_main:
+                    continue
+                lat[f"{name}_{n}"] += [p.predict_batch(imgs)[1] for _ in range(15)]
+        res["latency_ms"] = {k: float(np.median(v)) for k, v in lat.items() if v}
+        res["collectives"] = request_collectives(pred, one, mesh)
+        res["predict_s"] = time.perf_counter() - t0
+
+        # 2. InferenceServer over the spatial Predictor
+        t1 = time.perf_counter()
+        payloads = [(name, d) for name, m, d in svb.samples()
+                    if m["shape"] is not None and name.endswith(".jpg")]
+        srv = InferenceServer(pred, batch_size=1, max_wait_ms=5.0, port=0)
+        srv.start()
+        reset_counts()
+        if not mesh.is_main:
+            srv.wait()
+            res["server"] = {"launches": read_counts(), "batches": srv._stats()["batches"],
+                             "port": srv.port}
+        else:
+            try:
+                url = f"http://127.0.0.1:{srv.port}/predict"
+                answers = [post(url, d) for _, d in payloads]
+                stats = srv._stats()
+            finally:
+                srv.stop()
+            srv_launches = read_counts()
+            single = InferenceServer(alone, batch_size=1, max_wait_ms=5.0, port=0)
+            single.start()
+            try:
+                url = f"http://127.0.0.1:{single.port}/predict"
+                ones = [post(url, d) for _, d in payloads]
+            finally:
+                single.stop()
+            res["server"] = {
+                "launches": srv_launches, "batches": stats["batches"], "n": len(payloads),
+                "all_200": all(a[0] == 200 for a in answers),
+                "n_detections": int(sum(len(answer_rows(a)) for a in answers)),
+                "n_want": int(sum(len(answer_rows(a)) for a in ones)),
+                "matching": int(sum(matching_detections(answer_rows(w), answer_rows(a),
+                                                        *tol)
+                                    for w, a in zip(ones, answers)))}
+        res["server"]["seconds"] = time.perf_counter() - t1
+        del pred, alone, srv, model, f32
+        torch.cuda.empty_cache()
+
+        # 3. the spatial train step against the unsharded one, float64 and f32
+        t1 = time.perf_counter()
+        cfg = v5s_config()
+        net = build_model(cfg, device=mesh.device, seed=0)
+        start = {k: v.clone() for k, v in net.state_dict().items()}
+        rng = np.random.default_rng(6)
+        batch = {"image": torch.from_numpy(rng.integers(
+                     0, 255, (SPATIAL_STEP_BATCH, 640, 640, 3), dtype=np.uint8)),
+                 "targets": torch.from_numpy(sb.bench_targets(rng, SPATIAL_STEP_BATCH))}
+        batch = {k: v.to(mesh.device) for k, v in batch.items()}
+        runs = {}
+        plan = [("spatial", d) for d in (torch.float64, torch.float32)]
+        if mesh.is_main:
+            plan += [("whole", d) for d in (torch.float64, torch.float32)]
+        for name, dtype in plan:
+            net.load_state_dict(start)
+            net.to(dtype)
+            tx = make_optimizer(net, sb.TRAIN_HYP, 3, 10)
+            m = mesh if name == "spatial" else None
+            state = create_train_state(net, tx, mesh=m)
+            before = sb.train_state_tensors(state, torch.float64)
+            loss = YoloLoss(80, net.head.grid_anchors, sb.TRAIN_HYP, layout="native")
+            step = make_train_step(net, loss, tx, mesh=m, spatial=name == "spatial")
+            state, metrics = step(state, batch)
+            runs[name, dtype] = (sb.train_state_tensors(state, torch.float64),
+                                 {k: float(v) for k, v in metrics.items()}, before)
+            del state, tx, step
+            torch.cuda.empty_cache()
+        f64 = torch.float64
+        if mesh.is_main:
+            exact = runs["whole", f64]
+            sp64 = runs["spatial", f64]
+            res["step"] = {
+                "f64_state_rel": step_relative_error(exact[0], sp64[0], exact[2]),
+                "f64_metric_rel": max(abs(sp64[1][k] / exact[1][k] - 1) for k in exact[1]),
+                "f32_spatial_vs_f64": sb.worst_step_error(
+                    exact[0], runs["spatial", torch.float32][0], exact[2]),
+                "f32_whole_vs_f64": sb.worst_step_error(
+                    exact[0], runs["whole", torch.float32][0], exact[2]),
+                "loss": [sp64[1]["loss"], exact[1]["loss"]]}
+        res["step_digest"] = float(sum(float(t.double().sum())
+                                       for t in runs["spatial", f64][0]["params"].values()))
+        res["step_s"] = time.perf_counter() - t1
+        del net, runs
+        torch.cuda.empty_cache()
+
+        # 4. v7 base@128 spatial eval: SPPCSPC's 13-pool halo (6 rows) outgrows
+        # the 2-row bands of the stride-32 map
+        t1 = time.perf_counter()
+        _, v7 = folded_v7(128, str(mesh.device))
+        broadcast_(mesh, [*v7.parameters(), *v7.buffers()])
+        imgs = np.random.default_rng(7).integers(0, 255, (4, 128, 128, 3), dtype=np.uint8)
+        x = torch.from_numpy(imgs).to(mesh.device)
+        reset_counts()
+        gd, gv = make_eval_step(v7, mesh=mesh, spatial=True)(x)
+        v7_launches = read_counts()
+        wd, wv = make_eval_step(v7)(x)
+        gd, gv, wd, wv = (t.cpu().numpy() for t in (gd, gv, wd, wv))
+        res["v7_eval"] = {
+            "launches": v7_launches,
+            "equal_images": int(sum(sb.same_detections(wd[i][wv[i]], gd[i][gv[i]], 1e-4,
+                                                        1e-2, box_rtol=1e-4)
+                                    for i in range(len(wv)))),
+            "n": len(wv), "n_detections": int(wv.sum()),
+            "matching": int(sum(matching_detections(wd[i][wv[i]], gd[i][gv[i]], 1e-4, 1e-2)
+                                for i in range(len(wv))))}
+        res["v7_s"] = time.perf_counter() - t1
+        barrier(mesh)
+        res["seconds"] = time.perf_counter() - t0
+        return res
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_spatial(smi: str) -> dict:
+    """Spatial partitioning on the card (the mesh's model axis;
+    parallel/spatial.py): two processes sharing the card over gloo on CUDA
+    tensors as a 1x2 mesh (spatial_rank), in deterministic mode.
+
+    1. Predictor(spatial=True), v5s@640 bf16 (calibrated head), on 1 frame
+       of 720x1280 and on 8: each kernel launched once a rank a request;
+       each rank's detections against one process's on the same card as
+       detection sets, as many and SPATIAL_BF16_MATCH of them matching
+       (class exact, score 1e-2, box 2 px: bf16 convolutions on a
+       band-plus-halo shape take other algorithms, so bit equality is not
+       expected); the raw maps of the bf16 spatial run no further from
+       the f32 unsharded maps than twice the bf16 unsharded run's; the f32
+       spatial maps within 1e-5 of the f32 unsharded ones and the f32
+       detections equal (score 1e-4, box 1e-2 px); the request latency,
+       spatial and one process in turns (one card: no gain to show);
+    2. InferenceServer over that Predictor (rank 0 binds HTTP, rank 1
+       follows) answering each committed sample JPEG as a one-process
+       server over the same model, every detection matching (as in 1);
+    3. the v5s@640 spatial train step (b8, whole images on each rank) against
+       the unsharded step: in float64 every state tensor within 1e-9 of the
+       step's change in it and the metrics within 1e-9, where neither
+       cuDNN's nor the max pools' rounding can hide a halo or gather fault;
+       in f32 each step's worst error against the float64 step, reported
+       (worst_step_error: 1 is test_torch_train.py's tolerance);
+    4. v7 base@128 (f32, folded, calibrated) make_eval_step(spatial=True) on
+       4 frames, whose SPPCSPC 13-pool halo outgrows the stride-32 bands,
+       against the unsharded eval step: detections equal (score 1e-4, box
+       1e-2 px + 1e-4 of the box), one greedy_nms launch a rank.
+    Returns each rank's single-frame request launches."""
+    import subprocess
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    script = os.path.join(REPO, "chip_smoke.py")
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, script, "--spatial-rank", str(rank), str(port)],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"spatial rank {rank} exited {p.returncode}: {err[-3000:]}")
+    r0, r1 = ([json.loads(ln[len("SPATIAL "):]) for ln in o.splitlines()
+               if ln.startswith("SPATIAL ")][-1] for o, _ in outs)
+    print("spatial: " + json.dumps({"rank0": r0, "rank1": r1}), flush=True)
+    p0, p1 = r0["predict"], r1["predict"]
+    for r in (r0, r1):
+        p = r["predict"]
+        for name in ("single", "batch"):
+            check(p["launches"][name] == {"greedy_nms": 1, "head_scores": 1},
+                  f"rank {r['rank']}: a spatial {name} request launched {p['launches'][name]}")
+            want = p["n_want"][name]
+            check(p["n_detections"][name] == want > 0
+                  and p["matching"][name] >= SPATIAL_BF16_MATCH * want,
+                  f"rank {r['rank']}: spatial {name} detections differ from one process's: "
+                  f"{p['matching'][name]} of {want} matching (class exact, score 1e-2, box "
+                  f"2 px), {p['n_detections'][name]} detections")
+        m = r["maps"]
+        check(m["bf16_spatial_vs_f32"] <= 2 * m["bf16_whole_vs_f32"],
+              f"rank {r['rank']}: the bf16 spatial maps lie {m['bf16_spatial_vs_f32']:.3g} "
+              f"from f32, beyond twice the unsharded bf16 maps' {m['bf16_whole_vs_f32']:.3g}")
+        check(m["f32_spatial_vs_f32"] <= 1e-5,
+              f"rank {r['rank']}: f32 spatial maps {m['f32_spatial_vs_f32']:.3g} from unsharded")
+        check(r["predict_f32"]["equal_images"] == 2,
+              f"rank {r['rank']}: f32 spatial detections differ from one process's: "
+              f"{r['predict_f32']}")
+        check(r["v7_eval"]["launches"] == {"greedy_nms": 1, "head_scores": 0}
+              and r["v7_eval"]["equal_images"] == r["v7_eval"]["n"]
+              and r["v7_eval"]["n_detections"] > 0,
+              f"rank {r['rank']}: v7 spatial eval {r['v7_eval']}")
+    check(p0["digest"] == p1["digest"], "the ranks hold different spatial detections")
+    check(r0["step_digest"] == r1["step_digest"], "the ranks' spatial step states differ")
+    srv0, srv1 = r0["server"], r1["server"]
+    check(srv0["all_200"] and srv0["n_detections"] == srv0["n_want"] == srv0["matching"] > 0,
+          f"the spatial server's answers differ from the one-process server's: {srv0}")
+    check(srv1["port"] is None and srv1["batches"] == srv0["batches"] == srv0["n"],
+          f"rank 1 followed {srv1['batches']} of rank 0's {srv0['batches']} batches")
+    for name, srv in (("rank 0", srv0), ("rank 1", srv1)):
+        check(srv["launches"] == {"greedy_nms": srv["batches"], "head_scores": srv["batches"]},
+              f"the spatial server's {name} launched {srv['launches']}")
+    st = r0["step"]
+    check(st["f64_state_rel"] <= SPATIAL_STEP_REL and st["f64_metric_rel"] <= SPATIAL_STEP_REL,
+          f"the float64 spatial step differs from the unsharded step: state "
+          f"{st['f64_state_rel']:.3g} of the step's change, metrics {st['f64_metric_rel']:.3g}")
+    lat = r0["latency_ms"]
+    print(f"spatial: v5s@640 bf16 Predictor(spatial=True) on a 1x2 mesh (2 gloo ranks sharing "
+          f"the card): launches a request by rank {[p0['launches'], p1['launches']]}; "
+          f"detections against one process (class exact, score 1e-2, box 2 px; images "
+          f"equal {p0['equal_images']}): 1 frame "
+          f"{p0['matching']['single']} of {p0['n_want']['single']}, {SPATIAL_FRAMES} frames "
+          f"{p0['matching']['batch']} of {p0['n_want']['batch']} matching; raw maps' error "
+          f"over their largest, bf16 spatial {r0['maps']['bf16_spatial_vs_f32']:.3g} and "
+          f"unsharded {r0['maps']['bf16_whole_vs_f32']:.3g} from f32, f32 spatial "
+          f"{r0['maps']['f32_spatial_vs_f32']:.3g}; f32 detections "
+          f"{r0['predict_f32']['matching']} of {r0['predict_f32']['n_want']} equal; request "
+          f"latency median (host clock, rank 0): 1 frame spatial {lat['spatial_1']:.3f} ms, "
+          f"one process {lat['alone_1']:.3f} ms; {SPATIAL_FRAMES} frames spatial "
+          f"{lat['spatial_8']:.3f} ms, one process {lat['alone_8']:.3f} ms (two ranks on one "
+          f"card: no latency gain to show); a 1-frame request makes "
+          f"{r0['collectives']['per_request']} all-reduces over the model axis "
+          f"({r0['collectives']['bytes']} bytes, the gather {r0['collectives']['largest_bytes']}"
+          f"), a stem-level halo's alone {r0['collectives']['ms_each']:.3f} ms; "
+          f"{r0['predict_s']:.1f} s on {smi}", flush=True)
+    print(f"spatial: InferenceServer over the spatial Predictor, {srv0['n']} sample JPEGs: "
+          f"{srv0['matching']} of {srv0['n_want']} detections of the one-process server "
+          f"matching; batches by rank {[srv0['batches'], srv1['batches']]}, launches by rank "
+          f"{[srv0['launches'], srv1['launches']]}; {srv0['seconds']:.1f} s", flush=True)
+    print(f"spatial: v5s@640 train step b{SPATIAL_STEP_BATCH} on 1x2 against unsharded: "
+          f"float64 state error {st['f64_state_rel']:.3g} of the step's change, metrics "
+          f"{st['f64_metric_rel']:.3g} (loss {st['loss'][0]:.12f} vs {st['loss'][1]:.12f}); "
+          f"f32 worst error against float64 over the step tolerance: spatial "
+          f"{st['f32_spatial_vs_f64']:.3f}, unsharded {st['f32_whole_vs_f64']:.3f}; "
+          f"{r0['step_s']:.1f} s", flush=True)
+    v = r0["v7_eval"]
+    print(f"spatial: v7 base@128 f32 make_eval_step(spatial=True) on 4 frames: "
+          f"{v['equal_images']} of {v['n']} images equal to unsharded ({v['n_detections']} "
+          f"detections), launches by rank {[r0['v7_eval']['launches'], r1['v7_eval']['launches']]}"
+          f"; {r0['v7_s']:.1f} s", flush=True)
+    print(f"spatial: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {name: [r["predict"]["launches"]["single"][name] for r in (r0, r1)]
+            for name in ("greedy_nms", "head_scores")}
+
+
 def sync_points(fn) -> dict:
     """Where `fn` makes the host wait for the card: torch's sync debug mode
     warns at each synchronising call; returns {file:line: count}."""
@@ -2589,6 +3032,13 @@ def main() -> int:
         res = ddp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         print("DDP2 " + json.dumps(res), flush=True)
         return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--spatial-rank":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, REPO)
+        res = spatial_rank(int(sys.argv[2]), int(sys.argv[3]))
+        print("SPATIAL " + json.dumps(res), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2638,6 +3088,7 @@ def main() -> int:
     fit_counts = phase_fit(smi)
     fit_host_counts = phase_fit_host(smi)
     ddp_counts = phase_ddp(smi)
+    spatial_counts = phase_spatial(smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -2683,6 +3134,8 @@ def main() -> int:
         by_rank = [c[name] for c in ddp_counts["serve"]]
         rows[f"{name}_mesh_serve"]["launches"] = by_rank[0]
         rows[f"{name}_mesh_serve"]["launches_by_rank"] = by_rank
+        rows[f"{name}_spatial"]["launches"] = spatial_counts[name][0]
+        rows[f"{name}_spatial"]["launches_by_rank"] = spatial_counts[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

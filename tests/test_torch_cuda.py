@@ -483,6 +483,34 @@ def test_mesh_predictor_on_two_ranks_sharing_the_card(cuda, tmp_path):
     assert r0["divides"]["rows"] == [0, 1] and r1["divides"]["rows"] == [2, 3]
 
 
+def test_spatial_predictor_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """Predictor(spatial=True) on a 1x2 mesh of two gloo ranks, both on the
+    card, in f32: each rank's detections equal to one process's on the card
+    (score 1e-4, box 1e-2 px), each kernel launched once a rank a request on
+    the gathered maps."""
+    from torch_dist_lib import run_ranks, serving_frames
+    from vision_kit_tpu_torch.models import YOLOV5
+    from vision_kit_tpu_torch.predictor import Predictor
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    path = _calibrated_v5n_file(str(tmp_path / "v5n.pt"), 320)
+    kw = {"max_cand": 512, "max_det": 100}
+    results = run_ranks(2, "torch_dist_lib:spatial_predictor_worker",
+                        {"state_path": path, "size": 320, "hw": [360, 640], "n": 2,
+                         "kw": kw, "device": "cuda"}, n_model=2)
+    model = YOLOV5("n", num_classes=80)
+    model.load_state_dict(torch.load(path, weights_only=True))
+    one = Predictor(model, img_size=320, device="cuda", **kw)
+    single = one(serving_frames(7, 1, (360, 640))[0])[0]
+    batch = one.predict_batch(serving_frames(8, 2, (360, 640)))[0]
+    for r in results:
+        assert r["launches"] == [1, 1]
+        assert len(single) > 0 and same_detections(single, r["single"], 1e-4, 1e-2)
+        for w, g, run in zip(batch, r["batch"], r["run"]):
+            assert same_detections(w, g, 1e-4, 1e-2)
+            np.testing.assert_array_equal(g, run)
+
+
 def test_msgpack_export_leg_served_on_the_card(cuda, tmp_path):
     """run_export's Flax msgpack of a model on the card, loaded back by
     load_predictor_from_config on the card: the same detections, bit for

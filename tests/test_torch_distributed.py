@@ -45,6 +45,7 @@ from torch_dist_lib import (
     bn_inputs,
     bn_module,
     bn_step,
+    free_port,
     port_v5n,
     run_ranks,
 )
@@ -199,12 +200,24 @@ def test_failed_rendezvous_raises(clean_env):
 
 
 def test_mesh_needs_a_group_and_one_model_shard():
+    """make_mesh needs a process group whose world is n_data * n_model: a
+    model axis of 2 over a world of 1 raises naming the world size."""
     if dist.is_initialized():
         pytest.skip("a process group is initialised in this process")
     with pytest.raises(RuntimeError, match="process group"):
         pmesh.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pmesh.make_mesh(n_model=2, device="cpu")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match="world size"):
+            pmesh.make_mesh(n_model=2, device="cpu")
+        with pytest.raises(ValueError, match="world size"):
+            pmesh.make_mesh(n_data=2, device="cpu")
+        mesh = pmesh.make_mesh(n_data=1, n_model=1, device="cpu")
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert (mesh.data_index, mesh.model_index) == (0, 0)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(TypeError):
         pmesh.check_mesh(object())
 

@@ -99,7 +99,7 @@ def test_mesh_predictor_matches_one_process_and_jax(v5n):
 def test_predictor_mesh_options(v5n):
     _, v, _ = v5n
     model = port_v5("n", v)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         Predictor(model, img_size=SIZE, device="cpu", spatial=True)
     with pytest.raises(TypeError, match="make_mesh"):
         Predictor(model, img_size=SIZE, device="cpu", mesh="data")

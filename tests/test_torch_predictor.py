@@ -80,7 +80,7 @@ def test_load_predictor_from_config_on_cpu():
     assert pred.img_size == (64, 64)
     dets, _ = pred.predict_batch(np.zeros((1, 64, 64, 3), np.uint8))
     assert dets[0].shape[1] == 6
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires a mesh"):
         Predictor(pred.model, device="cpu", spatial=True)
     multi = Predictor(pred.model, img_size=64, device="cpu", multi_label=True,
                       conf_thres=0.001, max_cand=256)

@@ -338,9 +338,10 @@ def test_train_step_rejects_a_mesh():
     model = port_v5("n", v)
     tx = optim.make_optimizer(model, TRAIN_HYP, EPOCHS, STEPS_PER_EPOCH)
     loss = YoloLoss(80, model.head.grid_anchors, TRAIN_HYP)
-    # the data-parallel mesh is ported (tests/test_torch_distributed.py); it
-    # is a parallel.mesh.Mesh, and spatial partitioning still raises
+    # the mesh is ported (tests/test_torch_distributed.py,
+    # tests/test_torch_spatial.py); it is a parallel.mesh.Mesh, and spatial
+    # partitioning needs one, as in JAX
     with pytest.raises(TypeError):
         make_train_step(model, loss, tx, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         make_train_step(model, loss, tx, spatial=True)

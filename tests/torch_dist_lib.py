@@ -6,7 +6,8 @@ rank of a vision_kit_tpu_torch.parallel mesh.
 (or Ranks(...), which returns at once, and its results() later) starts
 one process a rank (python tests/torch_dist_lib.py ...), each at
 two intra-op threads, joins the process group at a free localhost port,
-builds make_mesh(device="cpu"), calls the named function as fn(mesh,
+builds make_mesh(n_model=n_model, device="cpu") (n_model 1 unless given:
+a world of 4 at n_model 2 is a 2x2 mesh), calls the named function as fn(mesh,
 **kwargs) and saves what it returns (torch.save); run_ranks returns the
 ranks' results in rank order, and raises with a rank's stderr when one
 fails. The worker functions below import torch and the port only: a rank
@@ -43,7 +44,8 @@ class Ranks:
     """`world` processes running target ("module:function") as gloo ranks,
     started at construction; results() waits for them."""
 
-    def __init__(self, world: int, target: str, kwargs: dict, threads: int = 2):
+    def __init__(self, world: int, target: str, kwargs: dict, threads: int = 2,
+                 n_model: int = 1):
         port = free_port()
         env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
         env["PYTHONPATH"] = os.pathsep.join([REPO, TESTS, env.get("PYTHONPATH", "")])
@@ -52,7 +54,7 @@ class Ranks:
         self._outs = [os.path.join(self._tmp.name, f"rank{r}.pt") for r in range(world)]
         self._procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), target, str(r), str(world),
-             str(port), str(threads), self._outs[r], json.dumps(kwargs)],
+             str(port), str(threads), str(n_model), self._outs[r], json.dumps(kwargs)],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in range(world)]
 
@@ -74,19 +76,19 @@ class Ranks:
 
 
 def run_ranks(world: int, target: str, kwargs: dict, timeout: float = 300.0,
-              threads: int = 2) -> list:
+              threads: int = 2, n_model: int = 1) -> list:
     """Run target on `world` gloo ranks; returns each rank's result."""
-    return Ranks(world, target, kwargs, threads).results(timeout)
+    return Ranks(world, target, kwargs, threads, n_model).results(timeout)
 
 
 def _main(argv) -> int:
-    target, rank, world, port, threads, out, kwargs = argv
+    target, rank, world, port, threads, n_model, out, kwargs = argv
     torch.set_num_threads(int(threads))
     from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
 
     assert init_distributed(f"127.0.0.1:{port}", int(world), int(rank), backend="gloo")
     try:
-        mesh = make_mesh(device="cpu")
+        mesh = make_mesh(n_model=int(n_model), device="cpu")
         module, name = target.split(":")
         fn = getattr(importlib.import_module(module), name)
         torch.save(fn(mesh, **json.loads(kwargs)), out)
@@ -207,7 +209,7 @@ def train_worker(mesh, state_path: str, batches_path: str, hyp: dict, epochs: in
     """train_run on this rank's rows (shard_batch) of saved global batches.
     Every rank returns its metrics and the digest of its final state; rank
     0 also the state before its last step and after it, and with
-    one_process the same run without a mesh on the global batches: its
+    one_process the same run without a mesh (nor spatial) on the global batches: its
     metrics and the mesh run's disagreements with it
     (stream_bench.state_disagreements at value_rel, step_rel)."""
     from vision_kit_tpu_torch.parallel.mesh import shard_batch
@@ -222,8 +224,9 @@ def train_worker(mesh, state_path: str, batches_path: str, hyp: dict, epochs: in
     if mesh.is_main:
         out.update(before_last=run["before_last"], last=run["last"])
         if one_process:
+            one_kw = {k: v for k, v in step_kw.items() if k != "spatial"}
             ref = train_run(port_v5n(state_path), batches, hyp, epochs, steps_per_epoch,
-                            loss, **step_kw)
+                            loss, **one_kw)
             out["one_process_metrics"] = ref["metrics"]
             out["one_process_disagreements"] = state_disagreements(
                 ref["last"], run["last"], ref["before_last"], value_rel, step_rel)
@@ -378,6 +381,146 @@ def predictor_worker(mesh, state_path: str, size: int, batches: dict, kw: dict,
         out[name] = rec
     out["single"] = pred(serving_frames(99, 1)[0])[0]
     return out
+
+
+def spatial_predictor_worker(mesh, state_path: str, size: int, hw: list, n: int, kw: dict,
+                             device: str = "cpu"):
+    """Predictor(mesh=mesh, spatial=True) of the saved v5n (eval mode) at
+    img_size `size` on one seeded frame of `hw` (serving_frames(7, 1)),
+    through __call__, and on n such frames (serving_frames(8, n)) through
+    predict_batch and run. Returns each route's detections, and the
+    kernels' launches in the __call__ (on the card they launch; on the
+    CPU the plain versions run and nothing counts). device "cuda": every
+    rank on the one card."""
+    import dataclasses
+
+    from vision_kit_tpu_torch.ops.greedy_nms import greedy_keep
+    from vision_kit_tpu_torch.ops.head_scores import head_scores
+    from vision_kit_tpu_torch.predictor import Predictor
+
+    if device != "cpu":
+        mesh = dataclasses.replace(mesh, device=torch.device(device, 0))
+    pred = Predictor(port_v5n(state_path).eval(), img_size=size, mesh=mesh, spatial=True,
+                     **kw)
+    imgs = serving_frames(8, n, tuple(hw))
+    d, v = pred.run(torch.from_numpy(imgs).to(mesh.device))
+    frame = serving_frames(7, 1, tuple(hw))[0]
+    pred(frame)
+    greedy_keep.launches = head_scores.launches = 0
+    single = pred(frame)[0]
+    return {"single": single, "batch": pred.predict_batch(imgs)[0],
+            "run": [d[i][v[i]].cpu().numpy() for i in range(n)],
+            "launches": [greedy_keep.launches, head_scores.launches]}
+
+
+def spatial_eval_worker(mesh, state_path: str, size: int, n: int, post: dict):
+    """make_eval_step(mesh=mesh, spatial=True) of the saved v5n on this data
+    shard's rows of n seeded size x size frames (serving_frames(9, n)),
+    and make_eval_step without a mesh on all n. Returns both (dets, valid)."""
+    from vision_kit_tpu_torch.parallel.mesh import shard_rows
+    from vision_kit_tpu_torch.train.step import make_eval_step
+
+    model = port_v5n(state_path).eval()
+    imgs = serving_frames(9, n, (size, size))
+    rows = shard_rows(mesh, n).numpy()
+    got = make_eval_step(model, post, mesh=mesh, spatial=True)(imgs[rows])
+    want = make_eval_step(model, post)(imgs)
+    return {"got": [t.numpy() for t in got], "want": [t.numpy() for t in want]}
+
+
+def focus_v5n(seed: int = 0):
+    """A seeded v5n whose backbone has the Focus stem and the SPP (5, 9,
+    13) tail (CSPDarknet(with_focus=True)), in f32 and eval mode."""
+    from vision_kit_tpu_torch.models import YOLOV5
+    from vision_kit_tpu_torch.models.architectures import init_weights
+    from vision_kit_tpu_torch.models.backbones import CSPDarknet
+
+    model = YOLOV5(variant="n", num_classes=80)
+    model.backbone = CSPDarknet(0.33, 0.25, with_focus=True)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def spatial_forward_worker(mesh, size: int, batch: int = 2, seed: int = 0):
+    """focus_v5n's raw maps at `size` banded over the model axis against the
+    same forward unbanded (eval mode), and the gradient of a seeded
+    linear function of the training-mode maps with respect to every
+    parameter, summed over the model axis as the step sums it, against the
+    unbanded one. Returns the largest differences over each tensor's
+    largest magnitude."""
+    from vision_kit_tpu_torch.parallel.mesh import MODEL_AXIS, all_reduce_
+    from vision_kit_tpu_torch.parallel.spatial import banded
+    from vision_kit_tpu_torch.train.step import _synced
+
+    model = focus_v5n(seed)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 1, (batch, size, size, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = model(x, decode=False)
+        with banded(mesh, size) as bands:
+            got = model(bands.rows(x), decode=False)
+    out = {"eval_max_rel": max(float((g - w).abs().max() / w.abs().max())
+                               for g, w in zip(got, want)),
+           "shapes": [tuple(g.shape) for g in got]}
+
+    weights = [torch.from_numpy(rng.normal(0, 1, tuple(w.shape)).astype(np.float32))
+               for w in want]
+    model.train()
+
+    def grads(banded_run):
+        for p in model.parameters():
+            p.grad = None
+        with _synced(model, mesh, None):
+            if banded_run:
+                with banded(mesh, size) as bands:
+                    raws = model(bands.rows(x), decode=False)
+                    sum((r * w).sum() for r, w in zip(raws, weights)).backward()
+            else:
+                raws = model(x, decode=False)
+                sum((r * w).sum() for r, w in zip(raws, weights)).backward()
+        g = [p.grad.clone() for p in model.parameters()]
+        return g
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    mine = grads(True)
+    all_reduce_(mesh, mine, MODEL_AXIS)
+    model.load_state_dict(state)
+    # the whole images on every rank: the synced statistics count each
+    # image n_model times, which leaves them as one image's
+    whole = grads(False)
+    out["grad_max_rel"] = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                              for g, w in zip(mine, whole))
+    return out
+
+
+def halo_worker(mesh, height: int, top: int, bottom: int, edge: int):
+    """Bands.halo at the stride-32 map of a `height`-row input (height a
+    multiple of 32): a seeded (1, 2, height / 32, 3) map's band with its
+    halo, against the rows of the whole map padded with zeros (`top` rows
+    above, max(edge, bottom) below) that it must hold; and the gradient of
+    sum(halo * g) with respect to the whole map, summed over the model
+    axis. Returns the difference, the gradient, this rank's g and band."""
+    from vision_kit_tpu_torch.parallel.mesh import MODEL_AXIS, all_reduce_
+    from vision_kit_tpu_torch.parallel.spatial import TOTAL_STRIDE, Bands
+
+    rng = np.random.default_rng(height)
+    whole = torch.from_numpy(rng.normal(0, 1, (1, 2, height // TOTAL_STRIDE, 3))
+                             .astype(np.float32))
+    bands = Bands(mesh, height)
+    start, stop = (r // TOTAL_STRIDE for r in bands.spans[bands.index])
+    x = whole[:, :, start:stop].clone().requires_grad_(True)
+    got = bands.halo(x, top, bottom, 0.0, edge)
+    padded = torch.nn.functional.pad(whole, (0, 0, top, max(edge, bottom)))
+    below = edge if bands.index == mesh.n_model - 1 else bottom
+    want = padded[:, :, start:stop + top + below]
+    g = torch.from_numpy(rng.normal(0, 1, tuple(got.shape)).astype(np.float32))
+    (got * g).sum().backward()
+    grad = torch.zeros_like(whole)
+    grad[:, :, start:stop] = x.grad
+    all_reduce_(mesh, [grad], MODEL_AXIS)
+    return {"max_diff": float((got.detach() - want).abs().max())
+            if got.shape == want.shape else float("inf"),
+            "grad": grad, "g": g, "start": start}
 
 
 def post_image(url: str, data: bytes, timeout: float = 120.0):

@@ -7,6 +7,10 @@ native layout -- is a `permute` and `view` with no copy (the v7 head's
 implicit multiply keeps channels_last). With decode_order="reference" the
 raw maps are transposed to the anchor-major (B, na, ny, nx, no) order
 instead.
+
+In a banded forward (parallel/spatial.py) each level's conv runs on the
+band, and the raw maps' bands are gathered into the whole maps on every
+rank before the reshape and the decode, whose grid is the whole map's.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from vision_kit_tpu_torch.models.layers import Implicit
+from vision_kit_tpu_torch.parallel.spatial import Bands
 
 V5_ANCHORS = (
     (10, 13, 16, 30, 33, 23),
@@ -131,8 +136,10 @@ class YoloV5Head(nn.Module):
         raws, decoded = [], []
         reference = self.decode_order == "reference"
         anchors_px = self.anchors_px
-        for i, f in enumerate(feats):
-            y = self.level_map(i, f)
+        maps = [self.level_map(i, f) for i, f in enumerate(feats)]
+        if Bands.active is not None:
+            maps = Bands.active.gather(maps)
+        for i, y in enumerate(maps):
             b, _, ny, nx = y.shape
             # the channel axis is anchor-major (na*no), like the JAX conv
             raw = y.permute(0, 2, 3, 1).reshape(b, ny, nx, self.na, self.no)

@@ -7,6 +7,13 @@ mirror the torch keys that vision_kit_tpu's converter emits (a flax name
 `m_0` is the torch path `m.0`), so one state_dict serves both packages.
 
 BatchNorm uses eps 1e-3 and momentum 0.03, not torch's defaults.
+
+In a banded forward (parallel/spatial.py: the model axis, this rank's band
+of image rows) every conv and pool whose window spans rows takes its halo
+rows (Bands.window) in place of its H padding and runs unpadded in H; the
+W padding stays the op's own. Ops that need no halo once bands start on
+multiples of 32 (1x1 convs, the 2x2 pools, Focus's space-to-depth, the
+upsample, Concat) run on the band as they are.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vision_kit_tpu_torch.parallel.spatial import Bands
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -53,7 +62,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     `mesh` set (a parallel.mesh.Mesh, by the training step while it runs):
     a training forward normalises with the statistics of the global batch,
     as Flax's BatchNorm under a sharded batch axis: each channel's count,
-    sum and sum of squares are summed over the ranks in one collective,
+    sum and sum of squares are summed over the ranks (of `axis`: None, the
+    whole mesh, which under spatial partitioning also sums the bands of
+    each image; "data" when the model axis replicates) in one collective,
     the variance is E[x^2] - E[x]^2 (biased), and the gradient flows
     through the sum. The running statistics then come out equal on every
     rank. A frozen recompute issues the same collective as the forward, on
@@ -61,6 +72,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     freeze_stats = False
     mesh = None
+    axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.mesh is not None and self.momentum is not None:
@@ -89,7 +101,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         local = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
                            xf.new_full((1,), x.numel() // c)])
-        total = all_reduce(self.mesh, local)
+        total = all_reduce(self.mesh, local, self.axis)
         n = total[2 * c]
         mean = total[:c] / n
         var = (total[c:2 * c] / n - mean * mean).clamp_min(0.0)
@@ -113,6 +125,16 @@ def batch_norm(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
+def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """conv(x); in a banded forward, on the band with its halo rows."""
+    bands = Bands.active
+    if bands is None:
+        return conv(x)
+    (k, _), (s, _), (p, pw) = conv.kernel_size, conv.stride, conv.padding
+    return F.conv2d(bands.window(x, k, s, p, 0.0), conv.weight, conv.bias, conv.stride,
+                    (0, pw), conv.dilation, conv.groups)
+
+
 class ConvBn(nn.Module):
     """Conv + BN, no activation."""
 
@@ -124,7 +146,7 @@ class ConvBn(nn.Module):
         self.bn = batch_norm(outs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+        return self.bn(conv2d(self.conv, x))
 
 
 class ConvBnAct(nn.Module):
@@ -155,7 +177,7 @@ class ConvBnAct(nn.Module):
             x = x.to(dtype) * scale
         elif x.dtype != dtype:
             x = x.to(dtype)
-        return self.act(self.bn(self.conv(x)))
+        return self.act(self.bn(conv2d(self.conv, x)))
 
 
 class DWConvModule(nn.Module):
@@ -197,6 +219,12 @@ class DWConvTranspose2d(nn.ConvTranspose2d):
         super().__init__(ins, outs, kernel, stride, padding, padding_out,
                          groups=ins, bias=True)
 
+    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        if Bands.active is not None:
+            raise NotImplementedError("DWConvTranspose2d has no banded form (no model "
+                                      "uses it)")
+        return super().forward(x, output_size)
+
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         key = prefix + "weight"
         w = state_dict.get(key)
@@ -206,8 +234,15 @@ class DWConvTranspose2d(nn.ConvTranspose2d):
 
 
 def max_pool_same(x: torch.Tensor, kernel: int, stride: int = 1) -> torch.Tensor:
-    """MaxPool with symmetric padding k//2 (padding never wins the max)."""
-    return F.max_pool2d(x, kernel, stride, padding=kernel // 2)
+    """MaxPool with symmetric padding k//2 (padding never wins the max); in
+    a banded forward, on the band with k//2 halo rows, -inf past the
+    border."""
+    bands = Bands.active
+    if bands is None:
+        return F.max_pool2d(x, kernel, stride, padding=kernel // 2)
+    p = kernel // 2
+    return F.max_pool2d(bands.window(x, kernel, stride, p, float("-inf")), kernel, stride,
+                        padding=(0, p))
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -358,7 +393,7 @@ class RepConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.deploy:
-            return self.act(self.rbr_reparam(x))
+            return self.act(conv2d(self.rbr_reparam, x))
         y = self.rbr_dense(x) + self.rbr_1x1(x)
         if self.rbr_identity is not None:
             y = y + self.rbr_identity(x)

@@ -16,10 +16,18 @@ anchor-major views of the same conv output (ops/nms.py:postprocess_raw).
 Data-parallel serving (mesh=, the counterpart of the JAX predictor's
 "data" axis): one process per device (torchrun; parallel/mesh.py), and
 every rank calls predict_batch / run with the same global batch. A batch of
-more than one frame that divides by the mesh's n_data runs on each rank's
-rows alone (shard_rows), and gather_rows hands every rank the whole
+more than one frame that divides by the mesh's n_data runs on each data
+shard's rows alone (shard_rows), and gather_rows hands every rank the whole
 batch's (dets, valid); a single image, or a batch that does not divide,
-runs whole on every rank, as JAX replicates it.
+runs whole on every data shard, as JAX replicates it.
+
+Spatial serving (spatial=True, the "model" axis; parallel/spatial.py): the
+multi-device latency path. Every rank letterboxes the whole frames and runs
+the network on its band of their rows, the head maps are gathered over the
+model axis, and every rank runs the postprocess (both kernels) on the
+whole maps. A single image runs on the mesh, and a batch shards over the
+data axis as above (with n_data 1 every batch runs whole on the model
+group).
 
 Weights (counterparts of vision_kit_tpu/predictor.py:load_weights and its
 helpers): `load_weights` reads a vision_kit-format `.pt`/`.pth`/`.ckpt`, a
@@ -31,6 +39,7 @@ model, and copies every entry whose name and shape match.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -40,6 +49,7 @@ import torch
 from vision_kit_tpu_torch.ops.letterbox import letterbox_device
 from vision_kit_tpu_torch.ops.nms import postprocess, postprocess_raw
 from vision_kit_tpu_torch.parallel import mesh as pmesh
+from vision_kit_tpu_torch.parallel.spatial import banded, check_height
 from vision_kit_tpu_torch.utils.general import resolve_device
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
@@ -64,20 +74,21 @@ class Predictor:
         the model's decode and the decoded-output postprocess with every
         (anchor, class) pair a candidate. mesh: a parallel.mesh.Mesh
         (make_mesh) to shard batches over, its device taking the place of
-        `device`. spatial (the model axis) is not ported and raises.
-        approx_topk is accepted; the top-k is exact (see ops/nms.py). The
+        `device`. spatial: band the letterboxed height over the mesh's model
+        axis; needs a mesh, and img_size H >= 64 * n_model. approx_topk is accepted; the top-k is exact (see ops/nms.py). The
         raw maps' order follows the model's decode_order, as in the JAX
         predictor."""
-        if spatial:
-            raise NotImplementedError(
-                "spatial=True (height-split serving over the mesh's model axis) is "
-                "not ported (ROADMAP.md, Queue 1 item 5)")
         self.mesh = pmesh.check_mesh(mesh)
-        self.device = mesh.device if mesh is not None else resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.spatial = spatial
         self.img_size = (
             (img_size, img_size) if isinstance(img_size, int) else tuple(img_size)
         )
+        if spatial:
+            if mesh is None:
+                raise ValueError("spatial=True requires a mesh")
+            check_height(self.img_size[0], mesh.n_model)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.model = model.to(self.device).eval()
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
         self.max_det = max_det
@@ -96,7 +107,7 @@ class Predictor:
         return pmesh.shard_rows(self.mesh, n)
 
     def _gather(self, dets: torch.Tensor, valid: torch.Tensor):
-        """The ranks' (dets, valid) stacked in rank order on every rank:
+        """The data shards' (dets, valid) stacked in order on every rank:
         one gather_rows, valid riding as a seventh column."""
         both = torch.cat([dets, valid[..., None].to(dets.dtype)], dim=-1)
         both = pmesh.gather_rows(self.mesh, both)
@@ -106,8 +117,8 @@ class Predictor:
         """(B, H, W, 3) uint8 on the device -> (dets (B, max_det, 6),
         valid (B, max_det)) in source-frame pixels. Without a mesh it does
         not synchronise; under one, every rank passes the same batch, runs
-        its rows of it when B divides by n_data and gathers the whole
-        batch's result."""
+        its data shard's rows of it when B divides by n_data (its band of
+        them with spatial) and gathers the whole batch's result."""
         rows = self._local_rows(len(imgs_u8))
         if rows is None:
             return self._run(imgs_u8)
@@ -121,11 +132,16 @@ class Predictor:
         kwargs = dict(conf_thres=self.conf_thres, iou_thres=self.iou_thres,
                       max_det=self.max_det, max_cand=self.max_cand,
                       approx_topk=self.approx_topk)
+        with contextlib.ExitStack() as stack:
+            if self.spatial:
+                x = stack.enter_context(banded(self.mesh, x.shape[1])).rows(x)
+            if self.multi_label:
+                decoded, _ = self.model(x)
+            else:
+                raws = self.model(x, decode=False)
         if self.multi_label:
-            decoded, _ = self.model(x)
             dets, valid = postprocess(decoded, multi_label=True, **kwargs)
         else:
-            raws = self.model(x, decode=False)
             dets, valid = postprocess_raw(
                 raws, self.anchors_px, strides=self.strides,
                 anchor_major=self.model.decode_order == "reference", **kwargs)

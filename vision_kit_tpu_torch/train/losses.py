@@ -113,7 +113,9 @@ class YoloLoss:
         mesh (parallel.mesh.Mesh): preds and targets are this rank's rows of
         the global batch, and the normalisers are the global batch's (the
         matched count of each level, the anchors of the objectness mean, the
-        batch size), summed over the ranks in one collective. The result is
+        batch size), summed over the data axis in one collective (the ranks
+        of a model group hold the same rows: the whole maps under spatial
+        partitioning). The result is
         this rank's share: the ranks' totals and parts sum to the loss of the
         global batch, and their gradients to its gradient."""
         bs = preds[0].shape[0]
@@ -136,14 +138,14 @@ class YoloLoss:
     @staticmethod
     def _global_counts(mesh, matched, preds):
         """Per level, (matched candidates, anchors) summed over the mesh's
-        ranks: one all-reduce of every level's counts."""
-        from vision_kit_tpu_torch.parallel.mesh import all_reduce
+        data axis: one all-reduce of every level's counts."""
+        from vision_kit_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce
 
         # the anchor counts by a fill on the device: no host copy to wait on
         local = torch.stack([m.sum() for m in matched]
                             + [m.new_full((), p.numel() // p.shape[-1], dtype=torch.int64)
                                for p, m in zip(preds, matched)])
-        total = all_reduce(mesh, local)
+        total = all_reduce(mesh, local, DATA_AXIS)
         nl = len(matched)
         return [(total[i], total[nl + i]) for i in range(nl)]
 

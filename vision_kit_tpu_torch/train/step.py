@@ -1,10 +1,10 @@
 """The training step and the eval step, on one device or data-parallel
 over a mesh, over an explicit TrainState.
 
-Counterpart of vision_kit_tpu/train/step.py (spatial partitioning
-raises). The parameters and BatchNorm running statistics are the model's
-own tensors, which the step updates in place; the state names them and
-carries the optimizer state, the EMA and the step count:
+Counterpart of vision_kit_tpu/train/step.py. The parameters and BatchNorm
+running statistics are the model's own tensors, which the step updates in
+place; the state names them and carries the optimizer state, the EMA and
+the step count:
 
     state, batch -> state', metrics
 
@@ -15,6 +15,17 @@ the global batch's (models/layers.py:BatchNorm2d), the loss's normalisers
 too (train/losses.py), and the gradients and reported losses are summed
 over the ranks in one flat bucket before the clip, the optimizer and the
 EMA, which then run alike on every rank.
+
+Spatial partitioning (spatial=True, over the mesh's model axis;
+parallel/spatial.py): each rank of a model group runs the network on its
+band of its data shard's images, and the loss (or the postprocess) on the
+whole head maps, gathered on every rank, as the JAX step re-gathers them
+before the loss. The BatchNorm statistics are then summed over the whole
+mesh (every band of every image) and so are the parameter gradients (each
+model rank holds its band's share); the losses are each data shard's,
+every model rank holding the same. A step over a mesh with a model axis
+but without spatial replicates the work over that axis, as JAX does: its
+sums run over the data axis alone.
 
 Precision: the parameters stay f32 (master weights); compute_dtype bf16
 runs the forward under torch.autocast, and the loss outside it, in the
@@ -40,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from vision_kit_tpu_torch.models.layers import BatchNorm2d
 from vision_kit_tpu_torch.ops.nms import postprocess
 from vision_kit_tpu_torch.parallel import mesh as pmesh
+from vision_kit_tpu_torch.parallel.spatial import banded
 from vision_kit_tpu_torch.train.ema import EMAState, ema_init, ema_update
 from vision_kit_tpu_torch.train.optim import global_norm
 
@@ -100,18 +112,26 @@ def _recompute_contexts(block: nn.Module):
 
 
 @contextlib.contextmanager
-def _synced(model: nn.Module, mesh):
-    """Batch statistics over the mesh's global batch in every BatchNorm of
-    `model` while the context is open (the forward, and the backward with
-    its recomputes)."""
+def _synced(model: nn.Module, mesh, axis):
+    """Batch statistics over the mesh's global batch (summed over `axis`,
+    None the whole mesh) in every BatchNorm of `model` while the context is
+    open (the forward, and the backward with its recomputes)."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     for bn in bns:
-        bn.mesh = mesh
+        bn.mesh, bn.axis = mesh, axis
     try:
         yield
     finally:
         for bn in bns:
-            bn.mesh = None
+            bn.mesh, bn.axis = None, None
+
+
+def _spatial_mesh(mesh, spatial: bool):
+    """check_mesh(mesh), and spatial's demand of one."""
+    mesh = pmesh.check_mesh(mesh)
+    if spatial and mesh is None:
+        raise ValueError("spatial=True requires a mesh")
+    return mesh
 
 
 @contextlib.contextmanager
@@ -173,14 +193,16 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
     microbatch). Augmentation and the resize run on the local rows. The
     model's device must be the mesh's.
 
+    spatial (needs a mesh): the images' height is banded over the mesh's
+    model axis inside the step (the ranks of a model group pass the same
+    rows, whole images, and each runs its band; the band plan follows each
+    microbatch's height after the resize); the targets stay whole.
+
     metrics: loss, loss_box, loss_obj, loss_cls and grad_norm (the norm of
     the mean gradient before clipping), as tensors on the device; under a
     mesh those of the global batch, equal on every rank.
     """
-    if spatial:
-        raise NotImplementedError("spatial partitioning (the model axis) is not ported "
-                                  "(ROADMAP.md, Queue 1 item 5)")
-    mesh = pmesh.check_mesh(mesh)
+    mesh = _spatial_mesh(mesh, spatial)
     if accum_steps < 1:
         raise ValueError(f"accum_steps {accum_steps} < 1")
     dev = _device(model)
@@ -199,8 +221,15 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
                           mode="bilinear", align_corners=False, antialias=True)
         return y.permute(0, 2, 3, 1)
 
+    # without spatial a model axis replicates the work: sums over the data axis
+    axis = None if spatial else pmesh.DATA_AXIS
+
     def forward_backward(x, tgt):
-        with _synced(model, mesh) if mesh is not None else contextlib.nullcontext():
+        with contextlib.ExitStack() as stack:
+            if mesh is not None:
+                stack.enter_context(_synced(model, mesh, axis))
+            if spatial:
+                x = stack.enter_context(banded(mesh, x.shape[1])).rows(x)
             with autocast(), (_checkpointed(model) if remat else contextlib.nullcontext()):
                 raws = model(x, decode=False)
             with record_function("loss"):
@@ -236,10 +265,14 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         if mesh is not None:
-            # the global gradient and losses: each rank's are its share
+            # the global gradient and losses: each rank's are its share.
+            # Under spatial every model rank holds its data shard's losses,
+            # so only model index 0 adds them (one collective for both)
             losses = torch.cat([total.reshape(1), parts])
+            if spatial and mesh.model_index:
+                losses = torch.zeros_like(losses)
             with record_function("all_reduce"):
-                pmesh.all_reduce_(mesh, [*grads.values(), losses])
+                pmesh.all_reduce_(mesh, [*grads.values(), losses], axis)
             total, parts = losses[0], losses[1:]
         if accum_steps > 1:
             inv = 1.0 / accum_steps
@@ -263,7 +296,8 @@ def make_train_step(model: nn.Module, loss_fn, tx, mesh=None, spatial=False,
 
 def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
                    state: TrainState | None = None, use_ema: bool = True,
-                   compute_dtype: torch.dtype = torch.float32, mesh=None):
+                   compute_dtype: torch.dtype = torch.float32, mesh=None,
+                   spatial: bool = False):
     """Eval step: forward with decode, then the eval-protocol postprocess.
 
     With a TrainState, as the JAX step, it evaluates the state's EMA
@@ -283,12 +317,16 @@ def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
     model's device without synchronising. The model runs in eval mode.
 
     mesh (parallel.mesh.Mesh): imgs are this rank's rows of the global
-    batch (an equal share on every rank); each rank runs its rows through
-    the same postprocess, and the step returns the global batch's outputs,
-    in rank order, on every rank.
+    batch (an equal share on every data shard); each rank runs its rows
+    through the same postprocess, and the step returns the global batch's
+    outputs, in data-shard order, on every rank.
+
+    spatial (needs a mesh): the forward runs banded over the mesh's model
+    axis (each rank of a model group passes the same rows and runs its band
+    of them), and each rank postprocesses the gathered maps.
     """
     kwargs = {**EVAL_POSTPROCESS, **(postprocess_kwargs or {})}
-    mesh = pmesh.check_mesh(mesh)
+    mesh = _spatial_mesh(mesh, spatial)
     model.eval()
     dev = _device(model)
     tree = state.ema.tree if state is not None and use_ema else None
@@ -299,12 +337,15 @@ def make_eval_step(model: nn.Module, postprocess_kwargs: dict | None = None,
         if model.training:
             model.eval()
         x = torch.as_tensor(imgs, device=dev)
-        with autocast():
-            if tree is None:
-                decoded, _ = model(x)
-            else:
-                decoded, _ = torch.func.functional_call(model, tree, (x,),
-                                                        strict=False)
+        with contextlib.ExitStack() as stack:
+            if spatial:
+                x = stack.enter_context(banded(mesh, x.shape[1])).rows(x)
+            with autocast():
+                if tree is None:
+                    decoded, _ = model(x)
+                else:
+                    decoded, _ = torch.func.functional_call(model, tree, (x,),
+                                                            strict=False)
         dets, valid = postprocess(decoded, **kwargs)
         if mesh is None:
             return dets, valid

@@ -51,7 +51,7 @@ def _gather_batch(mesh, batch):
                          for h0, w0, ratio, pad, img_id in batch["info"]],
                         dtype=torch.float64, device=dev)
     info = pmesh.gather_rows(mesh, info).tolist()
-    count = pmesh.all_reduce(mesh, torch.tensor(batch["count"], device=dev))
+    count = pmesh.all_reduce(mesh, torch.tensor(batch["count"], device=dev), pmesh.DATA_AXIS)
     infos = [(int(h0), int(w0), ratio, (p0, p1), int(img_id))
              for h0, w0, ratio, p0, p1, img_id in info]
     return targets.cpu().numpy(), infos, int(count)
@@ -153,8 +153,9 @@ class Trainer:
         if mesh is None and torch.distributed.is_initialized():
             mesh = pmesh.make_mesh(device=device)
         self.mesh = mesh
-        self.rank = mesh.rank if mesh is not None else 0
-        self.is_main = self.rank == 0
+        # the loaders shard over the data axis (a model axis replicates)
+        self.rank = mesh.data_index if mesh is not None else 0
+        self.is_main = mesh is None or mesh.is_main
         self.cfg = cfg
         # one seed drives model init, the loader's index stream and every
         # per-sample augmentation draw; the CLI's --seed lands here

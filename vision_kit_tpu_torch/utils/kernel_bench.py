@@ -6,15 +6,17 @@ an earlier design of the same kernels when one is given.
 Head scores run on 640-px head maps (3 levels of 80x80, 40x40 and
 20x20, 255 channels, bf16: v5s's and v7 base's alike) at batch 128 (the
 v5s throughput path, run_detector_bench), 64 (the v7 throughput path), 8
-(the request path, Predictor.predict_batch) and 4 (a rank's share of a
-request on a 2-rank mesh), and anchor-major at batch 128 (a
-decode_order="reference" model's permuted views of the same maps; current
-design only); greedy NMS at B=128, K=512, B=64, K=512, B=8, K=1024 and
-B=4, K=1024 (the serving paths' batch and max_cand) and at B=64, K=2048
+(the request path, Predictor.predict_batch), 4 (a rank's share of a
+request on a 2-rank mesh) and 1 (a single-frame request, which a spatial
+Predictor runs on the gathered maps on every rank), and anchor-major at
+batch 128 (a decode_order="reference" model's permuted views of the same
+maps; current design only); greedy NMS at B=128, K=512, B=64, K=512, B=8,
+K=1024, B=4, K=1024 and B=1, K=1024 (the serving paths' batch and
+max_cand) and at B=64, K=2048
 (the eval step's), B=32, K=2048 (a rank's share of it on a 2-rank mesh)
 and B=8, K=2048 (fit-host's validation), each on random, crowded and
-all-invalid boxes. The batch-8 and batch-4 maps (34 and 17 MB) fit the
-50 MB L2, so the timing rotates 4 distinct inputs to read them from
+all-invalid boxes. The batch-8, -4 and -1 maps (34, 17 and 4.3 MB) fit
+the 50 MB L2, so the timing rotates 4 distinct inputs to read them from
 device memory as the request path does; the b64 and b128 maps (274 and
 548 MB) exceed the L2 on their own.
 
@@ -45,9 +47,9 @@ H100_F32_FLOP_S = 67e12      # f32 outside the tensor cores, H100 SXM
 NMS_OPS_PER_PAIR = 14        # min/max x4, sub x3, clamp x3, mul, add, div, cmp
 CONF = 0.25
 IOU = 0.45
-HEAD_BATCHES = (128, 64, 8, 4)
-NMS_SHAPES = ((128, 512), (64, 512), (8, 1024), (4, 1024), (8, 2048), (32, 2048),
-              (64, 2048))
+HEAD_BATCHES = (128, 64, 8, 4, 1)
+NMS_SHAPES = ((128, 512), (64, 512), (8, 1024), (4, 1024), (1, 1024), (8, 2048),
+              (32, 2048), (64, 2048))
 NMS_CASES = ("random", "crowded", "all_invalid")
 
 

@@ -107,14 +107,14 @@ def same_detections(want: np.ndarray, got: np.ndarray, score_tol: float = 1e-5,
 STATE_PARTS = ("params", "batch_stats", "momentum", "ema")
 
 
-def train_state_tensors(state) -> dict:
+def train_state_tensors(state, dtype: torch.dtype = torch.float32) -> dict:
     """Copies of a TrainState's (train/step.py) tensors on the host, in
-    f32, by part: {"params", "batch_stats", "momentum", "ema"}."""
+    `dtype`, by part: {"params", "batch_stats", "momentum", "ema"}."""
     from vision_kit_tpu_torch.train.optim import sgd_state
 
     parts = (state.params, state.batch_stats,
              sgd_state(state.opt_state).momentum_buf, state.ema.tree)
-    return {name: {k: t.detach().to("cpu", torch.float32, copy=True)
+    return {name: {k: t.detach().to("cpu", dtype, copy=True)
                    for k, t in part.items()}
             for name, part in zip(STATE_PARTS, parts)}
 
