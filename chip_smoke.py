@@ -70,8 +70,15 @@ Phases, each printing its own line; any failure exits non-zero:
      bit-equal to the in-memory model's;
  9b. demo: python -m vision_kit_tpu_torch demo on the committed samples in
      a child process, the phase-4 weights handed over as a Flax msgpack:
-     one PNG per sample the port decodes, each printed count equal to an
-     in-process Predictor's;
+     one JPEG per sample the port decodes, each printed count equal to an
+     in-process Predictor's; then the video mode on a Motion-JPEG AVI of
+     the 720x1280 samples (24 frames at 30 fps; demo -p clip.avi -o
+     out.avi in a child, --demo-video): VideoReader's frames against the
+     plain decoder (bit-equal) and nvJPEG (within its tolerance), threaded
+     against unthreaded, each frame's detections equal to an in-process
+     Predictor's, one launch of each kernel a frame, out.avi read back with
+     every frame encode_jpeg's bytes of the drawn frame, the ms a frame by
+     stage;
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card (nvJPEG for a
      JPEG, the host decoder uploaded for a PNG) against the plain decoder
@@ -98,7 +105,11 @@ Phases, each printing its own line; any failure exits non-zero:
      load_predictor_from_config; the card's TrainLoader and ValLoader
      against a CPU dataset's (loader_bench.loader_disagreements); a twin
      run's distance in the default mode; decoder "plain" on the card: the
-     host route's batches of 8 bit-equal with 0 and 8 workers; in a child
+     host route's batches of 8 bit-equal with 0 and 8 workers;
+     YOLODataset(fast_decode=True) at 640, 320 and 160 (a 720x1280 sample
+     reduced at 1/2, 1/4, 1/8): items on the card bit-equal to the CPU's,
+     and the ms an image of the reduced and the full plain decode and of
+     nvJPEG plus resize_u8; in a child
      process (--deterministic-check), the default fit and
      Trainer(deterministic=True)'s in turns (img/s by epoch, the two
      deterministic runs bit-identical), a deterministic crash after step 3
@@ -169,7 +180,9 @@ share of a mesh serving batch, B=4, K=1024, with rank 0's launches in the
 mesh server's HTTP run and both ranks' under launches_by_rank;
 greedy_nms_spatial and head_scores_spatial the kernels at a spatial
 single-frame request's B=1, K=1024, with rank 0's launches in one such
-request and both ranks' under launches_by_rank)
+request and both ranks' under launches_by_rank; greedy_nms_video and
+head_scores_video the same B=1 shape, with the launches of the demo's
+video run)
 and, last, {"ok": true,
 "device": ...}.
 
@@ -353,9 +366,10 @@ def kernel_times(head_max_err: dict):
     K=2048, as greedy_nms_v7 at the v7 serving step's B=64, K=512, as
     greedy_nms_serve at the server's B=8, K=1024 and as
     greedy_nms_mesh_serve at a mesh rank's B=4, K=1024 and as
-    greedy_nms_spatial at a spatial request's B=1, K=1024; head_scores at
-    b128, as head_scores_v7 at b64, as head_scores_anchor_major at b128 on
-    a reference-order head's maps, and at b8, b4 and b1 likewise.
+    greedy_nms_spatial and greedy_nms_video at a spatial request's and a
+    video frame's B=1, K=1024; head_scores at b128, as head_scores_v7 at
+    b64, as head_scores_anchor_major at b128 on a reference-order head's
+    maps, and at b8, b4 and b1 (spatial, video) likewise.
     `head_max_err` holds head_scores' largest error against its plain
     version at each batch (anchor-major under "anchor_major_<batch>"). Runs after the
     latency phases: the profiler that kernel_bench uses for its per-kernel
@@ -373,7 +387,8 @@ def kernel_times(head_max_err: dict):
                         ("greedy_nms_mesh_serve", (MESH_FRAMES // 2, 1024)),
                         ("greedy_nms_v7", (64, 512)),
                         ("greedy_nms_serve", (SERVE_BATCH, 1024)),
-                        ("greedy_nms_spatial", (1, 1024))):
+                        ("greedy_nms_spatial", (1, 1024)),
+                        ("greedy_nms_video", (1, 1024))):
         nms = next(r for r in bench["greedy_nms"]
                    if (r["batch"], r["k"], r["case"]) == (*shape, "random"))
         rows[name] = {
@@ -389,7 +404,8 @@ def kernel_times(head_max_err: dict):
                                       ("head_scores_anchor_major", 128, True),
                                       ("head_scores_serve", SERVE_BATCH, False),
                                       ("head_scores_mesh_serve", MESH_FRAMES // 2, False),
-                                      ("head_scores_spatial", 1, False)):
+                                      ("head_scores_spatial", 1, False),
+                                      ("head_scores_video", 1, False)):
         head = next(r for r in bench["head_scores"]
                     if (r["batch"], r["anchor_major"]) == (batch, anchor_major))
         rows[name] = {
@@ -1332,25 +1348,44 @@ def phase_weights(model, rng, smi: str) -> dict:
     return ref_counts
 
 
-def phase_demo(model, smi: str) -> None:
-    """`python -m vision_kit_tpu_torch demo -p vision_kit_tpu_torch/data/samples
-    -o <tmp> -w <msgpack>` on the card in a child process, the phase-4
-    model's weights (calibrated head) handed over as a Flax msgpack: one PNG
+VIDEO_FRAMES, VIDEO_FPS = 24, 30.0   # the demo's clip: the 720x1280 samples in turn
+
+
+def phase_demo(model, smi: str) -> dict:
+    """`python -m vision_kit_tpu_torch demo` on the card in child processes,
+    the phase-4 model's weights (calibrated head) handed over as a Flax
+    msgpack, f32 as the demo builds it. Images (-p the samples): one JPEG
     written per sample the port decodes, each printed count equal to an
-    in-process Predictor of the same weights (f32, as the demo builds it)
-    on the same decoded image."""
+    in-process Predictor's on the same decoded image. Video (-p clip.avi -o
+    out.avi, through chip_smoke.py --demo-video so that the child's kernel
+    wrappers can be counted): utils/video_bench.py's clip of the 720x1280
+    samples, 24 frames at 30 fps; VideoReader's frames (plain decoder bit
+    for bit, nvJPEG within its tolerance, threaded = unthreaded), each
+    frame's detections equal to an in-process Predictor's on the same
+    nvJPEG-decoded frame (class exact, score 1e-5, box 1e-3 px), one launch
+    of each kernel a frame, out.avi read back whole with each frame's bytes
+    encode_jpeg's of the drawn frame; the ms a frame by stage. Returns the
+    video run's launches."""
     import re
     import subprocess
     import tempfile
 
+    from vision_kit_tpu_torch.classes import COCO
     from vision_kit_tpu_torch.convert import jax_variables_from_state_dict
-    from vision_kit_tpu_torch.data.decode import decode_image
+    from vision_kit_tpu_torch.data.decode import decode_image, decode_to
+    from vision_kit_tpu_torch.data.encode import encode_jpeg
     from vision_kit_tpu_torch.predictor import load_predictor_from_config
     from vision_kit_tpu_torch.utils import flax_msgpack
-    from vision_kit_tpu_torch.utils.readers import ImageReader
+    from vision_kit_tpu_torch.utils import video_bench as vb
+    from vision_kit_tpu_torch.utils.avi import read_avi
+    from vision_kit_tpu_torch.utils.drawing import Drawing
+    from vision_kit_tpu_torch.utils.readers import ImageReader, VideoReader
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
 
     t_phase = time.perf_counter()
     samples = os.path.join(REPO, "vision_kit_tpu_torch", "data", "samples")
+    # the children run with torch's defaults: cuDNN's f32 convs in TF32
+    tf32 = dict(enabled=True, benchmark=False, deterministic=False, allow_tf32=True)
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "v5s.msgpack")
         flax_msgpack.write_file(weights, jax_variables_from_state_dict(model.state_dict()))
@@ -1370,15 +1405,13 @@ def phase_demo(model, smi: str) -> None:
                 if decode_image(f.read()) is not None:
                     readable.append(path)
         written = sorted(os.listdir(out))
-        check(written == sorted(os.path.splitext(os.path.basename(p))[0] + "_res.png"
+        check(written == sorted(os.path.splitext(os.path.basename(p))[0] + "_res.jpg"
                                 for p in readable),
               f"the demo wrote {written} for {len(readable)} readable samples")
         check(sorted(printed) == sorted(readable), f"the demo printed {sorted(printed)}")
         pred = load_predictor_from_config(v5s_config(), weights=weights, device="cuda")
         want = {}
-        # the child runs with torch's defaults: cuDNN's f32 convs in TF32
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
-                                        allow_tf32=True):
+        with torch.backends.cudnn.flags(**tf32):
             for path in readable:
                 with open(path, "rb") as f:
                     want[path] = len(pred(decode_image(f.read()))[0])
@@ -1388,12 +1421,90 @@ def phase_demo(model, smi: str) -> None:
         for name in written[:2]:
             with open(os.path.join(out, name), "rb") as f:
                 check(decode_image(f.read()) is not None, f"the demo's {name} does not decode")
-    print(f"demo: python -m vision_kit_tpu_torch demo -p vision_kit_tpu_torch/data/samples "
-          f"-w <the phase-4 weights as a Flax msgpack>: exit 0 in {demo_s:.1f} s, "
-          f"{len(written)} PNGs for the {len(readable)} of {len(files)} samples the port "
-          f"decodes; detections by image {sorted(want.values())}, equal to an in-process "
-          f"Predictor's on {smi}", flush=True)
+        print(f"demo: python -m vision_kit_tpu_torch demo -p vision_kit_tpu_torch/data/samples "
+              f"-w <the phase-4 weights as a Flax msgpack>: exit 0 in {demo_s:.1f} s, "
+              f"{len(written)} JPEGs for the {len(readable)} of {len(files)} samples the "
+              f"port decodes; detections by image {sorted(want.values())}, equal to an "
+              f"in-process Predictor's on {smi}", flush=True)
+
+        # video: the samples as a Motion-JPEG clip, through the CLI in a child
+        t_video = time.perf_counter()
+        clip, out_avi = os.path.join(tmp, "clip.avi"), os.path.join(tmp, "out.avi")
+        jpegs = vb.write_sample_clip(clip, VIDEO_FRAMES, VIDEO_FPS)
+        bad = vb.reader_disagreements(clip, jpegs, VIDEO_FPS, "cuda")
+        check(bad == [], f"VideoReader: {bad[:5]}")
+        reader_s = time.perf_counter() - t_video
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                            "--demo-video", clip, out_avi, weights], cwd=REPO,
+                           capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("VIDEO ")]
+        check(r.returncode == 0 and lines,
+              f"the video demo exited {r.returncode}: {r.stderr[-3000:]}")
+        res = json.loads(lines[-1][len("VIDEO "):])
+        check(f"over {VIDEO_FRAMES} frames" in r.stdout, "the demo printed no average")
+        counts = res["counts"]
+        check(counts == {"greedy_nms": VIDEO_FRAMES, "head_scores": VIDEO_FRAMES},
+              f"the video demo launched {counts}, not one of each a frame")
+        check(len(res["detections"]) == VIDEO_FRAMES and res["fps"] == VIDEO_FPS,
+              f"the demo read {len(res['detections'])} frames at {res['fps']} fps")
+        movie = read_avi(out_avi)
+        check((len(movie.frames), movie.fps, movie.width, movie.height)
+              == (VIDEO_FRAMES, VIDEO_FPS, 1280, 720),
+              f"out.avi: {len(movie.frames)} frames at {movie.fps} fps")
+        check(len(VideoReader(out_avi, decoder="plain")) == VIDEO_FRAMES,
+              "the port's reader does not read out.avi whole")
+        drawer = Drawing(list(COCO))
+        n_det, encoded = 0, {}
+        with torch.backends.cudnn.flags(**tf32), open(out_avi, "rb") as f:
+            frames = {data: decode_to(data, "cuda") for data in set(jpegs)}
+            for i, (data, got) in enumerate(zip(jpegs, res["detections"])):
+                got = np.asarray(got, np.float32).reshape(-1, 6)
+                w, _ = pred(frames[data])
+                check(got.shape[1:] == (6,) and np.isfinite(got).all(),
+                      f"frame {i}: non-finite or misshapen detections")
+                check(same_detections(w, got, 1e-5, 1e-3),
+                      f"frame {i}: {len(got)} detections against in-process {len(w)}")
+                key = (data, got.tobytes())   # repeated frames draw alike
+                if key not in encoded:
+                    encoded[key] = encode_jpeg(drawer.draw(frames[data].cpu().numpy(), got))
+                check(movie.read_frame(f, i) == encoded[key],
+                      f"out.avi frame {i} is not encode_jpeg of the drawn frame")
+                n_det += len(got)
+        check(n_det > 0, "the video demo found no detections")
+        ms = {k: float(np.median(v)) for k, v in res["ms"].items()}
+        print(f"demo: python -m vision_kit_tpu_torch demo -p clip.avi -o out.avi (v5s@640 "
+              f"f32, {VIDEO_FRAMES} frames of 720x1280 Motion-JPEG at {VIDEO_FPS:g} fps, "
+              f"nvJPEG): {n_det} detections, each frame equal to an in-process Predictor's "
+              f"(class exact, score 1e-5, box 1e-3 px), launches {counts}; out.avi read "
+              f"back whole, every frame encode_jpeg's bytes of the drawn frame; VideoReader "
+              f"plain bit-equal to decode_image (each sample once), nvJPEG within "
+              f"NVJPEG_TOLERANCE, threaded = unthreaded ({reader_s:.1f} s); median ms a "
+              f"frame (host clock): read/decode "
+              f"{ms['read']:.3f}, predict {ms['predict']:.3f}, draw {ms['draw']:.3f}, encode "
+              f"{ms['encode']:.3f}; {VIDEO_FRAMES / res['wall_s']:.2f} fps over the loop "
+              f"({res['wall_s']:.2f} s), the child {child_s:.1f} s; the video leg "
+              f"{time.perf_counter() - t_video:.1f} s on {smi}", flush=True)
     print(f"demo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def demo_video_child(clip: str, out: str, weights: str) -> dict:
+    """`python -m vision_kit_tpu_torch demo -p clip -o out -w weights` through
+    the CLI's main in this process, with the kernels' launches counted around
+    it and demo_video's result kept."""
+    from vision_kit_tpu_torch import __main__ as cli
+
+    results = []
+    run = cli.demo_video
+    cli.demo_video = lambda *a, **kw: results.append(run(*a, **kw)) or results[-1]
+    reset_counts()
+    rc = cli.main(["demo", "-p", clip, "-o", out, "-w", weights])
+    counts = read_counts()
+    (res,) = results
+    return {"rc": rc, "counts": counts, "fps": res["fps"], "ms": res["ms"],
+            "wall_s": res["wall_s"], "detections": [d.tolist() for d in res["detections"]]}
 
 
 SERVE_BATCH = 8
@@ -1615,6 +1726,7 @@ def phase_serve(model, smi: str) -> dict:
 
 FIT_BATCH, FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 64, 128, 64, 2
 FIT_HOST_BATCH = 8   # configs/yolov5.yaml's batch
+FAST_SIZES, FAST_ITEMS = (640, 320, 160), 12   # fast_decode: f = 2, 4, 8 at 720x1280
 
 
 def fit_config(data_dir: str, out: str, epochs: int = FIT_EPOCHS):
@@ -1755,13 +1867,42 @@ def deterministic_check(data_dir: str, out: str) -> dict:
     return {**out_, "again_differ": again, "img_s": img_s, "step_img_s": step_img_s}
 
 
+def fast_decode_leg(data_dir: str, smi: str) -> None:
+    """data.fast_decode on write_dataset's files: the plain decoder on the
+    host, reduced in the DCT where the ratio allows. YOLODataset(fast_decode=
+    True)'s items on the card against the CPU's at FAST_SIZES, and each
+    decode route's ms for a 720x1280 sample (f = 2, 4, 8)."""
+    from vision_kit_tpu_torch.utils import video_bench as vb
+    from vision_kit_tpu_torch.utils.serve_bench import sample_bytes
+
+    t0 = time.perf_counter()
+    bad, reduced = vb.fast_decode_disagreements(os.path.join(data_dir, "train"),
+                                                FAST_SIZES, range(FAST_ITEMS))
+    check(bad == [], f"fast_decode: the card's items differ from the CPU's: {bad[:5]}")
+    check(all(reduced[size] > 0 for size in FAST_SIZES),
+          f"fast_decode: items that took the reduced decode {reduced}")
+    check_s = time.perf_counter() - t0
+    frame = sample_bytes("jpeg_720p")[0]
+    route_ms = {size: vb.decode_route_ms(frame, size, "cuda", reps=2) for size in FAST_SIZES}
+    print(f"fit: YOLODataset(fast_decode=True) over the fit's train split at "
+          f"{', '.join(map(str, FAST_SIZES))}: items 0-{FAST_ITEMS - 1} on the card "
+          f"bit-equal to the CPU's (image, labels, (h0, w0)), of which "
+          f"{', '.join(str(reduced[s]) for s in FAST_SIZES)} took the reduced decode "
+          f"({check_s:.1f} s); a 720x1280 sample, median ms an image (host clock, "
+          f"synchronised) reduced plain / full plain / nvJPEG + resize_u8: "
+          + "; ".join(f"{size} (f = {1280 // size}) {r['reduced']:.3f} / "
+                      f"{r['full']:.3f} / {r['nvjpeg']:.3f}"
+                      for size, r in route_ms.items())
+          + f"; the leg {time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+
+
 def phase_fit(smi: str) -> dict:
     """Training from a dataset: Trainer.fit of v5s@640 bf16 for 2 epochs on
     write_dataset's files (JPEG samples on nvJPEG, PNG scenes, the refused
     samples dropped by the scan), then test(); the card's loaders against
-    the plain ones; a crash after step 3 resumed on the card; the train CLI
-    as a subprocess; the loader's numbers. Returns the greedy_nms and
-    head_scores launches of fit."""
+    the plain ones; fast_decode_leg; a crash after step 3 resumed on the
+    card; the train CLI as a subprocess; the loader's numbers. Returns the
+    greedy_nms and head_scores launches of fit."""
     import glob
     import subprocess
     import tempfile
@@ -1864,6 +2005,8 @@ def phase_fit(smi: str) -> dict:
               f"workers (every op on the card) and with 8 (on the host) bit-equal, images "
               f"and targets; {time.perf_counter() - t0:.1f} s", flush=True)
         del plain_card
+
+        fast_decode_leg(data_dir, smi)
 
         # in a child process (CUBLAS_WORKSPACE_CONFIG set before CUDA
         # starts): default fits and Trainer(deterministic=True) ones in turns,
@@ -3032,6 +3175,12 @@ def main() -> int:
         res = ddp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         print("DDP2 " + json.dumps(res), flush=True)
         return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--demo-video":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, REPO)
+        print("VIDEO " + json.dumps(demo_video_child(*sys.argv[2:5])), flush=True)
+        return 0
     if len(sys.argv) == 4 and sys.argv[1] == "--spatial-rank":
         if not torch.cuda.is_available():
             return 1
@@ -3083,7 +3232,7 @@ def main() -> int:
     v7, v7_counts = phase_v7(rng, smi)
     train_counts = phase_train(rng, smi)
     ref_counts = phase_weights(model, rng, smi)
-    phase_demo(model, smi)
+    video_counts = phase_demo(model, smi)
     serve_counts = phase_serve(model, smi)
     fit_counts = phase_fit(smi)
     fit_host_counts = phase_fit_host(smi)
@@ -3130,6 +3279,8 @@ def main() -> int:
     rows["greedy_nms_ddp"]["launches"] = ddp_counts["greedy_nms"][0]
     rows["greedy_nms_ddp"]["launches_by_rank"] = ddp_counts["greedy_nms"]
     rows["head_scores_serve"]["launches"] = serve_counts["head_scores"]
+    rows["greedy_nms_video"]["launches"] = video_counts["greedy_nms"]
+    rows["head_scores_video"]["launches"] = video_counts["head_scores"]
     for name in ("greedy_nms", "head_scores"):
         by_rank = [c[name] for c in ddp_counts["serve"]]
         rows[f"{name}_mesh_serve"]["launches"] = by_rank[0]

@@ -553,3 +553,28 @@ def test_plain_decoder_batches_do_not_depend_on_workers(cuda, tmp_path):
     nvjpeg = YOLODataset(split, img_size=320, device=cuda, decoder="nvjpeg")
     with pytest.raises(ValueError, match="'nvjpeg'"):
         TrainLoader(nvjpeg, 4, img_size=320, num_workers=2)
+
+
+def test_video_reader_nvjpeg_against_plain(cuda, tmp_path):
+    """VideoReader on a Motion-JPEG clip of the 720x1280 samples: the plain
+    decoder's frames on the card bit-equal to decode_image, nvJPEG's within
+    decode.NVJPEG_TOLERANCE of them, threaded = unthreaded
+    (video_bench.reader_disagreements)."""
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    path = str(tmp_path / "clip.avi")
+    jpegs = vb.write_sample_clip(path, n_frames=6, fps=30.0)
+    assert vb.reader_disagreements(path, jpegs, 30.0, cuda) == []
+
+
+def test_fast_decode_items_card_equal_cpu(cuda, tmp_path):
+    """YOLODataset(fast_decode=True) on the card and on the CPU: the same
+    items bit for bit at 640, 320 and 160, where the 720x1280 samples
+    reduce at 1/2, 1/4 and 1/8 (video_bench.fast_decode_disagreements)."""
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    lb.write_dataset(str(tmp_path), n_train=24, n_val=2)
+    bad, reduced = vb.fast_decode_disagreements(str(tmp_path / "train"), (640, 320, 160),
+                                                range(24))
+    assert bad == [] and all(n > 0 for n in reduced.values()), (bad, reduced)

@@ -410,8 +410,9 @@ def test_png_writer_round_trips():
 
 def test_fast_decode_and_the_card_without_cuda_raise(rect_root):
     split = os.path.join(rect_root, "images", "train")
-    with pytest.raises(NotImplementedError, match="fast_decode"):
-        port_ds.YOLODataset(split, img_size=48, fast_decode=True, device="cpu")
+    with pytest.raises(ValueError, match="fast_decode"):
+        port_ds.YOLODataset(split, img_size=48, fast_decode=True, decoder="nvjpeg",
+                            device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_ds.YOLODataset(split, img_size=48)

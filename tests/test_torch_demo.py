@@ -19,6 +19,7 @@ from vision_kit_tpu.utils import metrics as jax_metrics
 from vision_kit_tpu.utils.readers import ImageReader as JaxImageReader
 from vision_kit_tpu_torch import __main__ as cli
 from vision_kit_tpu_torch.data.decode import decode_image
+from vision_kit_tpu_torch.data.encode import encode_jpeg
 from vision_kit_tpu_torch.utils import metrics
 from vision_kit_tpu_torch.utils.drawing import Drawing, class_color, text_mask
 from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, ImageReader, VideoReader
@@ -79,11 +80,18 @@ def test_image_reader_gives_decode_image_pixels(tmp_path):
     assert one.files == [os.path.join(SAMPLES, "odd_333x517.jpg")]
     _, img = next(iter(one))
     out = one.save(img, "odd_333x517.jpg")
-    assert out == str(tmp_path / "odd_333x517_res.png")
-    with open(out, "rb") as f:
-        np.testing.assert_array_equal(decode_image(f.read()), img)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VideoReader("clip.mp4")
+    assert out == str(tmp_path / "odd_333x517_res.jpg")
+    # the bytes JAX's reader writes (cv2.imwrite) for the same pixels
+    jax_out = JaxImageReader(SAMPLES, save_path=str(tmp_path / "jax")).save(
+        cv2.cvtColor(img, cv2.COLOR_RGB2BGR), "odd_333x517.jpg")
+    with open(out, "rb") as f, open(jax_out, "rb") as g:
+        assert f.read() == g.read()
+    clip = str(tmp_path / "clip.mp4")
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (64, 48))
+    writer.write(np.zeros((48, 64, 3), np.uint8))
+    writer.release()
+    with pytest.raises(ValueError, match="MP4"):
+        VideoReader(clip, device="cpu")
 
 
 def test_drawing_boxes_and_labels():
@@ -149,6 +157,7 @@ def test_demo_cli_on_the_samples_matches_jax(demo_setup, monkeypatch, capsys):
     assert written == sorted(os.path.basename(r[2]) for r in read)
     assert len(read) == len(files) - 2
     jpred = JaxPredictor(jm, v, img_size=SIZE, approx_topk=False)
+    drawer = Drawing([f"c{i}" for i in range(80)])
     n = 0
     for path, dets, out_path in rows:
         if dets is None:
@@ -161,9 +170,9 @@ def test_demo_cli_on_the_samples_matches_jax(demo_setup, monkeypatch, capsys):
         gain = min(SIZE / rgb.shape[0], SIZE / rgb.shape[1])
         assert same_detections(want, dets, box_tol=1e-3 / gain), (path, want, dets)
         n += len(dets)
+        # the image as drawn, in encode_jpeg's (cv2.imwrite's) bytes
         with open(out_path, "rb") as f:
-            drawn = decode_image(f.read())
-        assert drawn.shape == rgb.shape and not np.array_equal(drawn, rgb) or not len(dets)
+            assert f.read() == encode_jpeg(drawer.draw(rgb, dets))
     assert n > 20
 
 
@@ -173,10 +182,24 @@ def test_demo_single_file_output_and_video(demo_setup, capsys):
     out = str(tmp / "single" / "result.jpg")
     assert cli.main(["demo", "-p", src, "-o", out, "-c", cfg_path, "-w", weights,
                      "--device", "cpu"]) == 0
-    assert os.listdir(tmp / "single") == ["result.png"]
-    assert f"saved {tmp / 'single' / 'result.png'}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["demo", "-p", "clip.mp4", "-c", cfg_path, "--device", "cpu"])
+    assert os.listdir(tmp / "single") == ["result.jpg"]
+    assert f"saved {out}" in capsys.readouterr().out
+    with open(out, "rb") as f:
+        assert decode_image(f.read()).shape == (240, 320, 3)
+    with pytest.raises(ValueError, match="JPEG and PNG only"):
+        cli.main(["demo", "-p", src, "-o", str(tmp / "single" / "result.webp"),
+                  "-c", cfg_path, "--device", "cpu"])
+    # the video run: a Motion-JPEG AVI in, one drawn frame out per frame
+    clip = str(tmp / "clip.avi")
+    writer = cv2.VideoWriter(clip, cv2.CAP_OPENCV_MJPEG, cv2.VideoWriter_fourcc(*"MJPG"),
+                             10.0, (96, 64))
+    for i in range(3):
+        writer.write(np.full((64, 96, 3), 40 * i, np.uint8))
+    writer.release()
+    assert cli.main(["demo", "-p", clip, "-o", str(tmp / "clip_out.avi"), "-c", cfg_path,
+                     "-w", weights, "--device", "cpu"]) == 0
+    assert "over 3 frames" in capsys.readouterr().out
+    assert len(VideoReader(str(tmp / "clip_out.avi"), device="cpu")) == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["demo", "-p", src, "-o", str(tmp), "-c", cfg_path])

@@ -9,7 +9,7 @@ weight conversion.
         [--host 127.0.0.1] [--port 8000] [--batch-size 8] [--max-wait-ms 5]
         [--device cuda]
 
-    python -m vision_kit_tpu_torch demo -p IMAGE_OR_DIR [-m yolov5|yolov7] [-v s]
+    python -m vision_kit_tpu_torch demo -p IMAGE_DIR_OR_AVI [-m yolov5|yolov7] [-v s]
         [-w WEIGHTS] [-c CONFIG] [--num-classes N] [--labels a,b] [--conf 0.25]
         [--iou 0.45] [-o FILE_OR_DIR] [--device cuda]
 
@@ -37,15 +37,19 @@ counterpart: the port's weights are torch already.
 with the flags of scripts/demo.py:resolve_model_spec; weights from -w
 (predictor.load_weights; a YOLOv7 serves deploy-folded), else seeded ones.
 
-`demo` is the counterpart of scripts/demo.py in image mode: the model of
--m/-v or --config (seeded weights unless -w names a .pt, .ckpt or Flax
-.msgpack), one warmup on the first image's shape, then one Predictor call
+`demo` is the counterpart of scripts/demo.py: the model of -m/-v or
+--config (seeded weights unless -w names a .pt, .ckpt or Flax .msgpack).
+On images, one warmup on the first image's shape, then one Predictor call
 per image of -p (a file, or a directory walked recursively), printing
 `<path>: <n> detections in <ms> ms` and writing each image with its
-detections drawn (utils/drawing.py:Drawing) as a PNG: into -o when it is a
-directory, as -o when -p is one image and -o a file name, else beside the
-input (utils/readers.py:ImageReader). A video or webcam path raises
-(utils/readers.py:VideoReader).
+detections drawn (utils/drawing.py:Drawing) as a JPEG: into -o when it is a
+directory (utils/readers.py:ImageReader), as -o when -p is one image and -o
+a file name (a JPEG, or a PNG for .png), else beside the input. Any other
+path is a video: a Motion-JPEG AVI (utils/readers.py:VideoReader), one
+Predictor call per frame on the frame as decoded on the device, printing
+`frame <n>: <ms> ms (<fps> fps avg)` every 30 frames and the average at the
+end, and with -o (an .avi) writing the drawn frames as Motion-JPEG. A webcam
+index, another video codec or container, and a .webp or .bmp output raise.
 
 `train` and `eval` are the counterparts of scripts/main.py's tasks: the
 seed is --seed, else the config's data.seed, else 21; --deterministic
@@ -72,6 +76,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -131,13 +136,20 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
     image), printed and written with its detections drawn. Returns
     [(image path, detections (n, 6) or None when it could not be read,
     written path or None)]."""
+    from vision_kit_tpu_torch.data.decode import encode_png
+    from vision_kit_tpu_torch.data.encode import encode_jpeg
     from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, ImageReader
 
     # -o: an exact file name for a single image, a directory otherwise
     single_file_out = (output if output and not os.path.isdir(path)
                        and output.lower().endswith(IMAGE_EXT) else None)
-    if single_file_out and not single_file_out.lower().endswith(".png"):
-        single_file_out = os.path.splitext(single_file_out)[0] + ".png"
+    encoder = None
+    if single_file_out:
+        ext = os.path.splitext(single_file_out)[1].lower()
+        encoder = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png}.get(ext)
+        if encoder is None:
+            raise ValueError(f"{single_file_out}: the port writes JPEG and PNG only, "
+                             f"not {ext}")
     reader = ImageReader(path, save_path=(None if single_file_out else output) or (
         path if os.path.isdir(path) else os.path.dirname(path) or "."))
     out, warm = [], False
@@ -153,13 +165,11 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
         print(f"{file}: {len(dets)} detections in {ms:.2f} ms", flush=True)
         drawn = drawer.draw(rgb, dets)
         if single_file_out:
-            from vision_kit_tpu_torch.data.decode import encode_png
-
             parent = os.path.dirname(single_file_out)
             if parent:
                 os.makedirs(parent, exist_ok=True)
             with open(single_file_out, "wb") as f:
-                f.write(encode_png(drawn))
+                f.write(encoder(drawn))
             written = single_file_out
         else:
             written = reader.save(drawn, file)
@@ -168,14 +178,66 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
     return out
 
 
+def demo_video(predictor, drawer, path: str, output: str | None = None,
+               show: bool = False) -> dict:
+    """scripts/demo.py's video mode on a Motion-JPEG AVI: one predictor
+    call per frame (the frame as decoded on the predictor's device), its
+    detections drawn on the host, and with `output` (an .avi) the drawn
+    frame appended as Motion-JPEG. Prints `frame <n>: <ms> ms (<fps> fps
+    avg)` every 30 frames and `avg <ms> ms/frame over <n> frames` at the
+    end. `show` is accepted for scripts/demo.py's flag; the port opens no
+    window. Returns {"detections": [(n, 6) per frame], "fps": the input's,
+    "ms": {"read", "predict", "draw", "encode": per-frame host-clock ms},
+    "wall_s"}: "read" is the wait for the next decoded frame, "predict"
+    the predictor's own time."""
+    from vision_kit_tpu_torch.utils.readers import VideoReader
+
+    reader = VideoReader(path, save_path=output, device=predictor.device)
+    stages = {"read": [], "predict": [], "draw": [], "encode": []}
+    dets_by_frame, total_ms = [], 0.0
+    t_start = time.perf_counter()
+    frames = iter(reader)
+    try:
+        while True:
+            t0 = time.perf_counter()
+            ok, rgb = next(frames)
+            t1 = time.perf_counter()
+            if not ok:
+                break
+            dets, ms = predictor(rgb)
+            t2 = time.perf_counter()
+            drawn = drawer.draw(rgb.cpu().numpy(), dets)
+            t3 = time.perf_counter()
+            if output:
+                reader.save(drawn)
+            t4 = time.perf_counter()
+            for name, a, b in (("read", t0, t1), ("draw", t2, t3), ("encode", t3, t4)):
+                stages[name].append((b - a) * 1000)
+            stages["predict"].append(ms)
+            dets_by_frame.append(dets)
+            total_ms += ms
+            n = len(dets_by_frame)
+            if n % 30 == 0:
+                print(f"frame {n}: {ms:.1f} ms ({1000 * n / total_ms:.1f} fps avg)",
+                      flush=True)
+    finally:
+        reader.stop()
+    n = len(dets_by_frame)
+    if n:
+        print(f"avg {total_ms / n:.2f} ms/frame over {n} frames", flush=True)
+    return {"detections": dets_by_frame, "fps": reader.fps, "ms": stages,
+            "wall_s": time.perf_counter() - t_start}
+
+
 def _demo(args) -> int:
     from vision_kit_tpu_torch.utils.drawing import Drawing
-    from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, VideoReader
+    from vision_kit_tpu_torch.utils.readers import IMAGE_EXT
 
-    if not (os.path.isdir(args.path) or args.path.lower().endswith(IMAGE_EXT)):
-        VideoReader(args.path)   # raises: video input is not ported
     predictor, labels, *_ = _spec_predictor(args)
-    demo_images(predictor, Drawing(labels), args.path, args.output)
+    if os.path.isdir(args.path) or args.path.lower().endswith(IMAGE_EXT):
+        demo_images(predictor, Drawing(labels), args.path, args.output)
+    else:
+        demo_video(predictor, Drawing(labels), args.path, args.output, args.show)
     return 0
 
 
@@ -357,7 +419,7 @@ def main(argv=None) -> int:
                       help="fold a YOLOv7 head's implicit layers into its convs")
     demo = sub.add_parser("demo", help="detections drawn on images")
     demo.add_argument("--path", "-p", required=True,
-                      help="an image, or a directory of images (video is not ported)")
+                      help="an image, a directory of images, or a Motion-JPEG AVI")
     demo.add_argument("--model", "-m", default="yolov5", choices=["yolov5", "yolov7"])
     demo.add_argument("--variant", "-v", default="s")
     demo.add_argument("--weights", "-w", default=None)
@@ -370,10 +432,11 @@ def main(argv=None) -> int:
     demo.add_argument("--iou", type=float, default=0.45)
     demo.add_argument("--output", "-o", default=None,
                       help="output directory, or a file name for a single image "
-                           "(written as PNG); default beside the input")
+                           "(.jpg or .png), or an .avi for a video; default beside "
+                           "the input (images) or none (video)")
     demo.add_argument("--show", action="store_true",
-                      help="accepted for scripts/demo.py's flags; image mode shows "
-                           "nothing")
+                      help="accepted for scripts/demo.py's flags; the port opens no "
+                           "window")
     demo.add_argument("--device", default="cuda")
     srv = sub.add_parser("serve", help="batched HTTP inference server")
     srv.add_argument("--model", "-m", default="yolov5", choices=["yolov5", "yolov7"])

@@ -24,6 +24,16 @@ S / w0) on the device. The `decoder` option picks the decoder:
     "plain" in spawned workers; the dataset logs which decoder each route
     takes.
 
+`fast_decode=True` (cfg.data.fast_decode) is the counterpart of the JAX
+package's reduced-scale decode (_fast_decode_resized): a JPEG without EXIF
+whose load-time ratio is below 1/2 decodes at 1/8, 1/4 or 1/2 scale in the
+DCT (decode.decode_jpeg_reduced, cv2.imread(IMREAD_REDUCED_COLOR_f) bit for
+bit), then resize_u8 takes it the rest of the way; other images take the
+full decode. nvJPEG does not scale in the DCT, so with the option every
+image decodes with the plain decoder on the host, on the card too:
+"auto" resolves to "plain" and "nvjpeg" raises. Items then equal the JAX
+dataset's with fast_decode on either device.
+
 The integrity scan reads headers only (decode.jpeg_header / png_header):
 the size after EXIF orientation, the < 10 px gate, and a drop, with its
 reason logged, of every file the port cannot decode: progressive,
@@ -32,8 +42,9 @@ JPEG without its EOI marker. The JAX package instead re-encodes a truncated
 JPEG in place with PIL; the port has no encoder and never rewrites a file.
 
 Caches live under the port's own names (.vkt_labels_*, .vkt_imgcache_*),
-and the disk cache's key holds the decoder in use ("plain" or "nvjpeg"), so a JAX
-run and a port run, or a CPU run and a card run, never read each other's.
+and the disk cache's key holds the decoder in use ("plain" or "nvjpeg") and
+"|fast" with fast_decode, so a JAX run and a port run, a CPU run and a card
+run, or a fast and a full decode never read each other's.
 `cache_images: ram` keeps each resized image where it was decoded (device
 memory on the card); `disk` is a host memmap either way.
 """
@@ -108,6 +119,36 @@ def image_refusal(path: str) -> str | None:
     return None
 
 
+def _fast_decode_resized(data: bytes, max_hw, device: str | torch.device = "cpu"):
+    """Reduced-scale JPEG decode and min-ratio resize (the _decode_resized
+    geometry): the counterpart of the JAX package's _fast_decode_resized.
+    None when the fast path does not apply: EXIF (orientation), a header
+    decode.probe_jpeg cannot read, a ratio r >= 1, no scale f in 8, 4, 2
+    with ceil(h0 / f) >= int(h0 * r) and ceil(w0 / f) >= int(w0 * r), or a
+    decode that refuses the bytes or disagrees with the probe's shape. Else
+    (resized (h, w, 3) uint8 tensor on `device`, (h0, w0)): decoded at 1/f
+    on the host, uploaded, and resize_u8 unless already at its size."""
+    probe = decode.probe_jpeg(data)
+    if probe is None or probe[2]:
+        return None
+    h0, w0, _ = probe
+    r = min(max_hw[0] / h0, max_hw[1] / w0)
+    if r >= 1.0:
+        return None
+    new_w, new_h = int(w0 * r), int(h0 * r)
+    f = next((f for f in (8, 4, 2)
+              if -(-h0 // f) >= new_h and -(-w0 // f) >= new_w), 1)
+    if f < 2:
+        return None
+    rgb = decode.decode_jpeg_reduced(data, f)
+    if rgb is None or rgb.shape[:2] != (-(-h0 // f), -(-w0 // f)):
+        return None
+    img = torch.from_numpy(rgb).to(device)
+    if img.shape[:2] != (new_h, new_w):
+        img = resize_u8(img, (new_w, new_h))
+    return img, (h0, w0)
+
+
 class _ImageCacheMixin:
     """RAM/disk cache of the load-time-resized images (counterpart of the
     JAX package's _ImageCacheMixin).
@@ -116,31 +157,35 @@ class _ImageCacheMixin:
     after the load-time min-ratio resize. "ram" keeps each as the tensor it
     was decoded to, on the dataset's device. "disk" is one host memmap of
     shape (n, max_h, max_w, 3) plus an int32 (n, 4) meta array [h, w, h0,
-    w0], keyed by the file list, the input size and the decoder, reused
-    across runs and across spawned loader workers (the memmap handle is
-    dropped on pickling and reopened lazily in the worker).
+    w0], keyed by the file list, the input size, the decoder and
+    fast_decode, reused across runs and across spawned loader workers (the
+    memmap handle is dropped on pickling and reopened lazily in the
+    worker).
 
     The disk build is RESTARTABLE (meta rows are published atomically per
     chunk, after their pixels are flushed; a killed build resumes at the
     first unbuilt row) and SHARED across splits: a complete cache of
-    another dataset whose entry list is a superset of ours (same size and
-    decoder) is adopted read-only through a row map."""
+    another dataset whose entry list is a superset of ours (same size,
+    decoder and fast_decode) is adopted read-only through a row map."""
 
     cache_build_chunk = 64
 
     def _init_device(self, device, fast_decode: bool, decoder: str = "auto") -> None:
-        if fast_decode:
-            raise NotImplementedError(
-                "data.fast_decode (libjpeg's reduced-scale DCT decode) is not "
-                "ported: neither the plain decoder nor nvJPEG scales in the DCT "
-                "(ROADMAP.md, Queue 1 item 3)")
         if decoder not in DECODERS:
             raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
+        if decoder == "nvjpeg" and fast_decode:
+            raise ValueError("decoder 'nvjpeg' with fast_decode: nvJPEG has no DCT "
+                             "scaling; fast_decode decodes with the plain decoder")
         self.device = resolve_device(device)
         if decoder == "nvjpeg" and self.device.type != "cuda":
             raise ValueError(f"decoder 'nvjpeg' needs a CUDA device, not {self.device}")
-        self.decode_with = decoder
-        if decoder == "auto" and self.device.type == "cuda":
+        self.fast_decode = bool(fast_decode)
+        self.decode_with = "plain" if fast_decode else decoder
+        if fast_decode and decoder == "auto" and self.device.type == "cuda":
+            logger.info("decoder auto with fast_decode: plain, every image decoded "
+                        "on the host (reduced in the DCT where the ratio allows) and "
+                        "uploaded to %s", self.device)
+        elif decoder == "auto" and self.device.type == "cuda":
             logger.info("decoder auto: JPEGs through nvJPEG on %s in this process; "
                         "spawned loader workers decode with the plain decoder "
                         "(decoder 'plain' makes both the plain one)", self.device)
@@ -174,8 +219,9 @@ class _ImageCacheMixin:
             logger.info("cached %d images in RAM on %s", len(self), self.device)
             return
         assert len(entries) == len(self)
+        fast = "|fast" if self.fast_decode else ""
         tag = hashlib.md5(
-            f"{cache_key}|{maxh}x{maxw}|{self.decoder}".encode()).hexdigest()[:12]
+            f"{cache_key}|{maxh}x{maxw}|{self.decoder}{fast}".encode()).hexdigest()[:12]
         self._mm_path = os.path.join(base_dir, f".vkt_imgcache_{tag}.dat")
         self._mm_shape = (len(self), maxh, maxw, 3)
         meta_path = self._mm_path + ".meta.npy"
@@ -236,7 +282,7 @@ class _ImageCacheMixin:
 
         with open(self._mm_path + ".entries.json", "w") as f:
             json.dump({"entries": entries, "maxh": maxh, "maxw": maxw,
-                       "decoder": self.decoder}, f)
+                       "decoder": self.decoder, "fast": self.fast_decode}, f)
 
         todo = np.flatnonzero(meta[:, 0] == 0)
         t0, done0 = time.monotonic(), len(self) - len(todo)
@@ -266,9 +312,9 @@ class _ImageCacheMixin:
         logger.info("built disk image cache %s", self._mm_path)
 
     def _find_superset_cache(self, base_dir, entries, maxh, maxw):
-        """Adopt a COMPLETE existing cache (same size and decoder) whose
-        entry list contains every one of ours: map our indices into its
-        rows. Returns the adopted path or None."""
+        """Adopt a COMPLETE existing cache (same size, decoder and
+        fast_decode) whose entry list contains every one of ours: map our
+        indices into its rows. Returns the adopted path or None."""
         for sc_path in sorted(glob(os.path.join(base_dir, ".vkt_imgcache_*.entries.json"))):
             dat = sc_path[: -len(".entries.json")]
             if dat == self._mm_path:
@@ -276,7 +322,8 @@ class _ImageCacheMixin:
             try:
                 with open(sc_path) as f:
                     sc = json.load(f)
-                if (sc["maxh"], sc["maxw"], sc["decoder"]) != (maxh, maxw, self.decoder):
+                if ((sc["maxh"], sc["maxw"], sc["decoder"], sc.get("fast", False))
+                        != (maxh, maxw, self.decoder, self.fast_decode)):
                     continue
                 pos = {e: i for i, e in enumerate(sc["entries"])}
                 rows = [pos.get(e, -1) for e in entries]
@@ -322,9 +369,15 @@ class _ImageCacheMixin:
     def _decode_resized(self, idx: int):
         """Decode and min-ratio resize of one image on the device: r =
         min(max / src), C-style truncation of w*r and h*r, cv2's
-        INTER_LINEAR (the JAX package's _decode_resized_py). The decoders
-        return fresh memory, so an image already at its size is returned as
-        decoded."""
+        INTER_LINEAR (the JAX package's _decode_resized_py). With
+        fast_decode, _fast_decode_resized first; the full decode where it
+        does not apply. The decoders return fresh memory, so an image
+        already at its size is returned as decoded."""
+        if self.fast_decode:
+            with open(self._image_path(idx), "rb") as f:
+                out = _fast_decode_resized(f.read(), self.input_dim, self.device)
+            if out is not None:
+                return out
         img = self.load_image(idx)
         h0, w0 = img.shape[:2]
         r = min(self.input_dim[0] / h0, self.input_dim[1] / w0)

@@ -24,6 +24,13 @@ port decodes on its own:
   0/2/3/4/6, bit depths 1/2/4/8/16 (16 keeps the high byte, as cv2 does),
   Adam7 interlacing, alpha dropped. The EXIF orientation (a JPEG's APP1, a
   PNG's eXIf) is applied as cv2 applies it.
+- `decode_jpeg_reduced(data, scale)`: the same JPEG decode at 1/2, 1/4 or
+  1/8 scale, cv2.imread(IMREAD_REDUCED_COLOR_<scale>) bit for bit:
+  libjpeg-turbo's DCT scaling (jdmaster.c's per-component IDCT sizes,
+  jidctred.c's 4x4, 2x2 and 1x1 IDCTs, upsampling at the reduced sizes,
+  plain replication at 1/8). `probe_jpeg(data)` reads a JPEG's size and
+  whether it holds EXIF from its header, as the JAX package's
+  data.fast_decode gate does.
 - `decode_jpeg_cuda(data, device)`: nvJPEG (csrc/jpeg_decode.cu) into a
   device tensor, refusing what the plain decoder refuses, with the same
   orientation transform (`apply_orientation`, torch flips and transposes).
@@ -456,16 +463,93 @@ def _idct_plane(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
     return px.reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
 
 
-def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
+# jidctred.c's constants, round(x * 2**13), for the reduced-size IDCTs
+FIX_0_211164243, FIX_0_509795579, FIX_0_601344887 = 1730, 4176, 4926
+FIX_0_720959822, FIX_0_850430095, FIX_1_061594337 = 5906, 6967, 8697
+FIX_1_272758580, FIX_1_451774981, FIX_2_172734803 = 10426, 11893, 17799
+FIX_3_624509785 = 29692
+
+
+def _descale(x, shift):
+    return (x + (1 << (shift - 1))) >> shift
+
+
+def _idct4_pass(c, shift):
+    """One 1-D pass of jidctred.c's jpeg_idct_4x4 over c[0..7] (c[4] is not
+    read): the 4 outputs, descaled by `shift` (CONST_BITS - PASS1_BITS + 1
+    = 12 after the columns, CONST_BITS + PASS1_BITS + 3 + 1 = 19 after the
+    rows). Its zero-AC shortcuts give the same values."""
+    tmp0 = c[0] << 14
+    tmp2 = c[2] * FIX_1_847759065 - c[6] * FIX_0_765366865
+    tmp10, tmp12 = tmp0 + tmp2, tmp0 - tmp2
+    z1, z2, z3, z4 = c[7], c[5], c[3], c[1]
+    tmp0 = (z1 * -FIX_0_211164243 + z2 * FIX_1_451774981
+            + z3 * -FIX_2_172734803 + z4 * FIX_1_061594337)
+    tmp2 = (z1 * -FIX_0_509795579 + z2 * -FIX_0_601344887
+            + z3 * FIX_0_899976223 + z4 * FIX_2_562915447)
+    return [_descale(x, shift) for x in (tmp10 + tmp2, tmp12 + tmp0,
+                                         tmp12 - tmp0, tmp10 - tmp2)]
+
+
+def _idct2_pass(c, shift):
+    """One 1-D pass of jpeg_idct_2x2 over c[0..7] (c[2], c[4], c[6] are not
+    read): the 2 outputs, descaled by `shift` (13 after the columns, 20
+    after the rows)."""
+    tmp10 = c[0] << 15
+    tmp0 = (c[7] * -FIX_0_720959822 + c[5] * FIX_0_850430095
+            + c[3] * -FIX_1_272758580 + c[1] * FIX_3_624509785)
+    return [_descale(tmp10 + tmp0, shift), _descale(tmp10 - tmp0, shift)]
+
+
+def _idct_scaled(coef: np.ndarray, qt: np.ndarray, size: int) -> np.ndarray:
+    """(rows, cols, 64) quantised blocks in natural order -> (size * rows,
+    size * cols) uint8 plane: libjpeg's IDCT that gives size x size samples
+    a block (jidctint.c's islow at 8, jidctred.c's 4x4, 2x2 and 1x1 below),
+    with the range limit of the full decode."""
+    if size == 8:
+        return _idct_plane(coef, qt)
+    rows, cols = coef.shape[:2]
+    b = coef.reshape(-1, 8, 8).astype(np.int64) * qt.reshape(8, 8).astype(np.int64)
+    if size == 1:
+        out = _descale(b[:, :1, :1], 3)
+    else:
+        one_pass, shifts = {4: (_idct4_pass, (12, 19)), 2: (_idct2_pass, (13, 20))}[size]
+        ws = np.stack(one_pass([b[:, k, :] for k in range(8)], shifts[0]), axis=1)
+        out = np.stack(one_pass([ws[:, :, k] for k in range(8)], shifts[1]), axis=2)
+    px = _RANGE[out & 0x3FF]
+    return px.reshape(rows, cols, size, size).transpose(0, 2, 1, 3).reshape(
+        rows * size, cols * size)
+
+
+def scaled_sizes(comps: list, scale: int) -> list:
+    """Each component's IDCT size (samples a block side) when libjpeg
+    decodes at 1/`scale` (jdmaster.c): 8 // scale, doubled while the
+    component's sampling leaves room for it, so that chroma is scaled up in
+    the IDCT rather than by upsampling. `comps` holds (h, v) pairs."""
+    low = 8 // scale
+    max_h = max(h for h, _ in comps)
+    max_v = max(v for _, v in comps)
+    sizes = []
+    for h, v in comps:
+        size = low
+        while (size < 8 and (max_h * low) % (h * size * 2) == 0
+               and (max_v * low) % (v * size * 2) == 0):
+            size *= 2
+        sizes.append(size)
+    return sizes
+
+
+def _upsample(plane: np.ndarray, fh: int, fv: int, fancy: bool = True) -> np.ndarray:
     """libjpeg's upsampling of a (dh, dw) plane by (fh, fv): fancy triangle
     filters with edge replication for h2v1, h2v2 and h1v2, box replication
-    for other integer factors and for h2v1/h2v2 when the plane is at most 2
-    wide."""
+    for other integer factors, for h2v1/h2v2 when the plane is at most 2
+    wide, and for every factor when `fancy` is off (jdsample.c turns it off
+    at 1/8 scale, where each block is one sample)."""
     if fh == 1 and fv == 1:
         return plane
     s = plane.astype(np.int32)
     dw = s.shape[1]
-    if fh > 2 or fv > 2 or (fh == 2 and dw <= 2):
+    if not fancy or fh > 2 or fv > 2 or (fh == 2 and dw <= 2):
         return np.repeat(np.repeat(plane, fh, axis=1), fv, axis=0)
     up = np.concatenate([s[:1], s[:-1]], 0)
     down = np.concatenate([s[1:], s[-1:]], 0)
@@ -516,8 +600,12 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def _decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
-    """(H, W, 3) RGB in stored order, and the EXIF orientation."""
+def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
+    """(ceil(H / scale), ceil(W / scale), 3) RGB in stored order, and the
+    EXIF orientation. `scale` 2, 4 or 8 decodes as libjpeg does with
+    scale_num 1, scale_denom `scale`: every coefficient is entropy-decoded,
+    each component runs the IDCT of its scaled size (scaled_sizes), and
+    upsampling and colour conversion run at the reduced sizes."""
     info = jpeg_header(data)
     why = jpeg_refusal(info)
     if why:
@@ -584,16 +672,20 @@ def _decode_jpeg(data: bytes) -> tuple[np.ndarray, int]:
                 comps[ci].setdefault("qt", qtables[comps[ci]["tq"]])
                 scan_comps.append((ci, td, ta))
             _scan(data, b, end, frame, scan_comps, tables, restart, coefs)
+    low = 8 // scale
+    out_h, out_w = _ceil_div(height, scale), _ceil_div(width, scale)
     planes = []
-    for c, off in zip(comps, offsets):
+    for c, off, size in zip(comps, offsets,
+                            scaled_sizes([(c["h"], c["v"]) for c in comps], scale)):
         blocks = coefs[off:off + c["bcols"] * c["brows"] * 64]
         if "qt" not in c:
             raise JpegError(f"component {c['id']} is in no scan")
-        plane = _idct_plane(blocks.reshape(c["brows"], c["bcols"], 64), c["qt"])
-        dh = _ceil_div(height * c["v"], max_v)
-        dw = _ceil_div(width * c["h"], max_h)
-        plane = _upsample(plane[:dh, :dw], max_h // c["h"], max_v // c["v"])
-        planes.append(plane[:height, :width])
+        plane = _idct_scaled(blocks.reshape(c["brows"], c["bcols"], 64), c["qt"], size)
+        dh = _ceil_div(height * c["v"] * size, max_v * 8)
+        dw = _ceil_div(width * c["h"] * size, max_h * 8)
+        plane = _upsample(plane[:dh, :dw], max_h * low // (c["h"] * size),
+                          max_v * low // (c["v"] * size), fancy=low > 1)
+        planes.append(plane[:out_h, :out_w])
     if len(planes) == 1:
         rgb = np.repeat(planes[0][:, :, None], 3, axis=2)
     else:
@@ -722,8 +814,8 @@ def png_header(data: bytes) -> dict:
 
 def encode_png(rgb: np.ndarray) -> bytes:
     """(H, W, 3) uint8 RGB -> PNG bytes (colour type 2, depth 8, filter
-    None, zlib level 1): the port's image writer for sample grids and
-    synthetic datasets, where no JPEG encoder is at hand."""
+    None, zlib level 1): the port's lossless image writer, for sample
+    grids, synthetic datasets and the demo's .png outputs."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
     h, w = rgb.shape[:2]
 
@@ -817,6 +909,75 @@ def decode_image(data: bytes) -> np.ndarray | None:
     if orientation == 1:
         return rgb
     return apply_orientation(torch.from_numpy(rgb), orientation).numpy()
+
+
+def decode_jpeg_reduced(data: bytes, scale: int) -> np.ndarray | None:
+    """JPEG bytes -> (ceil(H / scale), ceil(W / scale), 3) uint8 RGB with
+    the EXIF orientation applied, or None for bytes that are no JPEG or a
+    JPEG that decode_image refuses: cv2.imdecode(IMREAD_REDUCED_COLOR_<scale>)
+    + BGR2RGB bit for bit, scale 2, 4 or 8 (libjpeg's DCT scaling)."""
+    if scale not in (2, 4, 8):
+        raise ValueError(f"scale must be 2, 4 or 8, got {scale}")
+    if image_kind(data) != "jpeg":
+        return None
+    try:
+        rgb, orientation = _decode_jpeg(data, scale)
+    except (ValueError, IndexError, struct.error):
+        return None
+    if orientation == 1:
+        return rgb
+    return apply_orientation(torch.from_numpy(rgb), orientation).numpy()
+
+
+PROBE_BYTES = 256 * 1024
+
+
+def probe_jpeg(data: bytes) -> tuple[int, int, bool] | None:
+    """(h0, w0, has_exif) of a JPEG from its first 256 KiB, without
+    decoding, or None when they do not parse as a JPEG with a frame header:
+    the port's copy of the JAX package's datasets._probe_jpeg (and of
+    native/vkio.cpp's ProbeJpeg), which gate data.fast_decode. Fill bytes
+    are skipped, standalone markers carry no length, an SOS or EOI before
+    any SOF gives None, and an Exif APP1 anywhere before the SOF sets
+    has_exif."""
+    buf = data[:PROBE_BYTES]
+    n = len(buf)
+    if n < 4 or buf[0] != 0xFF or buf[1] != 0xD8:
+        return None
+    has_exif = False
+    pos = 2
+    while pos + 4 <= n:
+        if buf[pos] != 0xFF:
+            return None
+        m = pos + 1
+        while m < n and buf[m] == 0xFF:
+            m += 1
+        if m >= n:
+            return None
+        marker = buf[m]
+        pos = m + 1
+        if marker == 0xD8 or marker == 0x01 or RST0 <= marker <= RST0 + 7:
+            continue
+        if marker in (EOI, SOS):
+            return None
+        if pos + 2 > n:
+            return None
+        length = (buf[pos] << 8) | buf[pos + 1]
+        if length < 2 or pos + length > n:
+            return None
+        payload = buf[pos + 2:pos + length]
+        if marker == 0xE1 and payload[:6] == b"Exif\0\0":
+            has_exif = True
+        if marker in SOF_ALL:
+            if len(payload) < 5:
+                return None
+            h0 = (payload[1] << 8) | payload[2]
+            w0 = (payload[3] << 8) | payload[4]
+            if h0 <= 0 or w0 <= 0:
+                return None
+            return h0, w0, has_exif
+        pos += length
+    return None
 
 
 # -- nvJPEG on the card ----------------------------------------------------

@@ -162,21 +162,26 @@ class Predictor:
         dets, _ = self.run(dummy)
         dets.cpu()
 
-    def __call__(self, img_rgb: np.ndarray):
-        """img_rgb: HWC uint8. Returns (dets (n, 6) np [xyxy conf cls],
-        elapsed_ms)."""
-        dets, ms = self.predict_batch(np.asarray(img_rgb)[None])
+    def __call__(self, img_rgb):
+        """img_rgb: HWC uint8, numpy or a tensor (a decoded video frame on
+        the device is used where it lies). Returns (dets (n, 6) np [xyxy
+        conf cls], elapsed_ms)."""
+        batch = img_rgb[None] if isinstance(img_rgb, torch.Tensor) else np.asarray(img_rgb)[None]
+        dets, ms = self.predict_batch(batch)
         return dets[0], ms
 
-    def predict_batch(self, imgs_rgb: np.ndarray):
-        """imgs_rgb: (B, H, W, 3) uint8, one source resolution. Returns
-        (list of (n_i, 6) arrays, elapsed_ms). Under a mesh every rank
-        passes the same frames and gets the whole batch's detections; only
-        its own rows are uploaded."""
-        imgs_rgb = np.asarray(imgs_rgb)
+    def predict_batch(self, imgs_rgb):
+        """imgs_rgb: (B, H, W, 3) uint8, one source resolution, numpy or a
+        tensor. Returns (list of (n_i, 6) arrays, elapsed_ms). Under a mesh
+        every rank passes the same frames and gets the whole batch's
+        detections; only its own rows are uploaded."""
         rows = self._local_rows(len(imgs_rgb))
-        local = imgs_rgb if rows is None else imgs_rgb[rows.numpy()]
-        imgs = torch.from_numpy(np.ascontiguousarray(local))
+        if isinstance(imgs_rgb, torch.Tensor):
+            imgs = imgs_rgb if rows is None else imgs_rgb[rows.to(imgs_rgb.device)]
+        else:
+            imgs_rgb = np.asarray(imgs_rgb)
+            local = imgs_rgb if rows is None else imgs_rgb[rows.numpy()]
+            imgs = torch.from_numpy(np.ascontiguousarray(local))
         t0 = time.perf_counter()
         dets, valid = self._run(imgs.to(self.device))
         if rows is not None:

@@ -1,0 +1,256 @@
+"""Motion-JPEG in RIFF AVI: the demultiplexer and multiplexer of the demo's
+video mode.
+
+The JAX package reads and writes video with cv2.VideoCapture and
+cv2.VideoWriter; the card's machine has neither, nor any video codec. Every
+frame of a Motion-JPEG AVI is a whole baseline JPEG, which the port decodes
+(data/decode.py, nvJPEG on the card) and encodes (data/encode.py), so only
+the container is needed here, and RIFF is plain:
+
+- `read_avi(path)`: the header (avih, the video stream's strh and strf
+  BITMAPINFOHEADER: width, height, dwRate / dwScale as the frame rate) and
+  the file offset and size of each frame, walking `movi` (and the `movi` of
+  OpenDML's AVIX continuation RIFFs, which FFMPEG writes past 1 GiB) in
+  order: the `##dc` / `##db` chunks of the video stream, inside `LIST rec`
+  groups too; JUNK, other streams and OpenDML `ix##` index chunks are
+  skipped, and a zero-length chunk (a dropped frame) repeats the frame
+  before it, as cv2's CAP_OPENCV_MJPEG reader gives it. idx1, where
+  present, only cross-checks the walk. A file that is no RIFF AVI,
+  holds no video stream, or whose video is not Motion-JPEG (MJPG, mjpg or
+  jpeg) raises ValueError naming what it found.
+- `AviWriter(path, fps)`: RIFF `AVI ` with `hdrl` (avih, strl: strh vids
+  MJPG and a BITMAPINFOHEADER), `movi` of `00dc` chunks padded to even
+  sizes, and an `idx1` (offsets from the `movi` fourcc, as cv2 writes
+  them), the sizes and counts patched in on close. Both of cv2's readers
+  (CAP_OPENCV_MJPEG, CAP_FFMPEG) read it. It writes no OpenDML index, so a
+  file stops at the 4 GiB that a RIFF size holds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import fractions
+import os
+import struct
+
+from vision_kit_tpu_torch.utils.logging_utils import logger
+
+MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"jpeg")
+AVIF_HASINDEX, AVIF_ISINTERLEAVED, AVIF_TRUSTCKTYPE = 0x10, 0x100, 0x800
+AVIIF_KEYFRAME = 0x10
+RIFF_MAX = (1 << 32) - 1
+
+
+@dataclasses.dataclass
+class AviMovie:
+    """A Motion-JPEG AVI's video stream: `frames` holds each frame's
+    (file offset, size) in presentation order."""
+
+    path: str
+    width: int
+    height: int
+    rate: int
+    scale: int
+    frames: list
+
+    @property
+    def fps(self) -> float:
+        """dwRate / dwScale of the stream header; 0 when either is 0."""
+        return self.rate / self.scale if self.rate and self.scale else 0.0
+
+    def read_frame(self, f, i: int) -> bytes:
+        """Frame i's JPEG bytes from the open file `f`."""
+        offset, size = self.frames[i]
+        f.seek(offset)
+        return f.read(size)
+
+
+def _fourcc_text(cc: bytes) -> str:
+    return repr(cc.decode("latin-1"))
+
+
+def _chunks(f, start: int, end: int):
+    """(fourcc, body offset, size, list type or None) of each chunk in
+    [start, end); a RIFF or LIST chunk's body starts after its type."""
+    pos = start
+    while pos + 8 <= end:
+        f.seek(pos)
+        head = f.read(12)
+        if len(head) < 8:
+            return
+        cid, size = head[:4], struct.unpack("<I", head[4:8])[0]
+        if cid in (b"RIFF", b"LIST") and len(head) == 12:
+            yield cid, pos + 12, size - 4, head[8:12]
+        else:
+            yield cid, pos + 8, size, None
+        pos += 8 + size + (size & 1)
+
+
+def read_avi(path: str) -> AviMovie:
+    """The video stream of the Motion-JPEG AVI at `path` (see the module
+    docstring); ValueError for anything else."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"AVI ":
+            kind = ("an MP4/QuickTime file" if head[4:8] == b"ftyp" else
+                    "a Matroska/WebM file" if head[:4] == b"\x1a\x45\xdf\xa3" else
+                    f"a file starting {head[:12]!r}")
+            raise ValueError(f"{path}: not a RIFF AVI but {kind}; the port reads "
+                             "Motion-JPEG AVI only")
+        header = None
+        frames, sizes, idx1_sizes = [], [], None
+        for cid, body, length, ltype in _chunks(f, 0, size):
+            if cid != b"RIFF" or ltype not in (b"AVI ", b"AVIX"):
+                continue
+            for sub, sbody, slen, stype in _chunks(f, body, body + length):
+                if sub == b"LIST" and stype == b"hdrl" and header is None:
+                    header = _parse_hdrl(f, sbody, slen, path)
+                elif sub == b"LIST" and stype == b"movi":
+                    if header is None:
+                        raise ValueError(f"{path}: movi before hdrl")
+                    _walk_movi(f, sbody, slen, header["ids"], frames, sizes)
+                elif sub == b"idx1" and ltype == b"AVI ":
+                    f.seek(sbody)
+                    idx1_sizes = _idx1_sizes(f.read(slen), header["ids"] if header else ())
+        if header is None:
+            raise ValueError(f"{path}: RIFF AVI without an hdrl header")
+    if idx1_sizes is not None:
+        if idx1_sizes != sizes[:len(idx1_sizes)]:
+            logger.warning("%s: idx1 lists %d video chunks that differ from the %d "
+                           "in movi; reading movi's", path, len(idx1_sizes), len(sizes))
+    return AviMovie(path, header["width"], header["height"], header["rate"],
+                    header["scale"], frames)
+
+
+def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
+    """The first video stream's number, size, rate and scale; its fourccs
+    checked."""
+    for n, (cid, body, slen, ltype) in enumerate(
+            c for c in _chunks(f, start, start + length)
+            if c[0] == b"LIST" and c[3] == b"strl"):
+        strh = strf = None
+        for sub, sbody, sublen, _ in _chunks(f, body, body + slen):
+            f.seek(sbody)
+            if sub == b"strh":
+                strh = f.read(sublen)
+            elif sub == b"strf":
+                strf = f.read(sublen)
+        if strh is None or len(strh) < 32 or strh[:4] != b"vids":
+            continue
+        if strf is None or len(strf) < 20:
+            raise ValueError(f"{path}: video stream {n} has no BITMAPINFOHEADER")
+        handler, compression = strh[4:8], strf[16:20]
+        if compression not in MJPEG_FOURCCS or handler.strip(b"\0 ") not in (
+                b"", *MJPEG_FOURCCS):
+            raise ValueError(
+                f"{path}: video stream {n} is {_fourcc_text(compression)} (handler "
+                f"{_fourcc_text(handler)}), not Motion-JPEG: the port reads MJPG AVI "
+                "only (no MPEG-4 or H.264 decoder)")
+        scale, rate = struct.unpack("<II", strh[20:28])
+        width, height = struct.unpack("<ii", strf[4:12])
+        ids = (f"{n:02d}dc".encode(), f"{n:02d}db".encode())
+        return dict(width=width, height=abs(height), rate=rate, scale=scale, ids=ids)
+    raise ValueError(f"{path}: no video stream in the AVI header")
+
+
+def _walk_movi(f, start: int, length: int, ids, frames: list, sizes: list) -> None:
+    """Append the (offset, size) of each video chunk of a movi list
+    (descending into LIST rec groups) to `frames`, an empty chunk repeating
+    the frame before it (none before the first frame), and each chunk's
+    size to `sizes`."""
+    for cid, body, size, ltype in _chunks(f, start, start + length):
+        if cid == b"LIST" and ltype == b"rec ":
+            _walk_movi(f, body, size, ids, frames, sizes)
+        elif cid in ids:
+            sizes.append(size)
+            if size or frames:
+                frames.append((body, size) if size else frames[-1])
+
+
+def _idx1_sizes(idx: bytes, ids) -> list:
+    """The sizes of the video stream's entries of an idx1."""
+    return [size for i in range(0, len(idx) - 15, 16)
+            for cid, _, _, size in [struct.unpack("<4sIII", idx[i:i + 16])]
+            if cid in ids]
+
+
+class AviWriter:
+    """Motion-JPEG frames (JPEG bytes, all of one size) into a RIFF AVI."""
+
+    def __init__(self, path: str, fps: float):
+        if not path.lower().endswith(".avi"):
+            raise ValueError(f"{path}: the port writes Motion-JPEG AVI only; name "
+                             "the output .avi")
+        frac = fractions.Fraction(fps).limit_denominator(1001)
+        if frac <= 0:
+            raise ValueError(f"fps must be positive, got {fps}")
+        self.path, self.rate, self.scale = path, frac.numerator, frac.denominator
+        self.fps = float(fps)
+        self.size = None
+        self.index = []       # (offset from the movi fourcc, size)
+        self._f = open(path, "wb")
+        self._f.write(self._header(0, 0, 0, 0))
+        self._movi = self._f.tell() - 4            # the 'movi' fourcc
+        self._max = 0
+
+    def _header(self, width: int, height: int, n: int, largest: int) -> bytes:
+        """RIFF and hdrl for n frames, and the head of LIST movi (its size
+        patched on close)."""
+        avih = struct.pack("<IIIIIIIIII4I", round(1e6 * self.scale / self.rate), 0, 0,
+                           AVIF_HASINDEX | AVIF_ISINTERLEAVED | AVIF_TRUSTCKTYPE, n, 0,
+                           1, largest, width, height, 0, 0, 0, 0)
+        strh = (b"vidsMJPG" + struct.pack("<IHHIIIIIIIIHHHH", 0, 0, 0, 0, self.scale,
+                                          self.rate, 0, n, largest, 0xFFFFFFFF, 0,
+                                          0, 0, min(width, 0xFFFF), min(height, 0xFFFF)))
+        strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+                           width * height * 3, 0, 0, 0, 0)
+        strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
+        hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
+        return b"RIFF\0\0\0\0AVI " + hdrl + b"LIST\0\0\0\0movi"
+
+    def write(self, jpeg: bytes, width: int, height: int) -> None:
+        """Append one frame, `width` x `height` (every frame's must match
+        the first's)."""
+        if self.size is None:
+            self.size = (width, height)
+        elif self.size != (width, height):
+            raise ValueError(f"frame of {width}x{height} in a {self.size[0]}x"
+                             f"{self.size[1]} video")
+        if self._f.tell() + 8 + len(jpeg) + 1 + 16 * (len(self.index) + 1) + 8 > RIFF_MAX:
+            raise ValueError(f"{self.path}: past the 4 GiB of a RIFF without OpenDML")
+        self.index.append((self._f.tell() - self._movi, len(jpeg)))
+        self._f.write(_chunk(b"00dc", jpeg))
+        self._max = max(self._max, len(jpeg))
+
+    def close(self) -> None:
+        if self._f is None:
+            return
+        f, self._f = self._f, None
+        movi_end = f.tell()
+        f.write(_chunk(b"idx1", b"".join(struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME,
+                                                     off, size)
+                                         for off, size in self.index)))
+        end = f.tell()
+        width, height = self.size or (0, 0)
+        f.seek(0)
+        f.write(self._header(width, height, len(self.index), self._max))
+        f.seek(4)
+        f.write(struct.pack("<I", end - 8))
+        f.seek(self._movi - 4)
+        f.write(struct.pack("<I", movi_end - self._movi))
+        f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _chunk(cid: bytes, body: bytes) -> bytes:
+    return cid + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+def _list(ltype: bytes, body: bytes) -> bytes:
+    return b"LIST" + struct.pack("<I", len(body) + 4) + ltype + body

@@ -3,7 +3,7 @@ their ground-truth boxes, written as a PNG.
 
 Counterpart of vision_kit_tpu/utils/drawing.py (Drawing, grid_save,
 class_color) without OpenCV: boxes are numpy rectangles, grids are PNGs
-(data/decode.py:encode_png), as the port has no JPEG encoder. A label
+(data/decode.py:encode_png) where the JAX package writes JPEGs. A label
 ("<name> <conf>") is drawn white on a strip of the box's colour, as the
 JAX Drawing draws it, but in a built-in 5x7 bitmap font (capitals, digits
 and a few signs; lower case drawn as capitals) where the JAX one uses
