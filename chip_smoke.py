@@ -70,8 +70,9 @@ Phases, each printing its own line; any failure exits non-zero:
      bit-equal to the in-memory model's;
  9b. demo: python -m vision_kit_tpu_torch demo on the committed samples in
      a child process, the phase-4 weights handed over as a Flax msgpack:
-     one JPEG per sample the port decodes, each printed count equal to an
-     in-process Predictor's; then the video mode on a Motion-JPEG AVI of
+     one JPEG per sample the port decodes (the progressive JPEG and the
+     BMPs among them), each printed count equal to an in-process
+     Predictor's; then the video mode on a Motion-JPEG AVI of
      the 720x1280 samples (24 frames at 30 fps; demo -p clip.avi -o
      out.avi in a child, --demo-video): VideoReader's frames against the
      plain decoder (bit-equal) and nvJPEG (within its tolerance), threaded
@@ -80,24 +81,31 @@ Phases, each printing its own line; any failure exits non-zero:
      every frame encode_jpeg's bytes of the drawn frame, the ms a frame by
      stage;
  10. serve: nvJPEG's header, library and version; each sample of
-     vision_kit_tpu_torch/data/samples/ decoded on the card (nvJPEG for a
-     JPEG, the host decoder uploaded for a PNG) against the plain decoder
-     on the host (JPEGs within decode.NVJPEG_TOLERANCE, PNGs bit-equal,
-     EXIF shapes equal, the progressive and truncated samples refused on
-     both), a scan naming an undefined Huffman table refused by nvJPEG and
-     the next decode equal to the first; letterbox_u8 bit-equal on the
+     vision_kit_tpu_torch/data/samples/ decoded on the card by the route
+     its header picks (decode.decode_route: nvJPEG for a baseline or
+     complete progressive JPEG; the host decoder uploaded for a
+     progressive JPEG that ends early, a CMYK, YCCK or RGB JPEG, a PNG, a
+     BMP) against the plain decoder on the host (nvJPEG within
+     decode.NVJPEG_TOLERANCE, the host routes bit-equal, EXIF shapes
+     equal, the truncated sample refused on both), the count of each
+     route, one 720x1280 progressive decode timed by nvJPEG and by the
+     plain decoder beside the baseline frame's, a scan naming an undefined
+     Huffman table refused by nvJPEG and the next decode equal to the
+     first; letterbox_u8 bit-equal on the
      card and the CPU; the synchronising calls of one Predictor.run; the
      phase-4 model behind InferenceServer (batch 8, max_wait 5 ms): 64
      engine requests equal Predictor.run on the same device-decoded
      frames (class exact, score 1e-5, box 1e-3 px), 64 POSTs from 16
-     clients equal it within the JSON's rounding with each kernel launched
+     clients of every decodable sample (progressive JPEGs and BMPs among
+     them) equal it within the JSON's rounding with each kernel launched
      once a batch, a garbage body answered 400; then utils/serve_bench.py:
      the engine over the decoded samples, HTTP from 32 clients beside one
      request's decode alone, a load curve at 0.5, 0.8 and 0.95 of the
      engine's capacity, and the engine with synthetic_ingest 4 at batch 8
      and 64;
  11. fit: utils/loader_bench.py:write_dataset's YOLO dataset (the samples
-     under several names, PNG rectangle scenes, the two refused samples)
+     under several names, the progressive JPEGs and BMPs kept by the scan,
+     PNG rectangle scenes, the truncated sample dropped)
      through Trainer.fit for v5s@640 bf16, 2 classes, 2 epochs at batch 64
      with configs/yolov5_tpu.yaml's device augmentation and RAM cache on
      the card, then test(): one greedy_nms launch per validation batch and
@@ -107,7 +115,8 @@ Phases, each printing its own line; any failure exits non-zero:
      run's distance in the default mode; decoder "plain" on the card: the
      host route's batches of 8 bit-equal with 0 and 8 workers;
      YOLODataset(fast_decode=True) at 640, 320 and 160 (a 720x1280 sample
-     reduced at 1/2, 1/4, 1/8): items on the card bit-equal to the CPU's,
+     reduced at 1/2, 1/4, 1/8, the progressive files too): items on the
+     card bit-equal to the CPU's,
      and the ms an image of the reduced and the full plain decode and of
      nvJPEG plus resize_u8; in a child
      process (--deterministic-check), the default fit and
@@ -1409,6 +1418,9 @@ def phase_demo(model, smi: str) -> dict:
                                 for p in readable),
               f"the demo wrote {written} for {len(readable)} readable samples")
         check(sorted(printed) == sorted(readable), f"the demo printed {sorted(printed)}")
+        names = [os.path.basename(p) for p in readable]
+        check("progressive_240x320.jpg" in names and "rgb24_120x160.bmp" in names,
+              f"the demo did not read the progressive JPEG and the BMP: {names}")
         pred = load_predictor_from_config(v5s_config(), weights=weights, device="cuda")
         want = {}
         with torch.backends.cudnn.flags(**tf32):
@@ -1424,8 +1436,9 @@ def phase_demo(model, smi: str) -> dict:
         print(f"demo: python -m vision_kit_tpu_torch demo -p vision_kit_tpu_torch/data/samples "
               f"-w <the phase-4 weights as a Flax msgpack>: exit 0 in {demo_s:.1f} s, "
               f"{len(written)} JPEGs for the {len(readable)} of {len(files)} samples the "
-              f"port decodes; detections by image {sorted(want.values())}, equal to an "
-              f"in-process Predictor's on {smi}", flush=True)
+              f"port decodes (progressive, CMYK/YCCK/RGB JPEGs and BMPs among them); "
+              f"detections by image {sorted(want.values())}, equal to an in-process "
+              f"Predictor's on {smi}", flush=True)
 
         # video: the samples as a Motion-JPEG clip, through the CLI in a child
         t_video = time.perf_counter()
@@ -1531,10 +1544,17 @@ def post(url: str, data: bytes, timeout: float = 60.0):
 
 
 def serve_decode(smi: str) -> dict:
-    """Each sample decoded on the card against the plain decoder on the
-    host, refusals alike, a corrupt JPEG refused by nvJPEG and the next
-    decode still right, letterbox_u8 equal on the card and the CPU.
-    Returns the card's decoded frames by file name."""
+    """Each sample decoded on the card (decode_to, by the route its header
+    picks) against the plain decoder on the host, refusals alike: the
+    nvJPEG routes (baseline and progressive) within NVJPEG_TOLERANCE, the
+    host routes (a progressive file that ends early, CMYK, YCCK, RGB, PNG,
+    BMP) bit-equal; the count of each route; a progressive and a baseline
+    sample cut inside their last scan and closed by an EOI (nvJPEG's
+    route by their headers) recorded against the plain decoder; one
+    720x1280 progressive decode timed by nvJPEG and by the plain decoder
+    beside the baseline frame's; a corrupt JPEG refused by nvJPEG and the next decode still
+    right, a host-route JPEG never handed to nvJPEG, letterbox_u8 equal on
+    the card and the CPU. Returns the card's decoded frames by file name."""
     from vision_kit_tpu_torch import _cuda_build
     from vision_kit_tpu_torch.data import decode as dec
     from vision_kit_tpu_torch.ops.letterbox import letterbox_u8
@@ -1544,29 +1564,68 @@ def serve_decode(smi: str) -> dict:
     print(f"serve: nvjpeg.h {header}, libnvjpeg.so {lib}, nvJPEG "
           f"{dec.nvjpeg_version()}", flush=True)
     frames = {}
+    dec.route_counts.update(dict.fromkeys(dec.route_counts, 0))
     for name, meta, data in svb.samples():
         want = dec.decode_image(data)
+        route = dec.decode_route(data, "cuda")
         got = dec.decode_to(data, "cuda")
         if meta["shape"] is None:
             check(want is None and got is None,
                   f"serve: {name} ({meta['kind']}) decoded; both devices must refuse it")
-            print(f"serve: {name} ({meta['kind']}) refused on the card and on the host",
-                  flush=True)
+            print(f"serve: {name} ({meta['kind']}) refused on the card and on the host "
+                  f"(route {route})", flush=True)
             continue
         check(want is not None and got is not None, f"serve: {name} not decoded")
         check(tuple(got.shape) == want.shape == (*meta["shape"], 3),
               f"serve: {name} decoded to {tuple(got.shape)} / {want.shape}, "
               f"manifest {meta['shape']}")
         agree = dec.pixel_agreement(got, want)
-        print(f"serve: {name} ({meta['kind']}, {meta['bytes']} B) card against "
-              f"plain: max |d| {agree['max_abs']}, mean |d| {agree['mean_abs']:.4f}, "
-              f"share |d| > 2 {agree['share_over_2']:.6f}", flush=True)
-        if meta["kind"].startswith("png"):
-            check(agree["max_abs"] == 0, f"serve: {name} differs on the card")
-        else:
+        print(f"serve: {name} ({meta['kind']}, {meta['bytes']} B, route {route}) card "
+              f"against plain: max |d| {agree['max_abs']}, mean |d| "
+              f"{agree['mean_abs']:.4f}, share |d| > 2 {agree['share_over_2']:.6f}",
+              flush=True)
+        if route.startswith("nvjpeg"):
             check(dec.within_nvjpeg_tolerance(agree), f"serve: {name}: nvJPEG "
                   f"outside its tolerance {dec.NVJPEG_TOLERANCE}")
+        else:
+            check(agree["max_abs"] == 0, f"serve: {name} ({route}) differs on the card")
         frames[name] = got
+    routes = dict(dec.route_counts)
+    check(all(routes[r] > 0 for r in dec.ROUTES if r != "host_jpeg"),
+          f"serve: a route took no sample: {routes}")
+    print(f"serve: routes, one decode of each sample: {json.dumps(routes)}", flush=True)
+    for kind in ("jpeg_progressive", "jpeg_720p"):
+        # the header cannot see a cut inside the last scan: nvJPEG decodes
+        # such a file, and is recorded, not held, against the plain decoder
+        cut = svb.cut_inside_last_scan(svb.sample_bytes(kind)[0])
+        route = dec.decode_route(cut, "cuda")
+        got, want = dec.decode_to(cut, "cuda"), dec.decode_image(cut)
+        check(route.startswith("nvjpeg") and got is not None and want is not None
+              and tuple(got.shape) == want.shape,
+              f"serve: a {kind} sample cut inside its last scan: route {route}, "
+              f"card {got is not None}, host {want is not None}")
+        agree = dec.pixel_agreement(got, want)
+        print(f"serve: a {kind} sample cut halfway through its last scan, EOI "
+              f"appended ({len(cut)} B): route {route}, nvJPEG against plain: max |d| "
+              f"{agree['max_abs']}, mean |d| {agree['mean_abs']:.4f}, share |d| > 2 "
+              f"{agree['share_over_2']:.6f}, within NVJPEG_TOLERANCE "
+              f"{dec.within_nvjpeg_tolerance(agree)}", flush=True)
+    progressive = svb.sample_bytes("jpeg_progressive_720p")
+    baseline = svb.sample_bytes("jpeg_720p")[:1]
+    t_prog = {"nvjpeg": svb.decode_ms(lambda d: dec.decode_to(d, "cuda"), progressive,
+                                      "cuda", reps=5),
+              "plain": svb.decode_ms(dec.decode_image, progressive, "cpu", reps=2)}
+    t_base = {"nvjpeg": svb.decode_ms(lambda d: dec.decode_to(d, "cuda"), baseline,
+                                      "cuda", reps=5),
+              "plain": svb.decode_ms(dec.decode_image, baseline, "cpu", reps=2)}
+    print(f"serve: one 720x1280 decode (host clock, synchronised, ms): progressive "
+          f"nvJPEG {t_prog['nvjpeg']:.3f}, plain {t_prog['plain']:.3f}; baseline nvJPEG "
+          f"{t_base['nvjpeg']:.3f}, plain {t_base['plain']:.3f} on {smi}", flush=True)
+    calls = dec.decode_jpeg_cuda.calls
+    for kind in ("jpeg_progressive_early", "jpeg_cmyk"):
+        check(dec.decode_jpeg_cuda(svb.sample_bytes(kind)[0], "cuda") is None
+              and dec.decode_jpeg_cuda.calls == calls,
+              f"serve: a {kind} sample reached nvJPEG")
     good = next(d for n, m, d in svb.samples() if m["kind"] == "jpeg_720p")
     calls = dec.decode_jpeg_cuda.calls
     check(dec.decode_to(undefined_table_jpeg(good), "cuda") is None
@@ -1582,7 +1641,8 @@ def serve_decode(smi: str) -> dict:
           "serve: the decode after a corrupt JPEG differs")
     print("serve: nvJPEG refused a scan naming an undefined Huffman table "
           "(None, as on the host), garbage bytes gave None, and the next decode "
-          "equals the first (no CUDA error left)", flush=True)
+          "equals the first (no CUDA error left); decode_jpeg_cuda handed no "
+          "host-route JPEG to nvJPEG", flush=True)
     for name, img in frames.items():
         a, ra = letterbox_u8(img, 640)
         b, rb = letterbox_u8(img.cpu(), 640)
@@ -1667,16 +1727,19 @@ def phase_serve(model, smi: str) -> dict:
                              for d in body["detections"]], np.float32).reshape(-1, 6)
             check(same_detections(want[i % len(want)], dets, 2e-5, 1e-2),
                   f"serve: response {i} differs from Predictor.run beyond its rounding")
-        n_jpeg = sum(1 for i in range(64) if dec.image_kind(payloads[i % len(payloads)]) == "jpeg")
+        n_jpeg = sum(1 for i in range(64)
+                     if dec.decode_route(payloads[i % len(payloads)], "cuda").startswith("nvjpeg"))
         check(counts["head_scores"] == counts["greedy_nms"] == batches > 0,
               f"serve: launches {counts} against {batches} batches")
         check(dec.decode_jpeg_cuda.calls == n_jpeg,
               f"serve: {dec.decode_jpeg_cuda.calls} nvJPEG decodes for {n_jpeg} JPEGs")
+        kinds = sorted({m["kind"] for _, m, _ in svb.samples() if m["shape"] is not None})
+        check({"jpeg_progressive", "bmp_24"} <= set(kinds), f"serve: posted kinds {kinds}")
         print(f"serve: v5s@640 bf16 server, batch {SERVE_BATCH}, max_wait 5 ms: 64 "
-              f"POSTs from 16 clients answered 200, each equal to Predictor.run "
-              f"within the JSON's rounding; {batches} batches (avg "
-              f"{stats['avg_batch']}), launches {counts}, {n_jpeg} nvJPEG decodes",
-              flush=True)
+              f"POSTs from 16 clients of {len(payloads)} samples ({', '.join(kinds)}) "
+              f"answered 200, each equal to Predictor.run within the JSON's rounding; "
+              f"{batches} batches (avg {stats['avg_batch']}), launches {counts}, "
+              f"{n_jpeg} nvJPEG decodes (the other kinds on the host)", flush=True)
         code, body = post(url + "/predict", b"this is not an image")
         check(code == 400, f"serve: garbage body answered {code}")
         code, body = post(url + "/predict", payloads[0])
@@ -1876,18 +1939,22 @@ def fast_decode_leg(data_dir: str, smi: str) -> None:
     from vision_kit_tpu_torch.utils.serve_bench import sample_bytes
 
     t0 = time.perf_counter()
-    bad, reduced = vb.fast_decode_disagreements(os.path.join(data_dir, "train"),
-                                                FAST_SIZES, range(FAST_ITEMS))
+    bad, reduced, files = vb.fast_decode_disagreements(
+        os.path.join(data_dir, "train"), FAST_SIZES, range(FAST_ITEMS))
     check(bad == [], f"fast_decode: the card's items differ from the CPU's: {bad[:5]}")
     check(all(reduced[size] > 0 for size in FAST_SIZES),
           f"fast_decode: items that took the reduced decode {reduced}")
+    progressive = [f for f in files if "progressive" in f]
+    check(any("progressive_720x1280" in f for f in progressive),
+          f"fast_decode: no progressive file reduced: {files}")
     check_s = time.perf_counter() - t0
     frame = sample_bytes("jpeg_720p")[0]
     route_ms = {size: vb.decode_route_ms(frame, size, "cuda", reps=2) for size in FAST_SIZES}
     print(f"fit: YOLODataset(fast_decode=True) over the fit's train split at "
-          f"{', '.join(map(str, FAST_SIZES))}: items 0-{FAST_ITEMS - 1} on the card "
-          f"bit-equal to the CPU's (image, labels, (h0, w0)), of which "
-          f"{', '.join(str(reduced[s]) for s in FAST_SIZES)} took the reduced decode "
+          f"{', '.join(map(str, FAST_SIZES))}: items 0-{FAST_ITEMS - 1} and the "
+          f"progressive files on the card bit-equal to the CPU's (image, labels, (h0, "
+          f"w0)), of which {', '.join(str(reduced[s]) for s in FAST_SIZES)} took the "
+          f"reduced decode, the progressive ones {progressive} "
           f"({check_s:.1f} s); a 720x1280 sample, median ms an image (host clock, "
           f"synchronised) reduced plain / full plain / nvJPEG + resize_u8: "
           + "; ".join(f"{size} (f = {1280 // size}) {r['reduced']:.3f} / "
@@ -1898,8 +1965,9 @@ def fast_decode_leg(data_dir: str, smi: str) -> None:
 
 def phase_fit(smi: str) -> dict:
     """Training from a dataset: Trainer.fit of v5s@640 bf16 for 2 epochs on
-    write_dataset's files (JPEG samples on nvJPEG, PNG scenes, the refused
-    samples dropped by the scan), then test(); the card's loaders against
+    write_dataset's files (the committed samples by their decode routes,
+    progressive JPEGs and BMPs kept, PNG scenes, the truncated sample
+    dropped by the scan), then test(); the card's loaders against
     the plain ones; fast_decode_leg; a crash after step 3 resumed on the
     card; the train CLI as a subprocess; the loader's numbers. Returns the
     greedy_nms and head_scores launches of fit."""

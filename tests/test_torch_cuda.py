@@ -310,10 +310,10 @@ def test_letterbox_u8_card_equals_cpu(cuda):
 
 
 def test_nvjpeg_against_the_plain_decoder(cuda):
-    """Each committed sample decoded on the card (nvJPEG for a JPEG, the
-    host decoder uploaded for a PNG) against decode_image: refusals alike,
-    shapes equal (EXIF applied), PNGs bit-equal, JPEGs within
-    NVJPEG_TOLERANCE."""
+    """Each committed sample decoded on the card by its route (nvJPEG for a
+    baseline or complete progressive JPEG, the host decoder uploaded for the
+    rest) against decode_image: refusals alike, shapes equal (EXIF
+    applied), the host routes bit-equal, nvJPEG within NVJPEG_TOLERANCE."""
     from vision_kit_tpu_torch.data import decode as dec
 
     for name, meta, data in samples():
@@ -323,10 +323,10 @@ def test_nvjpeg_against_the_plain_decoder(cuda):
             continue
         assert tuple(got.shape) == want.shape == (*meta["shape"], 3), name
         agree = dec.pixel_agreement(got, want)
-        if meta["kind"].startswith("png"):
-            assert agree["max_abs"] == 0, name
-        else:
+        if dec.decode_route(data, cuda).startswith("nvjpeg"):
             assert dec.within_nvjpeg_tolerance(agree), (name, agree)
+        else:
+            assert agree["max_abs"] == 0, name
 
 
 def test_nvjpeg_decodes_after_a_corrupt_jpeg(cuda):
@@ -574,7 +574,8 @@ def test_fast_decode_items_card_equal_cpu(cuda, tmp_path):
     from vision_kit_tpu_torch.utils import loader_bench as lb
     from vision_kit_tpu_torch.utils import video_bench as vb
 
-    lb.write_dataset(str(tmp_path), n_train=24, n_val=2)
-    bad, reduced = vb.fast_decode_disagreements(str(tmp_path / "train"), (640, 320, 160),
-                                                range(24))
+    lb.write_dataset(str(tmp_path), n_train=32, n_val=2)   # 24-28: the progressive files
+    bad, reduced, files = vb.fast_decode_disagreements(
+        str(tmp_path / "train"), (640, 320, 160), range(24))
     assert bad == [] and all(n > 0 for n in reduced.values()), (bad, reduced)
+    assert any("progressive" in f for f in files), files

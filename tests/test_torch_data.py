@@ -327,9 +327,9 @@ def test_disk_cache_shared_across_subset_split(tmp_path, monkeypatch):
 def test_scan_drops_what_the_port_cannot_decode(tmp_path, caplog):
     """The scan's verdicts beside JAX's: a truncated JPEG (JAX restores it
     in place with PIL, the port drops it and leaves its bytes alone), a
-    progressive JPEG and a BMP (JAX keeps both: cv2 decodes them), garbage
-    and an image under 10 px (both drop). Each drop is logged with its
-    reason, and the verdicts are cached with the labels."""
+    progressive JPEG and a BMP (both keep them, and their items are equal),
+    garbage and an image under 10 px (both drop). Each drop is logged with
+    its reason, and the verdicts are cached with the labels."""
     rng = np.random.default_rng(1)
     imgs = [rng.integers(0, 255, (80, 120, 3), dtype=np.uint8) for _ in range(3)]
     for root in (tmp_path / "port", tmp_path / "jax"):
@@ -352,14 +352,13 @@ def test_scan_drops_what_the_port_cannot_decode(tmp_path, caplog):
         got = port_ds.YOLODataset(str(tmp_path / "port"), img_size=64, device="cpu")
     want = jax_ds.YOLODataset(str(tmp_path / "jax"), img_size=64)
     names = lambda ds: sorted(os.path.basename(f) for f in ds.img_files)  # noqa: E731
-    assert names(got) == ["0.jpg", "2.jpg"]
+    assert names(got) == ["0.jpg", "2.jpg", "b.bmp", "prog.jpg"]
     assert names(want) == ["0.jpg", "1.jpg", "2.jpg", "b.bmp", "prog.jpg"]
     assert (tmp_path / "port" / "images" / "1.jpg").read_bytes() == truncated
     assert (tmp_path / "jax" / "images" / "1.jpg").read_bytes()[-2:] == b"\xff\xd9"
     log = caplog.text
-    for name, reason in (("1.jpg", "bytes end inside a scan"), ("prog.jpg", "SOF2"),
-                         ("b.bmp", "not a JPEG or PNG (.bmp)"),
-                         ("junk.jpg", "not a JPEG or PNG"), ("tiny.png", "30x8 < 10")):
+    for name, reason in (("1.jpg", "bytes end inside a scan"),
+                         ("junk.jpg", "not a JPEG, PNG or BMP"), ("tiny.png", "30x8 < 10")):
         assert any(name in r.message and reason in r.message for r in caplog.records), \
             (name, log)
     again = port_ds.YOLODataset(str(tmp_path / "port"), img_size=64, device="cpu")

@@ -123,10 +123,16 @@ def test_apply_orientation_is_cv2s_transform():
 
 
 def test_refused_kinds_and_junk_give_none():
+    """A progressive JPEG decodes; the same bytes marked lossless (SOF3) or
+    arithmetic-coded (SOF9) are refused; junk gives None on both."""
     data = encode(scene(40, 56, 6), 90, "420", IMWRITE_JPEG_PROGRESSIVE=1)
-    assert cv2_rgb(data) is not None          # cv2 decodes progressive
-    assert decode_image(data) is None
-    assert jpeg_refusal(jpeg_header(data)).startswith("SOF2")
+    assert_decodes_like_cv2(data)
+    assert jpeg_refusal(jpeg_header(data)) is None
+    sof = data.index(b"\xff\xc2")
+    for marker, name in ((0xC3, "SOF3"), (0xC9, "SOF9")):
+        patched = data[:sof + 1] + bytes([marker]) + data[sof + 2:]
+        assert decode_image(patched) is None
+        assert jpeg_refusal(jpeg_header(patched)).startswith(name)
     for junk in (b"", b"garbage", b"\xff\xd8", b"\xff\xd8\xff", bytes(100),
                  b"\x89PNG\r\n\x1a\n"):
         assert decode_image(junk) is None
@@ -235,7 +241,9 @@ def test_samples_match_their_manifest():
     kinds = {m["kind"] for m in files.values()}
     assert {"jpeg_720p", "jpeg_444", "jpeg_422", "jpeg_grey", "jpeg_restart",
             "jpeg_odd", "jpeg_exif", "jpeg_progressive", "png_rgb", "png_palette",
-            "jpeg_truncated"} <= kinds
+            "jpeg_truncated", "jpeg_progressive_720p", "jpeg_progressive_early",
+            "jpeg_cmyk", "jpeg_ycck", "jpeg_rgb", "bmp_24", "bmp_palette8",
+            "bmp_palette4", "bmp_rle8"} <= kinds
 
 
 @pytest.mark.parametrize("name", sorted(_manifest()))
@@ -244,9 +252,7 @@ def test_sample_decodes_like_cv2(name):
     with open(os.path.join(SAMPLES, name), "rb") as f:
         data = f.read()
     got = decode_image(data)
-    if meta["kind"] == "jpeg_progressive":
-        assert got is None and cv2_rgb(data) is not None
-    elif meta["kind"] == "jpeg_truncated":    # cut mid-scan: None on both
+    if meta["kind"] == "jpeg_truncated":    # cut mid-scan: None on both
         assert got is None and cv2_rgb(data) is None
     else:
         assert got.shape == (*meta["shape"], 3)

@@ -75,7 +75,7 @@ def test_image_reader_gives_decode_image_pixels(tmp_path):
             n_read += 1
             np.testing.assert_array_equal(rgb, want)
             np.testing.assert_array_equal(rgb, cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
-    assert n_read == len(ours) - 2   # the progressive and the truncated JPEG
+    assert n_read == len(ours) - 1   # the truncated JPEG
     one = ImageReader(os.path.join(SAMPLES, "odd_333x517.jpg"), save_path=str(tmp_path))
     assert one.files == [os.path.join(SAMPLES, "odd_333x517.jpg")]
     _, img = next(iter(one))
@@ -155,7 +155,7 @@ def test_demo_cli_on_the_samples_matches_jax(demo_setup, monkeypatch, capsys):
     written = sorted(os.listdir(out_dir))
     read = [r for r in rows if r[1] is not None]
     assert written == sorted(os.path.basename(r[2]) for r in read)
-    assert len(read) == len(files) - 2
+    assert len(read) == len(files) - 1   # the truncated JPEG
     jpred = JaxPredictor(jm, v, img_size=SIZE, approx_topk=False)
     drawer = Drawing([f"c{i}" for i in range(80)])
     n = 0
@@ -186,9 +186,18 @@ def test_demo_single_file_output_and_video(demo_setup, capsys):
     assert f"saved {out}" in capsys.readouterr().out
     with open(out, "rb") as f:
         assert decode_image(f.read()).shape == (240, 320, 3)
-    with pytest.raises(ValueError, match="JPEG and PNG only"):
+    with pytest.raises(ValueError, match="JPEG, PNG and BMP only"):
         cli.main(["demo", "-p", src, "-o", str(tmp / "single" / "result.webp"),
                   "-c", cfg_path, "--device", "cpu"])
+    # a .bmp output: the bytes cv2.imwrite writes for the drawn image
+    bmp_out = str(tmp / "single" / "result.bmp")
+    assert cli.main(["demo", "-p", src, "-o", bmp_out, "-c", cfg_path, "-w", weights,
+                     "--device", "cpu"]) == 0
+    with open(out, "rb") as f, open(bmp_out, "rb") as g:
+        jpg, bmp = f.read(), g.read()
+    drawn = decode_image(bmp)
+    assert bmp == cv2.imencode(".bmp", cv2.cvtColor(drawn, cv2.COLOR_RGB2BGR))[1].tobytes()
+    assert jpg == encode_jpeg(drawn)   # the same drawn image as the .jpg output
     # the video run: a Motion-JPEG AVI in, one drawn frame out per frame
     clip = str(tmp / "clip.avi")
     writer = cv2.VideoWriter(clip, cv2.CAP_OPENCV_MJPEG, cv2.VideoWriter_fourcc(*"MJPG"),

@@ -96,13 +96,16 @@ def test_reduced_decode_equals_cv2(name):
 
 
 def test_reduced_decode_orientation_and_refusals():
-    """EXIF orientation applied as cv2 applies it; progressive, truncated and
+    """EXIF orientation applied as cv2 applies it; a progressive JPEG
+    reduced as cv2 reduces it; a lossless (SOF3) JPEG, truncated and
     non-JPEG bytes give None; a scale outside 2/4/8 raises."""
-    for name in ("exif6_200x300.jpg", "exif3_200x300.jpg"):
+    for name in ("exif6_200x300.jpg", "exif3_200x300.jpg", "progressive_240x320.jpg"):
         data = read(name)
         for f in (2, 8):
             np.testing.assert_array_equal(decode_jpeg_reduced(data, f), cv2_reduced(data, f))
-    assert decode_jpeg_reduced(read("progressive_240x320.jpg"), 2) is None
+    progressive = read("progressive_240x320.jpg")
+    sof = progressive.index(b"\xff\xc2")
+    assert decode_jpeg_reduced(progressive[:sof + 1] + b"\xc3" + progressive[sof + 2:], 2) is None
     assert decode_jpeg_reduced(read("truncated_240x320.jpg"), 2) is None
     assert decode_jpeg_reduced(read("rgb_120x160.png"), 2) is None
     with pytest.raises(ValueError, match="scale"):
@@ -112,10 +115,10 @@ def test_reduced_decode_orientation_and_refusals():
 @pytest.mark.parametrize("size", [640, 600, 320, 160])
 def test_fast_decode_resized_equals_jax(size):
     """Both sides on every committed sample but two of the 720p frames:
-    None together (r >= 1, EXIF, PNG), else bit-equal images and (h0, w0).
-    The progressive and the truncated sample give None in the port (its
-    decoders refuse them, as the full decode does), where cv2.imread decodes
-    them."""
+    None together (r >= 1, EXIF, PNG, BMP), else bit-equal images and (h0,
+    w0), the progressive samples too. The truncated sample gives None in the
+    port (its decoders refuse bytes that end inside a scan, as the full
+    decode does), where cv2.imread decodes it."""
     n_fast = 0
     for name in sorted(os.listdir(SAMPLES)):
         if name.startswith(("frame1", "frame2")) or name.endswith(".json"):
@@ -123,7 +126,7 @@ def test_fast_decode_resized_equals_jax(size):
         path = os.path.join(SAMPLES, name)
         want = jax_ds._fast_decode_resized(path, (size, size))
         got = port_ds._fast_decode_resized(read(name), (size, size))
-        if name.startswith(("progressive", "truncated")) and want is not None:
+        if name.startswith("truncated") and want is not None:
             assert got is None
             continue
         assert (got is None) == (want is None), name
@@ -131,10 +134,10 @@ def test_fast_decode_resized_equals_jax(size):
             n_fast += 1
             np.testing.assert_array_equal(got[0].numpy(), want[0], err_msg=name)
             assert got[1] == want[1]
-    if size == 160:   # 240x320 and 333x517 reduce; EXIF and the PNGs do not
-        assert n_fast == 6
-    else:
-        assert n_fast == 1
+    if size == 160:   # 240x320 and 333x517 reduce; EXIF, the PNGs and BMPs do not
+        assert n_fast == 9
+    else:             # the 720p frame and its progressive twin
+        assert n_fast == 2
 
 
 @pytest.fixture(scope="module")

@@ -44,12 +44,14 @@ per image of -p (a file, or a directory walked recursively), printing
 `<path>: <n> detections in <ms> ms` and writing each image with its
 detections drawn (utils/drawing.py:Drawing) as a JPEG: into -o when it is a
 directory (utils/readers.py:ImageReader), as -o when -p is one image and -o
-a file name (a JPEG, or a PNG for .png), else beside the input. Any other
-path is a video: a Motion-JPEG AVI (utils/readers.py:VideoReader), one
-Predictor call per frame on the frame as decoded on the device, printing
-`frame <n>: <ms> ms (<fps> fps avg)` every 30 frames and the average at the
-end, and with -o (an .avi) writing the drawn frames as Motion-JPEG. A webcam
-index, another video codec or container, and a .webp or .bmp output raise.
+a file name (a JPEG, or a PNG or BMP by its extension), else beside the
+input. Any other path is a video: a Motion-JPEG AVI
+(utils/readers.py:VideoReader), one Predictor call per frame on the frame
+as decoded on the device, printing `frame <n>: <ms> ms (<fps> fps avg)`
+every 30 frames and the average at the end, and with -o (an .avi) writing
+the drawn frames as Motion-JPEG. A webcam index, another video codec or
+container, and a .webp output raise (a .bmp output is written as
+cv2.imwrite writes it).
 
 `train` and `eval` are the counterparts of scripts/main.py's tasks: the
 seed is --seed, else the config's data.seed, else 21; --deterministic
@@ -136,7 +138,7 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
     image), printed and written with its detections drawn. Returns
     [(image path, detections (n, 6) or None when it could not be read,
     written path or None)]."""
-    from vision_kit_tpu_torch.data.decode import encode_png
+    from vision_kit_tpu_torch.data.decode import encode_bmp, encode_png
     from vision_kit_tpu_torch.data.encode import encode_jpeg
     from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, ImageReader
 
@@ -146,9 +148,10 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
     encoder = None
     if single_file_out:
         ext = os.path.splitext(single_file_out)[1].lower()
-        encoder = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png}.get(ext)
+        encoder = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png,
+                   ".bmp": encode_bmp}.get(ext)
         if encoder is None:
-            raise ValueError(f"{single_file_out}: the port writes JPEG and PNG only, "
+            raise ValueError(f"{single_file_out}: the port writes JPEG, PNG and BMP only, "
                              f"not {ext}")
     reader = ImageReader(path, save_path=(None if single_file_out else output) or (
         path if os.path.isdir(path) else os.path.dirname(path) or "."))

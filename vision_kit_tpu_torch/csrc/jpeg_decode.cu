@@ -4,9 +4,10 @@
 // OpenCV (vision_kit_tpu/serve.py:decode_request_bytes, cv2.imdecode). It is
 // a library call there and a library call here: no Pallas kernel stands
 // behind it, so nothing is hand-written. The wrapper is
-// data/decode.py:decode_jpeg_cuda, which refuses on the host the JPEG kinds
-// the plain decoder refuses, then orients and letterboxes the output on the
-// card.
+// data/decode.py:decode_jpeg_cuda, which reads the header on the host and
+// hands nvJPEG only baseline, extended and complete progressive JPEGs in
+// YCbCr or grey (decode_route; the rest decode on the host), then orients
+// and letterboxes the output on the card.
 //
 // nvJPEG's simple API with its default backend: a handle per process (thread
 // safe) and a decode state per concurrent caller (not thread safe; the

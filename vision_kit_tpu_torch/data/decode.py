@@ -1,4 +1,4 @@
-"""Image decode without OpenCV: a plain JPEG/PNG decoder on the host and
+"""Image decode without OpenCV: a plain JPEG/PNG/BMP decoder on the host and
 nvJPEG on the card.
 
 Counterpart of the `cv2.imdecode(..., IMREAD_COLOR)` + `cvtColor(BGR2RGB)`
@@ -6,38 +6,58 @@ in vision_kit_tpu/serve.py:decode_request_bytes (and of native/vkio.cpp's
 memory decode). The card's machine has no OpenCV, PIL or torchvision, so the
 port decodes on its own:
 
-- `decode_image(data)`: numpy and the standard library. JPEG, baseline and
-  extended sequential Huffman, 8-bit, 1 or 3 components, sampling factors up
-  to 4 (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1), restart intervals. It equals libjpeg-turbo (as cv2 runs it) bit for
-  bit: the integer `islow` IDCT of jidctint.c with its range-limit table,
-  libjpeg's "fancy" triangle upsampling (h2v1, h2v2, h1v2, with its biases;
-  box replication where libjpeg takes it: other factors, and a chroma
-  plane at most 2 wide),
-  and jdcolor.c's fixed-point YCbCr tables. A restart interval that runs
-  out of data before a marker leaves the rest of its MCUs zero (grey), as
-  libjpeg does. Bytes that end inside a scan, with no marker after it, give
-  None, as cv2 does when data is missing (libjpeg suspends for more input;
-  where only the EOI marker is missing, cv2 may still decode, depending on
-  how far libjpeg's bit buffer reads ahead). Progressive, lossless, arithmetic-coded, 12-bit,
-  CMYK/YCCK and RGB-transform (Adobe transform 0, or 'R','G','B' component
-  ids) JPEGs give None; cv2 decodes them. PNG through zlib: colour types
-  0/2/3/4/6, bit depths 1/2/4/8/16 (16 keeps the high byte, as cv2 does),
-  Adam7 interlacing, alpha dropped. The EXIF orientation (a JPEG's APP1, a
-  PNG's eXIf) is applied as cv2 applies it.
+- `decode_image(data)`: numpy and the standard library, equal to
+  libjpeg-turbo 3.1 and OpenCV 5 (as cv2 runs them) bit for bit.
+  JPEG: baseline, extended sequential and progressive Huffman, 8-bit, 1, 3
+  or 4 components, sampling factors up to 4 (4:4:4, 4:2:2, 4:2:0, 4:4:0,
+  4:1:1), restart intervals. The integer `islow` IDCT of jidctint.c
+  (saturating as libjpeg-turbo's SIMD code does), libjpeg's "fancy"
+  triangle upsampling (h2v1, h2v2, h1v2, with its biases; box replication
+  where libjpeg takes it: other factors, and a chroma plane at most 2
+  wide), jdcolor.c's fixed-point YCbCr tables. Progressive scans follow
+  jdphuff.c (DC and AC first scans with EOBRUN, their refinements); when
+  the scans leave some of the first ten coefficients' bits unknown (a file
+  that ends early), jdcoefct.c's 5x5 block smoothing (libjpeg-turbo 2.1
+  on) estimates them, with the coefficient bits from before the last scan
+  past the last iMCU row it began to decode. Colour as libjpeg assumes it
+  (jpeg_colour): YCbCr, grey, RGB (Adobe transform 0, or 'R','G','B'
+  ids), CMYK and YCCK (jdcolor.c's ycck_cmyk_convert), the last two then
+  OpenCV's CMYK -> BGR. A restart interval that runs out of data before a
+  marker leaves the rest of its MCUs as they are (grey in a sequential
+  scan), as libjpeg does. Bytes that end inside a scan, with no marker
+  after it, give None, as cv2 does when data is missing (libjpeg suspends
+  for more input; where only the EOI marker is missing from a one-scan
+  file, cv2 may still decode, depending on how far libjpeg's bit buffer
+  reads ahead). Lossless, arithmetic-coded and 12-bit JPEGs give None; cv2
+  decodes them. PNG through zlib: colour types 0/2/3/4/6, bit depths
+  1/2/4/8/16 (16 keeps the high byte, as cv2 does), Adam7 interlacing,
+  alpha dropped. BMP as grfmt_bmp.cpp reads it: header sizes 12 and 36 on,
+  1/4/8-bit palettes, 16-bit 5-5-5 and 5-6-5, 24-bit, 32-bit (the fourth
+  byte dropped), RLE8 and RLE4, bottom-up and top-down rows. The EXIF
+  orientation (a JPEG's APP1, a PNG's eXIf) is applied as cv2 applies it.
 - `decode_jpeg_reduced(data, scale)`: the same JPEG decode at 1/2, 1/4 or
   1/8 scale, cv2.imread(IMREAD_REDUCED_COLOR_<scale>) bit for bit:
   libjpeg-turbo's DCT scaling (jdmaster.c's per-component IDCT sizes,
   jidctred.c's 4x4, 2x2 and 1x1 IDCTs, upsampling at the reduced sizes,
-  plain replication at 1/8). `probe_jpeg(data)` reads a JPEG's size and
-  whether it holds EXIF from its header, as the JAX package's
-  data.fast_decode gate does.
-- `decode_jpeg_cuda(data, device)`: nvJPEG (csrc/jpeg_decode.cu) into a
-  device tensor, refusing what the plain decoder refuses, with the same
-  orientation transform (`apply_orientation`, torch flips and transposes).
+  plain replication at 1/8), block smoothing too. `probe_jpeg(data)` reads
+  a JPEG's size and whether it holds EXIF from its header, as the JAX
+  package's data.fast_decode gate does.
+- `decode_to(data, device)`: the route its header picks (`decode_route`,
+  no entropy decoding), counted in `route_counts`. On the card a baseline,
+  extended or progressive JPEG in YCbCr or grey whose scans complete every
+  coefficient goes to nvJPEG (csrc/jpeg_decode.cu, `decode_jpeg_cuda`,
+  pixels within NVJPEG_TOLERANCE of the plain decoder's); a progressive
+  JPEG that leaves bits unknown (libjpeg smooths it, nvJPEG does not), a
+  CMYK, YCCK or RGB JPEG, a PNG and a BMP decode with decode_image on the
+  host and are uploaded. A JPEG that nvJPEG refuses is not handed to the
+  host. The orientation transform is `apply_orientation` (torch flips and
+  transposes).
 
-The Huffman walk is the only Python loop; the IDCT, upsampling, colour
-conversion and PNG filters (but Average and Paeth, which are serial along a
-row) are numpy over whole planes.
+The Huffman walks are the only Python loops (a progressive refinement's
+correction bits gathered and applied with numpy); the IDCT, smoothing,
+upsampling, colour conversion and PNG filters (but Average and Paeth,
+which are serial along a row) are numpy over whole planes, as is BMP but
+for its RLE commands.
 """
 
 from __future__ import annotations
@@ -102,6 +122,8 @@ def apply_orientation(img: torch.Tensor, orientation: int) -> torch.Tensor:
 # -- JPEG: headers ---------------------------------------------------------
 
 SOF_SEQUENTIAL = (0xC0, 0xC1)   # baseline, extended sequential (Huffman)
+SOF_PROGRESSIVE = 0xC2          # progressive (Huffman)
+SOF_HUFFMAN = (*SOF_SEQUENTIAL, SOF_PROGRESSIVE)
 SOF_ALL = tuple(m for m in range(0xC0, 0xD0) if m not in (0xC4, 0xC8, 0xCC))
 RST0, EOI, SOS, DHT, DQT, DRI = 0xD0, 0xD9, 0xDA, 0xC4, 0xDB, 0xDD
 
@@ -123,8 +145,9 @@ def _scan_end(data: bytes, pos: int) -> int | None:
 
 def _walk(data: bytes):
     """(marker, payload start, payload end, scan end) of each marker segment
-    after SOI up to EOI or the end of the bytes. For an SOS, scan end is
-    where the marker after its entropy-coded data starts; else None. Raises
+    after SOI up to the end of the bytes or EOI (the last, when present).
+    For an SOS, scan end is where the marker after its entropy-coded data
+    starts; else None. Raises
     JpegError on a malformed segment or a scan that the bytes end inside
     (libjpeg then suspends for more input and cv2 gives None)."""
     n, pos = len(data), 2
@@ -138,6 +161,7 @@ def _walk(data: bytes):
         m = data[pos]
         pos += 1
         if m == EOI:
+            yield m, pos, pos, None
             return
         if m == 0x01 or RST0 <= m <= RST0 + 7:
             continue  # parameterless
@@ -161,19 +185,37 @@ def _walk(data: bytes):
 def jpeg_header(data: bytes) -> dict:
     """The frame of a JPEG: sof, precision, height, width, components [(id,
     h, v, tq)], and from the markers before the first scan jfif,
-    adobe_transform and the EXIF orientation. Walks every segment, so it
-    raises JpegError for bytes that are no JPEG, hold no frame and scan, or
-    end inside a scan."""
+    adobe_transform and the EXIF orientation; eoi (whether the EOI marker
+    ends the bytes), multi_scan (libjpeg reads the whole file before any
+    output) and complete (every coefficient of every component known to
+    its last bit by the scans' headers; a progressive file that ends early
+    is not). Walks every segment, so it raises JpegError for bytes that are
+    no JPEG, hold no frame and scan, end inside a scan, or hold a bad
+    progression."""
     if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
         raise JpegError("not a JPEG")
     info = {"sof": None, "jfif": False, "adobe_transform": None,
-            "orientation": 1}
+            "orientation": 1, "eoi": False, "multi_scan": False}
     exif_seen = scanned = False
     for m, a, b, _ in _walk(data):
         seg = data[a:b]
-        if m == SOS:
+        if m == EOI:
+            info["eoi"] = True
+        elif m == SOS:
             if info["sof"] is None:
                 raise JpegError("no frame before the scan")
+            if not scanned:   # jdinput.c's has_multiple_scans
+                info["multi_scan"] = (info["sof"] == SOF_PROGRESSIVE
+                                      or seg[:1] != bytes([len(info["components"])]))
+                bits = np.full((len(info["components"]), 64), -1, np.int64)
+            if info["sof"] == SOF_PROGRESSIVE:
+                ids = [c[0] for c in info["components"]]
+                ns = seg[0] if seg else 0
+                if len(seg) < 4 + 2 * ns or any(x not in ids for x in seg[1:1 + 2 * ns:2]):
+                    raise JpegError("bad SOS")
+                _progression(bits, [ids.index(x) for x in seg[1:1 + 2 * ns:2]],
+                             seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4,
+                             seg[3 + 2 * ns] & 15)
             scanned = True
         elif m in SOF_ALL and info["sof"] is None:
             if len(seg) < 6:
@@ -195,17 +237,18 @@ def jpeg_header(data: bytes) -> dict:
             info["adobe_transform"] = seg[11]
     if not scanned:
         raise JpegError("no scan")
+    info["complete"] = not bits.any() if info["sof"] == SOF_PROGRESSIVE else True
     return info
 
 
 def jpeg_refusal(info: dict) -> str | None:
     """Why the decoders refuse this JPEG, or None when they take it."""
-    if info["sof"] not in SOF_SEQUENTIAL:
-        return f"SOF{info['sof'] - 0xC0} (only baseline/extended sequential Huffman)"
+    if info["sof"] not in SOF_HUFFMAN:
+        return f"SOF{info['sof'] - 0xC0} (only baseline, extended sequential and progressive Huffman)"
     if info["precision"] != 8:
         return f"{info['precision']}-bit samples"
     comps = info["components"]
-    if len(comps) not in (1, 3):
+    if len(comps) not in (1, 3, 4):
         return f"{len(comps)} components"
     if info["height"] == 0 or info["width"] == 0:
         return "zero size (DNL)"
@@ -215,12 +258,29 @@ def jpeg_refusal(info: dict) -> str | None:
     max_v = max(v for _, _, v, _ in comps)
     if len(comps) > 1 and any(max_h % h or max_v % v for _, h, v, _ in comps):
         return "fractional sampling ratios"
-    if len(comps) == 3 and not info["jfif"]:
-        t = info["adobe_transform"]
-        ids = tuple(c[0] for c in comps)
-        if t == 0 or (t is None and ids == (82, 71, 66)):
-            return "RGB colour transform"
+    if info["multi_scan"] and not info["eoi"]:
+        # libjpeg reads a multi-scan file to its EOI before any output;
+        # bytes that end first make it suspend for more input
+        return "a multi-scan JPEG whose bytes end before the EOI marker"
     return None
+
+
+def jpeg_colour(info: dict) -> str:
+    """The colour space libjpeg assumes for the components (jdapimin.c
+    default_decompress_parms): "grey", "ycc", "rgb" (Adobe transform 0, or
+    ids 'R', 'G', 'B' without JFIF or Adobe marker), "cmyk" (Adobe transform
+    0, or no Adobe marker) or "ycck" (any other Adobe transform)."""
+    comps = info["components"]
+    t = info["adobe_transform"]
+    if len(comps) == 1:
+        return "grey"
+    if len(comps) == 4:
+        return "cmyk" if t is None or t == 0 else "ycck"
+    if info["jfif"]:
+        return "ycc"
+    if t is not None:
+        return "rgb" if t == 0 else "ycc"
+    return "rgb" if tuple(c[0] for c in comps) == (82, 71, 66) else "ycc"
 
 
 # -- JPEG: entropy decoding ------------------------------------------------
@@ -301,7 +361,7 @@ def _decode_blocks(w, avail, plan, n_mcus, coef_idx, coef_val):
     AC table). Appends each nonzero coefficient's flat index and value.
     When the walk needs bits past `avail`, the MCU where it ran out is kept,
     read on through zero bits, and the rest of the interval is left zero,
-    as libjpeg leaves it."""
+    as libjpeg leaves it; returns that MCU's index, else None."""
     nat, mask, half = _NATURAL, _MASK, _HALF
     ia, va = coef_idx.append, coef_val.append
     pred = [0, 0, 0, 0]
@@ -340,7 +400,57 @@ def _decode_blocks(w, avail, plan, n_mcus, coef_idx, coef_val):
                 else:
                     break
         if p > avail:
-            return
+            return m
+    return None
+
+
+def _block_order(frame, scan_comps) -> tuple[np.ndarray, list]:
+    """Each block of a scan, MCU by MCU: ((MCUs, blocks an MCU) flat
+    coefficient offsets, each block's slot in the scan). A one-component
+    scan walks the component's own grid of blocks (no dummy blocks), one
+    block an MCU; an interleaved scan walks whole MCUs."""
+    offs = frame["offsets"]
+    if len(scan_comps) == 1:
+        ci = scan_comps[0][0]
+        c = frame["comps"][ci]
+        rows, cols = np.mgrid[0:c["brows_real"], 0:c["bcols_real"]]
+        return (offs[ci] + (rows * c["bcols"] + cols) * 64).reshape(-1, 1), [0]
+    my, mx = np.mgrid[0:frame["mcu_rows"], 0:frame["mcu_cols"]]
+    parts, slots = [], []
+    for slot, (ci, *_) in enumerate(scan_comps):
+        c = frame["comps"][ci]
+        for by in range(c["v"]):
+            for bx in range(c["h"]):
+                parts.append((offs[ci] + ((my * c["v"] + by) * c["bcols"]
+                                          + mx * c["h"] + bx) * 64).reshape(-1))
+                slots.append(slot)
+    return np.stack(parts, 1), slots
+
+
+def _run_intervals(data, pos, end, total, restart, walk) -> int:
+    """Run `walk(first MCU, unstuffed bytes)` on each restart interval of
+    the scan in data[pos:end] that the bytes hold; it returns the index in
+    the interval of the MCU where its bits ran out, or None. Intervals
+    missing before the marker are left as they are, but for the first of
+    them when the interval before it did not run out: libjpeg then decodes
+    that one MCU from zero bits. Returns the last MCU whose decode began
+    with bits left (libjpeg's insufficient_data still clear), -1 for none."""
+    interval = restart or total
+    firsts = range(0, total, interval)
+    segs = _unstuff(data, pos, end)[:len(firsts)]
+    good, ran = -1, None
+    for first, seg in zip(firsts, segs):
+        ran = walk(first, seg)
+        good = first + (ran if ran is not None else min(interval, total - first) - 1)
+    if len(segs) < len(firsts) and ran is None:
+        good = firsts[len(segs)]
+        walk(good, np.zeros(0, np.uint8))
+    return good
+
+
+def _wrap16(x) -> np.ndarray:
+    """Values stored as libjpeg's 16-bit JCOEF, as int32."""
+    return np.asarray(x, np.int64).astype(np.int16).astype(np.int32)
 
 
 def _scan(data, pos, end, frame, scan_comps, tables, restart, coefs):
@@ -348,51 +458,236 @@ def _scan(data, pos, end, frame, scan_comps, tables, restart, coefs):
     component's (rows, cols, 64) blocks, flat, int32). A restart interval
     that runs out of data keeps the MCU where it ran out (zero-padded) and
     leaves the rest zero, as do intervals missing before the marker."""
-    max_h, max_v = frame["max_h"], frame["max_v"]
-    segs = _unstuff(data, pos, end)
-    offs = frame["offsets"]
-    if len(scan_comps) == 1:
-        ci, td, ta = scan_comps[0]
-        c = frame["comps"][ci]
-        bw = _ceil_div(_ceil_div(frame["width"] * c["h"], max_h), 8)
-        bh = _ceil_div(_ceil_div(frame["height"] * c["v"], max_v), 8)
-        cols = c["bcols"]
-        base0 = offs[ci]
-        dct, act = tables[(0, td)], tables[(1, ta)]
-
-        def plan(m, bw=bw, cols=cols):
-            return ((base0 + ((m // bw) * cols + m % bw) * 64, 0, dct, act),)
-
-        total = bw * bh
-    else:
-        mcu_cols, mcu_rows = frame["mcu_cols"], frame["mcu_rows"]
-        pattern = []
-        for slot, (ci, td, ta) in enumerate(scan_comps):
-            c = frame["comps"][ci]
-            for by in range(c["v"]):
-                for bx in range(c["h"]):
-                    pattern.append((ci, c["h"], c["v"], by, bx, slot,
-                                    tables[(0, td)], tables[(1, ta)]))
-        bases = []
-        for my in range(mcu_rows):
-            for mx in range(mcu_cols):
-                row = []
-                for ci, h, v, by, bx, slot, dct, act in pattern:
-                    cols = frame["comps"][ci]["bcols"]
-                    row.append((offs[ci] + ((my * v + by) * cols + mx * h + bx) * 64,
-                                slot, dct, act))
-                bases.append(tuple(row))
-        plan = bases.__getitem__
-        total = mcu_cols * mcu_rows
+    bases, slots = _block_order(frame, scan_comps)
+    tabs = [(tables[(0, td)], tables[(1, ta)]) for _, td, ta in scan_comps]
+    pattern = [(slot, *tabs[slot]) for slot in slots]
+    plan = [tuple((b, *p) for b, p in zip(row, pattern)) for row in bases.tolist()]
+    total = len(plan)
     interval = restart or total
     idx, val = [], []
-    for first, seg in zip(range(0, total, interval), segs):
-        _decode_blocks(_windows(seg), 8 * len(seg),
-                       (lambda m, f=first: plan(f + m)),
-                       min(interval, total - first), idx, val)
+    _run_intervals(data, pos, end, total, restart, lambda first, seg: _decode_blocks(
+        _windows(seg), 8 * len(seg), (lambda m: plan[first + m]),
+        min(interval, total - first), idx, val))
     if idx:   # stored as libjpeg's 16-bit JCOEF
-        np.put(coefs, np.asarray(idx, np.int64),
-               np.asarray(val, np.int64).astype(np.int16).astype(np.int32))
+        np.put(coefs, np.asarray(idx, np.int64), _wrap16(val))
+
+
+# -- JPEG: progressive scans (jdphuff.c) -----------------------------------
+
+
+def _dc_first(w, avail, rows, pattern, al, idx, val):
+    """decode_mcu_DC_first over the MCUs of one restart interval: `rows`
+    holds each MCU's block offsets, `pattern` each block's (slot, DC table).
+    Every block gets its DC value shifted left by `al`; once the bits run
+    out, the MCU where they did is read on through zero bits and the rest
+    of the interval is left as it is."""
+    mask, half = _MASK, _HALF
+    ia, va = idx.append, val.append
+    pred = [0, 0, 0, 0]
+    p = 0
+    for i, row in enumerate(rows):
+        for base, (slot, dct) in zip(row, pattern):
+            length, s = dct[(w[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+            p += length
+            if s:
+                s = min(s, 16)
+                v = (w[p >> 3] >> (64 - (p & 7) - s)) & mask[s]
+                p += s
+                if v < half[s]:
+                    v -= mask[s]
+                pred[slot] += v
+            ia(base)
+            va(pred[slot] << al)
+        if p > avail:
+            return i
+    return None
+
+
+def _ac_first(w, avail, bases, act, ss, se, al, idx, val):
+    """decode_mcu_AC_first over the blocks of one restart interval of a
+    one-component scan: coefficients ss..se (zigzag), shifted left by `al`,
+    with EOBRUN (an end-of-band over 2**r + r extra bits blocks)."""
+    nat, mask, half = _NATURAL, _MASK, _HALF
+    ia, va = idx.append, val.append
+    eobrun = p = 0
+    for i, base in enumerate(bases):
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            length, r, s = act[(w[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+            p += length
+            if s:
+                k += r
+                v = (w[p >> 3] >> (64 - (p & 7) - s)) & mask[s]
+                p += s
+                if v < half[s]:
+                    v -= mask[s]
+                ia(base + nat[k])
+                va(v << al)
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = (1 << r) - 1
+                if r:
+                    eobrun += (w[p >> 3] >> (64 - (p & 7) - r)) & mask[r]
+                    p += r
+                break
+        if p > avail:
+            return i
+    return None
+
+
+def _ac_refine(w, avail, bases, first, nzk, starts, act, ss, se, p1, corr, new):
+    """decode_mcu_AC_refine over the blocks of one restart interval.
+    `nzk` holds, block after block, the zigzag positions in ss..se of the
+    coefficients that are nonzero before this scan, `starts[first + i]`
+    where block i's run of them begins. Each already-nonzero coefficient
+    that the walk passes takes one correction bit: appended to `corr` as
+    runs (bit position, index into nzk, count), applied afterwards. Each
+    newly nonzero coefficient (+-p1, at the r+1-th still-zero position) is
+    appended to `new` as (flat offset, value)."""
+    nat, mask = _NATURAL, _MASK
+    eobrun = p = 0
+    for i, base in enumerate(bases):
+        k = ss
+        j, jend = starts[first + i], starts[first + i + 1]
+        if not eobrun:
+            while k <= se:
+                length, r, s = act[(w[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+                p += length
+                if s:
+                    s = p1 if (w[p >> 3] >> (63 - (p & 7))) & 1 else -p1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (w[p >> 3] >> (64 - (p & 7) - r)) & mask[r]
+                        p += r
+                    break
+                # skip r still-zero positions; the already-nonzero ones on
+                # the way take a correction bit each
+                t, j0 = k + r, j
+                while j < jend and nzk[j] <= t:
+                    t += 1
+                    j += 1
+                if j > j0:
+                    corr.append((p, j0, j - j0))
+                    p += j - j0
+                k = t if t <= se else se + 1
+                if s:
+                    new.append((base + nat[k], s))
+                k += 1
+        if eobrun:
+            if j < jend:
+                corr.append((p, j, jend - j))
+                p += jend - j
+            eobrun -= 1
+        if p > avail:
+            return i
+    return None
+
+
+def _bits(seg: np.ndarray, n: int) -> np.ndarray:
+    """The first n bits of `seg`, zero past its end (libjpeg's fill)."""
+    bits = np.unpackbits(seg)[:n]
+    return np.pad(bits, (0, n - len(bits)))
+
+
+def _scan_progressive(data, pos, end, frame, scan_comps, tables, restart, coefs,
+                      ss, se, ah, al):
+    """Decode the progressive scan in data[pos:end] (spectral band ss..se,
+    successive approximation ah -> al) into `coefs`, as jdphuff.c does.
+    Returns the iMCU row of the last MCU whose decode began with bits left,
+    or None when there is none."""
+    bases, slots = _block_order(frame, scan_comps)
+    total = len(bases)
+    interval = restart or total
+    p1 = 1 << al
+    if ss == 0 and ah == 0:            # DC first
+        pattern = [(slot, tables[(0, scan_comps[slot][1])]) for slot in slots]
+        idx, val = [], []
+        good = _run_intervals(data, pos, end, total, restart, lambda first, seg: _dc_first(
+            _windows(seg), 8 * len(seg), bases[first:first + interval].tolist(),
+            pattern, al, idx, val))
+        if idx:
+            coefs[np.asarray(idx, np.int64)] = _wrap16(val)
+    elif ss == 0:                      # DC refinement: one bit a block
+        def refine_dc(first, seg):
+            blocks = bases[first:first + interval].reshape(-1)
+            coefs[blocks[_bits(seg, len(blocks)) == 1]] |= p1
+            n_bits = 8 * len(seg)    # the MCU that reads past them, if any
+            return n_bits // bases.shape[1] if len(blocks) > n_bits else None
+
+        good = _run_intervals(data, pos, end, total, restart, refine_dc)
+    elif ah == 0:                      # AC first
+        act = tables[(1, scan_comps[0][2])]
+        flat = bases[:, 0].tolist()
+        idx, val = [], []
+        good = _run_intervals(data, pos, end, total, restart, lambda first, seg: _ac_first(
+            _windows(seg), 8 * len(seg), flat[first:first + interval], act, ss, se, al,
+            idx, val))
+        if idx:
+            np.put(coefs, np.asarray(idx, np.int64), _wrap16(val))
+    else:                              # AC refinement
+        act = tables[(1, scan_comps[0][2])]
+        flat = bases[:, 0]
+        zz = ZIGZAG[ss:se + 1]
+        blk, pos_in_band = np.nonzero(coefs[flat[:, None] + zz[None, :]])
+        starts = np.concatenate([[0], np.cumsum(np.bincount(blk, minlength=total))]).tolist()
+        nz_flat = flat[blk] + zz[pos_in_band]
+        nzk = (pos_in_band + ss).tolist()
+        bases_list = flat.tolist()
+
+        def refine_ac(first, seg):
+            corr, new = [], []
+            ran = _ac_refine(_windows(seg), 8 * len(seg), bases_list[first:first + interval],
+                             first, nzk, starts, act, ss, se, p1, corr, new)
+            if corr:
+                rec = np.asarray(corr, np.int64)
+                cnt = rec[:, 2]
+                within = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+                bitpos = np.repeat(rec[:, 0], cnt) + within
+                target = nz_flat[(np.repeat(rec[:, 1], cnt) + within)[
+                    _bits(seg, int(bitpos[-1]) + 1)[bitpos] == 1]]
+                v = coefs[target]
+                grow = (v & p1) == 0    # a bit already set is left as it is
+                coefs[target[grow]] = _wrap16(v[grow] + np.where(v[grow] >= 0, p1, -p1))
+            if new:
+                nv = np.asarray(new, np.int64)
+                coefs[nv[:, 0]] = nv[:, 1]
+            return ran
+
+        good = _run_intervals(data, pos, end, total, restart, refine_ac)
+    if good < 0:
+        return None
+    if len(scan_comps) > 1:
+        return good // frame["mcu_cols"]
+    c = frame["comps"][scan_comps[0][0]]
+    return good // c["bcols_real"] // c["sof_v"]
+
+
+def _progression(coef_bits: np.ndarray, scan: list, ss: int, se: int, ah: int, al: int,
+                 prev_bits: np.ndarray | None = None, first_scan: bool = False) -> None:
+    """jdphuff.c start_pass_phuff_decoder's checks of a scan's parameters
+    (a bad progression raises, as libjpeg's error exit does), then its
+    update of libjpeg's coef_bits (each coefficient's lowest known bit, -1
+    before any scan holds it) and of the copy it keeps from before the scan
+    (`prev_bits`, for coefficients min(ss, 1)..max(se, 9); 0 in the first
+    scan). `scan` lists the components' indices."""
+    if ss == 0:
+        bad = se != 0
+    else:
+        bad = ss > se or se > 63 or len(scan) != 1
+    if (ah and al != ah - 1) or al > 13 or bad:
+        raise JpegError(f"bad progression Ss={ss} Se={se} Ah={ah} Al={al}")
+    for ci in scan:
+        if prev_bits is not None:
+            lo, hi = min(ss, 1), max(se, 9) + 1
+            prev_bits[ci, lo:hi] = 0 if first_scan else coef_bits[ci, lo:hi]
+        coef_bits[ci, ss:se + 1] = al
 
 
 # -- JPEG: sample reconstruction ------------------------------------------
@@ -440,8 +735,11 @@ def _idct_pass(c, shift):
 
 
 def _range_limit_table() -> np.ndarray:
-    """libjpeg's post-IDCT range limit, indexed by (value & 0x3FF): x + 128
-    clamped to [0, 255] for x in [-512, 511], wrapping beyond."""
+    """jidctred.c's post-IDCT range limit for the 1x1 IDCT, indexed by
+    (value & 0x3FF): x + 128 clamped to [0, 255] for x in [-512, 511],
+    wrapping beyond. The 8x8, 4x4 and 2x2 IDCTs run as libjpeg-turbo's SIMD
+    code, whose saturating packs clamp every value (a block decoded from
+    the zero bits after a cut reaches past +-512)."""
     i = np.arange(1024)
     return np.select([i < 128, i < 512, i < 896], [i + 128, 255, 0],
                      i - 896).astype(np.uint8)
@@ -459,7 +757,7 @@ def _idct_plane(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
     ws = np.stack(ws, axis=1)                                 # (N, row, col)
     out = _idct_pass([ws[:, :, k] for k in range(8)], 18)    # rows
     out = np.stack(out, axis=2)                               # (N, row, col)
-    px = _RANGE[out & 0x3FF]
+    px = np.clip(out + 128, 0, 255).astype(np.uint8)
     return px.reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
 
 
@@ -516,7 +814,7 @@ def _idct_scaled(coef: np.ndarray, qt: np.ndarray, size: int) -> np.ndarray:
         one_pass, shifts = {4: (_idct4_pass, (12, 19)), 2: (_idct2_pass, (13, 20))}[size]
         ws = np.stack(one_pass([b[:, k, :] for k in range(8)], shifts[0]), axis=1)
         out = np.stack(one_pass([ws[:, :, k] for k in range(8)], shifts[1]), axis=2)
-    px = _RANGE[out & 0x3FF]
+    px = _RANGE[out & 0x3FF] if size == 1 else np.clip(out + 128, 0, 255).astype(np.uint8)
     return px.reshape(rows, cols, size, size).transpose(0, 2, 1, 3).reshape(
         rows * size, cols * size)
 
@@ -600,6 +898,134 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """OpenCV's icvCvt_CMYK2BGR_8u_C4C3R on uint8 planes, as RGB: each of
+    C, M, Y becomes k - ((255 - x) * k >> 8)."""
+    kk = k.astype(np.int32)
+    return np.stack([kk - (((255 - x.astype(np.int32)) * kk) >> 8) for x in (c, m, y)],
+                    -1).astype(np.uint8)
+
+
+def ycck_to_cmyk(y, cb, cr, k) -> tuple:
+    """jdcolor.c's ycck_cmyk_convert: the YCbCr -> RGB of ycc_rgb_convert,
+    each result x taken as 255 - x (clamped); K passes through."""
+    cr_r, cb_b, cr_g, cb_g = _YCC
+    yy = y.astype(np.int64)
+    rgb = (yy + cr_r[cr], yy + ((cb_g[cb] + cr_g[cr]) >> 16), yy + cb_b[cb])
+    return (*(np.clip(255 - x, 0, 255).astype(np.uint8) for x in rgb), k)
+
+
+# -- JPEG: block smoothing (jdcoefct.c) ------------------------------------
+
+# libjpeg-turbo's 5x5 block smoothing (2.1 on): for each of the first ten
+# zigzag coefficients, the weights of the DC values of the 5x5 blocks
+# around a block (rows above to below, columns left to right), with the DC
+# values of the other blocks unknown bits ("dc") or not ("ac").
+_K_AC01_DC = [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+              [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]]
+_K_AC01_AC = [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]
+_K_AC20_DC = [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+              [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]]
+_K_AC20_AC = [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0],
+              [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]]
+_K_AC11_DC = [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0],
+              [1, 0, 0, 0, -1]]
+_K_AC11_AC = [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5,
+              [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]
+_K_AC03 = [[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], [0] * 5]
+_K_AC12 = [[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5]
+_K_DC = [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+         [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]]
+
+
+def _t(k):
+    return np.asarray(k, np.int64).T
+
+
+# zigzag index 1..9 -> (DC-interpolation kernel, kernel with AC data or None)
+_SMOOTH = {
+    1: (np.asarray(_K_AC01_DC), np.asarray(_K_AC01_AC)),
+    2: (_t(_K_AC01_DC), _t(_K_AC01_AC)),
+    3: (np.asarray(_K_AC20_DC), np.asarray(_K_AC20_AC)),
+    4: (np.asarray(_K_AC11_DC), np.asarray(_K_AC11_AC)),
+    5: (_t(_K_AC20_DC), _t(_K_AC20_AC)),
+    6: (np.asarray(_K_AC03), None),
+    7: (np.asarray(_K_AC12), None),
+    8: (_t(_K_AC12), None),
+    9: (_t(_K_AC03), None),
+}
+
+
+def _smooth_rows(hb: int, v: int, imcu_rows: int) -> np.ndarray:
+    """(hb, 5) block rows read for each block row of a component, two above
+    to two below, as decompress_smooth_data picks them iMCU row by iMCU row
+    (its last iMCU row counts only its real block rows, also when it
+    decides where the image's edge lies)."""
+    out = []
+    for i in range(imcu_rows):
+        rows = v if i < imcu_rows - 1 else (hb % v or v)
+        for b in range(rows):
+            r, ib, n = i * v + b, i * rows + b, rows * imcu_rows
+            up = r - 1 if ib > 0 else r
+            down = r + 1 if ib < n - 1 else r
+            out.append((r - 2 if ib > 1 else up, up, r, down,
+                        r + 2 if ib < n - 2 else down))
+    return np.asarray(out, np.int64)
+
+
+def _smooth_block_grid(blocks: np.ndarray, qt: np.ndarray, bits: list, hb: int,
+                       wb: int, v: int, imcu_rows: int) -> np.ndarray:
+    """jdcoefct.c decompress_smooth_data on one component: (rows, cols, 64)
+    blocks -> a copy whose hb x wb real blocks hold libjpeg's estimates of
+    the first ten coefficients where their bits are not all known (`bits`,
+    libjpeg's coef_bits[0..9]) and the coefficient is still zero. With no
+    AC bit known at all, DC is re-estimated too."""
+    # two rows past the grid read as zero DC: a one-component frame whose
+    # SOF samples it 2 high has block rows that libjpeg pads and never decodes
+    dc = np.zeros((blocks.shape[0] + 2, blocks.shape[1]), np.int64)
+    dc[:blocks.shape[0]] = blocks[:, :, 0]
+    rows = _smooth_rows(hb, v, imcu_rows)
+    cols = np.clip(np.arange(wb)[:, None] + np.arange(-2, 3), 0, wb - 1)
+    near = dc[rows[:, None, :, None], cols[None, :, None, :]]   # (y, x, 5, 5)
+    change_dc = all(b == -1 for b in bits[1:10])
+    q00 = int(qt[0])
+    out = blocks.copy()
+    ws = out[:hb, :wb]
+
+    def predict(kernel, q, al):
+        num = q00 * np.einsum("yxrc,rc->yx", near, kernel)
+        pred = ((q << 7) + np.abs(num)) // (q << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        return np.where(num >= 0, pred, -pred)
+
+    for k in range(1, 10):
+        kern_dc, kern_ac = _SMOOTH[k]
+        kernel = kern_dc if change_dc else kern_ac
+        al = bits[k]
+        if kernel is None or al == 0:
+            continue
+        pos = int(ZIGZAG[k])
+        zero = ws[:, :, pos] == 0
+        ws[:, :, pos] = np.where(zero, predict(kernel, int(qt[pos]), al), ws[:, :, pos])
+    if change_dc:
+        ws[:, :, 0] = predict(np.asarray(_K_DC), q00, 0)
+    return out
+
+
+def _smoothing_bits(coef_bits, qtables) -> list | None:
+    """jdcoefct.c smoothing_ok: each component's coef_bits[0..9] when block
+    smoothing applies (every component scanned, its DC partly known, none
+    of its ten quantizers zero, and some of those ten coefficients not
+    fully known in some component), else None."""
+    if any(qt is None or not qt[ZIGZAG[:10]].all() for qt in qtables):
+        return None
+    bits = coef_bits[:, :10]
+    if (bits[:, 0] < 0).any() or not (bits[:, 1:] != 0).any():
+        return None
+    return bits.tolist()
+
+
 def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
     """(ceil(H / scale), ceil(W / scale), 3) RGB in stored order, and the
     EXIF orientation. `scale` 2, 4 or 8 decodes as libjpeg does with
@@ -610,8 +1036,9 @@ def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
     why = jpeg_refusal(info)
     if why:
         raise JpegError(why)
+    progressive = info["sof"] == SOF_PROGRESSIVE
     height, width = info["height"], info["width"]
-    comps = [dict(id=i, h=h, v=v, tq=tq) for i, h, v, tq in info["components"]]
+    comps = [dict(id=i, h=h, v=v, tq=tq, sof_v=v) for i, h, v, tq in info["components"]]
     if len(comps) == 1:       # one component is never interleaved: 1x1
         comps[0].update(h=1, v=1)
     max_h = max(c["h"] for c in comps)
@@ -621,12 +1048,18 @@ def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
     offsets, total = [], 0
     for c in comps:
         c["bcols"], c["brows"] = mcu_cols * c["h"], mcu_rows * c["v"]
+        c["bcols_real"] = _ceil_div(_ceil_div(width * c["h"], max_h), 8)
+        c["brows_real"] = _ceil_div(_ceil_div(height * c["v"], max_v), 8)
         offsets.append(total)
         total += c["bcols"] * c["brows"] * 64
     frame = dict(width=width, height=height, comps=comps, max_h=max_h,
                  max_v=max_v, mcu_cols=mcu_cols, mcu_rows=mcu_rows,
                  offsets=offsets)
     coefs = np.zeros(total, np.int32)
+    coef_bits = np.full((len(comps), 64), -1, np.int64)
+    prev_bits = np.zeros_like(coef_bits)
+    imcu_rows = _ceil_div(height, 8 * max(c["sof_v"] for c in comps))
+    n_scans = last_good = 0
     qtables, tables, restart = {}, {}, 0
     by_id = {c["id"]: i for i, c in enumerate(comps)}
     for m, a, b, end in _walk(data):
@@ -658,38 +1091,73 @@ def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
         elif m == DRI:
             restart = (seg[0] << 8) | seg[1]
         elif m == SOS:
+            ns = seg[0]
+            if len(seg) < 4 + 2 * ns:
+                raise JpegError("short SOS")
+            ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+            if progressive:   # which tables the scan reads
+                need = (0,) if ss == 0 and ah == 0 else () if ss == 0 else (1,)
+            else:
+                need = (0, 1)
             scan_comps = []
-            for k in range(seg[0]):
+            for k in range(ns):
                 cid, t = seg[1 + 2 * k], seg[2 + 2 * k]
                 if cid not in by_id:
                     raise JpegError("scan names an unknown component")
                 td, ta = t >> 4, t & 15
-                if (0, td) not in tables or (1, ta) not in tables:
+                if any((tc, (td, ta)[tc]) not in tables for tc in need):
                     raise JpegError("Huffman table not defined")
                 ci = by_id[cid]
                 if comps[ci]["tq"] not in qtables:
                     raise JpegError("quantization table not defined")
                 comps[ci].setdefault("qt", qtables[comps[ci]["tq"]])
                 scan_comps.append((ci, td, ta))
-            _scan(data, b, end, frame, scan_comps, tables, restart, coefs)
+            if progressive:
+                _progression(coef_bits, [ci for ci, _, _ in scan_comps], ss, se, ah, al,
+                             prev_bits, n_scans == 0)
+                n_scans += 1
+                row = _scan_progressive(data, b, end, frame, scan_comps, tables,
+                                        restart, coefs, ss, se, ah, al)
+                if row is not None:   # jdcoefct.c's last_good_iMCU_row
+                    last_good = row
+            else:
+                _scan(data, b, end, frame, scan_comps, tables, restart, coefs)
+    smooth = _smoothing_bits(coef_bits, [c.get("qt") for c in comps]) if progressive else None
     low = 8 // scale
     out_h, out_w = _ceil_div(height, scale), _ceil_div(width, scale)
     planes = []
-    for c, off, size in zip(comps, offsets,
-                            scaled_sizes([(c["h"], c["v"]) for c in comps], scale)):
-        blocks = coefs[off:off + c["bcols"] * c["brows"] * 64]
+    for ci, (c, off, size) in enumerate(zip(
+            comps, offsets, scaled_sizes([(c["h"], c["v"]) for c in comps], scale))):
+        blocks = coefs[off:off + c["bcols"] * c["brows"] * 64].reshape(c["brows"], c["bcols"], 64)
         if "qt" not in c:
-            raise JpegError(f"component {c['id']} is in no scan")
-        plane = _idct_scaled(blocks.reshape(c["brows"], c["bcols"], 64), c["qt"], size)
+            if not progressive:
+                raise JpegError(f"component {c['id']} is in no scan")
+            c["qt"] = np.zeros(64, np.int64)   # never scanned: mid grey
+        if smooth is not None:
+            grid = (c["brows_real"], c["bcols_real"], c["sof_v"], imcu_rows)
+            smoothed = _smooth_block_grid(blocks, c["qt"], smooth[ci], *grid)
+            # rows past the last good iMCU row take the bits from before
+            # the last scan (all unknown after a single scan)
+            cut = (last_good + 1) * c["sof_v"]
+            if cut < c["brows_real"]:
+                prev = [-1] * 10 if n_scans == 1 else [0] + prev_bits[ci, 1:10].tolist()
+                smoothed[cut:] = _smooth_block_grid(blocks, c["qt"], prev, *grid)[cut:]
+            blocks = smoothed
+        plane = _idct_scaled(blocks, c["qt"], size)
         dh = _ceil_div(height * c["v"] * size, max_v * 8)
         dw = _ceil_div(width * c["h"] * size, max_h * 8)
         plane = _upsample(plane[:dh, :dw], max_h * low // (c["h"] * size),
                           max_v * low // (c["v"] * size), fancy=low > 1)
         planes.append(plane[:out_h, :out_w])
-    if len(planes) == 1:
+    colour = jpeg_colour(info)
+    if colour == "grey":
         rgb = np.repeat(planes[0][:, :, None], 3, axis=2)
-    else:
+    elif colour == "ycc":
         rgb = ycc_to_rgb(*planes)
+    elif colour == "rgb":
+        rgb = np.stack(planes, -1)
+    else:
+        rgb = cmyk_to_rgb(*(planes if colour == "cmyk" else ycck_to_cmyk(*planes)))
     return rgb, info["orientation"]
 
 
@@ -880,15 +1348,226 @@ def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
     return np.ascontiguousarray(samples[:, :, :3]), orientation
 
 
+# -- BMP (OpenCV's grfmt_bmp.cpp) -----------------------------------------
+
+BMP_RGB, BMP_RLE8, BMP_RLE4, BMP_BITFIELDS = 0, 1, 2, 3
+# loadsave.cpp's validateInputImageSize: CV_IO_MAX_IMAGE_WIDTH and _HEIGHT,
+# and CV_IO_MAX_IMAGE_PIXELS
+BMP_MAX_SIDE, BMP_MAX_PIXELS = 1 << 20, 1 << 30
+
+
+class BmpError(ValueError):
+    """Bytes that OpenCV's BMP decoder refuses (or reads past the end of);
+    decode_image answers None."""
+
+
+class _Stream:
+    """OpenCV's little-endian RLByteStream over the bytes: reading past the
+    end raises, as cv2 then gives None."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.pos = data, pos
+
+    def take(self, n: int) -> bytes:
+        if n < 0 or self.pos + n > len(self.data):
+            raise BmpError("unexpected end of the BMP")
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+    def byte(self) -> int:
+        return self.take(1)[0]
+
+    def word(self) -> int:
+        return struct.unpack("<H", self.take(2))[0]
+
+    def dword(self) -> int:
+        return struct.unpack("<i", self.take(4))[0]
+
+
+def bmp_header(data: bytes) -> dict:
+    """BmpDecoder::readHeader: width, height (positive; bottom_up when the
+    stored height is), bpp (15 for 16-bit 5-5-5), compression, the pixel
+    data's offset and the (256, 3) BGR palette of a palette image. Raises
+    BmpError for what OpenCV refuses: a header size other than 12 or 36 and
+    more, compression above 3, a bit depth or compression it does not
+    take, 16-bit masks other than 5-5-5 and 5-6-5, more than 256 colours, a
+    side over 1 << 20 or more than 1 << 30 pixels."""
+    if data[:2] != b"BM":
+        raise BmpError("not a BMP")
+    st = _Stream(data, 10)
+    offset, size = st.dword(), st.dword()
+    palette = np.zeros((256, 3), np.uint8)
+    if size >= 36:
+        width, height = st.dword(), st.dword()
+        bpp, comp = st.dword() >> 16, st.dword()
+        if not 0 <= comp <= BMP_BITFIELDS:
+            raise BmpError(f"compression {comp}")
+        st.take(12)
+        clrused = st.dword()
+        st.take(size - 36)
+        ok = width > 0 and height != 0 and (
+            (bpp in (1, 4, 8, 24, 32) and comp == BMP_RGB)
+            or (bpp in (16, 32) and comp in (BMP_RGB, BMP_BITFIELDS))
+            or (bpp == 4 and comp == BMP_RLE4) or (bpp == 8 and comp == BMP_RLE8))
+        if not ok:
+            raise BmpError(f"{bpp}-bit BMP with compression {comp}")
+        if bpp <= 8:
+            if not 0 <= clrused <= 256:
+                raise BmpError(f"{clrused} palette colours")
+            n = clrused or 1 << bpp
+            palette[:n] = np.frombuffer(st.take(4 * n), np.uint8).reshape(n, 4)[:, :3]
+        elif bpp == 16 and comp == BMP_BITFIELDS:
+            red, green, blue = st.dword(), st.dword(), st.dword()
+            if (red, green, blue) == (0x7C00, 0x3E0, 0x1F):
+                bpp = 15
+            elif (red, green, blue) != (0xF800, 0x7E0, 0x1F):
+                raise BmpError("16-bit masks other than 5-5-5 and 5-6-5")
+        elif bpp == 16:
+            bpp = 15
+    elif size == 12:
+        width, height, bpp, comp = st.word(), st.word(), st.dword() >> 16, BMP_RGB
+        if not (width > 0 and height != 0 and bpp in (1, 4, 8, 24, 32)):
+            raise BmpError(f"{bpp}-bit BMP")
+        if bpp <= 8:
+            n = 1 << bpp
+            palette[:n] = np.frombuffer(st.take(3 * n), np.uint8).reshape(n, 3)
+    else:
+        raise BmpError(f"header size {size}")
+    if (width > BMP_MAX_SIDE or abs(height) > BMP_MAX_SIDE
+            or width * abs(height) > BMP_MAX_PIXELS):
+        raise BmpError(f"{width}x{abs(height)} BMP, over OpenCV's size limits")
+    return dict(width=width, height=abs(height), bottom_up=height > 0, bpp=bpp,
+                compression=comp, offset=offset, palette=palette, orientation=1)
+
+
+def _bmp_rle(st: _Stream, info: dict) -> np.ndarray:
+    """BmpDecoder::readData's RLE8 and RLE4 loops: (H, W, 3) BGR rows in
+    file order. Runs, absolute runs, end of line, end of bitmap and delta,
+    each skipped pixel painted with palette entry 0 (in RLE4, as OpenCV
+    does, end of bitmap only ends the line and delta moves only right); a
+    run past the end of its line, or the bytes ending first, raise."""
+    w, h, pal, rle8 = info["width"], info["height"], info["palette"], info["bpp"] == 8
+    out = np.empty((h, w, 3), np.uint8)
+    flat = out.reshape(-1, 3)
+    y = x = 0           # the row being written, the pixel in it
+    line_end_flag = 0   # (RLE8) whether the last run ended its line
+
+    def fill(count: int, colour) -> None:   # FillUniColor, count pixels
+        nonlocal x, y
+        while True:
+            n = min(count, w - x)
+            flat[y * w + x:y * w + x + n] = colour
+            count -= n
+            x += n
+            if x >= w:
+                x = 0
+                y += 1
+                if y >= h:
+                    return
+            if count <= 0:
+                return
+
+    while True:
+        n, code = st.byte(), st.byte()
+        if n:                                           # a run
+            if x + n > w:
+                raise BmpError("RLE run past the end of its line")
+            if rle8:
+                prev = y
+                fill(n, pal[code])
+                line_end_flag = y - prev
+                if y >= h:
+                    break
+            else:
+                pair = pal[[code >> 4, code & 15]]
+                flat[y * w + x:y * w + x + n] = pair[np.arange(n) & 1]
+                x += n
+        elif code > 2:                                  # an absolute run
+            if x + code > w:
+                raise BmpError("RLE run past the end of its line")
+            if rle8:
+                idx = np.frombuffer(st.take((code + 1) & ~1), np.uint8)[:code]
+                line_end_flag = 0
+            else:
+                packed = np.frombuffer(st.take((((code + 1) >> 1) + 1) & ~1), np.uint8)
+                idx = np.stack([packed >> 4, packed & 15], 1).reshape(-1)[:code]
+            flat[y * w + x:y * w + x + code] = pal[idx]
+            x += code
+        else:                                           # EOL, EOB, delta
+            skip = w - x
+            rows = h - y
+            if rle8 and not (code or not line_end_flag or skip < w):
+                line_end_flag = 0      # EOL right after a run that ended its line
+                continue
+            if code == 2:
+                skip, rows = st.byte(), st.byte()
+            if rle8 and code != 0:
+                skip += rows * w
+                if y >= h:
+                    break
+            fill(skip, pal[0])   # RLE4 drops the rows: EOB ends a line, delta moves right
+            line_end_flag = 0
+            if y >= h:
+                break
+    return out
+
+
+def _decode_bmp(data: bytes) -> tuple[np.ndarray, int]:
+    """cv2.imdecode(IMREAD_COLOR) of a BMP (BmpDecoder) as (H, W, 3) RGB,
+    and orientation 1: palettes of 1, 4 and 8 bits, 16-bit 5-5-5 and 5-6-5
+    (low bits zero, as cv2 expands them), 24-bit, 32-bit with the fourth
+    byte dropped, RLE8 and RLE4; rows bottom-up or top-down."""
+    info = bmp_header(data)
+    w, h, bpp = info["width"], info["height"], info["bpp"]
+    st = _Stream(data, info["offset"])
+    if info["compression"] in (BMP_RLE8, BMP_RLE4):
+        bgr = _bmp_rle(st, info)
+    else:
+        pitch = ((w * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & -4
+        rows = np.frombuffer(st.take(pitch * h), np.uint8).reshape(h, pitch)
+        if bpp <= 8:
+            bits = np.unpackbits(rows, axis=1)[:, :w * bpp].reshape(h, w, bpp)
+            idx = (bits * (1 << np.arange(bpp - 1, -1, -1)).astype(np.uint8)).sum(-1)
+            bgr = info["palette"][idx]
+        elif bpp in (15, 16):
+            t = rows[:, :2 * w].view("<u2").astype(np.int32)
+            if bpp == 15:
+                bgr = np.stack([t << 3, (t >> 2) & ~7, (t >> 7) & ~7], -1)
+            else:
+                bgr = np.stack([t << 3, (t >> 3) & ~3, (t >> 8) & ~7], -1)
+            bgr = (bgr & 255).astype(np.uint8)
+        else:
+            bgr = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)[:, :, :3]
+    if info["bottom_up"]:
+        bgr = bgr[::-1]
+    return np.ascontiguousarray(bgr[:, :, ::-1]), 1
+
+
+def encode_bmp(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> the bytes of cv2.imwrite('.bmp', BGR): a
+    40-byte BITMAPINFOHEADER, 24 bits, bottom-up rows padded to 4 bytes."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    h, w = rgb.shape[:2]
+    pitch = (3 * w + 3) & -4
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    head = 14 + 40
+    return (b"BM" + struct.pack("<IiI", head + pitch * h, 0, head)
+            + struct.pack("<iiiHHiiiiii", 40, w, h, 1, 24, BMP_RGB, 0, 0, 0, 0, 0)
+            + rows.tobytes())
+
+
 # -- entry points ----------------------------------------------------------
 
 
 def image_kind(data: bytes) -> str | None:
-    """"jpeg", "png" or None, from the leading bytes."""
+    """"jpeg", "png", "bmp" or None, from the leading bytes."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == PNG_SIGNATURE:
         return "png"
+    if data[:2] == b"BM":
+        return "bmp"
     return None
 
 
@@ -902,6 +1581,8 @@ def decode_image(data: bytes) -> np.ndarray | None:
             rgb, orientation = _decode_jpeg(data)
         elif kind == "png":
             rgb, orientation = _decode_png(data)
+        elif kind == "bmp":
+            rgb, orientation = _decode_bmp(data)
         else:
             return None
     except (ValueError, IndexError, struct.error, zlib.error):
@@ -1102,24 +1783,54 @@ def _decoder(device: torch.device) -> NvJpeg:
         return dec
 
 
-def decode_jpeg_cuda(data: bytes, device: str | torch.device = "cuda") -> torch.Tensor | None:
-    """JPEG bytes -> (H, W, 3) uint8 RGB on the card, oriented as its EXIF
-    says, or None. The header is read on the host first: the kinds that
-    decode_image refuses (and bytes that end inside a scan) give None here
-    too, so both devices answer alike; nvJPEG then decodes on the current
-    stream, and a status it returns for corrupt data also gives None. Each
-    decode that reaches nvJPEG adds one to `decode_jpeg_cuda.calls`."""
+ROUTES = ("nvjpeg", "nvjpeg_progressive", "host_smoothed", "host_colour",
+          "host_jpeg", "host_png", "host_bmp", "refused")
+route_counts = dict.fromkeys(ROUTES, 0)   # decode_to's decodes by route
+
+
+def _route(data: bytes, device: torch.device):
+    """(route, JPEG header or None) of `data` on `device`, from its header
+    alone (no entropy decoding): on a CUDA device a baseline or extended
+    sequential JPEG in YCbCr or grey goes to nvJPEG ("nvjpeg"), so does a
+    progressive one whose scans complete every coefficient
+    ("nvjpeg_progressive"); a progressive JPEG that leaves coefficient bits
+    unknown ("host_smoothed": libjpeg smooths its blocks, nvJPEG does not)
+    and a CMYK, YCCK or RGB JPEG ("host_colour") decode on the host, as
+    does every JPEG on the CPU ("host_jpeg"), every PNG and BMP, while what
+    decode_image refuses is "refused"."""
+    kind = image_kind(data)
+    if kind != "jpeg":
+        return ("refused" if kind is None else f"host_{kind}"), None
+    try:
+        info = jpeg_header(data)
+    except (JpegError, IndexError, struct.error):
+        return "refused", None
+    if jpeg_refusal(info):
+        return "refused", info
+    if device.type != "cuda":
+        return "host_jpeg", info
+    if jpeg_colour(info) not in ("grey", "ycc"):
+        return "host_colour", info
+    if info["sof"] == SOF_PROGRESSIVE:
+        return ("nvjpeg_progressive" if info["complete"] else "host_smoothed"), info
+    return "nvjpeg", info
+
+
+def decode_route(data: bytes, device: str | torch.device = "cuda") -> str:
+    """Which decoder decode_to takes for `data` on `device` (see _route)."""
+    return _route(data, torch.device(device))[0]
+
+
+def _card(device) -> torch.device:
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"decode_jpeg_cuda decodes on a CUDA device, not {device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    try:
-        info = jpeg_header(data)
-    except (JpegError, IndexError, struct.error):
-        return None
-    if jpeg_refusal(info):
-        return None
+    return device
+
+
+def _nvjpeg_decode(data: bytes, device: torch.device, info: dict) -> torch.Tensor | None:
     with _nvjpeg_lock:   # handler threads decode concurrently
         decode_jpeg_cuda.calls += 1
     img = _decoder(device).decode(data, len(info["components"]))
@@ -1128,17 +1839,41 @@ def decode_jpeg_cuda(data: bytes, device: str | torch.device = "cuda") -> torch.
     return apply_orientation(img, info["orientation"])
 
 
+def decode_jpeg_cuda(data: bytes, device: str | torch.device = "cuda") -> torch.Tensor | None:
+    """JPEG bytes -> (H, W, 3) uint8 RGB on the card, oriented as its EXIF
+    says, or None. The header is read on the host first and only the
+    routes "nvjpeg" and "nvjpeg_progressive" reach nvJPEG: what
+    decode_image refuses (and bytes that end inside a scan) gives None, as
+    do the JPEGs that decode_to decodes on the host (CMYK, YCCK, RGB, a
+    progressive file with unknown coefficient bits); nvJPEG then decodes on
+    the current stream, and a status it returns for corrupt data also gives
+    None. Each decode that reaches nvJPEG adds one to
+    `decode_jpeg_cuda.calls`."""
+    device = _card(device)
+    route, info = _route(data, device)
+    if not route.startswith("nvjpeg"):
+        return None
+    return _nvjpeg_decode(data, device, info)
+
+
 decode_jpeg_cuda.calls = 0
 
 
 def decode_to(data: bytes, device: str | torch.device) -> torch.Tensor | None:
     """Encoded bytes -> (H, W, 3) uint8 RGB tensor on `device`, oriented as
-    the EXIF says, or None. On a CUDA device a JPEG decodes with nvJPEG
-    (decode_jpeg_cuda); other kinds, and every kind on the CPU, decode with
-    decode_image on the host (a PNG is then uploaded). A JPEG that nvJPEG
-    refuses is not handed to the host decoder."""
+    the EXIF says, or None, by the route its header picks (_route): nvJPEG
+    on the card, else decode_image on the host and an upload. Adds one to
+    `route_counts[route]`. A JPEG that nvJPEG refuses is not handed to the
+    host decoder."""
     device = torch.device(device)
-    if device.type == "cuda" and image_kind(data) == "jpeg":
-        return decode_jpeg_cuda(data, device)
+    if device.type == "cuda":
+        device = _card(device)
+    route, info = _route(data, device)
+    with _nvjpeg_lock:
+        route_counts[route] += 1
+    if route == "refused":
+        return None
+    if route.startswith("nvjpeg"):
+        return _nvjpeg_decode(data, device, info)
     rgb = decode_image(data)
     return None if rgb is None else torch.from_numpy(rgb).to(device)

@@ -106,10 +106,11 @@ def mk_output_dir(path: str, model_name: str, task: str) -> str:
 
 
 def exif_size(data: bytes) -> tuple[int, int]:
-    """(width, height) of an encoded JPEG or PNG as it is displayed, from
-    its header alone: EXIF orientations 5-8 (a transpose) swap the stored
-    dimensions. Counterpart of the PIL-based exif_size; raises ValueError
-    for bytes that are neither, or whose header is malformed."""
+    """(width, height) of an encoded JPEG, PNG or BMP as it is displayed,
+    from its header alone: EXIF orientations 5-8 (a transpose) swap the
+    stored dimensions. Counterpart of the PIL-based exif_size; raises
+    ValueError for bytes that are none of these, or whose header is
+    malformed."""
     from vision_kit_tpu_torch.data import decode
 
     kind = decode.image_kind(data)
@@ -117,8 +118,10 @@ def exif_size(data: bytes) -> tuple[int, int]:
         info = decode.jpeg_header(data)
     elif kind == "png":
         info = decode.png_header(data)
+    elif kind == "bmp":
+        info = decode.bmp_header(data)
     else:
-        raise ValueError("not a JPEG or PNG")
+        raise ValueError("not a JPEG, PNG or BMP")
     w, h = info["width"], info["height"]
     return (h, w) if info["orientation"] in (5, 6, 7, 8) else (w, h)
 

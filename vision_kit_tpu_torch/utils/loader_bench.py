@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from vision_kit_tpu_torch.data.decode import (
+    decode_route,
     encode_png,
     pixel_agreement,
     within_nvjpeg_tolerance,
@@ -76,10 +77,11 @@ def _scene(rng, hw) -> tuple[np.ndarray, list[str]]:
 def write_dataset(root: str, n_train: int = 128, n_val: int = 64, seed: int = 0,
                   png_only: bool = False) -> dict:
     """A YOLO dataset under root/{train,valid}/{images,labels}: even
-    indices are the committed JPEG and PNG samples the decoders take, in
-    turn, with 1-3 seeded boxes; odd ones rectangle scenes written as PNGs,
-    labelled by their rectangles. The train split also holds the refused
-    samples (progressive, truncated), which the scan drops. With png_only
+    indices are the committed samples the decoders take, in turn
+    (progressive, CMYK/YCCK/RGB JPEGs and BMPs among them), with 1-3 seeded
+    boxes; odd ones rectangle scenes written as PNGs, labelled by their
+    rectangles. The train split also holds the refused sample (truncated),
+    which the scan drops. With png_only
     every index is a scene and nothing is refused. Returns {"train": n,
     "valid": n, "refused": [file names]}."""
     from vision_kit_tpu_torch.utils.serve_bench import samples
@@ -252,11 +254,15 @@ def _tile_sources(loader, batch_id: int) -> list[list[int]]:
 
 
 def _image_disagreement(got: torch.Tensor, want: torch.Tensor, path: str) -> str | None:
-    """PNG pixels bit-equal, JPEG pixels within decode.NVJPEG_TOLERANCE."""
+    """Pixels bit-equal where the card decodes on the host (decode_route:
+    PNG, BMP, CMYK/YCCK/RGB JPEG, a progressive JPEG that ends early),
+    within decode.NVJPEG_TOLERANCE where nvJPEG decodes."""
     if got.shape != want.shape:
         return f"shape {tuple(got.shape)} != {tuple(want.shape)}"
-    if path.lower().endswith(".png"):
-        return None if torch.equal(got.cpu(), want.cpu()) else "PNG pixels differ"
+    with open(path, "rb") as f:
+        route = decode_route(f.read(), "cuda")
+    if not route.startswith("nvjpeg"):
+        return None if torch.equal(got.cpu(), want.cpu()) else f"{route} pixels differ"
     agreement = pixel_agreement(got, want.cpu().numpy())
     return None if within_nvjpeg_tolerance(agreement) else f"JPEG pixels {agreement}"
 

@@ -1,17 +1,18 @@
 """Demo inputs: image files and directories, and Motion-JPEG video.
 
 Counterpart of vision_kit_tpu/utils/readers.py without OpenCV. Images are
-read through data/decode.py:decode_image (the plain JPEG/PNG decoder,
+read through data/decode.py:decode_image (the plain JPEG/PNG/BMP decoder,
 equal to cv2.imdecode + BGR2RGB bit for bit), so an ImageReader yields RGB
 where the JAX one yields cv2.imread's BGR, and a file the port does not
-decode (WebP, BMP, a progressive JPEG, ...) yields (False, None) where cv2
-may read it. `save` writes `<name>_res.jpg` through data/encode.py's
+decode (WebP, a lossless or arithmetic-coded JPEG, ...) yields (False, None)
+where cv2 may read it. `save` writes `<name>_res.jpg` through data/encode.py's
 encode_jpeg, the bytes cv2.imwrite writes.
 
 VideoReader reads a Motion-JPEG AVI (utils/avi.py) where the JAX one opens
 any file or webcam with cv2.VideoCapture: its frames are RGB uint8 tensors
-on the device, each a whole JPEG decoded by nvJPEG on the card or by the
-plain decoder. A webcam index, and any other codec or container (MPEG-4
+on the device, each a whole JPEG decoded on the card by the route
+data/decode.py:decode_to picks from its header (nvJPEG for a baseline
+frame) or by the plain decoder. A webcam index, and any other codec or container (MPEG-4
 Part 2 or H.264, in AVI or MP4), raise naming what they are. Its writer
 writes Motion-JPEG AVI through encode_jpeg where the JAX one writes mp4v.
 """
@@ -79,7 +80,8 @@ class VideoReader:
     reading and decoding overlap inference.
 
     Frames are (H, W, 3) uint8 RGB tensors on `device`. decoder "nvjpeg"
-    (the default "auto" on the card) decodes each with nvJPEG, "plain" (the
+    (the default "auto" on the card) decodes each through decode.decode_to
+    (nvJPEG, or the host for a frame nvJPEG does not take), "plain" (the
     default on the CPU) with data/decode.py:decode_image, uploaded. On the
     card the thread decodes on a stream of its own, and the consumer's
     stream waits on an event recorded after each frame. A frame the decoder
@@ -135,7 +137,7 @@ class VideoReader:
 
     def _decode(self, data: bytes) -> torch.Tensor | None:
         if self.decoder == "nvjpeg":
-            return decode.decode_jpeg_cuda(data, self.device)
+            return decode.decode_to(data, self.device)
         rgb = decode.decode_image(data) if decode.image_kind(data) == "jpeg" else None
         return None if rgb is None else torch.from_numpy(rgb).to(self.device)
 

@@ -50,6 +50,17 @@ def sample_bytes(kind: str = "jpeg_720p") -> list[bytes]:
     return [data for _, meta, data in samples() if meta["kind"] == kind]
 
 
+def cut_inside_last_scan(data: bytes) -> bytes:
+    """A JPEG cut halfway through the entropy-coded bytes of its last scan
+    and closed by an EOI marker. libjpeg decodes it (the missing bits read
+    as zeros; in a progressive file the rows past the cut are smoothed),
+    and its header still reads complete."""
+    from vision_kit_tpu_torch.data import decode
+
+    start, end = [(b, end) for m, _, b, end in decode._walk(data) if m == decode.SOS][-1]
+    return data[:(start + end) // 2] + b"\xff\xd9"
+
+
 def build_server(variant: str, img: int, batch: int, max_wait_ms: float,
                  synthetic_ingest: int = 0, device: str = "cuda",
                  dtype: torch.dtype = torch.bfloat16):

@@ -8,6 +8,7 @@ empty when it passes."""
 from __future__ import annotations
 
 import itertools
+import os
 import time
 
 import numpy as np
@@ -73,25 +74,29 @@ def reader_disagreements(path: str, jpegs: list, fps: float, device) -> list:
 
 def fast_decode_disagreements(data_dir: str, sizes=(640, 320, 160), idxs=range(24)):
     """YOLODataset(fast_decode=True) over `data_dir` on the card against the
-    same on the CPU at each size: items `idxs` (image, labels, (h0, w0))
-    bit-equal. Returns (disagreements, {size: items that took the reduced
-    decode})."""
+    same on the CPU at each size: items `idxs`, and every item whose file
+    name holds "progressive", (image, labels, (h0, w0)) bit-equal. Returns
+    (disagreements, {size: items that took the reduced decode}, the file
+    names that took it at some size)."""
     from vision_kit_tpu_torch.data.datasets import YOLODataset, _fast_decode_resized
 
-    bad, reduced = [], {}
+    bad, reduced, files = [], {}, set()
     for size in sizes:
         card = YOLODataset(data_dir, img_size=size, fast_decode=True, device="cuda")
         cpu = YOLODataset(data_dir, img_size=size, fast_decode=True, device="cpu")
         reduced[size] = 0
-        for i in idxs:
+        extra = [i for i, f in enumerate(card.img_files) if "progressive" in f]
+        for i in sorted(set(idxs) | set(extra)):
             (gi, gl, ghw, _), (wi, wl, whw, _) = card.pull_item(i), cpu.pull_item(i)
             if gi.device.type != "cuda" or not torch.equal(gi.cpu(), wi):
                 bad.append(f"{size}: item {i} ({card.img_files[i]}) image differs")
             if tuple(ghw) != tuple(whw) or not np.array_equal(gl, wl):
                 bad.append(f"{size}: item {i} labels or (h0, w0) differ")
             with open(card.img_files[i], "rb") as f:
-                reduced[size] += _fast_decode_resized(f.read(), (size, size)) is not None
-    return bad, reduced
+                if _fast_decode_resized(f.read(), (size, size)) is not None:
+                    reduced[size] += 1
+                    files.add(os.path.basename(card.img_files[i]))
+    return bad, reduced, sorted(files)
 
 
 def decode_route_ms(data: bytes, size: int, device, reps: int = 3) -> dict:
