@@ -70,8 +70,8 @@ Phases, each printing its own line; any failure exits non-zero:
      bit-equal to the in-memory model's;
  9b. demo: python -m vision_kit_tpu_torch demo on the committed samples in
      a child process, the phase-4 weights handed over as a Flax msgpack:
-     one JPEG per sample the port decodes (the progressive JPEG and the
-     BMPs among them), each printed count equal to an in-process
+     one JPEG per sample the port decodes (the progressive JPEG, the BMPs
+     and the WebPs among them), each printed count equal to an in-process
      Predictor's; then the video mode on a Motion-JPEG AVI of
      the 720x1280 samples (24 frames at 30 fps; demo -p clip.avi -o
      out.avi in a child, --demo-video): VideoReader's frames against the
@@ -82,29 +82,36 @@ Phases, each printing its own line; any failure exits non-zero:
      stage;
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card by the route
-     its header picks (decode.decode_route: nvJPEG for a baseline or
-     complete progressive JPEG; the host decoder uploaded for a
-     progressive JPEG that ends early, a CMYK, YCCK or RGB JPEG, a PNG, a
-     BMP) against the plain decoder on the host (nvJPEG within
-     decode.NVJPEG_TOLERANCE, the host routes bit-equal, EXIF shapes
-     equal, the truncated sample refused on both), the count of each
-     route, one 720x1280 progressive decode timed by nvJPEG and by the
-     plain decoder beside the baseline frame's, a scan naming an undefined
-     Huffman table refused by nvJPEG and the next decode equal to the
-     first; letterbox_u8 bit-equal on the
+     its header and the host C walk pick (decode.decode_route: nvJPEG for
+     a baseline or complete progressive JPEG whose scans hold every bit;
+     the host decoder uploaded for a progressive JPEG that ends early, a
+     CMYK, YCCK or RGB JPEG, a PNG, a BMP, a WebP) against the plain
+     decoder on the host (nvJPEG within decode.NVJPEG_TOLERANCE, the host
+     routes bit-equal, each WebP at its manifest's rgb_sha256, EXIF shapes
+     equal, the truncated sample refused on both); the C walk
+     (csrc/jpeg_walk.cu) equal to scans_short on every JPEG sample and its
+     cut versions, its host ms on the 720p baseline and progressive
+     frames; a baseline and a progressive sample cut inside their last
+     scan on "host_cut", bit-equal to the plain decoder; a 40000x40000 SOF
+     refused before nvJPEG; the count of each route, one 720x1280
+     progressive decode timed by nvJPEG and by the plain decoder beside
+     the baseline frame's, the plain WebP decode at 240x320 lossy and
+     lossless; a scan naming an undefined Huffman table stopped at the
+     walk, a component naming an undefined quantization table refused by
+     nvJPEG and the next decode equal to the first; letterbox_u8 bit-equal on the
      card and the CPU; the synchronising calls of one Predictor.run; the
      phase-4 model behind InferenceServer (batch 8, max_wait 5 ms): 64
      engine requests equal Predictor.run on the same device-decoded
      frames (class exact, score 1e-5, box 1e-3 px), 64 POSTs from 16
-     clients of every decodable sample (progressive JPEGs and BMPs among
-     them) equal it within the JSON's rounding with each kernel launched
+     clients of every decodable sample (progressive JPEGs, BMPs and WebPs
+     among them) equal it within the JSON's rounding with each kernel launched
      once a batch, a garbage body answered 400; then utils/serve_bench.py:
      the engine over the decoded samples, HTTP from 32 clients beside one
      request's decode alone, a load curve at 0.5, 0.8 and 0.95 of the
      engine's capacity, and the engine with synthetic_ingest 4 at batch 8
      and 64;
  11. fit: utils/loader_bench.py:write_dataset's YOLO dataset (the samples
-     under several names, the progressive JPEGs and BMPs kept by the scan,
+     under several names, the progressive JPEGs, BMPs and WebPs kept by the scan,
      PNG rectangle scenes, the truncated sample dropped)
      through Trainer.fit for v5s@640 bf16, 2 classes, 2 epochs at batch 64
      with configs/yolov5_tpu.yaml's device augmentation and RAM cache on
@@ -1419,8 +1426,9 @@ def phase_demo(model, smi: str) -> dict:
               f"the demo wrote {written} for {len(readable)} readable samples")
         check(sorted(printed) == sorted(readable), f"the demo printed {sorted(printed)}")
         names = [os.path.basename(p) for p in readable]
-        check("progressive_240x320.jpg" in names and "rgb24_120x160.bmp" in names,
-              f"the demo did not read the progressive JPEG and the BMP: {names}")
+        check({"progressive_240x320.jpg", "rgb24_120x160.bmp", "lossy_240x320.webp",
+               "exif6_120x160.webp"} <= set(names),
+              f"the demo did not read the progressive JPEG, the BMP and the WebPs: {names}")
         pred = load_predictor_from_config(v5s_config(), weights=weights, device="cuda")
         want = {}
         with torch.backends.cudnn.flags(**tf32):
@@ -1436,7 +1444,7 @@ def phase_demo(model, smi: str) -> dict:
         print(f"demo: python -m vision_kit_tpu_torch demo -p vision_kit_tpu_torch/data/samples "
               f"-w <the phase-4 weights as a Flax msgpack>: exit 0 in {demo_s:.1f} s, "
               f"{len(written)} JPEGs for the {len(readable)} of {len(files)} samples the "
-              f"port decodes (progressive, CMYK/YCCK/RGB JPEGs and BMPs among them); "
+              f"port decodes (progressive, CMYK/YCCK/RGB JPEGs, BMPs and WebPs among them); "
               f"detections by image {sorted(want.values())}, equal to an in-process "
               f"Predictor's on {smi}", flush=True)
 
@@ -1525,10 +1533,21 @@ SERVE_BATCH = 8
 
 def undefined_table_jpeg(data: bytes) -> bytes:
     """`data` with its scan's first component pointed at Huffman tables 3,
-    which no DHT defines: the host header check passes it, nvJPEG must
-    refuse it."""
+    which no DHT defines: the host C walk cannot read it, so it decodes on
+    the host (None) and never reaches nvJPEG."""
     sos = data.index(b"\xff\xda")
     return data[:sos + 6] + bytes([0x33]) + data[sos + 7:]
+
+
+def undefined_quant_jpeg(data: bytes) -> bytes:
+    """`data` with its first component pointed at quantization table 3,
+    which no DQT defines: the header check and the C walk (neither reads
+    quantization tables) pass it to nvJPEG, which must refuse it, as the
+    plain decoder does."""
+    from vision_kit_tpu_torch.data import decode as dec
+
+    sof = next(a for m, a, _, _ in dec._walk(data) if m in dec.SOF_HUFFMAN)
+    return data[:sof + 8] + bytes([3]) + data[sof + 9:]
 
 
 def post(url: str, data: bytes, timeout: float = 60.0):
@@ -1548,13 +1567,20 @@ def serve_decode(smi: str) -> dict:
     picks) against the plain decoder on the host, refusals alike: the
     nvJPEG routes (baseline and progressive) within NVJPEG_TOLERANCE, the
     host routes (a progressive file that ends early, CMYK, YCCK, RGB, PNG,
-    BMP) bit-equal; the count of each route; a progressive and a baseline
-    sample cut inside their last scan and closed by an EOI (nvJPEG's
-    route by their headers) recorded against the plain decoder; one
+    BMP, WebP) bit-equal, each WebP at its manifest's rgb_sha256 (cv2's
+    pixels; the card's machine has no cv2); the host C walk of every JPEG
+    (csrc/jpeg_walk.cu) equal to scans_short, its ms on the 720p baseline
+    and progressive frames; a progressive and a baseline sample cut inside
+    their last scan and closed by an EOI on "host_cut", bit-equal to the
+    plain decoder, where nvJPEG took them before the walk; a 40000x40000
+    SOF "refused" without reaching nvJPEG; the count of each route; one
     720x1280 progressive decode timed by nvJPEG and by the plain decoder
-    beside the baseline frame's; a corrupt JPEG refused by nvJPEG and the next decode still
+    beside the baseline frame's, the plain WebP decode at 240x320 lossy and
+    lossless; a corrupt JPEG refused by nvJPEG and the next decode still
     right, a host-route JPEG never handed to nvJPEG, letterbox_u8 equal on
     the card and the CPU. Returns the card's decoded frames by file name."""
+    import hashlib
+
     from vision_kit_tpu_torch import _cuda_build
     from vision_kit_tpu_torch.data import decode as dec
     from vision_kit_tpu_torch.ops.letterbox import letterbox_u8
@@ -1569,6 +1595,10 @@ def serve_decode(smi: str) -> dict:
         want = dec.decode_image(data)
         route = dec.decode_route(data, "cuda")
         got = dec.decode_to(data, "cuda")
+        if meta["kind"].startswith("webp"):
+            check(route == "host_webp" and got is not None and hashlib.sha256(
+                got.cpu().numpy().tobytes()).hexdigest() == meta["rgb_sha256"],
+                f"serve: {name} on {route} is not cv2's decode (rgb_sha256)")
         if meta["shape"] is None:
             check(want is None and got is None,
                   f"serve: {name} ({meta['kind']}) decoded; both devices must refuse it")
@@ -1590,26 +1620,65 @@ def serve_decode(smi: str) -> dict:
         else:
             check(agree["max_abs"] == 0, f"serve: {name} ({route}) differs on the card")
         frames[name] = got
-    routes = dict(dec.route_counts)
-    check(all(routes[r] > 0 for r in dec.ROUTES if r != "host_jpeg"),
-          f"serve: a route took no sample: {routes}")
-    print(f"serve: routes, one decode of each sample: {json.dumps(routes)}", flush=True)
+    t_new = time.perf_counter()
+    webps = [n for n, m, _ in svb.samples() if m["kind"].startswith("webp")]
+    print(f"serve: {len(webps)} WebP samples on host_webp, each equal to its "
+          f"manifest's rgb_sha256 (cv2.imdecode + BGR2RGB): {', '.join(webps)}", flush=True)
+    # the host C walk against the plain decoder's walks, and what it costs
+    cases = svb.walk_cases()
+    bad = svb.walk_disagreements(cases, "cuda")
+    check(not bad, "serve: the C walk disagrees with scans_short: " + "; ".join(bad[:5]))
+    walk_ms = {}
+    for kind in ("jpeg_720p", "jpeg_progressive_720p"):
+        data = svb.sample_bytes(kind)[0]
+        dec.walk_scans_short(data)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            dec.walk_scans_short(data)
+        walk_ms[kind] = (time.perf_counter() - t0) * 1e3 / 20
+    print(f"serve: the C walk (csrc/jpeg_walk.cu, host) equals scans_short on "
+          f"{len(cases)} JPEGs (every sample, each cut inside its last scan, the restart "
+          f"sample cut at RST markers); host ms a walk: 720x1280 baseline "
+          f"{walk_ms['jpeg_720p']:.3f}, 720x1280 progressive "
+          f"{walk_ms['jpeg_progressive_720p']:.3f} on {smi}", flush=True)
     for kind in ("jpeg_progressive", "jpeg_720p"):
-        # the header cannot see a cut inside the last scan: nvJPEG decodes
-        # such a file, and is recorded, not held, against the plain decoder
+        # a cut inside the last scan: the header reads complete, the walk
+        # finds the MCUs short of bits, and the host decodes the file
         cut = svb.cut_inside_last_scan(svb.sample_bytes(kind)[0])
         route = dec.decode_route(cut, "cuda")
+        calls = dec.decode_jpeg_cuda.calls
         got, want = dec.decode_to(cut, "cuda"), dec.decode_image(cut)
-        check(route.startswith("nvjpeg") and got is not None and want is not None
-              and tuple(got.shape) == want.shape,
+        check(route == "host_cut" and got is not None and want is not None
+              and dec.decode_jpeg_cuda.calls == calls
+              and torch.equal(got.cpu(), torch.from_numpy(want)),
               f"serve: a {kind} sample cut inside its last scan: route {route}, "
               f"card {got is not None}, host {want is not None}")
         agree = dec.pixel_agreement(got, want)
         print(f"serve: a {kind} sample cut halfway through its last scan, EOI "
-              f"appended ({len(cut)} B): route {route}, nvJPEG against plain: max |d| "
-              f"{agree['max_abs']}, mean |d| {agree['mean_abs']:.4f}, share |d| > 2 "
-              f"{agree['share_over_2']:.6f}, within NVJPEG_TOLERANCE "
-              f"{dec.within_nvjpeg_tolerance(agree)}", flush=True)
+              f"appended ({len(cut)} B): route {route}, scans short "
+              f"{dec.scans_short(cut)}, card against plain: max |d| {agree['max_abs']}, "
+              f"mean |d| {agree['mean_abs']:.4f}", flush=True)
+    big = svb.sample_bytes("jpeg_444")[0]
+    sof = next(a for m, a, _, _ in dec._walk(big) if m in dec.SOF_ALL)
+    big = big[:sof + 1] + (40000).to_bytes(2, "big") * 2 + big[sof + 5:]
+    calls = dec.decode_jpeg_cuda.calls
+    check(dec.decode_route(big, "cuda") == "refused" and dec.decode_to(big, "cuda") is None
+          and dec.decode_jpeg_cuda.calls == calls,
+          "serve: a 40000x40000 SOF was not refused before nvJPEG")
+    print(f"serve: a {len(big)} B JPEG whose SOF claims 40000x40000 (over OpenCV's "
+          f"1 << 30 pixels): route refused, decode_to None, nvJPEG not called", flush=True)
+    routes = dict(dec.route_counts)
+    check(all(routes[r] > 0 for r in dec.ROUTES if r != "host_jpeg"),
+          f"serve: a route took no sample: {routes}")
+    print(f"serve: routes, one decode of each sample, the two cut files and the "
+          f"oversize SOF: {json.dumps(routes)}", flush=True)
+    by_name = {n: d for n, _, d in svb.samples()}
+    webp_ms = {kind: svb.decode_ms(dec.decode_image, [by_name[f"{kind}_240x320.webp"]],
+                                   "cpu", reps=3) for kind in ("lossy", "lossless")}
+    print(f"serve: one 240x320 WebP decode by the plain decoder (host clock, ms): lossy "
+          f"{webp_ms['lossy']:.3f}, lossless {webp_ms['lossless']:.3f} on {smi}", flush=True)
+    print(f"serve: the WebP, C walk, cut and oversize legs took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
     progressive = svb.sample_bytes("jpeg_progressive_720p")
     baseline = svb.sample_bytes("jpeg_720p")[:1]
     t_prog = {"nvjpeg": svb.decode_ms(lambda d: dec.decode_to(d, "cuda"), progressive,
@@ -1629,8 +1698,12 @@ def serve_decode(smi: str) -> dict:
     good = next(d for n, m, d in svb.samples() if m["kind"] == "jpeg_720p")
     calls = dec.decode_jpeg_cuda.calls
     check(dec.decode_to(undefined_table_jpeg(good), "cuda") is None
-          and dec.decode_image(undefined_table_jpeg(good)) is None,
-          "serve: a scan naming an undefined Huffman table decoded")
+          and dec.decode_image(undefined_table_jpeg(good)) is None
+          and dec.decode_jpeg_cuda.calls == calls,
+          "serve: a scan naming an undefined Huffman table decoded or reached nvJPEG")
+    check(dec.decode_to(undefined_quant_jpeg(good), "cuda") is None
+          and dec.decode_image(undefined_quant_jpeg(good)) is None,
+          "serve: a component naming an undefined quantization table decoded")
     check(dec.decode_jpeg_cuda.calls == calls + 1,
           "serve: the corrupt JPEG did not reach nvJPEG")
     check(dec.decode_to(b"\xff\xd8garbage body", "cuda") is None,
@@ -1639,7 +1712,9 @@ def serve_decode(smi: str) -> dict:
     torch.cuda.synchronize()
     check(after is not None and torch.equal(after, frames["frame0_720x1280_420_q90.jpg"]),
           "serve: the decode after a corrupt JPEG differs")
-    print("serve: nvJPEG refused a scan naming an undefined Huffman table "
+    print("serve: a scan naming an undefined Huffman table stopped at the C walk "
+          "(host route, None); nvJPEG refused a component naming an undefined "
+          "quantization table "
           "(None, as on the host), garbage bytes gave None, and the next decode "
           "equals the first (no CUDA error left); decode_jpeg_cuda handed no "
           "host-route JPEG to nvJPEG", flush=True)
@@ -1734,7 +1809,8 @@ def phase_serve(model, smi: str) -> dict:
         check(dec.decode_jpeg_cuda.calls == n_jpeg,
               f"serve: {dec.decode_jpeg_cuda.calls} nvJPEG decodes for {n_jpeg} JPEGs")
         kinds = sorted({m["kind"] for _, m, _ in svb.samples() if m["shape"] is not None})
-        check({"jpeg_progressive", "bmp_24"} <= set(kinds), f"serve: posted kinds {kinds}")
+        check({"jpeg_progressive", "bmp_24", "webp_lossy", "webp_animated"} <= set(kinds),
+              f"serve: posted kinds {kinds}")
         print(f"serve: v5s@640 bf16 server, batch {SERVE_BATCH}, max_wait 5 ms: 64 "
               f"POSTs from 16 clients of {len(payloads)} samples ({', '.join(kinds)}) "
               f"answered 200, each equal to Predictor.run within the JSON's rounding; "
@@ -1992,6 +2068,8 @@ def phase_fit(smi: str) -> dict:
               f"the scan kept {len(tr.train_loader.planner.dataset)} of {FIT_TRAIN} + "
               f"{len(made['refused'])} refused train images")
         check(tr.train_loader.device.type == "cuda", "the train dataset is not on the card")
+        kept_webp = [f for f in tr.train_loader.planner.dataset.img_files if f.endswith(".webp")]
+        check(len(kept_webp) > 0, "the scan kept no WebP of the fit's dataset")
         before = sb.train_state_tensors(tr.state)
         torch.cuda.synchronize()
         reset_counts()
@@ -2027,7 +2105,8 @@ def phase_fit(smi: str) -> dict:
         check(all(np.isfinite(d).all() for d in dets), "best weights: non-finite detections")
         stats = tr.epoch_stats
         print(f"fit: v5s@640 b{FIT_BATCH} bf16 (2 classes), {FIT_EPOCHS} epochs of "
-              f"{tr.steps_per_epoch} steps on {FIT_TRAIN} train images ({len(made['refused'])} "
+              f"{tr.steps_per_epoch} steps on {FIT_TRAIN} train images ({len(kept_webp)} "
+              f"WebPs kept by the scan, {len(made['refused'])} "
               f"refused ones dropped by the scan), RAM cache on the card, device aug with "
               f"mosaic: fit {fit_s:.1f} s; per epoch "
               + "; ".join(f"{e['img_s']:.1f} img/s ({e['seconds']:.2f} s, loader wait "

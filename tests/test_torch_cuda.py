@@ -329,13 +329,41 @@ def test_nvjpeg_against_the_plain_decoder(cuda):
             assert agree["max_abs"] == 0, name
 
 
+def test_c_walk_equals_scans_short(cuda):
+    """The host C walk of csrc/jpeg_walk.cu counts what scans_short counts
+    on every JPEG sample, its cut inside the last scan and cuts at restart
+    markers; the short ones route to "host_cut", the whole ones not."""
+    from vision_kit_tpu_torch.utils.serve_bench import walk_cases, walk_disagreements
+
+    cases = walk_cases()
+    assert len(cases) > 30
+    assert walk_disagreements(cases, cuda) == []
+
+
+def test_cut_jpegs_decode_on_the_host(cuda):
+    """A baseline and a progressive sample cut inside their last scan decode
+    by "host_cut", bit-equal to decode_image, and never reach nvJPEG."""
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.utils.serve_bench import cut_inside_last_scan, sample_bytes
+
+    for kind in ("jpeg_720p", "jpeg_progressive"):
+        cut = cut_inside_last_scan(sample_bytes(kind)[0])
+        calls = dec.decode_jpeg_cuda.calls
+        assert dec.decode_route(cut, cuda) == "host_cut"
+        got = dec.decode_to(cut, cuda)
+        assert dec.decode_jpeg_cuda.calls == calls
+        assert torch.equal(got.cpu(), torch.from_numpy(dec.decode_image(cut)))
+
+
 def test_nvjpeg_decodes_after_a_corrupt_jpeg(cuda):
     from vision_kit_tpu_torch.data import decode as dec
 
     data = next(d for _, m, d in samples() if m["kind"] == "jpeg_720p")
     first = dec.decode_to(data, cuda)
-    sos = data.index(b"\xff\xda")
-    corrupt = data[:sos + 6] + bytes([0x33]) + data[sos + 7:]   # undefined tables
+    sof = data.index(b"\xff\xc0")
+    # the first component names quantization table 3, which no DQT defines:
+    # the header check and the C walk pass it, nvJPEG refuses it
+    corrupt = data[:sof + 12] + bytes([3]) + data[sof + 13:]
     calls = dec.decode_jpeg_cuda.calls
     assert dec.decode_to(corrupt, cuda) is None
     assert dec.decode_jpeg_cuda.calls == calls + 1

@@ -358,7 +358,7 @@ def test_scan_drops_what_the_port_cannot_decode(tmp_path, caplog):
     assert (tmp_path / "jax" / "images" / "1.jpg").read_bytes()[-2:] == b"\xff\xd9"
     log = caplog.text
     for name, reason in (("1.jpg", "bytes end inside a scan"),
-                         ("junk.jpg", "not a JPEG, PNG or BMP"), ("tiny.png", "30x8 < 10")):
+                         ("junk.jpg", "not a JPEG, PNG, BMP or WebP"), ("tiny.png", "30x8 < 10")):
         assert any(name in r.message and reason in r.message for r in caplog.records), \
             (name, log)
     again = port_ds.YOLODataset(str(tmp_path / "port"), img_size=64, device="cpu")

@@ -11,6 +11,7 @@ request with a progressive JPEG and a BMP.
 import io
 import os
 import struct
+import tracemalloc
 
 import cv2
 import numpy as np
@@ -396,7 +397,9 @@ def test_bmp_sample_streams_hold_every_escape():
 
 def test_routes_from_the_header():
     """decode_to's route for each committed sample on the card and on the
-    CPU, from the header alone (nothing touches CUDA)."""
+    CPU, from the header and the scans' walk (nothing touches CUDA; the
+    walk is the plain decoder's scans_short here, where the card runs the
+    C walk of csrc/jpeg_walk.cu)."""
     want = {"jpeg_720p": "nvjpeg", "jpeg_444": "nvjpeg", "jpeg_422": "nvjpeg",
             "jpeg_grey": "nvjpeg", "jpeg_restart": "nvjpeg", "jpeg_odd": "nvjpeg",
             "jpeg_exif": "nvjpeg", "jpeg_progressive": "nvjpeg_progressive",
@@ -406,26 +409,188 @@ def test_routes_from_the_header():
             "jpeg_truncated": "refused", "png_rgb": "host_png", "png_palette": "host_png",
             "bmp_24": "host_bmp", "bmp_palette8": "host_bmp", "bmp_palette4": "host_bmp",
             "bmp_rle8": "host_bmp"}
+    want.update({k: "host_webp" for k in ("webp_lossy", "webp_lossless", "webp_alpha",
+                                         "webp_exif", "webp_animated", "webp_simple")})
     import json
+    walk = decode.scans_short
     with open(os.path.join(SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
     for name, meta in files.items():
         data = read(name)
-        assert decode.decode_route(data, "cuda") == want[meta["kind"]], name
+        assert decode.decode_route(data, "cuda", walk) == want[meta["kind"]], name
         cpu = decode.decode_route(data, "cpu")
         assert cpu == ("host_jpeg" if want[meta["kind"]] in (
             "nvjpeg", "nvjpeg_progressive", "host_smoothed", "host_colour")
             else want[meta["kind"]]), name
-    assert decode.decode_route(b"junk", "cuda") == "refused"
+    assert decode.decode_route(b"junk", "cuda", walk) == "refused"
     sof3 = read("progressive_240x320.jpg").replace(b"\xff\xc2", b"\xff\xc3", 1)
-    assert decode.decode_route(sof3, "cuda") == "refused"
+    assert decode.decode_route(sof3, "cuda", walk) == "refused"
     # a cut inside the last scan, closed by an EOI, is not in the header:
-    # nvJPEG takes the file, cv2 and the plain decoder decode it alike
-    for name, route in (("progressive_240x320.jpg", "nvjpeg_progressive"),
-                        ("frame0_720x1280_420_q90.jpg", "nvjpeg")):
+    # the walk finds it and the host decodes it, as cv2 and the plain
+    # decoder decode it alike
+    for name in ("progressive_240x320.jpg", "frame0_720x1280_420_q90.jpg"):
         cut = cut_inside_last_scan(read(name))
-        assert decode.decode_route(cut, "cuda") == route, name
+        assert decode.decode_route(cut, "cuda", walk) == "host_cut", name
         assert_like_cv2(cut, name)
+
+
+# -- scans_short: which scans run out of bits ---------------------------------
+
+
+JPEG_SAMPLES = sorted(n for n in os.listdir(SAMPLES)
+                      if n.endswith(".jpg") and n != "truncated_240x320.jpg")
+
+
+def test_scans_short_of_complete_files():
+    """Zero for every scan of every committed JPEG and progressive case."""
+    for name in JPEG_SAMPLES:
+        short = decode.scans_short(read(name))
+        assert short and not any(short), (name, short)
+    for name in sorted(PROGRESSIVE)[::3]:
+        assert not any(decode.scans_short(PROGRESSIVE[name])), name
+    with pytest.raises(decode.JpegError):
+        decode.scans_short(read("truncated_240x320.jpg"))
+
+
+def _rst_positions(data: bytes) -> list[int]:
+    """Where each RST marker of the last scan starts."""
+    start, end = [(b, end) for m, _, b, end in decode._walk(data) if m == decode.SOS][-1]
+    body = np.frombuffer(data, np.uint8, end - start, start)
+    ff = np.flatnonzero(body[:-1] == 0xFF)
+    return [start + int(i) for i in ff if 0xD0 <= body[i + 1] <= 0xD7]
+
+
+@pytest.mark.parametrize("name", ["restart4_240x320.jpg", "cv_420_rst2_99x131",
+                                  "cv_444_rst1_50x13"])
+def test_scans_short_at_every_restart_interval(name):
+    """Cut just before the k-th RST marker of the last scan (every one of a
+    baseline file's, every third of a progressive file's) and closed by an
+    EOI: that scan's intervals after the k-th are missing, so exactly their
+    MCUs are short; the earlier scans are whole. Decoded like cv2."""
+    data = PROGRESSIVE[name] if name in PROGRESSIVE else read(name)
+    info = decode.jpeg_header(data)
+    restart = next(((data[b] << 8) | data[b + 1]) for m, a, b, _ in decode._walk(data)
+                   if m == decode.DRI for b in [a])
+    whole = decode.scans_short(data)
+    rsts = _rst_positions(data)
+    # the last scan's MCUs: whole MCUs of an interleaved scan, blocks of a
+    # one-component one
+    last = [seg for m, a, b, _ in decode._walk(data) if m == decode.SOS
+            for seg in [data[a:b]]][-1]
+    comps = info["components"]
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    if last[0] > 1:
+        n_mcus = -(-info["width"] // (8 * hmax)) * -(-info["height"] // (8 * vmax))
+    else:
+        c = next(c for c in comps if c[0] == last[1])
+        n_mcus = (-(-(-(-info["width"] * c[1] // hmax)) // 8)
+                  * -(-(-(-info["height"] * c[2] // vmax)) // 8))
+    assert len(rsts) == -(-n_mcus // restart) - 1
+    step = 1 if info["sof"] != decode.SOF_PROGRESSIVE else 3   # a progressive walk is slower
+    for k, pos in list(enumerate(rsts))[::step] + [(len(rsts) - 1, rsts[-1])]:
+        cut = data[:pos] + b"\xff\xd9"
+        short = decode.scans_short(cut)
+        assert short[:-1] == whole[:-1], (name, k)
+        assert short[-1] == n_mcus - (k + 1) * restart, (name, k, short)
+        if k == 0 or k == len(rsts) // 2:
+            assert_like_cv2(cut, f"{name} cut at RST {k}")
+    assert info["height"] > 0
+
+
+def test_scans_short_of_cuts_inside_the_last_scan():
+    """cut_inside_last_scan: only the last scan is short, by about half its
+    MCUs, for baseline, restart-interval and progressive files."""
+    for name in ("frame0_720x1280_420_q90.jpg", "s444_240x320.jpg", "grey_240x320.jpg",
+                 "restart4_240x320.jpg", "progressive_240x320.jpg",
+                 "progressive_720x1280_420_q90.jpg"):
+        data = read(name)
+        whole = decode.scans_short(data)
+        short = decode.scans_short(cut_inside_last_scan(data))
+        assert len(short) == len(whole) and not any(short[:-1]), name
+        assert short[-1] > 0, name
+    for name in ("cv_420_99x131", "pil_444_opt_99x131", "cv_grey_99x131"):
+        data = PROGRESSIVE[name]
+        cut = cut_inside_last_scan(data)
+        short = decode.scans_short(cut)
+        assert short[-1] > 0 and not any(short[:-1]), name
+        assert_like_cv2(cut, name)
+
+
+# -- OpenCV's size limits on a JPEG ------------------------------------------
+
+
+def with_size(data: bytes, h: int, w: int) -> bytes:
+    """The JPEG with its SOF claiming h x w."""
+    i = next(a for m, a, _, _ in decode._walk(data) if m in decode.SOF_ALL)
+    return data[:i + 1] + struct.pack(">HH", h, w) + data[i + 5:]
+
+
+def traced_peak(fn, *args):
+    tracemalloc.start()
+    try:
+        out = fn(*args)
+        return out, tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+
+
+@pytest.mark.parametrize("hw", [(40000, 40000), (65535, 65535), (46341, 46341),
+                                (100, 65501)])
+def test_size_limits_refuse_before_allocating(hw, tmp_path):
+    """A few hundred bytes whose SOF claims more than OpenCV's 1 << 30
+    pixels (or a side over libjpeg's 65500): refused by decode_image,
+    decode_jpeg_reduced at full size, decode_route and the integrity scan,
+    none tracing more than 64 MB."""
+    for base in (read("s444_240x320.jpg"), read("progressive_240x320.jpg")):
+        data = with_size(base, *hw)
+        assert cv2_rgb(data) is None
+        got, peak = traced_peak(decode_image, data)
+        assert got is None and peak < 64 << 20, peak
+        assert decode.decode_route(data, "cuda", decode.scans_short) == "refused"
+        assert decode.decode_route(data, "cpu") == "refused"
+        assert decode.probe_jpeg(data) is None or hw[0] * hw[1] <= 65500 ** 2
+        path = tmp_path / "big.jpg"
+        path.write_bytes(data)
+        why, peak = traced_peak(port_ds.image_refusal, str(path))
+        assert why and peak < 64 << 20
+        assert ("size limits" in why) or ("65500" in why), why
+
+
+def without_huffman_tables(data: bytes) -> bytes:
+    """The JPEG with its DHT segments dropped: libjpeg fails at the first
+    scan, before it touches a coefficient."""
+    out = bytearray(data[:2])
+    for m, a, b, end in decode._walk(data):
+        if m == decode.EOI:
+            out += data[a - 2:a]
+        elif m != decode.DHT:
+            out += data[a - 4:end if m == decode.SOS else b]
+    return bytes(out)
+
+
+def test_size_limit_applies_at_the_reduced_size():
+    """cv2 applies its limits to the decoded size: a 40000x40000 progressive
+    file raises at full size and not at 1/2, 1/4 or 1/8 (there it fails at
+    the first scan, which names no defined Huffman table). jpeg_refusal
+    says the same, and decode_jpeg_reduced refuses the file without its EOI
+    at every scale within 64 MB traced."""
+    whole = with_size(read("progressive_240x320.jpg"), 40000, 40000)
+    info = decode.jpeg_header(whole)
+    tableless = without_huffman_tables(whole)
+    with pytest.raises(cv2.error):
+        cv2.imdecode(np.frombuffer(tableless, np.uint8), cv2.IMREAD_COLOR)
+    assert "size limits" in decode.jpeg_refusal(info)
+    for f, flag in REDUCED.items():
+        assert cv2.imdecode(np.frombuffer(tableless, np.uint8), flag) is None
+        assert decode.jpeg_refusal(info, f) is None   # the whole file decodes at 1/f
+        got, peak = traced_peak(decode_jpeg_reduced, whole[:-2], f)   # no EOI
+        assert got is None and peak < 64 << 20
+    # a complete file at 46341 x 46341 (2.1e9 pixels) is over at full size
+    # and under from 1/2 on; no JPEG (sides <= 65500) is over at 1/2 and not
+    # at 1/8
+    info = decode.jpeg_header(with_size(read("s444_240x320.jpg"), 46341, 46341))
+    assert "size limits" in decode.jpeg_refusal(info)
+    assert all(decode.jpeg_refusal(info, f) is None for f in (2, 4, 8))
 
 
 def test_decode_to_counts_routes_on_the_cpu():
@@ -512,3 +677,22 @@ def test_served_progressive_and_bmp_equal_jax(server, monkeypatch):  # noqa: F81
         np.testing.assert_allclose(got[:, :4], want[:, :4], atol=5e-3 + 1e-3, rtol=0)
         n += len(got)
     assert n > 0
+
+
+def test_served_oversize_jpeg_answers_as_jax(server):  # noqa: F811
+    """A JPEG over OpenCV's size limits POSTed to the port's server: 400, as
+    the JAX server answers with its native decoder (vkio catches
+    cv2.imdecode's exception and reports no image); its cv2 path would
+    raise. The server stays up."""
+    import urllib.error
+
+    from vision_kit_tpu.data import native
+
+    data = with_size(read("s444_240x320.jpg"), 40000, 40000)
+    assert native.available()
+    assert jax_decode_request_bytes(data, IMG_SIZE) is None
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _post(f"http://127.0.0.1:{server.port}/predict", data)
+    assert err.value.code == 400
+    status, _ = _post(f"http://127.0.0.1:{server.port}/predict", read("s444_240x320.jpg"))
+    assert status == 200

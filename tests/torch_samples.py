@@ -3,11 +3,15 @@
 The card's machine has no image encoder, so the port's decode and serving
 checks there read encoded bytes from the repository. They are written here
 with cv2 from seeded smooth synthetic scenes; what cv2 does not write by
-hand (the palette PNG with zlib, the 4-bit and RLE8 BMPs) or with PIL (the
-CMYK and RGB JPEGs, the palette BMP). MANIFEST.json lists each file's
-sha256, size, kind and the shape it decodes to (null where the decoders
-refuse it). tests/test_torch_decode.py checks the manifest and each file
-against cv2.imdecode.
+hand (the palette PNG with zlib, the 4-bit and RLE8 BMPs, the WebP
+containers with EXIF and ICCP, animations with offset frames), with PIL
+(the CMYK and RGB JPEGs, the palette BMP) or with the libwebp that Pillow
+bundles (WebPs with encoder settings cv2 does not expose). MANIFEST.json
+lists each file's sha256, size, kind and the shape it decodes to (null
+where the decoders refuse it), and for a WebP the sha256 of cv2's decoded
+RGB (rgb_sha256), which the card checks its decode against.
+tests/test_torch_decode.py checks the manifest and each file against
+cv2.imdecode.
 
     python tests/torch_samples.py     # rewrites the folder
 """
@@ -189,6 +193,242 @@ def rle8(index: np.ndarray, skip: tuple) -> bytes:
     return bytes(out) + b"\x00\x01"
 
 
+# -- WebP ------------------------------------------------------------------
+
+
+def _libwebp():
+    """The libwebp that the Pillow wheel bundles (1.6.0 with Pillow 12.1),
+    through ctypes: its encoder takes the settings cv2.imencode does not
+    expose."""
+    import ctypes
+    import glob
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    paths = glob.glob(os.path.join(libs, "libwebp-*.so*"))
+    if not paths:
+        raise RuntimeError(f"no libwebp in {libs}")
+    for dep in glob.glob(os.path.join(libs, "libsharpyuv-*.so*")):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)   # libwebp's own dependency
+    return ctypes.CDLL(paths[0])
+
+
+def _webp_structs():
+    import ctypes as C
+
+    class Config(C.Structure):   # encode.h WebPConfig
+        _fields_ = [(n, t) for n, t in (
+            ("lossless", C.c_int), ("quality", C.c_float), ("method", C.c_int),
+            ("image_hint", C.c_int), ("target_size", C.c_int), ("target_PSNR", C.c_float),
+            ("segments", C.c_int), ("sns_strength", C.c_int), ("filter_strength", C.c_int),
+            ("filter_sharpness", C.c_int), ("filter_type", C.c_int), ("autofilter", C.c_int),
+            ("alpha_compression", C.c_int), ("alpha_filtering", C.c_int),
+            ("alpha_quality", C.c_int), ("pass_", C.c_int), ("show_compressed", C.c_int),
+            ("preprocessing", C.c_int), ("partitions", C.c_int),
+            ("partition_limit", C.c_int), ("emulate_jpeg_size", C.c_int),
+            ("thread_level", C.c_int), ("low_memory", C.c_int), ("near_lossless", C.c_int),
+            ("exact", C.c_int), ("use_delta_palette", C.c_int), ("use_sharp_yuv", C.c_int),
+            ("qmin", C.c_int), ("qmax", C.c_int), ("pad", C.c_uint32 * 1))]
+
+    ptr = C.c_void_p
+
+    class Picture(C.Structure):  # encode.h WebPPicture
+        _fields_ = [
+            ("use_argb", C.c_int), ("colorspace", C.c_int), ("width", C.c_int),
+            ("height", C.c_int), ("y", ptr), ("u", ptr), ("v", ptr), ("y_stride", C.c_int),
+            ("uv_stride", C.c_int), ("a", ptr), ("a_stride", C.c_int),
+            ("pad1", C.c_uint32 * 2), ("argb", ptr), ("argb_stride", C.c_int),
+            ("pad2", C.c_uint32 * 3), ("writer", ptr), ("custom_ptr", ptr),
+            ("extra_info_type", C.c_int), ("extra_info", ptr), ("stats", ptr),
+            ("error_code", C.c_int), ("progress_hook", ptr), ("user_data", ptr),
+            ("pad3", C.c_uint32 * 3), ("pad4", ptr), ("pad5", ptr),
+            ("pad6", C.c_uint32 * 8), ("memory_", ptr), ("memory_argb_", ptr),
+            ("pad7", ptr * 2)]
+
+    class MemoryWriter(C.Structure):
+        _fields_ = [("mem", C.POINTER(C.c_uint8)), ("size", C.c_size_t),
+                    ("max_size", C.c_size_t), ("pad", C.c_uint32 * 1)]
+
+    return Config, Picture, MemoryWriter
+
+
+def libwebp_encode(pixels: np.ndarray, quality: float = 75.0, **settings) -> bytes:
+    """(H, W, 3) RGB or (H, W, 4) RGBA uint8 -> WebP bytes from libwebp's
+    WebPEncode with WebPConfig fields set from `settings` (lossless, method,
+    segments, sns_strength, filter_strength, filter_sharpness, filter_type,
+    partitions, use_sharp_yuv, near_lossless, exact, ...)."""
+    import ctypes as C
+
+    lib = _libwebp()
+    Config, Picture, MemoryWriter = _webp_structs()
+    abi = 0x0210
+    config, pic, writer = Config(), Picture(), MemoryWriter()
+    if not lib.WebPConfigInitInternal(C.byref(config), 0, C.c_float(quality), abi):
+        raise RuntimeError("WebPConfigInit failed")
+    for name, value in settings.items():
+        if not hasattr(config, name):
+            raise KeyError(name)
+        setattr(config, name, value)
+    if not lib.WebPValidateConfig(C.byref(config)):
+        raise ValueError(f"libwebp refuses the settings {settings}")
+    if not lib.WebPPictureInitInternal(C.byref(pic), abi):
+        raise RuntimeError("WebPPictureInit failed")
+    h, w, ch = pixels.shape
+    pic.width, pic.height = w, h
+    pic.use_argb = int(bool(config.lossless))
+    rgb = np.ascontiguousarray(pixels, np.uint8)
+    imp = lib.WebPPictureImportRGBA if ch == 4 else lib.WebPPictureImportRGB
+    if not imp(C.byref(pic), rgb.ctypes.data_as(C.c_void_p), w * ch):
+        raise RuntimeError("WebPPictureImport failed")
+    lib.WebPMemoryWriterInit(C.byref(writer))
+    pic.writer = C.cast(lib.WebPMemoryWrite, C.c_void_p)
+    pic.custom_ptr = C.cast(C.pointer(writer), C.c_void_p)
+    try:
+        if not lib.WebPEncode(C.byref(config), C.byref(pic)):
+            raise RuntimeError(f"WebPEncode failed: error {pic.error_code}")
+        return C.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(C.byref(pic))
+        lib.WebPMemoryWriterClear(C.byref(writer))
+
+
+class _LsbBits:
+    """An LSB-first bit writer, as VP8L reads."""
+
+    def __init__(self):
+        self.value, self.n = 0, 0
+
+    def put(self, v: int, n: int) -> None:
+        self.value |= (v & ((1 << n) - 1)) << self.n
+        self.n += n
+
+    def code8(self, v: int) -> None:   # a symbol of an all-8-bit prefix code
+        for k in range(7, -1, -1):
+            self.put((v >> k) & 1, 1)
+
+    def bytes(self) -> bytes:
+        return self.value.to_bytes((self.n + 7) // 8, "little")
+
+
+def _vp8l_image(bw: _LsbBits, argb: np.ndarray, level0: bool) -> None:
+    """An entropy-coded image with no colour cache and no meta codes: every
+    literal through 8-bit prefix codes (the code-length code holds the one
+    length 8), the distance code one symbol of 0 bits."""
+    bw.put(0, 1)                  # no colour cache
+    if level0:
+        bw.put(0, 1)              # no meta prefix codes
+    for alphabet in (280, 256, 256, 256):
+        bw.put(0, 1)              # a normal code
+        bw.put(12 - 4, 4)         # kCodeLengthCodeOrder up to the 8 at index 11
+        for i in range(12):
+            bw.put(1 if i == 11 else 0, 3)
+        if alphabet == 280:       # max_symbol 256: lengths 8 for the literals only
+            bw.put(1, 1)
+            bw.put(3, 3)
+            bw.put(254, 8)
+        else:
+            bw.put(0, 1)
+    bw.put(1, 1)                  # distance: a simple code of one 1-bit symbol, 0
+    bw.put(0, 1)
+    bw.put(0, 1)
+    bw.put(0, 1)
+    for v in np.asarray(argb, np.uint32).reshape(-1).tolist():
+        bw.code8((v >> 8) & 255)
+        bw.code8((v >> 16) & 255)
+        bw.code8(v & 255)
+        bw.code8(v >> 24)
+
+
+def vp8l_raw(pixels: np.ndarray, transforms: list[tuple[int, int, np.ndarray]]) -> bytes:
+    """A VP8L file (RIFF) of (h, w) ARGB uint32 coded pixels after
+    `transforms`, each (kind, bits, sub-image): predictor (0) with its mode
+    tiles in the green byte, cross-colour (1) with its multipliers,
+    subtract-green (2, no sub-image). The data need not come from any
+    image: the decoders undo whatever is there, and must agree."""
+    h, w = pixels.shape
+    bw = _LsbBits()
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(0, 1)
+    bw.put(0, 3)
+    for kind, bits, sub in transforms:
+        bw.put(1, 1)
+        bw.put(kind, 2)
+        if kind in (0, 1):
+            bw.put(bits - 2, 3)
+            _vp8l_image(bw, sub, False)
+    bw.put(0, 1)
+    _vp8l_image(bw, pixels, True)
+    return riff((b"VP8L", bw.bytes()))
+
+
+def riff(*chunks: tuple[bytes, bytes]) -> bytes:
+    """A RIFF/WEBP file of (tag, payload) chunks, each padded to even."""
+    body = b"".join(tag + struct.pack("<I", len(p)) + p + bytes(len(p) & 1)
+                    for tag, p in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def webp_chunks(data: bytes) -> list[tuple[bytes, bytes]]:
+    """The (tag, payload) chunks of a RIFF/WEBP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def vp8x(w: int, h: int, flags: int) -> tuple[bytes, bytes]:
+    """A VP8X chunk: flags, canvas width and height minus one (24 bits)."""
+    return b"VP8X", struct.pack("<I", flags) + (w - 1).to_bytes(3, "little") \
+        + (h - 1).to_bytes(3, "little")
+
+
+def exif_tiff(orientation: int) -> bytes:
+    """A little-endian TIFF body with one IFD0 entry: the orientation."""
+    return b"II*\0" + struct.pack("<IH", 8, 1) + struct.pack("<HHIHH", 0x0112, 3, 1,
+                                                             orientation, 0) + bytes(4)
+
+
+def webp_with(data: bytes, exif: bytes | None = None, icc: bytes | None = None) -> bytes:
+    """A still WebP rewritten as VP8X with EXIF and ICCP chunks (the canvas
+    from the image's own header, alpha flagged where an ALPH chunk or the
+    VP8L header says so)."""
+    import cv2
+
+    chunks = [c for c in webp_chunks(data) if c[0] != b"VP8X"]
+    h, w = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED).shape[:2]
+    alpha = any(t == b"ALPH" for t, _ in chunks) or any(
+        t == b"VP8L" and p[4] & 0x10 for t, p in chunks)
+    flags = (0x10 if alpha else 0) | (0x08 if exif else 0) | (0x20 if icc else 0)
+    out = [vp8x(w, h, flags)]
+    if icc:
+        out.append((b"ICCP", icc))
+    out += chunks
+    if exif:
+        out.append((b"EXIF", exif))
+    return riff(*out)
+
+
+def animation(frames: list[tuple[bytes, int, int]], w: int, h: int) -> bytes:
+    """An animated WebP on a w x h canvas: each frame (still WebP bytes, x,
+    y offset, even) as an ANMF chunk holding the still file's ALPH and
+    image chunks."""
+    import cv2
+
+    out = [vp8x(w, h, 0x02 | 0x10), (b"ANIM", bytes(4) + struct.pack("<H", 0))]
+    for data, x, y in frames:
+        fh, fw = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED).shape[:2]
+        subs = b"".join(t + struct.pack("<I", len(p)) + p + bytes(len(p) & 1)
+                        for t, p in webp_chunks(data) if t in (b"ALPH", b"VP8 ", b"VP8L"))
+        head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, fw - 1, fh - 1, 100))
+        out.append((b"ANMF", head + b"\x00" + subs))
+    return riff(*out)
+
+
 def build() -> dict[str, tuple[bytes, str, tuple | None]]:
     """{file name: (bytes, kind, decoded (h, w) or None)}"""
     import cv2
@@ -252,7 +492,41 @@ def build() -> dict[str, tuple[bytes, str, tuple | None]]:
     files["rle8_120x160.bmp"] = (
         bmp_file(160, 120, 8, rle8(noisy, (7, 40, 90)), pal16, compression=1),
         "bmp_rle8", (120, 160))
+    bgr = cv2.cvtColor(scene(240, 320, 60), cv2.COLOR_RGB2BGR)
+    files["lossy_240x320.webp"] = (
+        cv2.imencode(".webp", bgr, [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes(),
+        "webp_lossy", (240, 320))
+    small = cv2.cvtColor(scene(120, 160, 61), cv2.COLOR_RGB2BGR)
+    lossless = cv2.imencode(".webp", small)[1].tobytes()
+    files["lossless_120x160.webp"] = (lossless, "webp_lossless", (120, 160))
+    files["lossless_240x320.webp"] = (
+        cv2.imencode(".webp", cv2.cvtColor(scene(240, 320, 66, noise=1.0),
+                                           cv2.COLOR_RGB2BGR))[1].tobytes(),
+        "webp_lossless", (240, 320))
+    alpha = np.concatenate([small, (np.arange(160)[None, :, None] * 3 % 256).repeat(
+        120, 0).astype(np.uint8)], 2)
+    files["alpha_120x160.webp"] = (
+        cv2.imencode(".webp", alpha, [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes(),
+        "webp_alpha", (120, 160))
+    files["exif6_120x160.webp"] = (webp_with(lossless, exif=exif_tiff(6)), "webp_exif",
+                                   (160, 120))
+    movie = cv2.Animation()
+    movie.frames = [cv2.cvtColor(scene(96, 128, s), cv2.COLOR_RGB2BGR) for s in (62, 63, 64)]
+    movie.durations = [100, 100, 100]
+    files["animated_96x128.webp"] = (cv2.imencodeanimation(".webp", movie)[1].tobytes(),
+                                     "webp_animated", (96, 128))
+    files["simple4_240x320.webp"] = (
+        libwebp_encode(scene(240, 320, 65), 80, filter_type=0, filter_strength=60,
+                       partitions=2, segments=4, method=0), "webp_simple", (240, 320))
     return files
+
+
+def rgb_sha256(data: bytes) -> str:
+    """sha256 of cv2.imdecode(IMREAD_COLOR) + BGR2RGB of `data`, C order."""
+    import cv2
+
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return hashlib.sha256(np.ascontiguousarray(bgr[:, :, ::-1]).tobytes()).hexdigest()
 
 
 def write(out_dir: str = SAMPLES) -> dict:
@@ -264,6 +538,8 @@ def write(out_dir: str = SAMPLES) -> dict:
         manifest["files"][name] = {
             "sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data),
             "kind": kind, "shape": list(shape) if shape else None}
+        if kind.startswith("webp"):   # the card's machine has no cv2 to compare with
+            manifest["files"][name]["rgb_sha256"] = rgb_sha256(data)
     with open(os.path.join(out_dir, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

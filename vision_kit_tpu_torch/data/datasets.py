@@ -19,8 +19,9 @@ S / w0) on the device. The `decoder` option picks the decoder:
   * "nvjpeg": on the card the route decode.decode_to picks from the header:
     a baseline, extended or complete progressive JPEG through nvJPEG,
     faster, its pixels within decode.NVJPEG_TOLERANCE of the plain
-    decoder's; a PNG, a BMP, a CMYK, YCCK or RGB JPEG and a progressive one
-    that ends early on the host, bit-equal to the plain decoder. Spawned loader workers cannot use it (they never touch
+    decoder's; a PNG, a BMP, a WebP, a CMYK, YCCK or RGB JPEG, a
+    progressive one that ends early and one whose scans run out of bits on
+    the host, bit-equal to the plain decoder. Spawned loader workers cannot use it (they never touch
     CUDA), so a TrainLoader with num_workers > 0 refuses such a dataset.
   * "auto" (the default): "nvjpeg" on the card, "plain" on the CPU, and
     "plain" in spawned workers; the dataset logs which decoder each route
@@ -37,12 +38,16 @@ image decodes with the plain decoder on the host, on the card too:
 dataset's with fast_decode on either device.
 
 The integrity scan reads headers only (decode.jpeg_header, png_header,
-bmp_header): the size after EXIF orientation, the < 10 px gate, and a drop,
-with its reason logged, of every file the port cannot decode: lossless,
-arithmetic-coded and 12-bit JPEGs, WebP, and a JPEG without its EOI marker.
-The JAX package instead re-encodes a truncated JPEG in place with PIL; the
-port never rewrites a file. Progressive, CMYK, YCCK and RGB JPEGs and BMPs
-are kept, as JAX keeps them.
+bmp_header, webp.webp_header): the size after EXIF orientation, the < 10 px
+gate, and a drop, with its reason logged, of every file the port cannot
+decode: lossless, arithmetic-coded and 12-bit JPEGs, an image over
+OpenCV's size limits, and a JPEG without its EOI marker. The JAX package
+instead re-encodes a truncated JPEG in place with PIL; the port never
+rewrites a file. Progressive, CMYK, YCCK and RGB JPEGs, BMPs and WebPs
+(lossy, lossless, with alpha, animated) are kept, as JAX keeps them; a
+WebP decodes on the host whatever the decoder option (no library on the
+card decodes it), and fast_decode takes its full decode, as JAX's
+_fast_decode_resized does for anything that is not a JPEG.
 
 Caches live under the port's own names (.vkt_labels_*, .vkt_imgcache_*),
 and the disk cache's key holds the decoder in use ("plain" or "nvjpeg") and
@@ -105,8 +110,8 @@ def image_refusal(path: str) -> str | None:
     kind = decode.image_kind(data)
     if kind is None:
         ext = os.path.splitext(path)[1].lower()
-        return (f"not a JPEG, PNG or BMP ({ext or 'no extension'}): the port decodes "
-                "only those")
+        return (f"not a JPEG, PNG, BMP or WebP ({ext or 'no extension'}): the port "
+                "decodes only those")
     try:
         if kind == "jpeg":
             info = decode.jpeg_header(data)

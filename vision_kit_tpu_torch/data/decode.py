@@ -1,5 +1,5 @@
-"""Image decode without OpenCV: a plain JPEG/PNG/BMP decoder on the host and
-nvJPEG on the card.
+"""Image decode without OpenCV: a plain JPEG/PNG/BMP/WebP decoder on the
+host and nvJPEG on the card.
 
 Counterpart of the `cv2.imdecode(..., IMREAD_COLOR)` + `cvtColor(BGR2RGB)`
 in vision_kit_tpu/serve.py:decode_request_bytes (and of native/vkio.cpp's
@@ -33,31 +33,44 @@ port decodes on its own:
   1/2/4/8/16 (16 keeps the high byte, as cv2 does), Adam7 interlacing,
   alpha dropped. BMP as grfmt_bmp.cpp reads it: header sizes 12 and 36 on,
   1/4/8-bit palettes, 16-bit 5-5-5 and 5-6-5, 24-bit, 32-bit (the fourth
-  byte dropped), RLE8 and RLE4, bottom-up and top-down rows. The EXIF
-  orientation (a JPEG's APP1, a PNG's eXIf) is applied as cv2 applies it.
+  byte dropped), RLE8 and RLE4, bottom-up and top-down rows. WebP (lossy
+  VP8, lossless VP8L, VP8X with alpha, ICC and EXIF, an animation's first
+  frame) through data/webp.py. The EXIF orientation (a JPEG's APP1, a
+  PNG's eXIf, a WebP's EXIF chunk) is applied as cv2 applies it. An image
+  over OpenCV's size limits (a side over 1 << 20, more than 1 << 30
+  pixels; size_refusal) is refused, whatever its kind, before any
+  allocation its header sizes, where cv2.imdecode raises; so is a JPEG
+  with a side over libjpeg's 65500.
 - `decode_jpeg_reduced(data, scale)`: the same JPEG decode at 1/2, 1/4 or
   1/8 scale, cv2.imread(IMREAD_REDUCED_COLOR_<scale>) bit for bit:
   libjpeg-turbo's DCT scaling (jdmaster.c's per-component IDCT sizes,
   jidctred.c's 4x4, 2x2 and 1x1 IDCTs, upsampling at the reduced sizes,
-  plain replication at 1/8), block smoothing too. `probe_jpeg(data)` reads
+  plain replication at 1/8), block smoothing too; OpenCV's size limits
+  apply at the reduced size, as cv2 applies them. `probe_jpeg(data)` reads
   a JPEG's size and whether it holds EXIF from its header, as the JAX
   package's data.fast_decode gate does.
-- `decode_to(data, device)`: the route its header picks (`decode_route`,
-  no entropy decoding), counted in `route_counts`. On the card a baseline,
+- `scans_short(data)`: for each scan of a JPEG, how many MCUs need bits
+  past its entropy-coded data (the plain decoder's own walks, no IDCT);
+  `walk_scans_short(data)` the same counts from the host C walk of
+  csrc/jpeg_walk.cu, which the card's route runs on every JPEG.
+- `decode_to(data, device)`: the route its header picks (`decode_route`;
+  on the card also the C walk, no IDCT), counted in `route_counts`. On the card a baseline,
   extended or progressive JPEG in YCbCr or grey whose scans complete every
   coefficient goes to nvJPEG (csrc/jpeg_decode.cu, `decode_jpeg_cuda`,
-  pixels within NVJPEG_TOLERANCE of the plain decoder's); a progressive
-  JPEG that leaves bits unknown (libjpeg smooths it, nvJPEG does not), a
-  CMYK, YCCK or RGB JPEG, a PNG and a BMP decode with decode_image on the
-  host and are uploaded. A JPEG that nvJPEG refuses is not handed to the
-  host. The orientation transform is `apply_orientation` (torch flips and
-  transposes).
+  pixels within NVJPEG_TOLERANCE of the plain decoder's), unless the C
+  walk finds a scan that runs out of bits ("host_cut": libjpeg reads the
+  missing bits as zeros, nvJPEG does not); a progressive JPEG that leaves
+  bits unknown (libjpeg smooths it, nvJPEG does not), a CMYK, YCCK or RGB
+  JPEG, a PNG, a BMP and a WebP (no library on the card decodes it)
+  decode with decode_image on the host and are uploaded. A JPEG that
+  nvJPEG refuses is not handed to the host. The orientation transform is
+  `apply_orientation` (torch flips and transposes).
 
 The Huffman walks are the only Python loops (a progressive refinement's
 correction bits gathered and applied with numpy); the IDCT, smoothing,
 upsampling, colour conversion and PNG filters (but Average and Paeth,
 which are serial along a row) are numpy over whole planes, as is BMP but
-for its RLE commands.
+for its RLE commands. data/webp.py says how WebP's loops split.
 """
 
 from __future__ import annotations
@@ -119,6 +132,22 @@ def apply_orientation(img: torch.Tensor, orientation: int) -> torch.Tensor:
     return img.contiguous()
 
 
+# -- OpenCV's size limits --------------------------------------------------
+
+# loadsave.cpp's validateInputImageSize: CV_IO_MAX_IMAGE_WIDTH and _HEIGHT,
+# and CV_IO_MAX_IMAGE_PIXELS. cv2.imdecode raises for an image over them,
+# whatever its format, at the size it decodes to (a reduced JPEG's reduced
+# size); every decoder here refuses it before any allocation its header sizes.
+MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
+
+
+def size_refusal(width: int, height: int) -> str | None:
+    """Why OpenCV refuses an image of width x height, or None."""
+    if width > MAX_SIDE or height > MAX_SIDE or width * height > MAX_PIXELS:
+        return f"{width}x{height}, over OpenCV's size limits"
+    return None
+
+
 # -- JPEG: headers ---------------------------------------------------------
 
 SOF_SEQUENTIAL = (0xC0, 0xC1)   # baseline, extended sequential (Huffman)
@@ -126,6 +155,7 @@ SOF_PROGRESSIVE = 0xC2          # progressive (Huffman)
 SOF_HUFFMAN = (*SOF_SEQUENTIAL, SOF_PROGRESSIVE)
 SOF_ALL = tuple(m for m in range(0xC0, 0xD0) if m not in (0xC4, 0xC8, 0xCC))
 RST0, EOI, SOS, DHT, DQT, DRI = 0xD0, 0xD9, 0xDA, 0xC4, 0xDB, 0xDD
+JPEG_MAX_DIMENSION = 65500      # jmorecfg.h: libjpeg refuses a longer side
 
 
 class JpegError(ValueError):
@@ -241,8 +271,11 @@ def jpeg_header(data: bytes) -> dict:
     return info
 
 
-def jpeg_refusal(info: dict) -> str | None:
-    """Why the decoders refuse this JPEG, or None when they take it."""
+def jpeg_refusal(info: dict, scale: int = 1) -> str | None:
+    """Why the decoders refuse this JPEG decoded at 1/`scale`, or None when
+    they take it. OpenCV's size limits apply to the decoded size,
+    ceil(side / scale), as cv2.imdecode(IMREAD_REDUCED_COLOR_<scale>)
+    applies them."""
     if info["sof"] not in SOF_HUFFMAN:
         return f"SOF{info['sof'] - 0xC0} (only baseline, extended sequential and progressive Huffman)"
     if info["precision"] != 8:
@@ -252,6 +285,11 @@ def jpeg_refusal(info: dict) -> str | None:
         return f"{len(comps)} components"
     if info["height"] == 0 or info["width"] == 0:
         return "zero size (DNL)"
+    if max(info["height"], info["width"]) > JPEG_MAX_DIMENSION:
+        return f"a side over libjpeg's {JPEG_MAX_DIMENSION}"
+    too_big = size_refusal(_ceil_div(info["width"], scale), _ceil_div(info["height"], scale))
+    if too_big:
+        return too_big
     if any(not (1 <= h <= 4 and 1 <= v <= 4) for _, h, v, _ in comps):
         return "sampling factors outside 1..4"
     max_h = max(h for _, h, _, _ in comps)
@@ -427,24 +465,33 @@ def _block_order(frame, scan_comps) -> tuple[np.ndarray, list]:
     return np.stack(parts, 1), slots
 
 
-def _run_intervals(data, pos, end, total, restart, walk) -> int:
+def _run_intervals(data, pos, end, total, restart, walk, short=None) -> int:
     """Run `walk(first MCU, unstuffed bytes)` on each restart interval of
     the scan in data[pos:end] that the bytes hold; it returns the index in
     the interval of the MCU where its bits ran out, or None. Intervals
     missing before the marker are left as they are, but for the first of
     them when the interval before it did not run out: libjpeg then decodes
     that one MCU from zero bits. Returns the last MCU whose decode began
-    with bits left (libjpeg's insufficient_data still clear), -1 for none."""
+    with bits left (libjpeg's insufficient_data still clear), -1 for none.
+    Appends to `short`, when given, how many of the scan's MCUs needed bits
+    past their interval's data: from the MCU where an interval ran out to
+    its end, and every MCU of the intervals missing before the marker."""
     interval = restart or total
     firsts = range(0, total, interval)
     segs = _unstuff(data, pos, end)[:len(firsts)]
-    good, ran = -1, None
+    good, ran, n_short = -1, None, 0
     for first, seg in zip(firsts, segs):
         ran = walk(first, seg)
-        good = first + (ran if ran is not None else min(interval, total - first) - 1)
-    if len(segs) < len(firsts) and ran is None:
-        good = firsts[len(segs)]
-        walk(good, np.zeros(0, np.uint8))
+        n = min(interval, total - first)
+        good = first + (ran if ran is not None else n - 1)
+        n_short += 0 if ran is None else n - ran
+    if len(segs) < len(firsts):
+        n_short += total - firsts[len(segs)]
+        if ran is None:
+            good = firsts[len(segs)]
+            walk(good, np.zeros(0, np.uint8))
+    if short is not None:
+        short.append(n_short)
     return good
 
 
@@ -453,7 +500,7 @@ def _wrap16(x) -> np.ndarray:
     return np.asarray(x, np.int64).astype(np.int16).astype(np.int32)
 
 
-def _scan(data, pos, end, frame, scan_comps, tables, restart, coefs):
+def _scan(data, pos, end, frame, scan_comps, tables, restart, coefs, short=None):
     """Decode the sequential scan in data[pos:end] into `coefs` (each
     component's (rows, cols, 64) blocks, flat, int32). A restart interval
     that runs out of data keeps the MCU where it ran out (zero-padded) and
@@ -467,7 +514,7 @@ def _scan(data, pos, end, frame, scan_comps, tables, restart, coefs):
     idx, val = [], []
     _run_intervals(data, pos, end, total, restart, lambda first, seg: _decode_blocks(
         _windows(seg), 8 * len(seg), (lambda m: plan[first + m]),
-        min(interval, total - first), idx, val))
+        min(interval, total - first), idx, val), short)
     if idx:   # stored as libjpeg's 16-bit JCOEF
         np.put(coefs, np.asarray(idx, np.int64), _wrap16(val))
 
@@ -597,7 +644,7 @@ def _bits(seg: np.ndarray, n: int) -> np.ndarray:
 
 
 def _scan_progressive(data, pos, end, frame, scan_comps, tables, restart, coefs,
-                      ss, se, ah, al):
+                      ss, se, ah, al, short=None):
     """Decode the progressive scan in data[pos:end] (spectral band ss..se,
     successive approximation ah -> al) into `coefs`, as jdphuff.c does.
     Returns the iMCU row of the last MCU whose decode began with bits left,
@@ -611,7 +658,7 @@ def _scan_progressive(data, pos, end, frame, scan_comps, tables, restart, coefs,
         idx, val = [], []
         good = _run_intervals(data, pos, end, total, restart, lambda first, seg: _dc_first(
             _windows(seg), 8 * len(seg), bases[first:first + interval].tolist(),
-            pattern, al, idx, val))
+            pattern, al, idx, val), short)
         if idx:
             coefs[np.asarray(idx, np.int64)] = _wrap16(val)
     elif ss == 0:                      # DC refinement: one bit a block
@@ -621,14 +668,14 @@ def _scan_progressive(data, pos, end, frame, scan_comps, tables, restart, coefs,
             n_bits = 8 * len(seg)    # the MCU that reads past them, if any
             return n_bits // bases.shape[1] if len(blocks) > n_bits else None
 
-        good = _run_intervals(data, pos, end, total, restart, refine_dc)
+        good = _run_intervals(data, pos, end, total, restart, refine_dc, short)
     elif ah == 0:                      # AC first
         act = tables[(1, scan_comps[0][2])]
         flat = bases[:, 0].tolist()
         idx, val = [], []
         good = _run_intervals(data, pos, end, total, restart, lambda first, seg: _ac_first(
             _windows(seg), 8 * len(seg), flat[first:first + interval], act, ss, se, al,
-            idx, val))
+            idx, val), short)
         if idx:
             np.put(coefs, np.asarray(idx, np.int64), _wrap16(val))
     else:                              # AC refinement
@@ -660,7 +707,7 @@ def _scan_progressive(data, pos, end, frame, scan_comps, tables, restart, coefs,
                 coefs[nv[:, 0]] = nv[:, 1]
             return ran
 
-        good = _run_intervals(data, pos, end, total, restart, refine_ac)
+        good = _run_intervals(data, pos, end, total, restart, refine_ac, short)
     if good < 0:
         return None
     if len(scan_comps) > 1:
@@ -1033,9 +1080,35 @@ def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
     each component runs the IDCT of its scaled size (scaled_sizes), and
     upsampling and colour conversion run at the reduced sizes."""
     info = jpeg_header(data)
+    why = jpeg_refusal(info, scale)
+    if why:
+        raise JpegError(why)
+    (frame, coefs, coef_bits, prev_bits, n_scans, last_good) = _coefficients(data, info)
+    return _reconstruct(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
+                        scale)
+
+
+def scans_short(data: bytes) -> list[int]:
+    """For each scan of a JPEG that decode_image takes, how many of its MCUs
+    (blocks, in a one-component scan) need Huffman-coded bits past the
+    entropy-coded data of their restart interval, which the decoder reads
+    as zeros: all 0 for a file whose scans are whole. From the decoder's
+    own walks (no IDCT). Raises JpegError for a JPEG decode_image refuses."""
+    info = jpeg_header(data)
     why = jpeg_refusal(info)
     if why:
         raise JpegError(why)
+    short: list[int] = []
+    _coefficients(data, info, short)
+    return short
+
+
+def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
+    """Entropy-decode every scan of a JPEG that jpeg_refusal takes: (frame
+    geometry, the coefficients of every component's blocks, flat, libjpeg's
+    coef_bits and their copy from before the last scan, the number of
+    scans, the last good iMCU row of a progressive file). Appends each
+    scan's count of MCUs short of bits to `short` when given."""
     progressive = info["sof"] == SOF_PROGRESSIVE
     height, width = info["height"], info["width"]
     comps = [dict(id=i, h=h, v=v, tq=tq, sof_v=v) for i, h, v, tq in info["components"]]
@@ -1117,11 +1190,23 @@ def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
                              prev_bits, n_scans == 0)
                 n_scans += 1
                 row = _scan_progressive(data, b, end, frame, scan_comps, tables,
-                                        restart, coefs, ss, se, ah, al)
+                                        restart, coefs, ss, se, ah, al, short)
                 if row is not None:   # jdcoefct.c's last_good_iMCU_row
                     last_good = row
             else:
-                _scan(data, b, end, frame, scan_comps, tables, restart, coefs)
+                _scan(data, b, end, frame, scan_comps, tables, restart, coefs, short)
+    return frame, coefs, coef_bits, prev_bits, n_scans, last_good
+
+
+def _reconstruct(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
+                 scale) -> tuple[np.ndarray, int]:
+    """The samples of _coefficients' blocks at 1/`scale`: smoothing, IDCT,
+    upsampling and colour conversion (see _decode_jpeg)."""
+    progressive = info["sof"] == SOF_PROGRESSIVE
+    height, width, comps, offsets = (frame["height"], frame["width"], frame["comps"],
+                                     frame["offsets"])
+    imcu_rows = _ceil_div(height, 8 * max(c["sof_v"] for c in comps))
+    max_h, max_v = frame["max_h"], frame["max_v"]
     smooth = _smoothing_bits(coef_bits, [c.get("qt") for c in comps]) if progressive else None
     low = 8 // scale
     out_h, out_w = _ceil_div(height, scale), _ceil_div(width, scale)
@@ -1313,6 +1398,9 @@ def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
     if ihdr is None or not idat:
         raise ValueError("no IHDR or IDAT")
     w, h, depth, ctype, comp, filt, interlace = ihdr
+    too_big = size_refusal(w, h)
+    if too_big:
+        raise ValueError(too_big)
     channels = _CHANNELS.get(ctype)
     if (channels is None or comp or filt or interlace > 1 or w == 0 or h == 0
             or depth not in ((8, 16) if ctype in (2, 4, 6) else
@@ -1351,9 +1439,6 @@ def _decode_png(data: bytes) -> tuple[np.ndarray, int]:
 # -- BMP (OpenCV's grfmt_bmp.cpp) -----------------------------------------
 
 BMP_RGB, BMP_RLE8, BMP_RLE4, BMP_BITFIELDS = 0, 1, 2, 3
-# loadsave.cpp's validateInputImageSize: CV_IO_MAX_IMAGE_WIDTH and _HEIGHT,
-# and CV_IO_MAX_IMAGE_PIXELS
-BMP_MAX_SIDE, BMP_MAX_PIXELS = 1 << 20, 1 << 30
 
 
 class BmpError(ValueError):
@@ -1433,9 +1518,9 @@ def bmp_header(data: bytes) -> dict:
             palette[:n] = np.frombuffer(st.take(3 * n), np.uint8).reshape(n, 3)
     else:
         raise BmpError(f"header size {size}")
-    if (width > BMP_MAX_SIDE or abs(height) > BMP_MAX_SIDE
-            or width * abs(height) > BMP_MAX_PIXELS):
-        raise BmpError(f"{width}x{abs(height)} BMP, over OpenCV's size limits")
+    too_big = size_refusal(width, abs(height))
+    if too_big:
+        raise BmpError(f"BMP of {too_big}")
     return dict(width=width, height=abs(height), bottom_up=height > 0, bpp=bpp,
                 compression=comp, offset=offset, palette=palette, orientation=1)
 
@@ -1561,14 +1646,16 @@ def encode_bmp(rgb: np.ndarray) -> bytes:
 
 
 def image_kind(data: bytes) -> str | None:
-    """"jpeg", "png", "bmp" or None, from the leading bytes."""
+    """"jpeg", "png", "bmp", "webp" or None, from the leading bytes."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == PNG_SIGNATURE:
         return "png"
     if data[:2] == b"BM":
         return "bmp"
-    return None
+    from vision_kit_tpu_torch.data import webp
+
+    return "webp" if webp.is_webp(data) else None
 
 
 def decode_image(data: bytes) -> np.ndarray | None:
@@ -1583,6 +1670,10 @@ def decode_image(data: bytes) -> np.ndarray | None:
             rgb, orientation = _decode_png(data)
         elif kind == "bmp":
             rgb, orientation = _decode_bmp(data)
+        elif kind == "webp":
+            from vision_kit_tpu_torch.data import webp
+
+            rgb, orientation = webp.decode_webp(data)
         else:
             return None
     except (ValueError, IndexError, struct.error, zlib.error):
@@ -1620,7 +1711,9 @@ def probe_jpeg(data: bytes) -> tuple[int, int, bool] | None:
     native/vkio.cpp's ProbeJpeg), which gate data.fast_decode. Fill bytes
     are skipped, standalone markers carry no length, an SOS or EOI before
     any SOF gives None, and an Exif APP1 anywhere before the SOF sets
-    has_exif."""
+    has_exif. A frame that no scale decodes (a side over libjpeg's 65500,
+    or over OpenCV's size limits even at 1/8) gives None: the full decode
+    that the caller falls back to refuses it too."""
     buf = data[:PROBE_BYTES]
     n = len(buf)
     if n < 4 or buf[0] != 0xFF or buf[1] != 0xD8:
@@ -1656,6 +1749,8 @@ def probe_jpeg(data: bytes) -> tuple[int, int, bool] | None:
             w0 = (payload[3] << 8) | payload[4]
             if h0 <= 0 or w0 <= 0:
                 return None
+            if max(h0, w0) > JPEG_MAX_DIMENSION or size_refusal(-(-w0 // 8), -(-h0 // 8)):
+                return None   # refused at every scale (libjpeg, OpenCV's limits)
             return h0, w0, has_exif
         pos += length
     return None
@@ -1783,12 +1878,41 @@ def _decoder(device: torch.device) -> NvJpeg:
         return dec
 
 
+@functools.cache
+def _walk_lib() -> ctypes.CDLL:
+    from vision_kit_tpu_torch import _cuda_build
+
+    lib = _cuda_build.load("jpeg_walk")
+    lib.vk_jpeg_scans_short.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                        ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.vk_jpeg_scans_short.restype = ctypes.c_int
+    return lib
+
+
+def walk_scans_short(data: bytes) -> list[int]:
+    """scans_short by the host C walk of csrc/jpeg_walk.cu (built with nvcc,
+    loaded with ctypes): the same counts, in C++ instead of the plain
+    decoder's Python loops. Raises JpegError for bytes the walk does not
+    read as a Huffman JPEG, and RuntimeError (from the build) when the
+    library cannot be built or loaded."""
+    fn = _walk_lib().vk_jpeg_scans_short
+    cap = 32
+    while True:
+        out = (ctypes.c_int * cap)()
+        n = fn(data, len(data), out, cap)
+        if n < 0:
+            raise JpegError(f"the C walk cannot read these bytes (status {n})")
+        if n <= cap:
+            return list(out[:n])
+        cap = n
+
+
 ROUTES = ("nvjpeg", "nvjpeg_progressive", "host_smoothed", "host_colour",
-          "host_jpeg", "host_png", "host_bmp", "refused")
+          "host_cut", "host_jpeg", "host_png", "host_bmp", "host_webp", "refused")
 route_counts = dict.fromkeys(ROUTES, 0)   # decode_to's decodes by route
 
 
-def _route(data: bytes, device: torch.device):
+def _route(data: bytes, device: torch.device, walk=None):
     """(route, JPEG header or None) of `data` on `device`, from its header
     alone (no entropy decoding): on a CUDA device a baseline or extended
     sequential JPEG in YCbCr or grey goes to nvJPEG ("nvjpeg"), so does a
@@ -1796,8 +1920,11 @@ def _route(data: bytes, device: torch.device):
     ("nvjpeg_progressive"); a progressive JPEG that leaves coefficient bits
     unknown ("host_smoothed": libjpeg smooths its blocks, nvJPEG does not)
     and a CMYK, YCCK or RGB JPEG ("host_colour") decode on the host, as
-    does every JPEG on the CPU ("host_jpeg"), every PNG and BMP, while what
-    decode_image refuses is "refused"."""
+    does every JPEG on the CPU ("host_jpeg"), every PNG, BMP and WebP,
+    while what decode_image refuses is "refused". Before nvJPEG, the host C
+    walk (walk_scans_short) reads every scan's Huffman codes: a JPEG in
+    which any scan needs bits past its data ("host_cut": libjpeg reads them
+    as zeros) or that the walk cannot read decodes on the host too."""
     kind = image_kind(data)
     if kind != "jpeg":
         return ("refused" if kind is None else f"host_{kind}"), None
@@ -1811,14 +1938,22 @@ def _route(data: bytes, device: torch.device):
         return "host_jpeg", info
     if jpeg_colour(info) not in ("grey", "ycc"):
         return "host_colour", info
-    if info["sof"] == SOF_PROGRESSIVE:
-        return ("nvjpeg_progressive" if info["complete"] else "host_smoothed"), info
-    return "nvjpeg", info
+    if info["sof"] == SOF_PROGRESSIVE and not info["complete"]:
+        return "host_smoothed", info
+    try:
+        cut = any((walk or walk_scans_short)(data))
+    except (ValueError, IndexError):   # bytes the walk cannot read
+        cut = True
+    if cut:
+        return "host_cut", info
+    return ("nvjpeg_progressive" if info["sof"] == SOF_PROGRESSIVE else "nvjpeg"), info
 
 
-def decode_route(data: bytes, device: str | torch.device = "cuda") -> str:
-    """Which decoder decode_to takes for `data` on `device` (see _route)."""
-    return _route(data, torch.device(device))[0]
+def decode_route(data: bytes, device: str | torch.device = "cuda", walk=None) -> str:
+    """Which decoder decode_to takes for `data` on `device` (see _route),
+    touching no CUDA. `walk` replaces the C walk of a JPEG bound for nvJPEG
+    (scans_short, its plain version, where no card or nvcc is present)."""
+    return _route(data, torch.device(device), walk)[0]
 
 
 def _card(device) -> torch.device:
@@ -1845,7 +1980,8 @@ def decode_jpeg_cuda(data: bytes, device: str | torch.device = "cuda") -> torch.
     routes "nvjpeg" and "nvjpeg_progressive" reach nvJPEG: what
     decode_image refuses (and bytes that end inside a scan) gives None, as
     do the JPEGs that decode_to decodes on the host (CMYK, YCCK, RGB, a
-    progressive file with unknown coefficient bits); nvJPEG then decodes on
+    progressive file with unknown coefficient bits, a file whose scans run
+    out of bits or that the C walk cannot read); nvJPEG then decodes on
     the current stream, and a status it returns for corrupt data also gives
     None. Each decode that reaches nvJPEG adds one to
     `decode_jpeg_cuda.calls`."""

@@ -8,7 +8,8 @@ its batch is done, since it builds its pad and bound tensors from Python
 values with blocking copies). Each request's bytes decode and letterbox on the request's
 device before it is queued (`decode_request_bytes`): on the card a JPEG
 through nvJPEG, or on the host and uploaded by its header's route (a PNG,
-a BMP, a CMYK/RGB JPEG, a progressive one ending early), then `letterbox_u8` (cv2's
+a BMP, a WebP, a CMYK/RGB JPEG, a progressive one ending early, one whose
+scans run out of bits), then `letterbox_u8` (cv2's
 letterbox, bit for bit) on the card; on the CPU the plain decoder. So the
 model sees one (B, S, S, 3) uint8 shape whatever the clients' image sizes,
 and detections rescale to each client's frame with `scale_coords`, as in
@@ -34,7 +35,7 @@ dispatcher, the others' follow loop, after the warmup in start()), so no
 two ranks can order them differently.
 
 HTTP API (stdlib http.server, threaded), the JAX server's:
-  POST /predict            body = encoded image (JPEG/PNG/BMP)
+  POST /predict            body = encoded image (JPEG/PNG/BMP/WebP)
                            optional ?conf= post-filter (>= server conf)
                            -> {"detections": [{"box", "score", "class",
                                "label"}], "width", "height", "batched"}
@@ -65,8 +66,9 @@ def decode_request_bytes(data: bytes, dst_hw: tuple[int, int],
     `device`, (ratio, (dw, dh)), (h0, w0)) or None, by the route
     data/decode.py:decode_to reads from the header: on a CUDA device a
     baseline or complete progressive JPEG through nvJPEG; a PNG, a BMP, a
-    CMYK/YCCK/RGB JPEG and a progressive one that ends early on the host,
-    uploaded; on the CPU every kind on the host. The letterbox is
+    WebP, a CMYK/YCCK/RGB JPEG, a progressive one that ends early and one
+    whose scans run out of bits on the host, uploaded; on the CPU every
+    kind on the host. The letterbox is
     letterbox_u8 on `device`."""
     img = decode_to(data, resolve_device(device))
     if img is None:

@@ -106,12 +106,12 @@ def mk_output_dir(path: str, model_name: str, task: str) -> str:
 
 
 def exif_size(data: bytes) -> tuple[int, int]:
-    """(width, height) of an encoded JPEG, PNG or BMP as it is displayed,
-    from its header alone: EXIF orientations 5-8 (a transpose) swap the
-    stored dimensions. Counterpart of the PIL-based exif_size; raises
-    ValueError for bytes that are none of these, or whose header is
-    malformed."""
-    from vision_kit_tpu_torch.data import decode
+    """(width, height) of an encoded JPEG, PNG, BMP or WebP as it is
+    displayed, from its header alone (a WebP's canvas and the orientation
+    of its EXIF chunk): EXIF orientations 5-8 (a transpose) swap the stored
+    dimensions. Counterpart of the PIL-based exif_size; raises ValueError
+    for bytes that are none of these, or whose header is malformed."""
+    from vision_kit_tpu_torch.data import decode, webp
 
     kind = decode.image_kind(data)
     if kind == "jpeg":
@@ -120,8 +120,10 @@ def exif_size(data: bytes) -> tuple[int, int]:
         info = decode.png_header(data)
     elif kind == "bmp":
         info = decode.bmp_header(data)
+    elif kind == "webp":
+        info = webp.webp_header(data)
     else:
-        raise ValueError("not a JPEG, PNG or BMP")
+        raise ValueError("not a JPEG, PNG, BMP or WebP")
     w, h = info["width"], info["height"]
     return (h, w) if info["orientation"] in (5, 6, 7, 8) else (w, h)
 

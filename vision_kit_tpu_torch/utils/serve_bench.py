@@ -61,6 +61,49 @@ def cut_inside_last_scan(data: bytes) -> bytes:
     return data[:(start + end) // 2] + b"\xff\xd9"
 
 
+def walk_cases() -> list[tuple[str, bytes]]:
+    """(name, bytes) of every committed JPEG that the decoders take, each
+    also cut inside its last scan (cut_inside_last_scan), and the restart
+    sample cut before every fourth RST marker of its scan: the files the C
+    walk is held to scans_short on."""
+    from vision_kit_tpu_torch.data import decode
+
+    out = []
+    for name, meta, data in samples():
+        if not name.endswith(".jpg") or meta["shape"] is None:
+            continue
+        out += [(name, data), (name + " cut", cut_inside_last_scan(data))]
+        if meta["kind"] == "jpeg_restart":
+            start, end = [(b, e) for m, _, b, e in decode._walk(data) if m == decode.SOS][-1]
+            body = np.frombuffer(data, np.uint8, end - start, start)
+            ff = np.flatnonzero(body[:-1] == 0xFF)
+            rst = [start + int(i) for i in ff if 0xD0 <= body[i + 1] <= 0xD7]
+            out += [(f"{name} cut at RST {k}", data[:pos] + b"\xff\xd9")
+                    for k, pos in enumerate(rst) if k % 4 == 1]
+    return out
+
+
+def walk_disagreements(cases, device="cuda") -> list[str]:
+    """The C walk (decode.walk_scans_short) against scans_short on each
+    case, and the route on `device` of a case that scans_short finds short
+    and whose header would send it to nvJPEG: "host_cut". Empty when all
+    agree."""
+    from vision_kit_tpu_torch.data import decode
+
+    bad = []
+    for name, data in cases:
+        want, got = decode.scans_short(data), decode.walk_scans_short(data)
+        if got != want:
+            bad.append(f"{name}: C walk {got}, scans_short {want}")
+        route = decode.decode_route(data, device)
+        if any(want) and decode.jpeg_colour(decode.jpeg_header(data)) in ("grey", "ycc") \
+                and decode.jpeg_header(data)["complete"] and route != "host_cut":
+            bad.append(f"{name}: short {want} but route {route}")
+        if not any(want) and route == "host_cut":
+            bad.append(f"{name}: whole but route host_cut")
+    return bad
+
+
 def build_server(variant: str, img: int, batch: int, max_wait_ms: float,
                  synthetic_ingest: int = 0, device: str = "cuda",
                  dtype: torch.dtype = torch.bfloat16):
