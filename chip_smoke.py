@@ -88,10 +88,15 @@ Phases, each printing its own line; any failure exits non-zero:
      CMYK, YCCK or RGB JPEG, a PNG, a BMP, a WebP) against the plain
      decoder on the host (nvJPEG within decode.NVJPEG_TOLERANCE, the host
      routes bit-equal, each WebP at its manifest's rgb_sha256, EXIF shapes
-     equal, the truncated sample refused on both); the C walk
+     equal, the truncated samples refused on both); the C walk
      (csrc/jpeg_walk.cu) equal to scans_short on every JPEG sample and its
      cut versions, its host ms on the 720p baseline and progressive
-     frames; a baseline and a progressive sample cut inside their last
+     frames; JPEGs without Huffman tables (a 720p frame with no DHT, one
+     with an optimised slot 0 and no slot 1) on "nvjpeg" with the standard
+     tables spliced in, within NVJPEG_TOLERANCE, nvJPEG's answer to the
+     bytes as they are, their reduced decodes equal to the spliced file's,
+     their nvJPEG ms, and a Motion-JPEG AVI of the 720p frames without
+     DHTs through VideoReader (nvJPEG) to its last frame; a baseline and a progressive sample cut inside their last
      scan on "host_cut", bit-equal to the plain decoder; a 40000x40000 SOF
      refused before nvJPEG; the count of each route, one 720x1280
      progressive decode timed by nvJPEG and by the plain decoder beside
@@ -107,12 +112,16 @@ Phases, each printing its own line; any failure exits non-zero:
      among them) equal it within the JSON's rounding with each kernel launched
      once a batch, a garbage body answered 400; then utils/serve_bench.py:
      the engine over the decoded samples, HTTP from 32 clients beside one
-     request's decode alone, a load curve at 0.5, 0.8 and 0.95 of the
-     engine's capacity, and the engine with synthetic_ingest 4 at batch 8
-     and 64;
+     request's decode alone, the same JPEG load for 10 s alone and beside
+     one more client POSTing the 2048x2048 lossy WebP in a loop (its decode
+     in the server's worker processes; path_turns.http_contention), a load
+     curve at 0.5, 0.8 and 0.95 of the engine's capacity, and the engine
+     with synthetic_ingest 4 at batch 8 and 64;
  11. fit: utils/loader_bench.py:write_dataset's YOLO dataset (the samples
-     under several names, the progressive JPEGs, BMPs and WebPs kept by the scan,
-     PNG rectangle scenes, the truncated sample dropped)
+     under several names, the progressive JPEGs, BMPs, JPEGs without
+     Huffman tables and two WebPs kept by the scan, PNG rectangle scenes,
+     the three truncated 240x320 samples restored in place by the scan to
+     their manifest's restored_sha256, the bytes the JAX package writes)
      through Trainer.fit for v5s@640 bf16, 2 classes, 2 epochs at batch 64
      with configs/yolov5_tpu.yaml's device augmentation and RAM cache on
      the card, then test(): one greedy_nms launch per validation batch and
@@ -1539,6 +1548,20 @@ def undefined_table_jpeg(data: bytes) -> bytes:
     return data[:sos + 6] + bytes([0x33]) + data[sos + 7:]
 
 
+def without_huffman_tables(data: bytes) -> bytes:
+    """`data` with its DHT segments dropped, as a Motion-JPEG camera writes
+    a frame: libjpeg takes the standard tables, so does the port."""
+    from vision_kit_tpu_torch.data import decode as dec
+
+    out = bytearray(data[:2])
+    for m, a, b, end in dec._walk(data):
+        if m == dec.EOI:
+            out += data[a - 2:a]
+        elif m != dec.DHT:
+            out += data[a - 4:end if m == dec.SOS else b]
+    return bytes(out)
+
+
 def undefined_quant_jpeg(data: bytes) -> bytes:
     """`data` with its first component pointed at quantization table 3,
     which no DQT defines: the header check and the C walk (neither reads
@@ -1560,6 +1583,79 @@ def post(url: str, data: bytes, timeout: float = 60.0):
             return resp.status, json.loads(resp.read())
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
+
+
+def no_dht_legs(smi: str) -> None:
+    """JPEGs without Huffman tables on the card: the committed DHT-less 720p
+    frame and the optimised-slot-0 sample route to nvJPEG, which decodes
+    them (the standard tables spliced in before it) within its tolerance of
+    the plain decoder (checked with every sample); nvJPEG's own answer to
+    the bytes without the splice (recorded); the reduced decodes equal the
+    spliced file's; the ms of a DHT-less nvJPEG decode beside the
+    baseline frame's; VideoReader on the card plays a Motion-JPEG AVI of the
+    720p frames without their DHTs to its last frame, nvJPEG within its
+    tolerance of the plain decoder, one nvJPEG decode a frame."""
+    import tempfile
+
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+    from vision_kit_tpu_torch.utils.avi import AviWriter
+    from vision_kit_tpu_torch.utils.readers import VideoReader
+
+    t0 = time.perf_counter()
+    nodht = svb.sample_bytes("jpeg_no_dht")[0]
+    for kind in ("jpeg_no_dht", "jpeg_std_slot1"):
+        data = svb.sample_bytes(kind)[0]
+        calls = dec.decode_jpeg_cuda.calls
+        check(dec.decode_route(data, "cuda") == "nvjpeg" and dec.scans_short(data) == [0]
+              and dec.walk_scans_short(data) == [0]
+              and dec.decode_to(data, "cuda") is not None
+              and dec.decode_jpeg_cuda.calls == calls + 1,
+              f"serve: a {kind} sample did not decode through nvJPEG")
+    info = dec.jpeg_header(nodht)
+    spliced = dec.with_standard_tables(nodht, info)
+    for f in (2, 4, 8):
+        check(np.array_equal(dec.decode_jpeg_reduced(nodht, f),
+                             dec.decode_jpeg_reduced(spliced, f)),
+              f"serve: the DHT-less frame's 1/{f} decode differs from the spliced file's")
+    raw = dec._decoder(torch.device("cuda", 0)).decode(nodht, 3)
+    torch.cuda.synchronize()
+    raw_agree = None if raw is None else dec.pixel_agreement(raw, dec.decode_image(nodht))
+    ms = {"no DHT": svb.decode_ms(lambda d: dec.decode_to(d, "cuda"), [nodht], "cuda", reps=10),
+          "baseline": svb.decode_ms(lambda d: dec.decode_to(d, "cuda"),
+                                    svb.sample_bytes("jpeg_720p")[:1], "cuda", reps=10)}
+    print(f"serve: JPEGs without Huffman tables (a 720x1280 frame with no DHT, a "
+          f"240x320 one with an optimised slot 0 and no slot 1) on nvjpeg, the C walk "
+          f"and scans_short [0]; the frame's 1/2, 1/4, 1/8 decodes equal the spliced "
+          f"file's; nvJPEG on the frame's bytes as they are, without the splice: "
+          + ("refused (None)" if raw is None else f"decoded, max |d| {raw_agree['max_abs']}, "
+             f"mean |d| {raw_agree['mean_abs']:.4f} against the plain decoder")
+          + f"; decode_to ms (host clock, synchronised): no DHT {ms['no DHT']:.3f}, the "
+          f"baseline frame {ms['baseline']:.3f} on {smi}", flush=True)
+    frames = [without_huffman_tables(d) for d in svb.sample_bytes("jpeg_720p")]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "nodht.avi")
+        with AviWriter(path, 30.0) as writer:
+            for data in frames * 2:
+                writer.write(data, 1280, 720)
+        calls = dec.decode_jpeg_cuda.calls
+        reader = VideoReader(path, device="cuda")
+        got = [frame for ok, frame in reader if ok]
+        reader.stop()
+        check(len(got) == len(reader) == 2 * len(frames)
+              and dec.decode_jpeg_cuda.calls == calls + len(got),
+              f"serve: VideoReader played {len(got)} of {len(reader)} DHT-less frames")
+        worst = {"max_abs": 0, "mean_abs": 0.0}
+        for frame, data in zip(got, frames * 2):
+            agree = dec.pixel_agreement(frame, dec.decode_image(data))
+            check(dec.within_nvjpeg_tolerance(agree),
+                  f"serve: a DHT-less video frame outside nvJPEG's tolerance: {agree}")
+            worst = {k: max(worst[k], agree[k]) for k in worst}
+    print(f"serve: a Motion-JPEG AVI of the 720x1280 frames without DHTs "
+          f"({len(got)} frames): VideoReader on the card played it to its last frame, "
+          f"one nvJPEG decode a frame, worst max |d| {worst['max_abs']}, mean |d| "
+          f"{worst['mean_abs']:.4f} against the plain decoder; the DHT-less legs "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def serve_decode(smi: str) -> dict:
@@ -1658,6 +1754,7 @@ def serve_decode(smi: str) -> dict:
               f"appended ({len(cut)} B): route {route}, scans short "
               f"{dec.scans_short(cut)}, card against plain: max |d| {agree['max_abs']}, "
               f"mean |d| {agree['mean_abs']:.4f}", flush=True)
+    no_dht_legs(smi)
     big = svb.sample_bytes("jpeg_444")[0]
     sof = next(a for m, a, _, _ in dec._walk(big) if m in dec.SOF_ALL)
     big = big[:sof + 1] + (40000).to_bytes(2, "big") * 2 + big[sof + 5:]
@@ -1838,6 +1935,21 @@ def phase_serve(model, smi: str) -> dict:
               f"request's decode alone (host clock, synchronised): nvJPEG + "
               f"orientation {t_nvjpeg:.3f} ms, + letterbox_u8 {t_dec:.3f} ms; the "
               f"engine's p50 {p50:.3f} ms on {smi}", flush=True)
+        from vision_kit_tpu_torch.utils.path_turns import CONTENTION_S, http_contention
+
+        heavy = svb.sample_bytes("webp_large")[0]
+        alone = http_contention(server.port, CONTENTION_S, jpegs)
+        beside = http_contention(server.port, CONTENTION_S, jpegs, heavy)
+        check(beside["heavy_decodes"] > 0, "serve: the WebP client got no answer")
+        print(f"serve load: HTTP, {CONTENTION_S:.0f} s of 32 clients POSTing the 720x1280 "
+              f"samples: alone {alone['requests']} requests, {alone['img_s']:.1f} img/s, "
+              f"p50 {alone['p50_ms']:.3f} ms, p99 {alone['p99_ms']:.3f} ms; beside one "
+              f"more client POSTing the 2048x2048 lossy WebP ({len(heavy)} B) in a loop: "
+              f"{beside['requests']} requests, {beside['img_s']:.1f} img/s, p50 "
+              f"{beside['p50_ms']:.3f} ms, p99 {beside['p99_ms']:.3f} ms, p50 ratio "
+              f"{beside['p50_ms'] / alone['p50_ms']:.3f}; the WebP client's "
+              f"{beside['heavy_decodes']} decodes, median {beside['heavy_median_ms']:.1f} "
+              f"ms; host-decode pool of {server._pool.size} processes on {smi}", flush=True)
         rows = svb.bench_load_curve(server, cap, (0.5, 0.8, 0.95), 480,
                                    frames=sample_frames)
         print("serve load: load curve at batch 8 against the engine's "
@@ -2039,11 +2151,30 @@ def fast_decode_leg(data_dir: str, smi: str) -> None:
           + f"; the leg {time.perf_counter() - t0:.1f} s on {smi}", flush=True)
 
 
+def restore_leg(restored: dict) -> dict:
+    """The ms (host clock) of datasets.restore_truncated_jpeg on each of the
+    fit's truncated samples alone, each checked against its manifest's
+    restored_sha256."""
+    import hashlib
+
+    from vision_kit_tpu_torch.data.datasets import restore_truncated_jpeg
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+
+    by_name = {n: d for n, _, d in svb.samples()}
+    out = {}
+    for name, sha in restored.items():
+        t0 = time.perf_counter()
+        data = restore_truncated_jpeg(by_name[name])
+        out[name] = (time.perf_counter() - t0) * 1e3
+        check(hashlib.sha256(data).hexdigest() == sha, f"fit: {name} restores otherwise")
+    return out
+
+
 def phase_fit(smi: str) -> dict:
     """Training from a dataset: Trainer.fit of v5s@640 bf16 for 2 epochs on
     write_dataset's files (the committed samples by their decode routes,
-    progressive JPEGs and BMPs kept, PNG scenes, the truncated sample
-    dropped by the scan), then test(); the card's loaders against
+    progressive JPEGs and BMPs kept, PNG scenes, the truncated samples
+    restored by the scan to the bytes JAX writes), then test(); the card's loaders against
     the plain ones; fast_decode_leg; a crash after step 3 resumed on the
     card; the train CLI as a subprocess; the loader's numbers. Returns the
     greedy_nms and head_scores launches of fit."""
@@ -2062,11 +2193,17 @@ def phase_fit(smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "ds")
         made = lb.write_dataset(data_dir, FIT_TRAIN, FIT_VAL)
+        restore_ms = restore_leg(made["restored"])
         cfg = fit_config(data_dir, os.path.join(tmp, "run"))
         tr = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
-        check(len(tr.train_loader.planner.dataset) == FIT_TRAIN,
-              f"the scan kept {len(tr.train_loader.planner.dataset)} of {FIT_TRAIN} + "
-              f"{len(made['refused'])} refused train images")
+        n_restored = len(made["restored"])
+        kept = tr.train_loader.planner.dataset.img_files
+        check(len(kept) == FIT_TRAIN + n_restored and n_restored >= 2
+              and all(os.path.join(data_dir, "train", "images", n) in kept
+                      for n in made["restored"]),
+              f"the scan kept {len(kept)} of {FIT_TRAIN} + {n_restored} truncated images")
+        bad = lb.restore_disagreements(data_dir, made["restored"])
+        check(not bad, "fit: restores differ from JAX's: " + "; ".join(bad))
         check(tr.train_loader.device.type == "cuda", "the train dataset is not on the card")
         kept_webp = [f for f in tr.train_loader.planner.dataset.img_files if f.endswith(".webp")]
         check(len(kept_webp) > 0, "the scan kept no WebP of the fit's dataset")
@@ -2105,9 +2242,11 @@ def phase_fit(smi: str) -> dict:
         check(all(np.isfinite(d).all() for d in dets), "best weights: non-finite detections")
         stats = tr.epoch_stats
         print(f"fit: v5s@640 b{FIT_BATCH} bf16 (2 classes), {FIT_EPOCHS} epochs of "
-              f"{tr.steps_per_epoch} steps on {FIT_TRAIN} train images ({len(kept_webp)} "
-              f"WebPs kept by the scan, {len(made['refused'])} "
-              f"refused ones dropped by the scan), RAM cache on the card, device aug with "
+              f"{tr.steps_per_epoch} steps on {len(kept)} train images ({len(kept_webp)} "
+              f"WebPs kept by the scan, {n_restored} truncated ones restored by it to "
+              f"their manifest's restored_sha256, ms a restore alone "
+              + ", ".join(f"{v:.1f}" for v in restore_ms.values())
+              + "), RAM cache on the card, device aug with "
               f"mosaic: fit {fit_s:.1f} s; per epoch "
               + "; ".join(f"{e['img_s']:.1f} img/s ({e['seconds']:.2f} s, loader wait "
                           f"{100 * e['loader_wait_s'] / e['seconds']:.1f} %), validation "
@@ -2287,7 +2426,7 @@ def phase_fit_host(smi: str) -> dict:
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "ds")
-        lb.write_dataset(data_dir, FIT_TRAIN, FIT_VAL)
+        made = lb.write_dataset(data_dir, FIT_TRAIN, FIT_VAL)
         cfg = fit_host_config(data_dir, os.path.join(tmp, "run"))
         batch, workers = int(cfg.data.batch_size), int(cfg.data.num_workers)
         check((batch, workers, cfg.model.version, getattr(cfg.data, "device_aug", None),
@@ -2296,7 +2435,8 @@ def phase_fit_host(smi: str) -> dict:
         tr = Trainer(cfg, use_tensorboard=False, seed=0, device="cuda")
         loader = tr.train_loader
         check(not tr.device_aug and not loader.device_aug, "fit-host took the device route")
-        check(loader.device.type == "cuda" and len(loader.dataset) == FIT_TRAIN,
+        check(loader.device.type == "cuda"
+              and len(loader.dataset) == FIT_TRAIN + len(made["restored"]),
               f"the train dataset holds {len(loader.dataset)} images on {loader.device}")
         torch.cuda.synchronize()
         reset_counts()
@@ -3375,16 +3515,25 @@ def main() -> int:
               f"in 10 steps) on {smi}; launches {bench_counts}", flush=True)
     del as_built
 
-    eval_counts = phase_eval(model, rng, smi)
-    v7, v7_counts = phase_v7(rng, smi)
-    train_counts = phase_train(rng, smi)
-    ref_counts = phase_weights(model, rng, smi)
-    video_counts = phase_demo(model, smi)
-    serve_counts = phase_serve(model, smi)
-    fit_counts = phase_fit(smi)
-    fit_host_counts = phase_fit_host(smi)
-    ddp_counts = phase_ddp(smi)
-    spatial_counts = phase_spatial(smi)
+    seconds = {"start to throughput": time.perf_counter() - t_start}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    eval_counts = timed("eval", phase_eval, model, rng, smi)
+    v7, v7_counts = timed("v7", phase_v7, rng, smi)
+    train_counts = timed("train", phase_train, rng, smi)
+    ref_counts = timed("weights", phase_weights, model, rng, smi)
+    video_counts = timed("demo", phase_demo, model, smi)
+    serve_counts = timed("serve", phase_serve, model, smi)
+    fit_counts = timed("fit", phase_fit, smi)
+    fit_host_counts = timed("fit-host", phase_fit_host, smi)
+    ddp_counts = timed("ddp", phase_ddp, smi)
+    spatial_counts = timed("spatial", phase_spatial, smi)
 
     from vision_kit_tpu_torch.train.step import make_eval_step
     from vision_kit_tpu_torch.utils.stream_bench import detector_step
@@ -3434,7 +3583,10 @@ def main() -> int:
         rows[f"{name}_mesh_serve"]["launches_by_rank"] = by_rank
         rows[f"{name}_spatial"]["launches"] = spatial_counts[name][0]
         rows[f"{name}_spatial"]["launches_by_rank"] = spatial_counts[name]
+    seconds["profiles and kernel times"] = time.perf_counter() - t_start - sum(
+        seconds.values())
     print(json.dumps({"kernels": list(rows.values())}))
+    print("seconds by phase: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

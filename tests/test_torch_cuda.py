@@ -372,6 +372,145 @@ def test_nvjpeg_decodes_after_a_corrupt_jpeg(cuda):
     assert torch.equal(first, again)
 
 
+def test_jpegs_without_huffman_tables_through_nvjpeg(cuda):
+    """The DHT-less 720p frame and the optimised-slot-0 sample: route
+    "nvjpeg", the C walk and scans_short [0], nvJPEG (the standard tables
+    spliced in front of it) within NVJPEG_TOLERANCE of decode_image, one
+    nvJPEG decode each; the same frame's bytes in a Motion-JPEG AVI play
+    to the last frame in VideoReader on the card."""
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.utils.serve_bench import sample_bytes
+
+    for kind in ("jpeg_no_dht", "jpeg_std_slot1"):
+        data = sample_bytes(kind)[0]
+        assert dec.decode_route(data, cuda) == "nvjpeg", kind
+        assert dec.walk_scans_short(data) == dec.scans_short(data) == [0], kind
+        calls = dec.decode_jpeg_cuda.calls
+        got = dec.decode_to(data, cuda)
+        assert dec.decode_jpeg_cuda.calls == calls + 1
+        agree = dec.pixel_agreement(got, dec.decode_image(data))
+        assert dec.within_nvjpeg_tolerance(agree), (kind, agree)
+
+
+def test_c_walk_on_jpegs_without_huffman_tables(cuda):
+    """The C walk on the DHT-less and optimised-slot-0 samples, on each
+    without any DHT or without slot 1, on them cut inside their scan, and
+    on a progressive file without its tables (both walks refuse it): equal
+    to scans_short."""
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.utils.serve_bench import (cut_inside_last_scan, sample_bytes,
+                                                        walk_disagreements)
+
+    from chip_smoke import without_huffman_tables
+
+    cases = []
+    for kind in ("jpeg_no_dht", "jpeg_std_slot1", "jpeg_720p", "jpeg_restart"):
+        data = sample_bytes(kind)[0]
+        bare = without_huffman_tables(data)
+        cases += [(kind, data), (kind + " bare", bare),
+                  (kind + " bare cut", cut_inside_last_scan(bare))]
+    assert walk_disagreements(cases, cuda) == []
+    bare = without_huffman_tables(sample_bytes("jpeg_progressive")[0])
+    with pytest.raises(dec.JpegError):
+        dec.walk_scans_short(bare)
+    with pytest.raises(dec.JpegError):
+        dec.scans_short(bare)
+
+
+class _CrashingLoader:
+    """A TrainLoader whose iterator raises after `after` batches."""
+
+    def __init__(self, loader, after: int):
+        self.loader, self.after = loader, after
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.loader):
+            if i == self.after:
+                raise RuntimeError("crash injected")
+            yield batch
+
+
+def resume_after_other_fits(data_dir: str, out: str) -> dict:
+    """In this process: a default-mode fit, then a deterministic fit that
+    crashes after step 3 and its resume from ckpts/last, then an
+    uninterrupted deterministic fit; the state tensors in which the resumed
+    run differs from the uninterrupted one. v5n@320 on write_dataset's
+    files, 2 epochs at batch 8. Needs CUBLAS_WORKSPACE_CONFIG=:4096:8 set
+    before CUDA starts."""
+    import json
+    import os
+
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+    from vision_kit_tpu_torch.utils.general import update_loss_cfg
+
+    def trainer(name: str, deterministic: bool):
+        cfg = _config("yolov5_tpu.yaml", version="n", num_classes=2, input_size=[320, 320],
+                      weight="")
+        cfg.data.update(data_dir=data_dir, output_dir=os.path.join(out, name),
+                        train_path="train", val_path="valid", test_path="valid",
+                        batch_size=8, max_epochs=2, class_labels=["a", "b"])
+        cfg.testing.val_interval = 1
+        return Trainer(update_loss_cfg(cfg), use_tensorboard=False, seed=0, device="cuda",
+                       deterministic=deterministic)
+
+    first = trainer("default", False)
+    first.fit()
+    first.train_loader.close()
+    del first
+    crashed = trainer("crash", True)
+    crashed.train_loader = _CrashingLoader(crashed.train_loader, 3)
+    try:
+        crashed.fit()
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    crashed.train_loader.close()
+    last = os.path.join(crashed.output_dir, "ckpts", "last")
+    with open(last + ".meta.json") as f:
+        saved = json.load(f)["step"]
+    del crashed
+    resumed = trainer("crash", True)
+    resumed.fit(resume=last)
+    resumed.train_loader.close()
+    ref = trainer("ref", True)
+    ref.fit()
+    ref.train_loader.close()
+    want, got = sb.train_state_tensors(ref.state), sb.train_state_tensors(resumed.state)
+    return {"saved_step": saved, "step": resumed.state.step, "ref_step": ref.state.step,
+            "differ": [f"{p} {k}" for p in sb.STATE_PARTS for k in want[p]
+                       if not torch.equal(want[p][k], got[p][k])]}
+
+
+def test_deterministic_resume_after_other_fits(cuda, tmp_path):
+    """ROADMAP Queue 3 item 2: a deterministic resume made after a
+    default-mode fit in the same process (a child with
+    CUBLAS_WORKSPACE_CONFIG set before CUDA) ends bit-identical to an
+    uninterrupted deterministic fit."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+
+    lb.write_dataset(str(tmp_path / "ds"), n_train=32, n_val=8)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join([repo, os.path.dirname(os.path.abspath(__file__))]))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-after-fits",
+                           str(tmp_path / "ds"), str(tmp_path / "out")], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    print("deterministic resume after a default fit: " + json.dumps(res))
+    assert 0 < res["saved_step"] < res["step"] == res["ref_step"], res
+    assert res["differ"] == [], res
+
+
 def test_card_loaders_agree_with_the_plain_ones(cuda, tmp_path):
     """write_dataset's files (JPEG samples and PNG scenes) through a card
     dataset and a CPU one: TrainLoader params, tile_hw and targets equal,
@@ -381,11 +520,12 @@ def test_card_loaders_agree_with_the_plain_ones(cuda, tmp_path):
     from vision_kit_tpu_torch.data.datasets import YOLODataset
     from vision_kit_tpu_torch.utils import loader_bench as lb
 
-    lb.write_dataset(str(tmp_path), n_train=16, n_val=8)
+    made = lb.write_dataset(str(tmp_path), n_train=16, n_val=8)
     split = str(tmp_path / "train")
     card = YOLODataset(split, img_size=320, device=cuda)
     plain = YOLODataset(split, img_size=320, device="cpu", cache_images="ram")
-    assert len(card) == 16 and card.decoder == "nvjpeg"
+    assert len(card) == 16 + len(made["restored"]) and card.decoder == "nvjpeg"
+    assert lb.restore_disagreements(str(tmp_path), made["restored"]) == []
     mixup = {"enable_mixup": True, "mixup_prob": 1.0}
     assert lb.loader_disagreements(card, plain, batch=4, size=320, aug=mixup) == []
 
@@ -607,3 +747,11 @@ def test_fast_decode_items_card_equal_cpu(cuda, tmp_path):
         str(tmp_path / "train"), (640, 320, 160), range(24))
     assert bad == [] and all(n > 0 for n in reduced.values()), (bad, reduced)
     assert any("progressive" in f for f in files), files
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    if len(sys.argv) == 4 and sys.argv[1] == "--resume-after-fits":
+        print(json.dumps(resume_after_other_fits(sys.argv[2], sys.argv[3])), flush=True)

@@ -325,11 +325,11 @@ def test_disk_cache_shared_across_subset_split(tmp_path, monkeypatch):
 
 
 def test_scan_drops_what_the_port_cannot_decode(tmp_path, caplog):
-    """The scan's verdicts beside JAX's: a truncated JPEG (JAX restores it
-    in place with PIL, the port drops it and leaves its bytes alone), a
-    progressive JPEG and a BMP (both keep them, and their items are equal),
-    garbage and an image under 10 px (both drop). Each drop is logged with
-    its reason, and the verdicts are cached with the labels."""
+    """The scan's verdicts beside JAX's: a truncated JPEG (both restore it
+    in place, to the same bytes, and keep it), a progressive JPEG and a BMP
+    (both keep them, and their items are equal), garbage and an image under
+    10 px (both drop). Each drop is logged with its reason, the restore
+    with JAX's words, and the verdicts are cached with the labels."""
     rng = np.random.default_rng(1)
     imgs = [rng.integers(0, 255, (80, 120, 3), dtype=np.uint8) for _ in range(3)]
     for root in (tmp_path / "port", tmp_path / "jax"):
@@ -352,12 +352,12 @@ def test_scan_drops_what_the_port_cannot_decode(tmp_path, caplog):
         got = port_ds.YOLODataset(str(tmp_path / "port"), img_size=64, device="cpu")
     want = jax_ds.YOLODataset(str(tmp_path / "jax"), img_size=64)
     names = lambda ds: sorted(os.path.basename(f) for f in ds.img_files)  # noqa: E731
-    assert names(got) == ["0.jpg", "2.jpg", "b.bmp", "prog.jpg"]
-    assert names(want) == ["0.jpg", "1.jpg", "2.jpg", "b.bmp", "prog.jpg"]
-    assert (tmp_path / "port" / "images" / "1.jpg").read_bytes() == truncated
-    assert (tmp_path / "jax" / "images" / "1.jpg").read_bytes()[-2:] == b"\xff\xd9"
+    assert names(got) == names(want) == ["0.jpg", "1.jpg", "2.jpg", "b.bmp", "prog.jpg"]
+    restored = (tmp_path / "port" / "images" / "1.jpg").read_bytes()
+    assert restored != truncated and restored[-2:] == b"\xff\xd9"
+    assert restored == (tmp_path / "jax" / "images" / "1.jpg").read_bytes()
     log = caplog.text
-    for name, reason in (("1.jpg", "bytes end inside a scan"),
+    for name, reason in (("1.jpg", "corrupt JPEG restored and saved"),
                          ("junk.jpg", "not a JPEG, PNG, BMP or WebP"), ("tiny.png", "30x8 < 10")):
         assert any(name in r.message and reason in r.message for r in caplog.records), \
             (name, log)
@@ -373,15 +373,22 @@ def test_scan_drops_what_the_port_cannot_decode(tmp_path, caplog):
 
 def test_scan_refusals_by_header(tmp_path):
     """image_refusal on a JPEG whose scan is followed by a marker segment
-    but no EOI, and on a PNG with a broken CRC."""
+    but no EOI (restored in place, to the bytes JAX's _check_img writes),
+    on one cut inside its header (dropped, as PIL refuses it) and on a PNG
+    with a broken CRC."""
     img = scene(40, 60, seed=3)
     data = jpeg(img)
     cases = {"no_eoi.jpg": data[:-2] + b"\xff\xfe\x00\x04ok", "ok.jpg": data,
              "bad_crc.png": encode_png(img)[:40] + b"\0" + encode_png(img)[41:],
-             "ok.png": encode_png(img)}
+             "ok.png": encode_png(img), "header.jpg": data[:100]}
     for name, blob in cases.items():
         (tmp_path / name).write_bytes(blob)
-    assert "no EOI" in port_ds.image_refusal(str(tmp_path / "no_eoi.jpg"))
+    (tmp_path / "jax.jpg").write_bytes(cases["no_eoi.jpg"])
+    assert port_ds.image_refusal(str(tmp_path / "no_eoi.jpg")) is None
+    assert jax_ds.YOLODataset._check_img(str(tmp_path / "jax.jpg")) is None
+    assert (tmp_path / "no_eoi.jpg").read_bytes() == (tmp_path / "jax.jpg").read_bytes()
+    assert "inside the header" in port_ds.image_refusal(str(tmp_path / "header.jpg"))
+    assert (tmp_path / "header.jpg").read_bytes() == data[:100]
     assert "CRC" in port_ds.image_refusal(str(tmp_path / "bad_crc.png"))
     assert port_ds.image_refusal(str(tmp_path / "ok.jpg")) is None
     assert port_ds.image_refusal(str(tmp_path / "ok.png")) is None

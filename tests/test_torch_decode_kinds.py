@@ -3,9 +3,10 @@ cv2 (the JAX package's decoder) bit for bit on the CPU: progressive JPEGs
 (cv2's and PIL's, every subsampling, restart intervals, files that end
 early), CMYK, YCCK and RGB JPEGs, BMPs of every header, depth and
 compression cv2 reads, the reduced-scale decode of progressive files, the
-BMP writer, and the routes decode_to takes. Then the JAX functions
-themselves: decode_request_bytes, _fast_decode_resized, and a served
-request with a progressive JPEG and a BMP.
+BMP writer, the routes decode_to takes, and JPEGs without Huffman tables
+(libjpeg's standard ones in sequential slots 0 and 1) on every entry. Then
+the JAX functions themselves: decode_request_bytes, _fast_decode_resized,
+the datasets, and a served request with a progressive JPEG and a BMP.
 """
 
 import io
@@ -21,7 +22,7 @@ from PIL import Image
 
 from test_torch_serve import _post, _rows, server, weights  # noqa: F401
 from torch_samples import (SAMPLES, cut_after_scans, jpeg, jpeg_scans, pil_jpeg, rle8,
-                           scene, with_adobe_transform)
+                           scene, with_adobe_transform, without_tables)
 from vision_kit_tpu.data import datasets as jax_ds
 from vision_kit_tpu.serve import decode_request_bytes as jax_decode_request_bytes
 from vision_kit_tpu_torch.data import datasets as port_ds
@@ -408,9 +409,10 @@ def test_routes_from_the_header():
             "jpeg_ycck": "host_colour", "jpeg_rgb": "host_colour",
             "jpeg_truncated": "refused", "png_rgb": "host_png", "png_palette": "host_png",
             "bmp_24": "host_bmp", "bmp_palette8": "host_bmp", "bmp_palette4": "host_bmp",
-            "bmp_rle8": "host_bmp"}
+            "bmp_rle8": "host_bmp", "jpeg_no_dht": "nvjpeg", "jpeg_std_slot1": "nvjpeg"}
     want.update({k: "host_webp" for k in ("webp_lossy", "webp_lossless", "webp_alpha",
-                                         "webp_exif", "webp_animated", "webp_simple")})
+                                         "webp_exif", "webp_animated", "webp_simple",
+                                         "webp_large")})
     import json
     walk = decode.scans_short
     with open(os.path.join(SAMPLES, "MANIFEST.json")) as f:
@@ -438,7 +440,7 @@ def test_routes_from_the_header():
 
 
 JPEG_SAMPLES = sorted(n for n in os.listdir(SAMPLES)
-                      if n.endswith(".jpg") and n != "truncated_240x320.jpg")
+                      if n.endswith(".jpg") and not n.startswith("truncated"))
 
 
 def test_scans_short_of_complete_files():
@@ -617,7 +619,8 @@ def test_decode_to_counts_routes_on_the_cpu():
 JAX_SAMPLES = ["progressive_240x320.jpg", "progressive_4of10_240x320.jpg",
                "progressive_720x1280_420_q90.jpg", "cmyk_120x160.jpg", "ycck_120x160.jpg",
                "adobe_rgb_120x160.jpg", "rgb24_120x160.bmp", "palette8_120x160.bmp",
-               "palette4_120x160.bmp", "rle8_120x160.bmp"]
+               "palette4_120x160.bmp", "rle8_120x160.bmp", "nodht_720x1280_420_q90.jpg",
+               "stdslot1_240x320.jpg"]
 
 
 @pytest.mark.parametrize("name", JAX_SAMPLES)
@@ -696,3 +699,115 @@ def test_served_oversize_jpeg_answers_as_jax(server):  # noqa: F811
     assert err.value.code == 400
     status, _ = _post(f"http://127.0.0.1:{server.port}/predict", read("s444_240x320.jpg"))
     assert status == 200
+
+
+# -- JPEGs without Huffman tables --------------------------------------------
+
+# libjpeg's jdhuff.c gives a sequential scan's undefined slots 0 and 1 the
+# standard tables (Motion-JPEG frames carry no DHT); jdphuff.c gives none
+NO_DHT_FROM = ["frame1_720x1280_420_q90.jpg", "restart4_240x320.jpg", "grey_240x320.jpg",
+               "s444_240x320.jpg", "odd_333x517.jpg", "exif6_200x300.jpg"]
+NO_DHT = {**{f"{n} without DHT": without_huffman_tables(read(n)) for n in NO_DHT_FROM},
+          "nodht_720x1280_420_q90.jpg": read("nodht_720x1280_420_q90.jpg"),
+          "stdslot1_240x320.jpg": read("stdslot1_240x320.jpg")}
+
+
+def with_table_ids(data: bytes, tables: int) -> bytes:
+    """The JPEG with every component of its first scan naming DC and AC
+    table `tables` (the SOS's table byte)."""
+    at = next(a for m, a, _, _ in decode._walk(data) if m == decode.SOS)
+    out = bytearray(data)
+    for k in range(data[at]):
+        out[at + 2 + 2 * k] = tables
+    return bytes(out)
+
+
+@pytest.mark.parametrize("name", sorted(NO_DHT))
+def test_jpeg_without_huffman_tables_like_cv2(name):
+    """decode_image, decode_jpeg_reduced at 1/2, 1/4 and 1/8 against cv2 bit
+    for bit; probe_jpeg reads the header; scans_short finds every scan
+    whole, and the card's route is nvJPEG (the standard tables spliced in
+    front of it, with_standard_tables)."""
+    data = NO_DHT[name]
+    assert_like_cv2(data, name)
+    assert decode_image(data) is not None
+    for f, flag in REDUCED.items():
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+        np.testing.assert_array_equal(decode_jpeg_reduced(data, f),
+                                      cv2.cvtColor(want, cv2.COLOR_BGR2RGB), err_msg=f"{f}")
+    info = decode.jpeg_header(data)
+    assert decode.probe_jpeg(data)[:2] == (info["height"], info["width"])
+    assert decode.scans_short(data) == [0]
+    assert decode.decode_route(data, "cuda", decode.scans_short) == "nvjpeg"
+    spliced = decode.with_standard_tables(data, info)
+    assert sorted(decode.jpeg_header(spliced)["huffman"]) == sorted(decode.STD_HUFFMAN)
+    np.testing.assert_array_equal(decode_image(spliced), decode_image(data))
+
+
+def test_optimised_slot_0_keeps_its_table():
+    """Pillow's optimised tables in slot 0 and no slot 1: only slot 1 takes
+    the standard tables. The pixels are those of Pillow's file with both of
+    its optimised tables (the same coefficients), as cv2 gives them."""
+    data = read("stdslot1_240x320.jpg")
+    info = decode.jpeg_header(data)
+    assert info["huffman"] == {(0, 0), (1, 0)}
+    src = pil_jpeg(scene(240, 320, 26), "RGB", quality=90, optimize=True)
+    np.testing.assert_array_equal(decode_image(data), decode_image(src))
+    assert_like_cv2(data)
+    # libjpeg's standard tables in slot 0 too misread it
+    assert not np.array_equal(cv2_rgb(without_huffman_tables(data)), decode_image(data))
+
+
+@pytest.mark.parametrize("tables", [0x22, 0x33, 0x02, 0x30])
+def test_undefined_slots_2_and_3_stay_refused(tables):
+    """A scan naming a table 2 or 3 that no DHT defines: None, as cv2
+    gives, on every route, with or without the file's own tables."""
+    for data in (read("s444_240x320.jpg"), NO_DHT["s444_240x320.jpg without DHT"]):
+        bad = with_table_ids(data, tables)
+        assert cv2_rgb(bad) is None
+        assert decode_image(bad) is None
+        assert decode_jpeg_reduced(bad, 2) is None
+        with pytest.raises(decode.JpegError):
+            decode.scans_short(bad)
+        assert decode.decode_route(bad, "cuda", decode.scans_short) == "host_cut"
+
+
+@pytest.mark.parametrize("slots", [(0, 1, 2, 3), (1,), (0,)])
+def test_progressive_without_tables_like_cv2(slots):
+    """jdphuff.c fills no table: a progressive file without its DHTs (or
+    without slot 0 or 1) gives cv2's None at full size and reduced."""
+    data = without_tables(read("progressive_240x320.jpg"), slots)
+    for flag in (cv2.IMREAD_COLOR, *REDUCED.values()):
+        try:
+            assert cv2.imdecode(np.frombuffer(data, np.uint8), flag) is None
+        except cv2.error:
+            pass
+    assert decode_image(data) is None
+    assert all(decode_jpeg_reduced(data, f) is None for f in REDUCED)
+    assert decode.with_standard_tables(data, decode.jpeg_header(data)) == data
+    assert decode.decode_route(data, "cuda", decode.scans_short) == "host_cut"
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_datasets_keep_jpegs_without_tables_like_jax(tmp_path, monkeypatch, fast):
+    """The integrity scan keeps them and every dataset decoder (plain and
+    auto, the full decode and fast_decode) gives JAX's items."""
+    monkeypatch.setenv("VK_NO_NATIVE", "1")   # JAX's cv2 path
+    for root in ("port", "jax"):
+        (tmp_path / root / "images").mkdir(parents=True)
+        (tmp_path / root / "labels").mkdir()
+        for i, name in enumerate(["nodht_720x1280_420_q90.jpg", "stdslot1_240x320.jpg",
+                                  "grey_240x320.jpg without DHT"]):
+            (tmp_path / root / "images" / f"{i}.jpg").write_bytes(NO_DHT[name])
+            (tmp_path / root / "labels" / f"{i}.txt").write_text("0 0.5 0.5 0.2 0.2")
+    want = jax_ds.YOLODataset(str(tmp_path / "jax"), img_size=160, fast_decode=fast)
+    assert len(want) == 3
+    for decoder in ("plain", "auto"):
+        got = port_ds.YOLODataset(str(tmp_path / "port"), img_size=160, device="cpu",
+                                  decoder=decoder, fast_decode=fast)
+        assert len(got) == 3
+        for i in range(3):
+            g, w = got.pull_item(i), want.pull_item(i)
+            np.testing.assert_array_equal(g[0].numpy(), w[0])
+            np.testing.assert_array_equal(g[1], w[1])
+            assert tuple(g[2]) == tuple(w[2])

@@ -116,9 +116,10 @@ def test_reduced_decode_orientation_and_refusals():
 def test_fast_decode_resized_equals_jax(size):
     """Both sides on every committed sample but two of the 720p frames:
     None together (r >= 1, EXIF, PNG, BMP), else bit-equal images and (h0,
-    w0), the progressive samples too. The truncated sample gives None in the
-    port (its decoders refuse bytes that end inside a scan, as the full
-    decode does), where cv2.imread decodes it."""
+    w0), the progressive samples and those without Huffman tables too. The
+    truncated samples give None in the port (its decoders refuse bytes that
+    end inside a scan, as the full decode does), where cv2.imread decodes
+    them (a dataset restores them first: test_torch_restore.py)."""
     n_fast = 0
     for name in sorted(os.listdir(SAMPLES)):
         if name.startswith(("frame1", "frame2")) or name.endswith(".json"):
@@ -135,9 +136,9 @@ def test_fast_decode_resized_equals_jax(size):
             np.testing.assert_array_equal(got[0].numpy(), want[0], err_msg=name)
             assert got[1] == want[1]
     if size == 160:   # 240x320 and 333x517 reduce; EXIF, the PNGs and BMPs do not
-        assert n_fast == 9
-    else:             # the 720p frame and its progressive twin
-        assert n_fast == 2
+        assert n_fast == 11
+    else:             # the 720p frame, its progressive twin and the one without DHTs
+        assert n_fast == 3
 
 
 @pytest.fixture(scope="module")

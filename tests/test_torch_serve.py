@@ -383,6 +383,70 @@ def test_bench_load_curve_paces_and_measures(server):
 # -- entry points -----------------------------------------------------------
 
 
+def _sample(name):
+    with open(os.path.join(SAMPLES, name), "rb") as f:
+        return f.read()
+
+
+def test_host_routes_decode_in_the_pool_as_before(server):
+    """Every host route (WebP, PNG, BMP, CMYK, a progressive JPEG that ends
+    early, a baseline one on the CPU) through the server's worker
+    processes: decode_request_bytes gives the bytes it gives on this
+    thread, and the served detections equal the predictor's on them."""
+    from vision_kit_tpu_torch.serve import HOST_DECODE_PROCESSES
+
+    pool = server._pool
+    assert pool.size == HOST_DECODE_PROCESSES == len(set(pool.pids()))
+    url = f"http://127.0.0.1:{server.port}/predict"
+    for name in ("lossy_240x320.webp", "palette_120x160.png", "rle8_120x160.bmp",
+                 "cmyk_120x160.jpg", "progressive_4of10_240x320.jpg", "s444_240x320.jpg"):
+        data = _sample(name)
+        img, (ratio, pad), hw0 = decode_request_bytes(data, IMG_SIZE, "cpu", pool.decode)
+        want_img, want_meta, want_hw0 = decode_request_bytes(data, IMG_SIZE, "cpu")
+        assert torch.equal(img, want_img) and ((ratio, pad), hw0) == (want_meta, want_hw0)
+        status, payload = _post(url, data)
+        assert status == 200, name
+        dets, valid = server.predictor.run(torch.stack([img] * server.batch_size))
+        want = scale_coords(IMG_SIZE, dets[0][valid[0]].numpy(), hw0, ratio_pad=(ratio, pad))
+        got = _rows(payload)
+        assert len(got) == len(want), name
+        np.testing.assert_allclose(got[:, :5], want[:, :5], rtol=0, atol=5e-3)
+
+
+def test_a_killed_decode_worker_fails_its_request_and_is_replaced(server):
+    """A worker killed while it decodes a body (the 2048x2048 WebP, seconds
+    of Python loops) answers that request with 500 naming it; the pool
+    spawns a replacement, and the next host-route request is answered."""
+    import signal
+    import time
+
+    pool = server._pool
+    before, replaced = set(pool.pids()), pool.replaced
+    url = f"http://127.0.0.1:{server.port}/predict"
+    answer = {}
+
+    def post_big():
+        try:
+            answer["ok"] = _post(url, _sample("large_2048x2048.webp"))
+        except urllib.error.HTTPError as e:
+            answer["code"], answer["body"] = e.code, json.loads(e.read())
+
+    thread = threading.Thread(target=post_big)
+    thread.start()
+    deadline = time.monotonic() + TIMEOUT
+    while not pool.busy_pids() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    (victim,) = pool.busy_pids()
+    os.kill(victim, signal.SIGKILL)
+    thread.join(TIMEOUT)
+    assert not thread.is_alive()
+    assert answer.get("code") == 500 and "worker died" in answer["body"]["error"], answer
+    assert pool.replaced == replaced + 1 and pool.size == len(before)
+    assert victim not in pool.pids() and len(set(pool.pids()) - before) == 1
+    status, payload = _post(url, _sample("lossy_240x320.webp"))
+    assert status == 200 and (payload["height"], payload["width"]) == (240, 320)
+
+
 def test_server_over_a_cuda_predictor_raises_without_cuda(weights):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA entry points run")

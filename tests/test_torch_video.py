@@ -1,7 +1,8 @@
 """The demo's video mode in the port on the CPU: data/encode.py:encode_jpeg
 against cv2.imencode byte for byte, utils/avi.py and readers.VideoReader
 against cv2.VideoCapture on Motion-JPEG AVIs that cv2 writes (and cv2's
-readers on the ones the port writes), the refusals, and `python -m
+readers on the ones the port writes; a clip whose frames carry no Huffman
+tables), the refusals, and `python -m
 vision_kit_tpu_torch demo -p clip.avi -o out.avi` against JAX's Predictor
 on the same frames."""
 
@@ -92,8 +93,10 @@ def test_encode_jpeg_default_and_refusals():
     rgb = np.random.default_rng(1).integers(0, 256, (31, 47, 3), dtype=np.uint8)
     _, want = cv2.imencode(".jpg", rgb[..., ::-1].copy())
     assert encode_jpeg(rgb) == want.tobytes()   # cv2's default quality, 95
+    _, grey = cv2.imencode(".jpg", rgb[..., 0].copy())   # (H, W): one component
+    assert encode_jpeg(rgb[..., 0].copy()) == grey.tobytes()
     with pytest.raises(ValueError, match="uint8 RGB"):
-        encode_jpeg(rgb[..., 0])
+        encode_jpeg(rgb[..., :2])
     with pytest.raises(ValueError, match="uint8 RGB"):
         encode_jpeg(rgb.astype(np.float32))
 
@@ -162,6 +165,45 @@ def test_opendml_continuation_and_rec_lists(tmp_path):
     for got, data in zip(read_all(reader), jpegs):
         np.testing.assert_array_equal(got.numpy(), decode_image(data))
     assert len(cv2_frames(str(path), cv2.CAP_FFMPEG)[0]) == 4
+
+
+def without_huffman_tables(data: bytes) -> bytes:
+    """The JPEG with its DHT segments dropped, as a Motion-JPEG camera
+    writes its frames (libjpeg then takes the standard tables)."""
+    from vision_kit_tpu_torch.data import decode
+
+    out = bytearray(data[:2])
+    for m, a, b, end in decode._walk(data):
+        if m == decode.EOI:
+            out += data[a - 2:a]
+        elif m != decode.DHT:
+            out += data[a - 4:end if m == decode.SOS else b]
+    return bytes(out)
+
+
+def test_clip_without_huffman_tables_plays_to_its_end(tmp_path):
+    """A Motion-JPEG AVI of the 720p frame samples without their DHTs,
+    written by the port: VideoReader plays every frame, threaded and not,
+    equal to CAP_OPENCV_MJPEG's bit for bit and within FFMPEG_TOLERANCE of
+    FFMPEG's (the JAX reader's backend), which both read the clip."""
+    frames = []
+    for i in (0, 1, 2, 1):
+        with open(os.path.join(SAMPLES, f"frame{i}_720x1280_420_q90.jpg"), "rb") as f:
+            frames.append(without_huffman_tables(f.read()))
+    path = str(tmp_path / "nodht.avi")
+    with AviWriter(path, FPS) as writer:
+        for data in frames:
+            writer.write(data, 1280, 720)
+    want, count, _ = cv2_frames(path, cv2.CAP_OPENCV_MJPEG)
+    ffmpeg, _, _ = cv2_frames(path, cv2.CAP_FFMPEG)
+    assert count == len(want) == len(ffmpeg) == len(frames)
+    for use_thread in (True, False):
+        got = read_all(VideoReader(path, use_thread=use_thread, device="cpu"))
+        assert len(got) == len(frames)
+        for g, w, ff in zip(got, want, ffmpeg):
+            np.testing.assert_array_equal(g.numpy(), w)
+            agreement = pixel_agreement(g, ff)
+            assert all(agreement[k] <= v for k, v in FFMPEG_TOLERANCE.items()), agreement
 
 
 def test_jax_reader_on_the_same_file(clips):

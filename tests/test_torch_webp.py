@@ -419,7 +419,7 @@ def test_committed_samples():
     with open(os.path.join(ts.SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
     webps = {n: m for n, m in files.items() if m["kind"].startswith("webp")}
-    assert len(webps) == 7
+    assert len(webps) == 8   # the 2048x2048 one of the server's decode pool too
     before = decode.route_counts["host_webp"]
     for name, meta in webps.items():
         with open(os.path.join(ts.SAMPLES, name), "rb") as f:

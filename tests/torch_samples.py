@@ -8,8 +8,11 @@ containers with EXIF and ICCP, animations with offset frames), with PIL
 (the CMYK and RGB JPEGs, the palette BMP) or with the libwebp that Pillow
 bundles (WebPs with encoder settings cv2 does not expose). MANIFEST.json
 lists each file's sha256, size, kind and the shape it decodes to (null
-where the decoders refuse it), and for a WebP the sha256 of cv2's decoded
-RGB (rgb_sha256), which the card checks its decode against.
+where the decoders refuse it), for a WebP the sha256 of cv2's decoded RGB
+(rgb_sha256), which the card checks its decode against, and for a
+truncated JPEG the sha256 of the file the JAX package's integrity scan
+writes over it (restored_sha256), which the card checks its restore
+against.
 tests/test_torch_decode.py checks the manifest and each file against
 cv2.imdecode.
 
@@ -131,6 +134,66 @@ def with_adobe_transform(data: bytes, transform: int) -> bytes:
     """`data` with the transform byte of its Adobe APP14 segment set."""
     at = data.index(b"\xff\xee")
     return data[:at + 15] + bytes([transform]) + data[at + 16:]
+
+
+def without_tables(data: bytes, slots=(0, 1, 2, 3)) -> bytes:
+    """The JPEG with the Huffman tables of `slots` taken out of its DHT
+    segments (a segment left empty goes too): a Motion-JPEG camera's frame
+    carries none, and libjpeg then takes the standard ones for slots 0
+    and 1."""
+    from vision_kit_tpu_torch.data import decode
+
+    out = bytearray(data[:2])
+    for m, a, b, end in decode._walk(data):
+        if m == decode.EOI:
+            out += data[a - 2:a]
+        elif m != decode.DHT:
+            out += data[a - 4:end if m == decode.SOS else b]
+        else:
+            seg, i, kept = data[a:b], 0, b""
+            while i < len(seg):
+                n = 17 + sum(seg[i + 1:i + 17])
+                if seg[i] & 15 not in slots:
+                    kept += seg[i:i + n]
+                i += n
+            if kept:
+                out += struct.pack(">BBH", 0xFF, decode.DHT, len(kept) + 2) + kept
+    return bytes(out)
+
+
+def optimised_luma_only(rgb: np.ndarray) -> bytes:
+    """A baseline 4:2:0 JPEG whose slot 0 holds Pillow's optimised tables
+    and whose slot 1 is undefined: PIL's optimize=True file, its scan
+    coded again with the optimised luma tables and the standard chroma
+    ones (the port's encoder stages over its own coefficients), so that
+    only the standard tables read it right."""
+    from vision_kit_tpu_torch.data import decode, encode
+
+    src = pil_jpeg(rgb, "RGB", quality=90, optimize=True)
+    info = decode.jpeg_header(src)
+    frame, coefs, *_ = decode._coefficients(src, info)
+    bases, _ = decode._block_order(frame, [(0, 0, 0), (1, 1, 1), (2, 1, 1)])
+    blocks = coefs[bases.reshape(-1)[:, None] + decode.ZIGZAG[None, :64]].astype(np.int64)
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), len(bases))
+    luma = {}
+    for m, a, b, _ in decode._walk(src):
+        i = 0
+        while m == decode.DHT and i < b - a:
+            n = sum(src[a + i + 1:a + i + 17])
+            if src[a + i] & 15 == 0:
+                luma[src[a + i] >> 4] = encode._code_table(
+                    src[a + i + 1:a + i + 17], src[a + i + 17:a + i + 17 + n])
+            i += 17 + n
+    saved = [c.copy() for c in encode._CODES]
+    try:
+        for ac in (0, 1):
+            encode._CODES[ac][:, 0] = np.stack(luma[ac])
+        scan = encode._entropy(blocks, np.minimum(comp, 1), comp)
+    finally:
+        encode._CODES[:] = saved
+    head = without_tables(src, (1,))
+    start, end = next((b, e) for m, _, b, e in decode._walk(head) if m == decode.SOS)
+    return head[:start] + scan + head[end:]
 
 
 def bmp_file(w: int, h: int, bpp: int, pixels: bytes, palette=None,
@@ -468,6 +531,24 @@ def build() -> dict[str, tuple[bytes, str, tuple | None]]:
                                       "jpeg_rgb", (120, 160))
     full = jpeg(scene(240, 320, 15), 90)
     files["truncated_240x320.jpg"] = (full[:len(full) * 3 // 5], "jpeg_truncated", None)
+    # truncated JPEGs the integrity scan restores (restored_sha256): a
+    # baseline 4:2:0 one with EXIF orientation 6, a progressive one cut
+    # inside the header of its sixth scan, a grey one
+    exif6 = with_exif(jpeg(scene(200, 300, 23), 90), 6)
+    files["truncated_exif6_200x300.jpg"] = (exif6[:len(exif6) * 2 // 3], "jpeg_truncated",
+                                            None)
+    files["truncated_progressive_240x320.jpg"] = (
+        progressive[:jpeg_scans(progressive)[5] + 7], "jpeg_truncated", None)
+    grey = jpeg(cv2.cvtColor(scene(240, 320, 24), cv2.COLOR_RGB2GRAY), 90)
+    files["truncated_grey_240x320.jpg"] = (grey[:len(grey) * 3 // 4], "jpeg_truncated",
+                                           None)
+    # Huffman tables left to libjpeg's standard ones: a 720p frame without
+    # any DHT (Motion-JPEG), and a frame with an optimised slot 0 and no slot 1
+    files["nodht_720x1280_420_q90.jpg"] = (
+        without_tables(jpeg(scene(720, 1280, 25), 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420)),
+        "jpeg_no_dht", (720, 1280))
+    files["stdslot1_240x320.jpg"] = (optimised_luma_only(scene(240, 320, 26)),
+                                     "jpeg_std_slot1", (240, 320))
     ok, png = cv2.imencode(".png", cv2.cvtColor(scene(120, 160, 16, noise=1.0),
                                                 cv2.COLOR_RGB2BGR))
     assert ok
@@ -515,6 +596,11 @@ def build() -> dict[str, tuple[bytes, str, tuple | None]]:
     movie.durations = [100, 100, 100]
     files["animated_96x128.webp"] = (cv2.imencodeanimation(".webp", movie)[1].tobytes(),
                                      "webp_animated", (96, 128))
+    # one colour at 2048x2048, lossy: a 7.5 KB body that the plain decoder
+    # takes seconds over (the server's host-decode pool)
+    files["large_2048x2048.webp"] = (
+        libwebp_encode(np.full((2048, 2048, 3), (90, 140, 200), np.uint8), 75),
+        "webp_large", (2048, 2048))
     files["simple4_240x320.webp"] = (
         libwebp_encode(scene(240, 320, 65), 80, filter_type=0, filter_strength=60,
                        partitions=2, segments=4, method=0), "webp_simple", (240, 320))
@@ -529,6 +615,23 @@ def rgb_sha256(data: bytes) -> str:
     return hashlib.sha256(np.ascontiguousarray(bgr[:, :, ::-1]).tobytes()).hexdigest()
 
 
+def restored_sha256(data: bytes) -> str:
+    """sha256 of the file the JAX package's integrity scan (_check_img:
+    PIL's truncated read, exif_transpose, save at quality 100 4:4:4)
+    writes over a copy of `data`."""
+    import tempfile
+
+    from vision_kit_tpu.data.datasets import YOLODataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cut.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        assert YOLODataset._check_img(path) is None
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+
 def write(out_dir: str = SAMPLES) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     manifest = {"files": {}}
@@ -540,6 +643,8 @@ def write(out_dir: str = SAMPLES) -> dict:
             "kind": kind, "shape": list(shape) if shape else None}
         if kind.startswith("webp"):   # the card's machine has no cv2 to compare with
             manifest["files"][name]["rgb_sha256"] = rgb_sha256(data)
+        if kind == "jpeg_truncated":   # nor PIL
+            manifest["files"][name]["restored_sha256"] = restored_sha256(data)
     with open(os.path.join(out_dir, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -37,13 +37,20 @@ image decodes with the plain decoder on the host, on the card too:
 "auto" resolves to "plain" and "nvjpeg" raises. Items then equal the JAX
 dataset's with fast_decode on either device.
 
-The integrity scan reads headers only (decode.jpeg_header, png_header,
-bmp_header, webp.webp_header): the size after EXIF orientation, the < 10 px
-gate, and a drop, with its reason logged, of every file the port cannot
-decode: lossless, arithmetic-coded and 12-bit JPEGs, an image over
-OpenCV's size limits, and a JPEG without its EOI marker. The JAX package
-instead re-encodes a truncated JPEG in place with PIL; the port never
-rewrites a file. Progressive, CMYK, YCCK and RGB JPEGs, BMPs and WebPs
+The integrity scan (YOLO datasets, as in the JAX package) reads headers
+(decode.jpeg_header, png_header, bmp_header, webp.webp_header): the size
+after EXIF orientation, the < 10 px gate, and a drop, with its reason
+logged, of every file the port cannot decode: lossless, arithmetic-coded
+and 12-bit JPEGs and an image over OpenCV's size limits. A JPEG that does
+not end in its EOI marker is restored in place, as the JAX package's
+_check_img does with PIL: decoded as Pillow's LOAD_TRUNCATED_IMAGES reads
+it (decode.decode_truncated_jpeg), turned as ImageOps.exif_transpose turns
+it, and written over the file as Pillow's save(subsampling=0, quality=100)
+writes it (encode.encode_jpeg at 4:4:4, or encode_jpeg_cmyk), the same
+bytes (restore_truncated_jpeg); it is dropped where PIL raises (the file
+ends inside its header). The log names each file restored and each file
+dropped with its reason, and a restore invalidates the disk image caches
+that hold the file. Progressive, CMYK, YCCK and RGB JPEGs, BMPs and WebPs
 (lossy, lossless, with alpha, animated) are kept, as JAX keeps them; a
 WebP decodes on the host whatever the decoder option (no library on the
 card decodes it), and fast_decode takes its full decode, as JAX's
@@ -59,6 +66,7 @@ memory on the card); `disk` is a host memmap either way.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -70,6 +78,8 @@ import numpy as np
 import torch
 
 from vision_kit_tpu_torch.data import decode
+from vision_kit_tpu_torch.data.encode import (SAMPLING_FACTOR_444, encode_jpeg,
+                                              encode_jpeg_cmyk)
 from vision_kit_tpu_torch.ops.letterbox import resize_u8
 from vision_kit_tpu_torch.utils.general import exif_size, resolve_device
 from vision_kit_tpu_torch.utils.logging_utils import logger
@@ -98,15 +108,68 @@ def _img2label_path(img_path: str) -> str:
     return base + ".txt"
 
 
+def restore_truncated_jpeg(data: bytes) -> bytes:
+    """The bytes the JAX package's _check_img writes over a JPEG that does
+    not end in its EOI marker: Pillow's LOAD_TRUNCATED_IMAGES read
+    (decode.decode_truncated_jpeg), ImageOps.exif_transpose (orientations
+    2-8), then save(path, "JPEG", subsampling=0, quality=100): baseline
+    4:4:4 JFIF at quality 100 for "RGB", one component for "L", Adobe CMYK
+    for "CMYK", with the source's last comment and no EXIF or ICC. Raises
+    JpegError where that path raises or the port refuses the frame."""
+    mode, samples, meta = decode.decode_truncated_jpeg(data)
+    img = decode.apply_orientation(torch.from_numpy(samples), meta["orientation"]).numpy()
+    if mode == "CMYK":
+        return encode_jpeg_cmyk(img, 100, meta["comment"])
+    return encode_jpeg(img[..., 0] if mode == "L" else img, 100, SAMPLING_FACTOR_444,
+                       meta["comment"])
+
+
 def image_refusal(path: str) -> str | None:
     """Why the integrity scan drops the image at `path`, or None when the
     port decodes it: the counterpart of the JAX package's PIL-based
-    _check_img, from headers alone."""
+    _check_img, from headers, but for a JPEG without its EOI marker, which
+    it restores in place (check_image)."""
+    return check_image(path)[0]
+
+
+def check_image(path: str) -> tuple[str | None, bool]:
+    """(image_refusal's answer, whether the file was restored). A JPEG that
+    does not end in FFD9 is rewritten as restore_truncated_jpeg gives it,
+    under a temporary name in its directory and then renamed over it, so
+    that no reader sees half a file; a restore that fails, or an image
+    under 10 pixels, leaves the file as it is and drops it. Under a mesh
+    the Trainer scans on rank 0 before the others (_rank0_first); ranks
+    that scan one file at once write the same bytes, each under a name of
+    its own."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError as e:
-        return str(e)
+        return str(e), False
+    if decode.image_kind(data) == "jpeg" and data[-2:] != b"\xff\xd9":
+        try:
+            data = restore_truncated_jpeg(data)
+        except (ValueError, IndexError, struct.error) as e:
+            return f"truncated JPEG, restore failed: {e}", False
+        why = _header_refusal(path, data)
+        if why:
+            return why, False
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, path)
+        except OSError as e:
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
+            return f"truncated JPEG, restore failed: {e}", False
+        logger.warning("%s: corrupt JPEG restored and saved", path)
+        return None, True
+    return _header_refusal(path, data), False
+
+
+def _header_refusal(path: str, data: bytes) -> str | None:
+    """image_refusal of a file holding `data`, from its header alone."""
     kind = decode.image_kind(data)
     if kind is None:
         ext = os.path.splitext(path)[1].lower()
@@ -123,9 +186,22 @@ def image_refusal(path: str) -> str | None:
         return f"corrupt {kind.upper()}: {e}"
     if w < 10 or h < 10:
         return f"image size {w}x{h} < 10 pixels"
-    if kind == "jpeg" and data[-2:] != b"\xff\xd9":
-        return "truncated JPEG (no EOI marker); the port does not rewrite files"
     return None
+
+
+def _invalidate_disk_caches(base_dir: str, paths) -> None:
+    """Mark every disk image cache under `base_dir` that holds one of
+    `paths` unbuilt (its meta removed), so that none serves a restored
+    file's old pixels."""
+    paths = set(paths)
+    for entries_path in glob(os.path.join(base_dir, ".vkt_imgcache_*.entries.json")):
+        try:
+            with open(entries_path) as f:
+                entries = json.load(f)["entries"]
+        except (OSError, ValueError, KeyError):
+            continue
+        if paths.intersection(entries):
+            _remove_stale_meta(entries_path[: -len(".entries.json")] + ".meta.npy")
 
 
 def _fast_decode_resized(data: bytes, max_hw, device: str | torch.device = "cpu"):
@@ -482,14 +558,16 @@ class YOLODataset(_ImageCacheMixin):
                 logger.warning("label cache stale, rebuilding: %s", path)
             except (OSError, ValueError, KeyError):
                 logger.warning("label cache unreadable, rebuilding: %s", path)
-        labels, kept = [], []
+        labels, kept, restored = [], [], []
         n_missing = n_dropped = 0
         for img_path in self.img_files:
-            reason = image_refusal(img_path)
+            reason, was_restored = check_image(img_path)
             if reason is not None:
                 n_dropped += 1
                 logger.warning("dropping image %s: %s", img_path, reason)
                 continue
+            if was_restored:
+                restored.append(img_path)
             lp = _img2label_path(img_path)
             rows = np.zeros((0, 5), np.float32)
             if os.path.exists(lp):
@@ -506,6 +584,12 @@ class YOLODataset(_ImageCacheMixin):
                                f"({n_dropped} dropped)")
         if n_missing == len(kept):
             logger.warning("No labels found under %s", self.data_dir)
+        if n_dropped or restored:
+            logger.warning("integrity scan of %s: %d images kept (%d of them truncated "
+                           "JPEGs restored in place), %d dropped", self.data_dir,
+                           len(kept), len(restored), n_dropped)
+        if restored:
+            _invalidate_disk_caches(self.data_dir, restored)
         self.img_files = kept
         if cache:
             # a 1-D object array explicitly: np.asarray(labels, object) would

@@ -10,7 +10,10 @@ port decodes on its own:
   libjpeg-turbo 3.1 and OpenCV 5 (as cv2 runs them) bit for bit.
   JPEG: baseline, extended sequential and progressive Huffman, 8-bit, 1, 3
   or 4 components, sampling factors up to 4 (4:4:4, 4:2:2, 4:2:0, 4:4:0,
-  4:1:1), restart intervals. The integer `islow` IDCT of jidctint.c
+  4:1:1), restart intervals; a sequential scan's Huffman slot 0 or 1
+  that no DHT defines takes jstdhuff.c's standard table, as jdhuff.c
+  gives it (Motion-JPEG frames carry none; a progressive file takes none,
+  as jdphuff.c). The integer `islow` IDCT of jidctint.c
   (saturating as libjpeg-turbo's SIMD code does), libjpeg's "fancy"
   triangle upsampling (h2v1, h2v2, h1v2, with its biases; box replication
   where libjpeg takes it: other factors, and a chroma plane at most 2
@@ -49,6 +52,9 @@ port decodes on its own:
   apply at the reduced size, as cv2 applies them. `probe_jpeg(data)` reads
   a JPEG's size and whether it holds EXIF from its header, as the JAX
   package's data.fast_decode gate does.
+- `decode_truncated_jpeg(data)`: what Pillow's LOAD_TRUNCATED_IMAGES read
+  gives for JPEG bytes without their EOI marker (the JAX package's
+  integrity scan restores such a file from it; data/datasets.py).
 - `scans_short(data)`: for each scan of a JPEG, how many MCUs need bits
   past its entropy-coded data (the plain decoder's own walks, no IDCT);
   `walk_scans_short(data)` the same counts from the host C walk of
@@ -59,7 +65,9 @@ port decodes on its own:
   coefficient goes to nvJPEG (csrc/jpeg_decode.cu, `decode_jpeg_cuda`,
   pixels within NVJPEG_TOLERANCE of the plain decoder's), unless the C
   walk finds a scan that runs out of bits ("host_cut": libjpeg reads the
-  missing bits as zeros, nvJPEG does not); a progressive JPEG that leaves
+  missing bits as zeros, nvJPEG does not); the standard Huffman tables of
+  an undefined sequential slot 0 or 1 are spliced in as a DHT segment
+  before nvJPEG reads it (with_standard_tables); a progressive JPEG that leaves
   bits unknown (libjpeg smooths it, nvJPEG does not), a CMYK, YCCK or RGB
   JPEG, a PNG, a BMP and a WebP (no library on the card decodes it)
   decode with decode_image on the host and are uploaded. A JPEG that
@@ -78,6 +86,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import queue
+import re
 import struct
 import threading
 import zlib
@@ -215,7 +224,9 @@ def _walk(data: bytes):
 def jpeg_header(data: bytes) -> dict:
     """The frame of a JPEG: sof, precision, height, width, components [(id,
     h, v, tq)], and from the markers before the first scan jfif,
-    adobe_transform and the EXIF orientation; eoi (whether the EOI marker
+    adobe_transform, the EXIF orientation, huffman (the (class, slot) of
+    each Huffman table a DHT defines) and first_scan (where the first SOS
+    marker starts); eoi (whether the EOI marker
     ends the bytes), multi_scan (libjpeg reads the whole file before any
     output) and complete (every coefficient of every component known to
     its last bit by the scans' headers; a progressive file that ends early
@@ -225,7 +236,7 @@ def jpeg_header(data: bytes) -> dict:
     if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
         raise JpegError("not a JPEG")
     info = {"sof": None, "jfif": False, "adobe_transform": None,
-            "orientation": 1, "eoi": False, "multi_scan": False}
+            "orientation": 1, "eoi": False, "multi_scan": False, "huffman": set()}
     exif_seen = scanned = False
     for m, a, b, _ in _walk(data):
         seg = data[a:b]
@@ -235,6 +246,7 @@ def jpeg_header(data: bytes) -> dict:
             if info["sof"] is None:
                 raise JpegError("no frame before the scan")
             if not scanned:   # jdinput.c's has_multiple_scans
+                info["first_scan"] = a - 4
                 info["multi_scan"] = (info["sof"] == SOF_PROGRESSIVE
                                       or seg[:1] != bytes([len(info["components"])]))
                 bits = np.full((len(info["components"]), 64), -1, np.int64)
@@ -258,6 +270,11 @@ def jpeg_header(data: bytes) -> dict:
             info.update(sof=m, precision=prec, height=h, width=w, components=comps)
         elif scanned:
             continue
+        elif m == DHT:
+            i = 0
+            while i < len(seg):
+                info["huffman"].add((seg[i] >> 4, seg[i] & 15))
+                i += 17 + sum(seg[i + 1:i + 17])
         elif m == 0xE0 and seg[:5] == b"JFIF\0":
             info["jfif"] = True
         elif m == 0xE1 and seg[:6] == b"Exif\0\0" and not exif_seen:
@@ -338,6 +355,33 @@ _HALF = [1 << (s - 1) if s else 0 for s in range(33)]
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# jstdhuff.c: (bits[1..16], symbols) of the standard DC (class 0) and AC
+# (class 1) tables, by (class, slot): slot 0 luma, slot 1 chroma
+STD_HUFFMAN = {
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+        "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+        "4a535455565758595a636465666768696a737475767778797a83848586878889"
+        "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+        "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+        "f9fa")),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+        "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+        "494a535455565758595a636465666768696a737475767778797a828384858687"
+        "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+        "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+        "f9fa")),
+}
+
+
+@functools.cache
+def _std_lookup(tc: int, th: int) -> list:
+    return _huffman_lookup(*STD_HUFFMAN[(tc, th)], ac=tc == 1)
 
 
 def _huffman_lookup(counts, symbols, ac: bool) -> list:
@@ -1134,6 +1178,7 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
     imcu_rows = _ceil_div(height, 8 * max(c["sof_v"] for c in comps))
     n_scans = last_good = 0
     qtables, tables, restart = {}, {}, 0
+    started = False
     by_id = {c["id"]: i for i, c in enumerate(comps)}
     for m, a, b, end in _walk(data):
         seg = data[a:b]
@@ -1168,6 +1213,14 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
             if len(seg) < 4 + 2 * ns:
                 raise JpegError("short SOS")
             ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+            if not (started or progressive):
+                # jdhuff.c's jinit_huff_decoder, as decompression starts:
+                # sequential slots 0 and 1 that no DHT has defined take the
+                # standard tables (Motion-JPEG frames carry none); jdphuff.c
+                # fills nothing
+                for key in STD_HUFFMAN:
+                    tables.setdefault(key, _std_lookup(*key))
+            started = True
             if progressive:   # which tables the scan reads
                 need = (0,) if ss == 0 and ah == 0 else () if ss == 0 else (1,)
             else:
@@ -1200,8 +1253,25 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
 
 def _reconstruct(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
                  scale) -> tuple[np.ndarray, int]:
-    """The samples of _coefficients' blocks at 1/`scale`: smoothing, IDCT,
-    upsampling and colour conversion (see _decode_jpeg)."""
+    """The RGB samples of _coefficients' blocks at 1/`scale`: smoothing,
+    IDCT, upsampling and colour conversion (see _decode_jpeg)."""
+    planes = _planes(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good, scale)
+    colour = jpeg_colour(info)
+    if colour == "grey":
+        rgb = np.repeat(planes[0][:, :, None], 3, axis=2)
+    elif colour == "ycc":
+        rgb = ycc_to_rgb(*planes)
+    elif colour == "rgb":
+        rgb = np.stack(planes, -1)
+    else:
+        rgb = cmyk_to_rgb(*(planes if colour == "cmyk" else ycck_to_cmyk(*planes)))
+    return rgb, info["orientation"]
+
+
+def _planes(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
+            scale) -> list:
+    """Each component's samples at 1/`scale`, upsampled to the image's size:
+    smoothing, IDCT and upsampling, before any colour conversion."""
     progressive = info["sof"] == SOF_PROGRESSIVE
     height, width, comps, offsets = (frame["height"], frame["width"], frame["comps"],
                                      frame["offsets"])
@@ -1234,16 +1304,7 @@ def _reconstruct(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
         plane = _upsample(plane[:dh, :dw], max_h * low // (c["h"] * size),
                           max_v * low // (c["v"] * size), fancy=low > 1)
         planes.append(plane[:out_h, :out_w])
-    colour = jpeg_colour(info)
-    if colour == "grey":
-        rgb = np.repeat(planes[0][:, :, None], 3, axis=2)
-    elif colour == "ycc":
-        rgb = ycc_to_rgb(*planes)
-    elif colour == "rgb":
-        rgb = np.stack(planes, -1)
-    else:
-        rgb = cmyk_to_rgb(*(planes if colour == "cmyk" else ycck_to_cmyk(*planes)))
-    return rgb, info["orientation"]
+    return planes
 
 
 # -- PNG -------------------------------------------------------------------
@@ -1756,6 +1817,136 @@ def probe_jpeg(data: bytes) -> tuple[int, int, bool] | None:
     return None
 
 
+# -- JPEG: a truncated file, as Pillow reads it ----------------------------
+
+# Image.MAX_IMAGE_PIXELS * 2: Pillow's DecompressionBombError, raised by
+# Image.open for a larger frame
+PIL_MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+_XMP = b"http://ns.adobe.com/xap/1.0/\0"
+_XMP_ORIENTATION = re.compile(rb'tiff:Orientation(="|>)([0-9])')
+
+
+def _exif_orientation_tag(tiff: bytes) -> int | None:
+    """Tag 0x0112 of IFD0 of a TIFF-structured EXIF block, SHORT or LONG, as
+    Pillow's Exif reads it; None when absent or malformed."""
+    try:
+        end = {b"II": "<", b"MM": ">"}[tiff[:2]]
+        ifd = struct.unpack(end + "I", tiff[4:8])[0]
+        n = struct.unpack(end + "H", tiff[ifd:ifd + 2])[0]
+        for i in range(n):
+            off = ifd + 2 + 12 * i
+            tag, typ, count = struct.unpack(end + "HHI", tiff[off:off + 8])
+            if tag == 0x0112 and count == 1 and typ in (3, 4):
+                return struct.unpack(end + ("H" if typ == 3 else "I"),
+                                     tiff[off + 8:off + (10 if typ == 3 else 12)])[0]
+    except (KeyError, struct.error, IndexError):
+        pass
+    return None
+
+
+def _first_scan_start(data: bytes) -> int:
+    """Where the entropy-coded data of a JPEG's first scan starts (the end
+    of its SOS segment), from the segments before it, each whole; raises
+    JpegError when the bytes end or break before it, where Pillow's
+    Image.open raises."""
+    n, pos = len(data), 2
+    if n < 3 or data[:3] != b"\xff\xd8\xff":
+        raise JpegError("not a JPEG")
+    while pos < n:
+        if data[pos] != 0xFF:
+            raise JpegError("marker expected")
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            break
+        m = data[pos]
+        pos += 1
+        if m == EOI:
+            raise JpegError("EOI before any scan")
+        if m == 0x01 or RST0 <= m <= RST0 + 7:
+            continue
+        length = (data[pos] << 8) | data[pos + 1] if pos + 2 <= n else 0
+        if length < 2 or pos + length > n:
+            break
+        pos += length
+        if m == SOS:
+            return pos
+    raise JpegError("the bytes end inside the header, before the first scan")
+
+
+def decode_truncated_jpeg(data: bytes) -> tuple[str, np.ndarray, dict]:
+    """What Pillow's Image.open + load() with ImageFile.LOAD_TRUNCATED_IMAGES
+    give for JPEG bytes, as the JAX package's integrity scan reads a JPEG
+    without its EOI marker: (Pillow's mode "L", "RGB" or "CMYK", the (H, W,
+    C) uint8 samples in stored order as libjpeg hands them over (CMYK as
+    libjpeg's JCS_CMYK, which Pillow stores inverted), and the header's
+    "orientation" (Pillow's getexif: IFD0 of the first Exif APP1, else an
+    XMP tiff:Orientation) and "comment" (the last COM, which Pillow's save
+    writes back)).
+
+    Pillow feeds libjpeg an EOI marker when the file ends, so the samples
+    are decode_image's of the bytes plus an EOI (the rows and scans decoded
+    before the data ran out, missing blocks grey, block smoothing for a
+    progressive file), where that decodes. Where it does not (the bytes
+    end inside a segment after the first scan, or libjpeg stops at an
+    error), a multi-scan file (progressive, or a first scan without every
+    component) has output no row: zeros, as Pillow allocates the image; a
+    one-scan file has output every row of its whole scan. Raises JpegError
+    where Image.open raises (the bytes end before the first scan's data, a
+    frame Pillow refuses or over its decompression-bomb limit) and where
+    the port refuses the frame (jpeg_refusal)."""
+    start = _first_scan_start(data)
+    header = data[:start] + b"\xff\xd9"   # the segments before the first scan's data
+    info = jpeg_header(header)
+    why = jpeg_refusal(info)
+    if why:
+        raise JpegError(why)
+    width, height = info["width"], info["height"]
+    if width * height > PIL_MAX_PIXELS:
+        raise JpegError(f"{width}x{height}, over Pillow's decompression-bomb limit")
+    meta = {"orientation": 1, "comment": None}
+    exif = xmp = None
+    for m, a, b, _ in _walk(header):
+        seg = header[a:b]
+        if m == 0xE1 and seg[:6] == b"Exif\0\0" and exif is None:
+            exif = seg[6:]
+        elif m == 0xE1 and seg.startswith(_XMP):
+            xmp = seg[len(_XMP):]
+        elif m == 0xFE:
+            meta["comment"] = seg
+    tag = _exif_orientation_tag(exif) if exif is not None else None
+    if tag is None and xmp is not None:
+        found = _XMP_ORIENTATION.search(xmp)
+        tag = int(found[2]) if found else None
+    meta["orientation"] = 1 if tag is None else tag
+
+    # the bytes plus an EOI; for a one-scan file, its first scan whole
+    tries = [data] if info["multi_scan"] else [data, data[:_scan_end(data, start) or 0]]
+    planes = None
+    for jpeg in tries:
+        try:
+            whole = jpeg_header(jpeg + b"\xff\xd9")
+            why = jpeg_refusal(whole)
+            if why:
+                raise JpegError(why)
+            planes = _planes(whole, *_coefficients(jpeg + b"\xff\xd9", whole), 1)
+            break
+        except (ValueError, IndexError, struct.error):
+            continue
+    colour = jpeg_colour(info)
+    mode = {1: "L", 3: "RGB", 4: "CMYK"}[len(info["components"])]
+    if planes is None:   # no row output; Pillow's CMYK zeros are 255 to libjpeg
+        fill = 255 if mode == "CMYK" else 0
+        return mode, np.full((height, width, len(info["components"])), fill, np.uint8), meta
+    if colour == "ycc":
+        out = ycc_to_rgb(*planes)
+    elif colour == "ycck":
+        out = np.stack(ycck_to_cmyk(*planes), -1)
+    else:
+        out = np.stack(planes, -1)
+    return mode, out, meta
+
+
 # -- nvJPEG on the card ----------------------------------------------------
 
 NVJPEG_OUTPUT_Y, NVJPEG_OUTPUT_RGBI = 2, 5   # nvjpegOutputFormat_t
@@ -1965,10 +2156,24 @@ def _card(device) -> torch.device:
     return device
 
 
+def with_standard_tables(data: bytes, info: dict) -> bytes:
+    """A sequential JPEG with the standard Huffman tables that libjpeg gives
+    its undefined slots 0 and 1 (see _coefficients) spliced in as one DHT
+    segment before its first SOS, so that a decoder without jdhuff.c's
+    default (nvJPEG) reads it; other bytes as they are."""
+    missing = [k for k in STD_HUFFMAN if k not in info["huffman"]]
+    if info["sof"] == SOF_PROGRESSIVE or not missing:
+        return data
+    body = b"".join(bytes([tc << 4 | th, *STD_HUFFMAN[(tc, th)][0]]) + STD_HUFFMAN[(tc, th)][1]
+                    for tc, th in missing)
+    at = info["first_scan"]
+    return data[:at] + struct.pack(">BBH", 0xFF, DHT, len(body) + 2) + body + data[at:]
+
+
 def _nvjpeg_decode(data: bytes, device: torch.device, info: dict) -> torch.Tensor | None:
     with _nvjpeg_lock:   # handler threads decode concurrently
         decode_jpeg_cuda.calls += 1
-    img = _decoder(device).decode(data, len(info["components"]))
+    img = _decoder(device).decode(with_standard_tables(data, info), len(info["components"]))
     if img is None:
         return None
     return apply_orientation(img, info["orientation"])
@@ -1995,10 +2200,12 @@ def decode_jpeg_cuda(data: bytes, device: str | torch.device = "cuda") -> torch.
 decode_jpeg_cuda.calls = 0
 
 
-def decode_to(data: bytes, device: str | torch.device) -> torch.Tensor | None:
+def decode_to(data: bytes, device: str | torch.device,
+              host_decode=decode_image) -> torch.Tensor | None:
     """Encoded bytes -> (H, W, 3) uint8 RGB tensor on `device`, oriented as
     the EXIF says, or None, by the route its header picks (_route): nvJPEG
-    on the card, else decode_image on the host and an upload. Adds one to
+    on the card, else `host_decode` (decode_image, or a call that runs it
+    elsewhere) on the host and an upload. Adds one to
     `route_counts[route]`. A JPEG that nvJPEG refuses is not handed to the
     host decoder."""
     device = torch.device(device)
@@ -2011,5 +2218,5 @@ def decode_to(data: bytes, device: str | torch.device) -> torch.Tensor | None:
         return None
     if route.startswith("nvjpeg"):
         return _nvjpeg_decode(data, device, info)
-    rgb = decode_image(data)
+    rgb = host_decode(data)
     return None if rgb is None else torch.from_numpy(rgb).to(device)

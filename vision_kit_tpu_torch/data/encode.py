@@ -12,7 +12,8 @@ libjpeg-turbo with cv2's settings, all integer arithmetic:
 - 4:2:0: jcsample.c's h2v2_downsample (the bias alternating 1, 2 along a
   row), with jcprepct.c's and jcsample.c's edge expansion (the last row and
   column replicated) to whole blocks, and jccoefct.c's dummy blocks (AC zero,
-  DC copied) where the luma grid runs past the image;
+  DC copied) where the luma grid runs past the image; 4:4:4 and grey: the
+  edge expansion alone;
 - jfdctint.c's islow forward DCT and jcdctmgr.c's quantiser (the
   reciprocal multiply of compute_reciprocal on the divisor quantval << 3);
 - jchuff.c with jstdhuff.c's tables: no optimisation, no restart interval,
@@ -20,18 +21,24 @@ libjpeg-turbo with cv2's settings, all integer arithmetic:
 - jcmarker.c's order: SOI, JFIF 1.01 APP0, DQT (luma, chroma), SOF0, DHT
   (DC 0, AC 0, DC 1, AC 1), SOS, the scan, EOI.
 
+`sampling_factor=SAMPLING_FACTOR_444` gives cv2's
+IMWRITE_JPEG_SAMPLING_FACTOR_444 bytes and an (H, W) array cv2's grey ones;
+at quality 100 these equal what Pillow saves with subsampling=0, which the
+integrity scan's restore of a truncated JPEG writes (data/datasets.py).
+`encode_jpeg_cmyk` is Pillow's save of a "CMYK" image, the restore of a
+CMYK or YCCK JPEG.
+
 Every stage is numpy over whole planes; the Huffman stage builds each
 block's codes by table lookup, places them by a cumulative sum of their
 lengths and packs the bits with bincount, with no per-symbol Python loop.
 """
-
 from __future__ import annotations
 
 import struct
 
 import numpy as np
 
-from vision_kit_tpu_torch.data.decode import ZIGZAG
+from vision_kit_tpu_torch.data.decode import STD_HUFFMAN, ZIGZAG
 
 # jcparam.c's std_luminance_quant_tbl and std_chrominance_quant_tbl, natural order
 STD_LUMA_QT = np.array([
@@ -41,27 +48,6 @@ STD_LUMA_QT = np.array([
     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
 STD_CHROMA_QT = np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4
                          + [24, 26, 56] + [99] * 5 + [47, 66] + [99] * 38)
-
-# jstdhuff.c: (bits[1..16], symbols) of the DC and AC tables, luma then chroma
-STD_HUFFMAN = {
-    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
-    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), bytes.fromhex(
-        "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
-        "2433627282090a161718191a25262728292a3435363738393a43444546474849"
-        "4a535455565758595a636465666768696a737475767778797a83848586878889"
-        "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
-        "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
-        "f9fa")),
-    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
-    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), bytes.fromhex(
-        "000102031104052131061241510761711322328108144291a1b1c109233352f0"
-        "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
-        "494a535455565758595a636465666768696a737475767778797a828384858687"
-        "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
-        "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
-        "f9fa")),
-}
-
 
 def quant_table(base: np.ndarray, quality: int) -> np.ndarray:
     """jpeg_set_quality(quality, force_baseline=TRUE) applied to one
@@ -290,20 +276,86 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
-def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
-    """(H, W, 3) uint8 RGB -> the bytes cv2.imencode('.jpg', BGR of it,
-    [IMWRITE_JPEG_QUALITY, quality]) gives: baseline JFIF, 4:2:0, the
-    standard Huffman tables (see the module docstring)."""
-    rgb = np.asarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8 RGB, got {rgb.dtype} "
-                         f"{rgb.shape}")
-    h, w = rgb.shape[:2]
+# cv2's IMWRITE_JPEG_SAMPLING_FACTOR values (h and v of each component, as
+# hex digits) that encode_jpeg writes
+SAMPLING_FACTOR_420, SAMPLING_FACTOR_444 = 0x221111, 0x111111
+JFIF = b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00"   # 1.01, no units, 1:1
+ADOBE_CMYK = b"Adobe\0\x64\0\0\0\0\0"   # version 100, no flags, transform 0
+CMYK_IDS = b"CMYK"   # jcparam.c's component ids for JCS_CMYK
+
+
+def _full_blocks(plane: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """A component sampled 1x1: the last row and column replicated to whole
+    blocks (jcprepct.c, jcsample.c's fullsize_downsample), then the FDCT
+    and quantiser. There are no dummy blocks: an MCU is one block of it."""
+    h, w = plane.shape
+    return _fdct_quantize(_pad_edge(plane, -(-h // 8) * 8, -(-w // 8) * 8), qt)
+
+
+def _file(app: bytes, comment: bytes | None, qts, sof: bytes, tables, sos: bytes,
+          scan: bytes) -> bytes:
+    """jcmarker.c's order: SOI, the JFIF or Adobe APPn, the comment (where
+    Pillow writes it), one DQT a table, SOF0, one DHT a table (DC then AC
+    of each table the scan names, in its order), SOS, the scan, EOI."""
+    parts = [b"\xff\xd8", app]
+    if comment:
+        parts.append(_segment(0xFE, comment))
+    parts += [_segment(0xDB, bytes([i]) + qt[ZIGZAG[:64]].astype(np.uint8).tobytes())
+              for i, qt in enumerate(qts)]
+    parts.append(_segment(0xC0, sof))
+    for tid in tables:
+        for ac in (0, 1):
+            counts, symbols = STD_HUFFMAN[(ac, tid)]
+            parts.append(_segment(0xC4, bytes([ac << 4 | tid, *counts]) + symbols))
+    parts.append(_segment(0xDA, sos))
+    return b"".join(parts) + scan + b"\xff\xd9"
+
+
+def _check_size(h: int, w: int) -> None:
     if not (0 < h < 65536 and 0 < w < 65536):
         raise ValueError(f"JPEG sizes are 1..65535, got {h}x{w}")
-    qts = quant_table(STD_LUMA_QT, quality), quant_table(STD_CHROMA_QT, quality)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95,
+                sampling_factor: int = SAMPLING_FACTOR_420,
+                comment: bytes | None = None) -> bytes:
+    """(H, W, 3) uint8 RGB or (H, W) grey -> the bytes of cv2.imencode('.jpg',
+    its BGR (or the grey array), [IMWRITE_JPEG_QUALITY, quality,
+    IMWRITE_JPEG_SAMPLING_FACTOR, sampling_factor]): baseline JFIF with the
+    standard Huffman tables (see the module docstring). `sampling_factor`
+    is SAMPLING_FACTOR_420 (cv2's default) or SAMPLING_FACTOR_444; a grey
+    image is one component, whatever it says. At 4:4:4 these are also
+    Pillow's bytes for an "RGB" or "L" image saved with subsampling=0; a
+    `comment` adds the COM segment Pillow writes from the image's
+    info["comment"]."""
+    img = np.asarray(img)
+    grey = img.ndim == 2
+    if img.dtype != np.uint8 or not (grey or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8 RGB or (H, W) uint8 grey, "
+                         f"got {img.dtype} {img.shape}")
+    if sampling_factor not in (SAMPLING_FACTOR_420, SAMPLING_FACTOR_444):
+        raise ValueError(f"sampling_factor must be SAMPLING_FACTOR_420 or _444, got "
+                         f"{sampling_factor:#x}")
+    h, w = img.shape[:2]
+    _check_size(h, w)
+    app = _segment(0xE0, JFIF)
+    luma_qt = quant_table(STD_LUMA_QT, quality)
+    if grey:
+        q = _full_blocks(img, luma_qt).reshape(-1, 64)
+        scan = _entropy(q, np.zeros(len(q), np.int64), np.zeros(len(q), np.int64))
+        return _file(app, comment, [luma_qt], struct.pack(">BHHB", 8, h, w, 1)
+                     + bytes([1, 0x11, 0]), (0,), bytes([1, 1, 0x00, 0, 63, 0]), scan)
+    qts = luma_qt, quant_table(STD_CHROMA_QT, quality)
+    y, cb, cr = _rgb_to_ycc(img)
+    sos = bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])
+    if sampling_factor == SAMPLING_FACTOR_444:
+        planes = [_full_blocks(p, qts[min(i, 1)]) for i, p in enumerate((y, cb, cr))]
+        blocks = np.stack(planes, axis=2).reshape(-1, 64)   # MCU: Y, Cb, Cr
+        comp = np.tile(np.array([0, 1, 2]), len(blocks) // 3)
+        scan = _entropy(blocks, np.minimum(comp, 1), comp)
+        return _file(app, comment, qts, struct.pack(">BHHB", 8, h, w, 3)
+                     + bytes([1, 0x11, 0, 2, 0x11, 1, 3, 0x11, 1]), (0, 1), sos, scan)
     mcu_rows, mcu_cols = -(-h // 16), -(-w // 16)
-    y, cb, cr = _rgb_to_ycc(rgb)
 
     # luma: the last row and column replicated to the MCU grid; blocks past
     # ceil(h / 8) x ceil(w / 8) become jccoefct.c's dummies
@@ -323,15 +375,29 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
     blocks = mcus.reshape(-1, 64)
     comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), mcu_rows * mcu_cols)
     scan = _entropy(blocks, np.minimum(comp, 1), comp)
+    return _file(app, comment, qts, struct.pack(">BHHB", 8, h, w, 3)
+                 + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]), (0, 1), sos, scan)
 
-    header = [b"\xff\xd8", _segment(0xE0, b"JFIF\0\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    for i, qt in enumerate(qts):
-        header.append(_segment(0xDB, bytes([i]) + qt[ZIGZAG[:64]].astype(np.uint8).tobytes()))
-    header.append(_segment(0xC0, struct.pack(">BHHB", 8, h, w, 3)
-                           + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
-    for tid in (0, 1):
-        for ac in (0, 1):
-            counts, symbols = STD_HUFFMAN[(ac, tid)]
-            header.append(_segment(0xC4, bytes([ac << 4 | tid, *counts]) + symbols))
-    header.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
-    return b"".join(header) + scan + b"\xff\xd9"
+
+def encode_jpeg_cmyk(cmyk: np.ndarray, quality: int = 95,
+                     comment: bytes | None = None) -> bytes:
+    """(H, W, 4) uint8 C, M, Y, K samples as libjpeg takes them (JCS_CMYK)
+    -> a four-component baseline JPEG: jpeg_set_colorspace(JCS_CMYK)'s
+    Adobe APP14 (transform 0) and no JFIF, every component 1x1 on the luma
+    quantisation and Huffman tables, no colour transform. These are
+    Pillow's bytes for a "CMYK" image saved with subsampling=0, whose
+    samples it hands libjpeg inverted ("CMYK;I"): pass 255 - its values."""
+    cmyk = np.asarray(cmyk)
+    if cmyk.dtype != np.uint8 or cmyk.ndim != 3 or cmyk.shape[2] != 4:
+        raise ValueError(f"encode_jpeg_cmyk takes (H, W, 4) uint8, got {cmyk.dtype} "
+                         f"{cmyk.shape}")
+    h, w = cmyk.shape[:2]
+    _check_size(h, w)
+    qt = quant_table(STD_LUMA_QT, quality)
+    blocks = np.stack([_full_blocks(cmyk[..., i], qt) for i in range(4)],
+                      axis=2).reshape(-1, 64)
+    comp = np.tile(np.arange(4), len(blocks) // 4)
+    scan = _entropy(blocks, np.zeros(len(blocks), np.int64), comp)
+    sof = struct.pack(">BHHB", 8, h, w, 4) + b"".join(bytes([i, 0x11, 0]) for i in CMYK_IDS)
+    sos = bytes([4, *b"".join(bytes([i, 0x00]) for i in CMYK_IDS), 0, 63, 0])
+    return _file(_segment(0xEE, ADOBE_CMYK), comment, [qt], sof, (0,), sos, scan)

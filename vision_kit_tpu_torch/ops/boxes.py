@@ -1,6 +1,6 @@
 """Box geometry on torch tensors: conversions and the IoU family.
 
-Counterpart of vision_kit_tpu/ops/boxes.py (conversions, `_iou_core`,
+Counterpart of vision_kit_tpu/ops/boxes.py (every conversion, clip_boxes, `_iou_core`,
 `box_iou_aligned`, `box_iou_pairwise`), in the JAX version's order of
 operations. `mode` is one of iou, iof, giou, diou, ciou; `box_format` one
 of xyxy, xywh (corner and size) and cxcywh.
@@ -26,6 +26,43 @@ def xywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
     """(x_min, y_min, w, h) -> (x1, y1, x2, y2)."""
     x, y, w, h = b.unbind(-1)
     return torch.stack([x, y, x + w, y + h], dim=-1)
+
+
+def xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1], dim=-1)
+
+
+def xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
+
+
+def xywh_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    x, y, w, h = b.unbind(-1)
+    return torch.stack([x + w * 0.5, y + h * 0.5, w, h], dim=-1)
+
+
+def xywhn_to_xyxy(b: torch.Tensor, w: float = 640, h: float = 640,
+                  padw: float = 0, padh: float = 0) -> torch.Tensor:
+    """Normalized (cx, cy, w, h) -> absolute (x1, y1, x2, y2) with padding."""
+    cx, cy, bw, bh = b.unbind(-1)
+    return torch.stack([w * (cx - bw * 0.5) + padw, h * (cy - bh * 0.5) + padh,
+                        w * (cx + bw * 0.5) + padw, h * (cy + bh * 0.5) + padh], dim=-1)
+
+
+def xyxy_to_xywhn(b: torch.Tensor, w: float = 640, h: float = 640) -> torch.Tensor:
+    """Absolute (x1, y1, x2, y2) -> normalized (cx, cy, w, h)."""
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5 / w, (y1 + y2) * 0.5 / h, (x2 - x1) / w,
+                        (y2 - y1) / h], dim=-1)
+
+
+def clip_boxes(b: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Clip xyxy boxes to image (height, width); the first four columns."""
+    h, w = shape
+    return torch.stack([b[..., 0].clamp(0, w), b[..., 1].clamp(0, h),
+                        b[..., 2].clamp(0, w), b[..., 3].clamp(0, h)], dim=-1)
 
 
 def box_area(b: torch.Tensor) -> torch.Tensor:

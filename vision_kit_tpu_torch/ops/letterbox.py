@@ -2,8 +2,10 @@
 
 Counterpart of vision_kit_tpu/ops/letterbox.py: letterbox_params is the
 same pure-Python geometry; letterbox_device runs on a batch of uint8 NHWC
-frames on the device; letterbox_u8 is letterbox_np (cv2.resize INTER_LINEAR
-+ copyMakeBorder) bit for bit, in torch integer ops on either device.
+frames on the device; letterbox_u8 is the JAX letterbox_np (cv2.resize
+INTER_LINEAR + copyMakeBorder) bit for bit, in torch integer ops on either
+device, and letterbox_np the same on a numpy array with every option of
+JAX's.
 """
 
 from __future__ import annotations
@@ -143,6 +145,32 @@ def letterbox_u8(img: torch.Tensor, dst_hw: tuple[int, int] | int):
                       img.shape[2]), PAD_VALUE, dtype=torch.uint8, device=img.device)
     out[top:top + new_unpad[1], left:left + new_unpad[0]] = img
     return out, (ratio, pad)
+
+
+def letterbox_np(
+    img: np.ndarray,
+    dst_hw: tuple[int, int] | int,
+    stride: int = 32,
+    scaleup: bool = True,
+    auto: bool = False,
+    letterbox: bool = True,
+    color: tuple[int, int, int] = (PAD_VALUE, PAD_VALUE, PAD_VALUE),
+):
+    """The JAX package's host letterbox on an (H, W, C) or (H, W) uint8
+    array, without OpenCV: resize_u8 (cv2.resize INTER_LINEAR bit for bit)
+    to letterbox_params' size, then copyMakeBorder's constant border in
+    `color`. Returns (img, (ratio, (dw, dh)))."""
+    new_unpad, (top, bottom, left, right), ratio, pad = letterbox_params(
+        img.shape[:2], dst_hw, stride=stride, scaleup=scaleup, auto=auto,
+        letterbox=letterbox)
+    planes = img[:, :, None] if img.ndim == 2 else img
+    if (img.shape[1], img.shape[0]) != new_unpad:
+        planes = resize_u8(torch.from_numpy(np.ascontiguousarray(planes)), new_unpad).numpy()
+    out = np.empty((new_unpad[1] + top + bottom, new_unpad[0] + left + right,
+                    planes.shape[2]), np.uint8)
+    out[:] = np.resize(np.asarray(color, np.uint8), planes.shape[2])
+    out[top:top + new_unpad[1], left:left + new_unpad[0]] = planes
+    return (out[:, :, 0] if img.ndim == 2 else out), (ratio, pad)
 
 
 def scale_coords(

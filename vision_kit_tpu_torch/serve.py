@@ -9,7 +9,10 @@ values with blocking copies). Each request's bytes decode and letterbox on the r
 device before it is queued (`decode_request_bytes`): on the card a JPEG
 through nvJPEG, or on the host and uploaded by its header's route (a PNG,
 a BMP, a WebP, a CMYK/RGB JPEG, a progressive one ending early, one whose
-scans run out of bits), then `letterbox_u8` (cv2's
+scans run out of bits; on the CPU every body), the host decodes in a pool
+of spawned worker processes (HostDecodePool, HOST_DECODE_PROCESSES) so that
+their Python loops never hold the handlers' interpreter lock, then
+`letterbox_u8` (cv2's
 letterbox, bit for bit) on the card; on the CPU the plain decoder. So the
 model sees one (B, S, S, 3) uint8 shape whatever the clients' image sizes,
 and detections rescale to each client's frame with `scale_coords`, as in
@@ -54,27 +57,194 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from vision_kit_tpu_torch.data.decode import decode_to
+from vision_kit_tpu_torch.data.decode import decode_image, decode_to
 from vision_kit_tpu_torch.ops.letterbox import letterbox_u8, scale_coords
 from vision_kit_tpu_torch.parallel import mesh as pmesh
 from vision_kit_tpu_torch.utils.general import resolve_device
 
 
 def decode_request_bytes(data: bytes, dst_hw: tuple[int, int],
-                         device: str | torch.device = "cuda"):
+                         device: str | torch.device = "cuda", host_decode=decode_image):
     """Encoded image bytes -> (letterboxed (H, W, 3) uint8 RGB tensor on
     `device`, (ratio, (dw, dh)), (h0, w0)) or None, by the route
     data/decode.py:decode_to reads from the header: on a CUDA device a
     baseline or complete progressive JPEG through nvJPEG; a PNG, a BMP, a
     WebP, a CMYK/YCCK/RGB JPEG, a progressive one that ends early and one
-    whose scans run out of bits on the host, uploaded; on the CPU every
-    kind on the host. The letterbox is
-    letterbox_u8 on `device`."""
-    img = decode_to(data, resolve_device(device))
+    whose scans run out of bits on the host (`host_decode`, decode_image's
+    contract; the server passes its worker processes), uploaded; on the
+    CPU every kind on the host. The letterbox is letterbox_u8 on
+    `device`."""
+    img = decode_to(data, resolve_device(device), host_decode)
     if img is None:
         return None
     out, (ratio, pad) = letterbox_u8(img, dst_hw)
     return out, (ratio, pad), tuple(img.shape[:2])
+
+
+# Worker processes that the server's host-route decodes run in. The plain
+# decoders (WebP, a progressive JPEG that ends early, CMYK, PNG, ...) are
+# Python and numpy loops that hold the interpreter lock for up to seconds
+# a body; in their own processes they leave the handler threads, the
+# dispatcher and the completion thread free, as cv2's C decode does in the
+# JAX server. Four: as many host decodes at once as leave the rest of an
+# 8-core host to the server's own threads and nvJPEG's Huffman stage,
+# while each worker holds an interpreter with torch imported (~0.3 GB).
+HOST_DECODE_PROCESSES = 4
+
+
+def _host_decode_worker(conn) -> None:
+    """A pool worker: "ready" once imported, then decode_image of each body
+    it receives, answered with the (H, W, 3) uint8 array, None, or the
+    exception it raised."""
+    conn.send("ready")
+    while True:
+        try:
+            data = conn.recv_bytes()
+        except (EOFError, OSError):
+            return
+        try:
+            answer = decode_image(data)
+        except Exception as e:   # answered, not fatal: the next body goes on
+            answer = e
+        conn.send(answer)
+
+
+class HostDecodePool:
+    """decode_image in spawned worker processes (a forked child would
+    inherit the parent's CUDA context), one body per worker at a time.
+
+    `decode(data)` takes an idle worker, sends it the bytes and waits for
+    its answer. A worker that dies (killed by the OOM killer, say) fails
+    that body's decode with RuntimeError and is replaced by a new one; one
+    that answers nothing within `timeout_s` is killed and replaced the same
+    way, with TimeoutError. So no body waits on a dead worker. The pool
+    is built once every worker has imported the decoder, so that no
+    request's time holds a worker's start."""
+
+    def __init__(self, timeout_s: float = 60.0):
+        import multiprocessing as mp
+
+        self._ctx = mp.get_context("spawn")
+        self.timeout_s = float(timeout_s)
+        self._idle: queue.Queue = queue.Queue()
+        self._mu = threading.Lock()
+        self._workers: list = []
+        self._busy: set = set()
+        self._fresh: set = set()   # replacements whose "ready" is unread
+        self._closed = False
+        self.replaced = 0
+        workers = [self._spawn() for _ in range(HOST_DECODE_PROCESSES)]
+        for worker in workers:
+            if not self._started(worker, time.monotonic() + self.timeout_s):
+                self.close()
+                raise RuntimeError("a host decode worker did not start")
+            self._idle.put(worker)
+
+    @property
+    def size(self) -> int:
+        return len(self._workers)
+
+    def pids(self) -> list[int]:
+        """The workers' process ids."""
+        with self._mu:
+            return [p.pid for p, _ in self._workers]
+
+    def busy_pids(self) -> list[int]:
+        """The process ids of the workers decoding a body now."""
+        with self._mu:
+            return sorted(self._busy)
+
+    def _spawn(self):
+        parent, child = self._ctx.Pipe()
+        proc = self._ctx.Process(target=_host_decode_worker, args=(child,), daemon=True,
+                                 name="vkt-host-decode")
+        proc.start()
+        child.close()
+        worker = (proc, parent)
+        with self._mu:
+            self._workers.append(worker)
+        return worker
+
+    @staticmethod
+    def _started(worker, deadline: float) -> bool:
+        """Wait for a new worker's "ready" until `deadline`; False when it
+        died or did not answer."""
+        proc, conn = worker
+        while not conn.poll(0.2):
+            if not proc.is_alive() or time.monotonic() > deadline:
+                return False
+        try:
+            return conn.recv() == "ready"
+        except (EOFError, OSError):
+            return False
+
+    def _retire(self, worker) -> None:
+        proc, conn = worker
+        with self._mu:
+            if worker in self._workers:
+                self._workers.remove(worker)
+        if proc.is_alive():
+            proc.kill()
+        proc.join(timeout=5)
+        conn.close()
+
+    def decode(self, data: bytes) -> np.ndarray | None:
+        """decode_image(data) in a worker."""
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            try:
+                worker = self._idle.get(timeout=max(deadline - time.monotonic(), 0))
+            except queue.Empty:
+                raise TimeoutError("no host decode worker free") from None
+            if worker[0].pid in self._fresh:   # a replacement: its "ready" first
+                self._fresh.discard(worker[0].pid)
+                if self._started(worker, deadline):
+                    break
+            elif worker[0].is_alive():
+                break
+            self._retire(worker)   # died while idle: no body was lost
+            self._replace()
+        proc, conn = worker
+        with self._mu:
+            self._busy.add(proc.pid)
+        try:
+            conn.send_bytes(data)
+            while not conn.poll(0.2):
+                if not proc.is_alive():
+                    raise EOFError
+                if time.monotonic() > deadline:
+                    self._retire(worker)
+                    self._replace()
+                    raise TimeoutError(f"host decode took over {self.timeout_s:.0f} s")
+            answer = conn.recv()
+        except (EOFError, OSError):
+            code = proc.exitcode
+            self._retire(worker)
+            self._replace()
+            raise RuntimeError(f"host decode worker died (exit code {code})") from None
+        finally:
+            with self._mu:
+                self._busy.discard(proc.pid)
+        self._idle.put(worker)
+        if isinstance(answer, Exception):
+            raise RuntimeError(f"host decode failed: {answer!r}")
+        return answer
+
+    def _replace(self) -> None:
+        """A new worker in the idle queue, its "ready" read when first taken."""
+        if not self._closed:
+            self.replaced += 1
+            worker = self._spawn()
+            self._fresh.add(worker[0].pid)
+            self._idle.put(worker)
+
+    def close(self) -> None:
+        """End every worker, idle or busy."""
+        self._closed = True
+        with self._mu:
+            workers = list(self._workers)
+        for worker in workers:
+            self._retire(worker)
 
 
 class _Request:
@@ -169,6 +339,7 @@ class InferenceServer:
                                            daemon=True)
         self._httpd = None
         self._follower = None
+        self._pool = None   # the host-decode workers, rank 0's, from start() on
         if self.is_main:
             self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
             self._httpd.daemon_threads = True
@@ -196,6 +367,7 @@ class InferenceServer:
             self._follower.start()
             self._started = True
             return self
+        self._pool = HostDecodePool(timeout_s=self.request_timeout_s)
         if self.synthetic_ingest > 0:
             h, w = self.img_size
             rng = np.random.default_rng(0)
@@ -226,6 +398,8 @@ class InferenceServer:
             self._dispatcher.join(timeout=10)
             self._completer.join(timeout=10)
         self._httpd.server_close()
+        if self._pool is not None:
+            self._pool.close()
         self._started = False
 
     def wait(self):
@@ -404,14 +578,16 @@ class InferenceServer:
 
     def _decode(self, body: bytes):
         """decode_request_bytes on this thread's own stream on the card, and
-        the event that marks its frame ready (None on the CPU)."""
+        the event that marks its frame ready (None on the CPU). Host routes
+        decode in the pool's worker processes; nvJPEG on this thread."""
+        host = self._pool.decode
         if self.device.type != "cuda":
-            return decode_request_bytes(body, self.img_size, self.device), None
+            return decode_request_bytes(body, self.img_size, self.device, host), None
         stream = getattr(self._streams, "stream", None)
         if stream is None:
             stream = self._streams.stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(stream):
-            decoded = decode_request_bytes(body, self.img_size, self.device)
+            decoded = decode_request_bytes(body, self.img_size, self.device, host)
             ready = torch.cuda.Event()
             ready.record(stream)
         return decoded, ready

@@ -20,9 +20,10 @@ a YOLO dataset (write_dataset's, by default):
 
 write_dataset also makes the YOLO dataset that chip_smoke.py trains on: the
 committed samples (data/samples/) copied under several names, and seeded
-rectangle scenes written as PNGs, with seeded labels; the two samples the
-decoders refuse go into the train split once each, for the integrity scan
-to drop (png_only: scenes alone, nothing refused). loader_disagreements
+rectangle scenes written as PNGs, with seeded labels; the truncated 240x320
+samples go into the train split once each, for the integrity scan to
+restore (restore_disagreements holds them to the bytes the JAX package
+writes; png_only: scenes alone, nothing truncated). loader_disagreements
 holds a card dataset's device-route TrainLoader and ValLoader batches
 against a CPU dataset's; host_loader_disagreements its host-route batches;
 imgproc_disagreements each ops/imgproc.py op on the card against the CPU.
@@ -74,30 +75,43 @@ def _scene(rng, hw) -> tuple[np.ndarray, list[str]]:
     return img, lines
 
 
+# the WebP samples the train split holds: the plain decoder takes a quarter
+# of a second over each, in every dataset built on the files (the serve
+# phase checks every WebP sample by its hash)
+DATASET_WEBPS = ("lossless_120x160.webp", "lossy_240x320.webp")
+
+
 def write_dataset(root: str, n_train: int = 128, n_val: int = 64, seed: int = 0,
                   png_only: bool = False) -> dict:
     """A YOLO dataset under root/{train,valid}/{images,labels}: even
     indices are the committed samples the decoders take, in turn
-    (progressive, CMYK/YCCK/RGB JPEGs and BMPs among them), with 1-3 seeded
-    boxes; odd ones rectangle scenes written as PNGs, labelled by their
-    rectangles. The train split also holds the refused sample (truncated),
-    which the scan drops. With png_only
-    every index is a scene and nothing is refused. Returns {"train": n,
-    "valid": n, "refused": [file names]}."""
+    (progressive, CMYK/YCCK/RGB JPEGs, JPEGs without Huffman tables and
+    BMPs among them; of the WebPs, the two of DATASET_WEBPS, once each at
+    the head of the train split), with 1-3 seeded boxes; odd ones rectangle
+    scenes written as PNGs, labelled by their rectangles. The train split
+    also holds the truncated 240x320 samples, which the integrity scan
+    restores in place. With png_only every index is a scene and nothing
+    is truncated. Returns {"train": n, "valid": n, "restored": {file name:
+    the sha256 its restore must have (the manifest's restored_sha256)}}."""
     from vision_kit_tpu_torch.utils.serve_bench import samples
 
     rng = np.random.default_rng(seed)
-    taken = [(name, data) for name, meta, data in samples() if meta["shape"]]
-    refused = [] if png_only else [(name, data) for name, meta, data in samples()
-                                   if meta["shape"] is None and name.endswith(".jpg")]
+    taken = [(name, data) for name, meta, data in samples()
+             if meta["shape"] and not meta["kind"].startswith("webp")]
+    webps = [(name, data) for name, _, data in samples() if name in DATASET_WEBPS]
+    truncated = [] if png_only else [
+        (name, data, meta["restored_sha256"]) for name, meta, data in samples()
+        if meta["kind"] == "jpeg_truncated" and "240x320" in name]
     for split, n in (("train", n_train), ("valid", n_val)):
         img_dir, lbl_dir = (os.path.join(root, split, d) for d in ("images", "labels"))
         os.makedirs(img_dir, exist_ok=True)
         os.makedirs(lbl_dir, exist_ok=True)
+        heads = webps if split == "train" else []
         for i in range(n):
             stem = f"{split}{i:04d}"
             if i % 2 == 0 and not png_only:
-                name, data = taken[(i // 2) % len(taken)]
+                k = i // 2
+                name, data = heads[k] if k < len(heads) else taken[(k - len(heads)) % len(taken)]
                 stem += "_" + os.path.splitext(name)[0]
                 ext = os.path.splitext(name)[1]
                 lines = [f"{int(rng.integers(0, 2))} {rng.uniform(0.3, 0.7):.6f} "
@@ -110,10 +124,27 @@ def write_dataset(root: str, n_train: int = 128, n_val: int = 64, seed: int = 0,
                 f.write(data)
             with open(os.path.join(lbl_dir, stem + ".txt"), "w") as f:
                 f.write("\n".join(lines))
-    for name, data in refused:
-        with open(os.path.join(root, "train", "images", "refused_" + name), "wb") as f:
+    restored = {}
+    for name, data, sha in truncated:
+        with open(os.path.join(root, "train", "images", name), "wb") as f:
             f.write(data)
-    return {"train": n_train, "valid": n_val, "refused": [n for n, _ in refused]}
+        restored[name] = sha
+    return {"train": n_train, "valid": n_val, "restored": restored}
+
+
+def restore_disagreements(root: str, restored: dict) -> list[str]:
+    """Each of write_dataset's truncated files that the scan did not rewrite
+    to its manifest's restored_sha256 (the JAX package's _check_img's
+    bytes): empty when every restore agrees."""
+    import hashlib
+
+    bad = []
+    for name, sha in restored.items():
+        with open(os.path.join(root, "train", "images", name), "rb") as f:
+            got = hashlib.sha256(f.read()).hexdigest()
+        if got != sha:
+            bad.append(f"{name}: restored to {got[:12]}, JAX's {sha[:12]}")
+    return bad
 
 
 def _sync(device: torch.device) -> None:

@@ -19,6 +19,16 @@ measures on the host clock:
 Prints one JSON line per run, then, for each root, each metric's values and
 range, and whether the two roots' ranges overlap; the summary is the last
 line (also written to FILE).
+
+    python vision_kit_tpu_torch/utils/path_turns.py BASE NEW --contention [--json FILE]
+
+measures instead the server's HTTP load beside a client of heavy host
+decodes (http_contention, which chip_smoke.py's serve phase also runs): the
+same model behind InferenceServer (batch 8, max_wait 5 ms), 32 clients
+POSTing the 720x1280 sample JPEGs for 10 s alone, then for 10 s while one
+more client POSTs the 2048x2048 lossy WebP sample (of this file's
+checkout) in a loop: request p50 and p99 of the JPEG load in both runs,
+and the WebP client's answered decodes.
 """
 
 from __future__ import annotations
@@ -94,14 +104,128 @@ def measure(root: str) -> dict:
             "validate_img_s": validate}
 
 
-def run_in_turns(base: str, new: str, rounds: int) -> dict:
+CONTENTION_S, CONTENTION_CLIENTS = 10.0, 32
+HEAVY_SAMPLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "data", "samples", "large_2048x2048.webp")
+
+
+def http_contention(port: int, seconds: float, jpegs: list, heavy: bytes | None = None,
+                    clients: int = CONTENTION_CLIENTS) -> dict:
+    """`clients` threads POST `jpegs` in turn to 127.0.0.1:`port`/predict
+    for `seconds`, each request answered before its next; with `heavy`,
+    one more thread POSTs it in a loop over the same window. Returns the
+    JPEG requests' count, img/s, p50 and p99 ms (host clock), the heavy
+    client's answered decodes and their median ms. Any failed request
+    raises."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    url = f"http://127.0.0.1:{port}/predict"
+
+    def post(data):
+        req = urllib.request.Request(url, data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            json.loads(resp.read())
+
+    post(jpegs[0])
+    if heavy is not None:
+        post(heavy)   # the decode path warm, not timed
+    lat, heavy_ms, errors = [], [], []
+    mu = threading.Lock()
+    stop = time.perf_counter() + seconds
+
+    def client(k):
+        i = k
+        try:
+            while time.perf_counter() < stop:
+                t0 = time.perf_counter()
+                post(jpegs[i % len(jpegs)])
+                with mu:
+                    lat.append(time.perf_counter() - t0)
+                i += 1
+        except BaseException as e:   # reported after the join
+            errors.append(e)
+
+    def heavy_client():
+        try:
+            while time.perf_counter() < stop:
+                t0 = time.perf_counter()
+                post(heavy)
+                heavy_ms.append((time.perf_counter() - t0) * 1e3)
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    if heavy is not None:
+        threads.append(threading.Thread(target=heavy_client))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"contention load failed: {errors[:1]}")
+    lat = np.sort(np.array(lat)) * 1e3
+    return {"requests": len(lat), "img_s": len(lat) / wall,
+            "p50_ms": float(lat[len(lat) // 2]), "p99_ms": float(lat[int(0.99 * len(lat))]),
+            "heavy_decodes": len(heavy_ms),
+            "heavy_median_ms": float(np.median(heavy_ms)) if heavy_ms else None}
+
+
+def measure_contention(root: str, heavy_path: str) -> dict:
+    """One run of http_contention alone and beside the heavy client, with the
+    port of `root` serving chip_smoke's main-path model."""
+    import glob
+
+    import torch
+
+    from vision_kit_tpu_torch.models import build_model
+    from vision_kit_tpu_torch.predictor import Predictor
+    from vision_kit_tpu_torch.serve import InferenceServer
+    from vision_kit_tpu_torch.utils import stream_bench
+    from vision_kit_tpu_torch.utils.config import load_config
+
+    if hasattr(stream_bench, "calibrate_head"):
+        calibrate_head = stream_bench.calibrate_head
+    else:
+        from chip_smoke import calibrate_head
+
+    cfg = load_config(os.path.join(root, "configs", "yolov5.yaml"))
+    cfg.model.version, cfg.model.num_classes = "s", 80
+    cfg.model.input_size = [640, 640]
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    calibrate_head(model, 640, seed=1)
+    jpegs = []
+    for path in sorted(glob.glob(os.path.join(root, "vision_kit_tpu_torch", "data",
+                                              "samples", "frame*_720x1280_420_q90.jpg"))):
+        with open(path, "rb") as f:
+            jpegs.append(f.read())
+    with open(heavy_path, "rb") as f:
+        heavy = f.read()
+    server = InferenceServer(Predictor(model, img_size=640, device="cuda"), batch_size=8,
+                             max_wait_ms=5.0, port=0, queue_size=4096)
+    server.start()
+    try:
+        pool = getattr(server, "_pool", None)   # none in a checkout without the pool
+        pool_size = pool.size if pool is not None else 0
+        alone = http_contention(server.port, CONTENTION_S, jpegs)
+        beside = http_contention(server.port, CONTENTION_S, jpegs, heavy)
+    finally:
+        server.stop()
+    return {"root": root, "alone": alone, "beside_heavy": beside, "pool_size": pool_size}
+
+
+def run_in_turns(base: str, new: str, rounds: int, contention: bool = False) -> dict:
     roots = {"base": os.path.abspath(base), "new": os.path.abspath(new)}
     runs = {"base": [], "new": []}
     for _ in range(rounds):
         for name in ("base", "new", "new", "base"):
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--child", roots[name]],
-                cwd=roots[name], capture_output=True, text=True)
+            child = ["--child", roots[name]] + (["--contention"] if contention else [])
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), *child],
+                                  cwd=roots[name], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"run in {roots[name]} failed:\n{proc.stderr[-4000:]}")
             rec = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -116,7 +240,15 @@ def run_in_turns(base: str, new: str, rounds: int) -> dict:
         return out
 
     summary = {"roots": roots, "order": "base, new, new, base", "rounds": rounds}
-    for key in ("latency_median_ms", "latency_p99_ms", "validate_img_s"):
+    if contention:
+        for name in ("base", "new"):
+            for rec in runs[name]:
+                rec["p50_ratio"] = rec["beside_heavy"]["p50_ms"] / rec["alone"]["p50_ms"]
+        keys = ("p50_ratio",)
+        summary["runs"] = runs
+    else:
+        keys = ("latency_median_ms", "latency_p99_ms", "validate_img_s")
+    for key in keys:
         ranges = {}
         for name in ("base", "new"):
             v = values(name, key)
@@ -133,16 +265,20 @@ def main() -> int:
     ap.add_argument("new", nargs="?")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--json")
+    ap.add_argument("--contention", action="store_true",
+                    help="the HTTP load alone and beside a heavy host-decode client")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         # import the port (and chip_smoke) of that root, not of this file's
         sys.path[0] = args.child
-        print(json.dumps(measure(args.child)), flush=True)
+        rec = (measure_contention(args.child, HEAVY_SAMPLE) if args.contention
+               else measure(args.child))
+        print(json.dumps(rec), flush=True)
         return 0
     if not (args.base and args.new):
         ap.error("BASE and NEW are needed")
-    summary = run_in_turns(args.base, args.new, args.rounds)
+    summary = run_in_turns(args.base, args.new, args.rounds, args.contention)
     line = json.dumps(summary)
     if args.json:
         with open(args.json, "w") as f:
