@@ -79,16 +79,22 @@ Phases, each printing its own line; any failure exits non-zero:
      against unthreaded, each frame's detections equal to an in-process
      Predictor's, one launch of each kernel a frame, out.avi read back with
      every frame encode_jpeg's bytes of the drawn frame, the ms a frame by
-     stage;
+     stage; and one sample's -o .webp output (lossless VP8L, encode_webp)
+     read back bit-equal to its -o .bmp output's drawn frame;
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card by the route
      its header and the host C walk pick (decode.decode_route: nvJPEG for
      a baseline or complete progressive JPEG whose scans hold every bit;
      the host decoder uploaded for a progressive JPEG that ends early, a
-     CMYK, YCCK or RGB JPEG, a PNG, a BMP, a WebP) against the plain
-     decoder on the host (nvJPEG within decode.NVJPEG_TOLERANCE, the host
-     routes bit-equal, each WebP at its manifest's rgb_sha256, EXIF shapes
-     equal, the truncated samples refused on both); the C walk
+     CMYK, YCCK or RGB JPEG, an arithmetic-coded ("host_arith") or
+     lossless ("host_lossless") JPEG, a PNG, a BMP, a WebP) against the
+     plain decoder on the host (nvJPEG within decode.NVJPEG_TOLERANCE, the
+     host routes bit-equal, each WebP, arithmetic-coded and lossless JPEG
+     at its manifest's rgb_sha256, EXIF shapes equal, the truncated
+     samples and the frames cv2 refuses (grey lossless, 12-bit, SOF11)
+     refused on both); the 720x1280 frame without its EOI on "host_cut",
+     bit-equal to the plain decoder and to the whole file, never on
+     nvJPEG, and 5 bytes short refused on both; the C walk
      (csrc/jpeg_walk.cu) equal to scans_short on every JPEG sample and its
      cut versions, its host ms on the 720p baseline and progressive
      frames; JPEGs without Huffman tables (a 720p frame with no DHT, one
@@ -101,7 +107,8 @@ Phases, each printing its own line; any failure exits non-zero:
      refused before nvJPEG; the count of each route, one 720x1280
      progressive decode timed by nvJPEG and by the plain decoder beside
      the baseline frame's, the plain WebP decode at 240x320 lossy and
-     lossless; a scan naming an undefined Huffman table stopped at the
+     lossless, the plain decode of the 117x163 arithmetic-coded and
+     lossless JPEGs; a scan naming an undefined Huffman table stopped at the
      walk, a component naming an undefined quantization table refused by
      nvJPEG and the next decode equal to the first; letterbox_u8 bit-equal on the
      card and the CPU; the synchronising calls of one Predictor.run; the
@@ -221,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import os
 import sys
@@ -1381,7 +1389,9 @@ def phase_demo(model, smi: str) -> dict:
     the phase-4 model's weights (calibrated head) handed over as a Flax
     msgpack, f32 as the demo builds it. Images (-p the samples): one JPEG
     written per sample the port decodes, each printed count equal to an
-    in-process Predictor's on the same decoded image. Video (-p clip.avi -o
+    in-process Predictor's on the same decoded image; one sample's -o .webp
+    output (in this process) read back equal to its -o .bmp output. Video
+    (-p clip.avi -o
     out.avi, through chip_smoke.py --demo-video so that the child's kernel
     wrappers can be counted): utils/video_bench.py's clip of the 720x1280
     samples, 24 frames at 30 fps; VideoReader's frames (plain decoder bit
@@ -1456,6 +1466,35 @@ def phase_demo(model, smi: str) -> dict:
               f"port decodes (progressive, CMYK/YCCK/RGB JPEGs, BMPs and WebPs among them); "
               f"detections by image {sorted(want.values())}, equal to an in-process "
               f"Predictor's on {smi}", flush=True)
+
+        # a .webp output (lossless VP8L), in this process: read back equal to
+        # the .bmp output of the same drawn frame, and to encode_webp's bytes
+        from vision_kit_tpu_torch import __main__ as cli
+        from vision_kit_tpu_torch.data import webp as webp_dec
+        from vision_kit_tpu_torch.data.encode import encode_webp
+
+        t0 = time.perf_counter()
+        one = os.path.join(samples, "odd_333x517.jpg")
+        outs = {ext: os.path.join(tmp, f"one.{ext}") for ext in ("bmp", "webp")}
+        with contextlib.redirect_stdout(io.StringIO()):
+            for path in outs.values():
+                check(cli.main(["demo", "-p", one, "-o", path, "-w", weights]) == 0,
+                      f"the demo did not write {path}")
+        with open(outs["bmp"], "rb") as f:
+            drawn = decode_image(f.read())
+        with open(outs["webp"], "rb") as f:
+            written_webp = f.read()
+        back, _ = webp_dec.decode_webp(written_webp)
+        t_enc = time.perf_counter()
+        again = encode_webp(drawn)
+        enc_ms = (time.perf_counter() - t_enc) * 1e3
+        check(np.array_equal(back, drawn) and again == written_webp,
+              "the demo's .webp output does not read back as its drawn frame")
+        print(f"demo: -p odd_333x517.jpg -o one.webp: {len(written_webp)} B of lossless "
+              f"VP8L (the .bmp output {os.path.getsize(outs['bmp'])} B), read back by "
+              f"data/webp.py bit-equal to the .bmp's drawn frame and to encode_webp's "
+              f"bytes; encode_webp {enc_ms:.1f} ms (host clock); the leg "
+              f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
 
         # video: the samples as a Motion-JPEG clip, through the CLI in a child
         t_video = time.perf_counter()
@@ -1658,6 +1697,38 @@ def no_dht_legs(smi: str) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def eoi_less_leg(smi: str) -> None:
+    """frame1_720x1280_420_q90.jpg without its EOI (2 bytes short): one scan
+    that the bytes end inside, which libjpeg decodes whole as its bit buffer
+    never reads past them. Its route is "host_cut" from the header, the card
+    decodes it on the host bit-equal to the plain decoder (and to the whole
+    file), and nvJPEG never sees it; 5 bytes short, libjpeg would suspend:
+    None on both."""
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+
+    whole = next(d for n, _, d in svb.samples() if n == "frame1_720x1280_420_q90.jpg")
+    calls = dec.decode_jpeg_cuda.calls
+    t0 = time.perf_counter()
+    cut, shorter = whole[:-2], whole[:-5]
+    route = dec.decode_route(cut, "cuda")
+    got, want = dec.decode_to(cut, "cuda"), dec.decode_image(cut)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(route == "host_cut" and got is not None and want is not None
+          and torch.equal(got.cpu(), torch.from_numpy(want))
+          and np.array_equal(want, dec.decode_image(whole)),
+          f"serve: frame1 without its EOI: route {route}, card {got is not None}, "
+          f"host {want is not None}")
+    check(dec.decode_route(shorter, "cuda") == "host_cut"
+          and dec.decode_to(shorter, "cuda") is None and dec.decode_image(shorter) is None,
+          "serve: frame1 5 bytes short decoded; libjpeg suspends for it")
+    check(dec.decode_jpeg_cuda.calls == calls, "serve: an EOI-less JPEG reached nvJPEG")
+    print(f"serve: frame1_720x1280_420_q90.jpg without its EOI ({len(cut)} B): route "
+          f"{route}, card against plain bit-equal, equal to the whole file, nvJPEG not "
+          f"called, route and host decode {ms:.1f} ms; 5 bytes short: None on both "
+          f"(libjpeg suspends) on {smi}", flush=True)
+
+
 def serve_decode(smi: str) -> dict:
     """Each sample decoded on the card (decode_to, by the route its header
     picks) against the plain decoder on the host, refusals alike: the
@@ -1672,9 +1743,13 @@ def serve_decode(smi: str) -> dict:
     SOF "refused" without reaching nvJPEG; the count of each route; one
     720x1280 progressive decode timed by nvJPEG and by the plain decoder
     beside the baseline frame's, the plain WebP decode at 240x320 lossy and
-    lossless; a corrupt JPEG refused by nvJPEG and the next decode still
-    right, a host-route JPEG never handed to nvJPEG, letterbox_u8 equal on
-    the card and the CPU. Returns the card's decoded frames by file name."""
+    lossless and of the 117x163 arithmetic-coded and lossless JPEGs, each
+    of those JPEGs at its manifest's rgb_sha256 on "host_arith" or
+    "host_lossless"; the 720x1280 frame without its EOI on "host_cut"
+    (eoi_less_leg); a corrupt JPEG refused by nvJPEG and the next decode
+    still right, a host-route JPEG never handed to nvJPEG, letterbox_u8
+    equal on the card and the CPU. Returns the card's decoded frames by
+    file name."""
     import hashlib
 
     from vision_kit_tpu_torch import _cuda_build
@@ -1691,8 +1766,8 @@ def serve_decode(smi: str) -> dict:
         want = dec.decode_image(data)
         route = dec.decode_route(data, "cuda")
         got = dec.decode_to(data, "cuda")
-        if meta["kind"].startswith("webp"):
-            check(route == "host_webp" and got is not None and hashlib.sha256(
+        if "rgb_sha256" in meta:   # WebPs, arithmetic-coded and lossless JPEGs
+            check(route.startswith("host_") and got is not None and hashlib.sha256(
                 got.cpu().numpy().tobytes()).hexdigest() == meta["rgb_sha256"],
                 f"serve: {name} on {route} is not cv2's decode (rgb_sha256)")
         if meta["shape"] is None:
@@ -1717,9 +1792,15 @@ def serve_decode(smi: str) -> dict:
             check(agree["max_abs"] == 0, f"serve: {name} ({route}) differs on the card")
         frames[name] = got
     t_new = time.perf_counter()
-    webps = [n for n, m, _ in svb.samples() if m["kind"].startswith("webp")]
-    print(f"serve: {len(webps)} WebP samples on host_webp, each equal to its "
-          f"manifest's rgb_sha256 (cv2.imdecode + BGR2RGB): {', '.join(webps)}", flush=True)
+    for kind, route in (("webp", "host_webp"), ("jpeg_arith", "host_arith"),
+                        ("jpeg_lossless", "host_lossless")):
+        names = [n for n, m, _ in svb.samples() if "rgb_sha256" in m
+                 and m["kind"].startswith(kind)]
+        check(names, f"serve: no {kind} sample")
+        print(f"serve: {len(names)} {kind} samples on {route}, each equal to its "
+              f"manifest's rgb_sha256 (cv2.imdecode + BGR2RGB): {', '.join(names)}",
+              flush=True)
+    eoi_less_leg(smi)
     # the host C walk against the plain decoder's walks, and what it costs
     cases = svb.walk_cases()
     bad = svb.walk_disagreements(cases, "cuda")
@@ -1774,6 +1855,12 @@ def serve_decode(smi: str) -> dict:
                                    "cpu", reps=3) for kind in ("lossy", "lossless")}
     print(f"serve: one 240x320 WebP decode by the plain decoder (host clock, ms): lossy "
           f"{webp_ms['lossy']:.3f}, lossless {webp_ms['lossless']:.3f} on {smi}", flush=True)
+    jpeg_ms = {name: svb.decode_ms(dec.decode_image, [by_name[name]], "cpu", reps=3)
+               for name in ("arith_420_rst3_117x163.jpg", "arith_progressive_117x163.jpg",
+                            "lossless_p1_117x163.jpg", "lossless_p7_117x163.jpg")}
+    print("serve: one 117x163 JPEG decode by the plain decoder (host clock, ms): "
+          + ", ".join(f"{n} {ms:.3f}" for n, ms in jpeg_ms.items()) + f" on {smi}",
+          flush=True)
     print(f"serve: the WebP, C walk, cut and oversize legs took "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
     progressive = svb.sample_bytes("jpeg_progressive_720p")
@@ -2771,8 +2858,9 @@ def mesh_serving(mesh) -> dict:
 
     # the server over the mesh Predictor
     t0 = time.perf_counter()
-    payloads = [(name, d) for name, m, d in svb.samples()
-                if m["shape"] is not None and name.endswith(".jpg")]
+    payloads = [(name, d) for name, m, d in svb.samples()   # the Huffman-coded JPEGs
+                if m["shape"] is not None and name.endswith(".jpg") and m["kind"] not in
+                ("jpeg_arith", "jpeg_lossless")]
     srv = InferenceServer(pred, batch_size=MESH_FRAMES, max_wait_ms=5.0, port=0)
     srv.start()
     reset_counts()
@@ -3145,8 +3233,9 @@ def spatial_rank(rank: int, port: int) -> dict:
 
         # 2. InferenceServer over the spatial Predictor
         t1 = time.perf_counter()
-        payloads = [(name, d) for name, m, d in svb.samples()
-                    if m["shape"] is not None and name.endswith(".jpg")]
+        payloads = [(name, d) for name, m, d in svb.samples()   # Huffman-coded JPEGs
+                    if m["shape"] is not None and name.endswith(".jpg") and m["kind"] not in
+                    ("jpeg_arith", "jpeg_lossless")]
         srv = InferenceServer(pred, batch_size=1, max_wait_ms=5.0, port=0)
         srv.start()
         reset_counts()

@@ -422,3 +422,58 @@ def test_fast_decode_and_the_card_without_cuda_raise(rect_root):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_ds.YOLODataset(split, img_size=48)
+
+
+NEW_KINDS = ["arith_420_rst3_117x163.jpg", "arith_progressive_117x163.jpg",
+             "arith_grey_117x163.jpg", "lossless_p1_117x163.jpg",
+             "lossless_p4_pt2_117x163.jpg", "lossless_p7_117x163.jpg"]
+
+
+@pytest.fixture(scope="module")
+def new_kinds_dir(tmp_path_factory):
+    """The arithmetic-coded and lossless fixtures as a YOLO set, with a
+    grey lossless file (PIL opens it, cv2 does not decode it) apart."""
+    root = tmp_path_factory.mktemp("kinds")
+    rng = np.random.default_rng(9)
+    for sub, names in (("ok", NEW_KINDS), ("grey", NEW_KINDS[:1] + ["lossless_grey_117x163.jpg"])):
+        (root / sub / "images").mkdir(parents=True)
+        (root / sub / "labels").mkdir()
+        for name in names:
+            shutil.copy(os.path.join(SAMPLES, name), root / sub / "images" / name)
+            (root / sub / "labels" / name.replace(".jpg", ".txt")).write_text(
+                f"{int(rng.integers(0, 2))} 0.5 0.5 {rng.uniform(0.1, 0.6):.6f} 0.3")
+    return root
+
+
+@pytest.mark.parametrize("fast_decode", [False, True])
+@pytest.mark.parametrize("size", [48, 128])
+def test_arithmetic_and_lossless_items_equal_jax(new_kinds_dir, fast_decode, size, monkeypatch):
+    """Items equal JAX's with and without fast_decode (at 48 the arithmetic
+    files decode at 1/2 in the DCT; the lossless ones fall back to the full
+    decode on both, as libjpeg does not scale them)."""
+    monkeypatch.setenv("VK_NO_NATIVE", "1")   # JAX's cv2 path
+    root = str(new_kinds_dir / "ok")
+    want = jax_ds.YOLODataset(root, img_size=size, cache=False, fast_decode=fast_decode)
+    got = port_ds.YOLODataset(root, img_size=size, cache=False, fast_decode=fast_decode,
+                              device="cpu")
+    assert [os.path.basename(f) for f in got.img_files] == \
+        [os.path.basename(f) for f in want.img_files] == sorted(NEW_KINDS)
+    for i in range(len(want)):
+        assert_items_equal(want.pull_item(i), got.pull_item(i))
+
+
+def test_grey_lossless_is_kept_and_its_item_raises_as_jax(new_kinds_dir, monkeypatch):
+    """The integrity scan keeps a grey lossless JPEG, as JAX's _check_img
+    keeps it (PIL opens it as "L"); cv2's IMREAD_COLOR gives None for it,
+    so JAX's load_image raises IOError, and so does the port's."""
+    monkeypatch.setenv("VK_NO_NATIVE", "1")
+    root = str(new_kinds_dir / "grey")
+    want = jax_ds.YOLODataset(root, img_size=64, cache=False)
+    got = port_ds.YOLODataset(root, img_size=64, cache=False, device="cpu")
+    names = [os.path.basename(f) for f in got.img_files]
+    assert names == [os.path.basename(f) for f in want.img_files]
+    i = names.index("lossless_grey_117x163.jpg")
+    assert_items_equal(want.pull_item(1 - i), got.pull_item(1 - i))
+    for ds in (want, got):
+        with pytest.raises(IOError, match="image unreadable"):
+            ds.pull_item(i)

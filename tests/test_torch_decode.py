@@ -123,15 +123,17 @@ def test_apply_orientation_is_cv2s_transform():
 
 
 def test_refused_kinds_and_junk_give_none():
-    """A progressive JPEG decodes; the same bytes marked lossless (SOF3) or
-    arithmetic-coded (SOF9) are refused; junk gives None on both."""
+    """A progressive JPEG decodes; the same bytes marked arithmetic-coded
+    lossless (SOF11) or hierarchical (SOF5, SOF13), which libjpeg-turbo
+    does not decode, are refused, as cv2 refuses them; junk gives None on
+    both."""
     data = encode(scene(40, 56, 6), 90, "420", IMWRITE_JPEG_PROGRESSIVE=1)
     assert_decodes_like_cv2(data)
     assert jpeg_refusal(jpeg_header(data)) is None
     sof = data.index(b"\xff\xc2")
-    for marker, name in ((0xC3, "SOF3"), (0xC9, "SOF9")):
+    for marker, name in ((0xCB, "SOF11"), (0xC5, "SOF5"), (0xCD, "SOF13")):
         patched = data[:sof + 1] + bytes([marker]) + data[sof + 2:]
-        assert decode_image(patched) is None
+        assert decode_image(patched) is None and cv2_rgb(patched) is None
         assert jpeg_refusal(jpeg_header(patched)).startswith(name)
     for junk in (b"", b"garbage", b"\xff\xd8", b"\xff\xd8\xff", bytes(100),
                  b"\x89PNG\r\n\x1a\n"):
@@ -252,7 +254,7 @@ def test_sample_decodes_like_cv2(name):
     with open(os.path.join(SAMPLES, name), "rb") as f:
         data = f.read()
     got = decode_image(data)
-    if meta["kind"] == "jpeg_truncated":    # cut mid-scan: None on both
+    if meta["shape"] is None:    # cut mid-scan, or a frame cv2 refuses: None on both
         assert got is None and cv2_rgb(data) is None
     else:
         assert got.shape == (*meta["shape"], 3)

@@ -10,6 +10,7 @@ the datasets, and a served request with a progressive JPEG and a BMP.
 """
 
 import io
+import json
 import os
 import struct
 import tracemalloc
@@ -407,9 +408,12 @@ def test_routes_from_the_header():
             "jpeg_progressive_720p": "nvjpeg_progressive",
             "jpeg_progressive_early": "host_smoothed", "jpeg_cmyk": "host_colour",
             "jpeg_ycck": "host_colour", "jpeg_rgb": "host_colour",
-            "jpeg_truncated": "refused", "png_rgb": "host_png", "png_palette": "host_png",
+            "jpeg_truncated": "host_cut", "png_rgb": "host_png", "png_palette": "host_png",
             "bmp_24": "host_bmp", "bmp_palette8": "host_bmp", "bmp_palette4": "host_bmp",
-            "bmp_rle8": "host_bmp", "jpeg_no_dht": "nvjpeg", "jpeg_std_slot1": "nvjpeg"}
+            "bmp_rle8": "host_bmp", "jpeg_no_dht": "nvjpeg", "jpeg_std_slot1": "nvjpeg",
+            "jpeg_arith": "host_arith", "jpeg_arith_no_eoi": "host_arith",
+            "jpeg_lossless": "host_lossless", "jpeg_lossless_grey": "refused",
+            "jpeg_refused": "refused"}
     want.update({k: "host_webp" for k in ("webp_lossy", "webp_lossless", "webp_alpha",
                                          "webp_exif", "webp_animated", "webp_simple",
                                          "webp_large")})
@@ -417,16 +421,21 @@ def test_routes_from_the_header():
     walk = decode.scans_short
     with open(os.path.join(SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
+    # a one-scan JPEG that the bytes end inside takes the host route (libjpeg
+    # may decode it); the progressive one, cut inside a later scan's
+    # header, does not parse
+    by_name = {"truncated_progressive_240x320.jpg": "refused"}
     for name, meta in files.items():
         data = read(name)
-        assert decode.decode_route(data, "cuda", walk) == want[meta["kind"]], name
+        want[name] = by_name.get(name, want[meta["kind"]])
+        assert decode.decode_route(data, "cuda", walk) == want[name], name
         cpu = decode.decode_route(data, "cpu")
-        assert cpu == ("host_jpeg" if want[meta["kind"]] in (
-            "nvjpeg", "nvjpeg_progressive", "host_smoothed", "host_colour")
-            else want[meta["kind"]]), name
+        assert cpu == ("host_jpeg" if want[name] in (
+            "nvjpeg", "nvjpeg_progressive", "host_smoothed", "host_colour", "host_cut")
+            else want[name]), name
     assert decode.decode_route(b"junk", "cuda", walk) == "refused"
-    sof3 = read("progressive_240x320.jpg").replace(b"\xff\xc2", b"\xff\xc3", 1)
-    assert decode.decode_route(sof3, "cuda", walk) == "refused"
+    sof11 = read("progressive_240x320.jpg").replace(b"\xff\xc2", b"\xff\xcb", 1)
+    assert decode.decode_route(sof11, "cuda", walk) == "refused"
     # a cut inside the last scan, closed by an EOI, is not in the header:
     # the walk finds it and the host decodes it, as cv2 and the plain
     # decoder decode it alike
@@ -439,8 +448,11 @@ def test_routes_from_the_header():
 # -- scans_short: which scans run out of bits ---------------------------------
 
 
-JPEG_SAMPLES = sorted(n for n in os.listdir(SAMPLES)
-                      if n.endswith(".jpg") and not n.startswith("truncated"))
+with open(os.path.join(SAMPLES, "MANIFEST.json")) as _f:
+    # the committed JPEGs that decode, but the lossless ones (no DCT scans)
+    JPEG_SAMPLES = sorted(n for n, m in json.load(_f)["files"].items()
+                          if n.endswith(".jpg") and m["shape"] is not None
+                          and m["kind"] != "jpeg_lossless")
 
 
 def test_scans_short_of_complete_files():
@@ -598,7 +610,7 @@ def test_size_limit_applies_at_the_reduced_size():
 def test_decode_to_counts_routes_on_the_cpu():
     before = dict(decode.route_counts)
     for name in ("progressive_240x320.jpg", "palette4_120x160.bmp", "cmyk_120x160.jpg",
-                 "truncated_240x320.jpg"):
+                 "truncated_240x320.jpg", "refused_sof11_117x163.jpg"):
         data = read(name)
         got = decode.decode_to(data, "cpu")
         want = decode_image(data)
@@ -606,7 +618,9 @@ def test_decode_to_counts_routes_on_the_cpu():
         if want is not None:
             np.testing.assert_array_equal(got.numpy(), want)
     after = decode.route_counts
-    assert after["host_jpeg"] - before["host_jpeg"] == 2
+    # the truncated one's header reads (libjpeg would decode it, did its
+    # bit buffer not read past the bytes): the host route, then None
+    assert after["host_jpeg"] - before["host_jpeg"] == 3
     assert after["host_bmp"] - before["host_bmp"] == 1
     assert after["refused"] - before["refused"] == 1
     if not torch.cuda.is_available():

@@ -103,10 +103,42 @@ def test_restore_keeps_the_comment_and_drops_exif_and_icc(tmp_path):
     assert decode.jpeg_header(pb)["width"] == 60   # orientation 8 turned it
 
 
+# arithmetic-coded and lossless files, and frames libjpeg decodes to
+# nothing, which PIL opens all the same: JAX restores them too (zeros where
+# libjpeg stops before any row)
+NEW_KINDS = ["arith_420_rst3_117x163.jpg", "arith_progressive_117x163.jpg",
+             "arith_grey_117x163.jpg", "lossless_p6_rst_117x163.jpg",
+             "lossless_grey_117x163.jpg", "refused_sof11_117x163.jpg"]
+
+
+@pytest.mark.parametrize("name", NEW_KINDS)
+def test_arithmetic_and_lossless_cuts_restore_like_jax(tmp_path, name):
+    """Each cut at ten points, kept or dropped as _check_img does and, where
+    kept, rewritten to its bytes: an arithmetic-coded scan cannot wait for
+    Pillow's EOI (rows before the iMCU row where it needed a byte past the
+    cut, zeros after; none in a progressive file), a lossless one reads
+    zeros past it (a grey one as "L"), SOF11 decodes to zeros."""
+    data = read(name)
+    counts = assert_same_restores(tmp_path, data, [int(len(data) * f) for f in
+                                                   np.linspace(0.05, 0.98, 10)])
+    assert counts["kept"] >= 8, counts
+
+
+def test_frames_pil_keeps_whole_are_kept(tmp_path):
+    """Whole files the port and cv2 give None for, which PIL opens (a grey
+    lossless one, SOF11), are kept as JAX keeps them, untouched; a 12-bit
+    one is dropped by both."""
+    for name, kept in (("lossless_grey_117x163.jpg", True), ("refused_sof11_117x163.jpg", True),
+                       ("refused_12bit_117x163.jpg", False)):
+        data = read(name)
+        (jv, jb), (pv, pb) = both(tmp_path, data)
+        assert (jv is None) == (pv is None) == kept, (name, jv, pv)
+        assert jb == pb == data
+
+
 def test_what_pil_refuses_is_dropped_and_left_alone(tmp_path):
-    """A cut before the first scan's data, a 12-bit frame and an
-    arithmetic-coded one: dropped by both, the file untouched (the port
-    takes no arithmetic JPEG, which PIL restores: Queue 1 item 4)."""
+    """A cut before the first scan's data, a 12-bit frame and a
+    two-component one: dropped by both, the file untouched."""
     data = read("s444_240x320.jpg")
     start = jpeg_scans(data)[0]
     for cut in (data[:start + 5], data[:20]):
@@ -115,9 +147,11 @@ def test_what_pil_refuses_is_dropped_and_left_alone(tmp_path):
     twelve = data[:start].replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1)
     (jv, _), (pv, pb) = both(tmp_path, twelve + data[start:-100])
     assert jv is not None and pv is not None and "12-bit" in pv
-    arith = data.replace(b"\xff\xc0", b"\xff\xc9", 1)[:-100]
-    (jv, _), (pv, pb) = both(tmp_path, arith)
-    assert jv is None and "SOF9" in pv and pb == arith
+    sof = data.index(b"\xff\xc0")
+    two = (data[:sof] + b"\xff\xc0\x00\x0e" + data[sof + 4:sof + 9] + b"\x02"
+           + data[sof + 10:sof + 16] + data[sof + 19:start] + data[start:-100])
+    (jv, _), (pv, pb) = both(tmp_path, two)
+    assert jv is not None and pv is not None and "2 components" in pv and pb == two
 
 
 @pytest.mark.parametrize("quality", [1, 50, 100])
@@ -153,8 +187,9 @@ def test_committed_samples_restore_to_their_manifest():
     _check_img wrote (the card's check, where there is no PIL)."""
     with open(os.path.join(SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
-    cut = {n: m for n, m in files.items() if m["kind"] == "jpeg_truncated"}
-    assert len(cut) == 4
+    cut = {n: m for n, m in files.items()
+           if m["kind"] in ("jpeg_truncated", "jpeg_arith_no_eoi")}
+    assert len(cut) == 5
     for name, meta in cut.items():
         got = port_ds.restore_truncated_jpeg(read(name))
         assert hashlib.sha256(got).hexdigest() == meta["restored_sha256"], name

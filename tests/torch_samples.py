@@ -5,14 +5,16 @@ checks there read encoded bytes from the repository. They are written here
 with cv2 from seeded smooth synthetic scenes; what cv2 does not write by
 hand (the palette PNG with zlib, the 4-bit and RLE8 BMPs, the WebP
 containers with EXIF and ICCP, animations with offset frames), with PIL
-(the CMYK and RGB JPEGs, the palette BMP) or with the libwebp that Pillow
-bundles (WebPs with encoder settings cv2 does not expose). MANIFEST.json
+(the CMYK and RGB JPEGs, the palette BMP), with the libwebp that Pillow
+bundles (WebPs with encoder settings cv2 does not expose) or with its
+libjpeg-turbo (arithmetic-coded, lossless and 12-bit JPEGs). MANIFEST.json
 lists each file's sha256, size, kind and the shape it decodes to (null
-where the decoders refuse it), for a WebP the sha256 of cv2's decoded RGB
-(rgb_sha256), which the card checks its decode against, and for a
-truncated JPEG the sha256 of the file the JAX package's integrity scan
-writes over it (restored_sha256), which the card checks its restore
-against.
+where the decoders refuse it), for a WebP, an arithmetic-coded and a
+lossless JPEG the sha256 of cv2's decoded RGB (rgb_sha256), which the
+card checks its decode against, and for a truncated JPEG (and the
+arithmetic one without its EOI) the sha256 of the file the JAX package's
+integrity scan writes over it (restored_sha256), which the card checks
+its restore against.
 tests/test_torch_decode.py checks the manifest and each file against
 cv2.imdecode.
 
@@ -254,6 +256,100 @@ def rle8(index: np.ndarray, skip: tuple) -> bytes:
             x += m
         out += b"\x00\x00"
     return bytes(out) + b"\x00\x01"
+
+
+# -- libjpeg-turbo through ctypes --------------------------------------------
+
+# jpeg_compress_struct's fields as libjpeg's 6.2 ABI lays them out on
+# x86-64 (offsetof over jpeglib.h with gcc; libjpeg-turbo 3.1 keeps the
+# layout), and jpeg_component_info's (96 bytes each)
+_CINFO = dict(size=520, err=0, image_width=48, image_height=52, input_components=56,
+              in_color_space=60, data_precision=72, num_components=76, comp_info=88,
+              arith_dc_L=192, arith_dc_U=208, arith_ac_K=224, arith_code=260,
+              restart_interval=280, restart_in_rows=284)
+_COMP = dict(size=96, h_samp_factor=8, v_samp_factor=12)
+_JCS = {"grey": 1, "rgb": 2, "ycc": 3, "cmyk": 4, "ycck": 5}
+
+
+def _libjpeg():
+    """The libjpeg-turbo that the Pillow wheel bundles (3.1 with Pillow
+    12.1): its encoder writes arithmetic-coded, lossless and 12-bit JPEGs,
+    which cv2.imencode does not."""
+    import ctypes
+    import glob
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    paths = glob.glob(os.path.join(libs, "libjpeg-*.so*"))
+    if not paths:
+        raise RuntimeError(f"no libjpeg in {libs}")
+    return ctypes.CDLL(paths[0])
+
+
+def libjpeg_encode(pixels: np.ndarray, quality: int = 90, *, arith: bool = False,
+                   progressive: bool = False, lossless: tuple | None = None,
+                   restart: int = 0, restart_rows: int = 0, sampling=None,
+                   precision: int = 8, dac: dict | None = None) -> bytes:
+    """(H, W) grey, (H, W, 3) RGB or (H, W, 4) CMYK samples -> JPEG bytes
+    from libjpeg's compressor with jpeg_set_defaults and jpeg_set_quality,
+    then: arithmetic coding (`dac`: {"L": [...], "U": [...], "K": [...]}
+    conditioning values by table), jpeg_simple_progression, lossless
+    (predictor, point transform) through jpeg_enable_lossless, which writes
+    the input's colour space with 1x1 sampling whatever else is asked, a
+    restart interval in MCUs or rows, (h, v) sampling factors by component,
+    and 12-bit samples (int16 `pixels`, jpeg12_write_scanlines). libjpeg's
+    error exit ends the process, so the settings must be ones it takes."""
+    import ctypes as C
+
+    lib = _libjpeg()
+    cinfo = C.create_string_buffer(1024)
+    err = C.create_string_buffer(512)
+    lib.jpeg_std_error.restype = C.c_void_p
+    C.c_void_p.from_buffer(cinfo, _CINFO["err"]).value = lib.jpeg_std_error(err)
+
+    def field(name, ctype=C.c_int):
+        return ctype.from_buffer(cinfo, _CINFO[name])
+
+    lib.jpeg_CreateCompress(cinfo, 62, _CINFO["size"])
+    h, w = pixels.shape[:2]
+    ch = 1 if pixels.ndim == 2 else pixels.shape[2]
+    field("image_width", C.c_uint).value = w
+    field("image_height", C.c_uint).value = h
+    field("input_components").value = ch
+    field("in_color_space").value = {1: _JCS["grey"], 3: _JCS["rgb"], 4: _JCS["cmyk"]}[ch]
+    field("data_precision").value = precision
+    lib.jpeg_set_defaults(cinfo)
+    field("data_precision").value = precision
+    lib.jpeg_set_quality(cinfo, quality, 1)
+    if lossless:
+        lib.jpeg_enable_lossless(cinfo, *lossless)
+    if progressive:
+        lib.jpeg_simple_progression(cinfo)
+    if arith:
+        field("arith_code").value = 1
+    field("restart_interval", C.c_uint).value = restart
+    field("restart_in_rows").value = restart_rows
+    if sampling:
+        comp = field("comp_info", C.c_void_p).value
+        for ci, (hs, vs) in enumerate(sampling):
+            C.c_int.from_address(comp + _COMP["size"] * ci + _COMP["h_samp_factor"]).value = hs
+            C.c_int.from_address(comp + _COMP["size"] * ci + _COMP["v_samp_factor"]).value = vs
+    for key, values in (dac or {}).items():
+        base = _CINFO[{"L": "arith_dc_L", "U": "arith_dc_U", "K": "arith_ac_K"}[key]]
+        for t, v in enumerate(values):
+            C.c_uint8.from_buffer(cinfo, base + t).value = v
+    buf, size = C.c_void_p(), C.c_ulong()
+    lib.jpeg_mem_dest(cinfo, C.byref(buf), C.byref(size))
+    lib.jpeg_start_compress(cinfo, 1)
+    px = np.ascontiguousarray(pixels, np.uint8 if precision == 8 else np.int16)
+    rows = (C.c_void_p * h)(*[px.ctypes.data + r * px.strides[0] for r in range(h)])
+    (lib.jpeg_write_scanlines if precision == 8 else lib.jpeg12_write_scanlines)(cinfo, rows, h)
+    lib.jpeg_finish_compress(cinfo)
+    out = C.string_at(buf, size.value)
+    lib.jpeg_destroy_compress(cinfo)
+    C.CDLL(None).free(buf)
+    return out
 
 
 # -- WebP ------------------------------------------------------------------
@@ -604,7 +700,36 @@ def build() -> dict[str, tuple[bytes, str, tuple | None]]:
     files["simple4_240x320.webp"] = (
         libwebp_encode(scene(240, 320, 65), 80, filter_type=0, filter_strength=60,
                        partitions=2, segments=4, method=0), "webp_simple", (240, 320))
+    # arithmetic-coded and lossless JPEGs from libjpeg's own encoder, small
+    # and odd-sized (the plain decoder's arithmetic decoder and lossless
+    # walk are Python loops), and the frames cv2 refuses
+    a = scene(117, 163, 70)
+    for name, kw in (("grey", dict(pixels=a[:, :, 1])), ("444", dict(sampling=[(1, 1)] * 3)),
+                     ("420_rst3", dict(restart=3)), ("progressive", dict(progressive=True)),
+                     ("dac", dict(dac={"L": [2, 1], "U": [5, 3], "K": [2, 30]}))):
+        files[f"arith_{name}_117x163.jpg"] = (
+            libjpeg_encode(kw.pop("pixels", a), 90, arith=True, **kw), "jpeg_arith", (117, 163))
+    cut = libjpeg_encode(scene(117, 163, 71), 90, arith=True)
+    files["arith_noeoi_117x163.jpg"] = (cut[:-2], "jpeg_arith_no_eoi", None)
+    b = scene(117, 163, 72)
+    for name, kw in (("p1", dict(lossless=(1, 0))), ("p4_pt2", dict(lossless=(4, 2))),
+                     ("p6_rst", dict(lossless=(6, 0), restart_rows=16)),
+                     ("p7", dict(lossless=(7, 0)))):
+        files[f"lossless_{name}_117x163.jpg"] = (libjpeg_encode(b, **kw), "jpeg_lossless",
+                                                 (117, 163))
+    files["lossless_grey_117x163.jpg"] = (libjpeg_encode(b[:, :, 0], lossless=(1, 0)),
+                                          "jpeg_lossless_grey", None)
+    files["refused_12bit_117x163.jpg"] = (
+        libjpeg_encode(b.astype(np.int16) * 16, precision=12), "jpeg_refused", None)
+    files["refused_sof11_117x163.jpg"] = (
+        libjpeg_encode(b, lossless=(1, 0)).replace(b"\xff\xc3", b"\xff\xcb", 1),
+        "jpeg_refused", None)
     return files
+
+
+# the JPEG kinds whose manifest entry carries cv2's pixels (rgb_sha256):
+# the card's machine has no cv2 to compare them with
+HASHED_JPEGS = ("jpeg_arith", "jpeg_lossless")
 
 
 def rgb_sha256(data: bytes) -> str:
@@ -641,9 +766,9 @@ def write(out_dir: str = SAMPLES) -> dict:
         manifest["files"][name] = {
             "sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data),
             "kind": kind, "shape": list(shape) if shape else None}
-        if kind.startswith("webp"):   # the card's machine has no cv2 to compare with
-            manifest["files"][name]["rgb_sha256"] = rgb_sha256(data)
-        if kind == "jpeg_truncated":   # nor PIL
+        if kind.startswith("webp") or kind in HASHED_JPEGS:   # the card's machine has
+            manifest["files"][name]["rgb_sha256"] = rgb_sha256(data)   # no cv2
+        if kind in ("jpeg_truncated", "jpeg_arith_no_eoi"):   # nor PIL
             manifest["files"][name]["restored_sha256"] = restored_sha256(data)
     with open(os.path.join(out_dir, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)

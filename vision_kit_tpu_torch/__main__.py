@@ -44,14 +44,16 @@ per image of -p (a file, or a directory walked recursively), printing
 `<path>: <n> detections in <ms> ms` and writing each image with its
 detections drawn (utils/drawing.py:Drawing) as a JPEG: into -o when it is a
 directory (utils/readers.py:ImageReader), as -o when -p is one image and -o
-a file name (a JPEG, or a PNG or BMP by its extension), else beside the
-input. Any other path is a video: a Motion-JPEG AVI
+a file name (a JPEG, or a PNG, BMP or lossless WebP by its extension),
+else beside the input. Any other path is a video: a Motion-JPEG AVI
 (utils/readers.py:VideoReader), one Predictor call per frame on the frame
 as decoded on the device, printing `frame <n>: <ms> ms (<fps> fps avg)`
 every 30 frames and the average at the end, and with -o (an .avi) writing
-the drawn frames as Motion-JPEG. A webcam index, another video codec or
-container, and a .webp output raise (a .bmp output is written as
-cv2.imwrite writes it).
+the drawn frames as Motion-JPEG. A webcam index and another video codec or
+container raise. A .bmp output is written as cv2.imwrite writes it; a
+.webp output is lossless VP8L (data/encode.py:encode_webp), as cv2.imwrite
+writes by default, but with the port's own encoder choices, so its bytes
+differ while its pixels are the same.
 
 `train` and `eval` are the counterparts of scripts/main.py's tasks: the
 seed is --seed, else the config's data.seed, else 21; --deterministic
@@ -139,7 +141,7 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
     [(image path, detections (n, 6) or None when it could not be read,
     written path or None)]."""
     from vision_kit_tpu_torch.data.decode import encode_bmp, encode_png
-    from vision_kit_tpu_torch.data.encode import encode_jpeg
+    from vision_kit_tpu_torch.data.encode import encode_jpeg, encode_webp
     from vision_kit_tpu_torch.utils.readers import IMAGE_EXT, ImageReader
 
     # -o: an exact file name for a single image, a directory otherwise
@@ -149,10 +151,7 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
     if single_file_out:
         ext = os.path.splitext(single_file_out)[1].lower()
         encoder = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png,
-                   ".bmp": encode_bmp}.get(ext)
-        if encoder is None:
-            raise ValueError(f"{single_file_out}: the port writes JPEG, PNG and BMP only, "
-                             f"not {ext}")
+                   ".bmp": encode_bmp, ".webp": encode_webp}[ext]   # IMAGE_EXT, each
     reader = ImageReader(path, save_path=(None if single_file_out else output) or (
         path if os.path.isdir(path) else os.path.dirname(path) or "."))
     out, warm = [], False
@@ -435,7 +434,7 @@ def main(argv=None) -> int:
     demo.add_argument("--iou", type=float, default=0.45)
     demo.add_argument("--output", "-o", default=None,
                       help="output directory, or a file name for a single image "
-                           "(.jpg or .png), or an .avi for a video; default beside "
+                           "(.jpg, .png, .bmp or .webp), or an .avi for a video; default beside "
                            "the input (images) or none (video)")
     demo.add_argument("--show", action="store_true",
                       help="accepted for scripts/demo.py's flags; the port opens no "

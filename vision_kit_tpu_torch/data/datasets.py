@@ -19,10 +19,11 @@ S / w0) on the device. The `decoder` option picks the decoder:
   * "nvjpeg": on the card the route decode.decode_to picks from the header:
     a baseline, extended or complete progressive JPEG through nvJPEG,
     faster, its pixels within decode.NVJPEG_TOLERANCE of the plain
-    decoder's; a PNG, a BMP, a WebP, a CMYK, YCCK or RGB JPEG, a
-    progressive one that ends early and one whose scans run out of bits on
-    the host, bit-equal to the plain decoder. Spawned loader workers cannot use it (they never touch
-    CUDA), so a TrainLoader with num_workers > 0 refuses such a dataset.
+    decoder's; a PNG, a BMP, a WebP, an arithmetic-coded or lossless JPEG,
+    a CMYK, YCCK or RGB JPEG, a progressive one that ends early and one
+    whose scans run out of bits on the host, bit-equal to the plain
+    decoder. Spawned loader workers cannot use it (they never touch CUDA),
+    so a TrainLoader with num_workers > 0 refuses such a dataset.
   * "auto" (the default): "nvjpeg" on the card, "plain" on the CPU, and
     "plain" in spawned workers; the dataset logs which decoder each route
     takes.
@@ -40,21 +41,26 @@ dataset's with fast_decode on either device.
 The integrity scan (YOLO datasets, as in the JAX package) reads headers
 (decode.jpeg_header, png_header, bmp_header, webp.webp_header): the size
 after EXIF orientation, the < 10 px gate, and a drop, with its reason
-logged, of every file the port cannot decode: lossless, arithmetic-coded
-and 12-bit JPEGs and an image over OpenCV's size limits. A JPEG that does
-not end in its EOI marker is restored in place, as the JAX package's
-_check_img does with PIL: decoded as Pillow's LOAD_TRUNCATED_IMAGES reads
-it (decode.decode_truncated_jpeg), turned as ImageOps.exif_transpose turns
-it, and written over the file as Pillow's save(subsampling=0, quality=100)
-writes it (encode.encode_jpeg at 4:4:4, or encode_jpeg_cmyk), the same
-bytes (restore_truncated_jpeg); it is dropped where PIL raises (the file
-ends inside its header). The log names each file restored and each file
+logged, of every file PIL refuses (a 12-bit JPEG, ...) and of an image
+over OpenCV's size limits. A JPEG frame that PIL opens is kept, as JAX
+keeps it, also where cv2 and the port give None for it (a grey lossless
+JPEG, SOF11): its item then raises IOError, as the JAX loader's does. A
+JPEG that does not end in its EOI marker is restored in place, as the JAX
+package's _check_img does with PIL: decoded as Pillow's
+LOAD_TRUNCATED_IMAGES reads it (decode.decode_truncated_jpeg: baseline,
+progressive, arithmetic-coded and lossless, and zeros where libjpeg
+decodes nothing), turned as ImageOps.exif_transpose turns it, and written
+over the file as Pillow's save(subsampling=0, quality=100) writes it
+(encode.encode_jpeg at 4:4:4, or encode_jpeg_cmyk), the same bytes
+(restore_truncated_jpeg); it is dropped where PIL raises (the file ends
+inside its header). The log names each file restored and each file
 dropped with its reason, and a restore invalidates the disk image caches
-that hold the file. Progressive, CMYK, YCCK and RGB JPEGs, BMPs and WebPs
-(lossy, lossless, with alpha, animated) are kept, as JAX keeps them; a
-WebP decodes on the host whatever the decoder option (no library on the
-card decodes it), and fast_decode takes its full decode, as JAX's
-_fast_decode_resized does for anything that is not a JPEG.
+that hold the file. Progressive, arithmetic-coded, lossless, CMYK, YCCK
+and RGB JPEGs, BMPs and WebPs (lossy, lossless, with alpha, animated) are
+kept, as JAX keeps them; a WebP decodes on the host whatever the decoder
+option (no library on the card decodes it), and fast_decode takes its
+full decode, as JAX's _fast_decode_resized does for anything that is not
+a JPEG (and for a lossless JPEG, which libjpeg does not scale).
 
 Caches live under the port's own names (.vkt_labels_*, .vkt_imgcache_*),
 and the disk cache's key holds the decoder in use ("plain" or "nvjpeg") and
@@ -177,8 +183,11 @@ def _header_refusal(path: str, data: bytes) -> str | None:
                 "decodes only those")
     try:
         if kind == "jpeg":
+            # PIL opens every 8-bit JPEG frame of 1, 3 or 4 components, so
+            # JAX keeps those that cv2 gives None for (a grey lossless one,
+            # SOF11) and its loader raises on them, as the port's does
             info = decode.jpeg_header(data)
-            refusal = decode.jpeg_refusal(info)
+            refusal = decode.pil_refusal(info) or decode.jpeg_size_refusal(info)
             if refusal:
                 return f"JPEG the port does not decode: {refusal}"
         w, h = exif_size(data)

@@ -13,11 +13,17 @@ port decodes on its own:
   4:1:1), restart intervals; a sequential scan's Huffman slot 0 or 1
   that no DHT defines takes jstdhuff.c's standard table, as jdhuff.c
   gives it (Motion-JPEG frames carry none; a progressive file takes none,
-  as jdphuff.c). The integer `islow` IDCT of jidctint.c
-  (saturating as libjpeg-turbo's SIMD code does), libjpeg's "fancy"
-  triangle upsampling (h2v1, h2v2, h1v2, with its biases; box replication
-  where libjpeg takes it: other factors, and a chroma plane at most 2
-  wide), jdcolor.c's fixed-point YCbCr tables. Progressive scans follow
+  as jdphuff.c). Arithmetic-coded sequential and progressive scans (SOF9,
+  SOF10, DAC conditioning) through data/jpeg_arith.py (jdarith.c), and
+  lossless frames (SOF3) through data/jpeg_lossless.py (jdlhuff.c,
+  jdlossls.c), which decode only where libjpeg's lossless mode converts
+  their colour to cv2's (RGB, and CMYK then OpenCV's CMYK -> BGR; a grey
+  or YCbCr one gives None, as cv2 does). The integer `islow` IDCT of
+  jidctint.c as libjpeg-turbo's AVX2 code runs it (16-bit dequantising,
+  word adds and saturating packs, which only corrupt data reaches),
+  libjpeg's "fancy" triangle upsampling (h2v1, h2v2, h1v2, with its
+  biases; box replication where libjpeg takes it: other factors, and a
+  chroma plane at most 2 wide), jdcolor.c's fixed-point YCbCr tables. Progressive scans follow
   jdphuff.c (DC and AC first scans with EOBRUN, their refinements); when
   the scans leave some of the first ten coefficients' bits unknown (a file
   that ends early), jdcoefct.c's 5x5 block smoothing (libjpeg-turbo 2.1
@@ -27,12 +33,14 @@ port decodes on its own:
   ids), CMYK and YCCK (jdcolor.c's ycck_cmyk_convert), the last two then
   OpenCV's CMYK -> BGR. A restart interval that runs out of data before a
   marker leaves the rest of its MCUs as they are (grey in a sequential
-  scan), as libjpeg does. Bytes that end inside a scan, with no marker
-  after it, give None, as cv2 does when data is missing (libjpeg suspends
-  for more input; where only the EOI marker is missing from a one-scan
-  file, cv2 may still decode, depending on how far libjpeg's bit buffer
-  reads ahead). Lossless, arithmetic-coded and 12-bit JPEGs give None; cv2
-  decodes them. PNG through zlib: colour types 0/2/3/4/6, bit depths
+  scan), as libjpeg does. Bytes that end inside a scan with no marker
+  after it: libjpeg suspends for more input, which OpenCV cannot give, so
+  cv2 gives None, unless the scan is the file's only one and its entropy
+  decoder never reads past the bytes: jdhuff.c's 64-bit bit buffer
+  (_suspends: decode_mcu_fast's 6-byte loads while 512 bytes a block are
+  left, then jpeg_fill_bit_buffer's fills to 57 bits), jdarith.c's byte
+  reads. 12-bit, arithmetic lossless (SOF11) and hierarchical JPEGs give
+  None, as cv2 does. PNG through zlib: colour types 0/2/3/4/6, bit depths
   1/2/4/8/16 (16 keeps the high byte, as cv2 does), Adam7 interlacing,
   alpha dropped. BMP as grfmt_bmp.cpp reads it: header sizes 12 and 36 on,
   1/4/8-bit palettes, 16-bit 5-5-5 and 5-6-5, 24-bit, 32-bit (the fourth
@@ -49,9 +57,10 @@ port decodes on its own:
   libjpeg-turbo's DCT scaling (jdmaster.c's per-component IDCT sizes,
   jidctred.c's 4x4, 2x2 and 1x1 IDCTs, upsampling at the reduced sizes,
   plain replication at 1/8), block smoothing too; OpenCV's size limits
-  apply at the reduced size, as cv2 applies them. `probe_jpeg(data)` reads
-  a JPEG's size and whether it holds EXIF from its header, as the JAX
-  package's data.fast_decode gate does.
+  apply at the reduced size, as cv2 applies them. A lossless JPEG comes
+  out at its full size, as libjpeg does not scale it. `probe_jpeg(data)`
+  reads a JPEG's size and whether it holds EXIF from its header, as the
+  JAX package's data.fast_decode gate does.
 - `decode_truncated_jpeg(data)`: what Pillow's LOAD_TRUNCATED_IMAGES read
   gives for JPEG bytes without their EOI marker (the JAX package's
   integrity scan restores such a file from it; data/datasets.py).
@@ -60,9 +69,12 @@ port decodes on its own:
   `walk_scans_short(data)` the same counts from the host C walk of
   csrc/jpeg_walk.cu, which the card's route runs on every JPEG.
 - `decode_to(data, device)`: the route its header picks (`decode_route`;
-  on the card also the C walk, no IDCT), counted in `route_counts`. On the card a baseline,
-  extended or progressive JPEG in YCbCr or grey whose scans complete every
-  coefficient goes to nvJPEG (csrc/jpeg_decode.cu, `decode_jpeg_cuda`,
+  on the card also the C walk, no IDCT), counted in `route_counts`. An
+  arithmetic-coded JPEG ("host_arith") and a lossless one
+  ("host_lossless") decode with decode_image on the host on any device,
+  and so does a one-scan JPEG that the bytes end inside ("host_cut"). On
+  the card a baseline, extended or progressive JPEG in YCbCr or grey whose
+  scans complete every coefficient goes to nvJPEG (csrc/jpeg_decode.cu, `decode_jpeg_cuda`,
   pixels within NVJPEG_TOLERANCE of the plain decoder's), unless the C
   walk finds a scan that runs out of bits ("host_cut": libjpeg reads the
   missing bits as zeros, nvJPEG does not); the standard Huffman tables of
@@ -74,11 +86,12 @@ port decodes on its own:
   nvJPEG refuses is not handed to the host. The orientation transform is
   `apply_orientation` (torch flips and transposes).
 
-The Huffman walks are the only Python loops (a progressive refinement's
-correction bits gathered and applied with numpy); the IDCT, smoothing,
-upsampling, colour conversion and PNG filters (but Average and Paeth,
-which are serial along a row) are numpy over whole planes, as is BMP but
-for its RLE commands. data/webp.py says how WebP's loops split.
+The Huffman walks are the only Python loops here (a progressive
+refinement's correction bits gathered and applied with numpy; the
+arithmetic decoder and the lossless predictors 6 and 7 are loops too, in
+their modules); the IDCT, smoothing, upsampling, colour conversion and PNG
+filters (but Average and Paeth, which are serial along a row) are numpy
+over whole planes, as is BMP but for its RLE commands. data/webp.py says how WebP's loops split.
 """
 
 from __future__ import annotations
@@ -162,8 +175,10 @@ def size_refusal(width: int, height: int) -> str | None:
 SOF_SEQUENTIAL = (0xC0, 0xC1)   # baseline, extended sequential (Huffman)
 SOF_PROGRESSIVE = 0xC2          # progressive (Huffman)
 SOF_HUFFMAN = (*SOF_SEQUENTIAL, SOF_PROGRESSIVE)
+SOF_ARITH = (0xC9, 0xCA)        # sequential, progressive (arithmetic-coded)
+SOF_LOSSLESS = 0xC3             # lossless (Huffman)
 SOF_ALL = tuple(m for m in range(0xC0, 0xD0) if m not in (0xC4, 0xC8, 0xCC))
-RST0, EOI, SOS, DHT, DQT, DRI = 0xD0, 0xD9, 0xDA, 0xC4, 0xDB, 0xDD
+RST0, EOI, SOS, DHT, DQT, DRI, DAC = 0xD0, 0xD9, 0xDA, 0xC4, 0xDB, 0xDD, 0xCC
 JPEG_MAX_DIMENSION = 65500      # jmorecfg.h: libjpeg refuses a longer side
 
 
@@ -182,13 +197,15 @@ def _scan_end(data: bytes, pos: int) -> int | None:
     return pos + int(stop[0]) if len(stop) else None
 
 
-def _walk(data: bytes):
+def _walk(data: bytes, open_end: bool = False):
     """(marker, payload start, payload end, scan end) of each marker segment
     after SOI up to the end of the bytes or EOI (the last, when present).
     For an SOS, scan end is where the marker after its entropy-coded data
-    starts; else None. Raises
-    JpegError on a malformed segment or a scan that the bytes end inside
-    (libjpeg then suspends for more input and cv2 gives None)."""
+    starts; else None. Raises JpegError on a malformed segment, and on a
+    scan that the bytes end inside unless `open_end`: such a scan is then
+    the last segment, its scan end the length of the bytes (whether libjpeg
+    suspends for more input inside it, where cv2 gives None, depends on how
+    far its entropy decoder reads ahead)."""
     n, pos = len(data), 2
     while pos < n:
         if data[pos] != 0xFF:
@@ -213,7 +230,10 @@ def _walk(data: bytes):
         if m == SOS:
             end = _scan_end(data, b)
             if end is None:
-                raise JpegError("the bytes end inside a scan")
+                if not open_end:
+                    raise JpegError("the bytes end inside a scan")
+                yield m, a, b, n
+                return
             yield m, a, b, end
             pos = end
         else:
@@ -221,36 +241,48 @@ def _walk(data: bytes):
             pos = b
 
 
+def is_progressive(sof: int) -> bool:
+    """Whether a frame's SOF marker is progressive (Huffman or arithmetic)."""
+    return sof in (SOF_PROGRESSIVE, SOF_ARITH[1])
+
+
 def jpeg_header(data: bytes) -> dict:
     """The frame of a JPEG: sof, precision, height, width, components [(id,
     h, v, tq)], and from the markers before the first scan jfif,
     adobe_transform, the EXIF orientation, huffman (the (class, slot) of
-    each Huffman table a DHT defines) and first_scan (where the first SOS
-    marker starts); eoi (whether the EOI marker
-    ends the bytes), multi_scan (libjpeg reads the whole file before any
-    output) and complete (every coefficient of every component known to
-    its last bit by the scans' headers; a progressive file that ends early
-    is not). Walks every segment, so it raises JpegError for bytes that are
-    no JPEG, hold no frame and scan, end inside a scan, or hold a bad
-    progression."""
+    each Huffman table a DHT defines), conditioning (the arithmetic
+    conditioning values L, U and K of each table, DAC segments over
+    jdarith.c's defaults) and first_scan (where the first SOS marker
+    starts); eoi (whether the EOI marker ends the bytes), open_scan (the
+    bytes end inside a scan, with no marker after it), multi_scan (libjpeg
+    reads the whole file before any output) and complete (every
+    coefficient of every component known to its last bit by the scans'
+    headers; a progressive file that ends early is not). Walks every
+    segment, so it raises JpegError for bytes that are no JPEG, hold no
+    frame and scan, end inside a marker segment, or hold a bad progression
+    or DAC segment (bytes that end inside a scan give open_scan)."""
+    from vision_kit_tpu_torch.data import jpeg_arith
+
     if len(data) < 4 or data[0] != 0xFF or data[1] != 0xD8:
         raise JpegError("not a JPEG")
-    info = {"sof": None, "jfif": False, "adobe_transform": None,
-            "orientation": 1, "eoi": False, "multi_scan": False, "huffman": set()}
+    info = {"sof": None, "jfif": False, "adobe_transform": None, "orientation": 1,
+            "eoi": False, "open_scan": False, "multi_scan": False, "huffman": set(),
+            "conditioning": {k: v[:] for k, v in jpeg_arith.DEFAULT_CONDITIONING.items()}}
     exif_seen = scanned = False
-    for m, a, b, _ in _walk(data):
+    for m, a, b, end in _walk(data, open_end=True):
         seg = data[a:b]
         if m == EOI:
             info["eoi"] = True
         elif m == SOS:
             if info["sof"] is None:
                 raise JpegError("no frame before the scan")
+            progressive = is_progressive(info["sof"])
             if not scanned:   # jdinput.c's has_multiple_scans
                 info["first_scan"] = a - 4
-                info["multi_scan"] = (info["sof"] == SOF_PROGRESSIVE
+                info["multi_scan"] = (progressive
                                       or seg[:1] != bytes([len(info["components"])]))
                 bits = np.full((len(info["components"]), 64), -1, np.int64)
-            if info["sof"] == SOF_PROGRESSIVE:
+            if progressive:
                 ids = [c[0] for c in info["components"]]
                 ns = seg[0] if seg else 0
                 if len(seg) < 4 + 2 * ns or any(x not in ids for x in seg[1:1 + 2 * ns:2]):
@@ -258,6 +290,7 @@ def jpeg_header(data: bytes) -> dict:
                 _progression(bits, [ids.index(x) for x in seg[1:1 + 2 * ns:2]],
                              seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4,
                              seg[3 + 2 * ns] & 15)
+            info["open_scan"] = end == len(data)
             scanned = True
         elif m in SOF_ALL and info["sof"] is None:
             if len(seg) < 6:
@@ -275,6 +308,8 @@ def jpeg_header(data: bytes) -> dict:
             while i < len(seg):
                 info["huffman"].add((seg[i] >> 4, seg[i] & 15))
                 i += 17 + sum(seg[i + 1:i + 17])
+        elif m == DAC:
+            jpeg_arith.read_dac(seg, info["conditioning"])
         elif m == 0xE0 and seg[:5] == b"JFIF\0":
             info["jfif"] = True
         elif m == 0xE1 and seg[:6] == b"Exif\0\0" and not exif_seen:
@@ -284,29 +319,28 @@ def jpeg_header(data: bytes) -> dict:
             info["adobe_transform"] = seg[11]
     if not scanned:
         raise JpegError("no scan")
-    info["complete"] = not bits.any() if info["sof"] == SOF_PROGRESSIVE else True
+    info["complete"] = not bits.any() if is_progressive(info["sof"]) else True
     return info
 
 
-def jpeg_refusal(info: dict, scale: int = 1) -> str | None:
+def jpeg_refusal(info: dict, scale: int = 1, pillow: bool = False) -> str | None:
     """Why the decoders refuse this JPEG decoded at 1/`scale`, or None when
     they take it. OpenCV's size limits apply to the decoded size,
     ceil(side / scale), as cv2.imdecode(IMREAD_REDUCED_COLOR_<scale>)
-    applies them."""
-    if info["sof"] not in SOF_HUFFMAN:
-        return f"SOF{info['sof'] - 0xC0} (only baseline, extended sequential and progressive Huffman)"
-    if info["precision"] != 8:
-        return f"{info['precision']}-bit samples"
+    applies them; libjpeg does not scale a lossless frame, so its decoded
+    size is its own at every scale. A lossless frame converts no colour,
+    so it decodes only to the output colour space of its own family: BGR
+    (cv2's IMREAD_COLOR) from RGB, CMYK from CMYK, and with `pillow`
+    (Pillow's modes L, RGB and CMYK) grey from grey too."""
+    sof = info["sof"]
+    if sof not in (*SOF_HUFFMAN, *SOF_ARITH, SOF_LOSSLESS):
+        kind = ("arithmetic-coded lossless" if sof == 0xCB else "hierarchical"
+                if sof in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF) else "unknown")
+        return f"SOF{sof - 0xC0}, {kind} (libjpeg-turbo decodes no such frame)"
+    why = pil_refusal(info) or jpeg_size_refusal(info, scale)
+    if why:
+        return why
     comps = info["components"]
-    if len(comps) not in (1, 3, 4):
-        return f"{len(comps)} components"
-    if info["height"] == 0 or info["width"] == 0:
-        return "zero size (DNL)"
-    if max(info["height"], info["width"]) > JPEG_MAX_DIMENSION:
-        return f"a side over libjpeg's {JPEG_MAX_DIMENSION}"
-    too_big = size_refusal(_ceil_div(info["width"], scale), _ceil_div(info["height"], scale))
-    if too_big:
-        return too_big
     if any(not (1 <= h <= 4 and 1 <= v <= 4) for _, h, v, _ in comps):
         return "sampling factors outside 1..4"
     max_h = max(h for _, h, _, _ in comps)
@@ -317,7 +351,35 @@ def jpeg_refusal(info: dict, scale: int = 1) -> str | None:
         # libjpeg reads a multi-scan file to its EOI before any output;
         # bytes that end first make it suspend for more input
         return "a multi-scan JPEG whose bytes end before the EOI marker"
+    colour = jpeg_colour(info)
+    if sof == SOF_LOSSLESS and colour not in (("grey", "rgb", "cmyk") if pillow
+                                              else ("rgb", "cmyk")):
+        # jdcolor.c converts no colour in lossless mode
+        return (f"a lossless {colour} JPEG (libjpeg-turbo converts no colour in "
+                f"lossless mode, so {'Pillow' if pillow else 'cv2.imdecode'} gets no pixels)")
     return None
+
+
+def pil_refusal(info: dict) -> str | None:
+    """Why Pillow's Image.open refuses this JPEG frame (JpegImagePlugin
+    reads 8-bit samples of 1, 3 or 4 components only), or None."""
+    if info["precision"] != 8:
+        return f"{info['precision']}-bit samples"
+    if len(info["components"]) not in (1, 3, 4):
+        return f"{len(info['components'])} components"
+    return None
+
+
+def jpeg_size_refusal(info: dict, scale: int = 1) -> str | None:
+    """Why libjpeg or OpenCV refuses the size of this JPEG frame decoded at
+    1/`scale` (see jpeg_refusal), or None."""
+    if info["height"] == 0 or info["width"] == 0:
+        return "zero size (DNL)"
+    if max(info["height"], info["width"]) > JPEG_MAX_DIMENSION:
+        return f"a side over libjpeg's {JPEG_MAX_DIMENSION}"
+    if info["sof"] == SOF_LOSSLESS:
+        scale = 1
+    return size_refusal(_ceil_div(info["width"], scale), _ceil_div(info["height"], scale))
 
 
 def jpeg_colour(info: dict) -> str:
@@ -409,10 +471,11 @@ def _huffman_lookup(counts, symbols, ac: bool) -> list:
     return table
 
 
-def _windows(seg: np.ndarray) -> list:
+def _windows(seg: np.ndarray, zeros: int = 4096) -> list:
     """w[i] = the 64 bits from byte i on (big-endian), as Python ints, over
-    the segment padded with zero bytes (libjpeg's fill after a marker)."""
-    pad = np.zeros(len(seg) + 8 + 4096, np.uint8)
+    the segment and `zeros` bytes of zeros after it (libjpeg's fill after
+    a marker)."""
+    pad = np.zeros(len(seg) + 8 + zeros, np.uint8)
     pad[:len(seg)] = seg
     w = np.zeros(len(pad) - 7, np.uint64)
     for j in range(8):
@@ -437,18 +500,23 @@ def _unstuff(data: bytes, pos: int, end: int) -> list:
     return [body[a:b][keep[a:b]] for a, b in zip(bounds[:-1], bounds[1:])]
 
 
-def _decode_blocks(w, avail, plan, n_mcus, coef_idx, coef_val):
+def _decode_blocks(w, avail, plan, n_mcus, coef_idx, coef_val, trace=None):
     """Huffman-decode `n_mcus` MCUs of one restart interval. `plan` lists,
     per MCU, the blocks (flat coefficient offset, component slot, DC table,
     AC table). Appends each nonzero coefficient's flat index and value.
     When the walk needs bits past `avail`, the MCU where it ran out is kept,
     read on through zero bits, and the rest of the interval is left zero,
-    as libjpeg leaves it; returns that MCU's index, else None."""
+    as libjpeg leaves it; returns that MCU's index, else None. `trace`,
+    when given, is a pair of lists that gain each code's (length, extra
+    bits) and where each MCU's codes start."""
     nat, mask, half = _NATURAL, _MASK, _HALF
     ia, va = coef_idx.append, coef_val.append
     pred = [0, 0, 0, 0]
     p = 0
+    codes = trace[0].append if trace else None
     for m in range(n_mcus):
+        if trace:
+            trace[1].append(len(trace[0]))
         for base, slot, dct, act in plan(m):
             q = p & 7
             length, s = dct[(w[p >> 3] >> (48 - q)) & 0xFFFF]
@@ -460,6 +528,8 @@ def _decode_blocks(w, avail, plan, n_mcus, coef_idx, coef_val):
                 if v < half[s]:
                     v -= mask[s]
                 pred[slot] += v
+            if codes:
+                codes((length, s))
             if pred[slot]:
                 ia(base)
                 va(pred[slot])
@@ -468,6 +538,8 @@ def _decode_blocks(w, avail, plan, n_mcus, coef_idx, coef_val):
                 q = p & 7
                 length, r, s = act[(w[p >> 3] >> (48 - q)) & 0xFFFF]
                 p += length
+                if codes:
+                    codes((length, s))
                 if s:
                     k += r
                     v = (w[p >> 3] >> (64 - (p & 7) - s)) & mask[s]
@@ -482,8 +554,87 @@ def _decode_blocks(w, avail, plan, n_mcus, coef_idx, coef_val):
                 else:
                     break
         if p > avail:
-            return m
-    return None
+            break
+    else:
+        m = None
+    if trace:
+        trace[1].append(len(trace[0]))
+    return m
+
+
+# jdhuff.c's bit buffer as libjpeg-turbo 3.1 runs it on a 64-bit machine
+MIN_GET_BITS = 57   # jdhuff.h: BIT_BUF_SIZE - 7, the depth a fill reaches
+FAST_BYTES = 512    # jdhuff.c's BUFSIZE: decode_mcu_fast needs this many bytes a block
+
+
+def _suspends(codes, starts, n_data: int, left_after=None, fast_blocks: int = 0) -> bool:
+    """Whether libjpeg suspends for more input while decoding the codes of
+    an interval whose `n_data` unstuffed bytes end the file with no marker
+    after them (OpenCV's source holds the whole file and cannot refill, so
+    cv2 then gives None). `codes` holds each code's (length, extra bits),
+    `starts` where each MCU's codes start (and their end). jdhuff.c's
+    decode_mcu takes decode_mcu_fast when the file bytes left after those
+    in the bit buffer (`left_after(data bytes read)`) are at least
+    FAST_BYTES x `fast_blocks` (0 with restart intervals, and for
+    jdlhuff.c, which has no fast path): it loads 6 bytes whenever 16 bits
+    or fewer are left, and cannot suspend. decode_mcu_slow fills through
+    jpeg_fill_bit_buffer whenever a code needs more bits than the buffer
+    holds (HUFF_DECODE's 8-bit look-ahead, jpeg_huff_decode's 9 and then 1
+    for a longer code, the extra bits): each fill loads bytes until
+    MIN_GET_BITS bits are there, and suspends when the bytes end first."""
+    p = read = 0
+    for m in range(len(starts) - 1):
+        fast = fast_blocks and left_after(read) >= FAST_BYTES * fast_blocks
+        for length, extra in codes[starts[m]:starts[m + 1]]:
+            if fast:
+                if 8 * read - p <= 16:
+                    read += 6
+                p += length
+                if extra:
+                    if 8 * read - p <= 16:
+                        read += 6
+                    p += extra
+                continue
+            wants = [8] if length <= 8 else [8, 9] + [1] * (length - 9)
+            takes = [length] if length <= 8 else [0, 9] + [1] * (length - 9)
+            if extra:
+                wants.append(extra)
+                takes.append(extra)
+            for want, take in zip(wants, takes):
+                if 8 * read - p < want:
+                    read = _ceil_div(p + MIN_GET_BITS, 8)
+                    if read > n_data:
+                        return True
+                p += take
+    return False
+
+
+def _huffman_suspends(data: bytes, pos: int, total: int, restart: int, blocks: int,
+                      walk) -> bool:
+    """_suspends for a sequential scan from data[pos:] that the bytes end
+    inside: the last restart interval, re-walked by walk(first MCU,
+    unstuffed bytes, trace). With fewer intervals than the scan has,
+    libjpeg suspends looking for the next restart marker."""
+    interval = restart or total
+    firsts = range(0, total, interval)
+    segs = _unstuff(data, pos, len(data))
+    if len(segs) != len(firsts):
+        return len(segs) < len(firsts)   # more: the last one ends at a marker
+    seg = segs[-1]
+    left_after = None
+    if not restart:   # the file bytes left after each data byte (FF00 is two)
+        body = np.frombuffer(data, np.uint8, offset=pos)
+        ff = np.flatnonzero(body == 0xFF)
+        nxt = np.append(body, np.uint8(0xFF))[ff + 1]
+        keep = np.ones(len(body), bool)
+        keep[ff[nxt == 0xFF]] = False   # fill bytes
+        keep[ff[nxt == 0] + 1] = False  # stuffed zeros
+        at = np.flatnonzero(keep)[:len(seg)]
+        left = len(data) - np.concatenate([[pos], pos + at + 1 + (body[at] == 0xFF)])
+        left_after = left.tolist().__getitem__
+    trace = ([], [])
+    walk(firsts[-1], seg, trace)
+    return _suspends(trace[0], trace[1], len(seg), left_after, 0 if restart else blocks)
 
 
 def _block_order(frame, scan_comps) -> tuple[np.ndarray, list]:
@@ -556,9 +707,17 @@ def _scan(data, pos, end, frame, scan_comps, tables, restart, coefs, short=None)
     total = len(plan)
     interval = restart or total
     idx, val = [], []
-    _run_intervals(data, pos, end, total, restart, lambda first, seg: _decode_blocks(
-        _windows(seg), 8 * len(seg), (lambda m: plan[first + m]),
-        min(interval, total - first), idx, val), short)
+
+    def walk(first, seg, trace=None):
+        return _decode_blocks(_windows(seg), 8 * len(seg), (lambda m: plan[first + m]),
+                              min(interval, total - first), idx, val, trace)
+
+    if end == len(data) and _huffman_suspends(data, pos, total, restart, len(slots), walk):
+        raise JpegError("the bytes end inside the scan, where libjpeg's bit buffer "
+                        "reads past them")
+    idx.clear()
+    val.clear()
+    _run_intervals(data, pos, end, total, restart, walk, short)
     if idx:   # stored as libjpeg's 16-bit JCOEF
         np.put(coefs, np.asarray(idx, np.int64), _wrap16(val))
 
@@ -752,12 +911,51 @@ def _scan_progressive(data, pos, end, frame, scan_comps, tables, restart, coefs,
             return ran
 
         good = _run_intervals(data, pos, end, total, restart, refine_ac, short)
-    if good < 0:
-        return None
+    return None if good < 0 else _imcu_row(frame, scan_comps, good)
+
+
+def _scan_arith(data, pos, end, frame, scan_comps, restart, coefs, cond, ss, se, ah, al,
+                progressive, short=None) -> int:
+    """Decode the arithmetic-coded scan in data[pos:end] into `coefs`
+    (data/jpeg_arith.py). Every MCU decodes, from zero bytes past a marker,
+    so the last good iMCU row is the scan's last (jdarith.c never sets
+    insufficient_data). A scan that the bytes end inside (end is their
+    length) raises where the decoder needs a byte past them or a restart
+    marker the bytes do not hold."""
+    from vision_kit_tpu_torch.data import jpeg_arith
+
+    bases, slots = _block_order(frame, scan_comps)
+    total = len(bases)
+    interval = restart or total
+    firsts = range(0, total, interval)
+    marker = end < len(data)
+    segs = _unstuff(data, pos, end)[:len(firsts)]
+    # without a marker, libjpeg stops where the bytes end, or at the restart
+    # marker after them (read_restart_marker cannot suspend either)
+    held = len(firsts) if marker else len(segs)
+    intervals = [(segs[i].tobytes() if i < len(segs) else b"", marker or i < len(segs) - 1,
+                  first, min(interval, total - first)) for i, first in enumerate(firsts[:held])]
+    try:
+        jpeg_arith.decode_scan(intervals, bases, slots, [(td, ta) for _, td, ta in scan_comps],
+                               cond, coefs, ss, se, ah, al, progressive)
+        if held < len(firsts):
+            end_at = jpeg_arith.BytesEnd("the bytes end inside a scan, before a restart marker")
+            end_at.mcu = firsts[held]
+            raise end_at
+    except jpeg_arith.BytesEnd as e:
+        e.row = _imcu_row(frame, scan_comps, e.mcu)
+        raise
+    if short is not None:
+        short.append(0)
+    return _imcu_row(frame, scan_comps, total - 1)
+
+
+def _imcu_row(frame, scan_comps, mcu: int) -> int:
+    """The iMCU row of a scan's MCU `mcu`."""
     if len(scan_comps) > 1:
-        return good // frame["mcu_cols"]
+        return mcu // frame["mcu_cols"]
     c = frame["comps"][scan_comps[0][0]]
-    return good // c["bcols_real"] // c["sof_v"]
+    return mcu // c["bcols_real"] // c["sof_v"]
 
 
 def _progression(coef_bits: np.ndarray, scan: list, ss: int, se: int, ah: int, al: int,
@@ -790,37 +988,44 @@ FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
 FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
 
 
+def _w16(x):
+    """x wrapped to a signed 16-bit lane, as a SIMD word add or multiply
+    leaves it."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _w32(x):
+    """x wrapped to a signed 32-bit lane."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 def _idct_pass(c, shift):
-    """One 1-D pass of jidctint.c's jpeg_idct_islow over the eight inputs
-    c[0..7] (each an int64 array), descaled by `shift` (CONST_BITS -
-    PASS1_BITS = 11 after the columns, CONST_BITS + PASS1_BITS + 3 = 18
-    after the rows); returns the 8 outputs. Its zero-AC shortcuts give the
-    same values, so there are none."""
+    """One 1-D pass of jpeg_idct_islow as libjpeg-turbo's AVX2 code
+    (jidctint-avx2.asm) runs it over the eight 16-bit inputs c[0..7] (each
+    an int64 array): descaled by `shift` (CONST_BITS - PASS1_BITS = 11
+    after the columns, CONST_BITS + PASS1_BITS + 3 = 18 after the rows) and
+    saturated to 16 bits (packssdw). Its products are jidctint.c's,
+    regrouped into pairs (pmaddwd) with the same exact sums; the sums
+    c[0] +- c[4], c[7] + c[3] and c[5] + c[1] are 16-bit word adds, which
+    wrap for the values corrupt data can give (an arithmetic-coded scan
+    decoded from the zeros after a cut)."""
     z2, z3 = c[2], c[6]
-    z1 = (z2 + z3) * FIX_0_541196100
-    tmp2 = z1 - z3 * FIX_1_847759065
-    tmp3 = z1 + z2 * FIX_0_765366865
-    tmp0 = (c[0] + c[4]) << 13
-    tmp1 = (c[0] - c[4]) << 13
+    tmp2 = z2 * FIX_0_541196100 + z3 * (FIX_0_541196100 - FIX_1_847759065)
+    tmp3 = z2 * (FIX_0_541196100 + FIX_0_765366865) + z3 * FIX_0_541196100
+    tmp0 = _w16(c[0] + c[4]) << 13
+    tmp1 = _w16(c[0] - c[4]) << 13
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * FIX_1_175875602
-    t0 = t0 * FIX_0_298631336
-    t1 = t1 * FIX_2_053119869
-    t2 = t2 * FIX_3_072711026
-    t3 = t3 * FIX_1_501321110
-    z1 = z1 * -FIX_0_899976223
-    z2 = z2 * -FIX_2_562915447
-    z3 = z3 * -FIX_1_961570560 + z5
-    z4 = z4 * -FIX_0_390180644 + z5
-    t0 = t0 + z1 + z3
-    t1 = t1 + z2 + z4
-    t2 = t2 + z2 + z3
-    t3 = t3 + z1 + z4
+    z3, z4 = _w16(t0 + t2), _w16(t1 + t3)
+    z3, z4 = (z3 * (FIX_1_175875602 - FIX_1_961570560) + z4 * FIX_1_175875602,
+              z3 * FIX_1_175875602 + z4 * (FIX_1_175875602 - FIX_0_390180644))
+    t0, t3 = (t0 * (FIX_0_298631336 - FIX_0_899976223) + t3 * -FIX_0_899976223 + z3,
+              t0 * -FIX_0_899976223 + t3 * (FIX_1_501321110 - FIX_0_899976223) + z4)
+    t1, t2 = (t1 * (FIX_2_053119869 - FIX_2_562915447) + t2 * -FIX_2_562915447 + z4,
+              t1 * -FIX_2_562915447 + t2 * (FIX_3_072711026 - FIX_2_562915447) + z3)
     rnd = 1 << (shift - 1)
-    return [(x + rnd) >> shift for x in (
+    return [np.clip((x + rnd) >> shift, -0x8000, 0x7FFF) for x in (
         tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
         tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
 
@@ -841,11 +1046,16 @@ _RANGE = _range_limit_table()
 
 def _idct_plane(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
     """(rows, cols, 64) quantised blocks in natural order -> (8 rows, 8
-    cols) uint8 plane."""
+    cols) uint8 plane, as libjpeg-turbo's AVX2 islow IDCT gives it: the
+    dequantisation a 16-bit multiply (pmullw), and a block whose rows 1-7
+    are all zero takes its column pass's shortcut, row 0 shifted left by
+    PASS1_BITS in 16 bits (psllw), where the full pass would saturate."""
     rows, cols = coef.shape[:2]
-    b = coef.reshape(-1, 8, 8).astype(np.int64) * qt.reshape(8, 8).astype(np.int64)
-    ws = _idct_pass([b[:, k, :] for k in range(8)], 11)      # columns
-    ws = np.stack(ws, axis=1)                                 # (N, row, col)
+    blocks = coef.reshape(-1, 8, 8).astype(np.int64)
+    b = _w16(blocks * qt.reshape(8, 8).astype(np.int64))
+    ws = np.stack(_idct_pass([b[:, k, :] for k in range(8)], 11), axis=1)  # (N, row, col)
+    dc_only = ~blocks[:, 1:, :].any(axis=(1, 2))
+    ws[dc_only] = _w16(b[dc_only, :1, :] << 2)
     out = _idct_pass([ws[:, :, k] for k in range(8)], 18)    # rows
     out = np.stack(out, axis=2)                               # (N, row, col)
     px = np.clip(out + 128, 0, 255).astype(np.uint8)
@@ -883,27 +1093,45 @@ def _idct4_pass(c, shift):
 def _idct2_pass(c, shift):
     """One 1-D pass of jpeg_idct_2x2 over c[0..7] (c[2], c[4], c[6] are not
     read): the 2 outputs, descaled by `shift` (13 after the columns, 20
-    after the rows)."""
+    after the rows). Both passes sum in 32-bit lanes, which wrap, and the
+    row pass takes the column pass's odd outputs saturated to 16 bits, as
+    libjpeg-turbo's SIMD code does for the values corrupt data can give."""
+    if shift == 20:   # the odd inputs come packed to 16 bits (saturated)
+        c = [c[0]] + [np.clip(v, -0x8000, 0x7FFF) for v in c[1:]]
     tmp10 = c[0] << 15
     tmp0 = (c[7] * -FIX_0_720959822 + c[5] * FIX_0_850430095
             + c[3] * -FIX_1_272758580 + c[1] * FIX_3_624509785)
-    return [_descale(tmp10 + tmp0, shift), _descale(tmp10 - tmp0, shift)]
+    rnd = 1 << (shift - 1)
+    return [_w32(x + rnd) >> shift for x in (tmp10 + tmp0, tmp10 - tmp0)]
 
 
 def _idct_scaled(coef: np.ndarray, qt: np.ndarray, size: int) -> np.ndarray:
     """(rows, cols, 64) quantised blocks in natural order -> (size * rows,
     size * cols) uint8 plane: libjpeg's IDCT that gives size x size samples
     a block (jidctint.c's islow at 8, jidctred.c's 4x4, 2x2 and 1x1 below),
-    with the range limit of the full decode."""
+    with the range limit of the full decode. The 4x4 runs as libjpeg-turbo's
+    SSE2 code (jidctred-sse2.asm) does: a 16-bit dequantising multiply, the
+    column pass saturated to 16 bits, and a shortcut for a block whose rows
+    1-3 and 5-7 are zero (row 0 shifted left in 16 bits); the 2x2 has the
+    16-bit multiply and 32-bit lanes (_idct2_pass); the 1x1 is plain C.
+    Only corrupt data (an
+    arithmetic-coded scan decoded from the zeros after a cut) reaches the
+    values where these differ from jidctred.c, as measured against cv2."""
     if size == 8:
         return _idct_plane(coef, qt)
     rows, cols = coef.shape[:2]
-    b = coef.reshape(-1, 8, 8).astype(np.int64) * qt.reshape(8, 8).astype(np.int64)
+    blocks = coef.reshape(-1, 8, 8).astype(np.int64)
+    b = blocks * qt.reshape(8, 8).astype(np.int64)
     if size == 1:
         out = _descale(b[:, :1, :1], 3)
     else:
         one_pass, shifts = {4: (_idct4_pass, (12, 19)), 2: (_idct2_pass, (13, 20))}[size]
+        b = _w16(b)
         ws = np.stack(one_pass([b[:, k, :] for k in range(8)], shifts[0]), axis=1)
+        if size == 4:
+            ws = np.clip(ws, -0x8000, 0x7FFF)
+            dc_only = ~blocks[:, [1, 2, 3, 5, 6, 7], :].any(axis=(1, 2))
+            ws[dc_only] = _w16(b[dc_only, :1, :] << 2)
         out = np.stack(one_pass([ws[:, :, k] for k in range(8)], shifts[1]), axis=2)
     px = _RANGE[out & 0x3FF] if size == 1 else np.clip(out + 128, 0, 255).astype(np.uint8)
     return px.reshape(rows, cols, size, size).transpose(0, 2, 1, 3).reshape(
@@ -1122,14 +1350,33 @@ def _decode_jpeg(data: bytes, scale: int = 1) -> tuple[np.ndarray, int]:
     EXIF orientation. `scale` 2, 4 or 8 decodes as libjpeg does with
     scale_num 1, scale_denom `scale`: every coefficient is entropy-decoded,
     each component runs the IDCT of its scaled size (scaled_sizes), and
-    upsampling and colour conversion run at the reduced sizes."""
+    upsampling and colour conversion run at the reduced sizes. A lossless
+    frame decodes at its own size whatever the scale, as libjpeg's does."""
     info = jpeg_header(data)
     why = jpeg_refusal(info, scale)
     if why:
         raise JpegError(why)
+    if info["sof"] == SOF_LOSSLESS:
+        return _colour(info, _lossless_planes(data, info)), info["orientation"]
     (frame, coefs, coef_bits, prev_bits, n_scans, last_good) = _coefficients(data, info)
     return _reconstruct(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
                         scale)
+
+
+def _lossless_planes(data: bytes, info: dict) -> list:
+    """data/jpeg_lossless.py's component planes, upsampled to the image's
+    size by replication (libjpeg's lossless mode has no fancy upsampling:
+    each "block" is one sample)."""
+    from vision_kit_tpu_torch.data import jpeg_lossless
+
+    planes = jpeg_lossless.decode_lossless(data, info)
+    comps = info["components"]
+    max_h = max(h for _, h, _, _ in comps)
+    max_v = max(v for _, _, v, _ in comps)
+    if len(comps) == 1:
+        return planes
+    return [_upsample(p, max_h // h, max_v // v, fancy=False)[:info["height"], :info["width"]]
+            for p, (_, h, v, _) in zip(planes, comps)]
 
 
 def scans_short(data: bytes) -> list[int]:
@@ -1137,9 +1384,11 @@ def scans_short(data: bytes) -> list[int]:
     (blocks, in a one-component scan) need Huffman-coded bits past the
     entropy-coded data of their restart interval, which the decoder reads
     as zeros: all 0 for a file whose scans are whole. From the decoder's
-    own walks (no IDCT). Raises JpegError for a JPEG decode_image refuses."""
+    own walks (no IDCT); all 0 for an arithmetic-coded file, which reads
+    zeros to the end of each scan. Raises JpegError for a JPEG decode_image
+    refuses, and for a lossless one (no DCT scans: no route walks it)."""
     info = jpeg_header(data)
-    why = jpeg_refusal(info)
+    why = jpeg_refusal(info) or ("a lossless JPEG" if info["sof"] == SOF_LOSSLESS else None)
     if why:
         raise JpegError(why)
     short: list[int] = []
@@ -1152,8 +1401,13 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
     geometry, the coefficients of every component's blocks, flat, libjpeg's
     coef_bits and their copy from before the last scan, the number of
     scans, the last good iMCU row of a progressive file). Appends each
-    scan's count of MCUs short of bits to `short` when given."""
-    progressive = info["sof"] == SOF_PROGRESSIVE
+    scan's count of MCUs short of bits to `short` when given (none are
+    short in an arithmetic-coded scan, which reads zeros to its end)."""
+    from vision_kit_tpu_torch.data import jpeg_arith
+
+    progressive = is_progressive(info["sof"])
+    arith = info["sof"] in SOF_ARITH
+    cond = {k: v[:] for k, v in jpeg_arith.DEFAULT_CONDITIONING.items()}
     height, width = info["height"], info["width"]
     comps = [dict(id=i, h=h, v=v, tq=tq, sof_v=v) for i, h, v, tq in info["components"]]
     if len(comps) == 1:       # one component is never interleaved: 1x1
@@ -1180,7 +1434,7 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
     qtables, tables, restart = {}, {}, 0
     started = False
     by_id = {c["id"]: i for i, c in enumerate(comps)}
-    for m, a, b, end in _walk(data):
+    for m, a, b, end in _walk(data, open_end=True):
         seg = data[a:b]
         if m == DQT:
             i = 0
@@ -1208,12 +1462,14 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
                 i += 17 + nsym
         elif m == DRI:
             restart = (seg[0] << 8) | seg[1]
+        elif m == DAC:
+            jpeg_arith.read_dac(seg, cond)
         elif m == SOS:
             ns = seg[0]
             if len(seg) < 4 + 2 * ns:
                 raise JpegError("short SOS")
             ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
-            if not (started or progressive):
+            if not (started or progressive or arith):
                 # jdhuff.c's jinit_huff_decoder, as decompression starts:
                 # sequential slots 0 and 1 that no DHT has defined take the
                 # standard tables (Motion-JPEG frames carry none); jdphuff.c
@@ -1231,7 +1487,7 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
                 if cid not in by_id:
                     raise JpegError("scan names an unknown component")
                 td, ta = t >> 4, t & 15
-                if any((tc, (td, ta)[tc]) not in tables for tc in need):
+                if not arith and any((tc, (td, ta)[tc]) not in tables for tc in need):
                     raise JpegError("Huffman table not defined")
                 ci = by_id[cid]
                 if comps[ci]["tq"] not in qtables:
@@ -1242,12 +1498,16 @@ def _coefficients(data: bytes, info: dict, short: list | None = None) -> tuple:
                 _progression(coef_bits, [ci for ci, _, _ in scan_comps], ss, se, ah, al,
                              prev_bits, n_scans == 0)
                 n_scans += 1
+            if arith:
+                row = _scan_arith(data, b, end, frame, scan_comps, restart, coefs, cond,
+                                  ss, se, ah, al, progressive, short)
+            elif progressive:
                 row = _scan_progressive(data, b, end, frame, scan_comps, tables,
                                         restart, coefs, ss, se, ah, al, short)
-                if row is not None:   # jdcoefct.c's last_good_iMCU_row
-                    last_good = row
             else:
                 _scan(data, b, end, frame, scan_comps, tables, restart, coefs, short)
+            if progressive and row is not None:   # jdcoefct.c's last_good_iMCU_row
+                last_good = row
     return frame, coefs, coef_bits, prev_bits, n_scans, last_good
 
 
@@ -1256,23 +1516,27 @@ def _reconstruct(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
     """The RGB samples of _coefficients' blocks at 1/`scale`: smoothing,
     IDCT, upsampling and colour conversion (see _decode_jpeg)."""
     planes = _planes(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good, scale)
+    return _colour(info, planes), info["orientation"]
+
+
+def _colour(info: dict, planes: list) -> np.ndarray:
+    """The (H, W, 3) RGB of a JPEG's upsampled component planes, in the
+    colour space jpeg_colour names."""
     colour = jpeg_colour(info)
     if colour == "grey":
-        rgb = np.repeat(planes[0][:, :, None], 3, axis=2)
-    elif colour == "ycc":
-        rgb = ycc_to_rgb(*planes)
-    elif colour == "rgb":
-        rgb = np.stack(planes, -1)
-    else:
-        rgb = cmyk_to_rgb(*(planes if colour == "cmyk" else ycck_to_cmyk(*planes)))
-    return rgb, info["orientation"]
+        return np.repeat(planes[0][:, :, None], 3, axis=2)
+    if colour == "ycc":
+        return ycc_to_rgb(*planes)
+    if colour == "rgb":
+        return np.stack(planes, -1)
+    return cmyk_to_rgb(*(planes if colour == "cmyk" else ycck_to_cmyk(*planes)))
 
 
 def _planes(info, frame, coefs, coef_bits, prev_bits, n_scans, last_good,
             scale) -> list:
     """Each component's samples at 1/`scale`, upsampled to the image's size:
     smoothing, IDCT and upsampling, before any colour conversion."""
-    progressive = info["sof"] == SOF_PROGRESSIVE
+    progressive = is_progressive(info["sof"])
     height, width, comps, offsets = (frame["height"], frame["width"], frame["comps"],
                                      frame["offsets"])
     imcu_rows = _ceil_div(height, 8 * max(c["sof_v"] for c in comps))
@@ -1887,18 +2151,29 @@ def decode_truncated_jpeg(data: bytes) -> tuple[str, np.ndarray, dict]:
     Pillow feeds libjpeg an EOI marker when the file ends, so the samples
     are decode_image's of the bytes plus an EOI (the rows and scans decoded
     before the data ran out, missing blocks grey, block smoothing for a
-    progressive file), where that decodes. Where it does not (the bytes
-    end inside a segment after the first scan, or libjpeg stops at an
-    error), a multi-scan file (progressive, or a first scan without every
-    component) has output no row: zeros, as Pillow allocates the image; a
-    one-scan file has output every row of its whole scan. Raises JpegError
-    where Image.open raises (the bytes end before the first scan's data, a
-    frame Pillow refuses or over its decompression-bomb limit) and where
-    the port refuses the frame (jpeg_refusal)."""
+    progressive file; a lossless frame read as zeros past its data; a grey
+    lossless frame too, which Pillow reads as "L"), where that decodes.
+    Where it does not, libjpeg has stopped at an error, which Pillow
+    ignores in this mode: a frame libjpeg decodes to nothing (arithmetic
+    lossless, hierarchical, a lossless frame of another colour family,
+    sampling it refuses) or a multi-scan file (progressive, or a first scan
+    without every component; the bytes end inside a segment after the
+    first scan) has output no row: zeros, as Pillow allocates the image; a
+    one-scan file has output every row of its whole scan. An
+    arithmetic-coded scan cannot wait for the EOI (jdarith.c's get_byte
+    cannot suspend): where it needs a byte past the bytes, libjpeg stops,
+    after the rows of the iMCU rows before that one (less the last row
+    group, for fancy upsampling that needs the next rows) in a one-scan
+    file, and none in a multi-scan one. Raises JpegError where Image.open
+    raises (the bytes end before the first scan's data, a frame Pillow
+    refuses or over its decompression-bomb limit) and where the port
+    refuses the frame's size (jpeg_size_refusal)."""
+    from vision_kit_tpu_torch.data import jpeg_arith
+
     start = _first_scan_start(data)
     header = data[:start] + b"\xff\xd9"   # the segments before the first scan's data
     info = jpeg_header(header)
-    why = jpeg_refusal(info)
+    why = pil_refusal(info) or jpeg_size_refusal(info)
     if why:
         raise JpegError(why)
     width, height = info["width"], info["height"]
@@ -1920,16 +2195,30 @@ def decode_truncated_jpeg(data: bytes) -> tuple[str, np.ndarray, dict]:
         tag = int(found[2]) if found else None
     meta["orientation"] = 1 if tag is None else tag
 
+    rows = height   # the rows libjpeg outputs before it stops
+    if info["sof"] in SOF_ARITH:
+        try:
+            _coefficients(data, jpeg_header(data))
+        except jpeg_arith.BytesEnd as e:
+            comps = info["components"]
+            max_v = 1 if len(comps) == 1 else max(v for _, _, v, _ in comps)
+            context = len(comps) > 1 and any(max_v == 2 * v for _, _, v, _ in comps)
+            rows = 0 if info["multi_scan"] else max(e.row * 8 * max_v - max_v * context, 0)
+        except (ValueError, IndexError, struct.error):
+            pass
     # the bytes plus an EOI; for a one-scan file, its first scan whole
     tries = [data] if info["multi_scan"] else [data, data[:_scan_end(data, start) or 0]]
     planes = None
-    for jpeg in tries:
+    for jpeg in tries if rows else ():
         try:
             whole = jpeg_header(jpeg + b"\xff\xd9")
-            why = jpeg_refusal(whole)
+            why = jpeg_refusal(whole, pillow=True)
             if why:
                 raise JpegError(why)
-            planes = _planes(whole, *_coefficients(jpeg + b"\xff\xd9", whole), 1)
+            if whole["sof"] == SOF_LOSSLESS:
+                planes = _lossless_planes(jpeg + b"\xff\xd9", whole)
+            else:
+                planes = _planes(whole, *_coefficients(jpeg + b"\xff\xd9", whole), 1)
             break
         except (ValueError, IndexError, struct.error):
             continue
@@ -1944,6 +2233,7 @@ def decode_truncated_jpeg(data: bytes) -> tuple[str, np.ndarray, dict]:
         out = np.stack(ycck_to_cmyk(*planes), -1)
     else:
         out = np.stack(planes, -1)
+    out[rows:] = 255 if mode == "CMYK" else 0
     return mode, out, meta
 
 
@@ -2099,23 +2389,29 @@ def walk_scans_short(data: bytes) -> list[int]:
 
 
 ROUTES = ("nvjpeg", "nvjpeg_progressive", "host_smoothed", "host_colour",
-          "host_cut", "host_jpeg", "host_png", "host_bmp", "host_webp", "refused")
+          "host_cut", "host_arith", "host_lossless", "host_jpeg", "host_png", "host_bmp",
+          "host_webp", "refused")
 route_counts = dict.fromkeys(ROUTES, 0)   # decode_to's decodes by route
 
 
 def _route(data: bytes, device: torch.device, walk=None):
     """(route, JPEG header or None) of `data` on `device`, from its header
-    alone (no entropy decoding): on a CUDA device a baseline or extended
+    alone (no entropy decoding): an arithmetic-coded JPEG ("host_arith")
+    and a lossless one ("host_lossless") decode on the host on any device
+    (nvJPEG reads neither); on a CUDA device a baseline or extended
     sequential JPEG in YCbCr or grey goes to nvJPEG ("nvjpeg"), so does a
     progressive one whose scans complete every coefficient
     ("nvjpeg_progressive"); a progressive JPEG that leaves coefficient bits
     unknown ("host_smoothed": libjpeg smooths its blocks, nvJPEG does not)
     and a CMYK, YCCK or RGB JPEG ("host_colour") decode on the host, as
-    does every JPEG on the CPU ("host_jpeg"), every PNG, BMP and WebP,
-    while what decode_image refuses is "refused". Before nvJPEG, the host C
-    walk (walk_scans_short) reads every scan's Huffman codes: a JPEG in
-    which any scan needs bits past its data ("host_cut": libjpeg reads them
-    as zeros) or that the walk cannot read decodes on the host too."""
+    does every other JPEG on the CPU ("host_jpeg"), every PNG, BMP and
+    WebP, while what decode_image refuses is "refused". A one-scan JPEG
+    that the bytes end inside ("host_cut": libjpeg decodes it or suspends,
+    as its bit buffer reads ahead) decodes on the host. Before nvJPEG, the
+    host C walk (walk_scans_short) reads every scan's Huffman codes: a
+    JPEG in which any scan needs bits past its data ("host_cut": libjpeg
+    reads them as zeros) or that the walk cannot read decodes on the host
+    too."""
     kind = image_kind(data)
     if kind != "jpeg":
         return ("refused" if kind is None else f"host_{kind}"), None
@@ -2125,12 +2421,18 @@ def _route(data: bytes, device: torch.device, walk=None):
         return "refused", None
     if jpeg_refusal(info):
         return "refused", info
+    if info["sof"] in SOF_ARITH:
+        return "host_arith", info
+    if info["sof"] == SOF_LOSSLESS:
+        return "host_lossless", info
     if device.type != "cuda":
         return "host_jpeg", info
     if jpeg_colour(info) not in ("grey", "ycc"):
         return "host_colour", info
     if info["sof"] == SOF_PROGRESSIVE and not info["complete"]:
         return "host_smoothed", info
+    if info["open_scan"]:
+        return "host_cut", info
     try:
         cut = any((walk or walk_scans_short)(data))
     except (ValueError, IndexError):   # bytes the walk cannot read

@@ -401,3 +401,353 @@ def encode_jpeg_cmyk(cmyk: np.ndarray, quality: int = 95,
     sof = struct.pack(">BHHB", 8, h, w, 4) + b"".join(bytes([i, 0x11, 0]) for i in CMYK_IDS)
     sos = bytes([4, *b"".join(bytes([i, 0x00]) for i in CMYK_IDS), 0, 63, 0])
     return _file(_segment(0xEE, ADOBE_CMYK), comment, [qt], sof, (0,), sos, scan)
+
+
+# -- lossless WebP (VP8L) ----------------------------------------------------
+
+VP8L_MAX_SIDE = 16384            # 14-bit width and height minus one
+_PREDICTOR_BITS = 4              # 16x16 tiles, one predictor mode each
+_PREDICTOR_MODES = tuple(range(1, 11))   # the modes that average or copy neighbours
+_MIN_COPY, _MAX_COPY = 3, 4096   # LZ77 lengths: the 24 length prefix codes reach 4096
+_MAX_DISTANCE = (1 << 20) - 121  # the 40 distance prefix codes reach 2^20 less the plane codes
+_CHAIN = 8                       # hash-chain links tried at a position
+_CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+_ALPHABETS = (256 + 24, 256, 256, 256, 40)   # green+lengths, red, blue, alpha, distance
+
+
+class _LsbWriter:
+    """VP8L's bit order: each value's bits least significant first, packed
+    from the low bit of each byte."""
+
+    def __init__(self):
+        self.values, self.nbits = [], []
+
+    def put(self, value: int, n: int) -> None:
+        self.values.append(value)
+        self.nbits.append(n)
+
+    def extend(self, values: np.ndarray, nbits: np.ndarray) -> None:
+        self.values.extend(values.tolist())
+        self.nbits.extend(nbits.tolist())
+
+    def bytes(self) -> bytes:
+        values = np.asarray(self.values, np.uint64)
+        nbits = np.asarray(self.nbits, np.int64)
+        start = np.concatenate([[0], np.cumsum(nbits)])
+        bits = np.zeros(int(start[-1]) + 7, np.uint8)
+        for b in range(int(nbits.max(initial=0))):
+            on = nbits > b
+            bits[start[:-1][on] + b] = (values[on] >> np.uint64(b)) & np.uint64(1)
+        return np.packbits(bits[:len(bits) - len(bits) % 8], bitorder="little").tobytes()
+
+
+def _huffman_lengths(counts: np.ndarray, limit: int) -> np.ndarray:
+    """Code lengths of a Huffman code over `counts` no longer than `limit`
+    bits (libwebp's way: while the tree is too deep, raise every used
+    count to a growing floor and rebuild). A single used symbol gets
+    length 0; no used symbol, all zeros."""
+    import heapq
+
+    counts = np.asarray(counts, np.int64)
+    used = np.flatnonzero(counts)
+    lengths = np.zeros(len(counts), np.int64)
+    if len(used) < 2:
+        return lengths
+    floor = 1
+    while True:
+        heap = [(max(int(counts[s]), floor), k, (int(s),)) for k, s in enumerate(used)]
+        heapq.heapify(heap)
+        depth = dict.fromkeys((int(s) for s in used), 0)
+        tie = len(heap)
+        while len(heap) > 1:
+            c1, _, a = heapq.heappop(heap)
+            c2, _, b = heapq.heappop(heap)
+            for s in a + b:
+                depth[s] += 1
+            heapq.heappush(heap, (c1 + c2, tie, a + b))
+            tie += 1
+        if max(depth.values()) <= limit:
+            for s, d in depth.items():
+                lengths[s] = d
+            return lengths
+        floor *= 2
+
+
+def _canonical_codes(lengths: np.ndarray) -> np.ndarray:
+    """Each symbol's canonical code (ordered by length, then symbol), bit
+    reversed for VP8L's least-significant-first reading."""
+    codes = np.zeros(len(lengths), np.int64)
+    code = 0
+    for length in range(1, int(lengths.max(initial=0)) + 1):
+        for s in np.flatnonzero(lengths == length).tolist():
+            codes[s] = int(format(code, f"0{length}b")[::-1], 2)
+            code += 1
+        code <<= 1
+    return codes
+
+
+def _write_code(bw: _LsbWriter, counts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Write the prefix code for `counts` (ReadHuffmanCode's simple form for
+    at most one used symbol below 256, else the normal form with its
+    code-length code) and return each symbol's (code, length)."""
+    used = np.flatnonzero(counts)
+    if len(used) == 1 and used[0] >= 256:   # the simple form holds 8-bit symbols only
+        counts = counts.copy()
+        counts[0 if used[0] else 1] = 1
+        used = np.flatnonzero(counts)
+    if len(used) <= 1:
+        s = int(used[0]) if len(used) else 0
+        bw.put(1, 1)                           # simple code
+        bw.put(0, 1)                           # one symbol
+        bw.put(int(s >= 2), 1)
+        bw.put(s, 8 if s >= 2 else 1)
+        return np.zeros(len(counts), np.int64), np.zeros(len(counts), np.int64)
+    lengths = _huffman_lengths(counts, 15)
+    # the lengths as code-length symbols: a literal 0-15, 16 (repeat the
+    # previous length 3-6 times), 17 (3-10 zeros), 18 (11-138 zeros)
+    tokens = []
+    i, n = 0, len(lengths)
+    while i < n:
+        v = int(lengths[i])
+        run = 1
+        while i + run < n and lengths[i + run] == v:
+            run += 1
+        if v == 0 and run >= 3:
+            r = min(run, 138)
+            tokens.append((18, r - 11, 7) if r >= 11 else (17, r - 3, 3))
+            i += r
+            continue
+        tokens.append((v, 0, 0))
+        i += 1
+        run -= 1
+        while v and run >= 3:
+            r = min(run, 6)
+            tokens.append((16, r - 3, 2))
+            i += r
+            run -= r
+    cl_counts = np.bincount([t[0] for t in tokens], minlength=19)
+    cl_lengths = _huffman_lengths(cl_counts, 7)
+    if (cl_lengths > 0).sum() == 0:   # one code-length symbol: give it a 1-bit code
+        cl_counts[(int(np.flatnonzero(cl_counts)[0]) + 1) % 19] = 1
+        cl_lengths = _huffman_lengths(cl_counts, 7)
+    cl_codes = _canonical_codes(cl_lengths)
+    order = [cl_lengths[s] for s in _CODE_LENGTH_ORDER]
+    k = 19
+    while k > 4 and order[k - 1] == 0:
+        k -= 1
+    bw.put(0, 1)                               # normal code
+    bw.put(k - 4, 4)
+    for v in order[:k]:
+        bw.put(int(v), 3)
+    bw.put(0, 1)                               # every symbol's length is written
+    for sym, extra, nbits in tokens:
+        bw.put(int(cl_codes[sym]), int(cl_lengths[sym]))
+        if nbits:
+            bw.put(extra, nbits)
+    return _canonical_codes(lengths), lengths
+
+
+def _prefix(values: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """VP8L's prefix coding of values >= 1: (prefix symbol, extra bits'
+    value, their count)."""
+    d = np.asarray(values, np.int64) - 1
+    high = np.floor(np.log2(np.maximum(d, 1))).astype(np.int64)
+    small = d < 4
+    nbits = np.where(small, 0, high - 1)
+    second = np.where(small, 0, (d >> np.maximum(high - 1, 0)) & 1)
+    symbol = np.where(small, d, 2 * high + second)
+    return symbol, d & ((1 << nbits) - 1), nbits
+
+
+def _run_lengths(eq: np.ndarray) -> np.ndarray:
+    """For each index, how many consecutive True values of `eq` start there."""
+    n = len(eq)
+    idx = np.arange(n)
+    last_false = np.where(~eq, idx, n)
+    next_false = np.minimum.accumulate(last_false[::-1])[::-1]
+    return next_false - idx
+
+
+def _lz77(argb: np.ndarray, width: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Greedy LZ77 over the flat pixels: at each position the longest copy
+    (at least _MIN_COPY pixels) from the pixel before, the pixel above, or
+    the earlier positions of a hash chain over each pixel and the two after
+    it. Returns (token start, copy length (0 for a literal), distance)."""
+    n = len(argb)
+    a = argb.astype(np.int64)
+    near = {}
+    for d in {1, width}:
+        if d < n:
+            run = np.zeros(n, np.int64)
+            run[d:] = _run_lengths(a[d:] == a[:-d])
+            near[d] = np.minimum(run, _MAX_COPY).tolist()
+    # the hash chain: each position's previous one with the same 3 pixels
+    ext = np.concatenate([a, [-1, -1]])
+    nxt, nxt2 = ext[1:n + 1], ext[2:n + 2]
+    key = (a * 0x9E3779B1 ^ nxt * 0x85EBCA77 ^ nxt2 * 0xC2B2AE3D) & ((1 << 62) - 1)
+    order = np.argsort(key, kind="stable")
+    prev = np.full(n, -1, np.int64)
+    same = key[order[1:]] == key[order[:-1]]
+    prev[order[1:][same]] = order[:-1][same]
+    # positions where some copy of _MIN_COPY or more may start
+    cand = np.zeros(n, bool)
+    for run in near.values():
+        cand |= np.asarray(run) >= _MIN_COPY
+    has = prev >= 0
+    ok3 = np.zeros(n, bool)
+    ok3[has] = ((a[has] == a[prev[has]]) & (nxt[has] == nxt[prev[has]])
+                & (nxt2[has] == nxt2[prev[has]]) & (nxt2[has] >= 0))
+    cand |= ok3
+    starts = np.flatnonzero(cand).tolist()
+    prev_l, px = prev.tolist(), a.tolist()
+    tok_start, tok_len, tok_dist = [], [], []
+    i = 0
+    for s in starts:
+        if s < i:
+            continue
+        best, best_d = 0, 0
+        for d, run in near.items():
+            if run[s] > best:
+                best, best_d = run[s], d
+        j, links = prev_l[s], 0
+        limit = min(_MAX_COPY, n - s)
+        while j >= 0 and links < _CHAIN and s - j <= _MAX_DISTANCE and best < limit:
+            # a longer copy than the best so far must match at its length
+            if px[j + best] == px[s + best] and px[j] == px[s]:
+                length = 1
+                while length < min(limit, 64) and px[j + length] == px[s + length]:
+                    length += 1
+                if length == 64 and limit > 64:   # a long copy: the rest at once
+                    span = a[s + 64:s + limit] == a[j + 64:j + limit]
+                    length = limit if span.all() else 64 + int(np.argmin(span))
+                if length > best:
+                    best, best_d = length, s - j
+            j, links = prev_l[j], links + 1
+        if best >= _MIN_COPY:
+            tok_start.append(s)
+            tok_len.append(best)
+            tok_dist.append(best_d)
+            i = s + best
+    return (np.asarray(tok_start, np.int64), np.asarray(tok_len, np.int64),
+            np.asarray(tok_dist, np.int64))
+
+
+def _entropy_image(bw: _LsbWriter, argb: np.ndarray, width: int, copies: bool) -> None:
+    """An entropy-coded image (no colour cache; the caller writes the
+    meta-code bit where the main image has one): its five prefix codes,
+    then each pixel as a literal or, with `copies`, inside an LZ77 copy."""
+    n = len(argb)
+    if copies:
+        c_start, c_len, c_dist = _lz77(argb, width)
+    else:
+        c_start = c_len = c_dist = np.zeros(0, np.int64)
+    covered = np.zeros(n + 1, np.int64)
+    np.add.at(covered, c_start, 1)
+    np.add.at(covered, c_start + c_len, -1)
+    literal = np.cumsum(covered)[:n] == 0
+    lit_pos = np.flatnonzero(literal)
+    px = argb[lit_pos].astype(np.int64)
+    green, red, blue, alpha = (px >> 8) & 255, (px >> 16) & 255, px & 255, (px >> 24) & 255
+    len_sym, len_extra, len_nbits = _prefix(c_len)
+    # plane codes 1 and 2 are the pixel above and the pixel before
+    plane = np.where(c_dist == width, 1, np.where(c_dist == 1, 2, c_dist + 120))
+    dist_sym, dist_extra, dist_nbits = _prefix(plane)
+    counts = [np.bincount(np.concatenate([green, 256 + len_sym]), minlength=_ALPHABETS[0]),
+              np.bincount(red, minlength=256), np.bincount(blue, minlength=256),
+              np.bincount(alpha, minlength=256), np.bincount(dist_sym, minlength=40)]
+    codes = [_write_code(bw, c) for c in counts]
+    # tokens in pixel order, each four (value, bit count) slots
+    starts = np.concatenate([lit_pos, c_start])
+    slots_v = np.zeros((len(starts), 4), np.int64)
+    slots_n = np.zeros((len(starts), 4), np.int64)
+    k = len(lit_pos)
+    for col, (code, sym) in enumerate(zip(codes[:4], (green, red, blue, alpha))):
+        slots_v[:k, col], slots_n[:k, col] = code[0][sym], code[1][sym]
+    slots_v[k:, 0], slots_n[k:, 0] = codes[0][0][256 + len_sym], codes[0][1][256 + len_sym]
+    slots_v[k:, 1], slots_n[k:, 1] = len_extra, len_nbits
+    slots_v[k:, 2], slots_n[k:, 2] = codes[4][0][dist_sym], codes[4][1][dist_sym]
+    slots_v[k:, 3], slots_n[k:, 3] = dist_extra, dist_nbits
+    order = np.argsort(starts, kind="stable")
+    bw.extend(slots_v[order].reshape(-1), slots_n[order].reshape(-1))
+
+
+def _predictions(p: np.ndarray) -> dict:
+    """Each predictor mode's (H, W, 4) prediction from the pixels' own
+    neighbours (the decoder sees the same pixels, losslessly), before the
+    first row and column rules."""
+    left = np.concatenate([p[:, :1], p[:, :-1]], 1)
+    top = np.concatenate([p[:1], p[:-1]], 0)
+    tl = np.concatenate([top[:, :1], top[:, :-1]], 1)
+    tr = np.concatenate([top[:, 1:], p[:, :1]], 1)   # the last column's: this row's first
+    tr[0] = top[0]
+
+    def avg(x, y):
+        return (x + y) >> 1
+
+    return {1: left, 2: top, 3: tr, 4: tl, 5: avg(avg(left, tr), top), 6: avg(left, tl),
+            7: avg(left, top), 8: avg(tl, top), 9: avg(top, tr),
+            10: avg(avg(left, tl), avg(top, tr))}
+
+
+def encode_webp(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB -> a lossless WebP (a VP8L bitstream in a RIFF
+    container) that decodes to it bit for bit, in cv2.imdecode and in
+    data/webp.py: the subtract-green transform, the predictor transform
+    over 16x16 tiles (each tile's mode among 1-10, the one whose residuals
+    cost least, sum(log2(1 + |residual|))), then the residuals with LZ77
+    copies (from the pixel before, the pixel above and a hash chain) under
+    length-limited canonical Huffman codes, one group, no colour cache.
+    The bytes are not libwebp's (cv2.imencode('.webp') runs its method-4
+    heuristics, which also try the cross-colour and palette transforms and
+    a colour cache), so the files are larger than cv2's."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_webp takes (H, W, 3) uint8 RGB, got {rgb.dtype} {rgb.shape}")
+    h, w = rgb.shape[:2]
+    if not (1 <= h <= VP8L_MAX_SIDE and 1 <= w <= VP8L_MAX_SIDE):
+        raise ValueError(f"{w}x{h}: a VP8L side is 1 to {VP8L_MAX_SIDE}")
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    # subtract green, then the predictor on (A, R, G, B)
+    p = np.stack([np.full_like(g, 255), (r - g) & 255, g, (b - g) & 255], -1)
+    preds = _predictions(p)
+    tile = 1 << _PREDICTOR_BITS
+    th, tw = -(-h // tile), -(-w // tile)
+    cost_of = np.log2(1 + np.minimum(np.arange(256), 256 - np.arange(256)))
+    best = None
+    for mode in _PREDICTOR_MODES:
+        cost = cost_of[(p - preds[mode]) & 255].sum(-1)
+        cost = np.pad(cost, ((0, th * tile - h), (0, tw * tile - w)))
+        cost = cost.reshape(th, tile, tw, tile).sum((1, 3))
+        best = (cost, np.full((th, tw), mode)) if best is None else (
+            np.minimum(best[0], cost), np.where(cost < best[0], mode, best[1]))
+    modes = best[1]
+    pred = np.choose(np.repeat(np.repeat(modes - 1, tile, 0), tile, 1)[:h, :w, None],
+                     [preds[m] for m in _PREDICTOR_MODES])
+    pred[0] = np.concatenate([p[0, :1], p[0, :-1]], 0)   # row 0: the left pixel
+    pred[1:, 0] = p[:-1, 0]                              # column 0: the pixel above
+    pred[0, 0] = (255, 0, 0, 0)                          # the first: black, opaque
+    res = (p - pred) & 255
+    argb = ((res[..., 0] << 24) | (res[..., 1] << 16) | (res[..., 2] << 8)
+            | res[..., 3]).reshape(-1)
+
+    bw = _LsbWriter()
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(0, 1)                                         # alpha unused
+    bw.put(0, 3)                                         # version 0
+    bw.put(1, 1)
+    bw.put(2, 2)                                         # subtract green
+    bw.put(1, 1)
+    bw.put(0, 2)                                         # predictor
+    bw.put(_PREDICTOR_BITS - 2, 3)
+    mode_px = (0xFF000000 | (modes.astype(np.int64) << 8)).reshape(-1)
+    bw.put(0, 1)                                         # no colour cache
+    _entropy_image(bw, mode_px, tw, copies=False)
+    bw.put(0, 1)                                         # no more transforms
+    bw.put(0, 1)                                         # no colour cache
+    bw.put(0, 1)                                         # no meta prefix codes
+    _entropy_image(bw, argb, w, copies=True)
+    body = bw.bytes()
+    chunk = b"VP8L" + struct.pack("<I", len(body)) + body + b"\0" * (len(body) % 2)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk

@@ -3,10 +3,10 @@
 Counterpart of vision_kit_tpu/utils/readers.py without OpenCV. Images are
 read through data/decode.py:decode_image (the plain JPEG/PNG/BMP/WebP
 decoder, equal to cv2.imdecode + BGR2RGB bit for bit), so an ImageReader
-yields RGB where the JAX one yields cv2.imread's BGR, and a file the port
-does not decode (a lossless or arithmetic-coded JPEG, ...) yields (False,
-None) where cv2 may read it. `save` writes `<name>_res.jpg` through data/encode.py's
-encode_jpeg, the bytes cv2.imwrite writes.
+yields RGB where the JAX one yields cv2.imread's BGR, and a file that
+neither decodes (a grey lossless or 12-bit JPEG, ...) yields (False,
+None). `save` writes `<name>_res.jpg` through data/encode.py's encode_jpeg,
+the bytes cv2.imwrite writes.
 
 VideoReader reads a Motion-JPEG AVI (utils/avi.py) where the JAX one opens
 any file or webcam with cv2.VideoCapture: its frames are RGB uint8 tensors

@@ -62,15 +62,17 @@ def cut_inside_last_scan(data: bytes) -> bytes:
 
 
 def walk_cases() -> list[tuple[str, bytes]]:
-    """(name, bytes) of every committed JPEG that the decoders take, each
-    also cut inside its last scan (cut_inside_last_scan), and the restart
-    sample cut before every fourth RST marker of its scan: the files the C
-    walk is held to scans_short on."""
+    """(name, bytes) of every committed Huffman-coded JPEG that the decoders
+    take, each also cut inside its last scan (cut_inside_last_scan), and
+    the restart sample cut before every fourth RST marker of its scan: the
+    files the C walk is held to scans_short on (arithmetic-coded and
+    lossless JPEGs never reach it)."""
     from vision_kit_tpu_torch.data import decode
 
     out = []
     for name, meta, data in samples():
-        if not name.endswith(".jpg") or meta["shape"] is None:
+        if (not name.endswith(".jpg") or meta["shape"] is None
+                or decode.jpeg_header(data)["sof"] not in decode.SOF_HUFFMAN):
             continue
         out += [(name, data), (name + " cut", cut_inside_last_scan(data))]
         if meta["kind"] == "jpeg_restart":
