@@ -190,6 +190,21 @@ Phases, each printing its own line; any failure exits non-zero:
      against the unsharded one in float64 and f32, v7 base@128's spatial
      eval step (a halo taller than a band) against unsharded (see
      phase_spatial);
+ 15. orbax (run after the weights phase): the JAX Trainer's orbax
+     checkpoints without orbax, tensorstore or zstandard (utils/zstd.py,
+     utils/ocdbt.py, utils/orbax.py): the host C decoder
+     (csrc/zstd_decode.cu) on the committed frames and checkpoints of
+     data/checkpoint_samples (OCDBT with a multi-level B-tree, and the
+     plain layout), byte-equal to the plain decoder and to the manifest's
+     sha256, and its MB/s on the largest frame; a v5s@640 TrainState after
+     two steps (momentum, EMA) written as the JAX Trainer's tree by
+     write_checkpoint and read back by read_checkpoint on the card's path,
+     every leaf bit-equal (MB, write and read seconds); one b8 640 batch
+     served through load_predictor_from_config of that directory and of
+     the port's own file of the same state, detections bit-equal with both
+     kernels launched; in a child (--orbax-resume, deterministic),
+     Trainer.load_checkpoint of each followed by one train step, the
+     states bit-equal, the step and meta carried;
 then each kernel timed at the serving and eval paths' shapes beside the
 plain version and the card's bound (utils/kernel_bench.py), and the device
 time of a throughput step and of an eval step, v5s and v7, by kernel group
@@ -3530,6 +3545,261 @@ def profile_train(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+ORBAX_BATCH = 16      # the TrainState's two training steps
+ORBAX_FIT_BATCH = 8   # the resumed Trainers' batch
+
+
+def orbax_config(data_dir: str, out: str):
+    """fit_config for 80 classes at batch ORBAX_FIT_BATCH: a Trainer whose
+    state is the orbax phase's v5s@640 TrainState's shape."""
+    from vision_kit_tpu_torch.classes.coco import COCO
+
+    cfg = fit_config(data_dir, out, epochs=1)
+    cfg.model.num_classes = 80
+    cfg.data.update(batch_size=ORBAX_FIT_BATCH, class_labels=list(COCO))
+    return cfg
+
+
+def orbax_resume(ckpt: str, pt: str, data_dir: str, out: str) -> dict:
+    """`python3 chip_smoke.py --orbax-resume CKPT PT DATA OUT`, a child with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts: two
+    Trainer(deterministic=True)s of orbax_config, one restored by
+    load_checkpoint from the JAX-layout orbax directory CKPT, the other from
+    the port's own file PT of the same state; each then takes one train
+    step on the batch its resume step names. Returns both resume steps,
+    meta fields and state steps, and the state tensors that differ."""
+    from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+    from vision_kit_tpu_torch.utils import zstd
+
+    out_: dict = {}
+    with restored_determinism():
+        trainers = {}
+        for name, path in (("orbax", ckpt), ("pt", pt)):
+            tr = Trainer(orbax_config(data_dir, os.path.join(out, name)),
+                         use_tensorboard=False, seed=0, device="cuda", deterministic=True)
+            calls = zstd.c_calls()
+            t0 = time.perf_counter()
+            start = tr.load_checkpoint(path)
+            torch.cuda.synchronize()
+            out_[name] = {"start": start, "load_s": time.perf_counter() - t0,
+                          "zstd_calls": zstd.c_calls() - calls,
+                          "best_map50": tr.best_map50,
+                          "epochs_no_improve": tr.epochs_no_improve,
+                          "restored_step": tr.state.step}
+            trainers[name] = tr
+        loader = trainers["orbax"].train_loader
+        loader.close()
+        loader.seek(out_["orbax"]["start"])
+        batch = next(iter(loader))
+        loader.close()
+        for name, tr in trainers.items():
+            tr.state, _ = tr._train_step_for(out_[name]["start"])(tr.state, batch)
+            out_[name]["step"] = tr.state.step
+            tr.train_loader.close()
+        torch.cuda.synchronize()
+        a, b = (sb.train_state_tensors(trainers[n].state) for n in ("orbax", "pt"))
+    out_["differ"] = [f"{p} {k}" for p in sb.STATE_PARTS for k in a[p]
+                      if not torch.equal(a[p][k], b[p][k])][:5]
+    out_["tensors"] = sum(len(a[p]) for p in sb.STATE_PARTS)
+    return out_
+
+
+def phase_orbax(smi: str) -> dict:
+    """The JAX Trainer's orbax checkpoints on the card, without orbax,
+    tensorstore or zstandard (utils/zstd.py, utils/ocdbt.py,
+    utils/orbax.py). (a) the host C decoder (csrc/zstd_decode.cu) on the
+    committed frames and checkpoints of data/checkpoint_samples, byte-equal
+    to the plain decoder and to the manifest's sha256, and its MB/s on the
+    largest frame; (b) a v5s@640 TrainState with momentum and EMA (two
+    steps from calibrated_v5s) written by write_checkpoint in the JAX
+    layout (convert.jax_train_state_tree) with the JAX meta beside it, read
+    back by read_checkpoint on the card's path, every tensor bit-equal;
+    (c) one b8 640 batch served through load_predictor_from_config of that
+    directory and of the port's own file of the same state: detections
+    bit-equal, both kernels launched; (d) in a child (--orbax-resume),
+    Trainer.load_checkpoint of the directory and of the file, each followed
+    by one train step: bit-equal, step and meta carried. Returns the
+    launches of (c)'s orbax leg."""
+    import hashlib
+    import subprocess
+    import tempfile
+
+    from vision_kit_tpu_torch import convert
+    from vision_kit_tpu_torch.predictor import load_predictor_from_config
+    from vision_kit_tpu_torch.train.checkpoint import save_checkpoint
+    from vision_kit_tpu_torch.train.losses import YoloLoss
+    from vision_kit_tpu_torch.utils import loader_bench as lb
+    from vision_kit_tpu_torch.utils import orbax
+    from vision_kit_tpu_torch.utils import stream_bench as sb
+    from vision_kit_tpu_torch.utils import zstd
+
+    t_phase = time.perf_counter()
+    samples = os.path.join(REPO, "vision_kit_tpu_torch", "data", "checkpoint_samples")
+    with open(os.path.join(samples, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+
+    # (a) the committed frames and checkpoints
+    calls = zstd.c_calls()
+    for name, meta in manifest["frames"].items():
+        with open(os.path.join(samples, name), "rb") as f:
+            data = f.read()
+        got = zstd.decompress(data, device="cuda")
+        check(got == zstd.decompress(data), f"orbax: the C decoder differs from the plain "
+              f"one on {name}")
+        check(hashlib.sha256(got).hexdigest() == meta["content_sha256"],
+              f"orbax: {name} decodes to other bytes than its manifest's")
+    n_frames = zstd.c_calls() - calls
+    check(n_frames == len(manifest["frames"]), f"orbax: {n_frames} C decoder calls for "
+          f"{len(manifest['frames'])} frames")
+    for layout in ("orbax_ocdbt", "orbax_plain"):
+        path = os.path.join(samples, layout)
+        card_tree, plain_tree = (orbax.read_checkpoint(path, device=d) for d in ("cuda", "cpu"))
+        card_leaves, plain_leaves = flat_leaves(card_tree), flat_leaves(plain_tree)
+        check(sorted(card_leaves) == sorted(manifest["leaves"]) == sorted(plain_leaves),
+              f"orbax: {layout}'s leaves differ from the manifest's")
+        for key, meta in manifest["leaves"].items():
+            dtype, shape, raw = leaf_data(card_leaves[key])
+            check((dtype, list(shape)) == (meta["dtype"], meta["shape"])
+                  and leaf_data(plain_leaves[key]) == (dtype, shape, raw)
+                  and hashlib.sha256(raw).hexdigest() == meta["sha256"],
+                  f"orbax: {layout} {key} differs from the plain reader or the manifest")
+    big = max(manifest["frames"], key=lambda n: manifest["frames"][n]["content_bytes"])
+    with open(os.path.join(samples, big), "rb") as f:
+        data = f.read()
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        zstd.decompress_c(data)
+    c_mb_s = reps * manifest["frames"][big]["content_bytes"] / (time.perf_counter() - t0) / 1e6
+    t0 = time.perf_counter()
+    zstd.decompress(data)
+    plain_mb_s = manifest["frames"][big]["content_bytes"] / (time.perf_counter() - t0) / 1e6
+    print(f"orbax: the C decoder (csrc/zstd_decode.cu) on {n_frames} committed frames "
+          f"byte-equal to the plain decoder and the manifest's sha256; both checkpoint "
+          f"layouts (OCDBT, a {manifest['checkpoints']['orbax_ocdbt']['root_height'] + 1}"
+          f"-level B-tree, and plain) read on the card equal to the plain reader and to "
+          f"the manifest's {len(manifest['leaves'])} leaves; {big} "
+          f"({manifest['frames'][big]['content_bytes']} bytes of content, "
+          f"{len(data)} of zstd): C {c_mb_s:.1f} MB/s, plain {plain_mb_s:.2f} MB/s "
+          f"(host clock, {reps} reps) on {smi}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) a full-width TrainState through write_checkpoint and read_checkpoint
+        model = calibrated_v5s()
+        step, state, data = sb.train_bench_setup(
+            model, YoloLoss(80, model.head.grid_anchors, sb.TRAIN_HYP), ORBAX_BATCH)
+        for _ in range(2):
+            state, _ = step(state, data)
+        torch.cuda.synchronize()
+        ckpt = os.path.join(tmp, "ckpts", "last")
+        pt = os.path.join(tmp, "last.pt")
+        t0 = time.perf_counter()
+        tree = convert.jax_train_state_tree(state)
+        orbax.write_checkpoint(ckpt, tree)
+        write_s = time.perf_counter() - t0
+        meta = {"epoch": 0, "step": state.step, "best_map50": 0.125,
+                "epochs_no_improve": 1, "val_pending": False}
+        with open(ckpt + ".meta.json", "w") as f:
+            json.dump(meta, f)
+        save_checkpoint(pt, state, epoch=0, best_map50=0.125, epochs_no_improve=1)
+        calls = zstd.c_calls()
+        t0 = time.perf_counter()
+        back = orbax.read_checkpoint(ckpt, device="cuda")
+        read_s = time.perf_counter() - t0
+        n_chunks = zstd.c_calls() - calls
+        want, got = flat_leaves(tree), flat_leaves(back)
+        check(sorted(want) == sorted(got), "orbax: the v5s TrainState's leaves differ "
+              "after the round trip")
+        mb = 0
+        for key, leaf in want.items():
+            raw = leaf_data(leaf)
+            check(raw == leaf_data(got[key]), f"orbax: {key} differs after the round trip")
+            mb += len(raw[2]) / 1e6
+        check(n_chunks > 0, "orbax: the card's read never called the C decoder")
+        print(f"orbax: v5s@640 TrainState after 2 steps (EMA {state.ema.updates} updates, "
+              f"momentum) as the JAX Trainer's tree: {len(want)} leaves, {mb:.1f} MB, "
+              f"write_checkpoint {write_s:.2f} s, read_checkpoint on the card's path "
+              f"{read_s:.2f} s ({n_chunks} chunks through the C decoder), every leaf "
+              f"bit-equal (host clock) on {smi}", flush=True)
+        del step, state, data, tree, back, model
+        torch.cuda.empty_cache()
+
+        # (c) serving from the directory and from the port's file
+        cfg = v5s_config()
+        frames = np.random.default_rng(18).integers(0, 255, (8, 640, 640, 3), dtype=np.uint8)
+        served = {}
+        for name, path in (("orbax", ckpt), ("pt", pt)):
+            t0 = time.perf_counter()
+            pred = load_predictor_from_config(cfg, weights=path, device="cuda",
+                                              dtype=torch.bfloat16, seed=3)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            pred.predict_batch(frames)
+            dets, counts = serve_requests(pred, [frames])
+            served[name] = (dets, counts, load_s)
+            del pred
+        (d_o, c_o, s_o), (d_p, c_p, s_p) = served["orbax"], served["pt"]
+        check(c_o["greedy_nms"] > 0 and c_o["head_scores"] > 0 and c_o == c_p,
+              f"orbax: serving launched {c_o} from the directory, {c_p} from the file")
+        check(len(d_o) == len(d_p) == 8 and all(np.array_equal(a, b) for a, b in zip(d_o, d_p)),
+              "orbax: detections from the directory differ from the file's")
+        n_det = sum(len(d) for d in d_o)
+        check(n_det > 0 and all(np.isfinite(d).all() for d in d_o), "orbax: no detections")
+        print(f"orbax: load_predictor_from_config of the directory ({s_o:.2f} s) and of "
+              f"the port's file ({s_p:.2f} s), v5s@640 bf16, one b8 640 batch: {n_det} "
+              f"detections bit-equal, launches {c_o} (host clock) on {smi}", flush=True)
+
+        # (d) Trainer.load_checkpoint and one step, in a deterministic child
+        data_dir = os.path.join(tmp, "ds")
+        lb.write_dataset(data_dir, 2 * ORBAX_FIT_BATCH, ORBAX_FIT_BATCH, png_only=True)
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                            "--orbax-resume", ckpt, pt, data_dir, os.path.join(tmp, "resume")],
+                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("ORBAX ")]
+        check(r.returncode == 0 and lines,
+              f"orbax: the resume child exited {r.returncode}: {r.stderr[-2000:]}")
+        res = json.loads(lines[-1][len("ORBAX "):])
+        o, p = res["orbax"], res["pt"]
+        check(res["differ"] == [], f"orbax: the resumed steps differ: {res['differ']}")
+        check(o["start"] == p["start"] == meta["step"] and o["restored_step"] == meta["step"]
+              and o["step"] == p["step"] == meta["step"] + 1,
+              f"orbax: resume steps {o} against {p}")
+        check((o["best_map50"], o["epochs_no_improve"]) == (0.125, 1) == (
+            p["best_map50"], p["epochs_no_improve"]), f"orbax: meta not carried: {o}")
+        check(o["zstd_calls"] > 0, "orbax: the resume never called the C decoder")
+        print(f"orbax: Trainer(deterministic=True).load_checkpoint of the directory "
+              f"({o['load_s']:.2f} s) and of the port's file ({p['load_s']:.2f} s), then one "
+              f"train step each at b{ORBAX_FIT_BATCH}: {res['tensors']} state tensors "
+              f"bit-equal, resumed at step {o['start']}, meta carried (child {child_s:.1f} s)",
+              flush=True)
+    print(f"orbax: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return c_o
+
+
+def flat_leaves(tree, prefix=()) -> dict:
+    """{str(path tuple): leaf} of a read_checkpoint tree (dicts, tuples),
+    without its empty nodes."""
+    if isinstance(tree, dict):
+        return {k: v for key, child in tree.items()
+                for k, v in flat_leaves(child, prefix + (str(key),)).items()}
+    if isinstance(tree, tuple):
+        return {k: v for i, child in enumerate(tree)
+                for k, v in flat_leaves(child, prefix + (str(i),)).items()}
+    return {} if tree is None else {str(prefix): tree}
+
+
+def leaf_data(leaf) -> tuple:
+    """(dtype name, shape, bytes) of an array leaf (bfloat16 through int16)."""
+    if isinstance(leaf, torch.Tensor):
+        return "bfloat16", tuple(leaf.shape), leaf.view(torch.int16).numpy().tobytes()
+    arr = np.asarray(leaf)
+    return str(arr.dtype), arr.shape, arr.tobytes()
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--deterministic-check":
         if not torch.cuda.is_available():
@@ -3556,6 +3826,12 @@ def main() -> int:
             return 1
         sys.path.insert(0, REPO)
         print("VIDEO " + json.dumps(demo_video_child(*sys.argv[2:5])), flush=True)
+        return 0
+    if len(sys.argv) == 6 and sys.argv[1] == "--orbax-resume":
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, REPO)
+        print("ORBAX " + json.dumps(orbax_resume(*sys.argv[2:6])), flush=True)
         return 0
     if len(sys.argv) == 4 and sys.argv[1] == "--spatial-rank":
         if not torch.cuda.is_available():
@@ -3617,6 +3893,7 @@ def main() -> int:
     v7, v7_counts = timed("v7", phase_v7, rng, smi)
     train_counts = timed("train", phase_train, rng, smi)
     ref_counts = timed("weights", phase_weights, model, rng, smi)
+    timed("orbax", phase_orbax, smi)
     video_counts = timed("demo", phase_demo, model, smi)
     serve_counts = timed("serve", phase_serve, model, smi)
     fit_counts = timed("fit", phase_fit, smi)

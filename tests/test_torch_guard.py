@@ -14,11 +14,13 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|msgpack|cv2|PIL|vision_kit_tpu(?!_torch))\b", re.M)
+    r"^\s*(import|from)\s+(jax|flax|msgpack|cv2|PIL|orbax|tensorstore|zstandard"
+    r"|vision_kit_tpu(?!_torch))\b", re.M)
 # a quoted module name, as importlib and __import__ take it; a docstring
 # may begin with a cv2 function's name ("""cv2.warpAffine ...)
 DOTTED = re.compile(r"\bvision_kit_tpu\.|[\"']vision_kit_tpu[\"']|[\"'](jax|flax)[\"'.]"
-                    r"|[\"']cv2[\"']|[\"']PIL[\"'.]")
+                    r"|[\"']cv2[\"']|[\"']PIL[\"'.]"
+                    r"|[\"'](orbax\.checkpoint|tensorstore|zstandard)[\"']")
 
 
 def _port_sources():
@@ -57,6 +59,18 @@ def test_forbidden_pattern_catches_the_jax_package():
     assert not FORBIDDEN.search("from vision_kit_tpu_torch.utils import flax_msgpack")
 
 
+def test_forbidden_pattern_catches_the_checkpoint_libraries():
+    """orbax's checkpoints are read and written by the port's own code
+    (utils/zstd.py, utils/ocdbt.py, utils/orbax.py)."""
+    assert FORBIDDEN.search("import orbax.checkpoint as ocp")
+    assert FORBIDDEN.search("    import tensorstore as ts")
+    assert FORBIDDEN.search("import zstandard")
+    assert DOTTED.search('importlib.import_module("orbax.checkpoint")')
+    assert not FORBIDDEN.search("from vision_kit_tpu_torch.utils import orbax, zstd")
+    assert not DOTTED.search("# an orbax checkpoint's zstd chunks")
+    assert not DOTTED.search('timed("orbax", phase_orbax, smi)')
+
+
 def test_forbidden_pattern_catches_opencv_and_pil():
     assert FORBIDDEN.search("import cv2")
     assert FORBIDDEN.search("    import cv2  # in a function")
@@ -81,8 +95,12 @@ def test_port_runs_without_loading_jax():
         "with torch.no_grad():\n"
         "    d, r = m(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))\n"
         "assert d.shape == (1, 252, 85)\n"
+        "from vision_kit_tpu_torch.utils import orbax\n"
+        "t = orbax.read_checkpoint('vision_kit_tpu_torch/data/checkpoint_samples/orbax_ocdbt')\n"
+        "assert int(t['step']) == 5\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'msgpack', 'vision_kit_tpu', 'cv2', 'PIL')]\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', 'vision_kit_tpu', 'cv2', 'PIL', 'orbax', "
+        "'tensorstore', 'zstandard')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -19,8 +19,10 @@ weight conversion.
         [-n 80] [-o OUT] [--from-upstream] [--reparameterize]
 
 `export` is the counterpart of scripts/main.py's export task: the config's
-model, its weights from --ckpt or else from cfg.model.weight when that file
-exists (predictor.load_weights), written by export.run_export to
+model, its weights from --ckpt (a file, or a JAX Trainer's orbax
+ckpts/best or ckpts/last directory: its EMA once updated) or else from
+cfg.model.weight when that file exists (predictor.load_weights), written
+by export.run_export to
 `<output dir>/weights` (the output dir is cfg.data.output_dir unless
 --output-dir names another).
 
@@ -35,10 +37,13 @@ counterpart: the port's weights are torch already.
 `serve` is the counterpart of scripts/serve.py: the batched HTTP server
 (serve.py:InferenceServer) over the model that -m/-v, or --config, name,
 with the flags of scripts/demo.py:resolve_model_spec; weights from -w
-(predictor.load_weights; a YOLOv7 serves deploy-folded), else seeded ones.
+(predictor.load_weights: a .pt, .ckpt, Flax .msgpack or a JAX Trainer's
+orbax checkpoint directory; a YOLOv7 serves deploy-folded), else seeded
+ones.
 
 `demo` is the counterpart of scripts/demo.py: the model of -m/-v or
---config (seeded weights unless -w names a .pt, .ckpt or Flax .msgpack).
+--config (seeded weights unless -w names a .pt, .ckpt, Flax .msgpack or a
+JAX Trainer's orbax checkpoint directory).
 On images, one warmup on the first image's shape, then one Predictor call
 per image of -p (a file, or a directory walked recursively), printing
 `<path>: <n> detections in <ms> ms` and writing each image with its
@@ -64,7 +69,10 @@ the run writes into
 weights/, the sample grids), with the loss gains scaled by
 update_loss_cfg. `train` runs Trainer.fit (resuming from <ckpt-dir>/last
 when -d is given and it exists), then Trainer.test; `eval` loads
-<ckpt-dir>/best when it exists, then runs Trainer.test. The loader takes
+<ckpt-dir>/best when it exists, then runs Trainer.test. <ckpt-dir> is the
+port's run's ckpts/ or a JAX run's (orbax directories, read by
+utils/orbax.py without orbax or tensorstore; the resume continues at the
+JAX run's step). The loader takes
 the host-augmentation route unless the config sets data.device_aug: true.
 Both call parallel/distributed.py:init_distributed first, so that
 
@@ -399,8 +407,9 @@ def main(argv=None) -> int:
     exp = sub.add_parser("export", help="checked export of the config's model")
     exp.add_argument("--config", "-c", default="./configs/yolov5.yaml")
     exp.add_argument("--ckpt", help="weights to load (.pt/.pth/.ckpt, a "
-                     "TrainState checkpoint or a Flax .msgpack); default "
-                     "cfg.model.weight if it exists")
+                     "TrainState checkpoint, a Flax .msgpack or a JAX Trainer's "
+                     "orbax checkpoint directory); default cfg.model.weight if "
+                     "it exists")
     exp.add_argument("--output-dir", help="default cfg.data.output_dir")
     exp.add_argument("--onnx", action="store_true",
                      help="require the checked ONNX artifact")
@@ -463,7 +472,9 @@ def main(argv=None) -> int:
         p = sub.add_parser(task, help=what)
         p.add_argument("--config", "-c", default="./configs/yolov5.yaml")
         p.add_argument("--ckpt-dir", "-d", default=None,
-                       help="train: resume from <dir>/last; eval: load <dir>/best")
+                       help="train: resume from <dir>/last; eval: load <dir>/best "
+                            "(the port's checkpoint files or a JAX run's orbax "
+                            "directories)")
         p.add_argument("--seed", "-s", type=int, default=None,
                        help="default: the config's data.seed, else 21")
         p.add_argument("--device", default="cuda")

@@ -153,24 +153,90 @@ def _split(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
     return params, stats
 
 
+def _part(node, name: str):
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+
+def _has(node, name: str) -> bool:
+    return name in node if isinstance(node, Mapping) else hasattr(node, name)
+
+
 def train_state_tensors_from_jax(state) -> dict:
     """A JAX TrainState (train/step.py, numpy leaves as `jax.device_get`
-    returns them) -> its parts under the port's names: {"params",
-    "batch_stats", "momentum" (the SGD momentum buffers, by parameter),
-    "ema" (the averaged params and statistics), "ema_updates",
-    "opt_step", "step"}. The optimizer state may be the SGD state or a
-    chain holding it (make_optimizer's)."""
+    returns them), or the same state as a tree of dicts and tuples (an
+    orbax checkpoint restored without a target: utils/orbax.py's
+    read_checkpoint or orbax's untyped restore) -> its parts under the
+    port's names: {"params", "batch_stats", "momentum" (the SGD momentum
+    buffers, by parameter), "ema" (the averaged params and statistics),
+    "ema_updates", "opt_step", "step"}. The optimizer state may be the SGD
+    state or a sequence holding it (make_optimizer's chain, whose clip
+    state is empty: None in a restored tree)."""
     params, stats = _split(state_dict_from_jax_variables(
-        {"params": state.params, "batch_stats": state.batch_stats}))
-    opt = state.opt_state
-    sgd = opt if hasattr(opt, "momentum_buf") else next(
-        s for s in opt if hasattr(s, "momentum_buf"))
-    momentum, _ = _split(state_dict_from_jax_variables({"params": sgd.momentum_buf}))
-    ema_params, ema_stats = _split(state_dict_from_jax_variables(state.ema.tree))
+        {"params": _part(state, "params"), "batch_stats": _part(state, "batch_stats")}))
+    opt = _part(state, "opt_state")
+    sgd = opt if _has(opt, "momentum_buf") else next(
+        s for s in opt if s is not None and _has(s, "momentum_buf"))
+    momentum, _ = _split(state_dict_from_jax_variables(
+        {"params": _part(sgd, "momentum_buf")}))
+    ema = _part(state, "ema")
+    ema_params, ema_stats = _split(state_dict_from_jax_variables(_part(ema, "tree")))
     return {"params": params, "batch_stats": stats, "momentum": momentum,
             "ema": {**ema_params, **ema_stats},
-            "ema_updates": int(state.ema.updates), "opt_step": int(sgd.step),
-            "step": int(state.step)}
+            "ema_updates": int(_part(ema, "updates")), "opt_step": int(_part(sgd, "step")),
+            "step": int(_part(state, "step"))}
+
+
+def jax_train_state_tree(state) -> dict:
+    """The port's TrainState (train/step.py) as the JAX TrainState's tree,
+    in the layout the JAX Trainer's orbax checkpoints hold: {"params",
+    "batch_stats", "opt_state": (None, {"step", "momentum_buf"}) (optax's
+    empty clip state, then the SGD state), "ema": {"updates", "tree"},
+    "step"}, float32 numpy arrays under Flax's names and int32 counts.
+    utils/orbax.py:write_checkpoint writes it; the JAX package restores
+    it."""
+    from vision_kit_tpu_torch.train.optim import sgd_state
+
+    sgd = sgd_state(state.opt_state)
+    variables = jax_variables_from_state_dict({**state.params, **state.batch_stats})
+    return {"params": variables["params"], "batch_stats": variables["batch_stats"],
+            "opt_state": (None, {
+                "step": np.asarray(sgd.step, np.int32),
+                "momentum_buf": jax_variables_from_state_dict(sgd.momentum_buf)["params"]}),
+            "ema": {"updates": np.asarray(state.ema.updates, np.int32),
+                    "tree": jax_variables_from_state_dict(state.ema.tree)},
+            "step": np.asarray(state.step, np.int32)}
+
+
+def train_state_weights_prefix(tree):
+    """Where the model weights of a restored JAX tree lie: None for a bare
+    variables tree (the tree itself), ("ema", "tree") once the EMA has been
+    updated, else () (the top-level params and batch_stats). The checks of
+    vision_kit_tpu/predictor.py:_extract_weights_from_train_state."""
+    if not isinstance(tree, Mapping) or "params" not in tree:
+        return None
+    if not ("ema" in tree and "opt_state" in tree):
+        return None
+    ema = tree.get("ema")
+    if isinstance(ema, Mapping) and "tree" in ema:
+        updates = np.asarray(ema.get("updates", 0))
+        if updates.size == 1 and int(updates) > 0:
+            return ("ema", "tree")
+    return ()
+
+
+def weights_from_jax_train_state(tree):
+    """The model weights {"params", "batch_stats"} of a restored JAX
+    Trainer checkpoint tree, as the JAX predictor's
+    _extract_weights_from_train_state picks them: the EMA tree once the
+    EMA has been updated (eval and export use the EMA model), else the raw
+    params and statistics; a bare variables tree passes through."""
+    prefix = train_state_weights_prefix(tree)
+    if prefix is None:
+        return tree
+    node = tree
+    for key in prefix:
+        node = node[key]
+    return {"params": node["params"], "batch_stats": node.get("batch_stats", {})}
 
 
 def load_jax_train_state(model: torch.nn.Module, tx, state):

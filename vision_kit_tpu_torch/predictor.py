@@ -209,29 +209,56 @@ def load_predictor_from_config(cfg, weights: str | None = None,
                      device=device, **kwargs)
 
 
-def _read_weights(path: str) -> dict:
-    """The weights in a checkpoint file as {key: f32 tensor on the CPU}."""
+def _read_weights(path: str, device="cpu") -> dict:
+    """The weights in a checkpoint file or orbax directory as {key: f32
+    tensor on the CPU}; `device` is where an orbax directory's chunks are
+    decompressed (utils/orbax.py)."""
     from vision_kit_tpu_torch.convert import (
         checkpoint_state_dict,
         state_dict_from_jax_variables,
     )
     from vision_kit_tpu_torch.train.checkpoint import is_train_state, train_state_weights
-    from vision_kit_tpu_torch.utils import flax_msgpack
+    from vision_kit_tpu_torch.utils import flax_msgpack, orbax
 
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path}: orbax checkpoint directories are not read by the port (their "
-            "arrays are tensorstore files); restore one with the JAX package and "
-            "write its variables with flax.serialization.to_bytes (a .msgpack)")
+        if not orbax.is_checkpoint(path):
+            raise ValueError(f"{path}: a directory without orbax's _METADATA is not a "
+                             "checkpoint")
+        return state_dict_from_jax_variables(_orbax_variables(path, device))
     if path.endswith(".msgpack"):
         return state_dict_from_jax_variables(
             flax_msgpack.variables_of(flax_msgpack.read_file(path), path))
     if not path.endswith((".pt", ".pth", ".ckpt")):
-        raise ValueError(f"{path}: expected a .pt, .pth, .ckpt or .msgpack file")
+        raise ValueError(f"{path}: expected a .pt, .pth, .ckpt or .msgpack file, or an "
+                         "orbax checkpoint directory")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if is_train_state(ckpt):
         return {k: v.float() for k, v in train_state_weights(ckpt).items()}
     return checkpoint_state_dict(ckpt)
+
+
+def _orbax_variables(path: str, device="cpu") -> dict:
+    """The model weights of an orbax checkpoint directory as Flax variables
+    {"params", "batch_stats"}: for a JAX Trainer's TrainState the EMA once
+    updated, else the raw params (convert.weights_from_jax_train_state,
+    JAX's _extract_weights_from_train_state); a bare variables tree whole.
+    Only the arrays that are returned are read (and ema.updates)."""
+    from vision_kit_tpu_torch.convert import (
+        train_state_weights_prefix,
+        weights_from_jax_train_state,
+    )
+    from vision_kit_tpu_torch.utils import orbax
+
+    probe = orbax.read_checkpoint(path, device, select=lambda p: p == ("ema", "updates"))
+    prefix = train_state_weights_prefix(probe)
+    if prefix is None:
+        return weights_from_jax_train_state(orbax.read_checkpoint(path, device))
+    n = len(prefix)
+    tree = orbax.read_checkpoint(
+        path, device,
+        select=lambda p: (p == ("ema", "updates") or p[:n] == prefix
+                          and p[n:n + 1] in (("params",), ("batch_stats",))))
+    return weights_from_jax_train_state(tree)
 
 
 def load_weights(path: str, model: torch.nn.Module, partial: bool = False):
@@ -240,10 +267,14 @@ def load_weights(path: str, model: torch.nn.Module, partial: bool = False):
     `path`: a vision_kit-format `.pt`/`.pth`/`.ckpt` (a state_dict, or one
     wrapped as Lightning and the reference save it;
     convert.checkpoint_state_dict), a port TrainState checkpoint
-    (train/checkpoint.py; its EMA once updated, else its parameters), or a
+    (train/checkpoint.py; its EMA once updated, else its parameters), a
     Flax `.msgpack` of {"params", "batch_stats"} (the JAX export's
-    variables or the JAX Trainer's best EMA weights; bridged by
-    convert.state_dict_from_jax_variables).
+    variables or the JAX Trainer's best EMA weights), or an orbax
+    checkpoint directory (the JAX Trainer's ckpts/last or ckpts/best:
+    its EMA once updated, else its params, as the JAX predictor picks
+    them; utils/orbax.py reads it, its chunks decompressed on the model's
+    device: the host C decoder for a model on the card). JAX weights are
+    bridged by convert.state_dict_from_jax_variables.
     Training weights loaded into a deploy model are folded first
     (_maybe_deploy_fold). Every model entry whose key and shape the
     checkpoint has is copied, cast to the model's dtype and device;
@@ -254,7 +285,8 @@ def load_weights(path: str, model: torch.nn.Module, partial: bool = False):
     file); partial=True keeps the model's values there (the reference's
     shape-checked partial load, the fine-tune path to another number of
     classes)."""
-    loaded = _maybe_deploy_fold(_read_weights(path), model)
+    device = next(model.parameters()).device.type
+    loaded = _maybe_deploy_fold(_read_weights(path, device), model)
     if partial:
         sd = merge_matching(model.state_dict(), loaded)
     else:

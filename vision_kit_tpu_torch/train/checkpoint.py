@@ -1,24 +1,28 @@
-"""TrainState checkpoints: one `torch.save` file and a `.meta.json` beside
-it.
+"""TrainState checkpoints: the port's own `torch.save` file with a
+`.meta.json` beside it, and the JAX Trainer's orbax directories.
 
 Stands for vision_kit_tpu/train/trainer.py:Trainer.save_checkpoint and
-load_checkpoint, whose orbax directories the port cannot read. The file
-holds the state's tensors under the port's names: the parameters, the
-BatchNorm statistics, the SGD momentum buffers with the optimizer's step
-count, the EMA tree with its update count, and the step. The meta file
-holds what JAX writes beside its checkpoint: epoch, step, best_map50,
-epochs_no_improve and val_pending.
+load_checkpoint. save_checkpoint writes the port's file: the state's
+tensors under the port's names (the parameters, the BatchNorm
+statistics, the SGD momentum buffers with the optimizer's step count, the
+EMA tree with its update count, and the step), and the meta file JAX
+writes beside its checkpoint (epoch, step, best_map50, epochs_no_improve,
+val_pending). load_checkpoint reads that file or a JAX Trainer's
+ckpts/last or ckpts/best directory (utils/orbax.py, without orbax or
+tensorstore; the same parts under Flax's names, bridged by
+convert.train_state_tensors_from_jax), with the JAX meta beside it.
 
 A restore copies the tensors into a fresh state's own (the model's
 parameters and statistics included), so it is bit-equal to the saved
 state, and the next step equals the uninterrupted run's.
-predictor.load_weights reads the same file for its weights: the EMA once
-it has been updated, else the parameters.
+predictor.load_weights reads the same files and directories for its
+weights: the EMA once it has been updated, else the parameters.
 """
 
 from __future__ import annotations
 
 import json
+import os
 
 import torch
 
@@ -83,20 +87,43 @@ def _copy_into(dst: dict, src: dict, what: str) -> None:
         t.copy_(src[k])
 
 
+def _read(path: str, device: str) -> dict:
+    """The checkpoint at `path` in save_checkpoint's format: the port's
+    file, or a JAX Trainer's orbax directory read on `device`."""
+    from vision_kit_tpu_torch.utils import orbax
+
+    if os.path.isdir(path):
+        from vision_kit_tpu_torch.convert import train_state_tensors_from_jax
+
+        if not orbax.is_checkpoint(path):
+            raise ValueError(f"{path}: a directory without orbax's _METADATA is not a "
+                             "TrainState checkpoint")
+        parts = train_state_tensors_from_jax(orbax.read_checkpoint(path, device))
+        return {"format": FORMAT, "params": parts["params"],
+                "batch_stats": parts["batch_stats"], "momentum": parts["momentum"],
+                "opt_step": parts["opt_step"],
+                "ema": {"updates": parts["ema_updates"], "tree": parts["ema"]},
+                "step": parts["step"]}
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if not is_train_state(ckpt):
+        raise ValueError(f"{path} is not a TrainState checkpoint "
+                         "(train/checkpoint.py:save_checkpoint)")
+    return ckpt
+
+
 @torch.no_grad()
 def load_checkpoint(path: str, state):
     """Restore `path` into `state`, a TrainState of the same model and
     optimizer (train/step.py:create_train_state): every tensor is copied
     into the state's own, on their device and in their dtype, and the
-    counts are carried. Returns (state', meta), meta None when the
-    `.meta.json` is absent.
+    counts are carried. `path` is the port's file (save_checkpoint) or a
+    JAX Trainer's orbax directory, whose chunks are decompressed on the
+    state's device (the host C decoder on the card). Returns (state',
+    meta), meta None when the `.meta.json` is absent.
 
     make_eval_step(state=...) captures the state's EMA tree when it is
     built: build the eval step again after a restore."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if not is_train_state(ckpt):
-        raise ValueError(f"{path} is not a TrainState checkpoint "
-                         "(train/checkpoint.py:save_checkpoint)")
+    ckpt = _read(path, next(iter(state.params.values())).device.type)
     sgd = sgd_state(state.opt_state)
     _copy_into(state.params, ckpt["params"], "params")
     _copy_into(state.batch_stats, ckpt["batch_stats"], "batch_stats")

@@ -426,20 +426,26 @@ class Trainer:
                                    val_pending=self._val_pending, mesh=self.mesh)
 
     def load_checkpoint(self, path: str) -> int:
-        """Restore ckpts/<name> into the state, and the early-stop and
-        pending-validation counters from its meta; returns the step to
-        resume at. The eval step is built again over the restored EMA."""
+        """Restore ckpts/<name> (the port's file or a JAX Trainer's orbax
+        directory) into the state, and the early-stop and
+        pending-validation counters from its meta, read as the JAX Trainer
+        reads them; returns the step to resume at. The eval step is built
+        again over the restored EMA."""
         from vision_kit_tpu_torch.train import checkpoint
 
         state, meta = checkpoint.load_checkpoint(path, self.state)
         self.use_state(state)
-        step = state.step
+        # without a meta JAX resumes at 0; the port's own file carries its step
+        step = 0 if os.path.isdir(path) else state.step
         if meta is not None:
             self.best_map50 = float(meta.get("best_map50", -1.0))
             # early-stop patience survives a resume (an uninterrupted run
             # would still be counting)
             self.epochs_no_improve = int(meta.get("epochs_no_improve", 0))
-            step = int(meta.get("step", step))
+            step = meta.get("step")
+            if step is None:  # a meta from before the step was kept: epochs
+                step = (int(meta.get("epoch", -1)) + 1) * self.steps_per_epoch
+            step = int(step)
             self._val_pending = bool(meta.get("val_pending", False))
         self.global_step = step
         return step
