@@ -132,8 +132,13 @@ Phases, each printing its own line; any failure exits non-zero:
      through Trainer.fit for v5s@640 bf16, 2 classes, 2 epochs at batch 64
      with configs/yolov5_tpu.yaml's device augmentation and RAM cache on
      the card, then test(): one greedy_nms launch per validation batch and
-     none of head_scores, the checkpoints, the best weights served by
-     load_predictor_from_config; the card's TrainLoader and ValLoader
+     none of head_scores; the run directory as the JAX Trainer writes it:
+     ckpts/last and ckpts/best orbax directories (last read back on the
+     card equal to the state's JAX tree bit for bit), written in the
+     background (the Trainer's blocked ms a save and the writer's ms),
+     train.jpg and val.jpg decoding, the best weights a Flax msgpack equal
+     to ckpts/best's f32 EMA, served by load_predictor_from_config with a
+     launch of each kernel; the card's TrainLoader and ValLoader
      against a CPU dataset's (loader_bench.loader_disagreements); a twin
      run's distance in the default mode; decoder "plain" on the card: the
      host route's batches of 8 bit-equal with 0 and 8 workers;
@@ -145,7 +150,8 @@ Phases, each printing its own line; any failure exits non-zero:
      process (--deterministic-check), the default fit and
      Trainer(deterministic=True)'s in turns (img/s by epoch, the two
      deterministic runs bit-identical), a deterministic crash after step 3
-     resumed from ckpts/last, bit-identical to an uninterrupted run, and the
+     resumed from ckpts/last (an orbax directory), bit-identical to an
+     uninterrupted run, and the
      step alone in both modes in turns; the train CLI as a subprocess; an
      epoch under the profiler and the sample grid alone; the
      loader's rates and ms a batch, and the step alone on the fit's model;
@@ -155,9 +161,10 @@ Phases, each printing its own line; any failure exits non-zero:
      output dirs (write_dataset's files), 2 classes, 2 epochs, and degrees
      5 and shear 2, so that the rotation/shear warp runs: Trainer.fit (16
      steps an epoch; img/s and the loader's wait share by epoch; one
-     greedy_nms launch per validation batch and none of head_scores), then
-     test(); each op of ops/imgproc.py on the card against the CPU, bit for
-     bit, on a seeded 640 and 1280 image (the warp under rotation, shear
+     greedy_nms launch per validation batch and none of head_scores;
+     ckpts/last an orbax directory), then test(); each op of
+     ops/imgproc.py on the card against the CPU, bit for bit, on a seeded
+     640 and 1280 image (the warp under rotation, shear
      and translation, HSV at three gain draws, blur, median, gray, Lab,
      CLAHE, the pad); two host-route TrainLoader batches of 8 with mixup
      from a PNG-only dataset on the card (num_workers 0: every op on the
@@ -173,7 +180,8 @@ Phases, each printing its own line; any failure exits non-zero:
      the 1x64 step likewise, the f32 one held to each rank's rows run
      alone; the bf16 2x32 step's time; Trainer.fit (the fit phase's
      config and files, 32 rows a rank) whose ranks end bit-identical with
-     one greedy_nms launch a rank per validation batch; the 2-rank
+     one greedy_nms launch a rank per validation batch, each rank finding
+     rank 0's ckpts/last an orbax directory as fit returns; the 2-rank
      validation against rank 0's alone over whole batches (the same
      detections, then the metrics to 1e-9); then on the same two ranks the
      main path's v5s@640 bf16 behind Predictor(mesh=...): 8 frames of
@@ -199,7 +207,9 @@ Phases, each printing its own line; any failure exits non-zero:
      sha256, and its MB/s on the largest frame; a v5s@640 TrainState after
      two steps (momentum, EMA) written as the JAX Trainer's tree by
      write_checkpoint and read back by read_checkpoint on the card's path,
-     every leaf bit-equal (MB, write and read seconds); one b8 640 batch
+     every leaf bit-equal (MB, write and read seconds), and the same state
+     through the Trainer's AsyncCheckpointer (the caller's blocked ms, the
+     writer's ms), read back bit-equal; one b8 640 batch
      served through load_predictor_from_config of that directory and of
      the port's own file of the same state, detections bit-equal with both
      kernels launched; in a child (--orbax-resume, deterministic),
@@ -2144,14 +2154,16 @@ def deterministic_check(data_dir: str, out: str) -> dict:
     CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts: with
     Trainer(deterministic=True), an uninterrupted fit of fit_config, then a
     fit that crashes after step 3 (a loader that raises) resumed from its
-    ckpts/last; then, past that warm-up, the default fit and the
-    deterministic one in turns (default, deterministic, deterministic,
-    default), each deterministic run against the first; then the training
-    step alone (run_train_bench, device aug) in both modes, in turns.
-    Returns the step the crash saved, the batch ids the resume trained on,
+    ckpts/last (an orbax directory); then, past that warm-up, the default
+    fit and the deterministic one in turns (default, deterministic,
+    deterministic, default), each deterministic run against the first; then
+    the training step alone (run_train_bench, device aug) in both modes, in
+    turns. Returns the step the crash saved and whether its ckpts/last was
+    an orbax directory, the batch ids the resume trained on,
     both runs' final steps, the state tensors that differ from the first
     run's, and each turn's img/s by epoch and the step's img/s by mode."""
     from vision_kit_tpu_torch.train.trainer import Trainer
+    from vision_kit_tpu_torch.utils import orbax
     from vision_kit_tpu_torch.utils import stream_bench as sb
     from vision_kit_tpu_torch.utils.general import deterministic_mode
 
@@ -2180,6 +2192,7 @@ def deterministic_check(data_dir: str, out: str) -> dict:
         last = os.path.join(crashed.output_dir, "ckpts", "last")
         with open(last + ".meta.json") as f:
             saved = json.load(f)["step"]
+        last_is_orbax = orbax.is_checkpoint(last)
         del crashed
         resumed = trainer("crash", True)
         seen, orig = [], resumed.train_step
@@ -2191,7 +2204,8 @@ def deterministic_check(data_dir: str, out: str) -> dict:
         resumed.train_step = recording
         resumed.fit(resume=last)
         resumed.train_loader.close()
-    out_ = {"saved_step": saved, "seen": seen, "step": resumed.state.step,
+    out_ = {"saved_step": saved, "last_is_orbax": last_is_orbax, "seen": seen,
+            "step": resumed.state.step,
             "ref_step": ref.state.step, "resume_differ": differ(resumed)[:5]}
     del resumed
     torch.cuda.empty_cache()
@@ -2272,6 +2286,45 @@ def restore_leg(restored: dict) -> dict:
     return out
 
 
+def run_directory_checks(tr, run: str) -> list:
+    """The run directory of a finished fit as the JAX Trainer writes it:
+    ckpts/last and ckpts/best orbax directories with their metas, last
+    read on the card equal to the state's JAX tree bit for bit; the best
+    weights a .msgpack; train.jpg and val.jpg JPEGs that decode. Returns
+    the Trainer's background saves ({"path", "blocked_s", "write_s",
+    "mb"})."""
+    import glob
+
+    from vision_kit_tpu_torch import convert
+    from vision_kit_tpu_torch.data.decode import decode_image
+    from vision_kit_tpu_torch.utils import orbax
+
+    for name in ("last", "best"):
+        path = os.path.join(run, "ckpts", name)
+        check(orbax.is_checkpoint(path) and os.path.isfile(path + ".meta.json"),
+              f"fit wrote no orbax directory ckpts/{name} with its meta")
+    check(not glob.glob(os.path.join(run, "**", "*.pt"), recursive=True)
+          and not glob.glob(os.path.join(run, "*.png")), "fit wrote a .pt or a .png")
+    want = flat_leaves(convert.jax_train_state_tree(tr.state))
+    got = flat_leaves(orbax.read_checkpoint(os.path.join(run, "ckpts", "last"), device="cuda"))
+    check(sorted(got) == sorted(want) and all(leaf_data(got[k]) == leaf_data(w)
+                                              for k, w in want.items()),
+          "ckpts/last read on the card differs from the state's JAX tree")
+    check(len(glob.glob(os.path.join(run, "weights", "best-map50_*.msgpack"))) > 0,
+          "fit exported no best weights")
+    for name in ("train.jpg", "val.jpg"):
+        with open(os.path.join(run, name), "rb") as f:
+            data = f.read()
+        img = decode_image(data)
+        check(data[:2] == b"\xff\xd8" and img is not None and img.ndim == 3,
+              f"{name} is not a JPEG that decodes")
+    mb = sum(len(leaf_data(w)[2]) for w in want.values()) / 1e6
+    saves = [dict(r, mb=mb) for r in tr.checkpointer.records]
+    check(len(saves) >= 2 and all(r["write_s"] is not None for r in saves),
+          f"the Trainer's background saves: {saves}")
+    return saves
+
+
 def phase_fit(smi: str) -> dict:
     """Training from a dataset: Trainer.fit of v5s@640 bf16 for 2 epochs on
     write_dataset's files (the committed samples by their decode routes,
@@ -2284,10 +2337,12 @@ def phase_fit(smi: str) -> dict:
     import subprocess
     import tempfile
 
+    from vision_kit_tpu_torch import convert
     from vision_kit_tpu_torch.data.datasets import YOLODataset
     from vision_kit_tpu_torch.predictor import load_predictor_from_config
     from vision_kit_tpu_torch.train.trainer import Trainer
     from vision_kit_tpu_torch.utils import loader_bench as lb
+    from vision_kit_tpu_torch.utils import orbax
     from vision_kit_tpu_torch.utils import stream_bench as sb
     from vision_kit_tpu_torch.utils.config import save_config
 
@@ -2323,10 +2378,8 @@ def phase_fit(smi: str) -> dict:
         check(tr.global_step == tr.state.step == FIT_EPOCHS * FIT_TRAIN // FIT_BATCH,
               f"fit ended at step {tr.global_step}")
         run = cfg.data.output_dir
-        best = sorted(glob.glob(os.path.join(run, "weights", "best-map50_*.pt")))
-        for path in ("ckpts/last", "ckpts/last.meta.json", "train.png", "val.png"):
-            check(os.path.exists(os.path.join(run, path)), f"fit wrote no {path}")
-        check(len(best) > 0, "fit exported no best weights")
+        saves = run_directory_checks(tr, run)
+        best = sorted(glob.glob(os.path.join(run, "weights", "best-map50_*.msgpack")))
         reset_counts()
         result = tr.test()
         test_counts = read_counts()
@@ -2334,13 +2387,20 @@ def phase_fit(smi: str) -> dict:
               f"test() launched {test_counts}")
         check(all(np.isfinite(result[k]) for k in ("map50", "map50_95")),
               f"test() mAP {result['map50']}, {result['map50_95']}")
+        # the best weights, a Flax msgpack: the f32 EMA that ckpts/best holds
         pred = load_predictor_from_config(cfg, weights=best[-1], device="cuda")
-        ema = torch.load(best[-1], weights_only=True)["model"]
-        for k, v in pred.model.state_dict().items():
-            if k in ema:
-                check(torch.equal(v.cpu(), ema[k].float()), f"best weights {k} not served")
+        ema = convert.state_dict_from_jax_variables(
+            orbax.read_checkpoint(os.path.join(run, "ckpts", "best"), device="cuda")["ema"]["tree"])
+        served = pred.model.state_dict()
+        check(all(torch.equal(served[k].cpu(), v) and served[k].dtype == torch.float32
+                  for k, v in ema.items() if not k.endswith("num_batches_tracked")),
+              "the best weights served are not ckpts/best's f32 EMA")
         frames = next(iter(tr.val_loader))["image"][:4].cpu().numpy()
+        reset_counts()
         dets, _ = pred.predict_batch(frames)
+        serve_counts = read_counts()
+        check(serve_counts["greedy_nms"] > 0 and serve_counts["head_scores"] > 0,
+              f"serving the best weights launched {serve_counts}")
         check(all(np.isfinite(d).all() for d in dets), "best weights: non-finite detections")
         stats = tr.epoch_stats
         print(f"fit: v5s@640 b{FIT_BATCH} bf16 (2 classes), {FIT_EPOCHS} epochs of "
@@ -2354,8 +2414,16 @@ def phase_fit(smi: str) -> dict:
                           f"{100 * e['loader_wait_s'] / e['seconds']:.1f} %), validation "
                           f"{e['val_s']:.2f} s" for e in stats)
               + f"; launches {counts}; test() mAP@.5 {result['map50']:.4f} launches "
-              f"{test_counts}; best weights served by load_predictor_from_config on {smi}",
+              f"{test_counts}; {os.path.basename(best[-1])} (ckpts/best's f32 EMA) served "
+              f"by load_predictor_from_config, launches {serve_counts} on {smi}",
               flush=True)
+        print(f"fit: ckpts/last and ckpts/best orbax directories, last read on the card "
+              f"equal to the state's JAX tree bit for bit; train.jpg and val.jpg decode; "
+              f"{len(saves)} saves of the {saves[0]['mb']:.1f} MB state in the background "
+              f"(AsyncCheckpointer), the Trainer blocked (the snapshot) "
+              + ", ".join(f"{r['blocked_s'] * 1e3:.1f}" for r in saves)
+              + " ms, the writer " + ", ".join(f"{r['write_s'] * 1e3:.1f}" for r in saves)
+              + f" ms (host clock) on {smi}", flush=True)
 
         # the card's loaders against the plain ones, over the same files
         card_ds = tr.train_loader.planner.dataset
@@ -2426,13 +2494,15 @@ def phase_fit(smi: str) -> dict:
               + f" img/s; the child {time.perf_counter() - t0:.1f} s on {smi}", flush=True)
         want_steps = FIT_EPOCHS * FIT_TRAIN // FIT_BATCH
         check(res["saved_step"] == 3, f"the crash saved step {res['saved_step']}, not 3")
+        check(res["last_is_orbax"], "the crash saved no orbax directory as ckpts/last")
         check(res["seen"] == list(range(3, want_steps)), f"the resume saw batches {res['seen']}")
         check(res["step"] == res["ref_step"] == want_steps,
               f"the resume ended at step {res['step']}, the run at {res['ref_step']}")
         check(not res["resume_differ"],
               f"the resumed state differs from the run's: {res['resume_differ']}")
         print(f"fit: Trainer(deterministic=True) in a child process: a crash after step 3 "
-              f"saved step {res['saved_step']}; the resume saw batches {res['seen']} and "
+              f"saved step {res['saved_step']} as the orbax directory ckpts/last; the "
+              f"resume from it saw batches {res['seen']} and "
               f"ended at step {res['step']}, every state tensor bit-identical to an "
               f"uninterrupted run's", flush=True)
 
@@ -2468,7 +2538,7 @@ def phase_fit(smi: str) -> dict:
         grid_s = time.perf_counter() - t0
         print(f"fit: one epoch (2 steps, the validation, a checkpoint; resumed from "
               f"ckpts/last) under the profiler, device ms by kernel group and range: "
-              f"{json.dumps(prof)}; the sample grid alone (warp of 16 tiles, PNG) "
+              f"{json.dumps(prof)}; the sample grid alone (warp of 16 tiles, JPEG) "
               f"{grid_s:.3f} s on {smi}", flush=True)
         del batch
 
@@ -2524,6 +2594,7 @@ def phase_fit_host(smi: str) -> dict:
     from vision_kit_tpu_torch.data.datasets import YOLODataset
     from vision_kit_tpu_torch.train.trainer import Trainer
     from vision_kit_tpu_torch.utils import loader_bench as lb
+    from vision_kit_tpu_torch.utils import orbax
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2555,8 +2626,8 @@ def phase_fit_host(smi: str) -> dict:
               f"fit ended at step {tr.global_step}")
         check(all(bool(torch.isfinite(v).all()) for v in tr.state.params.values()),
               "fit left non-finite parameters")
-        check(os.path.exists(os.path.join(cfg.data.output_dir, "ckpts", "last")),
-              "fit wrote no ckpts/last")
+        check(orbax.is_checkpoint(os.path.join(cfg.data.output_dir, "ckpts", "last")),
+              "fit wrote no orbax directory ckpts/last")
         reset_counts()
         result = tr.test()
         test_counts = read_counts()
@@ -2711,6 +2782,7 @@ def ddp_rank(rank: int, port: int, data_dir: str, out: str) -> dict:
     from vision_kit_tpu_torch.train.evaluator import DetEvaluator
     from vision_kit_tpu_torch.train.losses import YoloLoss
     from vision_kit_tpu_torch.train.step import make_eval_step
+    from vision_kit_tpu_torch.utils import orbax
     from vision_kit_tpu_torch.utils import stream_bench as sb
 
     sb.deterministic()
@@ -2742,6 +2814,9 @@ def ddp_rank(rank: int, port: int, data_dir: str, out: str) -> dict:
         torch.cuda.synchronize()
         res["fit_s"] = time.perf_counter() - t0
         res["launches"] = read_counts()
+        # rank 0 wrote it; every rank is past the barrier of fit's last wait
+        res["last_is_orbax"] = orbax.is_checkpoint(os.path.join(out, "ckpts", "last"))
+        res["saves"] = len(tr.checkpointer.records)
         res["n_val_batches"] = len(tr.val_loader)
         res["epochs"] = [{k: e[k] for k in ("img_s", "seconds", "loader_wait_s", "val_s")}
                          for e in tr.epoch_stats]
@@ -2968,6 +3043,11 @@ def phase_ddp(smi: str) -> dict:
     check(not fails, "the 2x32 gloo step: " + "; ".join(fails)
           + f"; losses {r0['metrics']['mesh']} and {r0['metrics']['one_process']}")
     check(r0["digest"] == r1["digest"], "the ranks' states differ after fit")
+    check(r0["last_is_orbax"] and r1["last_is_orbax"] and r0["saves"] > 0
+          and r1["saves"] == 0,
+          f"ckpts/last after the ddp fit: rank 0 found an orbax directory "
+          f"{r0['last_is_orbax']} ({r0['saves']} saves), rank 1 {r1['last_is_orbax']} "
+          f"({r1['saves']} saves)")
     want_steps = FIT_EPOCHS * FIT_TRAIN // DDP_BATCH
     check(r0["step"] == r1["step"] == want_steps, f"fit ended at step {r0['step']}")
     n_val = r0["n_val_batches"]
@@ -2998,7 +3078,8 @@ def phase_ddp(smi: str) -> dict:
                                     f"validation {e['val_s']:.2f} s" for e in r0["epochs"])
           + f"; the ranks bit-identical; greedy_nms launches by rank "
           f"{[r0['launches']['greedy_nms'], r1['launches']['greedy_nms']]} "
-          f"({FIT_EPOCHS} validations of {n_val} batch); validation on 2 ranks "
+          f"({FIT_EPOCHS} validations of {n_val} batch); rank 0's {r0['saves']} background "
+          f"saves, ckpts/last an orbax directory on both ranks; validation on 2 ranks "
           f"{val['mesh']} vs rank 0 alone {val['one']}: detections "
           f"{'bit-equal' if val['bit_equal'] else 'equal within tolerance'} "
           f"({val['n_detections']}), "
@@ -3614,9 +3695,11 @@ def phase_orbax(smi: str) -> dict:
     largest frame; (b) a v5s@640 TrainState with momentum and EMA (two
     steps from calibrated_v5s) written by write_checkpoint in the JAX
     layout (convert.jax_train_state_tree) with the JAX meta beside it, read
-    back by read_checkpoint on the card's path, every tensor bit-equal;
-    (c) one b8 640 batch served through load_predictor_from_config of that
-    directory and of the port's own file of the same state: detections
+    back by read_checkpoint on the card's path, every tensor bit-equal, and
+    the same state through the Trainer's AsyncCheckpointer (the caller's
+    blocked ms, the writer's ms); (c) one b8 640 batch served through
+    load_predictor_from_config of that directory and of the port's own
+    file of the same state: detections
     bit-equal, both kernels launched; (d) in a child (--orbax-resume),
     Trainer.load_checkpoint of the directory and of the file, each followed
     by one train step: bit-equal, step and meta carried. Returns the
@@ -3627,7 +3710,7 @@ def phase_orbax(smi: str) -> dict:
 
     from vision_kit_tpu_torch import convert
     from vision_kit_tpu_torch.predictor import load_predictor_from_config
-    from vision_kit_tpu_torch.train.checkpoint import save_checkpoint
+    from vision_kit_tpu_torch.train.checkpoint import AsyncCheckpointer, save_checkpoint
     from vision_kit_tpu_torch.train.losses import YoloLoss
     from vision_kit_tpu_torch.utils import loader_bench as lb
     from vision_kit_tpu_torch.utils import orbax
@@ -3722,6 +3805,24 @@ def phase_orbax(smi: str) -> dict:
               f"write_checkpoint {write_s:.2f} s, read_checkpoint on the card's path "
               f"{read_s:.2f} s ({n_chunks} chunks through the C decoder), every leaf "
               f"bit-equal (host clock) on {smi}", flush=True)
+        # the same state through the Trainer's background writer
+        ckptr = AsyncCheckpointer()
+        async_dir = os.path.join(tmp, "ckpts", "async")
+        t0 = time.perf_counter()
+        ckptr.save(async_dir, state, epoch=0)
+        returned_s = time.perf_counter() - t0
+        ckptr.wait_until_finished()
+        rec = ckptr.records[-1]
+        got = flat_leaves(orbax.read_checkpoint(async_dir, device="cuda"))
+        check(sorted(got) == sorted(want)
+              and all(leaf_data(got[k]) == leaf_data(w) for k, w in want.items()),
+              "orbax: the background save differs from the state's tree")
+        print(f"orbax: the same {mb:.1f} MB state through AsyncCheckpointer.save: the "
+              f"caller blocked {rec['blocked_s'] * 1e3:.1f} ms on the snapshot (save "
+              f"returned in {returned_s * 1e3:.1f} ms), the writer thread "
+              f"{rec['write_s'] * 1e3:.1f} ms, against write_checkpoint's "
+              f"{write_s * 1e3:.1f} ms above (snapshot and write); every leaf bit-equal "
+              f"(host clock) on {smi}", flush=True)
         del step, state, data, tree, back, model
         torch.cuda.empty_cache()
 

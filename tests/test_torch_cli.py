@@ -20,6 +20,7 @@ import yaml
 
 from fixture_lib import build_rectangle_dataset
 from vision_kit_tpu_torch import __main__ as cli
+from vision_kit_tpu_torch.utils import orbax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,10 +57,10 @@ def test_train_then_eval_on_the_cpu(tmp_path):
     log = open(os.path.join(run, "log.log")).read()
     assert "Global seed set to 7" in log
     assert "mAP@.5" in log and "Average Precision" in log
-    assert os.path.exists(os.path.join(run, "ckpts", "last"))
+    assert orbax.is_checkpoint(os.path.join(run, "ckpts", "last"))
     assert os.path.exists(os.path.join(run, "ckpts", "last.meta.json"))
-    assert glob.glob(os.path.join(run, "weights", "best-map50_*.pt"))
-    assert os.path.exists(os.path.join(run, "train.png"))
+    assert glob.glob(os.path.join(run, "weights", "best-map50_*.msgpack"))
+    assert os.path.exists(os.path.join(run, "train.jpg"))
 
     r = run_cli("eval", "-c", cfg, "-d", os.path.join(run, "ckpts"), "--device", "cpu",
                 "-s", "3")
@@ -91,7 +92,8 @@ def test_train_under_torchrun_on_the_cpu(tmp_path):
     assert len(runs) == 1
     log = open(os.path.join(runs[0], "log.log")).read()
     assert "mAP@.5" in log and log.count("Start Training") == 1
-    for path in ("ckpts/last", "ckpts/last.meta.json", "train.png"):
+    assert orbax.is_checkpoint(os.path.join(runs[0], "ckpts", "last"))
+    for path in ("ckpts/last.meta.json", "train.jpg"):
         assert os.path.exists(os.path.join(runs[0], path)), path
 
 
@@ -116,7 +118,7 @@ def test_train_default_config_on_the_cpu(tmp_path):
     assert len(logs) == 1
     log = open(logs[0]).read()
     assert "epoch 1/1 loss" in log and "mAP@.5" in log and "device_aug" not in log
-    assert os.path.exists(os.path.join(os.path.dirname(logs[0]), "train.png"))
+    assert os.path.exists(os.path.join(os.path.dirname(logs[0]), "train.jpg"))
 
 
 @pytest.mark.parametrize("task", ["train", "eval"])

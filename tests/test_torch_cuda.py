@@ -552,8 +552,8 @@ def test_two_step_fit_on_the_card(cuda, tmp_path):
     assert greedy_keep.launches == before + len(tr.val_loader)
     result = tr.test()
     assert np.isfinite(result["map50"])
-    assert (tmp_path / "out" / "ckpts" / "last").exists()
-    assert list((tmp_path / "out" / "weights").glob("best-map50_*.pt"))
+    assert (tmp_path / "out" / "ckpts" / "last" / "_METADATA").is_file()
+    assert list((tmp_path / "out" / "weights").glob("best-map50_*.msgpack"))
 
 
 def test_host_route_ops_card_equal_cpu(cuda):

@@ -105,8 +105,9 @@ def test_drawing_boxes_and_labels():
     out = Drawing(["red", "green", "blue"], line_thickness=2).draw(img, dets)
     assert np.all(img == 7) and out.shape == img.shape
     color = class_color(2)
-    # the box's left edge, 2 px wide centred on x=10, below the label strip
-    assert np.all(out[36:48, 9:11] == color) and np.all(out[36:48, 12] == 7)
+    # the box's left edge below the label strip: cv2.rectangle's thickness 2,
+    # x = 9..11 around x = 10
+    assert np.all(out[36:48, 9:12] == color) and np.all(out[36:48, 12] == 7)
     mask = text_mask("blue 0.87")
     assert mask.shape == (7, 6 * 9 - 1)
     # the strip above the box: the box's colour, the text white inside it

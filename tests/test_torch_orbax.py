@@ -157,6 +157,37 @@ def test_ocdbt_store_equals_tensorstore(tmp_path, config):
     assert kv.config.manifest_kind == (1 if config.get("manifest_kind") else 0)
 
 
+def test_written_database_read_by_tensorstore(tmp_path):
+    """ocdbt.write_database: keys sharing prefixes, given out of order,
+    values empty, inline (up to 100 bytes) and in the data file, read back
+    by tensorstore (keys, values, its dump of the manifest) and by the
+    port's reader; a key given twice and no key at all are refused."""
+    rng = np.random.default_rng(3)
+    items = {f"{p}/{'x' * (i % 5)}{i}": rng.bytes(int(rng.choice([0, 1, 100, 101, 5000])))
+             for i, p in enumerate(["a", "ab", "b.c", "params.m_0"] * 40)}
+    order = list(items.items())[::-1]
+    size = ocdbt.write_database(str(tmp_path / "db"), order)
+    kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{tmp_path / 'db'}/"}).result()
+    assert sorted(k.decode() for k in kv.list().result()) == sorted(items)
+    for k, v in items.items():
+        assert kv.read(k).result().value == v, k
+    dump = ts.ocdbt.dump(ts.KvStore.open(f"file://{tmp_path / 'db'}/").result()).result()
+    (version,) = dump["versions"]
+    assert version["generation_number"] == 1 and version["root_height"] == 0
+    stats = version["root"]["statistics"]
+    assert stats["num_keys"] == len(items)
+    assert stats["num_indirect_value_bytes"] == sum(len(v) for v in items.values()
+                                                    if len(v) > 100)
+    assert dump["config"]["max_inline_value_bytes"] == ocdbt.MAX_INLINE_VALUE_BYTES
+    (data,) = os.listdir(tmp_path / "db" / "d")
+    assert os.path.getsize(tmp_path / "db" / "d" / data) == size
+    assert dict(ocdbt.KvStore(str(tmp_path / "db")).items()) == items
+    with pytest.raises(ValueError, match="twice"):
+        ocdbt.write_database(str(tmp_path / "twice"), [("k", b"1"), ("k", b"2")])
+    with pytest.raises(ValueError, match="at least one"):
+        ocdbt.write_database(str(tmp_path / "none"), [])
+
+
 def test_version_tree_nodes(tmp_path):
     """40 commits: the manifest keeps the newest versions inline and the
     older ones in version tree nodes. The reader takes the newest inline
@@ -300,6 +331,11 @@ def test_write_checkpoint_restored_by_orbax(tmp_path):
     orbax.write_checkpoint(path, tree)
     assert_same_tree(orbax_restore(path), tree)
     assert_same_tree(orbax.read_checkpoint(path), tree)
+    # orbax's default layout: one OCDBT database, not a directory an array
+    with open(os.path.join(path, "_METADATA")) as f:
+        assert json.load(f)["use_ocdbt"] is True
+    assert sorted(os.listdir(path)) == ["_CHECKPOINT_METADATA", "_METADATA", "d",
+                                        "manifest.ocdbt"]
     rng = np.random.default_rng(1)
     other = {"named": Pair(torch.randn(3, 4).to(torch.bfloat16),
                            rng.standard_normal((2, 2, 300)).astype(np.float32)),

@@ -227,7 +227,7 @@ def test_fit_epoch_equals_jax(jax_run):
     meta = json.load(open(os.path.join(d["data"]["output_dir"], "ckpts",
                                        "last.meta.json")))
     assert meta["step"] == 3 and meta["epoch"] == 0
-    assert os.path.exists(os.path.join(d["data"]["output_dir"], "train.png"))
+    assert os.path.exists(os.path.join(d["data"]["output_dir"], "train.jpg"))
 
 
 def test_host_route_fit_epoch_equals_jax(jax_run, jax_host_run):
@@ -266,7 +266,7 @@ def test_host_route_fit_epoch_equals_jax(jax_run, jax_host_run):
     assert state_disagreements({p: want[p] for p in STATE_PARTS}, train_state_tensors(tr.state),
                                {p: before[p] for p in STATE_PARTS},
                                step_rel=HOST_STEP_REL) == []
-    assert os.path.exists(os.path.join(d["data"]["output_dir"], "train.png"))
+    assert os.path.exists(os.path.join(d["data"]["output_dir"], "train.jpg"))
 
 
 def test_multiscale_draws_equal_jax(jax_run, monkeypatch):
@@ -398,14 +398,17 @@ def test_mid_validation_crash_resume_bit_identical(resume_cfg, tmp_path):
     assert resumed.best_map50 == ref.best_map50
     assert resumed.epochs_no_improve == ref.epochs_no_improve
     assert_states_identical(ref, resumed)
-    # the best weights: an fp16 {"model": state_dict} that load_weights takes
-    best = glob.glob(os.path.join(str(tmp_path / "b"), "weights", "best-map50_*.pt"))
-    assert os.path.basename(max(best)) == f"best-map50_{resumed.best_map50:.4f}.pt"
+    # the best weights: a Flax msgpack that load_weights takes, the f32 EMA
+    # that ckpts/best holds
+    best = glob.glob(os.path.join(str(tmp_path / "b"), "weights", "best-map50_*.msgpack"))
+    assert os.path.basename(max(best)) == f"best-map50_{resumed.best_map50:.4f}.msgpack"
     model = load_weights(max(best), port_trainer(d).model)
+    want = load_weights(os.path.join(str(tmp_path / "b"), "ckpts", "best"),
+                        port_trainer(d).model).state_dict()
     for k, v in model.state_dict().items():
         if v.is_floating_point():
-            assert torch.equal(v, v.half().float()), k
-    assert os.path.exists(os.path.join(str(tmp_path / "b"), "val.png"))
+            assert v.dtype == torch.float32 and torch.equal(v, want[k]), k
+    assert os.path.exists(os.path.join(str(tmp_path / "b"), "val.jpg"))
 
 
 def test_early_stop_counter_survives_resume(resume_cfg, tmp_path):
@@ -469,9 +472,10 @@ def test_two_rank_fit_is_identical_across_ranks_and_resumes_exactly(tmp_path):
     one epoch of 3 steps of the global batch 4 on a fresh copy of the
     rectangle set, validating at its end: the ranks' states are
     bit-identical; rank 0 alone writes the label caches, the checkpoints,
-    the best weights and the sample grids; a crash of both ranks after step
-    1, resumed from ckpts/last, ends bit-identical to the uninterrupted
-    run."""
+    the best weights and the sample grids, ckpts/last an orbax directory
+    that every rank reads past the barrier of the waits; a crash of both
+    ranks after step 1, resumed from ckpts/last, ends bit-identical to the
+    uninterrupted run."""
     from torch_dist_lib import run_ranks
 
     root = tmp_path / "rect"
@@ -490,10 +494,15 @@ def test_two_rank_fit_is_identical_across_ranks_and_resumes_exactly(tmp_path):
                      for what, path in run[0]["writes"])
     labels = [p for w, p in written if w == "savez_compressed"]
     assert len(labels) == 2 and all(".vkt_labels_" in p for p in labels)
-    assert [p for w, p in written if w == "grid_save"] == ["out/run/train.png",
-                                                           "out/run/val.png"]
-    saved = [p for w, p in written if w == "torch.save"]
+    assert [p for w, p in written if w == "grid_save"] == ["out/run/train.jpg",
+                                                           "out/run/val.jpg"]
+    saved = [p for w, p in written if w == "write_checkpoint"]
     assert "out/run/ckpts/last" in saved and "out/run/ckpts/best" in saved
-    assert any(p.startswith("out/run/weights/best-map50_") for p in saved)
-    for path in ("ckpts/last", "ckpts/last.meta.json", "train.png", "val.png"):
+    assert [w for w, p in written if p.startswith("out/run/weights/best-map50_")] == [
+        "write_file"]
+    assert not [p for w, p in written if w == "torch.save"]
+    # each rank found ckpts/last an orbax directory as its fit returned
+    assert [r["last_is_orbax"] for r in run] == [True, True]
+    assert [r["last_is_orbax"] for r in resumed] == [True, True]
+    for path in ("ckpts/last.meta.json", "train.jpg", "val.jpg"):
         assert os.path.exists(os.path.join(out, path)), path

@@ -292,13 +292,15 @@ def fit_worker(mesh, cfg: dict, crash_after: int, seed: int = 5):
     shares): an uninterrupted run under <out>/run, then a run under
     <out>/crash whose loader raises on every rank after crash_after
     batches, resumed from its ckpts/last by a new Trainer. Returns the two
-    final states' digests and steps, and the files this rank wrote (the
-    calls of torch.save, numpy.savez_compressed and grid_save) in each."""
+    final states' digests and steps, whether ckpts/last was an orbax
+    directory as fit returned, and the files this rank wrote (the calls of
+    torch.save, orbax.write_checkpoint, flax_msgpack.write_file,
+    numpy.savez_compressed and grid_save) in each."""
     import copy
     from unittest import mock
 
     from vision_kit_tpu_torch.train.trainer import Trainer
-    from vision_kit_tpu_torch.utils import drawing
+    from vision_kit_tpu_torch.utils import drawing, flax_msgpack, orbax
     from vision_kit_tpu_torch.utils.config import ConfigNode
     from vision_kit_tpu_torch.utils.stream_bench import train_state_tensors
 
@@ -318,7 +320,14 @@ def fit_worker(mesh, cfg: dict, crash_after: int, seed: int = 5):
 
     root = cfg["data"]["output_dir"]
     out = {}
+    def last_is_orbax(tr):
+        return orbax.is_checkpoint(os.path.join(tr.output_dir, "ckpts", "last"))
+
     with mock.patch.object(torch, "save", record(torch.save, "torch.save", 1)), \
+            mock.patch.object(orbax, "write_checkpoint",
+                              record(orbax.write_checkpoint, "write_checkpoint", 0)), \
+            mock.patch.object(flax_msgpack, "write_file",
+                              record(flax_msgpack.write_file, "write_file", 0)), \
             mock.patch.object(np, "savez_compressed",
                               record(np.savez_compressed, "savez_compressed", 0)), \
             mock.patch.object(drawing, "grid_save",
@@ -327,7 +336,7 @@ def fit_worker(mesh, cfg: dict, crash_after: int, seed: int = 5):
         ref.fit()
         out["run"] = {"digest": state_digest(train_state_tensors(ref.state)),
                       "step": ref.global_step, "writes": list(writes),
-                      "best_map50": ref.best_map50}
+                      "best_map50": ref.best_map50, "last_is_orbax": last_is_orbax(ref)}
         writes.clear()
         crashed = trainer(os.path.join(root, "crash"))
         crashed.train_loader = CrashingLoader(crashed.train_loader, crash_after)
@@ -340,7 +349,8 @@ def fit_worker(mesh, cfg: dict, crash_after: int, seed: int = 5):
         resumed = trainer(os.path.join(root, "crash"))
         resumed.fit(resume=os.path.join(root, "crash", "ckpts", "last"))
         out["resumed"] = {"digest": state_digest(train_state_tensors(resumed.state)),
-                          "step": resumed.global_step, "writes": list(writes)}
+                          "step": resumed.global_step, "writes": list(writes),
+                          "last_is_orbax": last_is_orbax(resumed)}
     return out
 
 

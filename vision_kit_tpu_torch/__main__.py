@@ -69,10 +69,10 @@ the run writes into
 weights/, the sample grids), with the loss gains scaled by
 update_loss_cfg. `train` runs Trainer.fit (resuming from <ckpt-dir>/last
 when -d is given and it exists), then Trainer.test; `eval` loads
-<ckpt-dir>/best when it exists, then runs Trainer.test. <ckpt-dir> is the
-port's run's ckpts/ or a JAX run's (orbax directories, read by
-utils/orbax.py without orbax or tensorstore; the resume continues at the
-JAX run's step). The loader takes
+<ckpt-dir>/best when it exists, then runs Trainer.test. <ckpt-dir> is a
+run's ckpts/, the port's or a JAX run's: orbax directories either way
+(read by utils/orbax.py without orbax or tensorstore; the resume
+continues at the saved step), or an earlier port run's torch.save files. The loader takes
 the host-augmentation route unless the config sets data.device_aug: true.
 Both call parallel/distributed.py:init_distributed first, so that
 

@@ -106,7 +106,8 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict:
 
 def jax_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
     """A port state_dict -> the Flax variables {"params", "batch_stats"}
-    of the same model, as float32 numpy arrays (the JAX package's
+    of the same model, as float32 numpy copies (never views of `sd`'s
+    tensors, which a train step updates in place; the JAX package's
     torch_to_flax without a template): a dotted key's numeric parts join
     their parent as Flax's `name_N`; a 4-d weight goes OIHW -> HWIO, a 1-d
     weight is a BatchNorm's scale, running_mean/var its statistics, an
@@ -123,7 +124,7 @@ def jax_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
                 path[-1] = f"{path[-1]}_{p}"
             else:
                 path.append(p)
-        arr = value.detach().float().cpu().numpy()
+        arr = value.detach().to("cpu", torch.float32, copy=True).numpy()
         name = parts[-1]
         if name == "weight" and arr.ndim == 4:
             col, leaf, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)

@@ -18,10 +18,14 @@ takes the host-augmentation route unless data.device_aug is true; with
 degrees or shear set the device route falls back to the host route with a
 warning, as in the JAX package.
 Precision: f32 master weights, and model.precision bf16 (the default) runs
-the forwards of both steps under torch.autocast in bf16. Checkpoints are train/checkpoint.py
-files, ckpts/last and ckpts/best with the JAX meta beside each; the best
-EMA weights are an fp16 {"model": state_dict} .pt that
-predictor.load_weights reads. Sample grids are PNGs (<split>.png).
+the forwards of both steps under torch.autocast in bf16. The run directory
+is the JAX Trainer's: ckpts/last and ckpts/best are orbax directories with
+the JAX meta beside each, written in the background
+(train/checkpoint.py:AsyncCheckpointer), which the JAX Trainer resumes; the
+best EMA weights are weights/best-map50_<m>.msgpack, the bytes of flax's
+to_bytes of the f32 EMA tree, which the JAX predictor and
+predictor.load_weights read; the sample grids are <split>.jpg, cv2.imwrite's
+bytes of the JAX grid.
 
 Batches are in ValLoader's format for `validate` and `test` below: {"image":
 (B, S, S, 3) uint8, "targets": (B, M, 5), "info": [(h0, w0, ratio, pad,
@@ -137,6 +141,7 @@ class Trainer:
         raises when CUDA started without it."""
         from vision_kit_tpu_torch.models import build_model
         from vision_kit_tpu_torch.parallel import mesh as pmesh
+        from vision_kit_tpu_torch.train.checkpoint import AsyncCheckpointer
         from vision_kit_tpu_torch.train.evaluator import DetEvaluator
         from vision_kit_tpu_torch.train.optim import make_optimizer
         from vision_kit_tpu_torch.train.step import create_train_state, make_train_step
@@ -171,6 +176,8 @@ class Trainer:
         self.output_dir = cfg.data.output_dir
         if self.is_main:
             os.makedirs(os.path.join(self.output_dir, "ckpts"), exist_ok=True)
+        # one outstanding background save at a time (JAX's AsyncCheckpointer)
+        self.checkpointer = AsyncCheckpointer(mesh=mesh)
         # the global batch, a multiple of the data axis; each rank trains on
         # its batch_size // n_data rows
         self.n_data = mesh.n_data if mesh is not None else 1
@@ -415,27 +422,31 @@ class Trainer:
         return self._dataset(split_path, json_file)
 
     # -- checkpointing ----------------------------------------------------
-    def save_checkpoint(self, name: str, epoch: int):
-        """The state to ckpts/<name> and the meta beside it (the step saved is
-        global_step, which the state's step equals)."""
-        from vision_kit_tpu_torch.train import checkpoint
-
+    def save_checkpoint(self, name: str, epoch: int, blocking: bool = False):
+        """The state to the orbax directory ckpts/<name> and the meta beside
+        it, in the background once the state's snapshot is on the host (the
+        step saved is global_step, which the state's step equals). blocking:
+        return once both are on disk."""
         path = os.path.join(self.output_dir, "ckpts", name)
-        checkpoint.save_checkpoint(path, self.state, epoch, best_map50=self.best_map50,
-                                   epochs_no_improve=self.epochs_no_improve,
-                                   val_pending=self._val_pending, mesh=self.mesh)
+        self.checkpointer.save(path, self.state, epoch, best_map50=self.best_map50,
+                               epochs_no_improve=self.epochs_no_improve,
+                               val_pending=self._val_pending, blocking=blocking)
 
     def load_checkpoint(self, path: str) -> int:
-        """Restore ckpts/<name> (the port's file or a JAX Trainer's orbax
-        directory) into the state, and the early-stop and
-        pending-validation counters from its meta, read as the JAX Trainer
-        reads them; returns the step to resume at. The eval step is built
-        again over the restored EMA."""
+        """Restore `path` (an orbax directory, this port's or a JAX
+        Trainer's ckpts/last or ckpts/best, or a file in the port's
+        torch.save format: a `.pt` path, or an earlier port run's ckpts/)
+        into the state, and the early-stop and pending-validation
+        counters from its meta, read as the JAX Trainer reads them; returns
+        the step to resume at. The eval step is built again over the
+        restored EMA. As in JAX, a save of this Trainer still in flight is
+        not waited for: fit waits for its own before it returns."""
         from vision_kit_tpu_torch.train import checkpoint
 
         state, meta = checkpoint.load_checkpoint(path, self.state)
         self.use_state(state)
-        # without a meta JAX resumes at 0; the port's own file carries its step
+        # a directory without a meta resumes at 0, the JAX rule, whoever
+        # wrote it; the port's `.pt` file carries its step
         step = 0 if os.path.isdir(path) else state.step
         if meta is not None:
             self.best_map50 = float(meta.get("best_map50", -1.0))
@@ -468,7 +479,8 @@ class Trainer:
             try:
                 # the epoch field is informational (the last COMPLETED epoch);
                 # the resume cursor is meta["step"]
-                self.save_checkpoint("last", self.global_step // self.steps_per_epoch - 1)
+                self.save_checkpoint("last", self.global_step // self.steps_per_epoch - 1,
+                                     blocking=True)
                 if self.best_map50 > 0:
                     self._export_best_weights(self.best_map50)
                 logger.warning("exception: saved last checkpoint before exit")
@@ -584,7 +596,10 @@ class Trainer:
             self._export_best_weights(map50)
 
     def _finish_fit(self):
-        self.train_loader.close()
+        try:
+            self.checkpointer.wait_until_finished()
+        finally:
+            self.train_loader.close()
 
     def validate(self, loader=None, collect_coco: bool = False, split: str = "val"):
         """Evaluate the EMA over `loader` (default: the val split); the first
@@ -650,14 +665,20 @@ class Trainer:
         return result
 
     def _export_best_weights(self, map50: float):
-        """The EMA weights as an fp16 {"model": state_dict} .pt, on each new
-        best (predictor.load_weights reads it)."""
+        """The f32 EMA weights as weights/best-map50_<m>.msgpack on each new
+        best: for the same numbers, the bytes of the JAX Trainer's
+        flax.serialization.to_bytes of its EMA tree (keys sorted, as
+        jax.device_get gives them), which the JAX predictor and
+        predictor.load_weights read."""
+        from vision_kit_tpu_torch.convert import jax_variables_from_state_dict
+        from vision_kit_tpu_torch.utils import flax_msgpack
+
         if not self.is_main:
             return
-        path = os.path.join(self.output_dir, "weights", f"best-map50_{map50:.4f}.pt")
+        path = os.path.join(self.output_dir, "weights", f"best-map50_{map50:.4f}.msgpack")
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save({"model": {k: v.detach().half().cpu()
-                              for k, v in self.state.ema.tree.items()}}, path)
+        flax_msgpack.write_file(path, flax_msgpack.sorted_keys(
+            jax_variables_from_state_dict(self.state.ema.tree)))
 
     def profile(self, steps: int = 5):
         """A torch.profiler trace of `steps` train steps (after one untimed
@@ -685,7 +706,7 @@ class Trainer:
 
     def _save_grid(self, batch, split, step: int = 0):
         """The first batch's sample grid (ground-truth boxes drawn) to
-        <output_dir>/<split>.png, and to TensorBoard/WandB as
+        <output_dir>/<split>.jpg, the JAX Trainer's bytes, and to TensorBoard/WandB as
         samples/<split>. A device-augmentation batch is warped for the
         grid's 16 images on its device. A failure is logged, never raised:
         the grid is a side product of training."""
@@ -707,7 +728,7 @@ class Trainer:
                         tiles, torch.as_tensor(batch["tile_hw"][:n], device=tiles.device),
                         torch.as_tensor(batch["params"][:n], device=tiles.device))
                 targets = targets[:n]
-            grid = grid_save(images, targets, os.path.join(self.output_dir, f"{split}.png"))
+            grid = grid_save(images, targets, os.path.join(self.output_dir, f"{split}.jpg"))
             self._log_image(f"samples/{split}", grid, step)
         except Exception as e:  # a boundary that must keep training
             logger.warning("sample grid save failed: %s", e)

@@ -1,22 +1,26 @@
 """Detections drawn on an image, and sample grids: the batch images with
-their ground-truth boxes, written as a PNG.
+their ground-truth boxes, written as cv2.imwrite writes them.
 
 Counterpart of vision_kit_tpu/utils/drawing.py (Drawing, grid_save,
-class_color) without OpenCV: boxes are numpy rectangles, grids are PNGs
-(data/decode.py:encode_png) where the JAX package writes JPEGs. A label
-("<name> <conf>") is drawn white on a strip of the box's colour, as the
-JAX Drawing draws it, but in a built-in 5x7 bitmap font (capitals, digits
-and a few signs; lower case drawn as capitals) where the JAX one uses
-cv2's anti-aliased Hershey font, which cannot be matched without cv2.
+class_color) without OpenCV: box outlines are cv2.rectangle's pixels
+(draw_rectangle, OpenCV 5.0.0's drawing.cpp), a `.jpg` grid is
+data/encode.py:encode_jpeg's bytes (cv2.imwrite's at its defaults) and a
+`.png` one data/decode.py:encode_png's. A label ("<name> <conf>") is drawn
+white on a strip of the box's colour, as the JAX Drawing draws it, but in a
+built-in 5x7 bitmap font (capitals, digits and a few signs; lower case
+drawn as capitals) where the JAX one uses cv2's anti-aliased Hershey font,
+which cannot be matched without cv2.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
 from vision_kit_tpu_torch.data.decode import encode_png
+from vision_kit_tpu_torch.data.encode import encode_jpeg
 
 # fixed colour wheel (12 hues cycled), the JAX package's
 _BASE = [
@@ -30,25 +34,83 @@ def class_color(cls_id: int) -> tuple[int, int, int]:
     return _BASE[int(cls_id) % len(_BASE)]
 
 
-def draw_rectangle(img: np.ndarray, p1, p2, color, thickness: int = 2) -> None:
-    """The outline of the box with corners p1, p2 (x, y), `thickness` px
-    wide and centred on the box's edges, clipped to the image; in place.
-    (cv2.rectangle rounds the corners of a thick line; this does not.)"""
+# drawing.cpp's fixed point: coordinates carry XY_SHIFT fraction bits
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+
+
+def _fill(img: np.ndarray, xa: int, ya: int, xb: int, yb: int, color) -> None:
+    """img[ya..yb, xa..xb] (both ends included) = color, clipped; in place."""
     h, w = img.shape[:2]
-    (x1, y1), (x2, y2) = p1, p2
-    x1, x2 = sorted((int(x1), int(x2)))
-    y1, y2 = sorted((int(y1), int(y2)))
-    a, b = thickness // 2, (thickness + 1) // 2
+    xa, ya, xb, yb = max(xa, 0), max(ya, 0), min(xb, w - 1), min(yb, h - 1)
+    if xa <= xb and ya <= yb:
+        img[ya:yb + 1, xa:xb + 1] = color
 
-    def fill(xa, ya, xb, yb):
-        xa, ya, xb, yb = max(xa, 0), max(ya, 0), min(xb, w), min(yb, h)
-        if xa < xb and ya < yb:
-            img[ya:yb, xa:xb] = color
 
-    fill(x1 - a, y1 - a, x2 + b, y1 + b)   # top
-    fill(x1 - a, y2 - a, x2 + b, y2 + b)   # bottom
-    fill(x1 - a, y1 - a, x1 + b, y2 + b)   # left
-    fill(x2 - a, y1 - a, x2 + b, y2 + b)   # right
+def _disc_half_widths(radius: int) -> list[int]:
+    """The half-width of each row, -radius..radius, of drawing.cpp's filled
+    Circle: its midpoint walk fills rows cy +- dy over cx +- dx and rows
+    cy +- dx over cx +- dy, all centred on cx, so a row's span is the widest
+    one given to it."""
+    half = [-1] * (2 * radius + 1)
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        for off, width in ((dy, dx), (dx, dy)):
+            for row in (radius - off, radius + off):
+                half[row] = max(half[row], width)
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:            # mask = (err <= 0) - 1 = -1
+            err -= minus
+            dx -= 1
+            minus -= 2
+    return half
+
+
+def _thick_segment(img: np.ndarray, p0, p1, color, thickness: int) -> None:
+    """drawing.cpp's ThickLine(p0, p1) with LINE_8, shift 0 and flags 2
+    (PolyLine's closed outline: a cap at p1 alone), for an axis-aligned
+    segment, the only kind a rectangle has. Thickness 1 is Line: every pixel
+    from p0 to p1. Thicker: FillConvexPoly of the segment's polygon, p0 and
+    p1 offset across the segment by cvRound(d * r), r = (thickness <<
+    (XY_SHIFT - 1) + (thickness & 1) * XY_ONE / 2) / |p1 - p0|, which on an
+    axis-aligned segment is (thickness + 1) // 2 whole pixels, so the
+    polygon is the segment's pixels widened by that on both sides (a
+    zero-length segment has none); then the filled Circle at p1 of radius
+    (thickness << (XY_SHIFT - 1) + XY_ONE / 2) >> XY_SHIFT, the same
+    (thickness + 1) // 2."""
+    (x0, y0), (x1, y1) = p0, p1
+    if thickness <= 1:
+        _fill(img, min(x0, x1), min(y0, y1), max(x0, x1), max(y0, y1), color)
+        return
+    wide = thickness << (XY_SHIFT - 1)
+    off = (wide + (thickness & 1) * (XY_ONE >> 1)) >> XY_SHIFT
+    if (x0, y0) != (x1, y1):
+        ox, oy = (off, 0) if x0 == x1 else (0, off)
+        _fill(img, min(x0, x1) - ox, min(y0, y1) - oy, max(x0, x1) + ox,
+              max(y0, y1) + oy, color)
+    radius = (wide + (XY_ONE >> 1)) >> XY_SHIFT
+    for i, half in enumerate(_disc_half_widths(radius)):
+        if half >= 0:
+            y = y1 - radius + i
+            _fill(img, x1 - half, y, x1 + half, y, color)
+
+
+def draw_rectangle(img: np.ndarray, p1, p2, color, thickness: int = 2) -> None:
+    """cv2.rectangle(img, p1, p2, color, thickness) with LINE_8 and shift
+    0, bit for bit (OpenCV 5.0.0's drawing.cpp), in place: PolyLine over
+    the closed outline p1, (p2.x, p1.y), p2, (p1.x, p2.y), each segment a
+    ThickLine (_thick_segment) clipped to the image, so a thick outline
+    has cv2's rounded corners. p1 and p2 are (x, y) in either order; the
+    box may cross or lie outside the image, or have no width or height."""
+    thickness = int(thickness)
+    if thickness < 1:
+        raise ValueError(f"draw_rectangle draws outlines of thickness >= 1, got {thickness}")
+    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    corners = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    for a, b in zip(corners[-1:] + corners[:-1], corners):
+        _thick_segment(img, a, b, color, thickness)
 
 
 # 5x7 glyphs, one 5-bit row each (bit 4 the leftmost column)
@@ -126,11 +188,19 @@ class Drawing:
 
 
 def grid_save(images, targets, path: str, max_images: int = 16) -> np.ndarray:
-    """Write a batch sample grid to `path` (a PNG) and return it.
+    """Write a batch sample grid to `path` and return it (RGB): for a
+    `.jpg`, the bytes the JAX grid_save's cv2.imwrite(path,
+    cvtColor(canvas, RGB2BGR)) writes (encode_jpeg: quality 95, 4:2:0); for
+    a `.png`, encode_png's (the same pixels, the port's own deflate).
 
     images: (B, H, W, 3) float in [0, 1] or uint8, numpy or a tensor on any
-    device; targets: (B, M, 5) [cls, cxn, cyn, wn, hn] with cls < 0 padding.
+    device; targets: (B, M, 5) [cls, cxn, cyn, wn, hn] with cls < 0 padding,
+    each box drawn by draw_rectangle at thickness 2 in its class colour.
     The caller's images are not written to."""
+    ext = os.path.splitext(path)[1].lower()
+    encode = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png}.get(ext)
+    if encode is None:
+        raise ValueError(f"grid_save writes .jpg or .png, not {path}")
     if hasattr(images, "detach"):
         images = images.detach().float().cpu().numpy() if images.is_floating_point() \
             else images.cpu().numpy()
@@ -151,5 +221,5 @@ def grid_save(images, targets, path: str, max_images: int = 16) -> np.ndarray:
         r, c = divmod(i, cols)
         canvas[r * h:(r + 1) * h, c * w:(c + 1) * w] = img
     with open(path, "wb") as f:
-        f.write(encode_png(canvas))
+        f.write(encode(canvas))
     return canvas

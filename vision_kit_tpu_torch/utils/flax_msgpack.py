@@ -297,6 +297,15 @@ def to_bytes(tree) -> bytes:
     return bytes(out)
 
 
+def sorted_keys(tree):
+    """`tree` with every dict's keys in sorted order, as jax.device_get (a
+    tree_map) returns a JAX tree, so that to_bytes gives the bytes of
+    flax's to_bytes of that tree."""
+    if isinstance(tree, Mapping):
+        return {k: sorted_keys(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def write_file(path: str, tree) -> None:
     with open(path, "wb") as f:
         f.write(to_bytes(tree))

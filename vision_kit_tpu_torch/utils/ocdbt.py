@@ -1,10 +1,11 @@
-"""A read-only OCDBT key-value store, without tensorstore.
+"""An OCDBT key-value store, read and written without tensorstore.
 
 An orbax checkpoint written with `use_ocdbt` (orbax's default) keeps its
 zarr keys in tensorstore's OCDBT database: a copy-on-write B-tree whose
 nodes and values live in data files. This module reads that format
 ("OCDBT on-disk format", tensorstore's kvstore/ocdbt), as this port's
-tests hold it against tensorstore:
+tests hold it against tensorstore, and writes a new database of one
+version (write_database):
 
   * every file (manifest, B-tree node, version tree node) is an envelope:
     a 4-byte big-endian magic, the file's u64 length, a varint format
@@ -37,6 +38,7 @@ from __future__ import annotations
 import os
 import re
 import struct
+import time
 from dataclasses import dataclass
 
 from vision_kit_tpu_torch.utils import zstd
@@ -404,3 +406,94 @@ class KvStore:
     def items(self):
         for key in self._all():
             yield key, self.read(key)
+
+
+# -- writing -----------------------------------------------------------------
+
+# tensorstore's defaults for a new database
+MAX_INLINE_VALUE_BYTES = 100
+MAX_DECODED_NODE_BYTES = 8 << 20
+VERSION_TREE_ARITY_LOG2 = 4
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def encode_envelope(magic: int, body: bytes) -> bytes:
+    """decode_envelope's inverse: the body uncompressed (compression 0)."""
+    head = struct.pack(">I", magic) + struct.pack("<Q", 4 + 8 + 2 + len(body) + 4)
+    data = head + _varint(0) + _varint(0) + body
+    return data + struct.pack("<I", crc32c(data))
+
+
+def _data_file_table(paths: list[str]) -> bytes:
+    """_data_files' inverse for paths with no base path and no shared
+    prefix recorded (both valid; tensorstore shares what it finds)."""
+    raw = [p.encode() for p in paths]
+    return (_varint(len(raw)) + _varints([0] * max(len(raw) - 1, 0))
+            + _varints(len(r) for r in raw) + _varints([0] * len(raw)) + b"".join(raw))
+
+
+def write_database(root: str, items) -> int:
+    """Write a new OCDBT database of one version into the empty directory
+    `root`: manifest.ocdbt and one data file d/<32 hex digits> holding the
+    values (a value of up to MAX_INLINE_VALUE_BYTES inline in its leaf
+    instead) and then the B-tree, a single leaf of every key in byte order.
+    `items` yields (key str, value bytes), each key once, in any order; the
+    values are written as they come. No compression, tensorstore's default
+    limits. Returns the data file's size."""
+    name = "d/" + os.urandom(16).hex()
+    os.makedirs(os.path.join(root, "d"))
+    entries = {}
+    indirect_bytes = 0
+    with open(os.path.join(root, name), "wb") as f:
+        offset = 0
+        for key, value in items:
+            key = key.encode()
+            if key in entries:
+                raise ValueError(f"key {key!r} given twice")
+            if len(value) <= MAX_INLINE_VALUE_BYTES:
+                entries[key] = bytes(value)
+            else:
+                f.write(value)
+                entries[key] = (offset, len(value))
+                offset += len(value)
+                indirect_bytes += len(value)
+        if not entries:
+            raise ValueError("write_database writes at least one key")
+        keys = sorted(entries)
+        shared = [0] + [len(os.path.commonprefix([a, b])) for a, b in zip(keys, keys[1:])]
+        refs = [entries[k] for k in keys]
+        body = (bytes([0]) + _data_file_table([name]) + _varint(len(keys))
+                + _varints(shared[1:]) + _varints(len(k) - s for k, s in zip(keys, shared))
+                + b"".join(k[s:] for k, s in zip(keys, shared))
+                + _varints(len(r) if isinstance(r, bytes) else r[1] for r in refs)
+                + _varints(0 if isinstance(r, bytes) else 1 for r in refs)
+                + _varints(0 for r in refs if not isinstance(r, bytes))
+                + _varints(r[0] for r in refs if not isinstance(r, bytes))
+                + b"".join(r for r in refs if isinstance(r, bytes)))
+        if len(body) > MAX_DECODED_NODE_BYTES:
+            raise ValueError(f"{len(keys)} keys make a {len(body)}-byte leaf, over "
+                             f"{MAX_DECODED_NODE_BYTES}: split B-trees are not written")
+        node = encode_envelope(BTREE_MAGIC, body)
+        f.write(node)
+    config = (os.urandom(16) + _varint(0) + _varint(MAX_INLINE_VALUE_BYTES)
+              + _varint(MAX_DECODED_NODE_BYTES) + bytes([VERSION_TREE_ARITY_LOG2])
+              + _varint(0))
+    version = (_varint(1) + _varint(1) + bytes([0]) + _varint(0) + _varint(offset)
+               + _varint(len(node)) + _varint(len(keys)) + _varint(len(node))
+               + _varint(indirect_bytes) + struct.pack("<Q", time.time_ns()))
+    with open(os.path.join(root, "manifest.ocdbt"), "wb") as f:
+        f.write(encode_envelope(MANIFEST_MAGIC, config + _data_file_table([name])
+                                + version + _varint(0)))
+    return offset + len(node)

@@ -21,10 +21,10 @@ The JAX Trainer saves its TrainState with
 
 read_checkpoint rebuilds the tree (dicts and tuples) with numpy leaves,
 bfloat16 as torch.bfloat16 tensors (numpy has no bfloat16), Python
-scalars for "scalar" leaves. write_checkpoint writes orbax's plain
-(non-OCDBT) layout, which orbax and the JAX package restore: the same
+scalars for "scalar" leaves. write_checkpoint writes orbax's default
+(OCDBT) layout, which orbax and the JAX package restore: the same
 `_METADATA` and `.zarray`s, each array one chunk, a zstd frame of raw
-blocks.
+blocks, in one OCDBT database.
 """
 
 from __future__ import annotations
@@ -286,46 +286,57 @@ def _host_array(value) -> tuple[np.ndarray, str, str]:
 def write_checkpoint(path: str, tree) -> None:
     """Write `tree` (dicts, NamedTuples, tuples, lists; numpy arrays and
     scalars, torch tensors including bfloat16, Python int and float; None
-    and empty nodes) as orbax's StandardSave does, in its plain layout
-    (use_ocdbt false), replacing `path`. The directory is written under a
-    temporary name and renamed when complete."""
+    and empty nodes) as orbax's StandardSave does in its default layout
+    (use_ocdbt true: the zarr keys in one OCDBT database,
+    utils/ocdbt.py:write_database, a data file and a manifest where the
+    plain layout makes a directory and two files an array), replacing
+    `path`. The directory is written under a temporary name and renamed
+    when complete."""
     path = os.path.abspath(path)
     tmp = f"{path}.orbax-checkpoint-tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     tree_md = {}
     t0 = time.time_ns()
-    for keys, value in _leaves(tree):
-        if not keys:
-            raise ValueError("the checkpoint's tree must be a container")
-        names = tuple(k for k, _ in keys)
-        entry = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
-        if value is None or (isinstance(value, (dict, tuple, list)) and not value):
-            kind = ("None" if value is None else "Dict" if isinstance(value, dict)
-                    else "List" if isinstance(value, list) else "Tuple")
-            entry["value_metadata"] = {"value_type": kind, "skip_deserialize": True}
-        else:
+
+    def zarr_items():
+        """Each array's .zarray and its one chunk, a zstd frame of raw
+        blocks; tree_md filled on the way."""
+        for keys, value in _leaves(tree):
+            if not keys:
+                raise ValueError("the checkpoint's tree must be a container")
+            names = tuple(k for k, _ in keys)
+            entry = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
+            tree_md[str(names)] = entry
+            if value is None or (isinstance(value, (dict, tuple, list)) and not value):
+                kind = ("None" if value is None else "Dict" if isinstance(value, dict)
+                        else "List" if isinstance(value, list) else "Tuple")
+                entry["value_metadata"] = {"value_type": kind, "skip_deserialize": True}
+                continue
             arr, dtype, kind = _host_array(value)
             if arr.size == 0:
                 raise ValueError(f"{names}: orbax does not store arrays with zero size")
             name = ".".join(names)
-            os.makedirs(os.path.join(tmp, name))
             zarray = {"chunks": list(arr.shape),
                       "compressor": {"id": "zstd", "level": 1},
                       "dimension_separator": ".", "dtype": dtype, "fill_value": None,
                       "filters": None, "order": "C", "shape": list(arr.shape),
                       "zarr_format": 2}
-            with open(os.path.join(tmp, name, ".zarray"), "w") as f:
-                f.write(json.dumps(zarray, separators=(",", ":"), sort_keys=True))
+            yield f"{name}/.zarray", json.dumps(zarray, separators=(",", ":"),
+                                                sort_keys=True).encode()
             chunk = ".".join("0" for _ in arr.shape) or "0"
-            with open(os.path.join(tmp, name, chunk), "wb") as f:
-                f.write(zstd.raw_frame(arr.tobytes()))
+            yield f"{name}/{chunk}", zstd.raw_frame(arr.tobytes())
             entry["value_metadata"] = {"value_type": kind, "skip_deserialize": False}
-        tree_md[str(names)] = entry
+
+    ocdbt.write_database(tmp, zarr_items())
+    # json.dumps, not json.dump: dump streams through the Python encoder,
+    # which holds the interpreter lock ~0.2 s on a v5s tree (a background
+    # writer's caller is training meanwhile)
     with open(os.path.join(tmp, METADATA), "w") as f:
-        json.dump({"tree_metadata": tree_md, "use_ocdbt": False, "use_zarr3": False,
-                   "store_array_data_equal_to_fill_value": True,
-                   "custom_metadata": None}, f)
+        f.write(json.dumps({"tree_metadata": tree_md, "use_ocdbt": True,
+                            "use_zarr3": False,
+                            "store_array_data_equal_to_fill_value": True,
+                            "custom_metadata": None}))
     with open(os.path.join(tmp, CHECKPOINT_METADATA), "w") as f:
         json.dump({"item_handlers": HANDLER, "metrics": {}, "performance_metrics": {},
                    "init_timestamp_nsecs": t0, "commit_timestamp_nsecs": time.time_ns(),
