@@ -80,7 +80,15 @@ Phases, each printing its own line; any failure exits non-zero:
      Predictor's, one launch of each kernel a frame, out.avi read back with
      every frame encode_jpeg's bytes of the drawn frame, the ms a frame by
      stage; and one sample's -o .webp output (lossless VP8L, encode_webp)
-     read back bit-equal to its -o .bmp output's drawn frame;
+     read back bit-equal to its -o .bmp output's drawn frame; then MPEG-4
+     Part 2 (mp4_leg): the committed mp4v clips through the host C++
+     decoder (csrc/mpeg4_decode.cu) at cv2's sha256 on every frame and
+     bit-equal to the plain decoder on the small clip and the 720p clip's
+     first GOP, and demo -p mp4v_720x1280_24f.mp4 -o out.mp4 in a
+     --demo-video child: one launch of each kernel a frame (the *_video
+     rows count both video runs), detections equal to an in-process
+     Predictor's, out.mp4 Mp4vEncoder's VOPs, read back as its
+     reconstruction;
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card by the route
      its header and the host C walk pick (decode.decode_route: nvJPEG for
@@ -239,7 +247,7 @@ greedy_nms_spatial and head_scores_spatial the kernels at a spatial
 single-frame request's B=1, K=1024, with rank 0's launches in one such
 request and both ranks' under launches_by_rank; greedy_nms_video and
 head_scores_video the same B=1 shape, with the launches of the demo's
-video run)
+two video runs, the Motion-JPEG clip's and the mp4v clip's, summed)
 and, last, {"ok": true,
 "device": ...}.
 
@@ -1580,7 +1588,107 @@ def phase_demo(model, smi: str) -> dict:
               f"{ms['encode']:.3f}; {VIDEO_FRAMES / res['wall_s']:.2f} fps over the loop "
               f"({res['wall_s']:.2f} s), the child {child_s:.1f} s; the video leg "
               f"{time.perf_counter() - t_video:.1f} s on {smi}", flush=True)
+        counts_mp4 = mp4_leg(tmp, weights, pred, tf32, smi)
     print(f"demo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: counts[k] + counts_mp4[k] for k in counts}
+
+
+def mp4_leg(tmp: str, weights: str, pred, tf32: dict, smi: str) -> dict:
+    """The demo's video mode on MPEG-4 Part 2: the committed mp4v clips
+    (data/video_samples/, written by cv2) through the host C++ decoder,
+    every frame's RGB on the card at the sha256 of cv2's frame, the small
+    AVI's frames and the 720p clip's first GOP and next I-VOP bit-equal to
+    the plain decoder's (video_bench.mpeg4_disagreements), the ms a 720p
+    I- and P-VOP by each and Mp4vEncoder's ms a frame; then `demo -p
+    mp4v_720x1280_24f.mp4 -o out.mp4` in the --demo-video child (its
+    launches counted): one launch of each kernel a frame, each frame's
+    detections equal to an in-process Predictor's on the same decoded
+    frame, out.mp4's VOPs the bytes Mp4vEncoder gives for the drawn frames
+    and its read-back (the C++ decoder) equal to the encoder's
+    reconstruction. Returns the child's launches."""
+    import subprocess
+
+    from vision_kit_tpu_torch.classes import COCO
+    from vision_kit_tpu_torch.data import mpeg4
+    from vision_kit_tpu_torch.utils import video_bench as vb
+    from vision_kit_tpu_torch.utils.drawing import Drawing
+    from vision_kit_tpu_torch.utils.mp4 import read_mp4
+    from vision_kit_tpu_torch.utils.readers import VideoReader
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    t_leg = time.perf_counter()
+    bad, dec_ms = vb.mpeg4_disagreements({vb.SMALL_CLIP: 10, vb.HD_CLIP: 9})
+    check(bad == [], f"the MPEG-4 decoders: {bad[:5]}")
+    checks_s = time.perf_counter() - t_leg
+    clip = os.path.join(vb.VIDEO_SAMPLES, vb.HD_CLIP)
+    n = vb.video_manifest()[vb.HD_CLIP]["frames"]
+    reader = VideoReader(clip, use_thread=False)
+    frames = [fr for ok, fr in reader if ok]
+    check(reader.decoder == "host_cpp" and len(frames) == n,
+          f"VideoReader took {reader.decoder} and read {len(frames)} of {n} frames")
+    enc = vb.encode_ms([fr.cpu().numpy() for fr in frames[:4]])
+    out_mp4 = os.path.join(tmp, "out.mp4")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                        "--demo-video", clip, out_mp4, weights], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("VIDEO ")]
+    check(r.returncode == 0 and lines,
+          f"the mp4 video demo exited {r.returncode}: {r.stderr[-3000:]}")
+    res = json.loads(lines[-1][len("VIDEO "):])
+    counts = res["counts"]
+    check(counts == {"greedy_nms": n, "head_scores": n},
+          f"the mp4 video demo launched {counts}, not one of each a frame")
+    check(len(res["detections"]) == n and res["fps"] == VIDEO_FPS,
+          f"the mp4 demo read {len(res['detections'])} frames at {res['fps']} fps")
+    movie = read_mp4(out_mp4)
+    check((len(movie.frames), movie.fps, movie.width, movie.height) == (n, VIDEO_FPS, 1280, 720),
+          f"out.mp4: {len(movie.frames)} frames at {movie.fps} fps")
+    drawer = Drawing(list(COCO))
+    encoder = mpeg4.Mp4vEncoder(1280, 720, VIDEO_FPS)
+    back = mpeg4.Mpeg4Decoder(movie.config, "cuda")
+    check(movie.config == encoder.headers(), "out.mp4's esds is not the encoder's VOL")
+    n_det = 0
+    with torch.backends.cudnn.flags(**tf32), open(out_mp4, "rb") as f:
+        for i, (frame, got) in enumerate(zip(frames, res["detections"])):
+            got = np.asarray(got, np.float32).reshape(-1, 6)
+            w, _ = pred(frame)
+            check(got.shape[1:] == (6,) and np.isfinite(got).all(),
+                  f"mp4 frame {i}: non-finite or misshapen detections")
+            check(same_detections(w, got, 1e-5, 1e-3),
+                  f"mp4 frame {i}: {len(got)} detections against in-process {len(w)}")
+            vop, _ = encoder.encode(drawer.draw(frame.cpu().numpy(), got))
+            data = movie.read_frame(f, i)
+            check(data == vop, f"out.mp4 frame {i} is not Mp4vEncoder's VOP of the drawn frame")
+            planes = back.decode(data)
+            check(all(np.array_equal(p, q[:p.shape[0], :p.shape[1]])
+                      for p, q in zip(planes, encoder.recon)),
+                  f"out.mp4 frame {i} does not read back as the encoder's reconstruction")
+            n_det += len(got)
+    back.close()
+    check(n_det > 0, "the mp4 video demo found no detections")
+    ms = {k: float(np.median(v)) for k, v in res["ms"].items()}
+    size = os.path.getsize(clip)
+    print(f"demo: the MPEG-4 decoders on data/video_samples/ (cv2's mp4v): the host C++ "
+          f"decoder's RGB (yuv420_to_rgb on the card) at cv2's sha256 on every frame of "
+          f"{vb.HD_CLIP} and {vb.SMALL_CLIP}, the plain decoder's planes bit-equal on "
+          f"{vb.SMALL_CLIP} and the 720p clip's first GOP and next I-VOP "
+          f"({checks_s:.1f} s); a 720x1280 VOP (host clock, median ms): C++ I "
+          f"{dec_ms['cpp']['I']:.2f}, P {dec_ms['cpp']['P']:.2f}; plain I "
+          f"{dec_ms['plain']['I']:.1f}, P {dec_ms['plain']['P']:.1f}; Mp4vEncoder a 720x1280 "
+          f"frame I {enc['I']:.1f} ms, P {enc['P']:.1f} ms ({enc['bytes']} B for 4 frames) on "
+          f"{smi}", flush=True)
+    print(f"demo: python -m vision_kit_tpu_torch demo -p {vb.HD_CLIP} -o out.mp4 (v5s@640 f32, "
+          f"{n} frames of 720x1280 mp4v, {size} B, at {VIDEO_FPS:g} fps, the host C++ "
+          f"decoder): {n_det} detections, each frame equal to an in-process Predictor's "
+          f"(class exact, score 1e-5, box 1e-3 px), launches {counts}; out.mp4 "
+          f"({os.path.getsize(out_mp4)} B) every VOP Mp4vEncoder's bytes of the drawn frame, "
+          f"read back equal to its reconstruction; median ms a frame (host clock): "
+          f"read/decode {ms['read']:.3f}, predict {ms['predict']:.3f}, draw {ms['draw']:.3f}, "
+          f"encode {ms['encode']:.3f}; {n / res['wall_s']:.2f} fps over the loop "
+          f"({res['wall_s']:.2f} s), the child {child_s:.1f} s; the mp4 leg "
+          f"{time.perf_counter() - t_leg:.1f} s on {smi}", flush=True)
     return counts
 
 

@@ -723,6 +723,17 @@ def test_plain_decoder_batches_do_not_depend_on_workers(cuda, tmp_path):
         TrainLoader(nvjpeg, 4, img_size=320, num_workers=2)
 
 
+def test_mpeg4_host_decoder_equals_plain(cuda):
+    """csrc/mpeg4_decode.cu (nvcc-built) against the plain decoder on the
+    committed mp4v clips: the small AVI whole and the 720p clip's first GOP
+    and next I-VOP bit-equal, every frame's RGB on the card at cv2's
+    sha256 (video_bench.mpeg4_disagreements)."""
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    bad, _ = vb.mpeg4_disagreements({vb.SMALL_CLIP: 10, vb.HD_CLIP: 9}, cuda)
+    assert bad == []
+
+
 def test_video_reader_nvjpeg_against_plain(cuda, tmp_path):
     """VideoReader on a Motion-JPEG clip of the 720x1280 samples: the plain
     decoder's frames on the card bit-equal to decode_image, nvJPEG's within

@@ -91,12 +91,20 @@ def test_image_reader_gives_decode_image_pixels(tmp_path):
         cv2.cvtColor(img, cv2.COLOR_RGB2BGR), "odd_333x517.jpg")
     with open(out, "rb") as f, open(jax_out, "rb") as g:
         assert f.read() == g.read()
+    # an mp4v clip reads as cv2 reads it; an H.264 sample entry raises
     clip = str(tmp_path / "clip.mp4")
     writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (64, 48))
     writer.write(np.zeros((48, 64, 3), np.uint8))
     writer.release()
-    with pytest.raises(ValueError, match="MP4"):
-        VideoReader(clip, device="cpu")
+    frames = [frame for ok, frame in VideoReader(clip, device="cpu") if ok]
+    ok, bgr = cv2.VideoCapture(clip).read()
+    assert ok and len(frames) == 1
+    np.testing.assert_array_equal(frames[0].numpy(), cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    h264 = str(tmp_path / "h264.mp4")
+    with open(clip, "rb") as f, open(h264, "wb") as g:
+        g.write(f.read().replace(b"mp4v", b"avc1"))
+    with pytest.raises(ValueError, match=r"H\.264 \(avc1\)"):
+        VideoReader(h264, device="cpu")
 
 
 def test_drawing_boxes_and_labels():

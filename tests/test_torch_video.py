@@ -2,9 +2,9 @@
 against cv2.imencode byte for byte, utils/avi.py and readers.VideoReader
 against cv2.VideoCapture on Motion-JPEG AVIs that cv2 writes (and cv2's
 readers on the ones the port writes; a clip whose frames carry no Huffman
-tables), the refusals, and `python -m
-vision_kit_tpu_torch demo -p clip.avi -o out.avi` against JAX's Predictor
-on the same frames."""
+tables), the refusals, and `python -m vision_kit_tpu_torch demo -p
+clip.avi -o out.avi` and `demo -p clip.mp4 -o out.mp4` (MPEG-4 Part 2, the
+JAX demo's own format) against JAX's Predictor on the same frames."""
 
 import os
 import struct
@@ -226,6 +226,10 @@ def test_jax_reader_on_the_same_file(clips):
 
 
 def test_refusals_name_what_they_refuse(clips):
+    """mp4v now reads (tests/test_torch_mpeg4.py); what is still refused
+    names itself: an H.264 fourcc and sample entry, a B-VOP, Matroska, a
+    webcam, an output container the port does not write, nvJPEG on the
+    CPU, and the card without CUDA."""
     tmp, frames, paths = clips
     for ext, fourcc in ((".mp4", "mp4v"), (".avi", "mp4v"), (".avi", "XVID")):
         path = str(tmp / f"{fourcc}{ext}")
@@ -233,13 +237,33 @@ def test_refusals_name_what_they_refuse(clips):
         for rgb in frames[:2]:
             writer.write(rgb)
         writer.release()
-        want = "MP4" if ext == ".mp4" else fourcc
-        with pytest.raises(ValueError, match=want):
-            VideoReader(path, device="cpu")
+        reader = VideoReader(path, device="cpu")      # reads now
+        assert len(read_all(reader)) == 2
+        with open(path, "rb") as f:
+            data = f.read()
+        h264 = str(tmp / f"h264_{fourcc}{ext}")
+        with open(h264, "wb") as f:
+            f.write(data.replace(b"mp4v", b"avc1") if ext == ".mp4" else
+                    data.replace(fourcc.encode(), b"H264"))
+        with pytest.raises(ValueError, match=r"avc1" if ext == ".mp4" else r"H\.264"):
+            VideoReader(h264, device="cpu")
+    bvop = str(tmp / "bvop.avi")
+    with open(str(tmp / "mp4v.avi"), "rb") as f:
+        data = f.read()
+    vop = data.find(b"\0\0\1\xb6", data.find(b"\0\0\1\xb6") + 4) + 4   # the P-VOP
+    with open(bvop, "wb") as f:
+        f.write(data[:vop] + bytes([(data[vop] & 0x3F) | 0x80]) + data[vop + 1:])
+    with pytest.raises(ValueError, match=r"B \(Advanced Simple Profile\)-VOP"):
+        read_all(VideoReader(bvop, device="cpu", use_thread=False))
+    mkv = str(tmp / "clip.mkv")
+    with open(mkv, "wb") as f:
+        f.write(b"\x1a\x45\xdf\xa3" + bytes(60))
+    with pytest.raises(ValueError, match="Matroska"):
+        VideoReader(mkv, device="cpu")
     with pytest.raises(NotImplementedError, match="webcam 0"):
         VideoReader("0", device="cpu")
-    out = str(tmp / "out.mp4")
-    with pytest.raises(ValueError, match="out.mp4.*Motion-JPEG AVI only"):
+    out = str(tmp / "out.mkv")
+    with pytest.raises(ValueError, match="out.mkv.*mp4v in .mp4/.mov"):
         VideoReader(paths["ffmpeg"], save_path=out, device="cpu")
     assert not os.path.exists(out)
     with pytest.raises(ValueError, match="nvjpeg"):
@@ -280,5 +304,54 @@ def test_demo_cli_on_a_clip_matches_jax(demo_setup, clips, capsys):  # noqa: F81
             want, _ = jpred(rgb)
             assert same_detections(want, dets, box_tol=1e-3 / gain), (i, want, dets)
             assert movie.read_frame(f, i) == encode_jpeg(drawer.draw(rgb, dets))
+            n += len(dets)
+    assert n > 5
+
+
+def test_demo_cli_on_an_mp4_matches_jax(demo_setup, tmp_path, capsys):  # noqa: F811
+    """demo -p clip.mp4 -o out.mp4 on v5n@64 carried from JAX: each frame's
+    detections equal JAX's Predictor on the same RGB frame (cv2's decode of
+    the cv2-written clip, which the port's decoder equals), and out.mp4
+    reads back in cv2 (every frame) and in the port, equal to the encoder's
+    reconstruction of each drawn frame."""
+    from torch_mpeg4_samples import read_cv2, write_cv2
+    from vision_kit_tpu_torch.data import mpeg4
+    from vision_kit_tpu_torch.utils.mp4 import read_mp4
+
+    jm, v, weights, cfg_path, _ = demo_setup
+    frames = [scene(240, 320, seed=40 + i) for i in range(N_FRAMES)]
+    clip, out = str(tmp_path / "clip.mp4"), str(tmp_path / "demo_out.mp4")
+    write_cv2(clip, frames, "mp4v", FPS)
+    results = []
+    run = cli.demo_video
+    cli.demo_video = lambda *a, **kw: results.append(run(*a, **kw)) or results[-1]
+    try:
+        assert cli.main(["demo", "-p", clip, "-o", out, "-c", cfg_path, "-w", weights,
+                         "--device", "cpu"]) == 0
+    finally:
+        cli.demo_video = run
+    (res,) = results
+    assert f"over {N_FRAMES} frames" in capsys.readouterr().out
+    assert res["fps"] == FPS and all(len(t) == N_FRAMES for t in res["ms"].values())
+    decoded, _, _ = read_cv2(clip)
+    jpred = JaxPredictor(jm, v, img_size=SIZE, approx_topk=False)
+    gain = min(SIZE / 240, SIZE / 320)
+    drawer = Drawing([f"c{i}" for i in range(80)])
+    enc = mpeg4.Mp4vEncoder(320, 240, FPS)
+    dec = mpeg4.Mpeg4Decoder(enc.headers())
+    movie = read_mp4(out)
+    assert (len(movie.frames), movie.fps, movie.width, movie.height) == (N_FRAMES, FPS, 320, 240)
+    back, count, _ = read_cv2(out)
+    assert count == len(back) == N_FRAMES
+    n = 0
+    with open(out, "rb") as f:
+        for i, (rgb, dets) in enumerate(zip(decoded, res["detections"])):
+            want, _ = jpred(rgb)
+            assert same_detections(want, dets, box_tol=1e-3 / gain), (i, want, dets)
+            vop, _ = enc.encode(drawer.draw(rgb, dets))
+            assert movie.read_frame(f, i) == vop
+            planes = dec.decode(vop)
+            port = mpeg4.yuv420_to_rgb(*(torch.from_numpy(p) for p in planes)).numpy()
+            assert np.array_equal(port, back[i])
             n += len(dets)
     assert n > 5

@@ -1,11 +1,14 @@
-"""Motion-JPEG in RIFF AVI: the demultiplexer and multiplexer of the demo's
-video mode.
+"""Motion-JPEG and MPEG-4 Part 2 in RIFF AVI: the demultiplexer and
+multiplexer of the demo's video mode.
 
 The JAX package reads and writes video with cv2.VideoCapture and
 cv2.VideoWriter; the card's machine has neither, nor any video codec. Every
 frame of a Motion-JPEG AVI is a whole baseline JPEG, which the port decodes
-(data/decode.py, nvJPEG on the card) and encodes (data/encode.py), so only
-the container is needed here, and RIFF is plain:
+(data/decode.py, nvJPEG on the card) and encodes (data/encode.py); an
+MPEG-4 Part 2 AVI (fourcc FMP4, XVID, DIVX, DX50 or MP4V, in any case, as
+cv2's mp4v, XVID and DIVX writers name it) holds one VOP a chunk, its
+VOS/VOL headers in band before the first, which data/mpeg4.py decodes and
+encodes. So only the container is needed here, and RIFF is plain:
 
 - `read_avi(path)`: the header (avih, the video stream's strh and strf
   BITMAPINFOHEADER: width, height, dwRate / dwScale as the frame rate) and
@@ -15,15 +18,19 @@ the container is needed here, and RIFF is plain:
   groups too; JUNK, other streams and OpenDML `ix##` index chunks are
   skipped, and a zero-length chunk (a dropped frame) repeats the frame
   before it, as cv2's CAP_OPENCV_MJPEG reader gives it. idx1, where
-  present, only cross-checks the walk. A file that is no RIFF AVI,
-  holds no video stream, or whose video is not Motion-JPEG (MJPG, mjpg or
-  jpeg) raises ValueError naming what it found.
-- `AviWriter(path, fps)`: RIFF `AVI ` with `hdrl` (avih, strl: strh vids
-  MJPG and a BITMAPINFOHEADER), `movi` of `00dc` chunks padded to even
-  sizes, and an `idx1` (offsets from the `movi` fourcc, as cv2 writes
-  them), the sizes and counts patched in on close. Both of cv2's readers
-  (CAP_OPENCV_MJPEG, CAP_FFMPEG) read it. It writes no OpenDML index, so a
-  file stops at the 4 GiB that a RIFF size holds.
+  present, only cross-checks the walk. In an MPEG-4 stream a zero-length
+  chunk is dropped rather than repeated (the decoder has nothing to
+  decode). A file that is no RIFF AVI, holds no video stream, or whose
+  video is neither Motion-JPEG (MJPG, mjpg or jpeg) nor MPEG-4 Part 2
+  raises ValueError naming what it found.
+- `AviWriter(path, fps, fourcc=b"MJPG")`: RIFF `AVI ` with `hdrl` (avih,
+  strl: strh vids and a BITMAPINFOHEADER of that fourcc; FMP4 for
+  MPEG-4), `movi` of `00dc` chunks padded to even sizes, and an `idx1`
+  (offsets from the `movi` fourcc, as cv2 writes them; the keyframe flag
+  on the frames written as keyframes), the sizes and counts patched in on
+  close. Both of cv2's readers (CAP_OPENCV_MJPEG, CAP_FFMPEG) read a
+  Motion-JPEG file, CAP_FFMPEG an MPEG-4 one. It writes no OpenDML index,
+  so a file stops at the 4 GiB that a RIFF size holds.
 """
 
 from __future__ import annotations
@@ -36,6 +43,11 @@ import struct
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"jpeg")
+MPEG4_FOURCCS = (b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V")   # any case
+OTHER_FOURCCS = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264",
+                 b"HEVC": "HEVC", b"H265": "HEVC", b"HVC1": "HEVC", b"DIV3": "MS MPEG-4 v3",
+                 b"MP42": "MS MPEG-4 v2", b"MP43": "MS MPEG-4 v3", b"WMV3": "WMV9",
+                 b"VP80": "VP8", b"VP90": "VP9", b"AV01": "AV1", b"H263": "H.263"}
 AVIF_HASINDEX, AVIF_ISINTERLEAVED, AVIF_TRUSTCKTYPE = 0x10, 0x100, 0x800
 AVIIF_KEYFRAME = 0x10
 RIFF_MAX = (1 << 32) - 1
@@ -43,8 +55,9 @@ RIFF_MAX = (1 << 32) - 1
 
 @dataclasses.dataclass
 class AviMovie:
-    """A Motion-JPEG AVI's video stream: `frames` holds each frame's
-    (file offset, size) in presentation order."""
+    """An AVI's video stream: `frames` holds each frame's (file offset,
+    size) in presentation order; `codec` is "mjpeg" or "mpeg4" (whose
+    headers come in band: `config` is empty)."""
 
     path: str
     width: int
@@ -52,6 +65,8 @@ class AviMovie:
     rate: int
     scale: int
     frames: list
+    codec: str = "mjpeg"
+    config: bytes = b""
 
     @property
     def fps(self) -> float:
@@ -87,8 +102,8 @@ def _chunks(f, start: int, end: int):
 
 
 def read_avi(path: str) -> AviMovie:
-    """The video stream of the Motion-JPEG AVI at `path` (see the module
-    docstring); ValueError for anything else."""
+    """The video stream of the Motion-JPEG or MPEG-4 AVI at `path` (see the
+    module docstring); ValueError for anything else."""
     size = os.path.getsize(path)
     with open(path, "rb") as f:
         head = f.read(12)
@@ -96,8 +111,7 @@ def read_avi(path: str) -> AviMovie:
             kind = ("an MP4/QuickTime file" if head[4:8] == b"ftyp" else
                     "a Matroska/WebM file" if head[:4] == b"\x1a\x45\xdf\xa3" else
                     f"a file starting {head[:12]!r}")
-            raise ValueError(f"{path}: not a RIFF AVI but {kind}; the port reads "
-                             "Motion-JPEG AVI only")
+            raise ValueError(f"{path}: not a RIFF AVI but {kind}")
         header = None
         frames, sizes, idx1_sizes = [], [], None
         for cid, body, length, ltype in _chunks(f, 0, size):
@@ -109,7 +123,8 @@ def read_avi(path: str) -> AviMovie:
                 elif sub == b"LIST" and stype == b"movi":
                     if header is None:
                         raise ValueError(f"{path}: movi before hdrl")
-                    _walk_movi(f, sbody, slen, header["ids"], frames, sizes)
+                    _walk_movi(f, sbody, slen, header["ids"], frames, sizes,
+                               header["codec"] == "mjpeg")
                 elif sub == b"idx1" and ltype == b"AVI ":
                     f.seek(sbody)
                     idx1_sizes = _idx1_sizes(f.read(slen), header["ids"] if header else ())
@@ -120,7 +135,7 @@ def read_avi(path: str) -> AviMovie:
             logger.warning("%s: idx1 lists %d video chunks that differ from the %d "
                            "in movi; reading movi's", path, len(idx1_sizes), len(sizes))
     return AviMovie(path, header["width"], header["height"], header["rate"],
-                    header["scale"], frames)
+                    header["scale"], frames, header["codec"])
 
 
 def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
@@ -141,30 +156,37 @@ def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
         if strf is None or len(strf) < 20:
             raise ValueError(f"{path}: video stream {n} has no BITMAPINFOHEADER")
         handler, compression = strh[4:8], strf[16:20]
-        if compression not in MJPEG_FOURCCS or handler.strip(b"\0 ") not in (
+        if compression in MJPEG_FOURCCS and handler.strip(b"\0 ") in (
                 b"", *MJPEG_FOURCCS):
+            codec = "mjpeg"
+        elif compression.upper() in MPEG4_FOURCCS:
+            codec = "mpeg4"
+        else:
+            name = OTHER_FOURCCS.get(compression.upper(), "")
             raise ValueError(
-                f"{path}: video stream {n} is {_fourcc_text(compression)} (handler "
-                f"{_fourcc_text(handler)}), not Motion-JPEG: the port reads MJPG AVI "
-                "only (no MPEG-4 or H.264 decoder)")
+                f"{path}: video stream {n} is {_fourcc_text(compression)}"
+                f"{' (' + name + ')' if name else ''} (handler {_fourcc_text(handler)}): "
+                "the port decodes Motion-JPEG and MPEG-4 Part 2 only")
         scale, rate = struct.unpack("<II", strh[20:28])
         width, height = struct.unpack("<ii", strf[4:12])
         ids = (f"{n:02d}dc".encode(), f"{n:02d}db".encode())
-        return dict(width=width, height=abs(height), rate=rate, scale=scale, ids=ids)
+        return dict(width=width, height=abs(height), rate=rate, scale=scale, ids=ids,
+                    codec=codec)
     raise ValueError(f"{path}: no video stream in the AVI header")
 
 
-def _walk_movi(f, start: int, length: int, ids, frames: list, sizes: list) -> None:
+def _walk_movi(f, start: int, length: int, ids, frames: list, sizes: list,
+               repeat: bool) -> None:
     """Append the (offset, size) of each video chunk of a movi list
     (descending into LIST rec groups) to `frames`, an empty chunk repeating
-    the frame before it (none before the first frame), and each chunk's
-    size to `sizes`."""
+    the frame before it (none before the first frame) when `repeat`, else
+    dropped, and each chunk's size to `sizes`."""
     for cid, body, size, ltype in _chunks(f, start, start + length):
         if cid == b"LIST" and ltype == b"rec ":
-            _walk_movi(f, body, size, ids, frames, sizes)
+            _walk_movi(f, body, size, ids, frames, sizes, repeat)
         elif cid in ids:
             sizes.append(size)
-            if size or frames:
+            if size or (frames and repeat):
                 frames.append((body, size) if size else frames[-1])
 
 
@@ -176,19 +198,22 @@ def _idx1_sizes(idx: bytes, ids) -> list:
 
 
 class AviWriter:
-    """Motion-JPEG frames (JPEG bytes, all of one size) into a RIFF AVI."""
+    """Coded frames (JPEG bytes, or MPEG-4 VOPs with fourcc FMP4; all of
+    one size) into a RIFF AVI."""
 
-    def __init__(self, path: str, fps: float):
+    def __init__(self, path: str, fps: float, fourcc: bytes = b"MJPG"):
         if not path.lower().endswith(".avi"):
-            raise ValueError(f"{path}: the port writes Motion-JPEG AVI only; name "
-                             "the output .avi")
+            raise ValueError(f"{path}: name the output .avi")
+        if fourcc not in (b"MJPG", b"FMP4"):
+            raise ValueError(f"fourcc must be MJPG or FMP4, got {fourcc!r}")
+        self.fourcc = fourcc
         frac = fractions.Fraction(fps).limit_denominator(1001)
         if frac <= 0:
             raise ValueError(f"fps must be positive, got {fps}")
         self.path, self.rate, self.scale = path, frac.numerator, frac.denominator
         self.fps = float(fps)
         self.size = None
-        self.index = []       # (offset from the movi fourcc, size)
+        self.index = []       # (offset from the movi fourcc, size, idx1 flags)
         self._f = open(path, "wb")
         self._f.write(self._header(0, 0, 0, 0))
         self._movi = self._f.tell() - 4            # the 'movi' fourcc
@@ -200,16 +225,16 @@ class AviWriter:
         avih = struct.pack("<IIIIIIIIII4I", round(1e6 * self.scale / self.rate), 0, 0,
                            AVIF_HASINDEX | AVIF_ISINTERLEAVED | AVIF_TRUSTCKTYPE, n, 0,
                            1, largest, width, height, 0, 0, 0, 0)
-        strh = (b"vidsMJPG" + struct.pack("<IHHIIIIIIIIHHHH", 0, 0, 0, 0, self.scale,
+        strh = (b"vids" + self.fourcc + struct.pack("<IHHIIIIIIIIHHHH", 0, 0, 0, 0, self.scale,
                                           self.rate, 0, n, largest, 0xFFFFFFFF, 0,
                                           0, 0, min(width, 0xFFFF), min(height, 0xFFFF)))
-        strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+        strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, self.fourcc,
                            width * height * 3, 0, 0, 0, 0)
         strl = _list(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf))
         hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl)
         return b"RIFF\0\0\0\0AVI " + hdrl + b"LIST\0\0\0\0movi"
 
-    def write(self, jpeg: bytes, width: int, height: int) -> None:
+    def write(self, jpeg: bytes, width: int, height: int, keyframe: bool = True) -> None:
         """Append one frame, `width` x `height` (every frame's must match
         the first's)."""
         if self.size is None:
@@ -219,7 +244,8 @@ class AviWriter:
                              f"{self.size[1]} video")
         if self._f.tell() + 8 + len(jpeg) + 1 + 16 * (len(self.index) + 1) + 8 > RIFF_MAX:
             raise ValueError(f"{self.path}: past the 4 GiB of a RIFF without OpenDML")
-        self.index.append((self._f.tell() - self._movi, len(jpeg)))
+        self.index.append((self._f.tell() - self._movi, len(jpeg),
+                           AVIIF_KEYFRAME if keyframe else 0))
         self._f.write(_chunk(b"00dc", jpeg))
         self._max = max(self._max, len(jpeg))
 
@@ -228,9 +254,8 @@ class AviWriter:
             return
         f, self._f = self._f, None
         movi_end = f.tell()
-        f.write(_chunk(b"idx1", b"".join(struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME,
-                                                     off, size)
-                                         for off, size in self.index)))
+        f.write(_chunk(b"idx1", b"".join(struct.pack("<4sIII", b"00dc", flags, off, size)
+                                         for off, size, flags in self.index)))
         end = f.tell()
         width, height = self.size or (0, 0)
         f.seek(0)

@@ -8,13 +8,22 @@ neither decodes (a grey lossless or 12-bit JPEG, ...) yields (False,
 None). `save` writes `<name>_res.jpg` through data/encode.py's encode_jpeg,
 the bytes cv2.imwrite writes.
 
-VideoReader reads a Motion-JPEG AVI (utils/avi.py) where the JAX one opens
-any file or webcam with cv2.VideoCapture: its frames are RGB uint8 tensors
-on the device, each a whole JPEG decoded on the card by the route
-data/decode.py:decode_to picks from its header (nvJPEG for a baseline
-frame) or by the plain decoder. A webcam index, and any other codec or container (MPEG-4
-Part 2 or H.264, in AVI or MP4), raise naming what they are. Its writer
-writes Motion-JPEG AVI through encode_jpeg where the JAX one writes mp4v.
+VideoReader reads what the JAX one reads from a video file through
+cv2.VideoCapture, as far as the port has decoders: the container is
+sniffed (RIFF AVI by utils/avi.py, ISO BMFF .mp4/.mov by utils/mp4.py),
+then the codec routes each frame. A Motion-JPEG frame is a whole JPEG,
+decoded on the card by the route data/decode.py:decode_to picks from its
+header (nvJPEG for a baseline frame) or by the plain decoder; an MPEG-4
+Part 2 frame (cv2's mp4v, XVID or DIVX) is a VOP that data/mpeg4.py's
+decoder takes in order, as host C++ on the card (csrc/mpeg4_decode.cu)
+or in numpy, its planes converted to RGB by mpeg4.yuv420_to_rgb on the
+device. Frames are RGB uint8 tensors on the device. A webcam index,
+Matroska/WebM, H.264/HEVC (in any container) and the MPEG-4 tools the
+decoder refuses (B-VOPs, quarter-pel, ...) raise naming what they are.
+Its writer writes mp4v in an MP4 (.mp4 or .mov, data/mpeg4.py's
+Mp4vEncoder and utils/mp4.py's Mp4Writer), as the JAX one writes; an .avi
+output stays Motion-JPEG (encode_jpeg), where the JAX writer writes mp4v
+in AVI too.
 """
 
 from __future__ import annotations
@@ -26,16 +35,33 @@ import threading
 import numpy as np
 import torch
 
-from vision_kit_tpu_torch.data import decode
+from vision_kit_tpu_torch.data import decode, mpeg4
 from vision_kit_tpu_torch.data.datasets import DECODERS
 from vision_kit_tpu_torch.data.encode import encode_jpeg
 from vision_kit_tpu_torch.data.loader import _await, _on_stream, _side_stream
 from vision_kit_tpu_torch.utils.avi import AviWriter, read_avi
+from vision_kit_tpu_torch.utils.mp4 import Mp4Writer, file_kind, read_mp4
 from vision_kit_tpu_torch.utils.general import resolve_device
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
 IMAGE_EXT = (".jpg", ".jpeg", ".webp", ".bmp", ".png")
 VIDEO_EXT = (".mp4", ".avi", ".mov", ".mkv")
+MP4_OUT = (".mp4", ".mov")      # written as mp4v in an MP4; .avi as Motion-JPEG
+
+
+def open_movie(path: str):
+    """The video track of an AVI or MP4/QuickTime file, sniffed from its
+    first bytes (utils/avi.py:AviMovie or utils/mp4.py:Mp4Movie); ValueError
+    naming anything else."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:4] == b"RIFF":
+        return read_avi(path)
+    kind = file_kind(head)
+    if kind is None:
+        return read_mp4(path)
+    raise ValueError(f"{path}: {kind}: the port reads AVI and MP4/QuickTime video only"
+                     + (" (no Matroska demuxer)" if "Matroska" in kind else ""))
 
 
 class ImageReader:
@@ -75,20 +101,25 @@ class ImageReader:
 
 
 class VideoReader:
-    """Iterate (ok, rgb_frame) over a Motion-JPEG AVI, ending with one
-    (False, None), optionally prefetching frames on a reader thread so that
-    reading and decoding overlap inference.
+    """Iterate (ok, rgb_frame) over a video file (see the module
+    docstring), ending with one (False, None), optionally prefetching
+    frames on a reader thread so that reading and decoding overlap
+    inference.
 
-    Frames are (H, W, 3) uint8 RGB tensors on `device`. decoder "nvjpeg"
-    (the default "auto" on the card) decodes each through decode.decode_to
-    (nvJPEG, or the host for a frame nvJPEG does not take), "plain" (the
-    default on the CPU) with data/decode.py:decode_image, uploaded. On the
-    card the thread decodes on a stream of its own, and the consumer's
-    stream waits on an event recorded after each frame. A frame the decoder
-    refuses ends the stream there with a logged warning, as a failed
-    cv2.VideoCapture.read does; it is not handed to the other decoder.
-    `save(frame)` appends an RGB frame (numpy or tensor) to the Motion-JPEG
-    AVI `save_path`, opened on the first frame at the input's fps."""
+    Frames are (H, W, 3) uint8 RGB tensors on `device`. decoder "auto" (on
+    the card) decodes Motion-JPEG through decode.decode_to (nvJPEG, or the
+    host for a frame nvJPEG does not take) and MPEG-4 with the host C++
+    decoder; "plain" (and everything on the CPU) with data/decode.py's and
+    data/mpeg4.py's plain decoders; "nvjpeg" names the JPEG route and
+    needs the card. On the card the thread decodes on a stream of its own,
+    and the consumer's stream waits on an event recorded after each frame.
+    A Motion-JPEG frame the decoder refuses ends the stream there with a
+    logged warning, as a failed cv2.VideoCapture.read does; it is not
+    handed to the other decoder. An MPEG-4 stream the decoder refuses
+    raises its Mpeg4Error: at construction when its VOL says so, else from
+    the iteration at the VOP. `save(frame)` appends an RGB frame (numpy or
+    tensor) to `save_path` at the input's fps: mp4v in an MP4 for .mp4 and
+    .mov, Motion-JPEG for .avi."""
 
     def __init__(self, video_path: str = "0", use_thread: bool = True,
                  save_path: str | None = None, prefetch: int = 4,
@@ -96,44 +127,82 @@ class VideoReader:
         if str(video_path).isnumeric():
             raise NotImplementedError(
                 f"webcam {video_path}: the port reads no camera (there is no capture "
-                "device on either machine it runs on); give a Motion-JPEG AVI")
-        if save_path is not None and not save_path.lower().endswith(".avi"):
-            raise ValueError(f"{save_path}: the port writes Motion-JPEG AVI only (the "
-                             "JAX demo writes mp4v, which the port has no encoder for); "
-                             "name the output .avi")
+                "device on either machine it runs on); give a video file")
+        if save_path is not None and not save_path.lower().endswith(MP4_OUT + (".avi",)):
+            raise ValueError(f"{save_path}: the port writes mp4v in .mp4/.mov and "
+                             "Motion-JPEG in .avi; name the output so")
         if decoder not in DECODERS:
             raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
         self.device = resolve_device(device)
         if decoder == "nvjpeg" and self.device.type != "cuda":
             raise ValueError(f"decoder 'nvjpeg' needs a CUDA device, not {self.device}")
-        self.decoder = ("nvjpeg" if self.device.type == "cuda" and decoder != "plain"
-                        else "plain")
-        self.movie = read_avi(str(video_path))
+        self.movie = open_movie(str(video_path))
+        on_card = self.device.type == "cuda" and decoder != "plain"
+        if self.movie.codec == "mpeg4":
+            if decoder == "nvjpeg":
+                raise ValueError(f"{video_path}: decoder 'nvjpeg' decodes JPEGs, and this "
+                                 "is MPEG-4 Part 2 video; use 'auto' or 'plain'")
+            self.decoder = "host_cpp" if on_card else "plain"
+            self._check_headers()
+        else:
+            self.decoder = "nvjpeg" if on_card else "plain"
         self.org_width, self.org_height = self.movie.width, self.movie.height
         self.fps = self.movie.fps or 30.0
         self.total_frames = len(self.movie.frames)
         self.use_thread = use_thread
         self.save_path = save_path
         self.video_writer = None
+        self.encoder = None
         self.prefetch = prefetch
         self._stop = threading.Event()
         self._thread = None
 
+    def _check_headers(self) -> None:
+        """Parse the MPEG-4 headers (the MP4's esds, or the AVI's first
+        chunk) so that a VOL the decoder refuses raises here."""
+        data = self.movie.config
+        if not data and self.movie.frames:
+            with open(self.movie.path, "rb") as f:
+                data = self.movie.read_frame(f, 0)
+        vol = mpeg4.read_vol(data)
+        if vol is not None:
+            self.movie.width, self.movie.height = vol.width, vol.height
+
     def _frames(self, stream=None):
         """(True, frame, ready event or None) per frame in order, then one
         (False, None, None); decoded on `stream` when given."""
-        with open(self.movie.path, "rb") as f:
-            for i in range(self.total_frames):
-                if self._stop.is_set():
-                    break
-                data = self.movie.read_frame(f, i)
-                frame, ready = _on_stream(stream, lambda: self._decode(data))
-                if frame is None:
-                    logger.warning("%s: frame %d does not decode (%s decoder): the "
-                                   "stream ends there", self.movie.path, i, self.decoder)
-                    break
-                yield True, frame, ready
+        codec = None
+        if self.movie.codec == "mpeg4":
+            codec = mpeg4.Mpeg4Decoder(self.movie.config or None,
+                                       "cuda" if self.decoder == "host_cpp" else "cpu")
+        try:
+            with open(self.movie.path, "rb") as f:
+                for i in range(self.total_frames):
+                    if self._stop.is_set():
+                        break
+                    data = self.movie.read_frame(f, i)
+                    if codec is not None:
+                        planes = codec.decode(data)
+                        if planes is None:          # headers only
+                            continue
+                        frame, ready = _on_stream(stream, lambda: self._rgb(planes))
+                    else:
+                        frame, ready = _on_stream(stream, lambda: self._decode(data))
+                        if frame is None:
+                            logger.warning("%s: frame %d does not decode (%s decoder): the "
+                                           "stream ends there", self.movie.path, i,
+                                           self.decoder)
+                            break
+                    yield True, frame, ready
+        finally:
+            if codec is not None:
+                codec.close()
         yield False, None, None
+
+    def _rgb(self, planes) -> torch.Tensor:
+        """MPEG-4 planes to RGB on the device (uploaded first)."""
+        y, u, v = (torch.from_numpy(p).to(self.device, non_blocking=True) for p in planes)
+        return mpeg4.yuv420_to_rgb(y, u, v)
 
     def _decode(self, data: bytes) -> torch.Tensor | None:
         if self.decoder == "nvjpeg":
@@ -142,23 +211,38 @@ class VideoReader:
         return None if rgb is None else torch.from_numpy(rgb).to(self.device)
 
     def _reader(self, out: queue.Queue, stream):
-        for item in self._frames(stream):
-            while not self._stop.is_set():
-                try:
-                    out.put(item, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
+        try:
+            for item in self._frames(stream):
+                self._put(out, item)
+        except Exception as e:   # handed to the consumer, which raises it
+            self._put(out, (None, e, None))
+
+    def _put(self, out: queue.Queue, item) -> None:
+        while not self._stop.is_set():
+            try:
+                out.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
 
     def save(self, frame) -> None:
-        """Append `frame` ((H, W, 3) uint8 RGB) to save_path as one JPEG
-        (encode_jpeg, quality 95, cv2's default)."""
+        """Append `frame` ((H, W, 3) uint8 RGB) to save_path: one VOP of
+        mpeg4.Mp4vEncoder (I every KEY_INTERVAL frames) in an MP4, or one
+        JPEG (encode_jpeg, quality 95, cv2's default) in an AVI."""
         if not self.save_path:
             return
         rgb = frame.cpu().numpy() if isinstance(frame, torch.Tensor) else np.asarray(frame)
+        h, w = rgb.shape[:2]
+        if not self.save_path.lower().endswith(MP4_OUT):
+            if self.video_writer is None:
+                self.video_writer = AviWriter(self.save_path, self.fps)
+            self.video_writer.write(encode_jpeg(rgb), w, h)
+            return
         if self.video_writer is None:
-            self.video_writer = AviWriter(self.save_path, self.fps)
-        self.video_writer.write(encode_jpeg(rgb), rgb.shape[1], rgb.shape[0])
+            self.encoder = mpeg4.Mp4vEncoder(w, h, self.fps)
+            self.video_writer = Mp4Writer(self.save_path, self.fps)
+        vop, key = self.encoder.encode(rgb)
+        self.video_writer.write(vop, key, w, h, self.encoder.headers())
 
     def stop(self) -> None:
         """Close the writer and end the reader thread."""
@@ -182,6 +266,9 @@ class VideoReader:
         self._thread.start()
         while True:
             ok, frame, ready = frames.get()
+            if ok is None:
+                self.stop()
+                raise frame
             if ok:
                 _await(frame, ready)
             yield ok, frame

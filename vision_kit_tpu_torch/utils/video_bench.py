@@ -133,3 +133,83 @@ def decode_route_ms(data: bytes, size: int, device, reps: int = 3) -> dict:
                 raise RuntimeError(f"{name} gave {tuple(img.shape)} for {shape}")
         out[name] = float(np.median(times[1:]))
     return out
+
+
+# -- MPEG-4 Part 2 -------------------------------------------------------------
+
+VIDEO_SAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "data", "video_samples")
+HD_CLIP, SMALL_CLIP = "mp4v_720x1280_24f.mp4", "mp4v_144x176_fmp4.avi"
+
+
+def video_manifest() -> dict:
+    """data/video_samples/MANIFEST.json's files (tests/torch_mpeg4_samples.py):
+    each clip's frames, fps, size and the sha256 of every frame cv2 reads."""
+    import json
+
+    with open(os.path.join(VIDEO_SAMPLES, "MANIFEST.json")) as f:
+        return json.load(f)["files"]
+
+
+def mpeg4_disagreements(plain_frames: dict, device="cuda") -> tuple:
+    """The committed mp4v clips through the host C++ decoder
+    (Mpeg4Decoder(device="cuda")) and the plain one: every C++ frame,
+    converted by yuv420_to_rgb on `device`, at the manifest's sha256 of
+    cv2's frame; the first plain_frames[name] frames of each clip equal to
+    the C++ planes bit for bit. Returns (disagreements, {"cpp": {"I": ms,
+    "P": ms}, "plain": {...}}: median host-clock ms a 720p VOP of each
+    kind (the HD clip's)."""
+    import hashlib
+
+    from vision_kit_tpu_torch.data import mpeg4
+    from vision_kit_tpu_torch.utils.readers import open_movie
+
+    bad, ms = [], {"cpp": {"I": [], "P": []}, "plain": {"I": [], "P": []}}
+    manifest = video_manifest()
+    for name, n_plain in plain_frames.items():
+        movie = open_movie(os.path.join(VIDEO_SAMPLES, name))
+        meta = manifest[name]
+        keys = set(getattr(movie, "keyframes", [0]))
+        cpp = mpeg4.Mpeg4Decoder(movie.config or None, "cuda")
+        plain = mpeg4.Mpeg4Decoder(movie.config or None, "cpu")
+        with open(movie.path, "rb") as f:
+            for i in range(len(movie.frames)):
+                data = movie.read_frame(f, i)
+                kind = "I" if i in keys else "P"
+                t0 = time.perf_counter()
+                planes = cpp.decode(data)
+                t1 = time.perf_counter()
+                if name == HD_CLIP:
+                    ms["cpp"][kind].append((t1 - t0) * 1000)
+                rgb = mpeg4.yuv420_to_rgb(*(torch.from_numpy(p).to(device) for p in planes))
+                digest = hashlib.sha256(rgb.cpu().numpy().tobytes()).hexdigest()
+                if digest != meta["rgb_sha256"][i]:
+                    bad.append(f"{name} frame {i}: the C++ decoder's RGB is not cv2's")
+                if i < n_plain:
+                    t0 = time.perf_counter()
+                    want = plain.decode(data)
+                    if name == HD_CLIP:
+                        ms["plain"][kind].append((time.perf_counter() - t0) * 1000)
+                    if not all(np.array_equal(a, b) for a, b in zip(planes, want)):
+                        bad.append(f"{name} frame {i}: the C++ planes differ from the plain")
+        cpp.close()
+    return bad, {route: {k: float(np.median(v)) if v else None for k, v in kinds.items()}
+                 for route, kinds in ms.items()}
+
+
+def encode_ms(frames: list) -> dict:
+    """Median host-clock ms of Mp4vEncoder.encode a frame of each kind over
+    `frames` (an I-VOP first, P-VOPs after), and the bytes written."""
+    from vision_kit_tpu_torch.data import mpeg4
+
+    h, w = frames[0].shape[:2]
+    times = {"I": [], "P": []}
+    size = 0
+    enc = mpeg4.Mp4vEncoder(w, h)
+    for rgb in frames:
+        t0 = time.perf_counter()
+        vop, key = enc.encode(rgb)
+        times["I" if key else "P"].append((time.perf_counter() - t0) * 1000)
+        size += len(vop)
+    return {"I": float(np.median(times["I"])), "P": float(np.median(times["P"])),
+            "bytes": size}
