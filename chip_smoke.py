@@ -73,22 +73,31 @@ Phases, each printing its own line; any failure exits non-zero:
      one JPEG per sample the port decodes (the progressive JPEG, the BMPs
      and the WebPs among them), each printed count equal to an in-process
      Predictor's; then the video mode on a Motion-JPEG AVI of
-     the 720x1280 samples (24 frames at 30 fps; demo -p clip.avi -o
+     the 720x1280 samples (12 frames at 30 fps; demo -p clip.avi -o
      out.avi in a child, --demo-video): VideoReader's frames against the
      plain decoder (bit-equal) and nvJPEG (within its tolerance), threaded
      against unthreaded, each frame's detections equal to an in-process
-     Predictor's, one launch of each kernel a frame, out.avi read back with
-     every frame encode_jpeg's bytes of the drawn frame, the ms a frame by
-     stage; and one sample's -o .webp output (lossless VP8L, encode_webp)
+     Predictor's, one launch of each kernel a frame, out.avi mp4v as the
+     JAX writer writes it (handler and biCompression mp4v), every chunk
+     Mp4vEncoder's VOP of the drawn frame, read back as its
+     reconstruction, the ms a frame by stage; and one sample's -o .webp
+     output (lossless VP8L, encode_webp)
      read back bit-equal to its -o .bmp output's drawn frame; then MPEG-4
      Part 2 (mp4_leg): the committed mp4v clips through the host C++
      decoder (csrc/mpeg4_decode.cu) at cv2's sha256 on every frame and
      bit-equal to the plain decoder on the small clip and the 720p clip's
      first GOP, and demo -p mp4v_720x1280_24f.mp4 -o out.mp4 in a
      --demo-video child: one launch of each kernel a frame (the *_video
-     rows count both video runs), detections equal to an in-process
+     rows count the three video runs), detections equal to an in-process
      Predictor's, out.mp4 Mp4vEncoder's VOPs, read back as its
-     reconstruction;
+     reconstruction; then Matroska (mkv_leg): the committed cv2-written
+     720p mp4v .mkv through VideoReader (utils/mkv.py, the C++ decoder) at
+     cv2's sha256 on every frame, the XviD-tagged AVI through the C++
+     decoder's XviD IDCT at cv2's sha256, the V_MJPEG .mkv through nvJPEG
+     within its tolerance, the demux ms a frame and the C++ decoder's ms
+     with either IDCT, and demo -p mp4v_720x1280_24f.mkv -o out.mkv in a
+     --demo-video child, checked as the mp4 run, out.mkv's CodecPrivate
+     the encoder's VOL (its seconds in `seconds by phase:`);
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card by the route
      its header and the host C walk pick (decode.decode_route: nvJPEG for
@@ -247,7 +256,8 @@ greedy_nms_spatial and head_scores_spatial the kernels at a spatial
 single-frame request's B=1, K=1024, with rank 0's launches in one such
 request and both ranks' under launches_by_rank; greedy_nms_video and
 head_scores_video the same B=1 shape, with the launches of the demo's
-two video runs, the Motion-JPEG clip's and the mp4v clip's, summed)
+three video runs, the Motion-JPEG AVI's, the mp4v .mp4's and the mp4v
+.mkv's, summed)
 and, last, {"ok": true,
 "device": ...}.
 
@@ -1414,7 +1424,9 @@ def phase_weights(model, rng, smi: str) -> dict:
     return ref_counts
 
 
-VIDEO_FRAMES, VIDEO_FPS = 24, 30.0   # the demo's clip: the 720x1280 samples in turn
+# the demo's Motion-JPEG clip: the 720x1280 samples in turn (12 frames since
+# its output is mp4v, ~0.4 s a frame to encode)
+VIDEO_FRAMES, VIDEO_FPS = 12, 30.0
 
 
 def phase_demo(model, smi: str) -> dict:
@@ -1427,21 +1439,24 @@ def phase_demo(model, smi: str) -> dict:
     (-p clip.avi -o
     out.avi, through chip_smoke.py --demo-video so that the child's kernel
     wrappers can be counted): utils/video_bench.py's clip of the 720x1280
-    samples, 24 frames at 30 fps; VideoReader's frames (plain decoder bit
+    samples, 12 frames at 30 fps; VideoReader's frames (plain decoder bit
     for bit, nvJPEG within its tolerance, threaded = unthreaded), each
     frame's detections equal to an in-process Predictor's on the same
     nvJPEG-decoded frame (class exact, score 1e-5, box 1e-3 px), one launch
-    of each kernel a frame, out.avi read back whole with each frame's bytes
-    encode_jpeg's of the drawn frame; the ms a frame by stage. Returns the
-    video run's launches."""
+    of each kernel a frame, out.avi mp4v as the JAX writer writes it (the
+    handler and biCompression mp4v, the VOL headers before the first VOP):
+    every chunk Mp4vEncoder's VOP of the drawn frame, read back by the host
+    C++ decoder as its reconstruction; the ms a frame by stage. Then
+    mp4_leg and mkv_leg. Returns the video runs' launches, summed, and the
+    Matroska leg's seconds."""
     import re
     import subprocess
     import tempfile
 
     from vision_kit_tpu_torch.classes import COCO
     from vision_kit_tpu_torch.convert import jax_variables_from_state_dict
+    from vision_kit_tpu_torch.data import mpeg4
     from vision_kit_tpu_torch.data.decode import decode_image, decode_to
-    from vision_kit_tpu_torch.data.encode import encode_jpeg
     from vision_kit_tpu_torch.predictor import load_predictor_from_config
     from vision_kit_tpu_torch.utils import flax_msgpack
     from vision_kit_tpu_torch.utils import video_bench as vb
@@ -1536,29 +1551,36 @@ def phase_demo(model, smi: str) -> dict:
         bad = vb.reader_disagreements(clip, jpegs, VIDEO_FPS, "cuda")
         check(bad == [], f"VideoReader: {bad[:5]}")
         reader_s = time.perf_counter() - t_video
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                            "--demo-video", clip, out_avi, weights], cwd=REPO,
-                           capture_output=True, text=True, timeout=300)
-        child_s = time.perf_counter() - t0
-        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("VIDEO ")]
-        check(r.returncode == 0 and lines,
-              f"the video demo exited {r.returncode}: {r.stderr[-3000:]}")
-        res = json.loads(lines[-1][len("VIDEO "):])
-        check(f"over {VIDEO_FRAMES} frames" in r.stdout, "the demo printed no average")
+        # the three video runs (this clip, the committed mp4v .mp4 and .mkv)
+        # in one child; each leg checks its own
+        out_mp4, out_mkv = os.path.join(tmp, "out.mp4"), os.path.join(tmp, "out.mkv")
+        (res, res_mp4, res_mkv), child_s = video_runs(weights, [
+            (clip, out_avi), (os.path.join(vb.VIDEO_SAMPLES, vb.HD_CLIP), out_mp4),
+            (os.path.join(vb.VIDEO_SAMPLES, vb.HD_MKV), out_mkv)])
+        print(f"demo: the three video runs in one --demo-video child: {child_s:.1f} s "
+              f"(runs {res['run_s']:.1f}, {res_mp4['run_s']:.1f}, {res_mkv['run_s']:.1f} s)",
+              flush=True)
+        check(f"over {VIDEO_FRAMES} frames" in res["printed"], "the demo printed no average")
         counts = res["counts"]
         check(counts == {"greedy_nms": VIDEO_FRAMES, "head_scores": VIDEO_FRAMES},
               f"the video demo launched {counts}, not one of each a frame")
         check(len(res["detections"]) == VIDEO_FRAMES and res["fps"] == VIDEO_FPS,
               f"the demo read {len(res['detections'])} frames at {res['fps']} fps")
         movie = read_avi(out_avi)
-        check((len(movie.frames), movie.fps, movie.width, movie.height)
-              == (VIDEO_FRAMES, VIDEO_FPS, 1280, 720),
-              f"out.avi: {len(movie.frames)} frames at {movie.fps} fps")
+        check((len(movie.frames), movie.fps, movie.width, movie.height, movie.codec, movie.tag)
+              == (VIDEO_FRAMES, VIDEO_FPS, 1280, 720, "mpeg4", b"mp4v"),
+              f"out.avi: {len(movie.frames)} frames of {movie.codec} ({movie.tag}) at "
+              f"{movie.fps} fps")
+        with open(out_avi, "rb") as f:
+            head = f.read(4096)
+        check(head[head.find(b"strh") + 12:][:4] == b"mp4v",
+              "out.avi's stream handler is not mp4v")
         check(len(VideoReader(out_avi, decoder="plain")) == VIDEO_FRAMES,
               "the port's reader does not read out.avi whole")
         drawer = Drawing(list(COCO))
-        n_det, encoded = 0, {}
+        encoder = mpeg4.Mp4vEncoder(1280, 720, VIDEO_FPS)
+        back = mpeg4.Mpeg4Decoder(None, "cuda", codec_tag=movie.tag)
+        n_det = 0
         with torch.backends.cudnn.flags(**tf32), open(out_avi, "rb") as f:
             frames = {data: decode_to(data, "cuda") for data in set(jpegs)}
             for i, (data, got) in enumerate(zip(jpegs, res["detections"])):
@@ -1568,46 +1590,52 @@ def phase_demo(model, smi: str) -> dict:
                       f"frame {i}: non-finite or misshapen detections")
                 check(same_detections(w, got, 1e-5, 1e-3),
                       f"frame {i}: {len(got)} detections against in-process {len(w)}")
-                key = (data, got.tobytes())   # repeated frames draw alike
-                if key not in encoded:
-                    encoded[key] = encode_jpeg(drawer.draw(frames[data].cpu().numpy(), got))
-                check(movie.read_frame(f, i) == encoded[key],
-                      f"out.avi frame {i} is not encode_jpeg of the drawn frame")
+                vop, _ = encoder.encode(drawer.draw(frames[data].cpu().numpy(), got))
+                chunk = movie.read_frame(f, i)
+                check(chunk == (encoder.headers() if i == 0 else b"") + vop,
+                      f"out.avi frame {i} is not Mp4vEncoder's VOP of the drawn frame")
+                planes = back.decode(chunk)
+                check(all(np.array_equal(p, q[:p.shape[0], :p.shape[1]])
+                          for p, q in zip(planes, encoder.recon)),
+                      f"out.avi frame {i} does not read back as the encoder's reconstruction")
                 n_det += len(got)
+        back.close()
         check(n_det > 0, "the video demo found no detections")
         ms = {k: float(np.median(v)) for k, v in res["ms"].items()}
         print(f"demo: python -m vision_kit_tpu_torch demo -p clip.avi -o out.avi (v5s@640 "
               f"f32, {VIDEO_FRAMES} frames of 720x1280 Motion-JPEG at {VIDEO_FPS:g} fps, "
               f"nvJPEG): {n_det} detections, each frame equal to an in-process Predictor's "
-              f"(class exact, score 1e-5, box 1e-3 px), launches {counts}; out.avi read "
-              f"back whole, every frame encode_jpeg's bytes of the drawn frame; VideoReader "
+              f"(class exact, score 1e-5, box 1e-3 px), launches {counts}; out.avi mp4v "
+              f"(handler and biCompression), every chunk Mp4vEncoder's VOP of the drawn "
+              f"frame, read back as its reconstruction; VideoReader "
               f"plain bit-equal to decode_image (each sample once), nvJPEG within "
               f"NVJPEG_TOLERANCE, threaded = unthreaded ({reader_s:.1f} s); median ms a "
               f"frame (host clock): read/decode "
               f"{ms['read']:.3f}, predict {ms['predict']:.3f}, draw {ms['draw']:.3f}, encode "
               f"{ms['encode']:.3f}; {VIDEO_FRAMES / res['wall_s']:.2f} fps over the loop "
-              f"({res['wall_s']:.2f} s), the child {child_s:.1f} s; the video leg "
+              f"({res['wall_s']:.2f} s), the run {res['run_s']:.1f} s; the video leg "
               f"{time.perf_counter() - t_video:.1f} s on {smi}", flush=True)
-        counts_mp4 = mp4_leg(tmp, weights, pred, tf32, smi)
+        counts_mp4 = mp4_leg(res_mp4, out_mp4, pred, tf32, smi)
+        t_mkv = time.perf_counter()
+        counts_mkv = mkv_leg(res_mkv, out_mkv, pred, tf32, smi, (res_mp4, out_mp4))
+        mkv_s = time.perf_counter() - t_mkv + res_mkv["run_s"]
     print(f"demo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {k: counts[k] + counts_mp4[k] for k in counts}
+    return {k: counts[k] + counts_mp4[k] + counts_mkv[k] for k in counts}, {"mkv leg": mkv_s}
 
 
-def mp4_leg(tmp: str, weights: str, pred, tf32: dict, smi: str) -> dict:
+def mp4_leg(res: dict, out_mp4: str, pred, tf32: dict, smi: str) -> dict:
     """The demo's video mode on MPEG-4 Part 2: the committed mp4v clips
     (data/video_samples/, written by cv2) through the host C++ decoder,
     every frame's RGB on the card at the sha256 of cv2's frame, the small
     AVI's frames and the 720p clip's first GOP and next I-VOP bit-equal to
     the plain decoder's (video_bench.mpeg4_disagreements), the ms a 720p
-    I- and P-VOP by each and Mp4vEncoder's ms a frame; then `demo -p
-    mp4v_720x1280_24f.mp4 -o out.mp4` in the --demo-video child (its
-    launches counted): one launch of each kernel a frame, each frame's
+    I- and P-VOP by each and Mp4vEncoder's ms a frame; then `res`, the run
+    of `demo -p mp4v_720x1280_24f.mp4 -o out_mp4` in the --demo-video child
+    (its launches counted): one launch of each kernel a frame, each frame's
     detections equal to an in-process Predictor's on the same decoded
     frame, out.mp4's VOPs the bytes Mp4vEncoder gives for the drawn frames
     and its read-back (the C++ decoder) equal to the encoder's
-    reconstruction. Returns the child's launches."""
-    import subprocess
-
+    reconstruction. Returns the run's launches."""
     from vision_kit_tpu_torch.classes import COCO
     from vision_kit_tpu_torch.data import mpeg4
     from vision_kit_tpu_torch.utils import video_bench as vb
@@ -1627,16 +1655,6 @@ def mp4_leg(tmp: str, weights: str, pred, tf32: dict, smi: str) -> dict:
     check(reader.decoder == "host_cpp" and len(frames) == n,
           f"VideoReader took {reader.decoder} and read {len(frames)} of {n} frames")
     enc = vb.encode_ms([fr.cpu().numpy() for fr in frames[:4]])
-    out_mp4 = os.path.join(tmp, "out.mp4")
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                        "--demo-video", clip, out_mp4, weights], cwd=REPO,
-                       capture_output=True, text=True, timeout=300)
-    child_s = time.perf_counter() - t0
-    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("VIDEO ")]
-    check(r.returncode == 0 and lines,
-          f"the mp4 video demo exited {r.returncode}: {r.stderr[-3000:]}")
-    res = json.loads(lines[-1][len("VIDEO "):])
     counts = res["counts"]
     check(counts == {"greedy_nms": n, "head_scores": n},
           f"the mp4 video demo launched {counts}, not one of each a frame")
@@ -1687,26 +1705,184 @@ def mp4_leg(tmp: str, weights: str, pred, tf32: dict, smi: str) -> dict:
           f"read back equal to its reconstruction; median ms a frame (host clock): "
           f"read/decode {ms['read']:.3f}, predict {ms['predict']:.3f}, draw {ms['draw']:.3f}, "
           f"encode {ms['encode']:.3f}; {n / res['wall_s']:.2f} fps over the loop "
-          f"({res['wall_s']:.2f} s), the child {child_s:.1f} s; the mp4 leg "
-          f"{time.perf_counter() - t_leg:.1f} s on {smi}", flush=True)
+          f"({res['wall_s']:.2f} s), the run {res['run_s']:.1f} s; the mp4 leg "
+          f"{time.perf_counter() - t_leg + res['run_s']:.1f} s on {smi}", flush=True)
     return counts
 
 
-def demo_video_child(clip: str, out: str, weights: str) -> dict:
-    """`python -m vision_kit_tpu_torch demo -p clip -o out -w weights` through
-    the CLI's main in this process, with the kernels' launches counted around
-    it and demo_video's result kept."""
+def mkv_leg(res: dict, out_mkv: str, pred, tf32: dict, smi: str, mp4_run: tuple) -> dict:
+    """The demo's video mode on Matroska: the committed cv2-written 720p
+    mp4v .mkv through VideoReader (utils/mkv.py's demuxer, the host C++
+    decoder), every frame's RGB on the card at the sha256 of cv2's frame;
+    the XviD-tagged AVI through the C++ decoder (the XviD IDCT, every frame
+    at cv2's sha256, bit-equal to the plain decoder); the V_MJPEG .mkv
+    through nvJPEG within NVJPEG_TOLERANCE of the plain decoder (threaded =
+    unthreaded); the demux ms a frame and the C++ decoder's ms a 720p VOP
+    with the simple and the XviD IDCT; then `res`, the run of `demo -p
+    mp4v_720x1280_24f.mkv -o out_mkv` in the --demo-video child: one launch
+    of each kernel a frame, each frame's detections equal to an in-process
+    Predictor's on
+    the same decoded frame, out.mkv's blocks Mp4vEncoder's VOPs of the
+    drawn frames, its CodecPrivate the encoder's VOL, read back by the C++
+    decoder as the encoder's reconstruction. The .mkv holds the .mp4's
+    frames (cv2's sha256 of each): where the run gave the mp4 run's
+    detections exactly (mp4_run: that run and out.mp4's path), the blocks
+    are held to out.mp4's VOPs, which mp4_leg held to the encoder and its
+    reconstruction; else they are encoded and read back here. Returns the
+    run's launches."""
+    import hashlib
+
+    from vision_kit_tpu_torch.classes import COCO
+    from vision_kit_tpu_torch.data import mpeg4
+    from vision_kit_tpu_torch.utils import video_bench as vb
+    from vision_kit_tpu_torch.utils.drawing import Drawing
+    from vision_kit_tpu_torch.utils.mkv import read_mkv
+    from vision_kit_tpu_torch.utils.mp4 import read_mp4
+    from vision_kit_tpu_torch.utils.readers import VideoReader, open_movie
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    t_leg = time.perf_counter()
+    manifest = vb.video_manifest()
+    clip = os.path.join(vb.VIDEO_SAMPLES, vb.HD_MKV)
+    meta = manifest[vb.HD_MKV]
+    n = meta["frames"]
+    reader = VideoReader(clip, use_thread=False)
+    frames = [fr for ok, fr in reader if ok]
+    check(reader.decoder == "host_cpp" and len(frames) == n and reader.fps == VIDEO_FPS,
+          f"VideoReader took {reader.decoder} and read {len(frames)} of {n} frames of "
+          f"{vb.HD_MKV} at {reader.fps} fps")
+    for i, frame in enumerate(frames):
+        check(hashlib.sha256(frame.cpu().numpy().tobytes()).hexdigest()
+              == meta["rgb_sha256"][i], f"{vb.HD_MKV} frame {i} is not cv2's")
+    bad, _ = vb.mpeg4_disagreements({vb.XVID_AVI: manifest[vb.XVID_AVI]["frames"]})
+    check(bad == [], f"the XviD clip: {bad[:5]}")
+    xvid_path = os.path.join(vb.VIDEO_SAMPLES, vb.XVID_AVI)
+    xvid = mpeg4.Mpeg4Decoder(None, "cuda", codec_tag=open_movie(xvid_path).tag)
+    xvid.decode(vb.movie_frames(xvid_path)[0])
+    check(xvid.identity()["xvid_idct"], f"the XviD clip decoded with {xvid.identity()}")
+    xvid.close()
+    mjpeg = os.path.join(vb.VIDEO_SAMPLES, vb.MJPEG_MKV)
+    bad = vb.reader_disagreements(mjpeg, vb.movie_frames(mjpeg),
+                                  manifest[vb.MJPEG_MKV]["fps"], "cuda")
+    check(bad == [], f"the V_MJPEG clip: {bad[:5]}")
+    demux = vb.demux_ms(clip)
+    idct = vb.idct_ms(vb.HD_MKV)
+    checks_s = time.perf_counter() - t_leg
+    counts = res["counts"]
+    check(counts == {"greedy_nms": n, "head_scores": n},
+          f"the mkv video demo launched {counts}, not one of each a frame")
+    check(len(res["detections"]) == n and res["fps"] == VIDEO_FPS,
+          f"the mkv demo read {len(res['detections'])} frames at {res['fps']} fps")
+    movie = read_mkv(out_mkv)
+    check((len(movie.frames), movie.fps, movie.width, movie.height, movie.codec_id)
+          == (n, VIDEO_FPS, 1280, 720, "V_MPEG4/ISO/ASP"),
+          f"out.mkv: {len(movie.frames)} frames of {movie.codec_id} at {movie.fps} fps")
+    drawer = Drawing(list(COCO))
+    encoder = mpeg4.Mp4vEncoder(1280, 720, VIDEO_FPS)
+    check(movie.config == encoder.headers(), "out.mkv's CodecPrivate is not the encoder's VOL")
+    back = mpeg4.Mpeg4Decoder(movie.config, "cuda")
+    res_mp4, out_mp4 = mp4_run
+    mp4 = read_mp4(out_mp4) if res["detections"] == res_mp4["detections"] else None
+    n_det = 0
+    with torch.backends.cudnn.flags(**tf32), open(out_mkv, "rb") as f, \
+            open(out_mp4, "rb") as g:
+        for i, (frame, got) in enumerate(zip(frames, res["detections"])):
+            got = np.asarray(got, np.float32).reshape(-1, 6)
+            w, _ = pred(frame)
+            check(got.shape[1:] == (6,) and np.isfinite(got).all(),
+                  f"mkv frame {i}: non-finite or misshapen detections")
+            check(same_detections(w, got, 1e-5, 1e-3),
+                  f"mkv frame {i}: {len(got)} detections against in-process {len(w)}")
+            data = movie.read_frame(f, i)
+            if mp4 is not None:
+                check(data == mp4.read_frame(g, i)
+                      and movie.keyframes[i] == (i in set(mp4.keyframes)),
+                      f"out.mkv frame {i} is not out.mp4's VOP of the same drawn frame")
+            else:
+                vop, key = encoder.encode(drawer.draw(frame.cpu().numpy(), got))
+                check(data == vop and movie.keyframes[i] == key,
+                      f"out.mkv frame {i} is not Mp4vEncoder's VOP of the drawn frame")
+                planes = back.decode(data)
+                check(all(np.array_equal(p, q[:p.shape[0], :p.shape[1]])
+                          for p, q in zip(planes, encoder.recon)),
+                      f"out.mkv frame {i} does not read back as the encoder's "
+                      "reconstruction")
+            n_det += len(got)
+    back.close()
+    check(n_det > 0, "the mkv video demo found no detections")
+    ms = {k: float(np.median(v)) for k, v in res["ms"].items()}
+    print(f"demo: Matroska and XviD on data/video_samples/: {vb.HD_MKV} (cv2's mp4v in "
+          f"Matroska) through VideoReader and the host C++ decoder, every frame at cv2's "
+          f"sha256; {vb.XVID_AVI} (tagged XVID, no user data) through the C++ decoder's "
+          f"XviD IDCT at cv2's sha256 and bit-equal to the plain decoder; {vb.MJPEG_MKV} "
+          f"(V_MJPEG) through nvJPEG within NVJPEG_TOLERANCE, threaded = unthreaded "
+          f"({checks_s:.1f} s); Matroska demux {demux:.4f} ms a frame (index and read, "
+          f"host clock); a 720x1280 VOP by the C++ decoder (median ms): simple IDCT I "
+          f"{idct['simple']['I']:.2f}, P {idct['simple']['P']:.2f}; XviD IDCT I "
+          f"{idct['xvid']['I']:.2f}, P {idct['xvid']['P']:.2f} on {smi}", flush=True)
+    print(f"demo: python -m vision_kit_tpu_torch demo -p {vb.HD_MKV} -o out.mkv (v5s@640 f32, "
+          f"{n} frames of 720x1280 mp4v in Matroska at {VIDEO_FPS:g} fps, the host C++ "
+          f"decoder): {n_det} detections, each frame equal to an in-process Predictor's "
+          f"(class exact, score 1e-5, box 1e-3 px), launches {counts}; out.mkv "
+          f"({os.path.getsize(out_mkv)} B) every block Mp4vEncoder's VOP of the drawn frame, "
+          f"CodecPrivate its VOL, read back equal to its reconstruction ("
+          f"{'as out.mp4, the same detections' if mp4 is not None else 'encoded here'}); "
+          f"median ms a frame "
+          f"(host clock): read/decode {ms['read']:.3f}, predict {ms['predict']:.3f}, draw "
+          f"{ms['draw']:.3f}, encode {ms['encode']:.3f}; {n / res['wall_s']:.2f} fps over "
+          f"the loop ({1000 * res['wall_s'] / n:.1f} ms a frame, {res['wall_s']:.2f} s), the "
+          f"run {res['run_s']:.1f} s; the mkv leg "
+          f"{time.perf_counter() - t_leg + res['run_s']:.1f} s on {smi}",
+          flush=True)
+    return counts
+
+
+def demo_video_child(weights: str, *paths: str) -> list:
+    """`python -m vision_kit_tpu_torch demo -p clip -o out -w weights` for
+    each (clip, out) pair of `paths` in turn, through the CLI's main in this
+    process (one interpreter and CUDA context for every run), with the
+    kernels' launches counted around each run, its printing and seconds
+    kept, and demo_video's result."""
     from vision_kit_tpu_torch import __main__ as cli
 
-    results = []
+    out = []
     run = cli.demo_video
-    cli.demo_video = lambda *a, **kw: results.append(run(*a, **kw)) or results[-1]
-    reset_counts()
-    rc = cli.main(["demo", "-p", clip, "-o", out, "-w", weights])
-    counts = read_counts()
-    (res,) = results
-    return {"rc": rc, "counts": counts, "fps": res["fps"], "ms": res["ms"],
-            "wall_s": res["wall_s"], "detections": [d.tolist() for d in res["detections"]]}
+    for clip, path in zip(paths[::2], paths[1::2]):
+        results = []
+        cli.demo_video = lambda *a, **kw: results.append(run(*a, **kw)) or results[-1]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        reset_counts()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["demo", "-p", clip, "-o", path, "-w", weights])
+        counts = read_counts()
+        (res,) = results
+        out.append({"rc": rc, "counts": counts, "fps": res["fps"], "ms": res["ms"],
+                    "wall_s": res["wall_s"], "run_s": time.perf_counter() - t0,
+                    "printed": printed.getvalue()[-2000:],
+                    "detections": [d.tolist() for d in res["detections"]]})
+    cli.demo_video = run
+    return out
+
+
+def video_runs(weights: str, pairs: list) -> tuple:
+    """The demo's video runs, each (clip, out) of `pairs`, in one
+    --demo-video child (its kernels' launches counted there): ([each run's
+    result], the child's seconds)."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"), "--demo-video",
+                        weights, *(p for pair in pairs for p in pair)], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("VIDEO ")]
+    check(r.returncode == 0 and lines,
+          f"the video demo child exited {r.returncode}: {r.stderr[-3000:]}")
+    runs = json.loads(lines[-1][len("VIDEO "):])
+    check(len(runs) == len(pairs) and all(run["rc"] == 0 for run in runs),
+          f"the video demo child ran {[run['rc'] for run in runs]}")
+    return runs, child_s
 
 
 SERVE_BATCH = 8
@@ -4030,11 +4206,11 @@ def main() -> int:
         res = ddp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         print("DDP2 " + json.dumps(res), flush=True)
         return 0
-    if len(sys.argv) == 5 and sys.argv[1] == "--demo-video":
+    if len(sys.argv) >= 5 and len(sys.argv) % 2 == 1 and sys.argv[1] == "--demo-video":
         if not torch.cuda.is_available():
             return 1
         sys.path.insert(0, REPO)
-        print("VIDEO " + json.dumps(demo_video_child(*sys.argv[2:5])), flush=True)
+        print("VIDEO " + json.dumps(demo_video_child(*sys.argv[2:])), flush=True)
         return 0
     if len(sys.argv) == 6 and sys.argv[1] == "--orbax-resume":
         if not torch.cuda.is_available():
@@ -4103,7 +4279,7 @@ def main() -> int:
     train_counts = timed("train", phase_train, rng, smi)
     ref_counts = timed("weights", phase_weights, model, rng, smi)
     timed("orbax", phase_orbax, smi)
-    video_counts = timed("demo", phase_demo, model, smi)
+    video_counts, demo_legs = timed("demo", phase_demo, model, smi)
     serve_counts = timed("serve", phase_serve, model, smi)
     fit_counts = timed("fit", phase_fit, smi)
     fit_host_counts = timed("fit-host", phase_fit_host, smi)
@@ -4160,6 +4336,8 @@ def main() -> int:
         rows[f"{name}_spatial"]["launches_by_rank"] = spatial_counts[name]
     seconds["profiles and kernel times"] = time.perf_counter() - t_start - sum(
         seconds.values())
+    # a leg inside its phase, not counted again in the total
+    seconds.update({f"demo: {leg} (inside demo)": s for leg, s in demo_legs.items()})
     print(json.dumps({"kernels": list(rows.values())}))
     print("seconds by phase: " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

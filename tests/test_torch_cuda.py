@@ -734,6 +734,65 @@ def test_mpeg4_host_decoder_equals_plain(cuda):
     assert bad == []
 
 
+def test_mpeg4_host_decoder_on_matroska_and_xvid_clips(cuda):
+    """The committed 720p Matroska clip (the first GOP and the next I-VOP
+    bit-equal to the plain decoder) and the XviD-tagged AVI (whole): every
+    frame at cv2's sha256, the XviD one through the XviD IDCT."""
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    bad, _ = vb.mpeg4_disagreements({vb.HD_MKV: 9, vb.XVID_AVI: 6}, cuda)
+    assert bad == []
+
+
+def test_mpeg4_host_decoder_on_xvid_streams(cuda, tmp_path):
+    """csrc/mpeg4_decode.cu (nvcc-built) against the plain decoder on random
+    streams libavcodec takes as XviD's (an XVID or XVIX tag, XviD0050 or
+    XviD0002 user data) and not (Lavc user data), in an AVI and in a
+    Matroska VFW track, with video packets and with DCs past 2047: the
+    planes and the identification equal."""
+    from torch_mkv_samples import bitmapinfoheader, build
+    from torch_mpeg4_samples import random_stream
+    from vision_kit_tpu_torch.data import mpeg4
+    from vision_kit_tpu_torch.utils.avi import AviWriter
+    from vision_kit_tpu_torch.utils.mkv import VFW
+    from vision_kit_tpu_torch.utils.readers import open_movie
+
+    for tag, user in ((b"XVID", b""), (b"XVIX", b""), (b"FMP4", b"XviD0050"),
+                      (b"FMP4", b"XviD0002"), (b"XVID", b"Lavc62.0.0")):
+        for seed, kw in ((1, {"resync": True}), (2, {"bright": True})):
+            headers, vops = random_stream(seed, 150, 100, 6, user_data=user, **kw)
+            avi, mkv = str(tmp_path / "s.avi"), str(tmp_path / "s.mkv")
+            with AviWriter(avi, 30.0, tag) as w:
+                for i, (vop, key) in enumerate(vops):
+                    w.write((headers if i == 0 else b"") + vop, 150, 100, key)
+            build(mkv, [v for v, _ in vops], [k for _, k in vops], 150, 100, codec_id=VFW,
+                  private=bitmapinfoheader(150, 100, tag, headers))
+            for path in (avi, mkv):
+                movie = open_movie(path)
+                decs = [mpeg4.Mpeg4Decoder(movie.config or None, d, codec_tag=movie.tag)
+                        for d in ("cuda", "cpu")]
+                with open(path, "rb") as f:
+                    for i in range(len(movie.frames)):
+                        data = movie.read_frame(f, i)
+                        got, want = (d.decode(data) for d in decs)
+                        assert all(np.array_equal(a, b) for a, b in zip(got, want)), \
+                            (tag, user, seed, path, i)
+                assert decs[0].identity() == decs[1].identity(), (tag, user)
+                decs[0].close()
+
+
+def test_video_reader_nvjpeg_on_a_matroska_clip(cuda):
+    """VideoReader on the committed V_MJPEG Matroska clip: plain frames
+    equal to decode_image, nvJPEG's within NVJPEG_TOLERANCE, threaded =
+    unthreaded (video_bench.reader_disagreements)."""
+    import os
+
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    path = os.path.join(vb.VIDEO_SAMPLES, vb.MJPEG_MKV)
+    assert vb.reader_disagreements(path, vb.movie_frames(path), 30.0, cuda) == []
+
+
 def test_video_reader_nvjpeg_against_plain(cuda, tmp_path):
     """VideoReader on a Motion-JPEG clip of the 720x1280 samples: the plain
     decoder's frames on the card bit-equal to decode_image, nvJPEG's within

@@ -216,7 +216,8 @@ def test_demo_single_file_output_and_video(demo_setup, capsys):
     with open(webp_out, "rb") as f:
         back = cv2.imdecode(np.frombuffer(f.read(), np.uint8), cv2.IMREAD_COLOR)
     np.testing.assert_array_equal(back, cv2.cvtColor(drawn, cv2.COLOR_RGB2BGR))
-    # the video run: a Motion-JPEG AVI in, one drawn frame out per frame
+    # the video run: a Motion-JPEG AVI in, one drawn frame out per frame,
+    # as mp4v in the .avi (the JAX writer's fourcc for any name)
     clip = str(tmp / "clip.avi")
     writer = cv2.VideoWriter(clip, cv2.CAP_OPENCV_MJPEG, cv2.VideoWriter_fourcc(*"MJPG"),
                              10.0, (96, 64))
@@ -226,7 +227,8 @@ def test_demo_single_file_output_and_video(demo_setup, capsys):
     assert cli.main(["demo", "-p", clip, "-o", str(tmp / "clip_out.avi"), "-c", cfg_path,
                      "-w", weights, "--device", "cpu"]) == 0
     assert "over 3 frames" in capsys.readouterr().out
-    assert len(VideoReader(str(tmp / "clip_out.avi"), device="cpu")) == 3
+    back = VideoReader(str(tmp / "clip_out.avi"), device="cpu")
+    assert len(back) == 3 and back.movie.codec == "mpeg4" and back.movie.tag == b"mp4v"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["demo", "-p", src, "-o", str(tmp), "-c", cfg_path])

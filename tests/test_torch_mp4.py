@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_mpeg4_samples import (HD_CLIP, SMALL_CLIP, VIDEO_SAMPLES, moving, raw_packets,
-                                 read_cv2, write_cv2)
+from torch_mpeg4_samples import (HD_CLIP, HD_MKV, MJPEG_MKV, SMALL_CLIP, VIDEO_SAMPLES,
+                                 XVID_AVI, moving, raw_packets, read_cv2, write_cv2)
 from vision_kit_tpu.utils.readers import VideoReader as JaxVideoReader
 from vision_kit_tpu_torch.data import mpeg4
 from vision_kit_tpu_torch.utils.avi import AviWriter, read_avi
@@ -68,7 +68,7 @@ def test_committed_clips_match_their_manifest():
 
     with open(os.path.join(VIDEO_SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
-    assert sorted(files) == sorted([HD_CLIP, SMALL_CLIP])
+    assert sorted(files) == sorted([HD_CLIP, SMALL_CLIP, HD_MKV, MJPEG_MKV, XVID_AVI])
     for name, meta in files.items():
         path = os.path.join(VIDEO_SAMPLES, name)
         with open(path, "rb") as f:
@@ -173,11 +173,10 @@ def test_container_refusals_name_themselves(clips, tmp_path):
     h264_avi = _patched(paths["fmp4.avi"], tmp_path, b"FMP4", b"H264", "h264.avi")
     with pytest.raises(ValueError, match=r"'H264' \(H\.264\)"):
         open_movie(h264_avi)
-    mkv = str(tmp_path / "clip.mkv")
-    with open(mkv, "wb") as f:
-        f.write(b"\x1a\x45\xdf\xa3" + bytes(60))
-    with pytest.raises(ValueError, match="Matroska"):
-        open_movie(mkv)
+    webm = str(tmp_path / "clip.webm")
+    write_cv2(webm, [np.zeros((48, 64, 3), np.uint8)] * 2, "VP80")
+    with pytest.raises(ValueError, match=r"'V_VP8' \(VP8\)"):
+        open_movie(webm)
     # an esds whose objectTypeIndication is not MPEG-4 Visual
     data = open(paths["pan.mp4"], "rb").read()
     i = data.find(b"esds")

@@ -255,15 +255,16 @@ def test_refusals_name_what_they_refuse(clips):
         f.write(data[:vop] + bytes([(data[vop] & 0x3F) | 0x80]) + data[vop + 1:])
     with pytest.raises(ValueError, match=r"B \(Advanced Simple Profile\)-VOP"):
         read_all(VideoReader(bvop, device="cpu", use_thread=False))
-    mkv = str(tmp / "clip.mkv")
-    with open(mkv, "wb") as f:
-        f.write(b"\x1a\x45\xdf\xa3" + bytes(60))
-    with pytest.raises(ValueError, match="Matroska"):
-        VideoReader(mkv, device="cpu")
+    from torch_mpeg4_samples import write_cv2
+
+    webm = str(tmp / "clip.webm")
+    write_cv2(webm, [np.zeros((64, 96, 3), np.uint8)] * 2, "VP80")
+    with pytest.raises(ValueError, match=r"'V_VP8' \(VP8\)"):
+        VideoReader(webm, device="cpu")
     with pytest.raises(NotImplementedError, match="webcam 0"):
         VideoReader("0", device="cpu")
-    out = str(tmp / "out.mkv")
-    with pytest.raises(ValueError, match="out.mkv.*mp4v in .mp4/.mov"):
+    out = str(tmp / "out.webm")
+    with pytest.raises(ValueError, match="out.webm: WebM holds VP8, VP9 or AV1 only"):
         VideoReader(paths["ffmpeg"], save_path=out, device="cpu")
     assert not os.path.exists(out)
     with pytest.raises(ValueError, match="nvjpeg"):
@@ -276,7 +277,12 @@ def test_refusals_name_what_they_refuse(clips):
 def test_demo_cli_on_a_clip_matches_jax(demo_setup, clips, capsys):  # noqa: F811
     """demo -p clip.avi -o out.avi on v5n@64 carried from JAX: each frame's
     detections equal JAX's Predictor on the same RGB frame, and out.avi
-    holds encode_jpeg of each drawn frame."""
+    holds mp4v as the JAX writer writes it (handler and biCompression
+    mp4v): Mp4vEncoder's VOP of each drawn frame, the VOL headers before
+    the first, which cv2 reads back as the encoder's reconstruction."""
+    from torch_mpeg4_samples import read_cv2
+    from vision_kit_tpu_torch.data import mpeg4
+
     jm, v, weights, cfg_path, _ = demo_setup
     tmp, _, paths = clips
     out = str(tmp / "demo_out.avi")
@@ -298,12 +304,25 @@ def test_demo_cli_on_a_clip_matches_jax(demo_setup, clips, capsys):  # noqa: F81
     drawer = Drawing([f"c{i}" for i in range(80)])
     movie = read_avi(out)
     assert (len(movie.frames), movie.fps, movie.width, movie.height) == (N_FRAMES, FPS, 320, 240)
+    with open(out, "rb") as f:
+        data = f.read()
+    assert data[data.find(b"strh") + 8:][4:8] == b"mp4v"       # the handler
+    assert data[data.find(b"strf") + 8:][16:20] == b"mp4v"     # biCompression
+    assert movie.codec == "mpeg4" and movie.tag == b"mp4v"
+    back, count, _ = read_cv2(out)
+    assert count == len(back) == N_FRAMES
+    enc = mpeg4.Mp4vEncoder(320, 240, FPS)
     n = 0
     with open(out, "rb") as f:
         for i, (rgb, dets) in enumerate(zip(frames, res["detections"])):
             want, _ = jpred(rgb)
             assert same_detections(want, dets, box_tol=1e-3 / gain), (i, want, dets)
-            assert movie.read_frame(f, i) == encode_jpeg(drawer.draw(rgb, dets))
+            vop, _ = enc.encode(drawer.draw(rgb, dets))
+            assert movie.read_frame(f, i) == (enc.headers() if i == 0 else b"") + vop
+            y, u, v = (np.ascontiguousarray(p[:(240 >> k), :(320 >> k)])
+                       for k, p in zip((0, 1, 1), enc.recon))
+            recon = mpeg4.yuv420_to_rgb(*(torch.from_numpy(p) for p in (y, u, v))).numpy()
+            assert np.array_equal(recon, back[i]), i
             n += len(dets)
     assert n > 5
 

@@ -13,11 +13,21 @@ decode tests and the demo read one by one. It holds:
     frames each, shifted 3 columns and 2 rows a frame (cv2.VideoWriter,
     fourcc mp4v, 30 fps): I-VOPs at frames 0, 8 and 16, P-VOPs between;
   * mp4v_144x176_fmp4.avi: a seeded 144x176 scene panning 2 columns a
-    frame, 10 frames, fourcc FMP4 in AVI (the VOL in the first chunk).
+    frame, 10 frames, fourcc FMP4 in AVI (the VOL in the first chunk);
+  * mp4v_720x1280_24f.mkv: the 720p clip's 24 frames in Matroska
+    (cv2.VideoWriter, fourcc mp4v, 30 fps: V_MPEG4/ISO/ASP, the VOL in
+    CodecPrivate);
+  * mjpg_144x176_10f.mkv: the small clip's 10 frames as Motion-JPEG in
+    Matroska (fourcc MJPG: V_MJPEG);
+  * xvid_144x176_6f.avi: random_stream(5, 176, 144, 6) in an AVI tagged
+    XVID without user data (utils/avi.py's AviWriter), which libavcodec
+    decodes with its XviD IDCT and edge and DC workarounds.
 
 MANIFEST.json gives each file's sha256, bytes, frame count, fps and size
 and `rgb_sha256`: the sha256 of each frame that cv2.VideoCapture reads
-(BGR2RGB), which the port's decoders equal bit for bit.
+(BGR2RGB), which the port's MPEG-4 decoders equal bit for bit; a
+Motion-JPEG file also has `imdecode_rgb_sha256`, libjpeg's frames
+(cv2.imdecode of each packet), which the port's plain JPEG decoder equals.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIDEO_SAMPLES = os.path.join(REPO, "vision_kit_tpu_torch", "data", "video_samples")
 SAMPLES = os.path.join(REPO, "vision_kit_tpu_torch", "data", "samples")
 HD_CLIP, SMALL_CLIP = "mp4v_720x1280_24f.mp4", "mp4v_144x176_fmp4.avi"
+HD_MKV, MJPEG_MKV, XVID_AVI = "mp4v_720x1280_24f.mkv", "mjpg_144x176_10f.mkv", "xvid_144x176_6f.avi"
 
 
 def write_cv2(path: str, frames: list, fourcc: str = "mp4v", fps: float = 30.0) -> None:
@@ -116,14 +127,33 @@ def hd_frames() -> list:
             for i in range(24)]
 
 
+def random_avi(path: str, seed: int, width: int, height: int, n: int,
+               fourcc: bytes = b"XVID", user_data: bytes = b"", fps: float = 30.0) -> None:
+    """random_stream(seed, width, height, n, user_data=user_data) in an AVI
+    of `fourcc` (the headers in the first chunk)."""
+    import sys
+
+    sys.path.insert(0, REPO)
+    from vision_kit_tpu_torch.utils.avi import AviWriter
+
+    headers, vops = random_stream(seed, width, height, n, user_data=user_data)
+    with AviWriter(path, fps, fourcc) as w:
+        for i, (vop, key) in enumerate(vops):
+            w.write((headers if i == 0 else b"") + vop, width, height, key)
+
+
 def write() -> dict:
     os.makedirs(VIDEO_SAMPLES, exist_ok=True)
-    clips = {HD_CLIP: (hd_frames(), "mp4v"),
-             SMALL_CLIP: (moving("pan", 144, 176, 10, seed=7), "FMP4")}
+    small = moving("pan", 144, 176, 10, seed=7)
+    clips = {HD_CLIP: (hd_frames(), "mp4v"), SMALL_CLIP: (small, "FMP4"),
+             HD_MKV: (hd_frames(), "mp4v"), MJPEG_MKV: (small, "MJPG"), XVID_AVI: None}
     files = {}
-    for name, (frames, fourcc) in clips.items():
+    for name, clip in clips.items():
         path = os.path.join(VIDEO_SAMPLES, name)
-        write_cv2(path, frames, fourcc)
+        if clip is None:
+            random_avi(path, 5, 176, 144, 6)
+        else:
+            write_cv2(path, *clip)
         got, count, fps = read_cv2(path)
         with open(path, "rb") as f:
             data = f.read()
@@ -131,6 +161,17 @@ def write() -> dict:
                        "frames": int(count), "fps": fps,
                        "width": int(got[0].shape[1]), "height": int(got[0].shape[0]),
                        "rgb_sha256": [hashlib.sha256(g.tobytes()).hexdigest() for g in got]}
+        if clip is not None and clip[1] == "MJPG":
+            # libjpeg's frames (cv2.imdecode of each packet), which the port's
+            # plain JPEG decoder equals; cv2's FFMPEG capture decodes MJPEG
+            # otherwise
+            import cv2
+
+            files[name]["imdecode_rgb_sha256"] = [
+                hashlib.sha256(cv2.cvtColor(cv2.imdecode(np.frombuffer(pkt, np.uint8),
+                                                         cv2.IMREAD_COLOR),
+                                            cv2.COLOR_BGR2RGB).tobytes()).hexdigest()
+                for pkt in raw_packets(path)]
     manifest = {"writer": "cv2.VideoWriter (OpenCV 5.0.0, FFMPEG, libavcodec 62)",
                 "files": files}
     with open(os.path.join(VIDEO_SAMPLES, "MANIFEST.json"), "w") as f:
@@ -139,15 +180,11 @@ def write() -> dict:
     return manifest
 
 
-if __name__ == "__main__":
-    m = write()
-    print({k: v["bytes"] for k, v in m["files"].items()})
-
-
 # -- random streams: every syntax element cv2's mp4v writer leaves out --------
 
 def random_stream(seed: int, width: int, height: int, n_frames: int,
-                  resync: bool = False, mpeg_quant: bool = False) -> tuple:
+                  resync: bool = False, mpeg_quant: bool = False, bright: bool = False,
+                  user_data: bytes = b"") -> tuple:
     """(VOS/VO/VOL headers, VOPs) of a random but valid MPEG-4 Simple
     Profile stream: I-VOPs then P-VOPs with random MB types (not coded,
     inter 1MV and 4MV, intra, each with and without dquant), MCBPC
@@ -155,7 +192,13 @@ def random_stream(seed: int, width: int, height: int, n_frames: int,
     a TCOEF above it), vop_rounding_type and fcode 1-3, random motion
     vector data, coefficients of every escape mode, video packets after
     resync markers (`resync`), MPEG quantisation with loaded matrices
-    (`mpeg_quant`). Its pixels mean nothing; decoders must agree on them."""
+    (`mpeg_quant`). `bright`: every intra DC is VLC-coded, the first of
+    each VOP 200-255 above its prediction and every other one equal to
+    its prediction, so that a DC past 2047 spreads through the VOP by
+    prediction alone (libavcodec's DC clip bug keeps it there; a DC
+    below 0, which libavcodec refuses, never comes).
+    `user_data` goes into a user_data() after the VOL. Its pixels mean
+    nothing; decoders must agree on them."""
     from vision_kit_tpu_torch.data import mpeg4 as m
 
     rng = np.random.default_rng(seed)
@@ -181,7 +224,7 @@ def random_stream(seed: int, width: int, height: int, n_frames: int,
                 h.put(0, 8)
     h.put(1, 1), h.put(0 if resync else 1, 1), h.put(0, 1), h.put(0, 1)
     h.stuff()
-    headers = h.bytes()
+    headers = h.bytes() + (b"\0\0\1\xb2" + user_data if user_data else b"")
 
     def vlc(w, table, key):
         code, n = m._bits(table[key])
@@ -218,7 +261,8 @@ def random_stream(seed: int, width: int, height: int, n_frames: int,
         w = m._BitWriter()
         q = int(rng.integers(2, 16))
         fcode = int(rng.integers(1, 4))
-        thr = int(rng.integers(0, 8))
+        thr = 0 if bright else int(rng.integers(0, 8))
+        first_dc = bright
         w.put(0x1B6, 32), w.put(0 if intra_vop else 1, 2), w.put(0, 1), w.put(1, 1)
         w.put(f % 30, 5), w.put(1, 1), w.put(1, 1)
         if not intra_vop:
@@ -272,12 +316,19 @@ def random_stream(seed: int, width: int, height: int, n_frames: int,
             for n in range(6):
                 coded = bool(cbp & (32 >> n))
                 if intra and use_dc_vlc:
-                    size = int(rng.integers(0, 3))
+                    size = 8 if first_dc else 0 if bright else int(rng.integers(0, 3))
                     vlc(w, dict(enumerate(m.DC_SIZE_LUMA if n < 4 else m.DC_SIZE_CHROMA)), size)
                     if size:
-                        w.put(int(rng.integers(0, 1 << size)), size)
+                        w.put(int(rng.integers(200, 256) if first_dc else
+                                  rng.integers(0, 1 << size)), size)
+                    first_dc = False
                 if coded:
                     coefficients(w, 1 if intra and use_dc_vlc else 0, intra, not ac_pred, q)
         w.stuff()
         vops.append((w.bytes(), intra_vop))
     return headers, vops
+
+
+if __name__ == "__main__":
+    m = write()
+    print({k: v["bytes"] for k, v in m["files"].items()})

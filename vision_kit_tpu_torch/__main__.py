@@ -51,14 +51,15 @@ detections drawn (utils/drawing.py:Drawing) as a JPEG: into -o when it is a
 directory (utils/readers.py:ImageReader), as -o when -p is one image and -o
 a file name (a JPEG, or a PNG, BMP or lossless WebP by its extension),
 else beside the input. Any other path is a video
-(utils/readers.py:VideoReader): an MP4/QuickTime file or an AVI of
-MPEG-4 Part 2 (cv2's mp4v, XVID, DIVX) or Motion-JPEG, one Predictor call
-per frame on the frame as decoded and converted to RGB on the device,
-printing `frame <n>: <ms> ms (<fps> fps avg)` every 30 frames and the
-average at the end, and with -o writing the drawn frames: mp4v in an MP4
-for .mp4/.mov (as the JAX demo writes), Motion-JPEG for .avi. A webcam
-index, Matroska, H.264/HEVC and the MPEG-4 tools outside Simple Profile
-raise naming themselves. A .bmp output is written as cv2.imwrite writes it; a
+(utils/readers.py:VideoReader): an MP4/QuickTime file, or an AVI or a
+Matroska file of MPEG-4 Part 2 (cv2's mp4v, XVID, DIVX) or Motion-JPEG,
+one Predictor call per frame on the frame as decoded and converted to RGB
+on the device, printing `frame <n>: <ms> ms (<fps> fps avg)` every 30
+frames and the average at the end, and with -o writing the drawn frames
+as mp4v, as the JAX demo writes them, into the container the name gives:
+MP4 for .mp4/.mov, AVI for .avi, Matroska for .mkv (a .webm raises:
+WebM takes no mp4v). A webcam index, VP8/VP9/AV1, H.264/HEVC and the
+MPEG-4 tools outside Simple Profile raise naming themselves. A .bmp output is written as cv2.imwrite writes it; a
 .webp output is lossless VP8L (data/encode.py:encode_webp), as cv2.imwrite
 writes by default, but with the port's own encoder choices, so its bytes
 differ while its pixels are the same.
@@ -193,11 +194,11 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
 
 def demo_video(predictor, drawer, path: str, output: str | None = None,
                show: bool = False) -> dict:
-    """scripts/demo.py's video mode on a video file (VideoReader: MP4 or
-    AVI, MPEG-4 Part 2 or Motion-JPEG): one predictor call per frame (the
-    frame as decoded on the predictor's device), its detections drawn on
-    the host, and with `output` the drawn frame appended (mp4v in an MP4
-    for .mp4/.mov, Motion-JPEG for .avi). Prints `frame <n>: <ms> ms (<fps> fps
+    """scripts/demo.py's video mode on a video file (VideoReader: MP4, AVI
+    or Matroska, MPEG-4 Part 2 or Motion-JPEG): one predictor call per
+    frame (the frame as decoded on the predictor's device), its detections
+    drawn on the host, and with `output` the drawn frame appended as mp4v
+    (in an MP4 for .mp4/.mov, an AVI for .avi, Matroska for .mkv). Prints `frame <n>: <ms> ms (<fps> fps
     avg)` every 30 frames and `avg <ms> ms/frame over <n> frames` at the
     end. `show` is accepted for scripts/demo.py's flag; the port opens no
     window. Returns {"detections": [(n, 6) per frame], "fps": the input's,
@@ -435,7 +436,7 @@ def main(argv=None) -> int:
     demo = sub.add_parser("demo", help="detections drawn on images")
     demo.add_argument("--path", "-p", required=True,
                       help="an image, a directory of images, or a video (.mp4/.mov, or "
-                           ".avi of MPEG-4 Part 2 or Motion-JPEG)")
+                           ".avi or .mkv of MPEG-4 Part 2 or Motion-JPEG)")
     demo.add_argument("--model", "-m", default="yolov5", choices=["yolov5", "yolov7"])
     demo.add_argument("--variant", "-v", default="s")
     demo.add_argument("--weights", "-w", default=None)
@@ -448,9 +449,9 @@ def main(argv=None) -> int:
     demo.add_argument("--iou", type=float, default=0.45)
     demo.add_argument("--output", "-o", default=None,
                       help="output directory, or a file name for a single image "
-                           "(.jpg, .png, .bmp or .webp), or for a video an .mp4/.mov (mp4v) "
-                           "or .avi (Motion-JPEG); default beside the input (images) or none "
-                           "(video)")
+                           "(.jpg, .png, .bmp or .webp), or for a video an .mp4, .mov, .avi "
+                           "or .mkv (mp4v in each); default beside the input (images) or "
+                           "none (video)")
     demo.add_argument("--show", action="store_true",
                       help="accepted for scripts/demo.py's flags; the port opens no "
                            "window")

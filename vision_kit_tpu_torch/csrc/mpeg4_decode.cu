@@ -14,15 +14,21 @@
 // libavcodec's h263_pred_motion, intra DC/AC prediction with the
 // quantiser rescale, TCOEF with the three escapes, H.263 and MPEG
 // inverse quantisation, video packets after resync markers); then
-// reconstruction of the whole VOP: libavcodec's simple IDCT and half-pel
+// reconstruction of the whole VOP: libavcodec's simple IDCT, or its XviD
+// IDCT (the SSE2 version) for a stream it takes as XviD's, and half-pel
 // motion compensation with rounding control over the previous VOP's
-// coded-size planes, every coordinate clamped into them (the 4MV paths'
-// origin clamps and libavcodec's 8-wide rounding-1 averages as mpeg4.py
-// describes them). The decoder keeps that reference in its own state.
+// coded-size planes (its visible size under the edge workaround), every
+// coordinate clamped into them (the 4MV paths' origin clamps and
+// libavcodec's 8-wide rounding-1 averages as mpeg4.py describes them).
+// The decoder keeps that reference in its own state. libavcodec's encoder
+// identification (user data and the container's codec tag, set by
+// vk_mpeg4_set_codec_tag) is mpeg4.py's EncoderId, its sscanf calls the C
+// library's own.
 
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <string>
@@ -255,7 +261,8 @@ struct Bits {
 
 struct Vol {
   bool valid = false;
-  int verid = 1, width = 0, height = 0, time_resolution = 1, time_bits = 1;
+  int verid = 1, vo_type = 0, vol_control_parameters = 0, width = 0, height = 0;
+  int time_resolution = 1, time_bits = 1;
   int quant_type = 0, resync_marker_disable = 1, reduced_resolution = 0;
   int intra_matrix[64], inter_matrix[64];
 };
@@ -284,14 +291,15 @@ int bit_length(unsigned v) {
 
 void parse_vol(Bits& r, Vol& vol) {
   r.bit();
-  int vot = r.read(8);
+  int vot = vol.vo_type = r.read(8);
   if (vot == 0x12) fail("a fine granularity scalable VOL (not Simple Profile)");
   if (r.bit()) {
     vol.verid = r.read(4);
     r.read(3);
   }
   if (r.read(4) == 15) r.read(16);
-  if (r.bit()) {
+  vol.vol_control_parameters = r.bit();
+  if (vol.vol_control_parameters) {
     if (r.read(2) != 1) fail("chroma_format other than 4:2:0");
     r.bit();
     if (r.bit()) {
@@ -416,31 +424,143 @@ void idct(const int32_t* in, int32_t* out) {
   }
 }
 
-// One 8x8 half-pel prediction from ref (lw x lh, the previous VOP's
-// coded-size plane) whose top-left full-pel sample is (ix, iy), every
-// coordinate clamped into the plane. `narrow`: libavcodec's 8-wide x86
+// mpeg4.xvid_idct: rows (each row's table and rounder, 32-bit, shift 11,
+// saturated to int16), then columns in 16-bit saturating arithmetic.
+const int kXvidRowTables[4][7] = {{22725, 21407, 19266, 16384, 12873, 8867, 4520},
+                                  {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+                                  {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+                                  {26722, 25172, 22654, 19266, 15137, 10426, 5315}};
+const int kXvidRowTable[8] = {0, 1, 2, 3, 0, 3, 2, 1};
+const int kXvidRounders[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+const int kTan1 = 13036, kTan2 = 27146, kTan3Less1 = 43790 - 65536, kSqrt2Half = 23170;
+
+inline int sat16(long long x) {
+  return static_cast<int>(std::min(std::max(x, -32768LL), 32767LL));
+}
+inline int mulhi16(int x, int c) { return (x * c) >> 16; }
+inline int wrap32(long long x) { return static_cast<int32_t>(static_cast<uint32_t>(x)); }
+
+void xvid_idct(const int32_t* in, int32_t* out) {
+  int rows[64];
+  for (int i = 0; i < 8; ++i) {
+    const int* t = kXvidRowTables[kXvidRowTable[i]];
+    long long c1 = t[0], c2 = t[1], c3 = t[2], c4 = t[3], c5 = t[4], c6 = t[5], c7 = t[6];
+    const int32_t* x = in + 8 * i;
+    long long k = c4 * x[0] + kXvidRounders[i];
+    long long a0 = k + c2 * x[2] + c4 * x[4] + c6 * x[6];
+    long long a1 = k + c6 * x[2] - c4 * x[4] - c2 * x[6];
+    long long a2 = k - c6 * x[2] - c4 * x[4] + c2 * x[6];
+    long long a3 = k - c2 * x[2] + c4 * x[4] - c6 * x[6];
+    long long b0 = c1 * x[1] + c3 * x[3] + c5 * x[5] + c7 * x[7];
+    long long b1 = c3 * x[1] - c7 * x[3] - c1 * x[5] - c5 * x[7];
+    long long b2 = c5 * x[1] - c1 * x[3] + c7 * x[5] + c3 * x[7];
+    long long b3 = c7 * x[1] - c5 * x[3] + c3 * x[5] - c1 * x[7];
+    long long y[8] = {a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0};
+    for (int j = 0; j < 8; ++j) rows[8 * i + j] = sat16(wrap32(y[j]) >> 11);
+  }
+  for (int j = 0; j < 8; ++j) {
+    int x[8];
+    for (int k = 0; k < 8; ++k) x[k] = rows[8 * k + j];
+    int tm35 = sat16(sat16(mulhi16(x[3], kTan3Less1) + x[3]) - x[5]);
+    int tp35 = sat16(sat16(mulhi16(x[5], kTan3Less1) + x[5]) + x[3]);
+    int tp17 = sat16(mulhi16(x[7], kTan1) + x[1]);
+    int tm17 = sat16(mulhi16(x[1], kTan1) - x[7]);
+    int t1 = sat16(tp17 - tp35), b3 = sat16(tm17 - tm35);
+    int b0 = sat16(tp35 + tp17), t2 = sat16(tm35 + tm17);
+    int b1 = sat16(2 * mulhi16(sat16(t2 + t1), kSqrt2Half));
+    int b2 = sat16(2 * mulhi16(sat16(t1 - t2), kSqrt2Half));
+    int tp26 = sat16(mulhi16(x[6], kTan2) + x[2]);
+    int tm26 = sat16(mulhi16(x[2], kTan2) - x[6]);
+    int tm04 = sat16(x[0] - x[4]), tp04 = sat16(x[4] + x[0]);
+    int a0 = sat16(tp26 + tp04), a3 = sat16(tp04 - tp26);
+    int a1 = sat16(tm26 + tm04), a2 = sat16(tm04 - tm26);
+    int y[8] = {b0 + a0, b1 + a1, b2 + a2, b3 + a3, a3 - b3, a2 - b2, a1 - b1, a0 - b0};
+    for (int k = 0; k < 8; ++k) out[8 * k + j] = sat16(y[k]) >> 6;
+  }
+}
+
+// mpeg4.py's EncoderId: libavcodec's decode_user_data and
+// ff_mpeg4_workaround_bugs.
+struct EncoderId {
+  char tag[5] = {0, 0, 0, 0, 0};
+  int xvid_build = -1, divx_version = -1, divx_build = -1, lavc_build = -1;
+  bool xvid_idct = false, edge_bug = false, dc_clip_bug = false;
+
+  void set_tag(const char* t) {
+    for (int i = 0; i < 4; ++i) {
+      char c = t[i];
+      if (!c) break;
+      tag[i] = (c >= 'a' && c <= 'z') ? static_cast<char>(c - 32) : c;
+    }
+  }
+
+  void user_data(const uint8_t* data, size_t n) {
+    char buf[256];
+    size_t i = 0;
+    for (; i < n && i < 255; ++i) buf[i] = static_cast<char>(data[i]);
+    buf[i] = 0;
+    int ver = 0, build = 0, ver2 = 0, ver3 = 0;
+    char last;
+    int e = std::sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
+    if (e < 2) e = std::sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
+    if (e >= 2) divx_version = ver, divx_build = build;
+    e = std::sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
+    if (e != 4) e = std::sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2,
+                                &ver3, &build);
+    if (e != 4) {
+      e = std::sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
+      if (e > 1) build = ((ver & 0xFF) << 16) + ((ver2 & 0xFF) << 8) + (ver3 & 0xFF);
+    }
+    if (e != 4 && std::strcmp(buf, "ffmpeg") == 0) lavc_build = 4600;
+    if (e == 4) lavc_build = build;
+    if (std::sscanf(buf, "XviD%d", &build) == 1) xvid_build = build;
+  }
+
+  void at_vop(const Vol& vol) {
+    if (xvid_build == -1 && divx_version == -1 && lavc_build == -1) {
+      static const char* xvid_tags[] = {"XVID", "XVIX", "RMP4", "ZMP4", "SIPP"};
+      bool xvid_tag = false;
+      for (const char* t : xvid_tags) xvid_tag |= std::memcmp(tag, t, 4) == 0;
+      if (xvid_tag)
+        xvid_build = 0;
+      else if (std::memcmp(tag, "DIVX", 4) == 0 && vol.vo_type == 0 &&
+               !vol.vol_control_parameters)
+        divx_version = 400;
+    }
+    if (xvid_build >= 0 && divx_version >= 0) divx_version = divx_build = -1;
+    unsigned xvid = xvid_build, lavc = lavc_build, divx = divx_version;
+    edge_bug |= xvid <= 12u || lavc < 4670u || divx < 500u;
+    dc_clip_bug |= xvid <= 32u || lavc <= 4712u;
+    xvid_idct |= xvid_build >= 0;
+  }
+};
+
+// One 8x8 half-pel prediction from ref (a plane `stride` wide; lw x lh the
+// part read: the previous VOP's coded size, or its visible size under the
+// edge workaround) whose top-left full-pel sample is (ix, iy), every
+// coordinate clamped into that part. `narrow`: libavcodec's 8-wide x86
 // functions (chroma, a 4MV MB's luma), whose rounding-1 x2 / y2 averages
 // take one sample less one, saturated (mpeg4.py's _mc).
-void mc(const uint8_t* ref, int lw, int lh, int ix, int iy, int hx, int hy, int rounding,
-        bool narrow, int32_t* out) {
+void mc(const uint8_t* ref, int stride, int lw, int lh, int ix, int iy, int hx, int hy,
+        int rounding, bool narrow, int32_t* out) {
   int xs[9], ys[9];
   for (int k = 0; k < 9; ++k) {
     xs[k] = std::min(std::max(ix + k, 0), lw - 1);
-    ys[k] = std::min(std::max(iy + k, 0), lh - 1);
+    ys[k] = std::min(std::max(iy + k, 0), lh - 1) * stride;
   }
   for (int r = 0; r < 8; ++r)
     for (int c = 0; c < 8; ++c) {
-      int a = ref[ys[r] * lw + xs[c]];
+      int a = ref[ys[r] + xs[c]];
       int v;
       if (hx && hy) {
-        int b = ref[ys[r] * lw + xs[c + 1]], cc = ref[ys[r + 1] * lw + xs[c]],
-            d = ref[ys[r + 1] * lw + xs[c + 1]];
+        int b = ref[ys[r] + xs[c + 1]], cc = ref[ys[r + 1] + xs[c]],
+            d = ref[ys[r + 1] + xs[c + 1]];
         v = (a + b + cc + d + 2 - rounding) >> 2;
       } else if (hx) {
-        int b = ref[ys[r] * lw + xs[c + 1]];
+        int b = ref[ys[r] + xs[c + 1]];
         v = !rounding ? (a + b + 1) >> 1 : narrow ? (std::max(a - 1, 0) + b + 1) >> 1 : (a + b) >> 1;
       } else if (hy) {
-        int b = ref[ys[r + 1] * lw + xs[c]];
+        int b = ref[ys[r + 1] + xs[c]];
         if (!rounding) {
           v = (a + b + 1) >> 1;
         } else if (narrow) {
@@ -485,6 +605,7 @@ int sign_extend(int v, int bits) {
 
 struct Decoder {
   Vol vol;
+  EncoderId encoder;
   std::vector<uint8_t> ref[3], cur[3];   // coded-size planes
   bool have_ref = false;
   int out_w = 0, out_h = 0;
@@ -555,6 +676,8 @@ struct Decoder {
         Bits r{buf.data(), static_cast<long long>(8 * pos), static_cast<long long>(8 * end)};
         parse_vol(r, v);
         vol = v;
+      } else if (code == 0xB2) {
+        encoder.user_data(data + pos, end - pos);
       } else if (code == 0xB6) {
         if (!vol.valid) fail("a VOP before any VOL header");
         // the VOP reads up to its end; later bytes are not its bits
@@ -570,6 +693,7 @@ struct Decoder {
 
   void vop(Bits& r) {
     Vop v = parse_vop(r, vol);
+    encoder.at_vop(vol);
     int w = vol.width, h = vol.height;
     if (!v.coded) {
       if (!have_ref) fail("a not-coded VOP before any decoded one");
@@ -840,7 +964,9 @@ struct Decoder {
     if (is_coded) tcoef(r, block, start, scan, t.intra, 1, 0);
     int level = block[0] + (pred + (scale >> 1)) / scale;
     block[0] = level;
-    dcs[by * stride + bx] = std::min(std::max(level * scale, 0), 2047);
+    dcs[by * stride + bx] = encoder.dc_clip_bug
+                                ? static_cast<int16_t>(std::max(level * scale, 0))
+                                : std::min(std::max(level * scale, 0), 2047);
     int16_t* acs = ac[p].data();
     if (ac_pred) {
       int nq;
@@ -916,6 +1042,10 @@ struct Decoder {
 
   void reconstruct(const Vop& v) {
     int lw = 16 * mbw, lh = 16 * mbh, cw = 8 * mbw, ch = 8 * mbh;
+    // the part of the reference motion compensation reads
+    int rw = lw, rh = lh, rcw = cw, rch = ch;
+    if (encoder.edge_bug)
+      rw = vol.width, rh = vol.height, rcw = vol.width >> 1, rch = vol.height >> 1;
     cur[0].assign(static_cast<size_t>(lw) * lh, 0);
     cur[1].assign(static_cast<size_t>(cw) * ch, 0);
     cur[2].assign(static_cast<size_t>(cw) * ch, 0);
@@ -937,7 +1067,7 @@ struct Decoder {
           int y0 = n < 4 ? 16 * my + 8 * (n >> 1) : 8 * my;
           int pw = p ? cw : lw;
           bool has = coded[m * 6 + n];
-          if (has) idct(&coef[(m * 6 + n) * 64], res);
+          if (has) (encoder.xvid_idct ? xvid_idct : idct)(&coef[(m * 6 + n) * 64], res);
           if (intra) {
             for (int k = 0; k < 64; ++k) pred[k] = 0;
           } else {
@@ -946,11 +1076,11 @@ struct Decoder {
             if (p == 0) {
               Mv b = mv_at(2 * mx + (n & 1) + 1, 2 * my + (n >> 1));
               source(x0, y0, b.x, b.y, four, -16, vol.width, vol.height, &ix, &iy, &hx, &hy);
-              mc(ref[0].data(), lw, lh, ix, iy, hx, hy, v.rounding, four, pred);
+              mc(ref[0].data(), lw, rw, rh, ix, iy, hx, hy, v.rounding, four, pred);
             } else {
               source(x0, y0, cvx, cvy, four, -8, vol.width >> 1, vol.height >> 1, &ix, &iy, &hx,
                      &hy);
-              mc(ref[p].data(), cw, ch, ix, iy, hx, hy, v.rounding, true, pred);
+              mc(ref[p].data(), cw, rcw, rch, ix, iy, hx, hy, v.rounding, true, pred);
             }
           }
           uint8_t* dst = cur[p].data() + static_cast<size_t>(y0) * pw + x0;
@@ -971,6 +1101,12 @@ extern "C" {
 void* vk_mpeg4_create() { return new Decoder(); }
 
 void vk_mpeg4_destroy(void* h) { delete static_cast<Decoder*>(h); }
+
+// The container's codec tag (up to 4 characters; empty for none), which
+// the XviD rule reads: set before the first sample.
+void vk_mpeg4_set_codec_tag(void* h, const char* tag) {
+  static_cast<Decoder*>(h)->encoder.set_tag(tag);
+}
 
 // Decode one container sample: 1 when it gave a VOP (its size in *w, *h;
 // its planes by vk_mpeg4_planes), 0 for headers only, -1 on a failure
@@ -1002,6 +1138,15 @@ void vk_mpeg4_planes(void* h, unsigned char* y, unsigned char* u, unsigned char*
 }
 
 const char* vk_mpeg4_error(void* h) { return static_cast<Decoder*>(h)->error.c_str(); }
+
+// What the identification inferred so far (mpeg4.EncoderId's fields):
+// out[0..5] = XviD build, DivX version, libavcodec build, and the XviD
+// IDCT, edge and DC clip flags.
+void vk_mpeg4_identity(void* h, int* out) {
+  const EncoderId& e = static_cast<Decoder*>(h)->encoder;
+  out[0] = e.xvid_build, out[1] = e.divx_version, out[2] = e.lavc_build;
+  out[3] = e.xvid_idct, out[4] = e.edge_bug, out[5] = e.dc_clip_bug;
+}
 
 long long vk_mpeg4_calls() { return g_calls.load(); }
 

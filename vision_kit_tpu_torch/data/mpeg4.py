@@ -30,13 +30,33 @@ VOP; `frames_yuv(movie)` every frame of a demuxed clip):
 - reconstruction as cv2's FFMPEG build (libavcodec 62 on x86-64, its
   defaults) gives it, found by comparing: the integer "simple" IDCT
   (rows then columns, the DC-only row shortcut, the column pass's biased
-  DC); unrestricted half-pel bilinear motion compensation with rounding
-  control over the previous VOP's coded-size (MB-aligned) planes, their
-  edges extending without end; libavcodec's chroma vectors for 1MV and
+  DC), or for a stream libavcodec takes as XviD's its XviD IDCT in the
+  SSE2 version x86 dispatches to (`xvid_idct`); unrestricted half-pel
+  bilinear motion compensation with rounding control over the previous
+  VOP's coded-size (MB-aligned) planes, or its visible size under
+  libavcodec's edge workaround, their edges extending without end;
+  libavcodec's chroma vectors for 1MV and
   4MV, its 4MV paths' clamp of a block's origin to the VOP's size (a
   half-pel flag dropped there), and its 8-wide x86 rounding-1 averages
   (pavgb of one sample less one: the left one across, every odd source
-  row down) where its 16-wide ones are exact.
+  row down) where its 16-wide ones are exact;
+- libavcodec's encoder identification (ff_mpeg4_workaround_bugs and the
+  user-data parse of its decode_user_data): `XviD<n>` user data gives
+  an XviD build, `DivX<v>b<b>` a DivX version, `Lavc<a>.<b>.<c>`,
+  `FFmpe...b<n>` and `ffmpeg` a libavcodec build; failing all three,
+  the container's codec tag XVID, XVIX, RMP4, ZMP4 or SIPP (any case)
+  means XviD build 0, and DIVX on a VOL of object type 0 without
+  vol_control_parameters DivX 4. An XviD build selects the XviD IDCT,
+  and of the workarounds it and the others switch on, two change a
+  Simple Profile picture and are ported: the edge bug (XviD builds
+  0-12, libavcodec builds below 4670, DivX before 5: motion compensation
+  reads the reference cropped to the VOP's size, chroma to half of it
+  rounded down, where it reads the coded size) and the DC clip bug (XviD
+  builds 0-32, libavcodec builds to 4712: an intra DC predictor past 2047
+  is stored unclipped, as an int16). The padding-bug score that XviD
+  builds 0-3 set only changes where a damaged VOP's macroblock loop
+  stops; the quarter-pel and interlace workarounds belong to tools the
+  decoder refuses.
 
 A stream this decoder does not take raises ValueError naming what it is:
 B-VOPs (Advanced Simple), sprites and GMC (S-VOPs), quarter-pel,
@@ -178,7 +198,8 @@ DQUANT = (-1, -2, 1, 2)
 # intra_dc_vlc_thr: the intra DC is VLC-coded while the running QP is below
 DC_THRESHOLD = (99, 13, 15, 17, 19, 21, 23, 0)
 CHROMA_ROUND = (0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2)
-START_VOP = 0xB6      # other start codes than a VOL's (0x20-0x2F) and a VOP's are skipped
+# start codes other than these two and a VOL's (0x20-0x2F) are skipped
+START_VOP, START_USER_DATA = 0xB6, 0xB2
 I_VOP, P_VOP, B_VOP, S_VOP = 0, 1, 2, 3
 VOP_KINDS = ("I", "P", "B (Advanced Simple Profile)", "S (sprite/GMC)")
 SIMPLE_PROFILE = 0x01   # profile_and_level_indication cv2's mp4v writes
@@ -289,9 +310,12 @@ class Vol:
 
     def __init__(self):
         self.verid = 1
+        self.vo_type = 0
+        self.vol_control_parameters = 0
         self.width = self.height = 0
         self.time_resolution = 1
         self.time_bits = 1
+        self.frame_ticks = 1      # fixed_vop_time_increment (1 without a fixed rate)
         self.quant_type = 0
         self.intra_matrix = DEFAULT_INTRA_MATRIX
         self.inter_matrix = DEFAULT_INTER_MATRIX
@@ -319,7 +343,7 @@ def parse_vol(r: _Bits, vol: Vol) -> None:
     """video_object_layer() after its start code, into `vol`; refuses what
     the decoder does not take."""
     r.bit()                                         # random_accessible_vol
-    vot = r.read(8)
+    vot = vol.vo_type = r.read(8)
     if vot == 0x12:
         raise Mpeg4Error("a fine granularity scalable VOL (not Simple Profile)")
     if r.bit():                                     # is_object_layer_identifier
@@ -327,7 +351,8 @@ def parse_vol(r: _Bits, vol: Vol) -> None:
         r.read(3)
     if r.read(4) == 15:                             # aspect_ratio_info: extended PAR
         r.read(16)
-    if r.bit():                                     # vol_control_parameters
+    vol.vol_control_parameters = r.bit()
+    if vol.vol_control_parameters:
         if r.read(2) != 1:
             raise Mpeg4Error("chroma_format other than 4:2:0")
         r.bit()                                     # low_delay
@@ -344,8 +369,7 @@ def parse_vol(r: _Bits, vol: Vol) -> None:
         raise Mpeg4Error("vop_time_increment_resolution 0")
     vol.time_bits = max((vol.time_resolution - 1).bit_length(), 1)
     r.marker("vop_time_increment_resolution")
-    if r.bit():                                     # fixed_vop_rate
-        r.read(vol.time_bits)
+    vol.frame_ticks = r.read(vol.time_bits) if r.bit() else 1     # fixed_vop_rate
     r.marker("fixed_vop_rate")
     vol.width = r.read(13)
     r.marker("width")
@@ -483,6 +507,76 @@ def idct(blocks: np.ndarray) -> np.ndarray:
     return cols.astype(np.int64).reshape(-1, 8, 8).transpose(0, 2, 1)
 
 
+# libavcodec's XviD IDCT (xvididct.asm, ff_xvid_idct_sse2): the row pass's
+# coefficients and rounders by row, and the column pass's constants
+XVID_ROW_TABLES = (
+    (22725, 21407, 19266, 16384, 12873, 8867, 4520),     # rows 0 and 4
+    (31521, 29692, 26722, 22725, 17855, 12299, 6270),    # rows 1 and 7
+    (29692, 27969, 25172, 21407, 16819, 11585, 5906),    # rows 2 and 6
+    (26722, 25172, 22654, 19266, 15137, 10426, 5315))    # rows 3 and 5
+XVID_ROW_TABLE = (0, 1, 2, 3, 0, 3, 2, 1)
+XVID_ROUNDERS = (65536, 3597, 2260, 1203, 0, 120, 512, 512)
+TAN1, TAN2, TAN3_LESS_1, SQRT2_HALF = 13036, 27146, 43790 - 65536, 23170
+
+
+def _sat16(x):
+    """Saturated to int16 (paddsw, psubsw, packssdw)."""
+    return np.clip(x, -32768, 32767)
+
+
+def _mulhi16(x, c: int):
+    """pmulhw: the high half of the signed 16 x 16-bit product."""
+    return (x * c) >> 16
+
+
+def xvid_idct(blocks: np.ndarray) -> np.ndarray:
+    """libavcodec's XviD IDCT of (N, 64) natural-order coefficients, as its
+    SSE2 version computes it (cv2's x86-64 build dispatches there; the C
+    ff_xvid_idct wraps where this saturates). Rows: the even and odd
+    halves of each row's table (pmaddwd, 32-bit, wrapping) and the row's
+    rounder, shifted right 11 and saturated to int16; the rounders of rows
+    0-2 leave a zero row 32, 1, 1. Columns: the LLM butterfly in 16-bit
+    saturating arithmetic, each product the high half of pmulhw (tan(3pi/16)
+    as t3 - 1 plus the input), the sqrt(2) terms doubled, each output
+    shifted right 6. Returns (N, 8, 8) int64, unclipped."""
+    b = blocks.reshape(-1, 8, 8).astype(np.int64)
+    rows = np.empty_like(b)
+    for r in range(8):
+        c1, c2, c3, c4, c5, c6, c7 = XVID_ROW_TABLES[XVID_ROW_TABLE[r]]
+        x = [b[:, r, k] for k in range(8)]
+        k = c4 * x[0] + XVID_ROUNDERS[r]
+        a = (k + c2 * x[2] + c4 * x[4] + c6 * x[6], k + c6 * x[2] - c4 * x[4] - c2 * x[6],
+             k - c6 * x[2] - c4 * x[4] + c2 * x[6], k - c2 * x[2] + c4 * x[4] - c6 * x[6])
+        o = (c1 * x[1] + c3 * x[3] + c5 * x[5] + c7 * x[7],
+             c3 * x[1] - c7 * x[3] - c1 * x[5] - c5 * x[7],
+             c5 * x[1] - c1 * x[3] + c7 * x[5] + c3 * x[7],
+             c7 * x[1] - c5 * x[3] + c3 * x[5] - c1 * x[7])
+        out = [a[0] + o[0], a[1] + o[1], a[2] + o[2], a[3] + o[3],
+               a[3] - o[3], a[2] - o[2], a[1] - o[1], a[0] - o[0]]
+        rows[:, r] = np.stack([_sat16(_int32(v) >> 11) for v in out], axis=1)
+    x = [rows[:, k] for k in range(8)]
+    tm35 = _sat16(_sat16(_mulhi16(x[3], TAN3_LESS_1) + x[3]) - x[5])
+    tp35 = _sat16(_sat16(_mulhi16(x[5], TAN3_LESS_1) + x[5]) + x[3])
+    tp17 = _sat16(_mulhi16(x[7], TAN1) + x[1])
+    tm17 = _sat16(_mulhi16(x[1], TAN1) - x[7])
+    t1, b3 = _sat16(tp17 - tp35), _sat16(tm17 - tm35)
+    b0, t2 = _sat16(tp35 + tp17), _sat16(tm35 + tm17)
+    b1 = _sat16(2 * _mulhi16(_sat16(t2 + t1), SQRT2_HALF))
+    b2 = _sat16(2 * _mulhi16(_sat16(t1 - t2), SQRT2_HALF))
+    tp26 = _sat16(_mulhi16(x[6], TAN2) + x[2])
+    tm26 = _sat16(_mulhi16(x[2], TAN2) - x[6])
+    tm04, tp04 = _sat16(x[0] - x[4]), _sat16(x[4] + x[0])
+    a0, a3 = _sat16(tp26 + tp04), _sat16(tp04 - tp26)
+    a1, a2 = _sat16(tm26 + tm04), _sat16(tm04 - tm26)
+    out = (b0 + a0, b1 + a1, b2 + a2, b3 + a3, a3 - b3, a2 - b2, a1 - b1, a0 - b0)
+    return np.stack([_sat16(v) >> 6 for v in out], axis=1)
+
+
+def _int32(x):
+    """x stored in an int32 (pmaddwd and paddd wrap)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
 # -- motion compensation ------------------------------------------------------
 
 def _mc(ref: np.ndarray, ix, iy, hx, hy, rounding: int, narrow) -> np.ndarray:
@@ -588,11 +682,120 @@ def read_vol(data: bytes) -> Vol | None:
     return None
 
 
+# -- the encoder identification ---------------------------------------------
+
+XVID_TAGS = (b"XVID", b"XVIX", b"RMP4", b"ZMP4", b"SIPP")
+C_SPACE = " \t\n\v\f\r"
+
+
+def _scanf(text: str, fmt: str) -> list:
+    """The values C's sscanf(text, fmt) assigns, in order, for the
+    directives libavcodec's user-data parse uses: literals, white space
+    (any run, none included), %d, %c and %*[^x] (a run of one or more
+    characters other than x, not assigned)."""
+    out, i, k = [], 0, 0
+    while k < len(fmt):
+        ch = fmt[k]
+        if ch in C_SPACE:
+            while i < len(text) and text[i] in C_SPACE:
+                i += 1
+            k += 1
+        elif ch != "%":
+            if i >= len(text) or text[i] != ch:
+                return out
+            i, k = i + 1, k + 1
+        elif fmt[k + 1] == "d":
+            j = i
+            while j < len(text) and text[j] in C_SPACE:
+                j += 1
+            d = j + (j < len(text) and text[j] in "+-")
+            e = d
+            while e < len(text) and "0" <= text[e] <= "9":
+                e += 1
+            if e == d:
+                return out
+            out.append(int(text[j:e]))
+            i, k = e, k + 2
+        elif fmt[k + 1] == "c":
+            if i >= len(text):
+                return out
+            out.append(text[i])
+            i, k = i + 1, k + 2
+        else:
+            stop, j = fmt[k + 4], i
+            while j < len(text) and text[j] != stop:
+                j += 1
+            if j == i:
+                return out
+            i, k = j, k + 6
+    return out
+
+
+class EncoderId:
+    """What libavcodec's MPEG-4 decoder infers of a stream's encoder, and
+    the workarounds that follow (see the module docstring): the user data
+    of its decode_user_data, then ff_mpeg4_workaround_bugs at each VOP.
+    Builds and versions are -1 while unknown; the flags, once set, stay."""
+
+    def __init__(self, codec_tag: bytes = b""):
+        self.codec_tag = bytes(codec_tag)[:4].upper()
+        self.xvid_build = self.divx_version = self.divx_build = self.lavc_build = -1
+        self.xvid_idct = self.edge_bug = self.dc_clip_bug = False
+
+    def user_data(self, data: bytes) -> None:
+        """One user_data() (after its start code): at most 255 bytes, as a
+        C string."""
+        text = bytes(data[:255]).split(b"\0")[0].decode("latin-1")
+        v = _scanf(text, "DivX%dBuild%d%c")
+        if len(v) < 2:
+            v = _scanf(text, "DivX%db%d%c")
+        if len(v) >= 2:
+            self.divx_version, self.divx_build = v[0], v[1]
+        build = None
+        v = _scanf(text, "FFmpe%*[^b]b%d")
+        if v:
+            build = v[0]
+        else:
+            v = _scanf(text, "FFmpeg v%d.%d.%d / libavcodec build: %d")
+            if len(v) == 4:
+                build = v[3]
+            else:
+                v = _scanf(text, "Lavc%d.%d.%d")
+                if len(v) == 3:
+                    build = ((v[0] & 0xFF) << 16) + ((v[1] & 0xFF) << 8) + (v[2] & 0xFF)
+                elif text == "ffmpeg":
+                    self.lavc_build = 4600
+        if build is not None:
+            self.lavc_build = build
+        v = _scanf(text, "XviD%d")
+        if v:
+            self.xvid_build = v[0]
+
+    def at_vop(self, vol: Vol) -> None:
+        """ff_mpeg4_workaround_bugs before a VOP is decoded."""
+        if self.xvid_build == self.divx_version == self.lavc_build == -1:
+            if self.codec_tag in XVID_TAGS:
+                self.xvid_build = 0
+            elif (self.codec_tag == b"DIVX" and vol.vo_type == 0
+                  and not vol.vol_control_parameters):
+                self.divx_version = 400
+        if self.xvid_build >= 0 and self.divx_version >= 0:
+            self.divx_version = self.divx_build = -1
+        xvid, lavc, divx = (v & 0xFFFFFFFF for v in (self.xvid_build, self.lavc_build,
+                                                      self.divx_version))
+        self.edge_bug |= xvid <= 12 or lavc < 4670 or divx < 500
+        self.dc_clip_bug |= xvid <= 32 or lavc <= 4712
+        self.xvid_idct |= self.xvid_build >= 0
+
+
 class Mpeg4Decoder:
     """Decode the VOPs of one MPEG-4 Part 2 stream in order.
 
     `config` is the decoder configuration (the VOS/VO/VOL headers of an
-    MP4's esds); without it the headers come in band. `decode(packet)`
+    MP4's esds); without it the headers come in band. `codec_tag` is the
+    container's (an AVI's biCompression, an MP4's sample entry, a
+    Matroska VFW track's fourcc; empty where there is none), which
+    libavcodec's XviD rule reads (EncoderId). `decode(packet)`
     takes one container sample (start codes and all) and returns the
     (Y, U, V) uint8 planes of its VOP, cropped to the VOL's size (chroma
     (h + 1) // 2 x (w + 1) // 2), or None for a sample that holds headers
@@ -600,11 +803,13 @@ class Mpeg4Decoder:
     (built with nvcc at first use) and "cpu" this module's; either keeps
     the reference VOP in its own state."""
 
-    def __init__(self, config: bytes | None = None, device: str = "cpu"):
+    def __init__(self, config: bytes | None = None, device: str = "cpu",
+                 codec_tag: bytes = b""):
         self.device = torch.device(device)
         self.vol: Vol | None = None
         self.ref = None           # (Y, U, V) coded-size planes of the last decoded VOP
-        self._c = _CDecoder() if self.device.type == "cuda" else None
+        self.encoder = EncoderId(codec_tag)
+        self._c = _CDecoder(self.encoder.codec_tag) if self.device.type == "cuda" else None
         if config:
             self.decode(config)
 
@@ -612,6 +817,15 @@ class Mpeg4Decoder:
         if self._c is not None:
             self._c.close()
             self._c = None
+
+    def identity(self) -> dict:
+        """What the decoder (the C++ one on "cuda") has inferred of the
+        stream's encoder so far: EncoderId's builds and flags."""
+        keys = ("xvid_build", "divx_version", "lavc_build", "xvid_idct", "edge_bug",
+                "dc_clip_bug")
+        if self._c is not None:
+            return dict(zip(keys, self._c.identity()))
+        return {k: getattr(self.encoder, k) for k in keys}
 
     def decode(self, packet: bytes):
         if self._c is not None:
@@ -631,6 +845,8 @@ class Mpeg4Decoder:
                 vol = Vol()
                 parse_vol(_Bits(data, pos, end), vol)
                 self.vol = vol
+            elif code == START_USER_DATA:
+                self.encoder.user_data(data[pos:end])
             elif code == START_VOP:
                 if self.vol is None:
                     raise Mpeg4Error("a VOP before any VOL header")
@@ -642,6 +858,7 @@ class Mpeg4Decoder:
     def _vop(self, r: _Bits):
         vol = self.vol
         vop = parse_vop(r, vol)
+        self.encoder.at_vop(vol)
         w, h = vol.width, vol.height
         if not vop.coded:
             if self.ref is None:
@@ -785,9 +1002,11 @@ class Mpeg4Decoder:
         if coded:
             _tcoef(r, block, start, scan, INTRA_LUT, INTRA_LMAX, INTRA_RMAX, 1, 0)
         # the DC: predicted in quantised units, stored scaled and clipped
+        # (under the DC clip bug only below: an int16 above)
         level = block[0] + (pred + (scale >> 1)) // scale
         block[0] = level
-        dcs[by][bx] = min(max(level * scale, 0), 2047)
+        dcs[by][bx] = (_wrap16(max(level * scale, 0)) if self.encoder.dc_clip_bug
+                       else min(max(level * scale, 0), 2047))
         # the AC: the first column (left) or row (top) of the neighbour,
         # rescaled from its MB's quantiser where it lies in another MB
         if ac_pred:
@@ -857,7 +1076,7 @@ class Mpeg4Decoder:
         coded = f.coded
         res = np.zeros((mbh, mbw, 6, 8, 8), np.int64)
         if coded.any():
-            res[coded] = idct(f.coef[coded])
+            res[coded] = (xvid_idct if self.encoder.xvid_idct else idct)(f.coef[coded])
         intra = (f.kind == MB_INTRA)
         if vop.kind == P_VOP:
             pred = self._predict(vop, f)
@@ -877,6 +1096,8 @@ class Mpeg4Decoder:
         w, h = self.vol.width, self.vol.height
         mbw, mbh = f.mbw, f.mbh
         ry, ru, rv = self.ref
+        if self.encoder.edge_bug:       # libavcodec's h_edge_pos = width
+            ry, ru, rv = ry[:h, :w], ru[:h >> 1, :w >> 1], rv[:h >> 1, :w >> 1]
         mv = np.array([row[1:2 * mbw + 1] for row in f.mv], np.int64)   # (2mbh, 2mbw, 2)
         by, bx = np.meshgrid(np.arange(2 * mbh), np.arange(2 * mbw), indexing="ij")
         four = np.repeat(np.repeat(f.four_mv, 2, axis=0), 2, axis=1).ravel()
@@ -1086,6 +1307,9 @@ def _lib():
     ptr, ip = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
     lib.vk_mpeg4_create.argtypes, lib.vk_mpeg4_create.restype = [], ptr
     lib.vk_mpeg4_destroy.argtypes, lib.vk_mpeg4_destroy.restype = [ptr], None
+    lib.vk_mpeg4_set_codec_tag.argtypes = [ptr, ctypes.c_char_p]
+    lib.vk_mpeg4_set_codec_tag.restype = None
+    lib.vk_mpeg4_identity.argtypes, lib.vk_mpeg4_identity.restype = [ptr, ip], None
     lib.vk_mpeg4_decode.argtypes = [ptr, ctypes.c_char_p, ctypes.c_size_t, ip, ip]
     lib.vk_mpeg4_decode.restype = ctypes.c_int
     lib.vk_mpeg4_planes.argtypes = [ptr, ptr, ptr, ptr]
@@ -1106,9 +1330,10 @@ class _CDecoder:
     loaded with ctypes); raises RuntimeError when it cannot be built or
     loaded, Mpeg4Error with the plain decoder's message on a refusal."""
 
-    def __init__(self):
+    def __init__(self, codec_tag: bytes = b""):
         self.lib = _lib()
         self.handle = self.lib.vk_mpeg4_create()
+        self.lib.vk_mpeg4_set_codec_tag(self.handle, bytes(codec_tag)[:4])
 
     def decode(self, data: bytes):
         import ctypes
@@ -1125,6 +1350,13 @@ class _CDecoder:
                   np.empty(((h + 1) >> 1, (w + 1) >> 1), np.uint8))
         self.lib.vk_mpeg4_planes(self.handle, *(p.ctypes.data for p in planes))
         return planes
+
+    def identity(self) -> tuple:
+        import ctypes
+
+        out = (ctypes.c_int * 6)()
+        self.lib.vk_mpeg4_identity(self.handle, out)
+        return tuple(out[:3]) + tuple(bool(v) for v in out[3:])
 
     def close(self) -> None:
         if self.handle:

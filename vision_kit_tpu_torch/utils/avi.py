@@ -5,8 +5,9 @@ The JAX package reads and writes video with cv2.VideoCapture and
 cv2.VideoWriter; the card's machine has neither, nor any video codec. Every
 frame of a Motion-JPEG AVI is a whole baseline JPEG, which the port decodes
 (data/decode.py, nvJPEG on the card) and encodes (data/encode.py); an
-MPEG-4 Part 2 AVI (fourcc FMP4, XVID, DIVX, DX50 or MP4V, in any case, as
-cv2's mp4v, XVID and DIVX writers name it) holds one VOP a chunk, its
+MPEG-4 Part 2 AVI (fourcc FMP4, XVID, DIVX, DX50, mp4v, XVIX or another
+of MPEG4_FOURCCS, in any case; cv2's mp4v writer names it mp4v) holds one
+VOP a chunk, its
 VOS/VOL headers in band before the first, which data/mpeg4.py decodes and
 encodes. So only the container is needed here, and RIFF is plain:
 
@@ -22,10 +23,13 @@ encodes. So only the container is needed here, and RIFF is plain:
   chunk is dropped rather than repeated (the decoder has nothing to
   decode). A file that is no RIFF AVI, holds no video stream, or whose
   video is neither Motion-JPEG (MJPG, mjpg or jpeg) nor MPEG-4 Part 2
-  raises ValueError naming what it found.
+  raises ValueError naming what it found. `tag` is the BITMAPINFOHEADER's
+  fourcc, the codec tag libavcodec's MPEG-4 decoder reads.
 - `AviWriter(path, fps, fourcc=b"MJPG")`: RIFF `AVI ` with `hdrl` (avih,
-  strl: strh vids and a BITMAPINFOHEADER of that fourcc; FMP4 for
-  MPEG-4), `movi` of `00dc` chunks padded to even sizes, and an `idx1`
+  strl: strh vids with the fourcc as its handler, and a BITMAPINFOHEADER
+  of that fourcc: MJPG, or for MPEG-4 mp4v as cv2's mp4v writer writes
+  it, or another of MPEG4_FOURCCS), `movi` of `00dc` chunks padded to
+  even sizes, and an `idx1`
   (offsets from the `movi` fourcc, as cv2 writes them; the keyframe flag
   on the frames written as keyframes), the sizes and counts patched in on
   close. Both of cv2's readers (CAP_OPENCV_MJPEG, CAP_FFMPEG) read a
@@ -43,11 +47,20 @@ import struct
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"jpeg")
-MPEG4_FOURCCS = (b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V")   # any case
+# the fourccs libavformat's riff.c maps to MPEG-4 Part 2 that this cv2 reads
+# and decodes as the port does (any case; GEOV and GEOX, GeoVision's, it
+# decodes otherwise and the port refuses)
+MPEG4_FOURCCS = (b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V", b"XVIX", b"RMP4", b"ZMP4",
+                 b"SIPP", b"MP4S", b"M4S2", b"DIV1", b"BLZ0", b"UMP4", b"WV1F", b"SEDG",
+                 b"3IV2", b"WAWV", b"FFDS", b"FVFW", b"DCOD", b"MVXM", b"PM4V", b"SMP4",
+                 b"DXGM", b"VIDM", b"M4T3", b"G264", b"HDX4", b"DM4V", b"DMK2", b"DYM4",
+                 b"DIGI", b"EPHV", b"EM4A", b"M4CC", b"SN40", b"VSPX", b"ULDX", b"SM4V",
+                 b"DREX", b"QMP4", b"PLV1", b"GLV4", b"GMP4", b"MNM4", b"GTM4")
 OTHER_FOURCCS = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264",
                  b"HEVC": "HEVC", b"H265": "HEVC", b"HVC1": "HEVC", b"DIV3": "MS MPEG-4 v3",
                  b"MP42": "MS MPEG-4 v2", b"MP43": "MS MPEG-4 v3", b"WMV3": "WMV9",
-                 b"VP80": "VP8", b"VP90": "VP9", b"AV01": "AV1", b"H263": "H.263"}
+                 b"VP80": "VP8", b"VP90": "VP9", b"AV01": "AV1", b"H263": "H.263",
+                 b"GEOV": "GeoVision MPEG-4", b"GEOX": "GeoVision MPEG-4"}
 AVIF_HASINDEX, AVIF_ISINTERLEAVED, AVIF_TRUSTCKTYPE = 0x10, 0x100, 0x800
 AVIIF_KEYFRAME = 0x10
 RIFF_MAX = (1 << 32) - 1
@@ -67,6 +80,7 @@ class AviMovie:
     frames: list
     codec: str = "mjpeg"
     config: bytes = b""
+    tag: bytes = b""        # the BITMAPINFOHEADER's biCompression
 
     @property
     def fps(self) -> float:
@@ -135,7 +149,7 @@ def read_avi(path: str) -> AviMovie:
             logger.warning("%s: idx1 lists %d video chunks that differ from the %d "
                            "in movi; reading movi's", path, len(idx1_sizes), len(sizes))
     return AviMovie(path, header["width"], header["height"], header["rate"],
-                    header["scale"], frames, header["codec"])
+                    header["scale"], frames, header["codec"], tag=header["tag"])
 
 
 def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
@@ -171,7 +185,7 @@ def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
         width, height = struct.unpack("<ii", strf[4:12])
         ids = (f"{n:02d}dc".encode(), f"{n:02d}db".encode())
         return dict(width=width, height=abs(height), rate=rate, scale=scale, ids=ids,
-                    codec=codec)
+                    codec=codec, tag=compression)
     raise ValueError(f"{path}: no video stream in the AVI header")
 
 
@@ -198,14 +212,14 @@ def _idx1_sizes(idx: bytes, ids) -> list:
 
 
 class AviWriter:
-    """Coded frames (JPEG bytes, or MPEG-4 VOPs with fourcc FMP4; all of
-    one size) into a RIFF AVI."""
+    """Coded frames (JPEG bytes, or MPEG-4 VOPs with an MPEG-4 fourcc, the
+    VOL headers before the first; all of one size) into a RIFF AVI."""
 
     def __init__(self, path: str, fps: float, fourcc: bytes = b"MJPG"):
         if not path.lower().endswith(".avi"):
             raise ValueError(f"{path}: name the output .avi")
-        if fourcc not in (b"MJPG", b"FMP4"):
-            raise ValueError(f"fourcc must be MJPG or FMP4, got {fourcc!r}")
+        if fourcc != b"MJPG" and fourcc.upper() not in MPEG4_FOURCCS:
+            raise ValueError(f"fourcc must be MJPG or an MPEG-4 one, got {fourcc!r}")
         self.fourcc = fourcc
         frac = fractions.Fraction(fps).limit_denominator(1001)
         if frac <= 0:

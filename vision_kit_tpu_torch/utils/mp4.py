@@ -59,6 +59,7 @@ class Mp4Movie:
     codec: str = "mpeg4"
     config: bytes = b""
     brand: bytes = b""
+    tag: bytes = b"mp4v"    # the sample entry, the codec tag libavcodec sees
 
     @property
     def fps(self) -> float:

@@ -1,4 +1,4 @@
-"""Demo inputs: image files and directories, and Motion-JPEG video.
+"""Demo inputs: image files and directories, and video files.
 
 Counterpart of vision_kit_tpu/utils/readers.py without OpenCV. Images are
 read through data/decode.py:decode_image (the plain JPEG/PNG/BMP/WebP
@@ -10,20 +10,24 @@ the bytes cv2.imwrite writes.
 
 VideoReader reads what the JAX one reads from a video file through
 cv2.VideoCapture, as far as the port has decoders: the container is
-sniffed (RIFF AVI by utils/avi.py, ISO BMFF .mp4/.mov by utils/mp4.py),
-then the codec routes each frame. A Motion-JPEG frame is a whole JPEG,
-decoded on the card by the route data/decode.py:decode_to picks from its
-header (nvJPEG for a baseline frame) or by the plain decoder; an MPEG-4
-Part 2 frame (cv2's mp4v, XVID or DIVX) is a VOP that data/mpeg4.py's
-decoder takes in order, as host C++ on the card (csrc/mpeg4_decode.cu)
-or in numpy, its planes converted to RGB by mpeg4.yuv420_to_rgb on the
-device. Frames are RGB uint8 tensors on the device. A webcam index,
-Matroska/WebM, H.264/HEVC (in any container) and the MPEG-4 tools the
-decoder refuses (B-VOPs, quarter-pel, ...) raise naming what they are.
-Its writer writes mp4v in an MP4 (.mp4 or .mov, data/mpeg4.py's
-Mp4vEncoder and utils/mp4.py's Mp4Writer), as the JAX one writes; an .avi
-output stays Motion-JPEG (encode_jpeg), where the JAX writer writes mp4v
-in AVI too.
+sniffed (RIFF AVI by utils/avi.py, ISO BMFF .mp4/.mov by utils/mp4.py,
+Matroska/WebM by utils/mkv.py), then the codec routes each frame. A
+Motion-JPEG frame is a whole JPEG, decoded on the card by the route
+data/decode.py:decode_to picks from its header (nvJPEG for a baseline
+frame) or by the plain decoder; an MPEG-4 Part 2 frame (cv2's mp4v, XVID
+or DIVX) is a VOP that data/mpeg4.py's decoder takes in order, with the
+container's codec tag for libavcodec's XviD rule, as host C++ on the card
+(csrc/mpeg4_decode.cu) or in numpy, its planes converted to RGB by
+mpeg4.yuv420_to_rgb on the device. Frames are RGB uint8 tensors on the
+device. A webcam index, VP8/VP9/AV1 (WebM), H.264/HEVC (in any container)
+and the MPEG-4 tools the decoder refuses (B-VOPs, quarter-pel, ...) raise
+naming what they are. Its writer writes mp4v into the container the
+output's name gives, as the JAX one writes (cv2.VideoWriter, fourcc
+mp4v): data/mpeg4.py's Mp4vEncoder's VOPs in an MP4 (.mp4, .mov; utils/
+mp4.py's Mp4Writer), an AVI (.avi; utils/avi.py's AviWriter, fourcc mp4v
+as cv2 tags it, the VOL headers before the first VOP) or Matroska (.mkv;
+utils/mkv.py's MkvWriter). A .webm output raises: WebM holds VP8, VP9 or
+AV1 only, and the JAX writer opens nothing for it (it writes no file).
 """
 
 from __future__ import annotations
@@ -40,28 +44,47 @@ from vision_kit_tpu_torch.data.datasets import DECODERS
 from vision_kit_tpu_torch.data.encode import encode_jpeg
 from vision_kit_tpu_torch.data.loader import _await, _on_stream, _side_stream
 from vision_kit_tpu_torch.utils.avi import AviWriter, read_avi
+from vision_kit_tpu_torch.utils.mkv import MkvWriter, read_mkv
 from vision_kit_tpu_torch.utils.mp4 import Mp4Writer, file_kind, read_mp4
 from vision_kit_tpu_torch.utils.general import resolve_device
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
 IMAGE_EXT = (".jpg", ".jpeg", ".webp", ".bmp", ".png")
 VIDEO_EXT = (".mp4", ".avi", ".mov", ".mkv")
-MP4_OUT = (".mp4", ".mov")      # written as mp4v in an MP4; .avi as Motion-JPEG
+# the containers an output's name picks, each written as mp4v (the JAX
+# writer's fourcc for any name)
+VIDEO_OUT = {".mp4": Mp4Writer, ".mov": Mp4Writer, ".avi": AviWriter, ".mkv": MkvWriter}
 
 
 def open_movie(path: str):
-    """The video track of an AVI or MP4/QuickTime file, sniffed from its
-    first bytes (utils/avi.py:AviMovie or utils/mp4.py:Mp4Movie); ValueError
-    naming anything else."""
+    """The video track of an AVI, MP4/QuickTime or Matroska/WebM file,
+    sniffed from its first bytes (utils/avi.py:AviMovie, utils/mp4.py:
+    Mp4Movie or utils/mkv.py:MkvMovie); ValueError naming anything else."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:4] == b"RIFF":
         return read_avi(path)
+    if head[:4] == b"\x1a\x45\xdf\xa3":
+        return read_mkv(path)
     kind = file_kind(head)
     if kind is None:
         return read_mp4(path)
-    raise ValueError(f"{path}: {kind}: the port reads AVI and MP4/QuickTime video only"
-                     + (" (no Matroska demuxer)" if "Matroska" in kind else ""))
+    raise ValueError(f"{path}: {kind}: the port reads AVI, MP4/QuickTime and "
+                     "Matroska video only")
+
+
+def video_writer(path: str):
+    """The writer class for an output's name (VIDEO_OUT); ValueError for a
+    name that gives none."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".webm":
+        raise ValueError(f"{path}: WebM holds VP8, VP9 or AV1 only, and the demo writes "
+                         "mp4v (the JAX writer opens nothing for a .webm and writes no "
+                         "file); name the output .mkv, .mp4, .mov or .avi")
+    if ext not in VIDEO_OUT:
+        raise ValueError(f"{path}: the port writes mp4v in .mp4, .mov, .avi or .mkv; "
+                         "name the output so")
+    return VIDEO_OUT[ext]
 
 
 class ImageReader:
@@ -118,8 +141,8 @@ class VideoReader:
     handed to the other decoder. An MPEG-4 stream the decoder refuses
     raises its Mpeg4Error: at construction when its VOL says so, else from
     the iteration at the VOP. `save(frame)` appends an RGB frame (numpy or
-    tensor) to `save_path` at the input's fps: mp4v in an MP4 for .mp4 and
-    .mov, Motion-JPEG for .avi."""
+    tensor) to `save_path` at the input's fps as mp4v, in the container
+    its name gives (VIDEO_OUT)."""
 
     def __init__(self, video_path: str = "0", use_thread: bool = True,
                  save_path: str | None = None, prefetch: int = 4,
@@ -128,9 +151,8 @@ class VideoReader:
             raise NotImplementedError(
                 f"webcam {video_path}: the port reads no camera (there is no capture "
                 "device on either machine it runs on); give a video file")
-        if save_path is not None and not save_path.lower().endswith(MP4_OUT + (".avi",)):
-            raise ValueError(f"{save_path}: the port writes mp4v in .mp4/.mov and "
-                             "Motion-JPEG in .avi; name the output so")
+        if save_path is not None:
+            video_writer(save_path)
         if decoder not in DECODERS:
             raise ValueError(f"decoder must be one of {DECODERS}, got {decoder!r}")
         self.device = resolve_device(device)
@@ -174,7 +196,8 @@ class VideoReader:
         codec = None
         if self.movie.codec == "mpeg4":
             codec = mpeg4.Mpeg4Decoder(self.movie.config or None,
-                                       "cuda" if self.decoder == "host_cpp" else "cpu")
+                                       "cuda" if self.decoder == "host_cpp" else "cpu",
+                                       codec_tag=self.movie.tag)
         try:
             with open(self.movie.path, "rb") as f:
                 for i in range(self.total_frames):
@@ -227,22 +250,23 @@ class VideoReader:
 
     def save(self, frame) -> None:
         """Append `frame` ((H, W, 3) uint8 RGB) to save_path: one VOP of
-        mpeg4.Mp4vEncoder (I every KEY_INTERVAL frames) in an MP4, or one
-        JPEG (encode_jpeg, quality 95, cv2's default) in an AVI."""
+        mpeg4.Mp4vEncoder (I every KEY_INTERVAL frames) in the container the
+        name gives (an AVI's first chunk carries the VOL headers too)."""
         if not self.save_path:
             return
         rgb = frame.cpu().numpy() if isinstance(frame, torch.Tensor) else np.asarray(frame)
         h, w = rgb.shape[:2]
-        if not self.save_path.lower().endswith(MP4_OUT):
-            if self.video_writer is None:
-                self.video_writer = AviWriter(self.save_path, self.fps)
-            self.video_writer.write(encode_jpeg(rgb), w, h)
-            return
         if self.video_writer is None:
             self.encoder = mpeg4.Mp4vEncoder(w, h, self.fps)
-            self.video_writer = Mp4Writer(self.save_path, self.fps)
+            kind = video_writer(self.save_path)
+            self.video_writer = (kind(self.save_path, self.fps, b"mp4v") if kind is AviWriter
+                                 else kind(self.save_path, self.fps))
         vop, key = self.encoder.encode(rgb)
-        self.video_writer.write(vop, key, w, h, self.encoder.headers())
+        if isinstance(self.video_writer, AviWriter):
+            first = not self.video_writer.index
+            self.video_writer.write((self.encoder.headers() if first else b"") + vop, w, h, key)
+        else:
+            self.video_writer.write(vop, key, w, h, self.encoder.headers())
 
     def stop(self) -> None:
         """Close the writer and end the reader thread."""

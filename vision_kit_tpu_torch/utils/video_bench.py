@@ -140,6 +140,7 @@ def decode_route_ms(data: bytes, size: int, device, reps: int = 3) -> dict:
 VIDEO_SAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                              "data", "video_samples")
 HD_CLIP, SMALL_CLIP = "mp4v_720x1280_24f.mp4", "mp4v_144x176_fmp4.avi"
+HD_MKV, MJPEG_MKV, XVID_AVI = "mp4v_720x1280_24f.mkv", "mjpg_144x176_10f.mkv", "xvid_144x176_6f.avi"
 
 
 def video_manifest() -> dict:
@@ -152,8 +153,9 @@ def video_manifest() -> dict:
 
 
 def mpeg4_disagreements(plain_frames: dict, device="cuda") -> tuple:
-    """The committed mp4v clips through the host C++ decoder
-    (Mpeg4Decoder(device="cuda")) and the plain one: every C++ frame,
+    """The committed MPEG-4 clips through the host C++ decoder
+    (Mpeg4Decoder(device="cuda")) and the plain one, each with its
+    container's codec tag: every C++ frame,
     converted by yuv420_to_rgb on `device`, at the manifest's sha256 of
     cv2's frame; the first plain_frames[name] frames of each clip equal to
     the C++ planes bit for bit. Returns (disagreements, {"cpp": {"I": ms,
@@ -170,8 +172,8 @@ def mpeg4_disagreements(plain_frames: dict, device="cuda") -> tuple:
         movie = open_movie(os.path.join(VIDEO_SAMPLES, name))
         meta = manifest[name]
         keys = set(getattr(movie, "keyframes", [0]))
-        cpp = mpeg4.Mpeg4Decoder(movie.config or None, "cuda")
-        plain = mpeg4.Mpeg4Decoder(movie.config or None, "cpu")
+        cpp = mpeg4.Mpeg4Decoder(movie.config or None, "cuda", codec_tag=movie.tag)
+        plain = mpeg4.Mpeg4Decoder(movie.config or None, "cpu", codec_tag=movie.tag)
         with open(movie.path, "rb") as f:
             for i in range(len(movie.frames)):
                 data = movie.read_frame(f, i)
@@ -179,7 +181,7 @@ def mpeg4_disagreements(plain_frames: dict, device="cuda") -> tuple:
                 t0 = time.perf_counter()
                 planes = cpp.decode(data)
                 t1 = time.perf_counter()
-                if name == HD_CLIP:
+                if name in (HD_CLIP, HD_MKV):
                     ms["cpp"][kind].append((t1 - t0) * 1000)
                 rgb = mpeg4.yuv420_to_rgb(*(torch.from_numpy(p).to(device) for p in planes))
                 digest = hashlib.sha256(rgb.cpu().numpy().tobytes()).hexdigest()
@@ -188,7 +190,7 @@ def mpeg4_disagreements(plain_frames: dict, device="cuda") -> tuple:
                 if i < n_plain:
                     t0 = time.perf_counter()
                     want = plain.decode(data)
-                    if name == HD_CLIP:
+                    if name in (HD_CLIP, HD_MKV):
                         ms["plain"][kind].append((time.perf_counter() - t0) * 1000)
                     if not all(np.array_equal(a, b) for a, b in zip(planes, want)):
                         bad.append(f"{name} frame {i}: the C++ planes differ from the plain")
@@ -213,3 +215,61 @@ def encode_ms(frames: list) -> dict:
         size += len(vop)
     return {"I": float(np.median(times["I"])), "P": float(np.median(times["P"])),
             "bytes": size}
+
+
+def idct_ms(name: str = HD_MKV, reps: int = 2) -> dict:
+    """Median host-clock ms a VOP of each kind that the C++ decoder takes
+    on a committed 720p clip with libavcodec's simple IDCT (the clip as cv2
+    wrote it, Lavc user data in its configuration) and with its XviD IDCT
+    (the same VOPs, that user data rewritten as XviD0050: a build past
+    every workaround's range; the frames are then not cv2's), `reps`
+    passes over the clip each: {"simple": {"I", "P"}, "xvid": {...}}."""
+    from vision_kit_tpu_torch.data import mpeg4
+    from vision_kit_tpu_torch.utils.readers import open_movie
+
+    movie = open_movie(os.path.join(VIDEO_SAMPLES, name))
+    keys = set(movie.keyframes)
+    user = movie.config.find(b"\0\0\1\xb2")
+    configs = {"simple": movie.config,
+               "xvid": movie.config[:user + 4] + b"XviD0050" if user >= 0 else movie.config}
+    with open(movie.path, "rb") as f:
+        samples = [movie.read_frame(f, i) for i in range(len(movie.frames))]
+    out = {}
+    for route, config in configs.items():
+        times = {"I": [], "P": []}
+        for _ in range(reps):
+            dec = mpeg4.Mpeg4Decoder(config, "cuda", codec_tag=movie.tag)
+            for i, data in enumerate(samples):
+                t0 = time.perf_counter()
+                dec.decode(data)
+                times["I" if i in keys else "P"].append((time.perf_counter() - t0) * 1000)
+            if dec.identity()["xvid_idct"] != (route == "xvid"):
+                raise RuntimeError(f"{route}: the decoder inferred {dec.identity()}")
+            dec.close()
+        out[route] = {k: float(np.median(v)) for k, v in times.items()}
+    return out
+
+
+def demux_ms(path: str, reps: int = 3) -> float:
+    """Median host-clock ms a frame to demultiplex a clip: open_movie's
+    index of the file and each frame's bytes read, over the frame count."""
+    from vision_kit_tpu_torch.utils.readers import open_movie
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        movie = open_movie(path)
+        with open(path, "rb") as f:
+            for i in range(len(movie.frames)):
+                movie.read_frame(f, i)
+        times.append((time.perf_counter() - t0) * 1000 / max(len(movie.frames), 1))
+    return float(np.median(times))
+
+
+def movie_frames(path: str) -> list:
+    """Each coded frame of a clip, as its container holds it."""
+    from vision_kit_tpu_torch.utils.readers import open_movie
+
+    movie = open_movie(path)
+    with open(path, "rb") as f:
+        return [movie.read_frame(f, i) for i in range(len(movie.frames))]
