@@ -199,6 +199,38 @@ def test_failed_rendezvous_raises(clean_env):
     assert not dist.is_initialized()
 
 
+def test_free_ports_are_this_workers_own(monkeypatch):
+    """Rank groups meet at ports of their pytest-xdist worker's own block,
+    below the ephemeral range, one after another, never one that is taken;
+    the blocks of two workers of one run do not overlap, and another run's
+    id shifts them."""
+    import socket
+
+    import torch_dist_lib
+
+    monkeypatch.setenv("PYTEST_XDIST_TESTRUNUID", "run-a")
+    blocks = {}
+    for worker in ("gw0", "gw5"):
+        monkeypatch.setenv("PYTEST_XDIST_WORKER", worker)
+        base = torch_dist_lib.port_block()
+        taken = base + (next(torch_dist_lib._next_port) + 1) % torch_dist_lib.PORTS_PER_WORKER
+        with socket.socket() as held:     # the next port in turn: skipped
+            held.bind(("127.0.0.1", taken))
+            ports = [free_port() for _ in range(6)]
+        assert len(set(ports)) == 6 and taken not in ports
+        assert all(torch_dist_lib.PORT_BASE <= base <= p < base + torch_dist_lib.PORTS_PER_WORKER
+                   < 32768 for p in ports)
+        blocks[worker] = set(ports)
+    assert not blocks["gw0"] & blocks["gw5"]
+    monkeypatch.setenv("PYTEST_XDIST_WORKER", "gw0")
+    here = torch_dist_lib.port_block()
+    shifts = set()
+    for run in ("run-b", "run-c", "run-d"):
+        monkeypatch.setenv("PYTEST_XDIST_TESTRUNUID", run)
+        shifts.add(torch_dist_lib.port_block())
+    assert shifts - {here}
+
+
 def test_mesh_needs_a_group_and_one_model_shard():
     """make_mesh needs a process group whose world is n_data * n_model: a
     model axis of 2 over a world of 1 raises naming the world size."""

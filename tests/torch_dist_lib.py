@@ -5,7 +5,9 @@ rank of a vision_kit_tpu_torch.parallel mesh.
 
 (or Ranks(...), which returns at once, and its results() later) starts
 one process a rank (python tests/torch_dist_lib.py ...), each at
-two intra-op threads, joins the process group at a free localhost port,
+two intra-op threads, joins the process group at a free localhost port
+of the pytest-xdist worker's own block (free_port), checks that every
+rank holds the launcher's token (no ranks of another group joined),
 builds make_mesh(n_model=n_model, device="cpu") (n_model 1 unless given:
 a world of 4 at n_model 2 is a 2x2 mesh), calls the named function as fn(mesh,
 **kwargs) and saves what it returns (torch.save); run_ranks returns the
@@ -16,9 +18,12 @@ starts in about two seconds.
 
 from __future__ import annotations
 
+import hashlib
 import importlib
+import itertools
 import json
 import os
+import secrets
 import socket
 import subprocess
 import sys
@@ -34,10 +39,48 @@ DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
             "JAX_PROCESS_ID")
 
 
+# Rendezvous ports: each pytest-xdist worker takes its own block of
+# PORTS_PER_WORKER ports below Linux's ephemeral range (32768 on), which no
+# port-0 bind hands out, and walks it with a counter, skipping any port
+# that is taken now. Two rank groups started at once by different workers
+# of one run therefore never pick one port, as a bind to port 0 released
+# before rank 0 binds it again could (a race the token check of _main also
+# catches). The blocks are shifted by a hash of the run's id
+# (PYTEST_XDIST_TESTRUNUID, one for all workers of a run; a random shift
+# in a plain process) and each process starts its counter at a random
+# place in its block, so two runs on one machine seldom meet either.
+PORT_BASE, PORTS_PER_WORKER, PORT_BLOCKS = 20000, 200, 60
+_next_port = itertools.count(secrets.randbelow(PORTS_PER_WORKER))
+_PLAIN_SHIFT = secrets.randbelow(PORT_BLOCKS)
+
+
+def _worker_index() -> int:
+    """gwN -> N + 1 under pytest-xdist, 0 in a plain process."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
+    return int(worker[2:]) + 1 if worker.startswith("gw") and worker[2:].isdigit() else 0
+
+
+def port_block() -> int:
+    """The first port of this worker's block in this run."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    shift = (int(hashlib.sha256(run.encode()).hexdigest(), 16) % PORT_BLOCKS if run
+             else _PLAIN_SHIFT)
+    return PORT_BASE + PORTS_PER_WORKER * ((shift + _worker_index()) % PORT_BLOCKS)
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """The next port of this worker's block that is free at this moment."""
+    base = port_block()
+    for _ in range(PORTS_PER_WORKER):
+        port = base + next(_next_port) % PORTS_PER_WORKER
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {base}..{base + PORTS_PER_WORKER - 1}")
 
 
 class Ranks:
@@ -47,6 +90,7 @@ class Ranks:
     def __init__(self, world: int, target: str, kwargs: dict, threads: int = 2,
                  n_model: int = 1):
         port = free_port()
+        token = secrets.randbits(62)   # this group's: see _main
         env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
         env["PYTHONPATH"] = os.pathsep.join([REPO, TESTS, env.get("PYTHONPATH", "")])
         env["OMP_NUM_THREADS"] = str(threads)
@@ -54,7 +98,8 @@ class Ranks:
         self._outs = [os.path.join(self._tmp.name, f"rank{r}.pt") for r in range(world)]
         self._procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), target, str(r), str(world),
-             str(port), str(threads), str(n_model), self._outs[r], json.dumps(kwargs)],
+             str(port), str(threads), str(n_model), self._outs[r], json.dumps(kwargs),
+             str(token)],
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in range(world)]
 
@@ -81,13 +126,26 @@ def run_ranks(world: int, target: str, kwargs: dict, timeout: float = 300.0,
     return Ranks(world, target, kwargs, threads, n_model).results(timeout)
 
 
+def _same_group(token: int, port: str) -> None:
+    """All-gather the launcher's token: every rank must hold this group's,
+    or ranks of two groups met at one port (a foreign rank's gradients
+    would be summed in silently), and the run fails here instead."""
+    mine = torch.tensor([token], dtype=torch.int64)
+    tokens = [torch.zeros_like(mine) for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(tokens, mine)
+    if any(int(t) != token for t in tokens):
+        raise RuntimeError(f"ranks of another group joined this one at port {port}: "
+                           f"tokens {[int(t) for t in tokens]}")
+
+
 def _main(argv) -> int:
-    target, rank, world, port, threads, n_model, out, kwargs = argv
+    target, rank, world, port, threads, n_model, out, kwargs, token = argv
     torch.set_num_threads(int(threads))
     from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
 
     assert init_distributed(f"127.0.0.1:{port}", int(world), int(rank), backend="gloo")
     try:
+        _same_group(int(token), port)
         mesh = make_mesh(n_model=int(n_model), device="cpu")
         module, name = target.split(":")
         fn = getattr(importlib.import_module(module), name)

@@ -588,6 +588,443 @@ def animation(frames: list[tuple[bytes, int, int]], w: int, h: int) -> bytes:
     return riff(*out)
 
 
+# -- the still-image kinds beside JPEG, PNG, BMP and WebP --------------------
+
+
+def lzw_gif(index: np.ndarray, min_size: int) -> bytes:
+    """GIF LZW of a flat array of colour indices: LSB-first codes, a clear
+    code first and whenever the table fills, the end code last."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    out, acc, nbits, size = bytearray(), 0, 0, min_size + 1
+
+    def put(code):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    table, nxt, cur = {}, end + 1, None
+    put(clear)
+    for k in index.tolist():
+        if cur is None:
+            cur = (k,)
+            continue
+        if cur + (k,) in table:
+            cur += (k,)
+            continue
+        put(table[cur] if len(cur) > 1 else cur[0])
+        if nxt < 4096:
+            table[cur + (k,)] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        else:
+            put(clear)
+            table, nxt, size = {}, end + 1, min_size + 1
+        cur = (k,)
+    if cur is not None:
+        put(table[cur] if len(cur) > 1 else cur[0])
+    put(end)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _gif_table(colours: np.ndarray) -> tuple[int, bytes]:
+    bits = max(1, int(np.ceil(np.log2(len(colours)))))
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[:len(colours)] = colours
+    return bits - 1, table.tobytes()
+
+
+def gif_file(w: int, h: int, frames: list[dict], colours=None, background: int = 0) -> bytes:
+    """A GIF89a screen of w x h with a global colour table (None for none)
+    and frames of dicts: "index" (fh, fw) colour indices, optional "x",
+    "y", "colours" (a local table), "interlace", "transparent" (index) and
+    "disposal", "min_size" (LZW minimum code size, 8 by default)."""
+    flags = 0
+    table = b""
+    if colours is not None:
+        bits, table = _gif_table(np.asarray(colours, np.uint8))
+        flags = 0x80 | bits | bits << 4
+    out = b"GIF89a" + struct.pack("<HHBBB", w, h, flags, background, 0) + table
+    for f in frames:
+        index = np.asarray(f["index"], np.uint8)
+        fh, fw = index.shape
+        if "transparent" in f or "disposal" in f:
+            t = f.get("transparent")
+            packed = (f.get("disposal", 0) & 7) << 2 | (t is not None)
+            out += b"\x21\xf9\x04" + struct.pack("<BHBB", packed, 10, t or 0, 0)
+        lflags, local = 0, b""
+        if f.get("colours") is not None:
+            bits, local = _gif_table(np.asarray(f["colours"], np.uint8))
+            lflags = 0x80 | bits
+        rows = index
+        if f.get("interlace"):
+            lflags |= 0x40
+            rows = index[np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                         np.arange(2, fh, 4), np.arange(1, fh, 2)])]
+        m = f.get("min_size", 8)
+        out += (b"\x2c" + struct.pack("<HHHHB", f.get("x", 0), f.get("y", 0), fw, fh, lflags)
+                + local + bytes([m]) + _sub_blocks(lzw_gif(rows.reshape(-1), m)))
+    return out + b"\x3b"
+
+
+def lzw_tiff(data: bytes) -> bytes:
+    """TIFF LZW as libtiff's LZWEncode writes it: MSB-first codes of 9 to 12
+    bits with the early change, clear 256 first and at 4094, end 257 last."""
+    out, acc, nbits, size = bytearray(), 0, 0, 9
+
+    def put(code):
+        nonlocal acc, nbits
+        acc = acc << size | code
+        nbits += size
+        while nbits >= 8:
+            out.append(acc >> (nbits - 8) & 255)
+            nbits -= 8
+        acc &= (1 << nbits) - 1
+
+    def grow():
+        nonlocal nxt, size
+        nxt += 1
+        if nxt == 4094:
+            put(256)
+            table.clear()
+            table.update(roots)
+            nxt, size = 258, 9
+        elif nxt > (1 << size) - 1:
+            size += 1
+
+    roots = {bytes([i]): i for i in range(256)}
+    table, nxt, cur = dict(roots), 258, b""
+    put(256)
+    for k in data:
+        s = cur + bytes([k])
+        if s in table or not cur:
+            cur = s
+            continue
+        put(table[cur])
+        table[s] = nxt
+        grow()
+        cur = bytes([k])
+    if cur:
+        put(table[cur])
+        grow()
+    put(257)
+    if nbits:
+        out.append(acc << (8 - nbits) & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 2-128 equal bytes, literal spans of up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1) & 255, data[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 16: "Q"}
+
+
+def tiff_file(samples: np.ndarray, bits: int = 8, photometric: int | None = None,
+              compression: int = 1, rows_per_strip: int | None = None, tile=None,
+              planar: int = 1, predictor: int = 1, extra=None, order: str = "<",
+              big: bool = False, tags: dict | None = None, short: dict | None = None) -> bytes:
+    """A one-page TIFF of (h, w, samples) integer samples (a 2-D array is
+    one sample): strips of rows_per_strip rows or tiles of (th, tw),
+    PlanarConfig 1 or 2, compression 1 (none), 5 (LZW), 8 or 32946
+    (Deflate) or 32773 (PackBits) with predictor 1 or 2, bits of 1, 4, 8
+    or 16, byte order "<" or ">", classic or BigTIFF; extra tags as {tag:
+    (type, values)}, which replace the written ones (tile or strip size
+    too); `short` {strip or tile: bytes} states other byte counts than were
+    written for those (fewer: a codec stream cut short). The IFD follows
+    the pixels."""
+    a = np.asarray(samples)
+    a = a[:, :, None] if a.ndim == 2 else a
+    h, w, c = a.shape
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * c), 259: (3, [compression]),
+              262: (3, [photometric if photometric is not None else (2 if c >= 3 else 1)]),
+              277: (3, [c]), 284: (3, [planar])}
+    if extra is not None:
+        fields[338] = (3, list(extra))
+    if predictor != 1:
+        fields[317] = (3, [predictor])
+    dtype = np.dtype(order + ("u2" if bits == 16 else "u1"))
+
+    def pack(block):
+        if predictor == 2:
+            block = block.astype(np.int64)
+            block[:, 1:] -= block[:, :-1].copy()
+            block &= (1 << bits) - 1
+        if bits >= 8:
+            return block.astype(dtype).tobytes()
+        rows = block.reshape(block.shape[0], -1).astype(np.uint8)
+        unpacked = (rows[:, :, None] >> np.arange(bits - 1, -1, -1)) & 1
+        return np.packbits(unpacked.reshape(rows.shape[0], -1), axis=1).tobytes()
+
+    planes = [a] if planar == 1 else [a[:, :, i:i + 1] for i in range(c)]
+    chunks = []
+    if tile:
+        th, tw = tile
+        fields[322], fields[323] = (3, [tw]), (3, [th])
+        for p in planes:
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    block = np.zeros((th, tw, p.shape[2]), a.dtype)
+                    part = p[y:y + th, x:x + tw]
+                    block[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(pack(block))
+    else:
+        rps = rows_per_strip or h
+        fields[278] = (4, [rps])
+        chunks = [pack(p[y:y + rps]) for p in planes for y in range(0, h, rps)]
+    codec = {1: bytes, 5: lzw_tiff, 8: zlib.compress, 32946: zlib.compress,
+             32773: packbits}[compression]
+    chunks = [codec(c_) for c_ in chunks]
+    head = 16 if big else 8
+    offsets, pos = [], head
+    for chunk in chunks:
+        offsets.append(pos)
+        pos += len(chunk)
+    long_type = 16 if big else 4
+    fields[324 if tile else 273] = (long_type, offsets)
+    counts = [len(chunk) for chunk in chunks]
+    for i, n in (short or {}).items():
+        counts[i] = n
+    fields[325 if tile else 279] = (long_type, counts)
+    fields.update(tags or {})
+    ifd = pos + (pos & 1)
+    inline = 8 if big else 4
+    entries = sorted(fields.items())
+    extra_pos = ifd + (8 if big else 2) + (20 if big else 12) * len(entries) + inline
+    ents, extra_data = bytearray(), bytearray()
+    for tag, (typ, values) in entries:
+        raw = struct.pack(order + _TIFF_TYPES[typ] * len(values), *values)
+        if len(raw) <= inline:
+            value = raw.ljust(inline, b"\0")
+        else:
+            value = struct.pack(order + ("Q" if big else "I"), extra_pos + len(extra_data))
+            extra_data += raw + b"\0" * (len(raw) & 1)
+        ents += struct.pack(order + ("HHQ" if big else "HHI"), tag, typ, len(values)) + value
+    start = ((b"II" if order == "<" else b"MM")
+             + (struct.pack(order + "HHHQ", 43, 8, 0, ifd) if big
+                else struct.pack(order + "HI", 42, ifd)))
+    return (start + b"".join(chunks) + b"\0" * (ifd - pos)
+            + struct.pack(order + ("Q" if big else "H"), len(entries)) + ents
+            + b"\0" * inline + extra_data)
+
+
+def pil_tiff(arr: np.ndarray, mode: str | None = None, **kw) -> bytes:
+    """Pillow's TIFF (through its libtiff) of an array, in `mode`."""
+    import io
+
+    from PIL import Image
+
+    img = Image.fromarray(arr)
+    if mode is not None:
+        img = img.convert(mode)
+    buf = io.BytesIO()
+    img.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+def pil_gif(images: list, **kw) -> bytes:
+    """Pillow's GIF of palette images (the first, then the rest as frames)."""
+    import io
+
+    buf = io.BytesIO()
+    images[0].save(buf, "GIF", save_all=len(images) > 1, append_images=images[1:], **kw)
+    return buf.getvalue()
+
+
+def netpbm_ascii(magic: bytes, values: np.ndarray, w: int, h: int, maxval: int | None,
+                 per_line: int = 12, comment: bytes = b"# a comment\n") -> bytes:
+    """An ASCII Netpbm file (P1, P2, P3) with a comment in its header."""
+    head = magic + b"\n" + comment + b"%d %d\n" % (w, h)
+    if maxval is not None:
+        head += b"%d\n" % maxval
+    flat = [b"%d" % v for v in np.asarray(values).reshape(-1).tolist()]
+    lines = [b" ".join(flat[i:i + per_line]) for i in range(0, len(flat), per_line)]
+    return head + b"\n".join(lines) + b"\n"
+
+
+def sun_raster(w: int, h: int, depth: int, pixels: bytes, colours=None) -> bytes:
+    """A Sun raster file, RT_STANDARD, rows padded to 16 bits by the caller;
+    an RMT_EQUAL_RGB map of `colours` ((n, 3)) where given."""
+    cmap = b"" if colours is None else np.asarray(colours, np.uint8).T.tobytes()
+    return struct.pack(">8i", 0x59A66A95, w, h, depth, len(pixels), 1,
+                       0 if colours is None else 1, len(cmap)) + cmap + pixels
+
+
+def sun_rows(px: np.ndarray, depth: int) -> bytes:
+    """Rows of (h, w) indices or (h, w, bytes) pixels padded to 16 bits."""
+    h = px.shape[0]
+    if depth == 1:
+        rows = np.packbits(px.astype(np.uint8), axis=1)
+    else:
+        rows = np.asarray(px, np.uint8).reshape(h, -1)
+    pad = rows.shape[1] & 1
+    return np.concatenate([rows, np.zeros((h, pad), np.uint8)], 1).tobytes()
+
+
+def image_kinds() -> dict[str, tuple[bytes, str, tuple | None]]:
+    """The Netpbm/PAM, PFM, Sun raster, Radiance HDR, GIF and TIFF samples:
+    {file name: (bytes, kind, decoded (h, w))}. Each kind starts with its
+    decode route's name (host_<pxm, pfm, sunras, hdr, gif, tiff>)."""
+    import cv2
+
+    from PIL import Image
+
+    files = {}
+    bgr = cv2.cvtColor(scene(48, 64, 80), cv2.COLOR_RGB2BGR)
+    grey = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    rng = np.random.default_rng(81)
+    # Netpbm and PAM
+    files["p6_48x64.ppm"] = (cv2.imencode(".ppm", bgr)[1].tobytes(), "pxm_p6", (48, 64))
+    files["p5_48x64.pgm"] = (cv2.imencode(".pgm", grey)[1].tobytes(), "pxm_p5", (48, 64))
+    bw = (cv2.resize(grey, (83, 61)) > 110).astype(np.uint8) * 255
+    files["p4_61x83.pbm"] = (cv2.imencode(".pbm", bw)[1].tobytes(), "pxm_p4", (61, 83))
+    small = cv2.resize(bgr, (32, 24), interpolation=cv2.INTER_AREA)
+    files["p3_24x32.ppm"] = (cv2.imencode(".ppm", small, [cv2.IMWRITE_PXM_BINARY, 0])[1]
+                             .tobytes(), "pxm_p3", (24, 32))
+    level = cv2.resize(grey, (32, 24), interpolation=cv2.INTER_AREA) * 110 // 255
+    files["p2_maxval100_24x32.pgm"] = (netpbm_ascii(b"P2", level, 32, 24, 100), "pxm_p2",
+                                       (24, 32))
+    files["p1_24x32.pbm"] = (netpbm_ascii(b"P1", level > 50, 32, 24, None, per_line=40),
+                             "pxm_p1", (24, 32))
+    deep = (cv2.resize(grey, (40, 30)).astype(np.int64) * 4 + rng.integers(0, 4, (30, 40)))
+    files["p5_16bit_maxval1000_30x40.pgm"] = (
+        b"P5\n40 30\n1000\n" + deep.astype(">u2").tobytes(), "pxm_p5_16bit", (30, 40))
+    colour60 = cv2.resize(bgr, (40, 30), interpolation=cv2.INTER_AREA)
+    files["pam_rgb_30x40.pam"] = (cv2.imencode(".pam", colour60)[1].tobytes(), "pxm_pam_rgb",
+                                  (30, 40))
+    files["pam_grey_30x40.pam"] = (
+        cv2.imencode(".pam", cv2.cvtColor(colour60, cv2.COLOR_BGR2GRAY))[1].tobytes(),
+        "pxm_pam_grey", (30, 40))
+    bits = np.packbits(bw > 0, axis=1)   # BLACKANDWHITE: a row of w bytes, read as bits
+    rows = np.concatenate([bits, np.zeros((61, 83 - bits.shape[1]), np.uint8)], 1)
+    files["pam_bw_61x83.pam"] = (
+        b"P7\nWIDTH 83\nHEIGHT 61\nDEPTH 1\nMAXVAL 1\nTUPLTYPE BLACKANDWHITE\nENDHDR\n"
+        + rows.tobytes(), "pxm_pam_bw", (61, 83))
+    # PFM: cv2's own, and a big-endian one with NaN, infinities and halves
+    values = scene(30, 40, 82).astype(np.float32) + rng.uniform(-0.5, 0.5, (30, 40, 3)).astype(
+        np.float32)
+    files["pfm_30x40.pfm"] = (cv2.imencode(".pfm", values[:, :, ::-1].copy())[1].tobytes(),
+                              "pfm_rgb", (30, 40))
+    special = (rng.integers(0, 1100, (20, 30, 3)) / 2).astype(np.float32)
+    special[0, :6] = [[np.nan, np.inf, -np.inf], [3e9, -3e9, 2.5], [0.5, 1.5, 254.5],
+                      [255.5, -0.5, 1e-30], [7, 8, 9], [1, 2, 3]]
+    files["pfm_bigendian_20x30.pfm"] = (
+        b"PF\n30 20\n0.5\n" + (special[::-1] * 2).astype(">f4").tobytes(), "pfm_rgb_be",
+        (20, 30))
+    # Sun raster: cv2's 24- and 8-bit, and by hand 1, 8 (with maps) and 32 bits
+    odd = cv2.resize(bgr, (41, 30), interpolation=cv2.INTER_AREA)
+    files["sunras_24_30x41.ras"] = (cv2.imencode(".ras", odd)[1].tobytes(), "sunras_24",
+                                    (30, 41))
+    files["sunras_8_30x41.ras"] = (
+        cv2.imencode(".ras", cv2.cvtColor(odd, cv2.COLOR_BGR2GRAY))[1].tobytes(), "sunras_8",
+        (30, 41))
+    index = cv2.resize(grey, (41, 30)) // 32
+    files["sunras_8map_30x41.ras"] = (
+        sun_raster(41, 30, 8, sun_rows(index, 8), rng.integers(0, 256, (8, 3))),
+        "sunras_8map", (30, 41))
+    files["sunras_1map_30x43.ras"] = (
+        sun_raster(43, 30, 1, sun_rows(cv2.resize(grey, (43, 30)) > 110, 1),
+                   [[20, 40, 200], [250, 230, 10]]), "sunras_1map", (30, 43))
+    xbgr = np.concatenate([rng.integers(0, 256, (30, 41, 1)), odd], 2).astype(np.uint8)
+    files["sunras_32_30x41.ras"] = (sun_raster(41, 30, 32, sun_rows(xbgr, 32)), "sunras_32",
+                                    (30, 41))
+    # Radiance HDR: cv2's run-length file, and a flat one under #?RGBE
+    radiance = (scene(30, 40, 83).astype(np.float32) / 255) ** 2 * 3
+    files["hdr_rle_30x40.hdr"] = (cv2.imencode(".hdr", radiance[:, :, ::-1].copy())[1]
+                                  .tobytes(), "hdr_rle", (30, 40))
+    rgbe = rng.integers(0, 256, (30, 7, 4), dtype=np.uint8)
+    rgbe[:, :, 3] = rng.choice([0, 128, 130, 134, 136, 137], (30, 7))
+    files["hdr_flat_30x7.hdr"] = (
+        b"#?RGBE\n# a comment\nFORMAT=32-bit_rle_rgbe\nEXPOSURE=1.0\n\n-Y 30 +X 7\n"
+        + rgbe.tobytes(), "hdr_flat", (30, 7))
+    # GIF: the 720p timing file, Pillow's interlaced, transparent and
+    # animated files, a frame off the screen's corner, cv2's own
+    big = Image.fromarray(scene(720, 1280, 30, noise=0.0)).quantize(256)
+    files["gif_720x1280.gif"] = (pil_gif([big]), "gif_720p", (720, 1280))
+    pal = Image.fromarray(scene(60, 80, 84)).quantize(32)
+    files["gif_interlaced_60x80.gif"] = (
+        pil_gif([pal], interlace=True, transparency=5, background=3), "gif_interlaced",
+        (60, 80))
+    movie = [Image.fromarray(scene(48, 64, s)).quantize(16) for s in (85, 86, 87)]
+    files["gif_animated_48x64.gif"] = (pil_gif(movie, duration=100, loop=0),
+                                        "gif_animated", (48, 64))
+    sub = (cv2.resize(grey, (35, 25)) // 16).astype(np.uint8)
+    files["gif_offset_45x60.gif"] = (
+        gif_file(60, 45, [dict(index=sub, x=15, y=10, transparent=0, disposal=2,
+                                min_size=4, colours=rng.integers(0, 256, (16, 3))),
+                           dict(index=sub[::-1])],
+                 colours=rng.integers(0, 256, (16, 3)), background=7),
+        "gif_offset", (45, 60))
+    files["gif_cv2_48x64.gif"] = (cv2.imencode(".gif", bgr)[1].tobytes(), "gif_cv2",
+                                    (48, 64))
+    # TIFF: the 720p timing file (LZW, predictor 2), Pillow's codecs and
+    # modes through its libtiff, and by hand tiles, planes, MM and BigTIFF
+    smooth = scene(720, 1280, 30, noise=0.0)
+    files["tiff_lzw_pred2_720x1280.tif"] = (
+        pil_tiff(smooth, compression="tiff_lzw", tiffinfo={317: 2}), "tiff_720p", (720, 1280))
+    rgb = scene(48, 64, 88)
+    files["tiff_raw_48x64.tif"] = (pil_tiff(rgb), "tiff_raw", (48, 64))
+    files["tiff_deflate_48x64.tif"] = (pil_tiff(rgb, compression="tiff_adobe_deflate"),
+                                       "tiff_deflate", (48, 64))
+    files["tiff_jpeg_48x64.tif"] = (pil_tiff(rgb, compression="jpeg", quality=85),
+                                    "tiff_jpeg", (48, 64))
+    files["tiff_cmyk_lzw_48x64.tif"] = (pil_tiff(rgb, "CMYK", compression="tiff_lzw"),
+                                        "tiff_cmyk", (48, 64))
+    alpha = np.concatenate([rgb, (np.arange(64) * 255 // 63)[None, :, None].repeat(48, 0)],
+                           2).astype(np.uint8)
+    files["tiff_rgba_48x64.tif"] = (pil_tiff(alpha, compression="tiff_deflate"),
+                                    "tiff_rgba", (48, 64))
+    deep16 = (cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY).astype(np.uint16) * 257
+              + rng.integers(0, 256, (48, 64)).astype(np.uint16))
+    files["tiff_grey16_packbits_48x64.tif"] = (
+        tiff_file(deep16, bits=16, compression=32773, rows_per_strip=16), "tiff_grey16",
+        (48, 64))
+    files["tiff_group4_121x163.tif"] = (
+        pil_tiff(cv2.resize(grey, (163, 121)) > 120, compression="group4"), "tiff_group4",
+        (121, 163))
+    cmap = rng.integers(0, 65536, 48)
+    files["tiff_palette4_lzw_48x64.tif"] = (
+        tiff_file(cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY) // 16, bits=4, photometric=3,
+                  compression=5, rows_per_strip=20, tags={320: (3, cmap.tolist())}),
+        "tiff_palette", (48, 64))
+    files["tiff_tiles_planar_mm_48x64.tif"] = (
+        tiff_file(rgb, compression=8, predictor=2, tile=(32, 48), planar=2, order=">"),
+        "tiff_tiled", (48, 64))
+    files["tiff_orientation6_37x53.tif"] = (
+        tiff_file(scene(37, 53, 89), compression=5, tags={274: (3, [6])}),
+        "tiff_orientation", (53, 37))
+    files["bigtiff_packbits_30x40.tif"] = (
+        tiff_file(colour60[:, :, ::-1], compression=32773, rows_per_strip=7, big=True),
+        "tiff_bigtiff", (30, 40))
+    return files
+
+
 def build() -> dict[str, tuple[bytes, str, tuple | None]]:
     """{file name: (bytes, kind, decoded (h, w) or None)}"""
     import cv2
@@ -724,12 +1161,14 @@ def build() -> dict[str, tuple[bytes, str, tuple | None]]:
     files["refused_sof11_117x163.jpg"] = (
         libjpeg_encode(b, lossless=(1, 0)).replace(b"\xff\xc3", b"\xff\xcb", 1),
         "jpeg_refused", None)
+    files.update(image_kinds())
     return files
 
 
-# the JPEG kinds whose manifest entry carries cv2's pixels (rgb_sha256):
-# the card's machine has no cv2 to compare them with
+# the kinds whose manifest entry carries cv2's pixels (rgb_sha256): the
+# card's machine has no cv2 to compare them with
 HASHED_JPEGS = ("jpeg_arith", "jpeg_lossless")
+IMAGE_KINDS = ("pxm", "pfm", "sunras", "hdr", "gif", "tiff")
 
 
 def rgb_sha256(data: bytes) -> str:
@@ -766,7 +1205,7 @@ def write(out_dir: str = SAMPLES) -> dict:
         manifest["files"][name] = {
             "sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data),
             "kind": kind, "shape": list(shape) if shape else None}
-        if kind.startswith("webp") or kind in HASHED_JPEGS:   # the card's machine has
+        if kind.startswith(("webp", *IMAGE_KINDS)) or kind in HASHED_JPEGS:   # the card has
             manifest["files"][name]["rgb_sha256"] = rgb_sha256(data)   # no cv2
         if kind in ("jpeg_truncated", "jpeg_arith_no_eoi"):   # nor PIL
             manifest["files"][name]["restored_sha256"] = restored_sha256(data)

@@ -177,7 +177,7 @@ def check_image(path: str) -> tuple[str | None, bool]:
 def _header_refusal(path: str, data: bytes) -> str | None:
     """image_refusal of a file holding `data`, from its header alone."""
     kind = decode.image_kind(data)
-    if kind is None:
+    if kind not in decode.TRAIN_KINDS:
         ext = os.path.splitext(path)[1].lower()
         return (f"not a JPEG, PNG, BMP or WebP ({ext or 'no extension'}): the port "
                 "decodes only those")

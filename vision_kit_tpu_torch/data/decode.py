@@ -46,8 +46,13 @@ port decodes on its own:
   1/4/8-bit palettes, 16-bit 5-5-5 and 5-6-5, 24-bit, 32-bit (the fourth
   byte dropped), RLE8 and RLE4, bottom-up and top-down rows. WebP (lossy
   VP8, lossless VP8L, VP8X with alpha, ICC and EXIF, an animation's first
-  frame) through data/webp.py. The EXIF orientation (a JPEG's APP1, a
-  PNG's eXIf, a WebP's EXIF chunk) is applied as cv2 applies it. An image
+  frame) through data/webp.py. Netpbm P1-P6 and PAM (data/pxm.py), PFM
+  (data/pfm.py), Sun raster (data/sunras.py), Radiance HDR (data/hdr.py),
+  a GIF's first frame (data/gif.py) and a TIFF's first page (data/tiff.py,
+  with data/ccitt.py for Group 4), each as OpenCV 5's own decoder (and
+  for TIFF its libtiff 4.7.1) gives it, quirks included. The EXIF
+  orientation (a JPEG's APP1, a PNG's eXIf, a WebP's EXIF chunk, a TIFF's
+  tag 274) is applied as cv2 applies it. An image
   over OpenCV's size limits (a side over 1 << 20, more than 1 << 30
   pixels; size_refusal) is refused, whatever its kind, before any
   allocation its header sizes, where cv2.imdecode raises; so is a JPEG
@@ -81,8 +86,9 @@ port decodes on its own:
   an undefined sequential slot 0 or 1 are spliced in as a DHT segment
   before nvJPEG reads it (with_standard_tables); a progressive JPEG that leaves
   bits unknown (libjpeg smooths it, nvJPEG does not), a CMYK, YCCK or RGB
-  JPEG, a PNG, a BMP and a WebP (no library on the card decodes it)
-  decode with decode_image on the host and are uploaded. A JPEG that
+  JPEG, a PNG, a BMP, a WebP and every other kind above (no library on
+  the card decodes them) decode with decode_image on the host and are
+  uploaded, each on its own route ("host_<kind>"). A JPEG that
   nvJPEG refuses is not handed to the host. The orientation transform is
   `apply_orientation` (torch flips and transposes).
 
@@ -1773,14 +1779,14 @@ class BmpError(ValueError):
 
 class _Stream:
     """OpenCV's little-endian RLByteStream over the bytes: reading past the
-    end raises, as cv2 then gives None."""
+    end raises `error` (a ValueError), as cv2 then gives None."""
 
-    def __init__(self, data: bytes, pos: int = 0):
-        self.data, self.pos = data, pos
+    def __init__(self, data: bytes, pos: int = 0, error: type = BmpError):
+        self.data, self.pos, self.error = data, pos, error
 
     def take(self, n: int) -> bytes:
         if n < 0 or self.pos + n > len(self.data):
-            raise BmpError("unexpected end of the BMP")
+            raise self.error("unexpected end of the data")
         self.pos += n
         return self.data[self.pos - n:self.pos]
 
@@ -1970,17 +1976,36 @@ def encode_bmp(rgb: np.ndarray) -> bytes:
 # -- entry points ----------------------------------------------------------
 
 
+# The kinds that data/<kind>.py decodes, in the order OpenCV's
+# ImageCodecInitializer asks the decoders for their signatures
+# (loadsave.cpp findDecoder): BMP, GIF, HDR, JPEG, WebP, Sun raster,
+# Netpbm and PAM, PFM, TIFF, PNG. No two of these signatures overlap.
+# Each is decoded on the host, on its own route host_<kind>.
+MODULE_KINDS = ("gif", "hdr", "webp", "sunras", "pxm", "pfm", "tiff")
+# The kinds that the JAX datasets read (their IMG_EXTS); the others are
+# served but not trained on.
+TRAIN_KINDS = ("jpeg", "png", "bmp", "webp")
+
+
+def _kind_module(kind: str):
+    import importlib
+
+    return importlib.import_module(f"vision_kit_tpu_torch.data.{kind}")
+
+
 def image_kind(data: bytes) -> str | None:
-    """"jpeg", "png", "bmp", "webp" or None, from the leading bytes."""
+    """"jpeg", "png", "bmp", "webp", "gif", "hdr", "sunras", "pxm", "pfm",
+    "tiff" or None, from the leading bytes (each decoder's signature)."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == PNG_SIGNATURE:
         return "png"
     if data[:2] == b"BM":
         return "bmp"
-    from vision_kit_tpu_torch.data import webp
-
-    return "webp" if webp.is_webp(data) else None
+    for kind in MODULE_KINDS:
+        if getattr(_kind_module(kind), f"is_{kind}")(data):
+            return kind
+    return None
 
 
 def decode_image(data: bytes) -> np.ndarray | None:
@@ -1995,14 +2020,14 @@ def decode_image(data: bytes) -> np.ndarray | None:
             rgb, orientation = _decode_png(data)
         elif kind == "bmp":
             rgb, orientation = _decode_bmp(data)
-        elif kind == "webp":
-            from vision_kit_tpu_torch.data import webp
-
-            rgb, orientation = webp.decode_webp(data)
+        elif kind is not None:
+            rgb, orientation = getattr(_kind_module(kind), f"decode_{kind}")(data)
         else:
             return None
     except (ValueError, IndexError, struct.error, zlib.error):
         return None
+    if not rgb.flags.writeable:   # a view of the bytes (a raw Netpbm, ...)
+        rgb = rgb.copy()
     if orientation == 1:
         return rgb
     return apply_orientation(torch.from_numpy(rgb), orientation).numpy()
@@ -2390,7 +2415,7 @@ def walk_scans_short(data: bytes) -> list[int]:
 
 ROUTES = ("nvjpeg", "nvjpeg_progressive", "host_smoothed", "host_colour",
           "host_cut", "host_arith", "host_lossless", "host_jpeg", "host_png", "host_bmp",
-          "host_webp", "refused")
+          *(f"host_{kind}" for kind in MODULE_KINDS), "refused")
 route_counts = dict.fromkeys(ROUTES, 0)   # decode_to's decodes by route
 
 
@@ -2404,8 +2429,9 @@ def _route(data: bytes, device: torch.device, walk=None):
     ("nvjpeg_progressive"); a progressive JPEG that leaves coefficient bits
     unknown ("host_smoothed": libjpeg smooths its blocks, nvJPEG does not)
     and a CMYK, YCCK or RGB JPEG ("host_colour") decode on the host, as
-    does every other JPEG on the CPU ("host_jpeg"), every PNG, BMP and
-    WebP, while what decode_image refuses is "refused". A one-scan JPEG
+    does every other JPEG on the CPU ("host_jpeg") and every other kind
+    image_kind names ("host_png", "host_tiff", ...), while bytes of no kind
+    are "refused". A one-scan JPEG
     that the bytes end inside ("host_cut": libjpeg decodes it or suspends,
     as its bit buffer reads ahead) decodes on the host. Before nvJPEG, the
     host C walk (walk_scans_short) reads every scan's Huffman codes: a

@@ -69,7 +69,8 @@ def decode_request_bytes(data: bytes, dst_hw: tuple[int, int],
     `device`, (ratio, (dw, dh)), (h0, w0)) or None, by the route
     data/decode.py:decode_to reads from the header: on a CUDA device a
     baseline or complete progressive JPEG through nvJPEG; a PNG, a BMP, a
-    WebP, an arithmetic-coded or lossless JPEG, a CMYK/YCCK/RGB JPEG, a
+    WebP, a Netpbm/PAM, PFM, Sun raster, HDR, GIF or TIFF image, an
+    arithmetic-coded or lossless JPEG, a CMYK/YCCK/RGB JPEG, a
     progressive one that ends early and one whose scans run out of bits
     (or that lacks its EOI) on the host (`host_decode`, decode_image's
     contract; the server passes its worker processes), uploaded; on the

@@ -96,8 +96,8 @@ def write_dataset(root: str, n_train: int = 128, n_val: int = 64, seed: int = 0,
     from vision_kit_tpu_torch.utils.serve_bench import samples
 
     rng = np.random.default_rng(seed)
-    taken = [(name, data) for name, meta, data in samples()
-             if meta["shape"] and not meta["kind"].startswith("webp")]
+    taken = [(name, data) for name, meta, data in samples()   # the datasets' IMG_EXTS
+             if meta["shape"] and meta["kind"].startswith(("jpeg", "png", "bmp"))]
     webps = [(name, data) for name, _, data in samples() if name in DATASET_WEBPS]
     truncated = [] if png_only else [
         (name, data, meta["restored_sha256"]) for name, meta, data in samples()
