@@ -171,12 +171,11 @@ Phases, each printing its own line; any failure exits non-zero:
      card bit-equal to the CPU's,
      and the ms an image of the reduced and the full plain decode and of
      nvJPEG plus resize_u8; in a child
-     process (--deterministic-check), the default fit and
-     Trainer(deterministic=True)'s in turns (img/s by epoch, the two
-     deterministic runs bit-identical), a deterministic crash after step 3
+     process (--deterministic-check), two Trainer(deterministic=True)
+     fits bit-identical, a deterministic crash after step 3
      resumed from ckpts/last (an orbax directory), bit-identical to an
      uninterrupted run, and the
-     step alone in both modes in turns; the train CLI as a subprocess; an
+     step alone in both modes; the train CLI as a subprocess; an
      epoch under the profiler and the sample grid alone; the
      loader's rates and ms a batch, and the step alone on the fit's model;
  12. fit-host: the repo's default config, configs/yolov5.yaml, as it stands
@@ -2080,7 +2079,9 @@ def serve_decode(smi: str) -> dict:
     frames = {}
     dec.route_counts.update(dict.fromkeys(dec.route_counts, 0))
     for name, meta, data in svb.samples():
-        want = dec.decode_image(data)
+        # JPEG 2000 by its host C++ twin, as the server on the card decodes it
+        # (jp2_leg holds it to the plain decoder)
+        want = dec.decode_image(data, native=meta["kind"].startswith("jp2"))
         route = dec.decode_route(data, "cuda")
         got = dec.decode_to(data, "cuda", host_decode=lambda _: want)   # one host decode
         if "rgb_sha256" in meta:   # WebPs, arithmetic-coded and lossless JPEGs
@@ -2259,12 +2260,70 @@ def lzw_literal_tiff(rgb: np.ndarray) -> bytes:
     return out + b"\0" * 4
 
 
+def jp2_leg(smi: str) -> None:
+    """JPEG 2000: on every committed sample the host C++ twin
+    (csrc/j2k_decode.cu, built by nvcc) at its manifest's rgb_sha256 (cv2's
+    pixels) or refusing where cv2 refuses, and on the small ones equal to
+    the plain decoder (data/jp2.py), refusal messages included; the plain
+    decoder's ms on each small sample (one decode) and the twin's on each
+    720x1280 file (host clock, best of three)."""
+    import hashlib
+
+    from vision_kit_tpu_torch.data import jp2
+    from vision_kit_tpu_torch.utils import serve_bench as svb
+
+    def outcome(fn, data):
+        try:
+            return fn(data)[0]
+        except jp2.Jp2Error as e:
+            return str(e)
+
+    t0 = time.perf_counter()
+    calls = jp2.c_calls()
+    plain_ms, twin_ms, n = {}, {}, 0
+    for name, meta, data in svb.samples():
+        if not meta["kind"].startswith("jp2"):
+            continue
+        n += 1
+        got = outcome(jp2.decode_jp2_c, data)
+        if meta["shape"] is None:
+            check(isinstance(got, str), f"jp2: {name} decoded by the twin; cv2 refuses it")
+        else:
+            check(not isinstance(got, str) and hashlib.sha256(got.tobytes()).hexdigest()
+                  == meta["rgb_sha256"], f"jp2: {name} by the twin is not cv2's decode")
+        if meta["kind"] == "jp2_720p":
+            best = float("inf")
+            for _ in range(3):
+                t = time.perf_counter()
+                jp2.decode_jp2_c(data)
+                best = min(best, (time.perf_counter() - t) * 1e3)
+            twin_ms[name] = best
+            continue
+        t = time.perf_counter()
+        ref = outcome(jp2.decode_jp2, data)
+        plain_ms[name] = (time.perf_counter() - t) * 1e3
+        same = (ref == got if isinstance(ref, str) or isinstance(got, str)
+                else np.array_equal(ref, got))
+        check(same, f"jp2: {name}: the twin and the plain decoder differ")
+    check(jp2.c_calls() - calls == n + 3 * len(twin_ms), "jp2: the twin's call count")
+    print(f"jp2: the host C++ twin (csrc/j2k_decode.cu) on {n} JPEG 2000 samples equals "
+          f"the manifest's rgb_sha256 (cv2.imdecode + BGR2RGB), refusals alike, and the "
+          f"plain decoder on the {len(plain_ms)} small ones", flush=True)
+    for name, ms in twin_ms.items():
+        print(f"jp2: one 720x1280 decode by the twin ({name}, host clock, best of 3): "
+              f"{ms:.3f} ms on {smi}", flush=True)
+    print("jp2: one decode of each small sample by the plain decoder (host clock, ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in plain_ms.items()) + f" on {smi}",
+          flush=True)
+    print(f"jp2: the JPEG 2000 leg took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def image_kinds_leg(routes: dict, smi: str) -> None:
     """The still-image kinds of data/<kind>.py but WebP (Netpbm/PAM, PFM,
-    Sun raster, HDR, GIF, TIFF): each route's count from serve_decode's
-    one decode of every sample, and each sample's plain decode on the host
-    (ms; the 720x1280 GIF and LZW TIFF with predictor 2 once, the small
-    ones best of three)."""
+    Sun raster, HDR, GIF, TIFF, JPEG 2000): each route's count from
+    serve_decode's one decode of every sample, and each sample's plain
+    decode on the host (ms; the 720x1280 GIF and LZW TIFF with predictor 2
+    once, the small ones best of three; JPEG 2000 in jp2_leg)."""
     from vision_kit_tpu_torch.data import decode as dec
     from vision_kit_tpu_torch.utils import serve_bench as svb
 
@@ -2274,9 +2333,10 @@ def image_kinds_leg(routes: dict, smi: str) -> None:
     check(all(counts.values()), f"serve: an image kind's route took no sample: {counts}")
     print(f"serve: image kinds' routes, one decode_to each on the card: "
           f"{json.dumps(counts)}", flush=True)
+    jp2_leg(smi)
     ms = {}
     for name, meta, data in svb.samples():
-        if meta["kind"].split("_")[0] in kinds:
+        if meta["kind"].split("_")[0] in kinds and meta["kind"].split("_")[0] != "jp2":
             big = meta["shape"] == [720, 1280]
             ms[name] = svb.decode_ms(dec.decode_image, [data], "cpu", reps=1 if big else 3)
     for kind in ("gif_720p", "tiff_720p"):
@@ -2366,6 +2426,7 @@ def phase_serve(model, smi: str) -> dict:
         b0 = server._stats()["batches"]
         reset_counts()
         dec.decode_jpeg_cuda.calls = 0
+        jp2_before = dec.route_counts["host_jp2"]
         n_posts = max(64, len(payloads))   # every payload posted at least once
         got = [None] * n_posts
 
@@ -2402,6 +2463,25 @@ def phase_serve(model, smi: str) -> dict:
               f"answered 200, each equal to Predictor.run within the JSON's rounding; "
               f"{batches} batches (avg {stats['avg_batch']}), launches {counts}, "
               f"{n_jpeg} nvJPEG decodes (the other kinds on the host)", flush=True)
+        n_jp2 = dec.route_counts["host_jp2"] - jp2_before
+        print(f"serve: host_jp2 took {n_jp2} bodies in the HTTP run (the server's decode "
+              "workers, by the host C++ twin)", flush=True)
+        check(n_jp2 > 0, "serve: no JPEG 2000 body on host_jp2")
+        # one JP2 file (the HTTP run posted a raw J2K codestream) against the
+        # same image posted as a PNG
+        jp2_name, jp2_data = next((n, d) for n, m, d in svb.samples()
+                                  if n.endswith(".jp2") and m["shape"] is not None)
+        png = dec.encode_png(frames[jp2_name].cpu().numpy())
+        code_a, body_a = post(url + "/predict", jp2_data)
+        code_b, body_b = post(url + "/predict", png)
+        check(code_a == code_b == 200, f"serve: the JP2 and PNG bodies answered {code_a}, "
+              f"{code_b}")
+        rows = [np.array([d["box"] + [d["score"], d["class"]] for d in b["detections"]],
+                         np.float32).reshape(-1, 6) for b in (body_a, body_b)]
+        check(len(rows[0]) > 0 and same_detections(rows[0], rows[1], 2e-5, 1e-2),
+              "serve: the JP2 body's detections differ from the same image's as a PNG")
+        print(f"serve: {jp2_name} and the same image as a PNG gave the same "
+              f"{len(rows[0])} detections", flush=True)
         code, body = post(url + "/predict", b"this is not an image")
         check(code == 400, f"serve: garbage body answered {code}")
         code, body = post(url + "/predict", payloads[0])
@@ -2531,14 +2611,13 @@ def deterministic_check(data_dir: str, out: str) -> dict:
     CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts: with
     Trainer(deterministic=True), an uninterrupted fit of fit_config, then a
     fit that crashes after step 3 (a loader that raises) resumed from its
-    ckpts/last (an orbax directory); then, past that warm-up, the default
-    fit and the deterministic one in turns (default, deterministic,
-    deterministic, default), each deterministic run against the first; then
-    the training step alone (run_train_bench, device aug) in both modes, in
-    turns. Returns the step the crash saved and whether its ckpts/last was
-    an orbax directory, the batch ids the resume trained on,
-    both runs' final steps, the state tensors that differ from the first
-    run's, and each turn's img/s by epoch and the step's img/s by mode."""
+    ckpts/last (an orbax directory); then a second uninterrupted
+    deterministic fit, against the first; then the training step alone
+    (run_train_bench, device aug) in both modes. Returns the step the crash
+    saved and whether its ckpts/last was an orbax directory, the batch ids
+    the resume trained on, both runs' final steps, the state tensors that
+    differ from the first run's, the second fit's img/s by epoch and the
+    step's img/s by mode."""
     from vision_kit_tpu_torch.train.trainer import Trainer
     from vision_kit_tpu_torch.utils import orbax
     from vision_kit_tpu_torch.utils import stream_bench as sb
@@ -2587,27 +2666,23 @@ def deterministic_check(data_dir: str, out: str) -> dict:
     del resumed
     torch.cuda.empty_cache()
 
-    img_s, again = {"default": [], "deterministic": []}, []
-    for i, mode in enumerate(("default", "deterministic", "deterministic", "default")):
-        with restored_determinism():
-            tr = trainer(f"turn{i}", mode == "deterministic")
-            tr.fit()
-            torch.cuda.synchronize()
-        tr.train_loader.close()
-        img_s[mode].append([e["img_s"] for e in tr.epoch_stats])
-        if mode == "deterministic":
-            again.append(differ(tr)[:5])
-        del tr
-        torch.cuda.empty_cache()
+    with restored_determinism():
+        tr = trainer("again", True)
+        tr.fit()
+        torch.cuda.synchronize()
+    tr.train_loader.close()
+    img_s, again = [e["img_s"] for e in tr.epoch_stats], differ(tr)[:5]
+    del tr
+    torch.cuda.empty_cache()
 
-    step_img_s = {"default": [], "deterministic": []}
-    for mode in ("default", "deterministic", "deterministic", "default"):
+    step_img_s = {}
+    for mode in ("default", "deterministic"):
         with restored_determinism():
             if mode == "deterministic":
                 deterministic_mode()
             rec = sb.run_train_bench(ref.model, ref.loss, batch=FIT_BATCH, iters=10,
                                      warmup=3, device_aug=True)
-        step_img_s[mode].append(rec["value"])
+        step_img_s[mode] = rec["value"]
     return {**out_, "again_differ": again, "img_s": img_s, "step_img_s": step_img_s}
 
 
@@ -2842,8 +2917,8 @@ def phase_fit(smi: str) -> dict:
         fast_decode_leg(data_dir, smi)
 
         # in a child process (CUBLAS_WORKSPACE_CONFIG set before CUDA
-        # starts): default fits and Trainer(deterministic=True) ones in turns,
-        # and a crash after step 3 resumed from ckpts/last
+        # starts): two Trainer(deterministic=True) fits against each other, a
+        # crash after step 3 resumed from ckpts/last, and the step in both modes
         t0 = time.perf_counter()
         env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
         r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
@@ -2854,21 +2929,16 @@ def phase_fit(smi: str) -> dict:
         check(r.returncode == 0 and lines,
               f"the deterministic check exited {r.returncode}: {r.stderr[-2000:]}")
         res = json.loads(lines[-1][len("DETERMINISTIC "):])
-        check(res["again_differ"] == [[], []],
-              f"deterministic fits differ from the first: {res['again_differ']}")
-        img_s, step_img_s = res["img_s"], res["step_img_s"]
-        mean = {m: float(np.mean(v)) for m, v in img_s.items()}
-        print(f"fit: Trainer(deterministic=True) against the default, in turns (default, "
-              f"deterministic, deterministic, default) in a child process, img/s by epoch: "
-              + "; ".join(f"{m} " + ", ".join(f"[{a:.1f}, {b:.1f}]" for a, b in v)
-                          for m, v in img_s.items())
-              + f"; mean {mean['deterministic']:.1f} against {mean['default']:.1f} img/s "
-              f"({100 * (mean['deterministic'] / mean['default'] - 1):+.1f} %); both "
-              f"deterministic runs bit-identical to the first; the step alone "
-              f"(run_train_bench, device "
-              f"aug, b{FIT_BATCH}) in turns: " + "; ".join(
-                  f"{m} " + ", ".join(f"{v:.1f}" for v in r) for m, r in step_img_s.items())
-              + f" img/s; the child {time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+        check(res["again_differ"] == [],
+              f"the second deterministic fit differs from the first: {res['again_differ']}")
+        step = res["step_img_s"]
+        print(f"fit: Trainer(deterministic=True) in a child process: a second "
+              f"uninterrupted fit bit-identical to the first ("
+              + ", ".join(f"{v:.1f}" for v in res["img_s"]) + " img/s by epoch); the step "
+              f"alone (run_train_bench, device aug, b{FIT_BATCH}): default "
+              f"{step['default']:.1f}, deterministic {step['deterministic']:.1f} img/s "
+              f"({100 * (step['deterministic'] / step['default'] - 1):+.1f} %); the child "
+              f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
         want_steps = FIT_EPOCHS * FIT_TRAIN // FIT_BATCH
         check(res["saved_step"] == 3, f"the crash saved step {res['saved_step']}, not 3")
         check(res["last_is_orbax"], "the crash saved no orbax directory as ckpts/last")

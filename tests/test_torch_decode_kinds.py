@@ -421,9 +421,11 @@ def test_routes_from_the_header():
     walk = decode.scans_short
     with open(os.path.join(SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
-    # Netpbm/PAM, PFM, Sun raster, HDR, GIF and TIFF: host_<kind> everywhere
+    # Netpbm/PAM, PFM, Sun raster, HDR, GIF, TIFF and JPEG 2000: host_<kind>
+    # everywhere
     want.update({m["kind"]: "host_" + m["kind"].split("_")[0] for m in files.values()
-                 if m["kind"].startswith(("pxm_", "pfm_", "sunras_", "hdr_", "gif_", "tiff_"))})
+                 if m["kind"].startswith(("pxm_", "pfm_", "sunras_", "hdr_", "gif_", "tiff_",
+                                          "jp2_"))})
     # a one-scan JPEG that the bytes end inside takes the host route (libjpeg
     # may decode it); the progressive one, cut inside a later scan's
     # header, does not parse

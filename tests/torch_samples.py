@@ -2,7 +2,8 @@
 
 The card's machine has no image encoder, so the port's decode and serving
 checks there read encoded bytes from the repository. They are written here
-with cv2 from seeded smooth synthetic scenes; what cv2 does not write by
+with cv2 from seeded smooth synthetic scenes (the JPEG 2000 ones by
+tests/torch_jp2_samples.py); what cv2 does not write by
 hand (the palette PNG with zlib, the 4-bit and RLE8 BMPs, the WebP
 containers with EXIF and ICCP, animations with offset frames), with PIL
 (the CMYK and RGB JPEGs, the palette BMP), with the libwebp that Pillow
@@ -1162,13 +1163,16 @@ def build() -> dict[str, tuple[bytes, str, tuple | None]]:
         libjpeg_encode(b, lossless=(1, 0)).replace(b"\xff\xc3", b"\xff\xcb", 1),
         "jpeg_refused", None)
     files.update(image_kinds())
+    from torch_jp2_samples import jp2_files
+
+    files.update(jp2_files())
     return files
 
 
 # the kinds whose manifest entry carries cv2's pixels (rgb_sha256): the
 # card's machine has no cv2 to compare them with
 HASHED_JPEGS = ("jpeg_arith", "jpeg_lossless")
-IMAGE_KINDS = ("pxm", "pfm", "sunras", "hdr", "gif", "tiff")
+IMAGE_KINDS = ("pxm", "pfm", "sunras", "hdr", "gif", "tiff", "jp2")
 
 
 def rgb_sha256(data: bytes) -> str:
@@ -1205,8 +1209,8 @@ def write(out_dir: str = SAMPLES) -> dict:
         manifest["files"][name] = {
             "sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data),
             "kind": kind, "shape": list(shape) if shape else None}
-        if kind.startswith(("webp", *IMAGE_KINDS)) or kind in HASHED_JPEGS:   # the card has
-            manifest["files"][name]["rgb_sha256"] = rgb_sha256(data)   # no cv2
+        if shape and (kind.startswith(("webp", *IMAGE_KINDS)) or kind in HASHED_JPEGS):
+            manifest["files"][name]["rgb_sha256"] = rgb_sha256(data)   # the card has no cv2
         if kind in ("jpeg_truncated", "jpeg_arith_no_eoi"):   # nor PIL
             manifest["files"][name]["restored_sha256"] = restored_sha256(data)
     with open(os.path.join(out_dir, "MANIFEST.json"), "w") as f:

@@ -165,7 +165,8 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
         encoder = {".jpg": encode_jpeg, ".jpeg": encode_jpeg, ".png": encode_png,
                    ".bmp": encode_bmp, ".webp": encode_webp}[ext]   # IMAGE_EXT, each
     reader = ImageReader(path, save_path=(None if single_file_out else output) or (
-        path if os.path.isdir(path) else os.path.dirname(path) or "."))
+        path if os.path.isdir(path) else os.path.dirname(path) or "."),
+        device=predictor.device)
     out, warm = [], False
     for (ok, rgb), file in zip(reader, reader.files):
         if not ok:

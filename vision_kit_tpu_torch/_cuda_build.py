@@ -25,8 +25,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # exactness: no FMA contraction, no fast math (see the sources)
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # exactness: no FMA contraction on the device or the host, no fast math
+    # (see the sources)
+    "-fmad=false", "-Xcompiler", "-ffp-contract=off", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 # toolkit libraries a source links, by name (see link_flags)

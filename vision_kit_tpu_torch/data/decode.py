@@ -50,7 +50,9 @@ port decodes on its own:
   (data/pfm.py), Sun raster (data/sunras.py), Radiance HDR (data/hdr.py),
   a GIF's first frame (data/gif.py) and a TIFF's first page (data/tiff.py,
   with data/ccitt.py for Group 4), each as OpenCV 5's own decoder (and
-  for TIFF its libtiff 4.7.1) gives it, quirks included. The EXIF
+  for TIFF its libtiff 4.7.1) gives it, quirks included. JPEG 2000 (a JP2
+  file or a raw J2K codestream) through data/jp2.py, as OpenCV's OpenJPEG
+  2.5.3 decoder gives it. The EXIF
   orientation (a JPEG's APP1, a PNG's eXIf, a WebP's EXIF chunk, a TIFF's
   tag 274) is applied as cv2 applies it. An image
   over OpenCV's size limits (a side over 1 << 20, more than 1 << 30
@@ -1979,9 +1981,11 @@ def encode_bmp(rgb: np.ndarray) -> bytes:
 # The kinds that data/<kind>.py decodes, in the order OpenCV's
 # ImageCodecInitializer asks the decoders for their signatures
 # (loadsave.cpp findDecoder): BMP, GIF, HDR, JPEG, WebP, Sun raster,
-# Netpbm and PAM, PFM, TIFF, PNG. No two of these signatures overlap.
-# Each is decoded on the host, on its own route host_<kind>.
-MODULE_KINDS = ("gif", "hdr", "webp", "sunras", "pxm", "pfm", "tiff")
+# Netpbm and PAM, PFM, TIFF, PNG, JPEG 2000 (JP2, then J2K). No two of
+# these signatures overlap. Each is decoded on the host, on its own route
+# host_<kind>; JPEG 2000 by the host C++ twin of its plain decoder on the
+# card (decode_image(native=True)).
+MODULE_KINDS = ("gif", "hdr", "webp", "sunras", "pxm", "pfm", "tiff", "jp2")
 # The kinds that the JAX datasets read (their IMG_EXTS); the others are
 # served but not trained on.
 TRAIN_KINDS = ("jpeg", "png", "bmp", "webp")
@@ -1995,7 +1999,8 @@ def _kind_module(kind: str):
 
 def image_kind(data: bytes) -> str | None:
     """"jpeg", "png", "bmp", "webp", "gif", "hdr", "sunras", "pxm", "pfm",
-    "tiff" or None, from the leading bytes (each decoder's signature)."""
+    "tiff", "jp2" or None, from the leading bytes (each decoder's
+    signature)."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == PNG_SIGNATURE:
@@ -2008,13 +2013,20 @@ def image_kind(data: bytes) -> str | None:
     return None
 
 
-def decode_image(data: bytes) -> np.ndarray | None:
+def decode_image(data: bytes, native: bool = False) -> np.ndarray | None:
     """Encoded bytes -> (H, W, 3) uint8 RGB with the EXIF orientation
     applied, or None: cv2.imdecode(IMREAD_COLOR) + BGR2RGB for the kinds
-    this module takes (see the module docstring)."""
+    this module takes (see the module docstring). `native` decodes JPEG
+    2000 by the host C++ twin of the plain decoder (csrc/j2k_decode.cu,
+    built with nvcc at first use; RuntimeError when it cannot be), the
+    same pixels; other kinds take their plain decoder either way."""
     kind = image_kind(data)
     try:
-        if kind == "jpeg":
+        if kind == "jp2" and native:
+            from vision_kit_tpu_torch.data import jp2
+
+            rgb, orientation = jp2.decode_jp2_c(data)
+        elif kind == "jpeg":
             rgb, orientation = _decode_jpeg(data)
         elif kind == "png":
             rgb, orientation = _decode_png(data)
@@ -2529,16 +2541,19 @@ decode_jpeg_cuda.calls = 0
 
 
 def decode_to(data: bytes, device: str | torch.device,
-              host_decode=decode_image) -> torch.Tensor | None:
+              host_decode=None) -> torch.Tensor | None:
     """Encoded bytes -> (H, W, 3) uint8 RGB tensor on `device`, oriented as
     the EXIF says, or None, by the route its header picks (_route): nvJPEG
     on the card, else `host_decode` (decode_image, or a call that runs it
-    elsewhere) on the host and an upload. Adds one to
-    `route_counts[route]`. A JPEG that nvJPEG refuses is not handed to the
-    host decoder."""
+    elsewhere; by default decode_image with the host C++ JPEG 2000 decoder
+    on a CUDA device and the plain one on the CPU) on the host and an
+    upload. Adds one to `route_counts[route]`. A JPEG that nvJPEG refuses
+    is not handed to the host decoder."""
     device = torch.device(device)
     if device.type == "cuda":
         device = _card(device)
+    if host_decode is None:
+        host_decode = functools.partial(decode_image, native=device.type == "cuda")
     route, info = _route(data, device)
     with _nvjpeg_lock:
         route_counts[route] += 1

@@ -38,7 +38,8 @@ dispatcher, the others' follow loop, after the warmup in start()), so no
 two ranks can order them differently.
 
 HTTP API (stdlib http.server, threaded), the JAX server's:
-  POST /predict            body = encoded image (JPEG/PNG/BMP/WebP)
+  POST /predict            body = encoded image (JPEG/PNG/BMP/WebP, and
+                           every other kind decode_image takes)
                            optional ?conf= post-filter (>= server conf)
                            -> {"detections": [{"box", "score", "class",
                                "label"}], "width", "height", "batched"}
@@ -64,18 +65,19 @@ from vision_kit_tpu_torch.utils.general import resolve_device
 
 
 def decode_request_bytes(data: bytes, dst_hw: tuple[int, int],
-                         device: str | torch.device = "cuda", host_decode=decode_image):
+                         device: str | torch.device = "cuda", host_decode=None):
     """Encoded image bytes -> (letterboxed (H, W, 3) uint8 RGB tensor on
     `device`, (ratio, (dw, dh)), (h0, w0)) or None, by the route
     data/decode.py:decode_to reads from the header: on a CUDA device a
     baseline or complete progressive JPEG through nvJPEG; a PNG, a BMP, a
-    WebP, a Netpbm/PAM, PFM, Sun raster, HDR, GIF or TIFF image, an
-    arithmetic-coded or lossless JPEG, a CMYK/YCCK/RGB JPEG, a
+    WebP, a Netpbm/PAM, PFM, Sun raster, HDR, GIF, TIFF or JPEG 2000
+    image, an arithmetic-coded or lossless JPEG, a CMYK/YCCK/RGB JPEG, a
     progressive one that ends early and one whose scans run out of bits
     (or that lacks its EOI) on the host (`host_decode`, decode_image's
-    contract; the server passes its worker processes), uploaded; on the
-    CPU every kind on the host. The letterbox is letterbox_u8 on
-    `device`."""
+    contract; the server passes its worker processes; by default
+    decode_image, JPEG 2000 by its host C++ decoder on the card), uploaded;
+    on the CPU every kind on the host by the plain decoders. The letterbox
+    is letterbox_u8 on `device`."""
     img = decode_to(data, resolve_device(device), host_decode)
     if img is None:
         return None
@@ -94,10 +96,16 @@ def decode_request_bytes(data: bytes, dst_hw: tuple[int, int],
 HOST_DECODE_PROCESSES = 4
 
 
-def _host_decode_worker(conn) -> None:
-    """A pool worker: "ready" once imported, then decode_image of each body
-    it receives, answered with the (H, W, 3) uint8 array, None, or the
+def _host_decode_worker(conn, native: bool = False) -> None:
+    """A pool worker: "ready" once imported (and, with `native`, once the
+    host C++ JPEG 2000 decoder is loaded: a worker that cannot load it
+    dies before it), then decode_image(data, native) of each body it
+    receives, answered with the (H, W, 3) uint8 array, None, or the
     exception it raised."""
+    if native:
+        from vision_kit_tpu_torch.data import jp2
+
+        jp2.load_c()
     conn.send("ready")
     while True:
         try:
@@ -105,7 +113,7 @@ def _host_decode_worker(conn) -> None:
         except (EOFError, OSError):
             return
         try:
-            answer = decode_image(data)
+            answer = decode_image(data, native)
         except Exception as e:   # answered, not fatal: the next body goes on
             answer = e
         conn.send(answer)
@@ -121,13 +129,17 @@ class HostDecodePool:
     that answers nothing within `timeout_s` is killed and replaced the same
     way, with TimeoutError. So no body waits on a dead worker. The pool
     is built once every worker has imported the decoder, so that no
-    request's time holds a worker's start."""
+    request's time holds a worker's start. `native` decodes JPEG 2000 by
+    its host C++ decoder (the server's on a CUDA device): each worker loads
+    the library before it is ready, and a pool whose workers cannot load
+    it raises RuntimeError."""
 
-    def __init__(self, timeout_s: float = 60.0):
+    def __init__(self, timeout_s: float = 60.0, native: bool = False):
         import multiprocessing as mp
 
         self._ctx = mp.get_context("spawn")
         self.timeout_s = float(timeout_s)
+        self.native = bool(native)
         self._idle: queue.Queue = queue.Queue()
         self._mu = threading.Lock()
         self._workers: list = []
@@ -158,8 +170,8 @@ class HostDecodePool:
 
     def _spawn(self):
         parent, child = self._ctx.Pipe()
-        proc = self._ctx.Process(target=_host_decode_worker, args=(child,), daemon=True,
-                                 name="vkt-host-decode")
+        proc = self._ctx.Process(target=_host_decode_worker, args=(child, self.native),
+                                 daemon=True, name="vkt-host-decode")
         proc.start()
         child.close()
         worker = (proc, parent)
@@ -191,7 +203,7 @@ class HostDecodePool:
         conn.close()
 
     def decode(self, data: bytes) -> np.ndarray | None:
-        """decode_image(data) in a worker."""
+        """decode_image(data, native) in a worker."""
         deadline = time.monotonic() + self.timeout_s
         while True:
             try:
@@ -362,14 +374,22 @@ class InferenceServer:
     def start(self):
         """Warm the serving shape up (kernel builds, cuDNN's choices) and
         accept connections (rank 0), or follow rank 0's batches (the
-        mesh's other ranks)."""
+        mesh's other ranks). On a CUDA device rank 0 builds and loads the
+        host C++ JPEG 2000 decoder (csrc/j2k_decode.cu) before its decode
+        workers start; a library that cannot be built or loaded raises
+        here, and the server does not start."""
         self.predictor.warmup(self.img_size, self.batch_size)
         self._fn = self.predictor.run
         if not self.is_main:
             self._follower.start()
             self._started = True
             return self
-        self._pool = HostDecodePool(timeout_s=self.request_timeout_s)
+        native = self.device.type == "cuda"
+        if native:   # built and loaded here, before the workers load it
+            from vision_kit_tpu_torch.data import jp2
+
+            jp2.load_c()
+        self._pool = HostDecodePool(timeout_s=self.request_timeout_s, native=native)
         if self.synthetic_ingest > 0:
             h, w = self.img_size
             rng = np.random.default_rng(0)

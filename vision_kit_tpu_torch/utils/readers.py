@@ -88,10 +88,17 @@ def video_writer(path: str):
 
 
 class ImageReader:
-    """Iterate (ok, rgb_image) over a single image or a directory tree."""
+    """Iterate (ok, rgb_image) over a single image or a directory tree.
+    A directory lists the files of IMAGE_EXT; a single path is read
+    whatever its kind, as cv2.imread reads it (a .jp2 or .j2k file
+    included). On a CUDA `device` JPEG 2000 decodes by the host C++ twin of
+    the plain decoder (csrc/j2k_decode.cu), on the CPU by the plain one:
+    the same pixels."""
 
-    def __init__(self, image_path: str, save_path: str | None = None):
+    def __init__(self, image_path: str, save_path: str | None = None,
+                 device: str | torch.device = "cuda"):
         self.image_path = image_path
+        self.device = torch.device(device)
         if os.path.isdir(image_path):
             self.files = sorted(
                 os.path.join(root, f)
@@ -116,7 +123,10 @@ class ImageReader:
     def __iter__(self):
         for path in self.files:
             with open(path, "rb") as f:
-                img = decode.decode_image(f.read())
+                data = f.read()
+            native = (decode.image_kind(data) == "jp2"
+                      and resolve_device(self.device).type == "cuda")
+            img = decode.decode_image(data, native)
             yield (img is not None), img
 
     def __len__(self):
