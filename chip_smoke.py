@@ -97,7 +97,14 @@ Phases, each printing its own line; any failure exits non-zero:
      within its tolerance, the demux ms a frame and the C++ decoder's ms
      with either IDCT, and demo -p mp4v_720x1280_24f.mkv -o out.mkv in a
      --demo-video child, checked as the mp4 run, out.mkv's CodecPrivate
-     the encoder's VOL (its seconds in `seconds by phase:`);
+     the encoder's VOL (its seconds in `seconds by phase:`); then VP8
+     (vp8_leg): the committed cv2-written VP8 .webm clips through the host
+     C++ decoder (csrc/vp8_decode.cu) at cv2's sha256 on every frame (the
+     720p one through VideoReader too), bit-equal to the plain decoder on
+     the small clip, the ms a 720p key and inter frame, and demo -p
+     vp8_720x1280_12f.webm (no -o) in the same --demo-video child: one
+     launch of each kernel a frame, detections equal to an in-process
+     Predictor's (its seconds in `seconds by phase:`);
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card by the route
      its header and the host C walk pick (decode.decode_route: nvJPEG for
@@ -1454,8 +1461,8 @@ def phase_demo(model, smi: str) -> dict:
     handler and biCompression mp4v, the VOL headers before the first VOP):
     every chunk Mp4vEncoder's VOP of the drawn frame, read back by the host
     C++ decoder as its reconstruction; the ms a frame by stage. Then
-    mp4_leg and mkv_leg. Returns the video runs' launches, summed, and the
-    Matroska leg's seconds."""
+    mp4_leg, mkv_leg and vp8_leg. Returns the video runs' launches, summed,
+    and the Matroska and VP8 legs' seconds."""
     import re
     import subprocess
     import tempfile
@@ -1558,15 +1565,17 @@ def phase_demo(model, smi: str) -> dict:
         bad = vb.reader_disagreements(clip, jpegs, VIDEO_FPS, "cuda")
         check(bad == [], f"VideoReader: {bad[:5]}")
         reader_s = time.perf_counter() - t_video
-        # the three video runs (this clip, the committed mp4v .mp4 and .mkv)
-        # in one child; each leg checks its own
+        # the four video runs (this clip, the committed mp4v .mp4 and .mkv,
+        # the committed VP8 .webm without -o) in one child; each leg checks
+        # its own
         out_mp4, out_mkv = os.path.join(tmp, "out.mp4"), os.path.join(tmp, "out.mkv")
-        (res, res_mp4, res_mkv), child_s = video_runs(weights, [
+        (res, res_mp4, res_mkv, res_vp8), child_s = video_runs(weights, [
             (clip, out_avi), (os.path.join(vb.VIDEO_SAMPLES, vb.HD_CLIP), out_mp4),
-            (os.path.join(vb.VIDEO_SAMPLES, vb.HD_MKV), out_mkv)])
-        print(f"demo: the three video runs in one --demo-video child: {child_s:.1f} s "
-              f"(runs {res['run_s']:.1f}, {res_mp4['run_s']:.1f}, {res_mkv['run_s']:.1f} s)",
-              flush=True)
+            (os.path.join(vb.VIDEO_SAMPLES, vb.HD_MKV), out_mkv),
+            (os.path.join(vb.VIDEO_SAMPLES, vb.VP8_HD), "-")])
+        print(f"demo: the four video runs in one --demo-video child: {child_s:.1f} s "
+              f"(runs {res['run_s']:.1f}, {res_mp4['run_s']:.1f}, {res_mkv['run_s']:.1f}, "
+              f"{res_vp8['run_s']:.1f} s)", flush=True)
         check(f"over {VIDEO_FRAMES} frames" in res["printed"], "the demo printed no average")
         counts = res["counts"]
         check(counts == {"greedy_nms": VIDEO_FRAMES, "head_scores": VIDEO_FRAMES},
@@ -1626,8 +1635,12 @@ def phase_demo(model, smi: str) -> dict:
         t_mkv = time.perf_counter()
         counts_mkv = mkv_leg(res_mkv, out_mkv, pred, tf32, smi, (res_mp4, out_mp4))
         mkv_s = time.perf_counter() - t_mkv + res_mkv["run_s"]
+        t_vp8 = time.perf_counter()
+        counts_vp8 = vp8_leg(res_vp8, pred, tf32, smi)
+        vp8_s = time.perf_counter() - t_vp8 + res_vp8["run_s"]
     print(f"demo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {k: counts[k] + counts_mp4[k] + counts_mkv[k] for k in counts}, {"mkv leg": mkv_s}
+    return ({k: counts[k] + counts_mp4[k] + counts_mkv[k] + counts_vp8[k] for k in counts},
+            {"mkv leg": mkv_s, "vp8 leg": vp8_s})
 
 
 def mp4_leg(res: dict, out_mp4: str, pred, tf32: dict, smi: str) -> dict:
@@ -1844,12 +1857,80 @@ def mkv_leg(res: dict, out_mkv: str, pred, tf32: dict, smi: str, mp4_run: tuple)
     return counts
 
 
+def vp8_leg(res: dict, pred, tf32: dict, smi: str) -> dict:
+    """The demo's video mode on VP8: the committed clips
+    (data/video_samples/, cv2's VP80 in WebM) through the nvcc-built host
+    C++ decoder, every frame's RGB on the card at the sha256 of cv2's frame,
+    the small clip's planes bit-equal to the plain decoder's, the ms a 720p
+    key and inter frame (best of 3) and a small frame by the plain decoder
+    (video_bench.vp8_disagreements); the 720p clip through VideoReader (the
+    "host_cpp" route) at cv2's sha256 again; then `res`, the run of `demo -p
+    vp8_720x1280_12f.webm` (no -o) in the --demo-video child: one launch of
+    each kernel a frame, each frame's detections equal to an in-process
+    Predictor's on the same decoded frame. Returns the run's launches."""
+    import hashlib
+
+    from vision_kit_tpu_torch.data import vp8
+    from vision_kit_tpu_torch.utils import video_bench as vb
+    from vision_kit_tpu_torch.utils.readers import VideoReader
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    t_leg = time.perf_counter()
+    calls = vp8.c_calls()
+    bad, ms = vb.vp8_disagreements("cuda")
+    check(bad == [], f"the VP8 decoders: {bad[:5]}")
+    meta = vb.video_manifest()[vb.VP8_HD]
+    n = meta["frames"]
+    reader = VideoReader(os.path.join(vb.VIDEO_SAMPLES, vb.VP8_HD), use_thread=False)
+    frames = [fr for ok, fr in reader if ok]
+    check(reader.decoder == "host_cpp" and len(frames) == n and reader.fps == meta["fps"]
+          and vp8.c_calls() > calls, f"VideoReader took {reader.decoder} and read "
+          f"{len(frames)} of {n} frames of {vb.VP8_HD} at {reader.fps} fps")
+    for i, frame in enumerate(frames):
+        check(hashlib.sha256(frame.cpu().numpy().tobytes()).hexdigest()
+              == meta["rgb_sha256"][i], f"{vb.VP8_HD} frame {i} is not cv2's")
+    checks_s = time.perf_counter() - t_leg
+    counts = res["counts"]
+    check(counts == {"greedy_nms": n, "head_scores": n},
+          f"the vp8 video demo launched {counts}, not one of each a frame")
+    check(len(res["detections"]) == n and res["fps"] == meta["fps"],
+          f"the vp8 demo read {len(res['detections'])} frames at {res['fps']} fps")
+    n_det = 0
+    with torch.backends.cudnn.flags(**tf32):
+        for i, (frame, got) in enumerate(zip(frames, res["detections"])):
+            got = np.asarray(got, np.float32).reshape(-1, 6)
+            w, _ = pred(frame)
+            check(got.shape[1:] == (6,) and np.isfinite(got).all(),
+                  f"vp8 frame {i}: non-finite or misshapen detections")
+            check(same_detections(w, got, 1e-5, 1e-3),
+                  f"vp8 frame {i}: {len(got)} detections against in-process {len(w)}")
+            n_det += len(got)
+    check(n_det > 0, "the vp8 video demo found no detections")
+    stage = {k: float(np.median(v)) for k, v in res["ms"].items()}
+    print(f"demo: the VP8 decoders on data/video_samples/ (cv2's VP80 in WebM): the host "
+          f"C++ decoder's RGB (yuv420_to_rgb on the card) at cv2's sha256 on every frame of "
+          f"{vb.VP8_HD} (through VideoReader too) and {vb.VP8_SMALL}, its planes bit-equal "
+          f"to the plain decoder's on {vb.VP8_SMALL} ({checks_s:.1f} s); host-clock ms a "
+          f"frame: C++ 720x1280 key {ms['cpp']['key']:.2f}, inter {ms['cpp']['inter']:.2f} "
+          f"(best of 3); plain 144x176 key {ms['plain']['key']:.1f}, inter "
+          f"{ms['plain']['inter']:.1f} on {smi}", flush=True)
+    print(f"demo: python -m vision_kit_tpu_torch demo -p {vb.VP8_HD} (v5s@640 f32, {n} "
+          f"frames of 720x1280 VP8 at {meta['fps']:g} fps, the host C++ decoder, no -o): "
+          f"{n_det} detections, each frame equal to an in-process Predictor's (class exact, "
+          f"score 1e-5, box 1e-3 px), launches {counts}; median ms a frame (host clock): "
+          f"read/decode {stage['read']:.3f}, predict {stage['predict']:.3f}, draw "
+          f"{stage['draw']:.3f}; {n / res['wall_s']:.2f} fps over the loop "
+          f"({res['wall_s']:.2f} s), the run {res['run_s']:.1f} s; the vp8 leg "
+          f"{time.perf_counter() - t_leg + res['run_s']:.1f} s on {smi}", flush=True)
+    return counts
+
+
 def demo_video_child(weights: str, *paths: str) -> list:
     """`python -m vision_kit_tpu_torch demo -p clip -o out -w weights` for
-    each (clip, out) pair of `paths` in turn, through the CLI's main in this
-    process (one interpreter and CUDA context for every run), with the
-    kernels' launches counted around each run, its printing and seconds
-    kept, and demo_video's result."""
+    each (clip, out) pair of `paths` in turn (an out of "-": no -o),
+    through the CLI's main in this process (one interpreter and CUDA
+    context for every run), with the kernels' launches counted around each
+    run, its printing and seconds kept, and demo_video's result."""
     from vision_kit_tpu_torch import __main__ as cli
 
     out = []
@@ -1861,7 +1942,8 @@ def demo_video_child(weights: str, *paths: str) -> list:
         t0 = time.perf_counter()
         reset_counts()
         with contextlib.redirect_stdout(printed):
-            rc = cli.main(["demo", "-p", clip, "-o", path, "-w", weights])
+            rc = cli.main(["demo", "-p", clip, "-w", weights]
+                          + (["-o", path] if path != "-" else []))
         counts = read_counts()
         (res,) = results
         out.append({"rc": rc, "counts": counts, "fps": res["fps"], "ms": res["ms"],
@@ -3034,7 +3116,8 @@ def fit_host_config(data_dir: str, out: str):
 def phase_fit_host(smi: str) -> dict:
     """Training on the repo's default config (fit_host_config) through the
     host-augmentation route, then test(); the route's ops and loader
-    batches on the card against the CPU; its loader rates. Returns the
+    batches on the card against the CPU (the route's loader rates alone are
+    utils/loader_bench.py:host_route_rates, run apart). Returns the
     greedy_nms and head_scores launches of fit."""
     import tempfile
 
@@ -3116,21 +3199,6 @@ def phase_fit_host(smi: str) -> dict:
               f"scenes on the card (num_workers 0) against the CPU: images and targets "
               f"equal", flush=True)
         del card_ds, plain_ds
-
-        # the route's loader alone, uncached, on the card's dataset
-        uncached = YOLODataset(os.path.join(data_dir, "train", "images"), img_size=640,
-                               device="cuda")
-        rates = lb.host_route_rates(uncached, (8,), 640, 1, workers)   # b64: ~60 s
-        check(all(r["workers"]["img_s"] for r in rates.values()),
-              f"no steady-state round time with {workers} workers: {rates}")
-        print("fit-host: host-route loader uncached at 640 (degrees 5, shear 2, mosaic): "
-              + "; ".join(f"b{b}: {r['thread']['img_s']:.1f} img/s with its thread (ops on "
-                          f"the card), {r['thread']['batch_ms']:.1f} ms a batch alone, "
-                          f"{r['workers']['img_s']:.1f} img/s with {workers} workers (ops on "
-                          f"the host; a round of {workers} batches "
-                          f"{r['workers']['round_s']:.2f} s, spawn "
-                          f"{r['workers']['spawn_s']:.2f} s)" for b, r in rates.items())
-              + f" on {smi}", flush=True)
     torch.cuda.empty_cache()
     print(f"fit-host: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts

@@ -744,6 +744,16 @@ def test_mpeg4_host_decoder_on_matroska_and_xvid_clips(cuda):
     assert bad == []
 
 
+def test_vp8_host_decoder_equals_plain(cuda):
+    """csrc/vp8_decode.cu (nvcc-built) on the committed VP8 clips: every
+    frame's RGB on the card at cv2's sha256, the small clip's planes
+    bit-equal to the plain decoder's (video_bench.vp8_disagreements)."""
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    bad, ms = vb.vp8_disagreements(cuda, reps=1)
+    assert bad == [] and ms["cpp"]["key"] > 0
+
+
 def test_mpeg4_host_decoder_on_xvid_streams(cuda, tmp_path):
     """csrc/mpeg4_decode.cu (nvcc-built) against the plain decoder on random
     streams libavcodec takes as XviD's (an XVID or XVIX tag, XviD0050 or

@@ -68,7 +68,8 @@ def test_committed_clips_match_their_manifest():
 
     with open(os.path.join(VIDEO_SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
-    assert sorted(files) == sorted([HD_CLIP, SMALL_CLIP, HD_MKV, MJPEG_MKV, XVID_AVI])
+    assert sorted(files) == sorted([HD_CLIP, SMALL_CLIP, HD_MKV, MJPEG_MKV, XVID_AVI,
+                                    "vp8_144x176_10f.webm", "vp8_720x1280_12f.webm"])
     for name, meta in files.items():
         path = os.path.join(VIDEO_SAMPLES, name)
         with open(path, "rb") as f:
@@ -174,8 +175,8 @@ def test_container_refusals_name_themselves(clips, tmp_path):
     with pytest.raises(ValueError, match=r"'H264' \(H\.264\)"):
         open_movie(h264_avi)
     webm = str(tmp_path / "clip.webm")
-    write_cv2(webm, [np.zeros((48, 64, 3), np.uint8)] * 2, "VP80")
-    with pytest.raises(ValueError, match=r"'V_VP8' \(VP8\)"):
+    write_cv2(webm, [np.zeros((48, 64, 3), np.uint8)] * 2, "VP90")
+    with pytest.raises(ValueError, match=r"'V_VP9' \(VP9\)"):
         open_movie(webm)
     # an esds whose objectTypeIndication is not MPEG-4 Visual
     data = open(paths["pan.mp4"], "rb").read()

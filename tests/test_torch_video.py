@@ -258,8 +258,8 @@ def test_refusals_name_what_they_refuse(clips):
     from torch_mpeg4_samples import write_cv2
 
     webm = str(tmp / "clip.webm")
-    write_cv2(webm, [np.zeros((64, 96, 3), np.uint8)] * 2, "VP80")
-    with pytest.raises(ValueError, match=r"'V_VP8' \(VP8\)"):
+    write_cv2(webm, [np.zeros((64, 96, 3), np.uint8)] * 2, "VP90")
+    with pytest.raises(ValueError, match=r"'V_VP9' \(VP9\)"):
         VideoReader(webm, device="cpu")
     with pytest.raises(NotImplementedError, match="webcam 0"):
         VideoReader("0", device="cpu")

@@ -172,9 +172,14 @@ def write() -> dict:
                                                          cv2.IMREAD_COLOR),
                                             cv2.COLOR_BGR2RGB).tobytes()).hexdigest()
                 for pkt in raw_packets(path)]
+    path = os.path.join(VIDEO_SAMPLES, "MANIFEST.json")
+    others = {}
+    if os.path.exists(path):   # the entries other writers keep (torch_vp8_samples.py)
+        with open(path) as f:
+            others = {k: v for k, v in json.load(f)["files"].items() if k not in clips}
     manifest = {"writer": "cv2.VideoWriter (OpenCV 5.0.0, FFMPEG, libavcodec 62)",
-                "files": files}
-    with open(os.path.join(VIDEO_SAMPLES, "MANIFEST.json"), "w") as f:
+                "files": {**others, **files}}
+    with open(path, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
     return manifest

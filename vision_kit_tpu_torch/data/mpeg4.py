@@ -1374,25 +1374,34 @@ class _CDecoder:
 Y_COEFF, Y_OFFSET = 9539, 128
 VR_COEFF, UB_COEFF, UG_COEFF, VG_COEFF = 13075, 16525, -3209, -6660
 UV_OFFSET = 1024
+# the same for a full-range (JPEG range) source, as sws_setColorspaceDetails
+# derives them: Y unscaled, the chroma products scaled by 224 / 255
+FULL_RANGE_COEFFS = (8192, 0, 11485, 14516, -2819, -5850)
 
 
 def _mulhi(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * c) >> 16
 
 
-def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  full_range: bool = False) -> torch.Tensor:
     """(H, W, 3) uint8 RGB of 4:2:0 planes as cv2's FFMPEG capture converts
     them (swscale's yuv420p -> BGR24 with its x86 SIMD arithmetic: Y, U and
     V scaled by 8 and offset, multiplied keeping the high 16 bits, summed
-    and saturated; each chroma sample serves its 2x2 luma samples). Integer
-    torch ops on the planes' device."""
+    and saturated; each chroma sample serves its 2x2 luma samples), for a
+    limited-range source or, with `full_range` (a frame libavcodec tags
+    AVCOL_RANGE_JPEG), a full-range one. Integer torch ops on the planes'
+    device."""
+    y_coeff, y_offset, vr, ub, ug, vg = (FULL_RANGE_COEFFS if full_range else
+                                         (Y_COEFF, Y_OFFSET, VR_COEFF, UB_COEFF, UG_COEFF,
+                                          VG_COEFF))
     h, w = y.shape
-    yy = _mulhi((y.to(torch.int32) << 3) - Y_OFFSET, Y_COEFF)
+    yy = _mulhi((y.to(torch.int32) << 3) - y_offset, y_coeff)
     uu = (u.to(torch.int32) << 3) - UV_OFFSET
     vv = (v.to(torch.int32) << 3) - UV_OFFSET
-    r = _mulhi(vv, VR_COEFF)
-    g = _mulhi(uu, UG_COEFF) + _mulhi(vv, VG_COEFF)
-    b = _mulhi(uu, UB_COEFF)
+    r = _mulhi(vv, vr)
+    g = _mulhi(uu, ug) + _mulhi(vv, vg)
+    b = _mulhi(uu, ub)
     chroma = torch.stack([r, g, b], dim=-1)
     chroma = chroma.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[:h, :w]
     return (yy[..., None] + chroma).clamp_(0, 255).to(torch.uint8)

@@ -53,6 +53,19 @@ from __future__ import annotations
 import numpy as np
 
 from vision_kit_tpu_torch.data.decode import parse_exif_orientation, size_refusal
+from vision_kit_tpu_torch.data.vp8 import (
+    COEFFS_PROBA0 as _COEFFS_PROBA0,
+    COEFFS_UPDATE_PROBA as _COEFFS_UPDATE_PROBA,
+    BoolReader as _BoolReader,
+    reconstruct as _reconstruct,
+    loop_filter as _loop_filter,
+    KEY_UVMODE_PROBA as _KEY_UVMODE_PROBA,
+    key_intra_modes as _key_intra_modes,
+    mb_coeffs as _mb_coeffs,
+    quantizers as _quantizers,
+    token_bands as _token_bands,
+    uv_mode as _uv_mode,
+)
 
 
 class WebPError(ValueError):
@@ -66,116 +79,6 @@ class _NotEnoughData(WebPError):
 
 # -- tables ----------------------------------------------------------------
 
-# tree_dec.c CoeffsProba0 (RFC 6386 13.5): default token probabilities [type][band][ctx][node]
-_COEFFS_PROBA0 = np.frombuffer(bytes.fromhex(
-    "808080808080808080808080808080808080808080808080808080808080808080fd88fe"
-    "ffe4db8080808080bd81f2ffe3d5ffdb8080806a7ee3fcd6d1ffff8080800162f8ffece2"
-    "ffff808080b585eefeddeaff9a8080804e86caf7c6b4ffdb80808001b9f9fff3ff808080"
-    "8080b896f7ffece080808080804d6ed8ffece680808080800165fbfff1ff8080808080aa"
-    "8bf1fcecd1ffff8080802574c4f3e4ffffff80808001ccfefff5ff8080808080cfa0faff"
-    "ee8080808080806667e7ffd3ab80808080800198fcfff0ff8080808080b187f3ffeae180"
-    "808080805081d3ffc2e080808080800101ff8080808080808080f601ff80808080808080"
-    "80ff80808080808080808080c623eddfc1bba2a0919b3e832dc6ddacb0dc9dfcdd01442f"
-    "92d095a7dda2ffdf800195f1ffdde0ffff808080b88deafddedcffc78080805163b5f2b0"
-    "bef9caffff800181e8fdd6c5f2c4ffff806379d2fac9c6ffca808080175ba3f2aabbf7d2"
-    "ffff8001c8f6ffeaff80808080806db2f1ffe7f5ffff8080802c82c9fdcdc0ffff808080"
-    "0184effbdbd1ffa58080805e88e1fbdabeffff8080801664aef5baa1ffc780808001b6f9"
-    "ffe8eb80808080807c8ff1ffe3ea8080808080234db5fbc1d3ffcd808080019df7ffece7"
-    "ffff808080798debffe1e3ffff8080802d63bcfbc3d9ffe08080800101fbffd5ff808080"
-    "8080cb01f8ffff8080808080808901b1ffe0ff8080808080fd09f8fbcfd0ffc0808080af"
-    "0de0f3c1b9f9c6ffff804911abdda1b3eca7ffea80015ff7fdd4b7ffff808080ef5af4fa"
-    "d3d1ffff8080809b4dc3f8bcc3ffff8080800118effbdadbffcd808080c933dbffc4ba80"
-    "80808080452ebeefc9daffe480808001bffbffff808080808080dfa5f9ffd5ff80808080"
-    "808d7cf8ffff8080808080800110f8ffff808080808080be24e6ffecff80808080809501"
-    "ff808080808080808001e2ff8080808080808080f7c0ff8080808080808080f080ff8080"
-    "8080808080800186fcffff808080808080d53efaffff808080808080375dff8080808080"
-    "808080808080808080808080808080808080808080808080808080808080808080808080"
-    "ca18d5ebbabfdca0f0afff7e26b6e8a9b8e4aeffbb803d2e8adb97b2f0aaffd8800170e6"
-    "fac7bff79fffff80a66de4fcd3d7ffae808080274da2e8acb4f5b2ffff800134dcf6c6c7"
-    "f9dcffff807c4abff3b7c1faddffff80184782db9aaaf3b6ffff8001b6e1f9dbf0ffe080"
-    "80809596e2fcd8cdffab8080801c6caaf2b7c2fedfffff800151e6fccccbffc08080807b"
-    "66d1f7bcc4ffe9808080145f99f3a4adffcb80808001def8ffd8d58080808080a8aff6fc"
-    "ebcdffff8080802f74d7ffd3d4ffff8080800179ecfdd4d6ffff8080808d54d5fcc9caff"
-    "db8080802a50a0f0a2b9ffcd8080800101ff8080808080808080f401ff80808080808080"
-    "80ee01ff8080808080808080"), np.uint8).reshape(4, 8, 3, 11)
-# tree_dec.c CoeffsUpdateProba (RFC 6386 13.4): probability that each is updated
-_COEFFS_UPDATE_PROBA = np.frombuffer(bytes.fromhex(
-    "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffb0f6ff"
-    "ffffffffffffffffdff1fcfffffffffffffffff9fdfdfffffffffffffffffff4fcffffff"
-    "ffffffffffeafefefffffffffffffffffdfffffffffffffffffffffff6feffffffffffff"
-    "ffffeffdfefffffffffffffffffefffefffffffffffffffffff8fefffffffffffffffffb"
-    "fffefffffffffffffffffffffffffffffffffffffffffdfefffffffffffffffffbfefeff"
-    "fffffffffffffffefffefffffffffffffffffffefdfffefffffffffffffafffefffeffff"
-    "fffffffffeffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff"
-    "ffffffffffffffffffffffffd9ffffffffffffffffffffe1fcf1fdfffffeffffffffeafa"
-    "f1fafdfffdfefffffffffeffffffffffffffffffdffefeffffffffffffffffeefdfefeff"
-    "fffffffffffffff8fefffffffffffffffff9feffffffffffffffffffffffffffffffffff"
-    "fffffffffdfffffffffffffffffff7feffffffffffffffffffffffffffffffffffffffff"
-    "fffdfefffffffffffffffffcfffffffffffffffffffffffffffffffffffffffffffffefe"
-    "fffffffffffffffffdfffffffffffffffffffffffffffffffffffffffffffffefdffffff"
-    "fffffffffffafffffffffffffffffffffeffffffffffffffffffffffffffffffffffffff"
-    "ffffffffffffffffffffffffffffffffffffffffffffffffbafbfaffffffffffffffffea"
-    "fbf4fefffffffffffffffbfbf3fdfefffefffffffffffdfeffffffffffffffffecfdfeff"
-    "fffffffffffffffbfdfdfefefffffffffffffffefefffffffffffffffffefefeffffffff"
-    "fffffffffffffffffffffffffffffffffefffffffffffffffffffefeffffffffffffffff"
-    "fffefffffffffffffffffffffffffffffffffffffffffffeffffffffffffffffffffffff"
-    "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff"
-    "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff"
-    "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff"
-    "f8fffffffffffffffffffffafefcfefffffffffffffff8fef9fdfffffffffffffffffdfd"
-    "fffffffffffffffff6fdfdfffffffffffffffffcfefbfefefffffffffffffffefcffffff"
-    "fffffffffff8fefdfffffffffffffffffdfffefefffffffffffffffffbfeffffffffffff"
-    "fffff5fbfefffffffffffffffffdfdfefffffffffffffffffffbfdfffffffffffffffffc"
-    "fdfefffffffffffffffffffefffffffffffffffffffffcfffffffffffffffffff9fffeff"
-    "fffffffffffffffffffefffffffffffffffffffffdfffffffffffffffffaffffffffffff"
-    "fffffffffffffffffffffffffffffffffffffffffffffffffffffeffffffffffffffffff"
-    "ffffffffffffffffffffffff"), np.uint8).reshape(4, 8, 3, 11)
-# tree_dec.c kBModesProba (RFC 6386 11.5): 4x4 mode probabilities [top][left]
-_BMODES_PROBA = np.frombuffer(bytes.fromhex(
-    "e7783059737178987098b3407eaa762e465faf458f505552489b67383a0aabdabd110d98"
-    "721a11a32cc3150aad791850c31a3e2c405590470a26abd590221aaa2e371388a021ce47"
-    "3f14087272d00c09e251280b60b6541d102486b7598962656aa59448bb64829d6f204b50"
-    "4266a7634a3e28ea80293509b2f18d1a086b4a2b1a9249a631179d412669a033341f7380"
-    "684f0c1bd9ff5711075744472c72330fba172f290e6eb6b71511c2422d1966c5bd171216"
-    "585893962a2e2dc4cd2b61b775552623b33d2735c8571a152be8ab3822336872661d5d4d"
-    "271c55ab3aa55a6240221674ce17222ba6496b36201a3301512b1f44196a1640ab24e172"
-    "2213156684bc104c7c3e124e5f5539323033c165239fd76f592e6f3c941facdbe415126f"
-    "70714d55b3ff267872282a01c4f5d10a196d582b1d8ca6d5252b9a3d3f1e9b432d4401d1"
-    "6450082b9a01331a478e4e4e10ff8022c5ab29280566d3b70401dd333211a8d1c0171952"
-    "8a1f24ab1ba6262ce543573aa952731a3bb33f3b5ab43ba65d499a282815748fd12227af"
-    "2f0f10b722df312db72e1121b706620f20b7392e16188001361125412049731c801780cd"
-    "2803097333c01206df572509733b4d40152f68372cda09363582e2405a46cd2829171a39"
-    "363970b8052926a6d51e221a8598740a2086271335dd1a722049ff1f0941ea020f017649"
-    "4b200c33c0ffa02b33581f2343665537ba553815176f3bcd2d25c03726467c4966012262"
-    "7d622a58685575af525f543559806471652d4b4f7b2f338051ab01391105476639352931"
-    "26210d7939491a0155290a438a4d6e5a2f727315020a66ffa61706651d100a558065c41a"
-    "39120a6666d522142b75140f24a38044011a663d472522351ff3c0453c472649771cde25"
-    "442d8022012f0bf5ab3e1113469255373e46252b259a64a355a0013f095c881c4020c955"
-    "4b0f090940ffb8771056061c0540ff19f8013808118489ff3774803a0f145287391a7928"
-    "a4321f899a851923da33672c83837b1f069e5628408794e02db780161a1183f09a0e01d1"
-    "2d10155b40de0701c53815279b3c8a1766d5530c0d36c0ff442f1c551a555580802092ab"
-    "120b073f90ab0404f6231b0a92aeab0c1a80be502363b4507e362d557e2f57b033291420"
-    "654b808b769274805538290fb0ec5525093e471e117776ff11128a65263c8a37462b1a8e"
-    "9224131eabff611b148a2d3d3edb0151bc4020291475978e1415a370130c3dc380300418"), np.uint8).reshape(10, 10, 9)
-# quant_dec.c kDcTable and kAcTable (RFC 6386 14.1)
-_DC_TABLE = (
-    4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17, 18, 19, 20, 20,
-    21, 21, 22, 22, 23, 23, 24, 25, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34,
-    35, 36, 37, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 46, 47, 48, 49, 50,
-    51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63, 64, 65, 66, 67, 68,
-    69, 70, 71, 72, 73, 74, 75, 76, 76, 77, 78, 79, 80, 81, 82, 83, 84, 85,
-    86, 87, 88, 89, 91, 93, 95, 96, 98, 100, 101, 102, 104, 106, 108, 110,
-    112, 114, 116, 118, 122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143,
-    145, 148, 151, 154, 157)
-_AC_TABLE = (
-    4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23,
-    24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41,
-    42, 43, 44, 45, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 60,
-    62, 64, 66, 68, 70, 72, 74, 76, 78, 80, 82, 84, 86, 88, 90, 92, 94, 96,
-    98, 100, 102, 104, 106, 108, 110, 112, 114, 116, 119, 122, 125, 128, 131,
-    134, 137, 140, 143, 146, 149, 152, 155, 158, 161, 164, 167, 170, 173, 177,
-    181, 185, 189, 193, 197, 201, 205, 209, 213, 217, 221, 225, 229, 234, 239,
-    245, 249, 254, 259, 264, 269, 274, 279, 284)
 # vp8l_dec.c kCodeToPlane: distance codes 1..120 as (dy << 4) | (8 - dx)
 _CODE_TO_PLANE = (
     24, 7, 23, 25, 40, 6, 39, 41, 22, 26, 38, 42, 56, 5, 55, 57, 21, 27, 54,
@@ -191,12 +94,6 @@ _REPEAT_BITS, _REPEAT_OFFSET = (2, 3, 7), (3, 3, 11)
 # the five alphabets of a prefix-code group: green + lengths, red, blue,
 # alpha, distance
 _ALPHABETS = (256 + 24, 256, 256, 256, 40)
-_ZIGZAG = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
-_BANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)   # kBands, n -> band
-_CAT3456 = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
-            (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
-# kYModesIntra4: the 4x4 mode tree, -mode at the leaves
-_YMODES_INTRA4 = (0, 1, -1, 2, -2, 3, 4, 6, -3, 5, -4, -5, -6, 7, -7, 8, -8, -9)
 
 
 # -- the container ---------------------------------------------------------
@@ -832,139 +729,6 @@ def _decode_vp8l(payload: bytes) -> np.ndarray:
     return rgb.astype(np.uint8)
 
 
-# -- VP8, lossy: the boolean decoder --------------------------------------
-
-# shift that brings a range of 1..255 back to 128..255 (7 ^ floor(log2 r))
-_NORM = tuple(0 if r == 0 else 7 - (r.bit_length() - 1) for r in range(256))
-
-
-class _BoolReader:
-    """bit_reader_utils's VP8BitReader: `rng` is the range minus one,
-    `value` holds `bits` + 8 unread bits. Bytes load one at a time; the
-    first load past the end appends a zero byte and sets `eof`, as
-    VP8LoadFinalBytes does, and any read past that point leaves it set
-    (libwebp fails the decode on it)."""
-
-    __slots__ = ("buf", "pos", "end", "value", "bits", "rng", "eof")
-
-    def __init__(self, buf: bytes, start: int, size: int):
-        self.buf, self.pos, self.end = buf, start, start + size
-        self.value, self.bits, self.rng, self.eof = 0, -8, 254, False
-        self._load()
-
-    def _load(self) -> None:
-        if self.pos < self.end:
-            self.value = (self.value << 8) | self.buf[self.pos]
-            self.pos += 1
-            self.bits += 8
-        elif not self.eof:
-            self.value <<= 8
-            self.bits += 8
-            self.eof = True
-        else:
-            self.bits = 0
-
-    def bit(self, prob: int) -> int:
-        if self.bits < 0:
-            self._load()
-        pos = self.bits
-        split = (self.rng * prob) >> 8
-        if (self.value >> pos) > split:
-            r = self.rng - split
-            self.value -= (split + 1) << pos
-            b = 1
-        else:
-            r = split + 1
-            b = 0
-        sh = _NORM[r]
-        self.rng = (r << sh) - 1
-        self.bits = pos - sh
-        return b
-
-    def value_bits(self, n: int) -> int:
-        """VP8GetValue: n bits at probability 1/2, most significant first."""
-        v = 0
-        for _ in range(n):
-            v = (v << 1) | self.bit(0x80)
-        return v
-
-    def signed_value(self, n: int) -> int:
-        """VP8GetSignedValue."""
-        v = self.value_bits(n)
-        return -v if self.bit(0x80) else v
-
-
-def _coeffs(br: _BoolReader, probs, ctx: int, dq: tuple, n: int, out: list, base: int) -> int:
-    """GetCoeffs: one block's tokens from position n on, dequantized into
-    out[base + zigzag] (as libwebp's int16 coefficients); returns the
-    position after the last non-zero token (n when the first is EOB)."""
-    buf, end, norm = br.buf, br.end, _NORM
-    value, bits, rng, pos, eof = br.value, br.bits, br.rng, br.pos, br.eof
-    p = probs[n][ctx]
-
-    def get(prob):
-        nonlocal value, bits, rng, pos, eof
-        if bits < 0:
-            if pos < end:
-                value = (value << 8) | buf[pos]
-                pos += 1
-                bits += 8
-            elif not eof:
-                value <<= 8
-                bits += 8
-                eof = True
-            else:
-                bits = 0
-        split = (rng * prob) >> 8
-        if (value >> bits) > split:
-            r = rng - split
-            value -= (split + 1) << bits
-            b = 1
-        else:
-            r = split + 1
-            b = 0
-        sh = norm[r]
-        rng = (r << sh) - 1
-        bits -= sh
-        return b
-
-    result = 16
-    while n < 16:
-        if not get(p[0]):
-            result = n   # end of block
-            break
-        while not get(p[1]):   # a zero
-            n += 1
-            if n == 16:
-                break
-            p = probs[n][0]
-        if n == 16:
-            break
-        if not get(p[2]):
-            v = 1
-            p = probs[n + 1][1]
-        else:   # GetLargeValue
-            if not get(p[3]):
-                v = 3 + get(p[5]) if get(p[4]) else 2
-            elif not get(p[6]):
-                v = 7 + 2 * get(165) + get(145) if get(p[7]) else 5 + get(159)
-            else:
-                b1 = get(p[8])
-                cat = 2 * b1 + get(p[9 + b1])
-                v = 0
-                for prob in _CAT3456[cat]:
-                    v += v + get(prob)
-                v += 3 + (8 << cat)
-            p = probs[n + 1][2]
-        if get(0x80):
-            v = -v
-        v *= dq[n > 0]
-        out[base + _ZIGZAG[n]] = ((v + 32768) & 0xFFFF) - 32768   # int16
-        n += 1
-    br.value, br.bits, br.rng, br.pos, br.eof = value, bits, rng, pos, eof
-    return result
-
-
 # -- VP8, lossy: headers, modes and tokens ---------------------------------
 
 
@@ -1034,18 +798,8 @@ def _vp8_parse(data: bytes, start: int) -> dict:
     # quantizers (VP8ParseQuant)
     base_q = br.value_bits(7)
     dq = [br.signed_value(4) if br.bit(0x80) else 0 for _ in range(5)]
-    quant = []
-
-    def clip(v, hi):
-        return 0 if v < 0 else hi if v > hi else v
-
-    for s in range(4):
-        q = (seg_q[s] + (0 if absolute else base_q)) if use_segment else base_q
-        y2_ac = (_AC_TABLE[clip(q + dq[2], 127)] * 101581) >> 16
-        quant.append(dict(
-            y1=(_DC_TABLE[clip(q + dq[0], 127)], _AC_TABLE[clip(q, 127)]),
-            y2=(_DC_TABLE[clip(q + dq[1], 127)] * 2, max(8, y2_ac)),
-            uv=(_DC_TABLE[clip(q + dq[3], 117)], _AC_TABLE[clip(q + dq[4], 127)])))
+    quant = [_quantizers((seg_q[s] + (0 if absolute else base_q)) if use_segment else base_q, dq)
+             for s in range(4)]
     br.bit(0x80)   # update_proba, ignored
     # VP8ParseProba
     proba = _COEFFS_PROBA0.astype(np.int64).copy()
@@ -1055,7 +809,7 @@ def _vp8_parse(data: bytes, start: int) -> dict:
                 for p in range(11):
                     if br.bit(int(_COEFFS_UPDATE_PROBA[t, b, c, p])):
                         proba[t, b, c, p] = br.value_bits(8)
-    bands = [[proba[t, _BANDS[n]].tolist() for n in range(17)] for t in range(4)]
+    bands = _token_bands(proba)
     skip_p = br.value_bits(8) if br.bit(0x80) else None
     # filter strengths (PrecomputeFilterStrengths)
     filter_type = 0 if level == 0 else 1 if simple else 2
@@ -1083,8 +837,7 @@ def _vp8_parse(data: bytes, start: int) -> dict:
     coeffs = [0] * (n_mb * 384)
     mbs = []
     intra_t = [0] * (4 * mb_w)
-    nz_top = [0] * mb_w          # per column: 4 luma + 2 u + 2 v bits
-    nz_dc_top = [0] * mb_w
+    nz_top = [[0, 0] for _ in range(mb_w)]   # per column: 4 luma + 2 u + 2 v bits, the Y2 bit
     for mb_y in range(mb_h):
         # ParseIntraModeRow
         intra_l = [0] * 4
@@ -1094,84 +847,27 @@ def _vp8_parse(data: bytes, start: int) -> dict:
             if update_map:
                 segment = (2 + br.bit(seg_probs[2])) if br.bit(seg_probs[0]) else br.bit(seg_probs[1])
             skip = br.bit(skip_p) if skip_p is not None else 0
-            i4x4 = not br.bit(145)
             top = intra_t[4 * mb_x:4 * mb_x + 4]
-            if not i4x4:
-                ymode = ((1 if br.bit(128) else 3) if br.bit(156)
-                         else (2 if br.bit(163) else 0))
-                modes = [ymode]
-                top = [ymode] * 4
-                intra_l = [ymode] * 4
-            else:
-                modes = [0] * 16
-                for y in range(4):
-                    ym = intra_l[y]
-                    for x in range(4):
-                        prob = _BMODES_PROBA[top[x], ym]
-                        i = _YMODES_INTRA4[br.bit(int(prob[0]))]
-                        while i > 0:
-                            i = _YMODES_INTRA4[2 * i + br.bit(int(prob[i]))]
-                        ym = -i
-                        top[x] = ym
-                        modes[4 * y + x] = ym
-                    intra_l[y] = ym
+            i4x4, modes = _key_intra_modes(br, top, intra_l)
             intra_t[4 * mb_x:4 * mb_x + 4] = top
-            uvmode = 0 if not br.bit(142) else 2 if not br.bit(114) else 1 if br.bit(183) else 3
+            uvmode = _uv_mode(br, _KEY_UVMODE_PROBA)
             row.append(dict(segment=segment, skip=skip, i4x4=i4x4, modes=modes, uvmode=uvmode))
         if br.eof:
             raise WebPError("VP8: premature end of partition 0")
         # the tokens of the row
         tbr = parts[mb_y & (n_parts - 1)]
-        nz_left = nz_dc_left = 0
+        nz_left = [0, 0]
         for mb_x, mb in enumerate(row):
-            base = (mb_y * mb_w + mb_x) * 384
-            q = quant[mb["segment"]]
             skip = mb["skip"]
             if not skip:
-                non_zero = 0
-                if not mb["i4x4"]:
-                    dc = [0] * 16
-                    nz = _coeffs(tbr, bands[1], nz_dc_top[mb_x] + nz_dc_left, q["y2"], 0, dc, 0)
-                    nz_dc_top[mb_x] = nz_dc_left = int(nz > 0)
-                    for i, v in enumerate(_wht(dc) if nz > 1 else [(dc[0] + 3) >> 3] * 16):
-                        coeffs[base + 16 * i] = ((v + 32768) & 0xFFFF) - 32768
-                    first, ac = 1, bands[0]
-                else:
-                    first, ac = 0, bands[3]
-                tnz = nz_top[mb_x] & 0x0F
-                lnz = nz_left & 0x0F
-                for y in range(4):
-                    lb = lnz & 1
-                    for x in range(4):
-                        k = base + 16 * (4 * y + x)
-                        nz = _coeffs(tbr, ac, lb + (tnz & 1), q["y1"], first, coeffs, k)
-                        lb = int(nz > first)
-                        tnz = (tnz >> 1) | (lb << 7)
-                        non_zero |= nz > 1 or coeffs[k] != 0
-                    tnz >>= 4
-                    lnz = (lnz >> 1) | (lb << 7)
-                out_t, out_l = tnz, lnz >> 4
-                for ch in (0, 2):
-                    tnz = nz_top[mb_x] >> (4 + ch)
-                    lnz = nz_left >> (4 + ch)
-                    for y in range(2):
-                        lb = lnz & 1
-                        for x in range(2):
-                            k = base + 256 + 16 * (2 * ch + 2 * y + x)
-                            nz = _coeffs(tbr, bands[2], lb + (tnz & 1), q["uv"], 0, coeffs, k)
-                            lb = int(nz > 0)
-                            tnz = (tnz >> 1) | (lb << 3)
-                            non_zero |= nz > 1 or coeffs[k] != 0
-                        tnz >>= 2
-                        lnz = (lnz >> 1) | (lb << 5)
-                    out_t |= (tnz << 4) << ch
-                    out_l |= (lnz & 0xF0) << ch
-                nz_top[mb_x], nz_left = out_t, out_l
+                non_zero, _ = _mb_coeffs(tbr, coeffs, (mb_y * mb_w + mb_x) * 384, bands,
+                                         quant[mb["segment"]], not mb["i4x4"], nz_top[mb_x],
+                                         nz_left)
                 skip = not non_zero
             else:
-                nz_top[mb_x] = nz_left = 0
+                nz_top[mb_x][0] = nz_left[0] = 0
                 if not mb["i4x4"]:
-                    nz_dc_top[mb_x] = nz_dc_left = 0
+                    nz_top[mb_x][1] = nz_left[1] = 0
             if tbr.eof:
                 raise WebPError("VP8: premature end of file")
             limit, ilevel, hev = strengths[mb["segment"]][int(mb["i4x4"])]
@@ -1180,339 +876,6 @@ def _vp8_parse(data: bytes, start: int) -> dict:
     return dict(width=width, height=height, mb_w=mb_w, mb_h=mb_h, mbs=mbs, partitions=n_parts,
                 coeffs=np.array(coeffs, np.int32).reshape(n_mb, 24, 16),
                 filter_type=filter_type)
-
-
-def _wht(dc: list) -> list:
-    """TransformWHT: the 16 luma DCs of an i16 macroblock, block order."""
-    tmp = [0] * 16
-    for i in range(4):
-        a0, a1 = dc[i] + dc[12 + i], dc[4 + i] + dc[8 + i]
-        a2, a3 = dc[4 + i] - dc[8 + i], dc[i] - dc[12 + i]
-        tmp[i], tmp[8 + i], tmp[4 + i], tmp[12 + i] = a0 + a1, a0 - a1, a3 + a2, a3 - a2
-    out = [0] * 16
-    for i in range(4):
-        d = tmp[4 * i] + 3
-        a0, a1 = d + tmp[3 + 4 * i], tmp[1 + 4 * i] + tmp[2 + 4 * i]
-        a2, a3 = tmp[1 + 4 * i] - tmp[2 + 4 * i], d - tmp[3 + 4 * i]
-        out[4 * i:4 * i + 4] = ((a0 + a1) >> 3, (a3 + a2) >> 3, (a0 - a1) >> 3, (a3 - a2) >> 3)
-    return out
-
-
-def _mul1(a):
-    return ((a * 20091) >> 16) + a
-
-
-def _mul2(a):
-    return (a * 35468) >> 16
-
-
-def _residuals(coeffs: np.ndarray) -> np.ndarray:
-    """TransformOne over every block, (..., 16) raster coefficients ->
-    (..., 4, 4) residuals ((v >> 3), added to the prediction with a clip).
-    TransformDC and TransformAC3 give the same for the blocks they take."""
-    c = coeffs.reshape(-1, 4, 4).astype(np.int64)   # [row k, column i] = in[4k + i]
-    a, b = c[:, 0] + c[:, 2], c[:, 0] - c[:, 2]
-    cc = _mul2(c[:, 1]) - _mul1(c[:, 3])
-    d = _mul1(c[:, 1]) + _mul2(c[:, 3])
-    tmp = np.stack([a + d, b + cc, b - cc, a - d], 1)   # tmp[:, j, i] = C[4i + j]
-    # horizontal pass: output row i reads C[4 col + i], tmp[:, i, col]
-    t = tmp
-    dc = t[:, :, 0] + 4
-    a, b = dc + t[:, :, 2], dc - t[:, :, 2]
-    cc = _mul2(t[:, :, 1]) - _mul1(t[:, :, 3])
-    d = _mul1(t[:, :, 1]) + _mul2(t[:, :, 3])
-    out = np.stack([a + d, b + cc, b - cc, a - d], 2) >> 3   # [:, row i, col]
-    return out.reshape(*coeffs.shape[:-1], 4, 4)
-
-
-# -- VP8, lossy: reconstruction --------------------------------------------
-
-
-def _avg3(a: int, b: int, c: int) -> int:
-    return (a + 2 * b + c + 2) >> 2
-
-
-def _pred4(mode: int, t: list, lf: list, x: int) -> list:
-    """The ten 4x4 predictors of dsp/dec.c: 16 values, row-major, from the 8
-    pixels above (A..H), the 4 to the left (I..L) and the corner X."""
-    A, B, C, D, E, F, G, H = t
-    I, J, K, L = lf
-    if mode == 0:     # DC4
-        return [(A + B + C + D + I + J + K + L + 4) >> 3] * 16
-    if mode == 1:     # TM4
-        return [min(255, max(0, t[c] + lf[r] - x)) for r in range(4) for c in range(4)]
-    if mode == 2:     # VE4
-        return [_avg3(x, A, B), _avg3(A, B, C), _avg3(B, C, D), _avg3(C, D, E)] * 4
-    if mode == 3:     # HE4
-        rows = (_avg3(x, I, J), _avg3(I, J, K), _avg3(J, K, L), _avg3(K, L, L))
-        return [v for v in rows for _ in range(4)]
-    if mode == 4:     # RD4
-        d = [_avg3(J, K, L), _avg3(I, J, K), _avg3(x, I, J), _avg3(A, x, I),
-             _avg3(B, A, x), _avg3(C, B, A), _avg3(D, C, B)]   # by col - row + 3
-        return [d[c - r + 3] for r in range(4) for c in range(4)]
-    if mode == 5:     # VR4
-        o = [0] * 16
-        o[0] = o[9] = (x + A + 1) >> 1
-        o[1] = o[10] = (A + B + 1) >> 1
-        o[2] = o[11] = (B + C + 1) >> 1
-        o[3] = (C + D + 1) >> 1
-        o[12] = _avg3(K, J, I)
-        o[8] = _avg3(J, I, x)
-        o[4] = o[13] = _avg3(I, x, A)
-        o[5] = o[14] = _avg3(x, A, B)
-        o[6] = o[15] = _avg3(A, B, C)
-        o[7] = _avg3(B, C, D)
-        return o
-    if mode == 6:     # LD4
-        d = [_avg3(A, B, C), _avg3(B, C, D), _avg3(C, D, E), _avg3(D, E, F),
-             _avg3(E, F, G), _avg3(F, G, H), _avg3(G, H, H)]   # by col + row
-        return [d[c + r] for r in range(4) for c in range(4)]
-    if mode == 7:     # VL4
-        o = [0] * 16
-        o[0] = (A + B + 1) >> 1
-        o[1] = o[8] = (B + C + 1) >> 1
-        o[2] = o[9] = (C + D + 1) >> 1
-        o[3] = o[10] = (D + E + 1) >> 1
-        o[4] = _avg3(A, B, C)
-        o[5] = o[12] = _avg3(B, C, D)
-        o[6] = o[13] = _avg3(C, D, E)
-        o[7] = o[14] = _avg3(D, E, F)
-        o[11] = _avg3(E, F, G)
-        o[15] = _avg3(F, G, H)
-        return o
-    if mode == 8:     # HD4
-        o = [0] * 16
-        o[0] = o[6] = (I + x + 1) >> 1
-        o[4] = o[10] = (J + I + 1) >> 1
-        o[8] = o[14] = (K + J + 1) >> 1
-        o[12] = (L + K + 1) >> 1
-        o[3] = _avg3(A, B, C)
-        o[2] = _avg3(x, A, B)
-        o[1] = o[7] = _avg3(I, x, A)
-        o[5] = o[11] = _avg3(J, I, x)
-        o[9] = o[15] = _avg3(K, J, I)
-        o[13] = _avg3(L, K, J)
-        return o
-    o = [L] * 16      # HU4
-    o[0] = (I + J + 1) >> 1
-    o[2] = o[4] = (J + K + 1) >> 1
-    o[6] = o[8] = (K + L + 1) >> 1
-    o[1] = _avg3(I, J, K)
-    o[3] = o[5] = _avg3(J, K, L)
-    o[7] = o[9] = _avg3(K, L, L)
-    return o
-
-
-def _pred_block(mode: int, size: int, t: list, lf: list, x: int, mb_x: int, mb_y: int) -> list:
-    """The 16x16 luma or 8x8 chroma predictor (DC with CheckMode's border
-    variants, TM, VE, HE): size * size values, row-major."""
-    if mode == 0:
-        shift = 4 if size == 16 else 3
-        if mb_x and mb_y:
-            v = (sum(t) + sum(lf) + size) >> (shift + 1)
-        elif mb_y:    # no left
-            v = (sum(t) + (size >> 1)) >> shift
-        elif mb_x:    # no top
-            v = (sum(lf) + (size >> 1)) >> shift
-        else:
-            v = 128
-        return [v] * (size * size)
-    if mode == 1:
-        return [min(255, max(0, t[c] + lf[r] - x)) for r in range(size) for c in range(size)]
-    if mode == 2:
-        return list(t) * size
-    return [v for v in lf for _ in range(size)]
-
-
-def _reconstruct(fr: dict) -> tuple:
-    """ReconstructRow over the frame: each macroblock predicted from the
-    unfiltered pixels above and to the left (127 above the frame, 129 to
-    its left, 127 or 129 at the corner), its residuals added with a clip.
-    Returns the (16 mb_h, 16 mb_w) luma and two (8 mb_h, 8 mb_w) chroma
-    planes, before the loop filter."""
-    mb_w, mb_h = fr["mb_w"], fr["mb_h"]
-    # (n_mb, 24, 4, 4); beyond +-256 a residual clips the sum whatever the
-    # prediction, so the clip table below covers every sum
-    res = np.clip(_residuals(fr["coeffs"]), -256, 256)
-    Y = [[0] * (16 * mb_w) for _ in range(16 * mb_h)]
-    U = [[0] * (8 * mb_w) for _ in range(8 * mb_h)]
-    V = [[0] * (8 * mb_w) for _ in range(8 * mb_h)]
-    clip = [0] * 256 + list(range(256)) + [255] * 512   # clip[v + 256]
-    for i, mb in enumerate(fr["mbs"]):
-        mb_y, mb_x = divmod(i, mb_w)
-        y0, x0 = 16 * mb_y, 16 * mb_x
-        r = res[i].tolist()
-        # the work area: row 0 and column 0 hold the borders
-        if mb_y:
-            top = Y[y0 - 1][x0:x0 + 16]
-            tr = Y[y0 - 1][x0 + 16:x0 + 20] if mb_x < mb_w - 1 else [top[15]] * 4
-            corner = Y[y0 - 1][x0 - 1] if mb_x else 129
-        else:
-            top, tr, corner = [127] * 16, [127] * 4, 127
-        left = [Y[y0 + j][x0 - 1] for j in range(16)] if mb_x else [129] * 16
-        if mb["i4x4"]:
-            ws = [[corner] + top + tr] + [[left[j]] + [0] * 20 for j in range(16)]
-            for j in (4, 8, 12):
-                ws[j][17:21] = tr
-            for n, mode in enumerate(mb["modes"]):
-                by, bx = divmod(n, 4)
-                r0, c0 = 4 * by, 4 * bx
-                p = _pred4(mode, ws[r0][c0 + 1:c0 + 9],
-                           [ws[r0 + 1 + j][c0] for j in range(4)], ws[r0][c0])
-                blk = r[n]
-                for j in range(4):
-                    row = ws[r0 + 1 + j]
-                    rj = blk[j]
-                    for k in range(4):
-                        row[c0 + 1 + k] = clip[p[4 * j + k] + rj[k] + 256]
-            for j in range(16):
-                Y[y0 + j][x0:x0 + 16] = ws[1 + j][1:17]
-        else:
-            p = _pred_block(mb["modes"][0], 16, top, left, corner, mb_x, mb_y)
-            for j in range(16):
-                rows = r[4 * (j >> 2):4 * (j >> 2) + 4]
-                rj = [v for blk in rows for v in blk[j & 3]]
-                Y[y0 + j][x0:x0 + 16] = [clip[a + b + 256] for a, b in
-                                         zip(p[16 * j:16 * j + 16], rj)]
-        cy0, cx0 = 8 * mb_y, 8 * mb_x
-        for plane, first in ((U, 16), (V, 20)):
-            if mb_y:
-                top = plane[cy0 - 1][cx0:cx0 + 8]
-                corner = plane[cy0 - 1][cx0 - 1] if mb_x else 129
-            else:
-                top, corner = [127] * 8, 127
-            left = [plane[cy0 + j][cx0 - 1] for j in range(8)] if mb_x else [129] * 8
-            p = _pred_block(mb["uvmode"], 8, top, left, corner, mb_x, mb_y)
-            for j in range(8):
-                rows = r[first + 2 * (j >> 2):first + 2 * (j >> 2) + 2]
-                rj = [v for blk in rows for v in blk[j & 3]]
-                plane[cy0 + j][cx0:cx0 + 8] = [clip[a + b + 256] for a, b in
-                                               zip(p[8 * j:8 * j + 8], rj)]
-    return (np.array(Y, np.int32), np.array(U, np.int32), np.array(V, np.int32))
-
-
-# -- VP8, lossy: the loop filter -------------------------------------------
-
-
-def _sclip1(v):
-    return np.clip(v, -128, 127)
-
-
-def _sclip2(v):
-    return np.clip(v, -16, 15)
-
-
-def _clip1(v):
-    return np.clip(v, 0, 255)
-
-
-def _filter_lines(px: np.ndarray, thresh: np.ndarray, ithresh, hev_t, kind: str) -> None:
-    """One edge's filter over many lines at once, in place: `px` is (n, 8),
-    p3 p2 p1 p0 q0 q1 q2 q3 of each line. `kind` "simple" (SimpleVFilter16:
-    DoFilter2 where NeedsFilter), "edge" (FilterLoop26: DoFilter2 on high
-    edge variance, else DoFilter6) or "inner" (FilterLoop24: DoFilter2 or
-    DoFilter4); thresh is the filter's, before 2 * thresh + 1."""
-    p3, p2, p1, p0, q0, q1, q2, q3 = (px[:, k] for k in range(8))
-    t2 = 2 * thresh + 1
-    mask = 4 * np.abs(p0 - q0) + np.abs(p1 - q1) <= t2
-    if kind == "simple":
-        hev = mask
-    else:
-        it = ithresh
-        mask &= ((np.abs(p3 - p2) <= it) & (np.abs(p2 - p1) <= it) & (np.abs(p1 - p0) <= it)
-                 & (np.abs(q3 - q2) <= it) & (np.abs(q2 - q1) <= it) & (np.abs(q1 - q0) <= it))
-        hev = mask & ((np.abs(p1 - p0) > hev_t) | (np.abs(q1 - q0) > hev_t))
-    if hev.any():   # DoFilter2
-        a = 3 * (q0 - p0) + _sclip1(p1 - q1)
-        a1, a2 = _sclip2((a + 4) >> 3), _sclip2((a + 3) >> 3)
-        new_p0, new_q0 = _clip1(p0 + a2), _clip1(q0 - a1)
-        px[hev, 3], px[hev, 4] = new_p0[hev], new_q0[hev]
-    if kind == "simple":
-        return
-    rest = mask & ~hev
-    if not rest.any():
-        return
-    if kind == "edge":   # DoFilter6
-        a = _sclip1(3 * (q0 - p0) + _sclip1(p1 - q1))
-        a1, a2, a3 = (27 * a + 63) >> 7, (18 * a + 63) >> 7, (9 * a + 63) >> 7
-        new = (_clip1(p2 + a3), _clip1(p1 + a2), _clip1(p0 + a1), _clip1(q0 - a1),
-               _clip1(q1 - a2), _clip1(q2 - a3))
-        for k, v in zip(range(1, 7), new):
-            px[rest, k] = v[rest]
-    else:                # DoFilter4
-        a = 3 * (q0 - p0)
-        a1, a2 = _sclip2((a + 4) >> 3), _sclip2((a + 3) >> 3)
-        a3 = (a1 + 1) >> 1
-        new = (_clip1(p1 + a3), _clip1(p0 + a2), _clip1(q0 - a1), _clip1(q1 - a3))
-        for k, v in zip(range(2, 6), new):
-            px[rest, k] = v[rest]
-
-
-def _loop_filter(fr: dict, planes: tuple) -> tuple:
-    """DoFilter over every macroblock, as FinishRow runs it in raster order:
-    the left macroblock edge, the three inner vertical edges (macroblocks
-    with coefficients, and i4x4 ones), the top edge, the inner horizontal
-    edges; chroma likewise with one inner edge, and luma only for the
-    simple filter. A macroblock's filters touch its own pixels and four
-    beyond its left and top edges, so the macroblocks with the same
-    mb_x + 2 mb_y run together, in that order, each step over the three
-    planes at once (laid out in one array: no filtered edge lies on a
-    plane's border). Returns the filtered (Y, U, V)."""
-    Y, U, V = planes
-    ftype = fr["filter_type"]
-    if ftype == 0:
-        return planes
-    mb_w, mb_h = fr["mb_w"], fr["mb_h"]
-    hy, wc = Y.shape[0], U.shape[1]
-    canvas = np.zeros((hy + U.shape[0], Y.shape[1]), np.int32)
-    canvas[:hy], canvas[hy:, :wc], canvas[hy:, wc:] = Y, U, V
-    # (first row, first column, macroblock size) of each plane filtered
-    layout = [(0, 0, 16)] + ([(hy, 0, 8), (hy, wc, 8)] if ftype == 2 else [])
-    info = np.array([mb["filter"] for mb in fr["mbs"]], np.int64).reshape(mb_h, mb_w, 4)
-    ys, xs = np.mgrid[0:mb_h, 0:mb_w]
-    wave = (xs + 2 * ys).reshape(-1)
-    order = np.argsort(wave, kind="stable")
-    bounds = np.searchsorted(wave[order], np.arange(wave.max() + 2))
-    offs = np.arange(-4, 4)
-    kind_edge, kind_inner = ("simple", "simple") if ftype == 1 else ("edge", "inner")
-    for t in range(len(bounds) - 1):
-        sel = order[bounds[t]:bounds[t + 1]]
-        my, mx = sel // mb_w, sel % mb_w
-        limit, ilevel, hev_t, inner = (info[my, mx, k] for k in range(4))
-        on = limit > 0
-        if not on.any():
-            continue
-        my, mx, limit, ilevel, hev_t, inner = (a[on] for a in (my, mx, limit, ilevel, hev_t,
-                                                             inner.astype(bool)))
-        steps = [("h", 0, mx > 0, limit + 4, kind_edge)]
-        steps += [("h", d, inner, limit, kind_inner) for d in (4, 8, 12)]
-        steps += [("v", 0, my > 0, limit + 4, kind_edge)]
-        steps += [("v", d, inner, limit, kind_inner) for d in (4, 8, 12)]
-        for axis, d, use, thresh, kind in steps:
-            if not use.any():
-                continue
-            rows, cols, params = [], [], []
-            for r0, c0, size in layout:
-                if d >= size:
-                    continue
-                span = np.arange(size)
-                y0, x0 = r0 + size * my[use], c0 + size * mx[use]
-                if axis == "h":   # a vertical edge at x0 + d: lines along rows
-                    rows.append((y0[:, None] + span).reshape(-1))
-                    cols.append(np.repeat(x0 + d, size))
-                else:             # a horizontal edge at y0 + d: lines down columns
-                    rows.append(np.repeat(y0 + d, size))
-                    cols.append((x0[:, None] + span).reshape(-1))
-                params.append([np.repeat(a[use], size) for a in (thresh, ilevel, hev_t)])
-            rows, cols = np.concatenate(rows), np.concatenate(cols)
-            if axis == "h":
-                rr, cc = rows[:, None], cols[:, None] + offs
-            else:
-                rr, cc = rows[:, None] + offs, cols[:, None]
-            px = canvas[rr, cc]
-            _filter_lines(px, *(np.concatenate(p) for p in zip(*params)), kind)
-            canvas[rr, cc] = px
-    return canvas[:hy], canvas[hy:, :wc], canvas[hy:, wc:]
 
 
 # -- VP8, lossy: output ----------------------------------------------------

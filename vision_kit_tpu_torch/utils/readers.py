@@ -11,22 +11,26 @@ the bytes cv2.imwrite writes.
 VideoReader reads what the JAX one reads from a video file through
 cv2.VideoCapture, as far as the port has decoders: the container is
 sniffed (RIFF AVI by utils/avi.py, ISO BMFF .mp4/.mov by utils/mp4.py,
-Matroska/WebM by utils/mkv.py), then the codec routes each frame. A
-Motion-JPEG frame is a whole JPEG, decoded on the card by the route
+Matroska/WebM by utils/mkv.py, IVF by utils/ivf.py), then the codec
+routes each frame. A Motion-JPEG frame is a whole JPEG, decoded on the
+card by the route
 data/decode.py:decode_to picks from its header (nvJPEG for a baseline
 frame) or by the plain decoder; an MPEG-4 Part 2 frame (cv2's mp4v, XVID
 or DIVX) is a VOP that data/mpeg4.py's decoder takes in order, with the
 container's codec tag for libavcodec's XviD rule, as host C++ on the card
 (csrc/mpeg4_decode.cu) or in numpy, its planes converted to RGB by
-mpeg4.yuv420_to_rgb on the device. Frames are RGB uint8 tensors on the
-device. A webcam index, VP8/VP9/AV1 (WebM), H.264/HEVC (in any container)
-and the MPEG-4 tools the decoder refuses (B-VOPs, quarter-pel, ...) raise
-naming what they are. Its writer writes mp4v into the container the
-output's name gives, as the JAX one writes (cv2.VideoWriter, fourcc
-mp4v): data/mpeg4.py's Mp4vEncoder's VOPs in an MP4 (.mp4, .mov; utils/
-mp4.py's Mp4Writer), an AVI (.avi; utils/avi.py's AviWriter, fourcc mp4v
-as cv2 tags it, the VOL headers before the first VOP) or Matroska (.mkv;
-utils/mkv.py's MkvWriter). A .webm output raises: WebM holds VP8, VP9 or
+mpeg4.yuv420_to_rgb on the device; a VP8 frame (cv2's VP80 in WebM,
+Matroska, AVI or IVF) goes to data/vp8.py's decoder in order, as host
+C++ on the card (csrc/vp8_decode.cu) or in Python, its planes converted
+by yuv420_to_rgb in the range its key frame gives. Frames are RGB uint8
+tensors on the device. A webcam index, VP9/AV1, VP8 in MP4,
+H.264/HEVC (in any container) and the MPEG-4 tools the decoder refuses
+(B-VOPs, quarter-pel, ...) raise naming what they are. Its writer writes
+mp4v into the container the output's name gives, as the JAX one writes
+(cv2.VideoWriter, fourcc mp4v): data/mpeg4.py's Mp4vEncoder's VOPs in an
+MP4 (.mp4, .mov; utils/mp4.py's Mp4Writer), an AVI (.avi; utils/avi.py's
+AviWriter, fourcc mp4v as cv2 tags it, the VOL headers before the first
+VOP) or Matroska (.mkv; utils/mkv.py's MkvWriter). A .webm output raises: WebM holds VP8, VP9 or
 AV1 only, and the JAX writer opens nothing for it (it writes no file).
 """
 
@@ -39,38 +43,42 @@ import threading
 import numpy as np
 import torch
 
-from vision_kit_tpu_torch.data import decode, mpeg4
+from vision_kit_tpu_torch.data import decode, mpeg4, vp8
 from vision_kit_tpu_torch.data.datasets import DECODERS
 from vision_kit_tpu_torch.data.encode import encode_jpeg
 from vision_kit_tpu_torch.data.loader import _await, _on_stream, _side_stream
 from vision_kit_tpu_torch.utils.avi import AviWriter, read_avi
+from vision_kit_tpu_torch.utils.ivf import read_ivf
 from vision_kit_tpu_torch.utils.mkv import MkvWriter, read_mkv
 from vision_kit_tpu_torch.utils.mp4 import Mp4Writer, file_kind, read_mp4
 from vision_kit_tpu_torch.utils.general import resolve_device
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
 IMAGE_EXT = (".jpg", ".jpeg", ".webp", ".bmp", ".png")
-VIDEO_EXT = (".mp4", ".avi", ".mov", ".mkv")
+VIDEO_EXT = (".mp4", ".avi", ".mov", ".mkv", ".webm", ".ivf")
 # the containers an output's name picks, each written as mp4v (the JAX
 # writer's fourcc for any name)
 VIDEO_OUT = {".mp4": Mp4Writer, ".mov": Mp4Writer, ".avi": AviWriter, ".mkv": MkvWriter}
 
 
 def open_movie(path: str):
-    """The video track of an AVI, MP4/QuickTime or Matroska/WebM file,
+    """The video track of an AVI, MP4/QuickTime, Matroska/WebM or IVF file,
     sniffed from its first bytes (utils/avi.py:AviMovie, utils/mp4.py:
-    Mp4Movie or utils/mkv.py:MkvMovie); ValueError naming anything else."""
+    Mp4Movie, utils/mkv.py:MkvMovie or utils/ivf.py:IvfMovie); ValueError
+    naming anything else."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:4] == b"RIFF":
         return read_avi(path)
     if head[:4] == b"\x1a\x45\xdf\xa3":
         return read_mkv(path)
+    if head[:4] == b"DKIF":
+        return read_ivf(path)
     kind = file_kind(head)
     if kind is None:
         return read_mp4(path)
-    raise ValueError(f"{path}: {kind}: the port reads AVI, MP4/QuickTime and "
-                     "Matroska video only")
+    raise ValueError(f"{path}: {kind}: the port reads AVI, MP4/QuickTime, Matroska and "
+                     "IVF video only")
 
 
 def video_writer(path: str):
@@ -141,18 +149,24 @@ class VideoReader:
 
     Frames are (H, W, 3) uint8 RGB tensors on `device`. decoder "auto" (on
     the card) decodes Motion-JPEG through decode.decode_to (nvJPEG, or the
-    host for a frame nvJPEG does not take) and MPEG-4 with the host C++
-    decoder; "plain" (and everything on the CPU) with data/decode.py's and
-    data/mpeg4.py's plain decoders; "nvjpeg" names the JPEG route and
-    needs the card. On the card the thread decodes on a stream of its own,
+    host for a frame nvJPEG does not take), and MPEG-4 and VP8 with the
+    host C++ decoders; "plain" (and
+    everything on the CPU) with data/decode.py's, data/mpeg4.py's and
+    data/vp8.py's plain decoders; "nvjpeg" names the JPEG route and needs
+    the card. On the card the thread decodes on a stream of its own,
     and the consumer's stream waits on an event recorded after each frame.
     A Motion-JPEG frame the decoder refuses ends the stream there with a
     logged warning, as a failed cv2.VideoCapture.read does; it is not
     handed to the other decoder. An MPEG-4 stream the decoder refuses
     raises its Mpeg4Error: at construction when its VOL says so, else from
-    the iteration at the VOP. `save(frame)` appends an RGB frame (numpy or
-    tensor) to `save_path` at the input's fps as mp4v, in the container
-    its name gives (VIDEO_OUT)."""
+    the iteration at the VOP. A VP8 stream skips its hidden and empty
+    frames, as cv2 does, and ends with a logged warning at a frame
+    libavcodec refuses (vp8.Vp8Error), as cv2's read fails there; a frame
+    the port refuses (vp8.Vp8Unsupported: a key frame that changes the
+    size) raises. `len()` is cv2's CAP_PROP_FRAME_COUNT for VP8 (the
+    container's count, hidden frames included). `save(frame)` appends an
+    RGB frame (numpy or tensor) to `save_path` at the input's fps as mp4v,
+    in the container its name gives (VIDEO_OUT)."""
 
     def __init__(self, video_path: str = "0", use_thread: bool = True,
                  save_path: str | None = None, prefetch: int = 4,
@@ -170,17 +184,22 @@ class VideoReader:
             raise ValueError(f"decoder 'nvjpeg' needs a CUDA device, not {self.device}")
         self.movie = open_movie(str(video_path))
         on_card = self.device.type == "cuda" and decoder != "plain"
-        if self.movie.codec == "mpeg4":
+        if self.movie.codec in ("mpeg4", "vp8"):
             if decoder == "nvjpeg":
+                name = "MPEG-4 Part 2" if self.movie.codec == "mpeg4" else "VP8"
                 raise ValueError(f"{video_path}: decoder 'nvjpeg' decodes JPEGs, and this "
-                                 "is MPEG-4 Part 2 video; use 'auto' or 'plain'")
+                                 f"is {name} video; use 'auto' or 'plain'")
             self.decoder = "host_cpp" if on_card else "plain"
-            self._check_headers()
+            if self.movie.codec == "mpeg4":
+                self._check_headers()
         else:
             self.decoder = "nvjpeg" if on_card else "plain"
         self.org_width, self.org_height = self.movie.width, self.movie.height
         self.fps = self.movie.fps or 30.0
         self.total_frames = len(self.movie.frames)
+        count = getattr(self.movie, "frame_count", None)
+        if self.movie.codec == "vp8" and count is not None:
+            self.total_frames = count
         self.use_thread = use_thread
         self.save_path = save_path
         self.video_writer = None
@@ -204,17 +223,34 @@ class VideoReader:
         """(True, frame, ready event or None) per frame in order, then one
         (False, None, None); decoded on `stream` when given."""
         codec = None
+        device = "cuda" if self.decoder == "host_cpp" else "cpu"
         if self.movie.codec == "mpeg4":
-            codec = mpeg4.Mpeg4Decoder(self.movie.config or None,
-                                       "cuda" if self.decoder == "host_cpp" else "cpu",
+            codec = mpeg4.Mpeg4Decoder(self.movie.config or None, device,
                                        codec_tag=self.movie.tag)
+        elif self.movie.codec == "vp8":
+            codec = vp8.Vp8Decoder(device)
         try:
             with open(self.movie.path, "rb") as f:
-                for i in range(self.total_frames):
+                for i in range(len(self.movie.frames)):
                     if self._stop.is_set():
                         break
                     data = self.movie.read_frame(f, i)
-                    if codec is not None:
+                    if isinstance(codec, vp8.Vp8Decoder):
+                        if not data:                # cv2 skips an empty frame
+                            continue
+                        try:
+                            planes = codec.decode(data)
+                        except vp8.Vp8Unsupported:
+                            raise
+                        except vp8.Vp8Error as e:
+                            logger.warning("%s: frame %d does not decode (%s): the stream "
+                                           "ends there", self.movie.path, i, e)
+                            break
+                        if planes is None:          # show_frame 0
+                            continue
+                        full = codec.range()
+                        frame, ready = _on_stream(stream, lambda: self._rgb(planes, full))
+                    elif codec is not None:
                         planes = codec.decode(data)
                         if planes is None:          # headers only
                             continue
@@ -232,10 +268,10 @@ class VideoReader:
                 codec.close()
         yield False, None, None
 
-    def _rgb(self, planes) -> torch.Tensor:
-        """MPEG-4 planes to RGB on the device (uploaded first)."""
+    def _rgb(self, planes, full_range: bool = False) -> torch.Tensor:
+        """MPEG-4 or VP8 planes to RGB on the device (uploaded first)."""
         y, u, v = (torch.from_numpy(p).to(self.device, non_blocking=True) for p in planes)
-        return mpeg4.yuv420_to_rgb(y, u, v)
+        return mpeg4.yuv420_to_rgb(y, u, v, full_range)
 
     def _decode(self, data: bytes) -> torch.Tensor | None:
         if self.decoder == "nvjpeg":

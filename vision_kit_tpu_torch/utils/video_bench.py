@@ -273,3 +273,54 @@ def movie_frames(path: str) -> list:
     movie = open_movie(path)
     with open(path, "rb") as f:
         return [movie.read_frame(f, i) for i in range(len(movie.frames))]
+
+
+# -- VP8 --------------------------------------------------------------------------
+
+VP8_HD, VP8_SMALL = "vp8_720x1280_12f.webm", "vp8_144x176_10f.webm"
+
+
+def vp8_disagreements(device="cuda", reps: int = 3) -> tuple:
+    """The committed VP8 clips (cv2's VP80 in WebM) through the host C++
+    decoder (Vp8Decoder(device="cuda")), `reps` passes: every frame's RGB,
+    converted by yuv420_to_rgb on `device`, at the manifest's sha256 of
+    cv2's frame; the small clip's planes and range equal to the plain
+    decoder's bit for bit. Returns (disagreements, {"cpp": {"key": ms,
+    "inter": ms} of a 720p frame, each frame's best of the passes (the
+    median of those over the frames of a kind), "plain": the same of a
+    144x176 frame, one pass}), host-clock ms."""
+    import hashlib
+
+    from vision_kit_tpu_torch.data import mpeg4, vp8
+
+    bad, ms, small = [], {}, []
+    manifest = video_manifest()
+    for name, route in ((VP8_HD, "cpp"), (VP8_SMALL, "cpp"), (VP8_SMALL, "plain")):
+        frames = movie_frames(os.path.join(VIDEO_SAMPLES, name))
+        best = [float("inf")] * len(frames)
+        for p in range(reps if route == "cpp" else 1):
+            dec = vp8.Vp8Decoder("cuda" if route == "cpp" else "cpu")
+            for i, data in enumerate(frames):
+                t0 = time.perf_counter()
+                planes = dec.decode(data)
+                best[i] = min(best[i], (time.perf_counter() - t0) * 1000)
+                if p:
+                    continue
+                if route == "plain":
+                    if not (all(np.array_equal(a, b) for a, b in zip(planes, small[i][0]))
+                            and dec.range() == small[i][1]):
+                        bad.append(f"{name} frame {i}: the C++ planes differ from the plain")
+                    continue
+                if name == VP8_SMALL:
+                    small.append((planes, dec.range()))
+                rgb = mpeg4.yuv420_to_rgb(*(torch.from_numpy(q).to(device) for q in planes),
+                                          dec.range())
+                digest = hashlib.sha256(rgb.cpu().numpy().tobytes()).hexdigest()
+                if digest != manifest[name]["rgb_sha256"][i]:
+                    bad.append(f"{name} frame {i}: the C++ decoder's RGB is not cv2's")
+            dec.close()
+        if name == VP8_HD or route == "plain":
+            keys = [not f[0] & 1 for f in frames]
+            ms[route] = {kind: float(np.median([b for b, k in zip(best, keys) if k == want]))
+                         for kind, want in (("key", True), ("inter", False))}
+    return bad, ms
