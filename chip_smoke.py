@@ -88,7 +88,7 @@ Phases, each printing its own line; any failure exits non-zero:
      bit-equal to the plain decoder on the small clip and the 720p clip's
      first GOP, and demo -p mp4v_720x1280_24f.mp4 -o out.mp4 in a
      --demo-video child: one launch of each kernel a frame (the *_video
-     rows count the three video runs), detections equal to an in-process
+     rows count the five video runs), detections equal to an in-process
      Predictor's, out.mp4 Mp4vEncoder's VOPs, read back as its
      reconstruction; then Matroska (mkv_leg): the committed cv2-written
      720p mp4v .mkv through VideoReader (utils/mkv.py, the C++ decoder) at
@@ -98,13 +98,16 @@ Phases, each printing its own line; any failure exits non-zero:
      with either IDCT, and demo -p mp4v_720x1280_24f.mkv -o out.mkv in a
      --demo-video child, checked as the mp4 run, out.mkv's CodecPrivate
      the encoder's VOL (its seconds in `seconds by phase:`); then VP8
-     (vp8_leg): the committed cv2-written VP8 .webm clips through the host
+     (vpx_leg): the committed cv2-written VP8 .webm clips through the host
      C++ decoder (csrc/vp8_decode.cu) at cv2's sha256 on every frame (the
      720p one through VideoReader too), bit-equal to the plain decoder on
      the small clip, the ms a 720p key and inter frame, and demo -p
      vp8_720x1280_12f.webm (no -o) in the same --demo-video child: one
      launch of each kernel a frame, detections equal to an in-process
-     Predictor's (its seconds in `seconds by phase:`);
+     Predictor's (its seconds in `seconds by phase:`); then VP9 (the same
+     vpx_leg): the committed cv2-written VP9 .webm clips (the 720p one in
+     four tile columns) through csrc/vp9_decode.cu the same way, and demo
+     -p vp9_720x1280_12f.webm (no -o) as a fifth run of that child;
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card by the route
      its header and the host C walk pick (decode.decode_route: nvJPEG for
@@ -206,7 +209,7 @@ Phases, each printing its own line; any failure exits non-zero:
      processes, with cuDNN. A world of 1 over NCCL through
      init_distributed: a v5s@640 b64 step under the mesh against the same
      step without it, in float64 and in f32 (mesh_step_failures), and the
-     bf16 step's img/s with and without the mesh in turns. Two ranks
+     bf16 step's img/s with and without the mesh, once each. Two ranks
      sharing the card over gloo on CUDA tensors: the 2x32 step against
      the 1x64 step likewise, the f32 one held to each rank's rows run
      alone; the bf16 2x32 step's time; Trainer.fit (the fit phase's
@@ -270,8 +273,8 @@ greedy_nms_spatial and head_scores_spatial the kernels at a spatial
 single-frame request's B=1, K=1024, with rank 0's launches in one such
 request and both ranks' under launches_by_rank; greedy_nms_video and
 head_scores_video the same B=1 shape, with the launches of the demo's
-three video runs, the Motion-JPEG AVI's, the mp4v .mp4's and the mp4v
-.mkv's, summed)
+five video runs, the Motion-JPEG AVI's, the mp4v .mp4's and .mkv's, and
+the VP8 and VP9 .webm's, summed)
 and, last, {"ok": true,
 "device": ...}.
 
@@ -1461,8 +1464,8 @@ def phase_demo(model, smi: str) -> dict:
     handler and biCompression mp4v, the VOL headers before the first VOP):
     every chunk Mp4vEncoder's VOP of the drawn frame, read back by the host
     C++ decoder as its reconstruction; the ms a frame by stage. Then
-    mp4_leg, mkv_leg and vp8_leg. Returns the video runs' launches, summed,
-    and the Matroska and VP8 legs' seconds."""
+    mp4_leg, mkv_leg and vpx_leg for VP8 and VP9. Returns the video runs'
+    launches, summed, and the Matroska, VP8 and VP9 legs' seconds."""
     import re
     import subprocess
     import tempfile
@@ -1565,17 +1568,18 @@ def phase_demo(model, smi: str) -> dict:
         bad = vb.reader_disagreements(clip, jpegs, VIDEO_FPS, "cuda")
         check(bad == [], f"VideoReader: {bad[:5]}")
         reader_s = time.perf_counter() - t_video
-        # the four video runs (this clip, the committed mp4v .mp4 and .mkv,
-        # the committed VP8 .webm without -o) in one child; each leg checks
-        # its own
+        # the five video runs (this clip, the committed mp4v .mp4 and .mkv,
+        # the committed VP8 and VP9 .webm without -o) in one child; each leg
+        # checks its own
         out_mp4, out_mkv = os.path.join(tmp, "out.mp4"), os.path.join(tmp, "out.mkv")
-        (res, res_mp4, res_mkv, res_vp8), child_s = video_runs(weights, [
+        (res, res_mp4, res_mkv, res_vp8, res_vp9), child_s = video_runs(weights, [
             (clip, out_avi), (os.path.join(vb.VIDEO_SAMPLES, vb.HD_CLIP), out_mp4),
             (os.path.join(vb.VIDEO_SAMPLES, vb.HD_MKV), out_mkv),
-            (os.path.join(vb.VIDEO_SAMPLES, vb.VP8_HD), "-")])
-        print(f"demo: the four video runs in one --demo-video child: {child_s:.1f} s "
+            (os.path.join(vb.VIDEO_SAMPLES, vb.VP8_HD), "-"),
+            (os.path.join(vb.VIDEO_SAMPLES, vb.VP9_HD), "-")])
+        print(f"demo: the five video runs in one --demo-video child: {child_s:.1f} s "
               f"(runs {res['run_s']:.1f}, {res_mp4['run_s']:.1f}, {res_mkv['run_s']:.1f}, "
-              f"{res_vp8['run_s']:.1f} s)", flush=True)
+              f"{res_vp8['run_s']:.1f}, {res_vp9['run_s']:.1f} s)", flush=True)
         check(f"over {VIDEO_FRAMES} frames" in res["printed"], "the demo printed no average")
         counts = res["counts"]
         check(counts == {"greedy_nms": VIDEO_FRAMES, "head_scores": VIDEO_FRAMES},
@@ -1636,11 +1640,14 @@ def phase_demo(model, smi: str) -> dict:
         counts_mkv = mkv_leg(res_mkv, out_mkv, pred, tf32, smi, (res_mp4, out_mp4))
         mkv_s = time.perf_counter() - t_mkv + res_mkv["run_s"]
         t_vp8 = time.perf_counter()
-        counts_vp8 = vp8_leg(res_vp8, pred, tf32, smi)
+        counts_vp8 = vpx_leg("vp8", res_vp8, pred, tf32, smi)
         vp8_s = time.perf_counter() - t_vp8 + res_vp8["run_s"]
+        t_vp9 = time.perf_counter()
+        counts_vp9 = vpx_leg("vp9", res_vp9, pred, tf32, smi)
+        vp9_s = time.perf_counter() - t_vp9 + res_vp9["run_s"]
     print(f"demo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return ({k: counts[k] + counts_mp4[k] + counts_mkv[k] + counts_vp8[k] for k in counts},
-            {"mkv leg": mkv_s, "vp8 leg": vp8_s})
+    return ({k: counts[k] + counts_mp4[k] + counts_mkv[k] + counts_vp8[k] + counts_vp9[k]
+             for k in counts}, {"mkv leg": mkv_s, "vp8 leg": vp8_s, "vp9 leg": vp9_s})
 
 
 def mp4_leg(res: dict, out_mp4: str, pred, tf32: dict, smi: str) -> dict:
@@ -1857,70 +1864,75 @@ def mkv_leg(res: dict, out_mkv: str, pred, tf32: dict, smi: str, mp4_run: tuple)
     return counts
 
 
-def vp8_leg(res: dict, pred, tf32: dict, smi: str) -> dict:
-    """The demo's video mode on VP8: the committed clips
-    (data/video_samples/, cv2's VP80 in WebM) through the nvcc-built host
-    C++ decoder, every frame's RGB on the card at the sha256 of cv2's frame,
+def vpx_leg(kind: str, res: dict, pred, tf32: dict, smi: str) -> dict:
+    """The demo's video mode on VP8 or VP9 (`kind` "vp8" or "vp9"): the
+    committed clips (data/video_samples/, cv2's VP80 or VP90 in WebM; the
+    VP9 720p one in four tile columns) through the nvcc-built host C++
+    decoder, every frame's RGB on the card at the sha256 of cv2's frame,
     the small clip's planes bit-equal to the plain decoder's, the ms a 720p
     key and inter frame (best of 3) and a small frame by the plain decoder
-    (video_bench.vp8_disagreements); the 720p clip through VideoReader (the
-    "host_cpp" route) at cv2's sha256 again; then `res`, the run of `demo -p
-    vp8_720x1280_12f.webm` (no -o) in the --demo-video child: one launch of
-    each kernel a frame, each frame's detections equal to an in-process
+    (video_bench.vp8_disagreements, vp9_disagreements); the 720p clip
+    through VideoReader (the "host_cpp" route) at cv2's sha256 again; then
+    `res`, the run of `demo -p vp8_720x1280_12f.webm` or
+    `vp9_720x1280_12f.webm` (no -o) in the --demo-video child: one launch
+    of each kernel a frame, each frame's detections equal to an in-process
     Predictor's on the same decoded frame. Returns the run's launches."""
     import hashlib
+    import importlib
 
-    from vision_kit_tpu_torch.data import vp8
     from vision_kit_tpu_torch.utils import video_bench as vb
     from vision_kit_tpu_torch.utils.readers import VideoReader
     from vision_kit_tpu_torch.utils.stream_bench import same_detections
 
+    codec = importlib.import_module(f"vision_kit_tpu_torch.data.{kind}")
+    name, hd, small = kind.upper(), getattr(vb, f"{kind.upper()}_HD"), getattr(
+        vb, f"{kind.upper()}_SMALL")
     t_leg = time.perf_counter()
-    calls = vp8.c_calls()
-    bad, ms = vb.vp8_disagreements("cuda")
-    check(bad == [], f"the VP8 decoders: {bad[:5]}")
-    meta = vb.video_manifest()[vb.VP8_HD]
+    calls = codec.c_calls()
+    bad, ms = getattr(vb, f"{kind}_disagreements")("cuda")
+    check(bad == [], f"the {name} decoders: {bad[:5]}")
+    meta = vb.video_manifest()[hd]
     n = meta["frames"]
-    reader = VideoReader(os.path.join(vb.VIDEO_SAMPLES, vb.VP8_HD), use_thread=False)
+    reader = VideoReader(os.path.join(vb.VIDEO_SAMPLES, hd), use_thread=False)
     frames = [fr for ok, fr in reader if ok]
     check(reader.decoder == "host_cpp" and len(frames) == n and reader.fps == meta["fps"]
-          and vp8.c_calls() > calls, f"VideoReader took {reader.decoder} and read "
-          f"{len(frames)} of {n} frames of {vb.VP8_HD} at {reader.fps} fps")
+          and codec.c_calls() > calls, f"VideoReader took {reader.decoder} and read "
+          f"{len(frames)} of {n} frames of {hd} at {reader.fps} fps")
     for i, frame in enumerate(frames):
         check(hashlib.sha256(frame.cpu().numpy().tobytes()).hexdigest()
-              == meta["rgb_sha256"][i], f"{vb.VP8_HD} frame {i} is not cv2's")
+              == meta["rgb_sha256"][i], f"{hd} frame {i} is not cv2's")
     checks_s = time.perf_counter() - t_leg
     counts = res["counts"]
     check(counts == {"greedy_nms": n, "head_scores": n},
-          f"the vp8 video demo launched {counts}, not one of each a frame")
+          f"the {kind} video demo launched {counts}, not one of each a frame")
     check(len(res["detections"]) == n and res["fps"] == meta["fps"],
-          f"the vp8 demo read {len(res['detections'])} frames at {res['fps']} fps")
+          f"the {kind} demo read {len(res['detections'])} frames at {res['fps']} fps")
     n_det = 0
     with torch.backends.cudnn.flags(**tf32):
         for i, (frame, got) in enumerate(zip(frames, res["detections"])):
             got = np.asarray(got, np.float32).reshape(-1, 6)
             w, _ = pred(frame)
             check(got.shape[1:] == (6,) and np.isfinite(got).all(),
-                  f"vp8 frame {i}: non-finite or misshapen detections")
+                  f"{kind} frame {i}: non-finite or misshapen detections")
             check(same_detections(w, got, 1e-5, 1e-3),
-                  f"vp8 frame {i}: {len(got)} detections against in-process {len(w)}")
+                  f"{kind} frame {i}: {len(got)} detections against in-process {len(w)}")
             n_det += len(got)
-    check(n_det > 0, "the vp8 video demo found no detections")
+    check(n_det > 0, f"the {kind} video demo found no detections")
     stage = {k: float(np.median(v)) for k, v in res["ms"].items()}
-    print(f"demo: the VP8 decoders on data/video_samples/ (cv2's VP80 in WebM): the host "
-          f"C++ decoder's RGB (yuv420_to_rgb on the card) at cv2's sha256 on every frame of "
-          f"{vb.VP8_HD} (through VideoReader too) and {vb.VP8_SMALL}, its planes bit-equal "
-          f"to the plain decoder's on {vb.VP8_SMALL} ({checks_s:.1f} s); host-clock ms a "
+    print(f"demo: the {name} decoders on data/video_samples/ (cv2's {name[:2]}{name[2]}0 in "
+          f"WebM): the host C++ decoder's RGB (yuv420_to_rgb on the card) at cv2's sha256 on "
+          f"every frame of {hd} (through VideoReader too) and {small}, its planes bit-equal "
+          f"to the plain decoder's on {small} ({checks_s:.1f} s); host-clock ms a "
           f"frame: C++ 720x1280 key {ms['cpp']['key']:.2f}, inter {ms['cpp']['inter']:.2f} "
           f"(best of 3); plain 144x176 key {ms['plain']['key']:.1f}, inter "
           f"{ms['plain']['inter']:.1f} on {smi}", flush=True)
-    print(f"demo: python -m vision_kit_tpu_torch demo -p {vb.VP8_HD} (v5s@640 f32, {n} "
-          f"frames of 720x1280 VP8 at {meta['fps']:g} fps, the host C++ decoder, no -o): "
+    print(f"demo: python -m vision_kit_tpu_torch demo -p {hd} (v5s@640 f32, {n} "
+          f"frames of 720x1280 {name} at {meta['fps']:g} fps, the host C++ decoder, no -o): "
           f"{n_det} detections, each frame equal to an in-process Predictor's (class exact, "
           f"score 1e-5, box 1e-3 px), launches {counts}; median ms a frame (host clock): "
           f"read/decode {stage['read']:.3f}, predict {stage['predict']:.3f}, draw "
           f"{stage['draw']:.3f}; {n / res['wall_s']:.2f} fps over the loop "
-          f"({res['wall_s']:.2f} s), the run {res['run_s']:.1f} s; the vp8 leg "
+          f"({res['wall_s']:.2f} s), the run {res['run_s']:.1f} s; the {kind} leg "
           f"{time.perf_counter() - t_leg + res['run_s']:.1f} s on {smi}", flush=True)
     return counts
 
@@ -3249,7 +3261,7 @@ def ddp_world1(port: int) -> dict:
     world of 1 over NCCL through init_distributed; a v5s@640 step of b64
     under the mesh against the same step without it, in f32 and float64
     (stream_bench.mesh_step_disagreements); then the bf16 training step
-    (run_train_bench, b64) with and without the mesh, in turns."""
+    (run_train_bench, b64) with and without the mesh, once each."""
     from vision_kit_tpu_torch.models import build_model
     from vision_kit_tpu_torch.parallel import init_distributed, make_mesh
     from vision_kit_tpu_torch.train.losses import YoloLoss
@@ -3266,7 +3278,7 @@ def ddp_world1(port: int) -> dict:
         model = build_model(v5s_config(), device=mesh.device, dtype=torch.bfloat16, seed=0)
         loss = YoloLoss(80, model.head.grid_anchors, sb.TRAIN_HYP, layout="native")
         rates = {"mesh": [], "plain": []}
-        for name in ("mesh", "plain", "plain", "mesh"):
+        for name in ("mesh", "plain"):
             rec = sb.run_train_bench(model, loss, DDP_BATCH, iters=10, warmup=3,
                                      mesh=mesh if name == "mesh" else None)
             rates[name].append(rec["value"])
@@ -3532,7 +3544,7 @@ def phase_ddp(smi: str) -> dict:
           f"{w1['disagreements'][:2]}; f32 worst error against the float64 step over that "
           f"tolerance, mesh {w1['metrics']['mesh_vs_f64']:.3f}, without "
           f"{w1['metrics']['plain_vs_f64']:.3f}; loss {w1['metrics']['mesh']['loss']:.6f} "
-          f"vs {w1['metrics']['one_process']['loss']:.6f}; bf16 step b{DDP_BATCH} in turns: mesh "
+          f"vs {w1['metrics']['one_process']['loss']:.6f}; bf16 step b{DDP_BATCH}: mesh "
           + ", ".join(f"{v:.1f}" for v in mesh_img_s) + " img/s, without "
           + ", ".join(f"{v:.1f}" for v in plain_img_s) + f" img/s on {smi}", flush=True)
 

@@ -754,6 +754,16 @@ def test_vp8_host_decoder_equals_plain(cuda):
     assert bad == [] and ms["cpp"]["key"] > 0
 
 
+def test_vp9_host_decoder_equals_plain(cuda):
+    """csrc/vp9_decode.cu (nvcc-built) on the committed VP9 clips: every
+    frame's RGB on the card at cv2's sha256, the small clip's planes
+    bit-equal to the plain decoder's (video_bench.vp9_disagreements)."""
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    bad, ms = vb.vp9_disagreements(cuda, reps=1)
+    assert bad == [] and ms["cpp"]["key"] > 0
+
+
 def test_mpeg4_host_decoder_on_xvid_streams(cuda, tmp_path):
     """csrc/mpeg4_decode.cu (nvcc-built) against the plain decoder on random
     streams libavcodec takes as XviD's (an XVID or XVIX tag, XviD0050 or
@@ -794,7 +804,8 @@ def test_mpeg4_host_decoder_on_xvid_streams(cuda, tmp_path):
 def test_video_reader_nvjpeg_on_a_matroska_clip(cuda):
     """VideoReader on the committed V_MJPEG Matroska clip: plain frames
     equal to decode_image, nvJPEG's within NVJPEG_TOLERANCE, threaded =
-    unthreaded (video_bench.reader_disagreements)."""
+    unthreaded, also behind queued work on the card
+    (video_bench.reader_disagreements)."""
     import os
 
     from vision_kit_tpu_torch.utils import video_bench as vb
@@ -806,8 +817,8 @@ def test_video_reader_nvjpeg_on_a_matroska_clip(cuda):
 def test_video_reader_nvjpeg_against_plain(cuda, tmp_path):
     """VideoReader on a Motion-JPEG clip of the 720x1280 samples: the plain
     decoder's frames on the card bit-equal to decode_image, nvJPEG's within
-    decode.NVJPEG_TOLERANCE of them, threaded = unthreaded
-    (video_bench.reader_disagreements)."""
+    decode.NVJPEG_TOLERANCE of them, threaded = unthreaded, also behind
+    queued work on the card (video_bench.reader_disagreements)."""
     from vision_kit_tpu_torch.utils import video_bench as vb
 
     path = str(tmp_path / "clip.avi")

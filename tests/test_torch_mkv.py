@@ -211,10 +211,14 @@ def test_mkv_writer_reads_back_in_cv2_as_the_reconstruction(tmp_path):
 
 
 def test_refusals_name_the_codec(tmp_path):
-    path = str(tmp_path / "clip_VP90.webm")
+    path = str(tmp_path / "clip_VP90.webm")      # VP9 decodes (data/vp9.py)
     write_cv2(path, moving("pan", 64, 80, 2, seed=1), "VP90")
-    with pytest.raises(ValueError, match=r"'V_VP9' \(VP9\)"):
-        VideoReader(path, device="cpu")
+    assert len([f for ok, f in VideoReader(path, device="cpu", use_thread=False) if ok]) == 2
+    av1 = str(tmp_path / "clip_AV1.webm")        # the same file, its CodecID V_AV1
+    with open(path, "rb") as f, open(av1, "wb") as g:
+        g.write(f.read().replace(b"V_VP9", b"V_AV1"))
+    with pytest.raises(ValueError, match=r"'V_AV1' \(AV1\)"):
+        VideoReader(av1, device="cpu")
     path = str(tmp_path / "clip_VP80.webm")      # VP8 decodes (data/vp8.py)
     write_cv2(path, moving("pan", 64, 80, 2, seed=1), "VP80")
     assert len([f for ok, f in VideoReader(path, device="cpu", use_thread=False) if ok]) == 2

@@ -69,7 +69,8 @@ def test_committed_clips_match_their_manifest():
     with open(os.path.join(VIDEO_SAMPLES, "MANIFEST.json")) as f:
         files = json.load(f)["files"]
     assert sorted(files) == sorted([HD_CLIP, SMALL_CLIP, HD_MKV, MJPEG_MKV, XVID_AVI,
-                                    "vp8_144x176_10f.webm", "vp8_720x1280_12f.webm"])
+                                    "vp8_144x176_10f.webm", "vp8_720x1280_12f.webm",
+                                    "vp9_144x176_10f.webm", "vp9_720x1280_12f.webm"])
     for name, meta in files.items():
         path = os.path.join(VIDEO_SAMPLES, name)
         with open(path, "rb") as f:
@@ -176,8 +177,16 @@ def test_container_refusals_name_themselves(clips, tmp_path):
         open_movie(h264_avi)
     webm = str(tmp_path / "clip.webm")
     write_cv2(webm, [np.zeros((48, 64, 3), np.uint8)] * 2, "VP90")
-    with pytest.raises(ValueError, match=r"'V_VP9' \(VP9\)"):
-        open_movie(webm)
+    assert open_movie(webm).codec == "vp9"       # VP9 decodes (data/vp9.py)
+    av1 = _patched(webm, tmp_path, b"V_VP9", b"V_AV1", "av1.webm")
+    with pytest.raises(ValueError, match=r"'V_AV1' \(AV1\)"):
+        open_movie(av1)
+    vp09 = str(tmp_path / "vp09.mp4")
+    write_cv2(vp09, [np.zeros((48, 64, 3), np.uint8)] * 2, "VP90")
+    assert open_movie(vp09).codec == "vp9"
+    av01 = _patched(vp09, tmp_path, b"vp09", b"av01", "av01.mp4")
+    with pytest.raises(ValueError, match=r"AV1 \(av01\)"):
+        open_movie(av01)
     # an esds whose objectTypeIndication is not MPEG-4 Visual
     data = open(paths["pan.mp4"], "rb").read()
     i = data.find(b"esds")

@@ -259,8 +259,12 @@ def test_refusals_name_what_they_refuse(clips):
 
     webm = str(tmp / "clip.webm")
     write_cv2(webm, [np.zeros((64, 96, 3), np.uint8)] * 2, "VP90")
-    with pytest.raises(ValueError, match=r"'V_VP9' \(VP9\)"):
-        VideoReader(webm, device="cpu")
+    assert len(read_all(VideoReader(webm, device="cpu", use_thread=False))) == 2   # VP9 decodes
+    av1 = str(tmp / "av1.webm")                  # the same file, its CodecID V_AV1
+    with open(webm, "rb") as f, open(av1, "wb") as g:
+        g.write(f.read().replace(b"V_VP9", b"V_AV1"))
+    with pytest.raises(ValueError, match=r"'V_AV1' \(AV1\)"):
+        VideoReader(av1, device="cpu")
     with pytest.raises(NotImplementedError, match="webcam 0"):
         VideoReader("0", device="cpu")
     out = str(tmp / "out.webm")

@@ -5,7 +5,8 @@ messages included, and to the committed 720x1280 clip's manifest; the
 containers (a V_MS/VFW/FOURCC VP80 track, WebM without DefaultDuration,
 IVF's header and timestamps) against cv2's fps and frame count; JAX's
 VideoReader on the same files; `demo -p clip.webm` against JAX's
-Predictor; and the refusals (VP9, AV1, VP8 in MP4, the nvjpeg decoder)."""
+Predictor; VP8 in MP4 (a vp08 entry) against cv2; and the refusals (AV1,
+H.264, the nvjpeg decoder)."""
 
 import ctypes
 import hashlib
@@ -176,38 +177,50 @@ def test_jax_reader_reads_the_same(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """VP9 and AV1 in WebM, Matroska and IVF, VP8 in MP4 (a vp08 sample
-    entry) and the nvjpeg decoder on VP8 raise naming what they are; a key
-    frame that changes the size raises from the iteration."""
+    """AV1 in WebM, Matroska, IVF and MP4 (av01), H.264 in IVF and the
+    nvjpeg decoder on VP8 raise naming what they are (VP9 in WebM and IVF
+    and VP8 in MP4 now open); a key frame that changes the size raises from
+    the iteration."""
     from torch_mpeg4_samples import write_cv2 as write_mp4v
 
     path = str(tmp_path / "vp8.webm")
     write_cv2(path, moving("pan", 48, 64, 2, seed=1))
     path9 = str(tmp_path / "vp9b.webm")
     write_mp4v(path9, moving("pan", 48, 64, 2, seed=1), "VP90")
-    with pytest.raises(ValueError, match=r"'V_VP9' \(VP9\)"):
-        open_movie(path9)
+    assert open_movie(path9).codec == "vp9"      # VP9 decodes (data/vp9.py)
+    av1b = str(tmp_path / "av1b.webm")           # the same file, its CodecID V_AV1
+    with open(path9, "rb") as f, open(av1b, "wb") as g:
+        g.write(f.read().replace(b"V_VP9", b"V_AV1"))
+    with pytest.raises(ValueError, match=r"'V_AV1' \(AV1\)"):
+        open_movie(av1b)
     frames, _ = random_stream(1, 32, 32, 2)
     av1 = str(tmp_path / "av1.mkv")
     build(av1, frames, [True, False], 32, 32, codec_id="V_AV1")
     with pytest.raises(ValueError, match=r"'V_AV1' \(AV1\)"):
         open_movie(av1)
-    for fourcc, name in ((b"VP90", "VP9"), (b"AV01", "AV1")):
+    for fourcc, name in ((b"H264", "H.264"), (b"AV01", "AV1"), (b"VP90", None)):
         ivf = str(tmp_path / f"{fourcc.decode()}.ivf")
         write_ivf(ivf, frames, 32, 32)
         with open(ivf, "r+b") as f:
             f.seek(8)
             f.write(fourcc)
+        if name is None:                          # VP9 opens (data/vp9.py)
+            assert open_movie(ivf).codec == "vp9"
+            continue
         with pytest.raises(ValueError, match=rf"'{fourcc.decode()}' \({name}\)"):
             open_movie(ivf)
     mp4 = str(tmp_path / "clip.mp4")
     write_mp4v(mp4, moving("pan", 48, 64, 2, seed=1), "mp4v")
     data = open(mp4, "rb").read()
-    vp08 = str(tmp_path / "vp08.mp4")
+    vp08 = str(tmp_path / "vp08.mp4")            # VP8 in MP4 opens (see test_vp8_in_mp4)
     with open(vp08, "wb") as f:
         f.write(data.replace(b"mp4v", b"vp08"))
-    with pytest.raises(ValueError, match=r"VP8 \(vp08\)"):
-        open_movie(vp08)
+    assert open_movie(vp08).codec == "vp8"
+    av01 = str(tmp_path / "av01.mp4")
+    with open(av01, "wb") as f:
+        f.write(data.replace(b"mp4v", b"av01"))
+    with pytest.raises(ValueError, match=r"AV1 \(av01\)"):
+        open_movie(av01)
     monkeypatch.setattr(readers, "resolve_device", lambda device: torch.device("cuda"))
     with pytest.raises(ValueError, match="decoder 'nvjpeg' decodes JPEGs, and this is VP8"):
         VideoReader(path, decoder="nvjpeg")

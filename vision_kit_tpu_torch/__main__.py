@@ -53,14 +53,16 @@ a file name (a JPEG, or a PNG, BMP or lossless WebP by its extension),
 else beside the input. Any other path is a video
 (utils/readers.py:VideoReader): an MP4/QuickTime file, an AVI or a
 Matroska file of MPEG-4 Part 2 (cv2's mp4v, XVID, DIVX) or Motion-JPEG,
-or VP8 (cv2's VP80) in WebM, Matroska, AVI or IVF,
-one Predictor call per frame on the frame as decoded and converted to RGB
+or VP8 (cv2's VP80) or VP9 profile 0 (cv2's VP90) in WebM, Matroska, AVI,
+IVF or MP4, one Predictor call per frame on the frame as decoded and converted to RGB
 on the device, printing `frame <n>: <ms> ms (<fps> fps avg)` every 30
 frames and the average at the end, and with -o writing the drawn frames
 as mp4v, as the JAX demo writes them, into the container the name gives:
 MP4 for .mp4/.mov, AVI for .avi, Matroska for .mkv (a .webm raises:
-WebM takes no mp4v). A webcam index, VP9/AV1, VP8 in MP4, H.264/HEVC and the
-MPEG-4 tools outside Simple Profile raise naming themselves. A .bmp output is written as cv2.imwrite writes it; a
+WebM takes no mp4v). A webcam index, AV1, H.264/HEVC, the MPEG-4 tools
+outside Simple Profile and the VP9 the port refuses (profiles 1-3, scaled
+references, a change of size, colour matrices other than BT.601) raise
+naming themselves. A .bmp output is written as cv2.imwrite writes it; a
 .webp output is lossless VP8L (data/encode.py:encode_webp), as cv2.imwrite
 writes by default, but with the port's own encoder choices, so its bytes
 differ while its pixels are the same.

@@ -2333,7 +2333,10 @@ def nvjpeg_version() -> str:
 class NvJpeg:
     """nvJPEG on one device: a handle (thread safe) and a pool of decode
     states, each serving one decode at a time, so that concurrent callers
-    (the server's handler threads) never share one."""
+    (the server's handler threads) never share one. nvjpegDecode returns
+    before its work on the stream has run, and that work reads buffers the
+    state owns: a state goes back to the pool with an event recorded after
+    its decode, and the next decode on it waits for that event first."""
 
     def __init__(self, device: torch.device):
         self.lib = _jpeg_lib()
@@ -2347,13 +2350,15 @@ class NvJpeg:
 
     def _state(self) -> ctypes.c_void_p:
         try:
-            return self._states.get_nowait()
+            state, done = self._states.get_nowait()
         except queue.Empty:
             state = ctypes.c_void_p()
             status = self.lib.vk_jpeg_state_create(self.handle, ctypes.byref(state))
             if status:
                 raise RuntimeError(f"nvjpegJpegStateCreate failed: status {status}")
             return state
+        done.synchronize()
+        return state
 
     def decode(self, data: bytes, ncomp: int) -> torch.Tensor | None:
         """(H, W, 3) uint8 RGB in stored order on the current stream, or None
@@ -2368,15 +2373,17 @@ class NvJpeg:
         grey = ncomp == 1
         out = torch.empty((h, w) if grey else (h, w, 3), dtype=torch.uint8,
                           device=self.device)
+        stream = torch.cuda.current_stream(self.device)
         state = self._state()
         try:
             status = self.lib.vk_jpeg_decode(
                 self.handle, state, data, len(data), out.data_ptr(),
                 w if grey else 3 * w,
-                NVJPEG_OUTPUT_Y if grey else NVJPEG_OUTPUT_RGBI,
-                torch.cuda.current_stream(self.device).cuda_stream)
+                NVJPEG_OUTPUT_Y if grey else NVJPEG_OUTPUT_RGBI, stream.cuda_stream)
         finally:
-            self._states.put(state)
+            done = torch.cuda.Event()
+            done.record(stream)
+            self._states.put((state, done))
         if status >= 1000:
             raise RuntimeError(f"nvjpegDecode left CUDA error {status - 1000}")
         if status:

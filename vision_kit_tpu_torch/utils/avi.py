@@ -22,9 +22,9 @@ encodes. So only the container is needed here, and RIFF is plain:
   present, only cross-checks the walk. In an MPEG-4 stream a zero-length
   chunk is dropped rather than repeated (the decoder has nothing to
   decode). A file that is no RIFF AVI, holds no video stream, or whose
-  video is neither Motion-JPEG (MJPG, mjpg or jpeg), MPEG-4 Part 2 nor
-  VP8 (VP80, which cv2's VP80 writer gives an `.avi`; data/vp8.py
-  decodes it) raises ValueError naming what it found. `tag` is the
+  video is neither Motion-JPEG (MJPG, mjpg or jpeg), MPEG-4 Part 2, VP8
+  (VP80, which cv2's VP80 writer gives an `.avi`; data/vp8.py decodes it)
+  nor VP9 (VP90, data/vp9.py) raises ValueError naming what it found. `tag` is the
   BITMAPINFOHEADER's fourcc, the codec tag libavcodec's MPEG-4 decoder
   reads.
 - `AviWriter(path, fps, fourcc=b"MJPG")`: RIFF `AVI ` with `hdrl` (avih,
@@ -60,6 +60,7 @@ MPEG4_FOURCCS = (b"FMP4", b"XVID", b"DIVX", b"DX50", b"MP4V", b"XVIX", b"RMP4", 
                  b"DREX", b"QMP4", b"PLV1", b"GLV4", b"GMP4", b"MNM4", b"GTM4")
 # the fourcc libavformat's riff.c maps to VP8 (any case)
 VP8_FOURCCS = (b"VP80",)
+VP9_FOURCCS = (b"VP90",)
 OTHER_FOURCCS = {b"H264": "H.264", b"X264": "H.264", b"AVC1": "H.264",
                  b"HEVC": "HEVC", b"H265": "HEVC", b"HVC1": "HEVC", b"DIV3": "MS MPEG-4 v3",
                  b"MP42": "MS MPEG-4 v2", b"MP43": "MS MPEG-4 v3", b"WMV3": "WMV9",
@@ -74,7 +75,7 @@ RIFF_MAX = (1 << 32) - 1
 class AviMovie:
     """An AVI's video stream: `frames` holds each frame's (file offset,
     size) in presentation order; `codec` is "mjpeg", "mpeg4" (whose
-    headers come in band: `config` is empty) or "vp8"."""
+    headers come in band: `config` is empty), "vp8" or "vp9"."""
 
     path: str
     width: int
@@ -181,12 +182,14 @@ def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
             codec = "mpeg4"
         elif compression.upper() in VP8_FOURCCS:
             codec = "vp8"
+        elif compression.upper() in VP9_FOURCCS:
+            codec = "vp9"
         else:
             name = OTHER_FOURCCS.get(compression.upper(), "")
             raise ValueError(
                 f"{path}: video stream {n} is {_fourcc_text(compression)}"
                 f"{' (' + name + ')' if name else ''} (handler {_fourcc_text(handler)}): "
-                "the port decodes Motion-JPEG, MPEG-4 Part 2 and VP8 only")
+                "the port decodes Motion-JPEG, MPEG-4 Part 2, VP8 and VP9 only")
         scale, rate = struct.unpack("<II", strh[20:28])
         width, height = struct.unpack("<ii", strf[4:12])
         ids = (f"{n:02d}dc".encode(), f"{n:02d}db".encode())

@@ -1,13 +1,14 @@
-"""IVF in: the demultiplexer of the demo's VP8 video mode.
+"""IVF in: the demultiplexer of the demo's VP8 and VP9 video modes.
 
 IVF is libvpx's raw container, which cv2.VideoWriter writes for an `.ivf`
-name (fourcc VP80) and cv2.VideoCapture reads through libavformat's ivf
+name (fourcc VP80 or VP90) and cv2.VideoCapture reads through libavformat's ivf
 demuxer (ivfdec.c). `read_ivf(path)` reads it as that demuxer does:
 
 - the 32-byte header: "DKIF", a version and a header size (both ignored:
   the frames always start at byte 32), the fourcc (mapped to a codec by
-  libavformat's BMP tags, exactly or in upper case: VP80 is VP8, which
-  the port decodes; VP90, AV01 and the rest raise naming what they are),
+  libavformat's BMP tags, exactly or in upper case: VP80 is VP8 and VP90
+  VP9, which the port decodes; AV01 and the rest raise naming what they
+  are),
   the width and height, the time base's denominator and numerator (a
   zero in either is refused, as libavformat refuses it), and the length
   (the stream's nb_frames);
@@ -33,7 +34,8 @@ from vision_kit_tpu_torch.utils.mkv import RFPS_PACKETS, _rfps
 
 SIGNATURE = b"DKIF"
 # fourccs of libavformat's BMP tags that IVF files carry, by codec name
-OTHER_FOURCCS = {b"VP90": "VP9", b"AV01": "AV1", b"H264": "H.264", b"HEVC": "HEVC",
+CODECS = {b"VP80": "vp8", b"VP90": "vp9"}
+OTHER_FOURCCS = {b"AV01": "AV1", b"H264": "H.264", b"HEVC": "HEVC",
                  b"VP70": "VP7", b"VP60": "VP6", b"VP40": "VP4", b"VP30": "VP3"}
 
 
@@ -84,11 +86,12 @@ def read_ivf(path: str) -> IvfMovie:
             raise ValueError(f"{path}: not an IVF file (no 32-byte DKIF header)")
         tag = head[8:12]
         width, height, rate, scale, length = struct.unpack("<HHIII", head[12:28])
-        if tag != b"VP80" and tag.upper() != b"VP80":
+        codec = CODECS.get(tag, CODECS.get(tag.upper()))
+        if codec is None:
             name = OTHER_FOURCCS.get(tag.upper(), "")
             raise ValueError(f"{path}: the IVF video is {tag.decode('latin-1')!r}"
                              f"{' (' + name + ')' if name else ''}: the port decodes VP8 "
-                             "only in IVF")
+                             "and VP9 only in IVF")
         if not rate or not scale:
             raise ValueError(f"{path}: an IVF time base of {scale}/{rate}")
         frames, pts = [], []
@@ -99,4 +102,4 @@ def read_ivf(path: str) -> IvfMovie:
             frames.append((pos + 12, min(n, size - pos - 12)))
             pts.append(t - (1 << 64) if t >> 63 else t)
             pos += 12 + n
-    return IvfMovie(path, width, height, rate, scale, length, frames, pts, tag)
+    return IvfMovie(path, width, height, rate, scale, length, frames, pts, tag, codec)

@@ -19,11 +19,12 @@ hand each coded frame to data/mpeg4.py or data/decode.py:
   Block is a keyframe when its group has no ReferenceBlock) with no,
   Xiph, fixed-size or EBML lacing. The video track's frames come in block
   order. Codecs: `V_MPEG4/ISO/SP`, `ASP` and `AP` (MPEG-4 Part 2, the VOL
-  in CodecPrivate), `V_MJPEG`, `V_VP8` (data/vp8.py), and
-  `V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER whose fourcc
-  utils/avi.py's lists route (MPEG-4, Motion-JPEG or VP80; the bytes after
-  its 40 are the decoder configuration). Every other CodecID raises a
-  ValueError naming it (VP9, AV1, H.264, HEVC, ...).
+  in CodecPrivate), `V_MJPEG`, `V_VP8` (data/vp8.py), `V_VP9`
+  (data/vp9.py), and `V_MS/VFW/FOURCC`, whose CodecPrivate is a
+  BITMAPINFOHEADER whose fourcc utils/avi.py's lists route (MPEG-4,
+  Motion-JPEG, VP80 or VP90; the bytes after its 40 are the decoder
+  configuration). Every other CodecID raises a ValueError naming it (AV1,
+  H.264, HEVC, ...).
   `fps` is what cv2's CAP_PROP_FPS gives: 1e9 / DefaultDuration reduced
   as libavformat's av_reduce reduces it (denominators to 30000); without
   a DefaultDuration, an MPEG-4 track's VOL rate (time resolution over the
@@ -52,7 +53,7 @@ import struct
 import zlib
 
 from vision_kit_tpu_torch.utils.avi import (MJPEG_FOURCCS, MPEG4_FOURCCS, OTHER_FOURCCS,
-                                            VP8_FOURCCS)
+                                            VP8_FOURCCS, VP9_FOURCCS)
 
 # element IDs, with their marker bits
 EBML, DOC_TYPE, DOC_TYPE_READ_VERSION = 0x1A45DFA3, 0x4282, 0x4285
@@ -387,6 +388,8 @@ def _codec(path: str, codec_id: str, private: bytes) -> tuple:
         return "mjpeg", b"", b"", None
     if codec_id == "V_VP8":
         return "vp8", b"", b"", None
+    if codec_id == "V_VP9":
+        return "vp9", b"", b"", None
     if codec_id == VFW:
         if len(private) < 40:
             raise ValueError(f"{path}: a {VFW} track without a BITMAPINFOHEADER")
@@ -398,13 +401,15 @@ def _codec(path: str, codec_id: str, private: bytes) -> tuple:
             return "mjpeg", b"", tag, (width, abs(height))
         if tag.upper() in VP8_FOURCCS:
             return "vp8", b"", tag, (width, abs(height))
+        if tag.upper() in VP9_FOURCCS:
+            return "vp9", b"", tag, (width, abs(height))
         name = OTHER_FOURCCS.get(tag.upper(), "")
         raise ValueError(f"{path}: the video is {VFW} {tag.decode('latin-1')!r}"
                          f"{' (' + name + ')' if name else ''}: the port decodes Motion-JPEG, "
-                         "MPEG-4 Part 2 and VP8 only")
+                         "MPEG-4 Part 2, VP8 and VP9 only")
     name = CODEC_NAMES.get(codec_id)
     raise ValueError(f"{path}: the video is {codec_id!r}{' (' + name + ')' if name else ''}: "
-                     "the port decodes MPEG-4 Part 2, Motion-JPEG and VP8 only")
+                     "the port decodes MPEG-4 Part 2, Motion-JPEG, VP8 and VP9 only")
 
 
 def _cluster(r: _Reader, start: int, end: int, track: dict, frames: list, keys: list,

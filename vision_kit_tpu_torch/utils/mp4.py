@@ -1,5 +1,6 @@
 """ISO base media files (MP4, and QuickTime .mov) in and out: the
-demultiplexer and multiplexer of the demo's MPEG-4 video.
+demultiplexer and multiplexer of the demo's MPEG-4 video (and the
+demultiplexer of its VP8 and VP9 in MP4).
 
 The JAX package reads and writes video through cv2 (FFMPEG's libavformat);
 the card's machine has neither. Only the first video track's sample table
@@ -8,9 +9,10 @@ is needed to hand each coded frame to data/mpeg4.py:
 - `read_mp4(path)`: the top-level boxes in any order (`moov` before or
   after `mdat`, 64-bit box sizes), then the first track whose `hdlr` is
   `vide`: `mdhd`'s timescale, `stsd`'s first sample entry (`mp4v` with its
-  `esds` DecoderSpecificInfo, the VOS/VO/VOL headers; another entry such
-  as `avc1` raises naming it, as does an `mp4v` entry whose esds names
-  another objectTypeIndication), `stts`, `stsc`, `stsz`, `stco` or
+  `esds` DecoderSpecificInfo, the VOS/VO/VOL headers; `vp08` or `vp09`
+  with its `vpcC`, each sample a frame for data/vp8.py or data/vp9.py;
+  another entry such as `avc1` or `av01` raises naming it, as does an
+  `mp4v` entry whose esds names another objectTypeIndication), `stts`, `stsc`, `stsz`, `stco` or
   `co64` and `stss`. Each frame's file offset and size follow from the
   chunk offsets and the samples each chunk holds. `fps` is what cv2's
   CAP_PROP_FPS gives (libavformat's avg_frame_rate: samples times the
@@ -166,13 +168,18 @@ def _track(f, path: str, mdia) -> Mp4Movie:
 
     stsd = box(b"stsd")
     entry_size, entry = struct.unpack(">I4s", stsd[8:16])
-    if entry != b"mp4v":
+    if entry not in (b"mp4v", b"vp08", b"vp09"):
         name = SAMPLE_ENTRY_NAMES.get(entry, repr(entry.decode("latin-1")))
-        raise ValueError(f"{path}: the video is {name}, not MPEG-4 Part 2 (mp4v): "
-                         "the port decodes MPEG-4 Part 2 and Motion-JPEG only")
+        raise ValueError(f"{path}: the video is {name}, not MPEG-4 Part 2 (mp4v), VP8 (vp08) "
+                         "or VP9 (vp09): the port decodes MPEG-4 Part 2, Motion-JPEG, VP8 and "
+                         "VP9 only")
     body = stsd[16:8 + entry_size]
     width, height = struct.unpack(">HH", body[24:28])
-    config = _esds_config(path, body[78:])
+    if entry == b"mp4v":
+        codec, config = "mpeg4", _esds_config(path, body[78:])
+    else:
+        codec, config = ("vp8" if entry == b"vp08" else "vp9"), b""
+        _vpcc(path, body[78:])
     durations = []
     stts = box(b"stts")
     for i in range(struct.unpack(">I", stts[4:8])[0]):
@@ -211,7 +218,27 @@ def _track(f, path: str, mdia) -> Mp4Movie:
                  [v - 1 for v in struct.unpack(f">{struct.unpack('>I', stss[4:8])[0]}I",
                                                stss[8:])])
     return Mp4Movie(path, width, height, timescale, durations[:len(frames)], frames,
-                    keyframes, "mpeg4", config)
+                    keyframes, codec, config, tag=entry)
+
+
+def _vpcc(path: str, boxes: bytes):
+    """The vpcC box of a vp08/vp09 entry (VP Codec ISO Media File Format
+    Binding 2.2): (profile, level, bit depth, chroma subsampling, full
+    range), or None where the entry has none (libavformat decodes the
+    samples without it; the frames carry what the decoder reads)."""
+    pos = 0
+    while pos + 8 <= len(boxes):
+        size, kind = struct.unpack(">I4s", boxes[pos:pos + 8])
+        if size < 8:
+            break
+        if kind == b"vpcC":
+            b = boxes[pos + 8:pos + size]
+            if len(b) < 12 or b[0] != 1:
+                raise ValueError(f"{path}: a vpcC box of version {b[0] if b else None} and "
+                                 f"{len(b)} bytes (version 1 has 12 or more)")
+            return b[4], b[5], b[6] >> 4, (b[6] >> 1) & 7, b[6] & 1
+        pos += size
+    return None
 
 
 def _descriptor(data: bytes, pos: int) -> tuple:

@@ -20,12 +20,16 @@ or DIVX) is a VOP that data/mpeg4.py's decoder takes in order, with the
 container's codec tag for libavcodec's XviD rule, as host C++ on the card
 (csrc/mpeg4_decode.cu) or in numpy, its planes converted to RGB by
 mpeg4.yuv420_to_rgb on the device; a VP8 frame (cv2's VP80 in WebM,
-Matroska, AVI or IVF) goes to data/vp8.py's decoder in order, as host
-C++ on the card (csrc/vp8_decode.cu) or in Python, its planes converted
-by yuv420_to_rgb in the range its key frame gives. Frames are RGB uint8
-tensors on the device. A webcam index, VP9/AV1, VP8 in MP4,
-H.264/HEVC (in any container) and the MPEG-4 tools the decoder refuses
-(B-VOPs, quarter-pel, ...) raise naming what they are. Its writer writes
+Matroska, AVI or IVF, or a vp08 track in MP4) goes to data/vp8.py's
+decoder in order and a VP9 packet (cv2's VP90 in WebM, Matroska, AVI,
+IVF or MP4's vp09) to data/vp9.py's, as host C++ on the card
+(csrc/vp8_decode.cu, csrc/vp9_decode.cu) or in Python, its planes
+converted by yuv420_to_rgb in the range its key frame gives. Frames are
+RGB uint8 tensors on the device. A webcam index, AV1, H.264/HEVC (in any
+container), the MPEG-4 tools the decoder refuses (B-VOPs, quarter-pel,
+...) and the VP9 the port refuses (profiles 1-3, scaled references, a
+change of size, colour matrices other than BT.601) raise naming what they
+are. Its writer writes
 mp4v into the container the output's name gives, as the JAX one writes
 (cv2.VideoWriter, fourcc mp4v): data/mpeg4.py's Mp4vEncoder's VOPs in an
 MP4 (.mp4, .mov; utils/mp4.py's Mp4Writer), an AVI (.avi; utils/avi.py's
@@ -43,7 +47,7 @@ import threading
 import numpy as np
 import torch
 
-from vision_kit_tpu_torch.data import decode, mpeg4, vp8
+from vision_kit_tpu_torch.data import decode, mpeg4, vp8, vp9
 from vision_kit_tpu_torch.data.datasets import DECODERS
 from vision_kit_tpu_torch.data.encode import encode_jpeg
 from vision_kit_tpu_torch.data.loader import _await, _on_stream, _side_stream
@@ -149,10 +153,10 @@ class VideoReader:
 
     Frames are (H, W, 3) uint8 RGB tensors on `device`. decoder "auto" (on
     the card) decodes Motion-JPEG through decode.decode_to (nvJPEG, or the
-    host for a frame nvJPEG does not take), and MPEG-4 and VP8 with the
-    host C++ decoders; "plain" (and
-    everything on the CPU) with data/decode.py's, data/mpeg4.py's and
-    data/vp8.py's plain decoders; "nvjpeg" names the JPEG route and needs
+    host for a frame nvJPEG does not take), and MPEG-4, VP8 and VP9 with
+    the host C++ decoders; "plain" (and everything on the CPU) with
+    data/decode.py's, data/mpeg4.py's, data/vp8.py's and data/vp9.py's
+    plain decoders; "nvjpeg" names the JPEG route and needs
     the card. On the card the thread decodes on a stream of its own,
     and the consumer's stream waits on an event recorded after each frame.
     A Motion-JPEG frame the decoder refuses ends the stream there with a
@@ -163,8 +167,10 @@ class VideoReader:
     frames, as cv2 does, and ends with a logged warning at a frame
     libavcodec refuses (vp8.Vp8Error), as cv2's read fails there; a frame
     the port refuses (vp8.Vp8Unsupported: a key frame that changes the
-    size) raises. `len()` is cv2's CAP_PROP_FRAME_COUNT for VP8 (the
-    container's count, hidden frames included). `save(frame)` appends an
+    size) raises. VP9 does the same with vp9.Vp9Error and
+    vp9.Vp9Unsupported; a superframe shows at most one frame. `len()` is
+    cv2's CAP_PROP_FRAME_COUNT for VP8 and VP9 (the container's count,
+    hidden frames included). `save(frame)` appends an
     RGB frame (numpy or tensor) to `save_path` at the input's fps as mp4v,
     in the container its name gives (VIDEO_OUT)."""
 
@@ -184,9 +190,9 @@ class VideoReader:
             raise ValueError(f"decoder 'nvjpeg' needs a CUDA device, not {self.device}")
         self.movie = open_movie(str(video_path))
         on_card = self.device.type == "cuda" and decoder != "plain"
-        if self.movie.codec in ("mpeg4", "vp8"):
+        if self.movie.codec in ("mpeg4", "vp8", "vp9"):
             if decoder == "nvjpeg":
-                name = "MPEG-4 Part 2" if self.movie.codec == "mpeg4" else "VP8"
+                name = {"mpeg4": "MPEG-4 Part 2", "vp8": "VP8", "vp9": "VP9"}[self.movie.codec]
                 raise ValueError(f"{video_path}: decoder 'nvjpeg' decodes JPEGs, and this "
                                  f"is {name} video; use 'auto' or 'plain'")
             self.decoder = "host_cpp" if on_card else "plain"
@@ -198,7 +204,7 @@ class VideoReader:
         self.fps = self.movie.fps or 30.0
         self.total_frames = len(self.movie.frames)
         count = getattr(self.movie, "frame_count", None)
-        if self.movie.codec == "vp8" and count is not None:
+        if self.movie.codec in ("vp8", "vp9") and count is not None:
             self.total_frames = count
         self.use_thread = use_thread
         self.save_path = save_path
@@ -229,24 +235,26 @@ class VideoReader:
                                        codec_tag=self.movie.tag)
         elif self.movie.codec == "vp8":
             codec = vp8.Vp8Decoder(device)
+        elif self.movie.codec == "vp9":
+            codec = vp9.Vp9Decoder(device)
         try:
             with open(self.movie.path, "rb") as f:
                 for i in range(len(self.movie.frames)):
                     if self._stop.is_set():
                         break
                     data = self.movie.read_frame(f, i)
-                    if isinstance(codec, vp8.Vp8Decoder):
+                    if isinstance(codec, (vp8.Vp8Decoder, vp9.Vp9Decoder)):
                         if not data:                # cv2 skips an empty frame
                             continue
                         try:
                             planes = codec.decode(data)
-                        except vp8.Vp8Unsupported:
+                        except (vp8.Vp8Unsupported, vp9.Vp9Unsupported):
                             raise
-                        except vp8.Vp8Error as e:
+                        except (vp8.Vp8Error, vp9.Vp9Error) as e:
                             logger.warning("%s: frame %d does not decode (%s): the stream "
                                            "ends there", self.movie.path, i, e)
                             break
-                        if planes is None:          # show_frame 0
+                        if planes is None:          # show_frame 0 (a hidden frame)
                             continue
                         full = codec.range()
                         frame, ready = _on_stream(stream, lambda: self._rgb(planes, full))
@@ -269,7 +277,7 @@ class VideoReader:
         yield False, None, None
 
     def _rgb(self, planes, full_range: bool = False) -> torch.Tensor:
-        """MPEG-4 or VP8 planes to RGB on the device (uploaded first)."""
+        """MPEG-4, VP8 or VP9 planes to RGB on the device (uploaded first)."""
         y, u, v = (torch.from_numpy(p).to(self.device, non_blocking=True) for p in planes)
         return mpeg4.yuv420_to_rgb(y, u, v, full_range)
 

@@ -37,8 +37,10 @@ def reader_disagreements(path: str, jpegs: list, fps: float, device) -> list:
     `device`: the plain decoder's first frames (each distinct JPEG once; a
     720p plain decode takes ~0.3 s) equal decode_image of each bit for bit,
     and on the card nvJPEG's frames, all of them, lie within
-    decode.NVJPEG_TOLERANCE of them, threaded and unthreaded alike; the
-    count and the fps are the clip's."""
+    decode.NVJPEG_TOLERANCE of them, threaded and unthreaded alike, and
+    alike again when the reader's decodes queue behind ~0.1 s of work on the
+    card (nvJPEG's staged buffers reused before their decode ran show
+    there); the count and the fps are the clip's."""
     from vision_kit_tpu_torch.utils.readers import VideoReader
 
     bad = []
@@ -63,9 +65,15 @@ def reader_disagreements(path: str, jpegs: list, fps: float, device) -> list:
             bad.append(f"plain frame {i} differs from decode_image")
     if torch.device(device).type == "cuda":
         threaded, unthreaded = frames(), frames(use_thread=False)
-        for i, (a, b, data) in enumerate(zip(threaded, unthreaded, jpegs)):
+        big = torch.ones(8192, 8192, device=device)
+        for _ in range(6):      # the threaded reader's stream waits for these
+            big @ big
+        behind = frames()
+        for i, (a, b, c, data) in enumerate(zip(threaded, unthreaded, behind, jpegs)):
             if not torch.equal(a, b):
                 bad.append(f"nvJPEG frame {i}: threaded and unthreaded differ")
+            if not torch.equal(c, b):
+                bad.append(f"nvJPEG frame {i}: read behind queued work differs")
             agreement = decode.pixel_agreement(a, want[data])
             if not decode.within_nvjpeg_tolerance(agreement):
                 bad.append(f"nvJPEG frame {i} outside NVJPEG_TOLERANCE: {agreement}")
@@ -275,9 +283,10 @@ def movie_frames(path: str) -> list:
         return [movie.read_frame(f, i) for i in range(len(movie.frames))]
 
 
-# -- VP8 --------------------------------------------------------------------------
+# -- VP8 and VP9 ------------------------------------------------------------------
 
 VP8_HD, VP8_SMALL = "vp8_720x1280_12f.webm", "vp8_144x176_10f.webm"
+VP9_HD, VP9_SMALL = "vp9_720x1280_12f.webm", "vp9_144x176_10f.webm"
 
 
 def vp8_disagreements(device="cuda", reps: int = 3) -> tuple:
@@ -289,17 +298,33 @@ def vp8_disagreements(device="cuda", reps: int = 3) -> tuple:
     "inter": ms} of a 720p frame, each frame's best of the passes (the
     median of those over the frames of a kind), "plain": the same of a
     144x176 frame, one pass}), host-clock ms."""
+    from vision_kit_tpu_torch.data import vp8
+
+    return _vpx_disagreements(vp8.Vp8Decoder, VP8_HD, VP8_SMALL, lambda f: not f[0] & 1,
+                              device, reps)
+
+
+def vp9_disagreements(device="cuda", reps: int = 3) -> tuple:
+    """vp8_disagreements for the committed VP9 clips (cv2's VP90 in WebM,
+    the 720p one in four tile columns) and Vp9Decoder."""
+    from vision_kit_tpu_torch.data import vp9
+
+    return _vpx_disagreements(vp9.Vp9Decoder, VP9_HD, VP9_SMALL,
+                              lambda f: f[0] >> 6 == 2 and not f[0] & 0x0C, device, reps)
+
+
+def _vpx_disagreements(decoder, hd: str, small_clip: str, is_key, device, reps) -> tuple:
     import hashlib
 
-    from vision_kit_tpu_torch.data import mpeg4, vp8
+    from vision_kit_tpu_torch.data import mpeg4
 
     bad, ms, small = [], {}, []
     manifest = video_manifest()
-    for name, route in ((VP8_HD, "cpp"), (VP8_SMALL, "cpp"), (VP8_SMALL, "plain")):
+    for name, route in ((hd, "cpp"), (small_clip, "cpp"), (small_clip, "plain")):
         frames = movie_frames(os.path.join(VIDEO_SAMPLES, name))
         best = [float("inf")] * len(frames)
         for p in range(reps if route == "cpp" else 1):
-            dec = vp8.Vp8Decoder("cuda" if route == "cpp" else "cpu")
+            dec = decoder("cuda" if route == "cpp" else "cpu")
             for i, data in enumerate(frames):
                 t0 = time.perf_counter()
                 planes = dec.decode(data)
@@ -311,7 +336,7 @@ def vp8_disagreements(device="cuda", reps: int = 3) -> tuple:
                             and dec.range() == small[i][1]):
                         bad.append(f"{name} frame {i}: the C++ planes differ from the plain")
                     continue
-                if name == VP8_SMALL:
+                if name == small_clip:
                     small.append((planes, dec.range()))
                 rgb = mpeg4.yuv420_to_rgb(*(torch.from_numpy(q).to(device) for q in planes),
                                           dec.range())
@@ -319,8 +344,8 @@ def vp8_disagreements(device="cuda", reps: int = 3) -> tuple:
                 if digest != manifest[name]["rgb_sha256"][i]:
                     bad.append(f"{name} frame {i}: the C++ decoder's RGB is not cv2's")
             dec.close()
-        if name == VP8_HD or route == "plain":
-            keys = [not f[0] & 1 for f in frames]
+        if name == hd or route == "plain":
+            keys = [is_key(f) for f in frames]
             ms[route] = {kind: float(np.median([b for b, k in zip(best, keys) if k == want]))
                          for kind, want in (("key", True), ("inter", False))}
     return bad, ms
