@@ -88,7 +88,7 @@ Phases, each printing its own line; any failure exits non-zero:
      bit-equal to the plain decoder on the small clip and the 720p clip's
      first GOP, and demo -p mp4v_720x1280_24f.mp4 -o out.mp4 in a
      --demo-video child: one launch of each kernel a frame (the *_video
-     rows count the five video runs), detections equal to an in-process
+     rows count the six video runs), detections equal to an in-process
      Predictor's, out.mp4 Mp4vEncoder's VOPs, read back as its
      reconstruction; then Matroska (mkv_leg): the committed cv2-written
      720p mp4v .mkv through VideoReader (utils/mkv.py, the C++ decoder) at
@@ -107,7 +107,18 @@ Phases, each printing its own line; any failure exits non-zero:
      Predictor's (its seconds in `seconds by phase:`); then VP9 (the same
      vpx_leg): the committed cv2-written VP9 .webm clips (the 720p one in
      four tile columns) through csrc/vp9_decode.cu the same way, and demo
-     -p vp9_720x1280_12f.webm (no -o) as a fifth run of that child;
+     -p vp9_720x1280_12f.webm (no -o) as a fifth run of that child; then
+     the tags and containers of these codecs (tags_leg): every fixture of
+     data/video_samples/tags/ (cv2's Motion-JPEG in MP4, QuickTime, a JPGL
+     AVI and a raw .mjpeg, XVID in QuickTime, PNG and Motion JPEG 2000
+     frames in AVI, Matroska, MP4 and QuickTime, raw I420, Y800 and RGBA
+     in AVI, Matroska, QuickTime and YUV4MPEG2, a UYVY AVI of no frame)
+     through VideoReader on the card, threaded and unthreaded, at cv2's
+     count and fps, bit-equal to the plain CPU read (nvJPEG within its
+     tolerance) and that read at the manifest's sha256, the Motion JPEG
+     2000 frames by the C++ twin's video mode, each file's route and
+     seconds; and demo -p mjp2_64x96.mov (no -o) as a sixth run of that
+     child: one launch of each kernel a frame;
  10. serve: nvJPEG's header, library and version; each sample of
      vision_kit_tpu_torch/data/samples/ decoded on the card by the route
      its header and the host C walk pick (decode.decode_route: nvJPEG for
@@ -273,8 +284,8 @@ greedy_nms_spatial and head_scores_spatial the kernels at a spatial
 single-frame request's B=1, K=1024, with rank 0's launches in one such
 request and both ranks' under launches_by_rank; greedy_nms_video and
 head_scores_video the same B=1 shape, with the launches of the demo's
-five video runs, the Motion-JPEG AVI's, the mp4v .mp4's and .mkv's, and
-the VP8 and VP9 .webm's, summed)
+six video runs, the Motion-JPEG AVI's, the mp4v .mp4's and .mkv's, the
+VP8 and VP9 .webm's and the Motion JPEG 2000 .mov's, summed)
 and, last, {"ok": true,
 "device": ...}.
 
@@ -1464,8 +1475,9 @@ def phase_demo(model, smi: str) -> dict:
     handler and biCompression mp4v, the VOL headers before the first VOP):
     every chunk Mp4vEncoder's VOP of the drawn frame, read back by the host
     C++ decoder as its reconstruction; the ms a frame by stage. Then
-    mp4_leg, mkv_leg and vpx_leg for VP8 and VP9. Returns the video runs'
-    launches, summed, and the Matroska, VP8 and VP9 legs' seconds."""
+    mp4_leg, mkv_leg, vpx_leg for VP8 and VP9, and tags_leg. Returns the video
+    runs' launches, summed, and the Matroska, VP8, VP9 and tags legs'
+    seconds."""
     import re
     import subprocess
     import tempfile
@@ -1568,18 +1580,20 @@ def phase_demo(model, smi: str) -> dict:
         bad = vb.reader_disagreements(clip, jpegs, VIDEO_FPS, "cuda")
         check(bad == [], f"VideoReader: {bad[:5]}")
         reader_s = time.perf_counter() - t_video
-        # the five video runs (this clip, the committed mp4v .mp4 and .mkv,
-        # the committed VP8 and VP9 .webm without -o) in one child; each leg
-        # checks its own
+        # the six video runs (this clip, the committed mp4v .mp4 and .mkv,
+        # the committed VP8 and VP9 .webm and Motion JPEG 2000 .mov without
+        # -o) in one child; each leg checks its own
         out_mp4, out_mkv = os.path.join(tmp, "out.mp4"), os.path.join(tmp, "out.mkv")
-        (res, res_mp4, res_mkv, res_vp8, res_vp9), child_s = video_runs(weights, [
+        (res, res_mp4, res_mkv, res_vp8, res_vp9, res_mj2), child_s = video_runs(weights, [
             (clip, out_avi), (os.path.join(vb.VIDEO_SAMPLES, vb.HD_CLIP), out_mp4),
             (os.path.join(vb.VIDEO_SAMPLES, vb.HD_MKV), out_mkv),
             (os.path.join(vb.VIDEO_SAMPLES, vb.VP8_HD), "-"),
-            (os.path.join(vb.VIDEO_SAMPLES, vb.VP9_HD), "-")])
-        print(f"demo: the five video runs in one --demo-video child: {child_s:.1f} s "
+            (os.path.join(vb.VIDEO_SAMPLES, vb.VP9_HD), "-"),
+            (os.path.join(vb.TAG_SAMPLES, vb.MJ2_MOV), "-")])
+        print(f"demo: the six video runs in one --demo-video child: {child_s:.1f} s "
               f"(runs {res['run_s']:.1f}, {res_mp4['run_s']:.1f}, {res_mkv['run_s']:.1f}, "
-              f"{res_vp8['run_s']:.1f}, {res_vp9['run_s']:.1f} s)", flush=True)
+              f"{res_vp8['run_s']:.1f}, {res_vp9['run_s']:.1f}, {res_mj2['run_s']:.1f} s)",
+              flush=True)
         check(f"over {VIDEO_FRAMES} frames" in res["printed"], "the demo printed no average")
         counts = res["counts"]
         check(counts == {"greedy_nms": VIDEO_FRAMES, "head_scores": VIDEO_FRAMES},
@@ -1645,9 +1659,13 @@ def phase_demo(model, smi: str) -> dict:
         t_vp9 = time.perf_counter()
         counts_vp9 = vpx_leg("vp9", res_vp9, pred, tf32, smi)
         vp9_s = time.perf_counter() - t_vp9 + res_vp9["run_s"]
+        t_tags = time.perf_counter()
+        counts_mj2 = tags_leg(res_mj2, pred, tf32, smi)
+        tags_s = time.perf_counter() - t_tags + res_mj2["run_s"]
     print(f"demo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return ({k: counts[k] + counts_mp4[k] + counts_mkv[k] + counts_vp8[k] + counts_vp9[k]
-             for k in counts}, {"mkv leg": mkv_s, "vp8 leg": vp8_s, "vp9 leg": vp9_s})
+             + counts_mj2[k] for k in counts},
+            {"mkv leg": mkv_s, "vp8 leg": vp8_s, "vp9 leg": vp9_s, "tags leg": tags_s})
 
 
 def mp4_leg(res: dict, out_mp4: str, pred, tf32: dict, smi: str) -> dict:
@@ -1933,6 +1951,75 @@ def vpx_leg(kind: str, res: dict, pred, tf32: dict, smi: str) -> dict:
           f"read/decode {stage['read']:.3f}, predict {stage['predict']:.3f}, draw "
           f"{stage['draw']:.3f}; {n / res['wall_s']:.2f} fps over the loop "
           f"({res['wall_s']:.2f} s), the run {res['run_s']:.1f} s; the {kind} leg "
+          f"{time.perf_counter() - t_leg + res['run_s']:.1f} s on {smi}", flush=True)
+    return counts
+
+
+def tags_leg(res: dict, pred, tf32: dict, smi: str) -> dict:
+    """The demo's video mode on the tags and containers of the port's codecs
+    (data/video_samples/tags/, cv2's files: Motion-JPEG in MP4, QuickTime,
+    AVI as JPGL and raw .mjpeg, XVID in QuickTime, PNG and Motion JPEG 2000
+    frames in AVI, Matroska, MP4 and QuickTime, raw I420, Y800 and RGBA in
+    AVI, Matroska, QuickTime and YUV4MPEG2, a UYVY AVI of no frame):
+    video_bench.tag_disagreements on the card (VideoReader threaded and
+    unthreaded: cv2's count and fps, the plain CPU read at the manifest's
+    sha256, the card's frames equal to it, nvJPEG's within its tolerance,
+    the Motion JPEG 2000 frames by the C++ twin's video mode), each file's
+    route and seconds on a line of its own; then `res`, the run of `demo -p
+    mjp2_64x96.mov` (no -o) in the --demo-video child: one launch of each
+    kernel a frame, each frame's detections equal to an in-process
+    Predictor's on the frame the reader gives. Returns the run's launches."""
+    from vision_kit_tpu_torch.data import decode as dec
+    from vision_kit_tpu_torch.data import jp2
+    from vision_kit_tpu_torch.utils import video_bench as vb
+    from vision_kit_tpu_torch.utils.readers import VideoReader
+    from vision_kit_tpu_torch.utils.stream_bench import same_detections
+
+    t_leg = time.perf_counter()
+    before, stills = dict(jp2.video_counts), dec.route_counts["host_jp2"]
+    bad, info = vb.tag_disagreements("cuda")
+    check(bad == [], f"the tag fixtures: {bad[:5]}")
+    for name, row in info.items():
+        print(f"demo: tags: {name} ({row['codec']}): route {row['route']}, {row['frames']} "
+              f"frames as cv2 reads them, {row['s']:.2f} s (the plain read on the CPU, then "
+              f"the card's threaded and unthreaded) on {smi}", flush=True)
+    twin = {k: jp2.video_counts[k] - before[k] for k in before}
+    check(twin["host_cpp"] > 0 and dec.route_counts["host_jp2"] == stills,
+          f"the JPEG 2000 video mode's decodes {twin}, still-image host_jp2 "
+          f"{dec.route_counts['host_jp2'] - stills}")
+    checks_s = time.perf_counter() - t_leg
+    print(f"demo: tags: {len(info)} files, cv2's count, fps and frames (bit-equal, or "
+          f"nvJPEG within NVJPEG_TOLERANCE); JPEG 2000 video-mode decodes (jp2.video_counts) "
+          f"{twin}, still-image route host_jp2 +0; {checks_s:.1f} s on {smi}", flush=True)
+    meta = vb.tag_manifest()[vb.MJ2_MOV]
+    n = meta["read"]
+    counts = res["counts"]
+    check(counts == {"greedy_nms": n, "head_scores": n},
+          f"the Motion JPEG 2000 video demo launched {counts}, not one of each a frame")
+    check(len(res["detections"]) == n and res["fps"] == meta["fps"],
+          f"the Motion JPEG 2000 demo read {len(res['detections'])} frames at {res['fps']} fps")
+    reader = VideoReader(os.path.join(vb.TAG_SAMPLES, vb.MJ2_MOV), use_thread=False)
+    frames = [fr for ok, fr in reader if ok]
+    check(reader.decoder == "host_cpp" and len(frames) == n,
+          f"VideoReader took {reader.decoder} and read {len(frames)} of {n} frames")
+    n_det = 0
+    with torch.backends.cudnn.flags(**tf32):
+        for i, (frame, got) in enumerate(zip(frames, res["detections"])):
+            got = np.asarray(got, np.float32).reshape(-1, 6)
+            w, _ = pred(frame)
+            check(got.shape[1:] == (6,) and np.isfinite(got).all(),
+                  f"mj2 frame {i}: non-finite or misshapen detections")
+            check(same_detections(w, got, 1e-5, 1e-3),
+                  f"mj2 frame {i}: {len(got)} detections against in-process {len(w)}")
+            n_det += len(got)
+    stage = {k: float(np.median(v)) for k, v in res["ms"].items()}
+    print(f"demo: python -m vision_kit_tpu_torch demo -p {vb.MJ2_MOV} (v5s@640 f32, {n} "
+          f"frames of 64x96 Motion JPEG 2000 at {meta['fps']:g} fps, the C++ twin's video "
+          f"mode, no -o): {n_det} detections, each frame equal to an in-process "
+          f"Predictor's (class exact, score 1e-5, box 1e-3 px), launches {counts}; median ms "
+          f"a frame (host clock): read/decode {stage['read']:.3f}, predict "
+          f"{stage['predict']:.3f}, draw {stage['draw']:.3f}; {n / res['wall_s']:.2f} fps over "
+          f"the loop ({res['wall_s']:.2f} s), the run {res['run_s']:.1f} s; the tags leg "
           f"{time.perf_counter() - t_leg + res['run_s']:.1f} s on {smi}", flush=True)
     return counts
 

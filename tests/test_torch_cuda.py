@@ -764,6 +764,18 @@ def test_vp9_host_decoder_equals_plain(cuda):
     assert bad == [] and ms["cpp"]["key"] > 0
 
 
+def test_tag_fixtures_on_the_card(cuda):
+    """data/video_samples/tags/ through VideoReader on the card, threaded
+    and unthreaded: cv2's count, fps and frames, the card's frames equal
+    to the plain CPU read (nvJPEG's within its tolerance), the Motion JPEG
+    2000 frames by the nvcc-built twin's video mode, none counted as a
+    still image (video_bench.tag_disagreements)."""
+    from vision_kit_tpu_torch.utils import video_bench as vb
+
+    bad, info = vb.tag_disagreements(cuda)
+    assert bad == [] and info[vb.MJ2_MOV]["route"] == "host_cpp", (bad, info)
+
+
 def test_mpeg4_host_decoder_on_xvid_streams(cuda, tmp_path):
     """csrc/mpeg4_decode.cu (nvcc-built) against the plain decoder on random
     streams libavcodec takes as XviD's (an XVID or XVIX tag, XviD0050 or

@@ -187,12 +187,16 @@ def test_container_refusals_name_themselves(clips, tmp_path):
     av01 = _patched(vp09, tmp_path, b"vp09", b"av01", "av01.mp4")
     with pytest.raises(ValueError, match=r"AV1 \(av01\)"):
         open_movie(av01)
-    # an esds whose objectTypeIndication is not MPEG-4 Visual
+    # an esds whose objectTypeIndication names a codec the port does not
+    # decode (0x6C, JPEG, is Motion-JPEG now: tests/test_torch_video_tags.py)
     data = open(paths["pan.mp4"], "rb").read()
     i = data.find(b"esds")
     j = data.find(b"\x04\x80\x80\x80", i) + 5
-    other = str(tmp_path / "jpeg_in_mp4v.mp4")
+    other = str(tmp_path / "h264_in_mp4v.mp4")
+    with open(other, "wb") as f:
+        f.write(data[:j] + b"\x21" + data[j + 1:])
+    with pytest.raises(ValueError, match="the mp4v track holds H.264"):
+        open_movie(other)
     with open(other, "wb") as f:
         f.write(data[:j] + b"\x6c" + data[j + 1:])
-    with pytest.raises(ValueError, match="JPEG, not MPEG-4 Part 2"):
-        open_movie(other)
+    assert open_movie(other).codec == "mjpeg"

@@ -198,8 +198,10 @@ def demo_images(predictor, drawer, path: str, output: str | None = None) -> list
 
 def demo_video(predictor, drawer, path: str, output: str | None = None,
                show: bool = False) -> dict:
-    """scripts/demo.py's video mode on a video file (VideoReader: MP4, AVI
-    or Matroska, MPEG-4 Part 2 or Motion-JPEG): one predictor call per
+    """scripts/demo.py's video mode on a video file (VideoReader: AVI,
+    MP4/QuickTime, Matroska/WebM, IVF, YUV4MPEG2 or raw Motion-JPEG, holding
+    MPEG-4 Part 2, Motion-JPEG, VP8, VP9, PNG, Motion JPEG 2000 or raw
+    video; a file cv2 reads no frame from runs no frame): one predictor call per
     frame (the frame as decoded on the predictor's device), its detections
     drawn on the host, and with `output` the drawn frame appended as mp4v
     (in an MP4 for .mp4/.mov, an AVI for .avi, Matroska for .mkv). Prints `frame <n>: <ms> ms (<fps> fps

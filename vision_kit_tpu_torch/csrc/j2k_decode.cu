@@ -41,6 +41,10 @@ struct Failure {
   std::string msg;
 };
 
+struct Unsupported {  // jp2.py's Jp2Unsupported: a video frame the mode does not convert
+  std::string msg;
+};
+
 [[noreturn]] void fail(const std::string& msg) { throw Failure{msg}; }
 
 std::string S(long long v) { return std::to_string(v); }
@@ -634,6 +638,7 @@ struct Band {
   int64_t x0, y0, x1, y1;
   int numbps;
   float stepsize;
+  int expn, mant;
   bool empty;
   std::vector<Precinct> precincts;
 };
@@ -708,6 +713,7 @@ Tile tile_structure(const Cs& cs, const Tcp& tcp, int64_t tileno) {
         int expn = t.expn[si], mant = t.mant[si];
         int gain = t.qmfbid == 0 ? 0 : (orient == 0 ? 0 : orient == 3 ? 2 : 1);
         band.stepsize = (float)((1.0 + mant / 2048.0) * std::ldexp(1.0, comp.prec + gain - expn));
+        band.expn = expn, band.mant = mant;
         band.numbps = expn + t.numgbits - 1;
         band.empty = band.x0 == band.x1 || band.y0 == band.y1;
         int64_t nprec = res.pw * res.ph;
@@ -1421,6 +1427,19 @@ void t1_decode(const Cblk& cb, int orient, int cblksty, int roishift, std::vecto
 // -- dwt.c: the inverse transforms ------------------------------------------------
 
 const float kK = 1.230174105f, kTwoInvK = 1.625732422f;
+// libavcodec's jpeg2000dwt.h: the same K, and its inverse (not 2 / K)
+const float kLibavK = 1.230174104914001f, kLibavX = 0.812893066115961f;
+
+// jp2.py's libav_stepsize: libavcodec's init_band_stepsize for its float 9/7.
+float libav_stepsize(int prec, int expn, int mant, int orient, int r, int numres) {
+  float f = (float)std::ldexp(1.0, prec - expn);
+  f = (float)((double)f * (mant / 2048.0 + 1.0));
+  int lband = orient == 1 || orient == 2;
+  if (lband) f = f * (kLibavX * 2.0f);
+  else if (orient == 3) f = f * (kLibavX * kLibavX * 4.0f);
+  f = (float)((double)f * std::pow((double)kLibavK, 2 * (numres - r) + lband - 2));
+  return f * 0.5f;
+}
 const float kAlpha = -1.586134342f, kBeta = -0.052980118f, kGamma = 0.882911075f,
             kDelta = 0.443506852f;
 
@@ -1461,21 +1480,27 @@ void idwt53_1d(const int32_t* in, int32_t* out, int n, int sn, int cas) {
   }
 }
 
-void idwt97_1d(const float* in, float* x, int n, int sn, int cas) {
+// `libav`: libavcodec's sr_1d97_float (no band scaling; a lone sample times
+// X, or K / 2 at an odd start).
+void idwt97_1d(const float* in, float* x, int n, int sn, int cas, bool libav) {
   int dn = n - sn, la, lb;
   if (cas == 0) {
     for (int i = 0; i < sn; ++i) x[2 * i] = in[i];
     for (int i = 0; i < dn; ++i) x[2 * i + 1] = in[sn + i];
-    if (!(dn > 0 || sn > 1)) return;
     la = 0, lb = 1;
   } else {
     for (int i = 0; i < sn; ++i) x[2 * i + 1] = in[i];
     for (int i = 0; i < dn; ++i) x[2 * i] = in[sn + i];
-    if (!(sn > 0 || dn > 1)) return;
     la = 1, lb = 0;
   }
-  for (int i = la; i < n; i += 2) x[i] = x[i] * kK;
-  for (int i = lb; i < n; i += 2) x[i] = x[i] * kTwoInvK;
+  if (n <= 1) {
+    if (libav && n) x[0] = x[0] * (cas == 0 ? kLibavX : kLibavK / 2.0f);
+    return;
+  }
+  if (!libav) {
+    for (int i = la; i < n; i += 2) x[i] = x[i] * kK;
+    for (int i = lb; i < n; i += 2) x[i] = x[i] * kTwoInvK;
+  }
   auto step2 = [&](int tgt, int count, int m, float c) {
     int full = std::min(count, m);
     for (int i = 0; i < full; ++i) {
@@ -1532,7 +1557,8 @@ struct Plane {
   std::vector<float> f;
 };
 
-void decode_tile(Cs& cs, Tcp& tcp, int64_t tileno, std::vector<std::vector<int32_t>>& image) {
+void decode_tile(Cs& cs, Tcp& tcp, int64_t tileno, std::vector<std::vector<int32_t>>& image,
+                 bool video) {
   if (tcp.prg < 0 && tcp.pocs.empty()) fail("Unknown progression order in COD marker");
   Tile tile = tile_structure(cs, tcp, tileno);
   for (const Tccp& t : tcp.tccps)
@@ -1572,7 +1598,10 @@ void decode_tile(Cs& cs, Tcp& tcp, int64_t tileno, std::vector<std::vector<int32
         int64_t ox = band.x0, oy = band.y0;
         if (band.orient & 1) ox -= comp.res[r - 1].x1 - comp.res[r - 1].x0;
         if (band.orient & 2) oy -= comp.res[r - 1].y1 - comp.res[r - 1].y0;
-        float step = 0.5f * band.stepsize;
+        float step = video && !pl.reversible
+                         ? libav_stepsize(cs.comps[c].prec, band.expn, band.mant, band.orient, r,
+                                          comp.numres)
+                         : 0.5f * band.stepsize;
         for (const Precinct& prc : band.precincts)
           for (const Cblk& cb : prc.cblks) {
             int w, h;
@@ -1589,7 +1618,10 @@ void decode_tile(Cs& cs, Tcp& tcp, int64_t tileno, std::vector<std::vector<int32
       }
     }
     if (pl.reversible) idwt(pl.i, pl.w, comp, tops[c], idwt53_1d);
-    else idwt(pl.f, pl.w, comp, tops[c], idwt97_1d);
+    else
+      idwt(pl.f, pl.w, comp, tops[c], [video](const float* in, float* x, int n, int sn, int cas) {
+        idwt97_1d(in, x, n, sn, cas, video);
+      });
     planes.push_back(std::move(pl));
   }
   if (tcp.mct && planes.size() >= 3) {
@@ -1708,7 +1740,7 @@ bool next_sot_same_tile(const uint8_t* d, size_t pos, size_t end, int64_t tileno
 typedef std::function<void(Cs&, Tcp&, int64_t)> TileFn;
 
 Cs read_codestream(const uint8_t* d, size_t end, size_t start, const TileFn& on_tile,
-                   int64_t ihdr_h, int64_t ihdr_w) {
+                   int64_t ihdr_h, int64_t ihdr_w, bool video) {
   Cs cs;
   cs.ihdr_h = ihdr_h, cs.ihdr_w = ihdr_w;
   if (start + 2 > end || be(d, end, start, 2) != (uint64_t)SOC) fail("Expected a SOC marker");
@@ -1747,7 +1779,7 @@ Cs read_codestream(const uint8_t* d, size_t end, size_t start, const TileFn& on_
     if (marker == SIZ) {
       state = kMH;
       std::string why = size_refusal(cs.x1 - cs.x0, cs.y1 - cs.y0);
-      if (why.empty()) why = opencv_refusal(cs.comps, cs.x0, cs.y0);
+      if (why.empty() && !video) why = opencv_refusal(cs.comps, cs.x0, cs.y0);
       if (!why.empty()) fail(why);
     }
     if (pos + 2 > end) fail("Stream too short");
@@ -2030,15 +2062,44 @@ void convert(std::vector<std::vector<int32_t>>& planes, const std::vector<Comp>&
     for (int c = 0; c < 3; ++c) rgb[3 * k + c] = chan(c, k);
 }
 
+std::string video_refusal(const std::vector<Comp>& comps, int64_t x0, int64_t y0, int64_t x1,
+                          int64_t y1, const Jp2* jp2) {
+  std::string layout;
+  for (size_t i = 0; i < comps.size(); ++i)
+    layout += (i ? ", " : "") + S(comps[i].dx) + "x" + S(comps[i].dy);
+  uint32_t space = jp2 ? jp2->enumcs : 0;
+  for (size_t i = 0; i < comps.size(); ++i)
+    if (comps[i].sgnd || comps[i].prec != 8)
+      return "JPEG 2000 video whose component " + S((long long)i) + " is " +
+             S(comps[i].prec) + "-bit" + (comps[i].sgnd ? " signed" : "") +
+             ": the port converts 8-bit unsigned frames only";
+  if (x0 || y0) return "JPEG 2000 video with an image offset (" + S(x0) + ", " + S(y0) + ")";
+  if (jp2 && (jp2->has_pclr || jp2->has_cdef))
+    return "JPEG 2000 video with a palette or channel definitions (pclr, cdef)";
+  for (auto& c : comps)
+    if (cdiv(x1, c.dx) - cdiv(x0, c.dx) == 1 && cdiv(y1, c.dy) - cdiv(y0, c.dy) == 1)
+      return "JPEG 2000 video with a component of a single sample";
+  bool grey = comps.size() == 1 && layout == "1x1" && (space == 0 || space == 17);
+  bool yuv420 = comps.size() == 3 && layout == "1x1, 2x2, 2x2" && (space == 0 || space == 18);
+  if (!(grey || yuv420))
+    return "JPEG 2000 video of " + S((long long)comps.size()) + " components sampled " +
+           layout + ", colour space " + S(space) +
+           ": the port converts 4:2:0 (sYCC) and grey frames only";
+  return "";
+}
+
 struct Decoder {
   std::string error;
   std::vector<uint8_t> rgb;
   int w = 0, h = 0;
+  std::vector<std::vector<int32_t>> planes;  // the video mode's components
+  std::vector<int> pw, ph;
 };
 
-void decode(Decoder& dec, const uint8_t* d, size_t n) {
-  Jp2 jp2;
-  bool is_jp2 = n >= 12 && std::memcmp(d, "\x00\x00\x00\x0cjP  \r\n\x87\n", 12) == 0;
+// jp2.py's _decode: the components, the codestream header and the JP2 boxes.
+Cs decode_components(const uint8_t* d, size_t n, bool video, Jp2& jp2, bool& is_jp2,
+                     std::vector<std::vector<int32_t>>& image) {
+  is_jp2 = n >= 12 && std::memcmp(d, "\x00\x00\x00\x0cjP  \r\n\x87\n", 12) == 0;
   size_t start = 0;
   if (is_jp2) {
     jp2 = read_jp2(d, n);
@@ -2046,25 +2107,47 @@ void decode(Decoder& dec, const uint8_t* d, size_t n) {
   } else if (!(n >= 4 && std::memcmp(d, "\xff\x4f\xff\x51", 4) == 0)) {
     fail("not JPEG 2000");
   }
-  std::vector<std::vector<int32_t>> image;
-  int64_t iw = 0, ih = 0;
   Cs cs = read_codestream(
       d, n, start,
       [&](Cs& c, Tcp& tcp, int64_t tileno) {
         if (image.empty()) {
-          iw = c.x1 - c.x0, ih = c.y1 - c.y0;
+          if (video) {
+            std::string why =
+                video_refusal(c.comps, c.x0, c.y0, c.x1, c.y1, is_jp2 ? &jp2 : nullptr);
+            if (!why.empty()) throw Unsupported{why};
+          }
           for (auto& comp : c.comps) {
             int64_t cw = cdiv(c.x1, comp.dx) - cdiv(c.x0, comp.dx);
             int64_t ch = cdiv(c.y1, comp.dy) - cdiv(c.y0, comp.dy);
             image.emplace_back((size_t)(cw * ch), 0);
           }
         }
-        decode_tile(c, tcp, tileno, image);
+        decode_tile(c, tcp, tileno, image, video);
       },
-      is_jp2 ? jp2.ihdr_h : 0, is_jp2 ? jp2.ihdr_w : 0);
+      is_jp2 ? jp2.ihdr_h : 0, is_jp2 ? jp2.ihdr_w : 0, video);
   if (image.empty()) fail("Failed to decode all used components");
+  return cs;
+}
+
+void decode(Decoder& dec, const uint8_t* d, size_t n) {
+  Jp2 jp2;
+  bool is_jp2 = false;
+  std::vector<std::vector<int32_t>> image;
+  Cs cs = decode_components(d, n, false, jp2, is_jp2, image);
+  int64_t iw = cs.x1 - cs.x0, ih = cs.y1 - cs.y0;
   convert(image, cs.comps, is_jp2 ? &jp2 : nullptr, iw, ih, dec.rgb);
   dec.w = (int)iw, dec.h = (int)ih;
+}
+
+void decode_planes(Decoder& dec, const uint8_t* d, size_t n) {
+  Jp2 jp2;
+  bool is_jp2 = false;
+  dec.planes.clear(), dec.pw.clear(), dec.ph.clear();
+  Cs cs = decode_components(d, n, true, jp2, is_jp2, dec.planes);
+  for (auto& comp : cs.comps) {
+    dec.pw.push_back((int)(cdiv(cs.x1, comp.dx) - cdiv(cs.x0, comp.dx)));
+    dec.ph.push_back((int)(cdiv(cs.y1, comp.dy) - cdiv(cs.y0, comp.dy)));
+  }
 }
 
 }  // namespace
@@ -2099,6 +2182,41 @@ int vk_j2k_decode(void* h, const unsigned char* data, size_t n, int* w, int* hh)
 void vk_j2k_pixels(void* h, unsigned char* out) {
   Decoder* d = static_cast<Decoder*>(h);
   std::memcpy(out, d->rgb.data(), d->rgb.size());
+}
+
+// The video mode (jp2.py's decode_jp2_planes): 0 with the number of
+// components in *ncomp and each one's (h, w) in dims (by vk_j2k_plane), -1 on
+// a refusal, -2 on a layout the mode does not convert (the message by
+// vk_j2k_error).
+int vk_j2k_decode_planes(void* h, const unsigned char* data, size_t n, int* ncomp, int* dims) {
+  Decoder* d = static_cast<Decoder*>(h);
+  g_calls.fetch_add(1);
+  try {
+    decode_planes(*d, data, n);
+    *ncomp = (int)d->planes.size();
+    for (size_t k = 0; k < d->planes.size() && k < 4; ++k)
+      dims[2 * k] = d->ph[k], dims[2 * k + 1] = d->pw[k];
+    return 0;
+  } catch (const Unsupported& u) {
+    d->error = u.msg;
+    d->planes.clear();
+    return -2;
+  } catch (const Failure& f) {
+    d->error = f.msg;
+  } catch (const std::bad_alloc&) {
+    d->error = "Not enough memory to decode the image";
+  } catch (const std::length_error&) {
+    d->error = "Not enough memory to decode the image";
+  }
+  d->planes.clear();
+  return -1;
+}
+
+// Component k of the last video-mode decode as (h, w) uint8 samples.
+void vk_j2k_plane(void* h, int k, unsigned char* out) {
+  Decoder* d = static_cast<Decoder*>(h);
+  const std::vector<int32_t>& p = d->planes[(size_t)k];
+  for (size_t i = 0; i < p.size(); ++i) out[i] = (uint8_t)p[i];
 }
 
 const char* vk_j2k_error(void* h) { return static_cast<Decoder*>(h)->error.c_str(); }

@@ -63,6 +63,17 @@ The reference is OpenCV 5's grfmt_jpeg2000_openjpeg.cpp over OpenJPEG
   takes component 0 thrice, sYCC converts components 0, 1, 2 through
   OpenCV's YUV2BGR; CMYK and e-sYCC are refused.
 
+The video mode (decode_jp2_planes, decode_jp2_planes_c) is what
+cv2.VideoCapture's libavcodec jpeg2000dec gives a Motion JPEG 2000 frame:
+the component planes at their own sampling, without OpenCV's refusal
+(video_refusal takes 8-bit 4:2:0 and grey), the codestream read as above
+but a 9/7 tile dequantised and inverted with libavcodec's float
+arithmetic: its stepsize folds the 9/7's band gains (powers of K, and
+X = 1/K) into the dequantisation, computed partly in double
+(libav_stepsize), and its lifting scales no band, a lone sample times X
+or K / 2 (jpeg2000dwt.c's sr_1d97_float). The planes then equal
+libavcodec's bit for bit; through mpeg4.yuv420_to_rgb, cv2's frames.
+
 What no fixture here can exercise is refused by name (Jp2Error's
 message): High Throughput code-blocks and the CAP and CPF markers (Part
 15), and Part 2's MCC, MCO and CBD markers (an MCT marker is read, and of
@@ -72,6 +83,8 @@ this decoder in host C++, with the same stages and messages.
 
 from __future__ import annotations
 
+import functools
+import math
 import struct
 
 import numpy as np
@@ -85,6 +98,12 @@ J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 class Jp2Error(ValueError):
     """Bytes that cv2 does not decode as JPEG 2000; decode_image answers
     None."""
+
+
+class Jp2Unsupported(ValueError):
+    """A Motion JPEG 2000 frame that cv2.VideoCapture converts (libavcodec's
+    jpeg2000dec and swscale) and the video mode does not: its layout is
+    named."""
 
 
 def is_jp2(data: bytes) -> bool:
@@ -713,6 +732,7 @@ def _tile_structure(cs: dict, tcp: _Tcp, tileno: int) -> dict:
                 stepsize = np.float32((1.0 + mant / 2048.0) * 2.0 ** (comp["prec"] + gain - expn))
                 band = {"orient": orient, "x0": bx0, "y0": by0, "x1": bx1, "y1": by1,
                         "numbps": expn + tccp.numgbits - 1, "stepsize": stepsize,
+                        "expn": expn, "mant": mant,
                         "empty": bx0 == bx1 or by0 == by1, "precincts": []}
                 for prec in range(pw * ph):
                     gx0 = cbgx + (prec % pw) * (1 << cbgw)
@@ -1431,6 +1451,8 @@ def t1_decode(cblk: _Cblk, orient: int, cblksty: int, roishift: int) -> np.ndarr
 
 _K = np.float32(1.230174105)
 _TWO_INVK = np.float32(1.625732422)
+# libavcodec's jpeg2000dwt.h: the same K, and its inverse (not 2 / K)
+_LIBAV_K, _LIBAV_X = np.float32(1.230174104914001), np.float32(0.812893066115961)
 _ALPHA, _BETA = np.float32(-1.586134342), np.float32(-0.052980118)
 _GAMMA, _DELTA = np.float32(0.882911075), np.float32(0.443506852)
 
@@ -1468,23 +1490,46 @@ def _idwt53_1d(a: np.ndarray, sn: int, cas: int) -> np.ndarray:
     return out
 
 
-def _idwt97_1d(a: np.ndarray, sn: int, cas: int) -> np.ndarray:
-    """The inverse 9/7 along axis 1 of float32 rows (opj_v8dwt_decode)."""
+def libav_stepsize(prec: int, expn: int, mant: int, orient: int, r: int,
+                   numres: int) -> np.float32:
+    """A 9/7 band's dequantisation step as libavcodec's jpeg2000.c
+    (init_band_stepsize) computes it for its float decoder: 2^(prec - expn)
+    times (1 + mant / 2048) in double, rounded to float; HL and LH times
+    float(X * 2), HH times float(X * X * 4); times K^(2 (numres - r) +
+    [HL, LH] - 2) in double (the 9/7's gains folded in, which its lifting
+    then leaves out), rounded; halved."""
+    f = np.float32(2.0 ** (prec - expn))
+    f = np.float32(float(f) * (mant / 2048.0 + 1.0))
+    lband = orient in (1, 2)
+    if lband:
+        f = np.float32(f * np.float32(_LIBAV_X * np.float32(2)))
+    elif orient == 3:
+        f = np.float32(f * np.float32(np.float32(_LIBAV_X * _LIBAV_X) * np.float32(4)))
+    f = np.float32(float(f) * math.pow(float(_LIBAV_K), 2 * (numres - r) + lband - 2))
+    return np.float32(f * np.float32(0.5))
+
+
+def _idwt97_1d(a: np.ndarray, sn: int, cas: int, libav: bool = False) -> np.ndarray:
+    """The inverse 9/7 along axis 1 of float32 rows (opj_v8dwt_decode), or
+    with `libav` libavcodec's (jpeg2000dwt.c's sr_1d97_float: the same
+    lifting steps without the band scaling, which libav_stepsize folds into
+    the dequantisation; a lone sample times X, or K / 2 at an odd start)."""
     n = a.shape[1]
     dn = n - sn
     x = np.empty_like(a)
     if cas == 0:
         x[:, 0::2], x[:, 1::2] = a[:, :sn], a[:, sn:]
-        if not (dn > 0 or sn > 1):
-            return x
         la, lb = 0, 1
     else:
         x[:, 1::2], x[:, 0::2] = a[:, :sn], a[:, sn:]
-        if not (sn > 0 or dn > 1):
-            return x
         la, lb = 1, 0
-    x[:, la::2] = x[:, la::2] * _K
-    x[:, lb::2] = x[:, lb::2] * _TWO_INVK
+    if n <= 1:
+        if libav and n:
+            x[:, 0] = x[:, 0] * (_LIBAV_X if cas == 0 else np.float32(_LIBAV_K / np.float32(2)))
+        return x
+    if not libav:
+        x[:, la::2] = x[:, la::2] * _K
+        x[:, lb::2] = x[:, lb::2] * _TWO_INVK
 
     def step2(tgt: int, count: int, m: int, c: np.float32) -> None:
         # target samples tgt + 2i, i < count; neighbours tgt + 2i -+ 1, the
@@ -1506,11 +1551,13 @@ def _idwt97_1d(a: np.ndarray, sn: int, cas: int) -> np.ndarray:
     return x
 
 
-def _idwt(tc: np.ndarray, comp: dict, reversible: bool, top: int) -> np.ndarray:
+def _idwt(tc: np.ndarray, comp: dict, reversible: bool, top: int,
+          libav: bool = False) -> np.ndarray:
     """The inverse DWT of a tile-component up to resolution `top`, level by
-    level: rows, then columns (opj_dwt_decode_tile, opj_dwt_decode_tile_97)."""
+    level: rows, then columns (opj_dwt_decode_tile, opj_dwt_decode_tile_97;
+    `libav`: libavcodec's 9/7)."""
     res = comp["res"]
-    one = _idwt53_1d if reversible else _idwt97_1d
+    one = _idwt53_1d if reversible else functools.partial(_idwt97_1d, libav=libav)
     rw, rh = res[0]["x1"] - res[0]["x0"], res[0]["y1"] - res[0]["y0"]
     for r in range(1, top + 1):
         sn_h, sn_v = rw, rh
@@ -1523,13 +1570,15 @@ def _idwt(tc: np.ndarray, comp: dict, reversible: bool, top: int) -> np.ndarray:
 
 # -- tcd.c: one tile -------------------------------------------------------
 
-def _decode_tile(cs: dict, tcp: _Tcp, tileno: int, image: list) -> None:
+def _decode_tile(cs: dict, tcp: _Tcp, tileno: int, image: list, video: bool = False) -> None:
     """T2, T1, the inverse DWT, the MCT and the DC level shift of one tile,
     written into `image` (one int32 plane a component). A component of the
     tile decodes up to the highest resolution of its decoded packets
     (resno_decoded, see _decode_packets): a POC can leave resolutions out,
     and the tile's samples are then that resolution's, placed at its own
-    (reduced) coordinates, the rest of the image zeros."""
+    (reduced) coordinates, the rest of the image zeros. `video`
+    dequantises and inverts the 9/7 as libavcodec does (libav_stepsize,
+    _idwt97_1d), the arithmetic cv2.VideoCapture's frames come from."""
     if tcp.prg < 0 and not tcp.pocs:
         raise Jp2Error("Unknown progression order in COD marker")
     tile = _tile_structure(cs, tcp, tileno)
@@ -1560,7 +1609,10 @@ def _decode_tile(cs: dict, tcp: _Tcp, tileno: int, image: list) -> None:
                 if band["orient"] & 2:
                     prev = comp["res"][r - 1]
                     oy -= prev["y1"] - prev["y0"]
-                step = np.float32(np.float32(0.5) * band["stepsize"])
+                step = (libav_stepsize(cs["comps"][c]["prec"], band["expn"], band["mant"],
+                                       band["orient"], r, comp["numres"])
+                        if video and not reversible
+                        else np.float32(np.float32(0.5) * band["stepsize"]))
                 for prc in band["precincts"]:
                     for cblk in prc["cblks"]:
                         vals = t1_decode(cblk, band["orient"], tccp.cblksty, tccp.roishift)
@@ -1571,7 +1623,7 @@ def _decode_tile(cs: dict, tcp: _Tcp, tileno: int, image: list) -> None:
                         else:
                             tc[ys:ys + vals.shape[0], xs:xs + vals.shape[1]] = (
                                 vals.astype(np.int32).astype(np.float32) * step)
-        planes.append(_idwt(tc, comp, reversible, tops[c]))
+        planes.append(_idwt(tc, comp, reversible, tops[c], video))
     if tcp.mct:
         if len(planes) >= 3:
             nres = [tile["comps"][i]["numres"] for i in range(3)]
@@ -1664,10 +1716,12 @@ def _next_sot_same_tile(data: bytes, pos: int, end: int, tileno: int) -> bool:
             return False
 
 
-def read_codestream(data: bytes, start: int, on_tile, ihdr=(0, 0)) -> dict:
+def read_codestream(data: bytes, start: int, on_tile, ihdr=(0, 0),
+                    video: bool = False) -> dict:
     """The codestream from `start` (opj_j2k_read_header_procedure, then
     opj_j2k_decode_tiles with opj_j2k_read_tile_header): each tile, once
-    complete, goes to `on_tile(cs, tcp, tileno)`. Returns the header."""
+    complete, goes to `on_tile(cs, tcp, tileno)`. Returns the header.
+    `video` skips OpenCV's refusal (the video mode checks its own)."""
     end = len(data)
     cs: dict = {"ihdr": ihdr, "ppm": {}}
     if start + 2 > end or _u(data, start, 2) != SOC:
@@ -1711,7 +1765,7 @@ def read_codestream(data: bytes, start: int, on_tile, ihdr=(0, 0)) -> dict:
         if marker == SIZ:
             state = _MH
             why = (size_refusal(cs["x1"] - cs["x0"], cs["y1"] - cs["y0"])
-                   or opencv_refusal(cs["comps"], cs["x0"], cs["y0"]))
+                   or (None if video else opencv_refusal(cs["comps"], cs["x0"], cs["y0"])))
             if why:
                 raise Jp2Error(why)
         if pos + 2 > end:
@@ -1917,10 +1971,39 @@ def _yuv2rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def decode_jp2(data: bytes) -> tuple[np.ndarray, int]:
-    """JP2 or J2K bytes -> ((H, W, 3) uint8 RGB, EXIF orientation 1), as
-    cv2.imdecode(IMREAD_COLOR) + BGR2RGB; raises Jp2Error where cv2 gives
-    None."""
+def video_refusal(comps: list, x0: int, y0: int, x1: int, y1: int,
+                  jp2: dict | None) -> str | None:
+    """Why the video mode does not convert a frame of these components that
+    libavcodec's jpeg2000dec decodes, or None: it takes 8-bit unsigned
+    4:2:0 (three components, the second and third at dx = dy = 2; JP2
+    colour space sYCC or none) and grey (one component; grey or none), with
+    no image offset, no palette or channel definitions and no component of
+    a single sample (a 2x2 frame's chroma, which libavcodec scales
+    otherwise)."""
+    layout = ", ".join(f"{c['dx']}x{c['dy']}" for c in comps)
+    space = jp2["enumcs"] if jp2 else 0
+    for i, c in enumerate(comps):
+        if c["sgnd"] or c["prec"] != 8:
+            return (f"JPEG 2000 video whose component {i} is {c['prec']}-bit"
+                    f"{' signed' if c['sgnd'] else ''}: the port converts 8-bit unsigned "
+                    "frames only")
+    if x0 or y0:
+        return f"JPEG 2000 video with an image offset ({x0}, {y0})"
+    if jp2 and (jp2["pclr"] is not None or jp2["cdef"] is not None):
+        return "JPEG 2000 video with a palette or channel definitions (pclr, cdef)"
+    if any(_ceildiv(x1, c["dx"]) - _ceildiv(x0, c["dx"]) == 1
+           and _ceildiv(y1, c["dy"]) - _ceildiv(y0, c["dy"]) == 1 for c in comps):
+        return "JPEG 2000 video with a component of a single sample"
+    grey = len(comps) == 1 and layout == "1x1" and space in (0, 17)
+    yuv420 = len(comps) == 3 and layout == "1x1, 2x2, 2x2" and space in (0, 18)
+    if not (grey or yuv420):
+        return (f"JPEG 2000 video of {len(comps)} components sampled {layout}, colour "
+                f"space {space}: the port converts 4:2:0 (sYCC) and grey frames only")
+    return None
+
+
+def _decode(data: bytes, video: bool) -> tuple[list, dict, dict | None]:
+    """(component planes, codestream header, JP2 boxes or None)."""
     if data[:12] == JP2_SIGNATURE:
         jp2 = read_jp2(data)
         start = jp2["codestream"]
@@ -1932,17 +2015,50 @@ def decode_jp2(data: bytes) -> tuple[np.ndarray, int]:
 
     def on_tile(cs, tcp, tileno):
         if not image:
+            if video:
+                why = video_refusal(cs["comps"], cs["x0"], cs["y0"], cs["x1"], cs["y1"], jp2)
+                if why:
+                    raise Jp2Unsupported(why)
             for comp in cs["comps"]:
                 w = _ceildiv(cs["x1"], comp["dx"]) - _ceildiv(cs["x0"], comp["dx"])
                 h = _ceildiv(cs["y1"], comp["dy"]) - _ceildiv(cs["y0"], comp["dy"])
                 image.append(np.zeros((h, w), np.int32))
-        _decode_tile(cs, tcp, tileno, image)
+        _decode_tile(cs, tcp, tileno, image, video)
 
     cs = read_codestream(data, start, on_tile,
-                         (jp2["ihdr_h"], jp2["ihdr_w"]) if jp2 else (0, 0))
+                         (jp2["ihdr_h"], jp2["ihdr_w"]) if jp2 else (0, 0), video)
     if not image:
         raise Jp2Error("Failed to decode all used components")
+    return image, cs, jp2
+
+
+def decode_jp2(data: bytes) -> tuple[np.ndarray, int]:
+    """JP2 or J2K bytes -> ((H, W, 3) uint8 RGB, EXIF orientation 1), as
+    cv2.imdecode(IMREAD_COLOR) + BGR2RGB; raises Jp2Error where cv2 gives
+    None."""
+    image, cs, jp2 = _decode(data, False)
     return convert(image, cs["comps"], jp2), 1
+
+
+# a video-mode decode by each decoder, apart from decode.route_counts (whose
+# host_jp2 counts still images)
+video_counts = {"plain": 0, "host_cpp": 0}
+
+
+def decode_jp2_planes(data: bytes) -> list:
+    """The video mode: a Motion JPEG 2000 frame (JP2 or J2K bytes) -> its
+    component planes as uint8 arrays at their own sampling (Y, U, V of a
+    4:2:0 frame; one grey plane), with no OpenCV refusal: what libavcodec's
+    jpeg2000dec hands swscale: the codestream read as OpenJPEG reads it
+    (the same samples before the transform), then dequantised and inverted
+    with libavcodec's float 9/7 arithmetic (libav_stepsize, _idwt97_1d), so
+    that yuv420_to_rgb gives cv2's frames bit for bit. Raises
+    Jp2Unsupported for a layout video_refusal names,
+    Jp2Error where the bytes do not decode. Reached only from the video
+    route (utils/readers.py); decode_image keeps cv2.imdecode's refusal."""
+    video_counts["plain"] += 1
+    image, _, _ = _decode(data, True)
+    return [plane.astype(np.uint8) for plane in image]
 
 
 def convert(image: list, comps: list, jp2: dict | None) -> np.ndarray:
@@ -2052,6 +2168,9 @@ def _lib():
     lib.vk_j2k_pixels.argtypes, lib.vk_j2k_pixels.restype = [ptr, ptr], None
     lib.vk_j2k_error.argtypes, lib.vk_j2k_error.restype = [ptr], ctypes.c_char_p
     lib.vk_j2k_calls.argtypes, lib.vk_j2k_calls.restype = [], ctypes.c_longlong
+    lib.vk_j2k_decode_planes.argtypes = [ptr, ctypes.c_char_p, ctypes.c_size_t, ip, ip]
+    lib.vk_j2k_decode_planes.restype = ctypes.c_int
+    lib.vk_j2k_plane.argtypes, lib.vk_j2k_plane.restype = [ptr, ctypes.c_int, ptr], None
     return lib
 
 
@@ -2082,5 +2201,31 @@ def decode_jp2_c(data: bytes) -> tuple[np.ndarray, int]:
         rgb = np.empty((h.value, w.value, 3), np.uint8)
         lib.vk_j2k_pixels(handle, rgb.ctypes.data)
         return rgb, 1
+    finally:
+        lib.vk_j2k_destroy(handle)
+
+
+def decode_jp2_planes_c(data: bytes) -> list:
+    """decode_jp2_planes by csrc/j2k_decode.cu (the same planes and the same
+    refusals, Jp2Unsupported and Jp2Error with the same messages); raises
+    RuntimeError when the library cannot be built or loaded."""
+    import ctypes
+
+    lib = _lib()
+    video_counts["host_cpp"] += 1
+    handle = lib.vk_j2k_create()
+    try:
+        n = ctypes.c_int(0)
+        dims = (ctypes.c_int * 8)()
+        rc = lib.vk_j2k_decode_planes(handle, data, len(data), ctypes.byref(n), dims)
+        if rc < 0:
+            why = lib.vk_j2k_error(handle).decode("utf-8", "replace")
+            raise (Jp2Unsupported if rc == -2 else Jp2Error)(why)
+        planes = []
+        for k in range(n.value):
+            plane = np.empty((dims[2 * k], dims[2 * k + 1]), np.uint8)
+            lib.vk_j2k_plane(handle, k, plane.ctypes.data)
+            planes.append(plane)
+        return planes
     finally:
         lib.vk_j2k_destroy(handle)

@@ -1,5 +1,5 @@
-"""Motion-JPEG, MPEG-4 Part 2 and VP8 in RIFF AVI: the demultiplexer and
-multiplexer of the demo's video mode.
+"""Motion-JPEG, MPEG-4 Part 2, VP8, VP9, PNG, JPEG 2000 and raw video in
+RIFF AVI: the demultiplexer and multiplexer of the demo's video mode.
 
 The JAX package reads and writes video with cv2.VideoCapture and
 cv2.VideoWriter; the card's machine has neither, nor any video codec. Every
@@ -19,14 +19,21 @@ encodes. So only the container is needed here, and RIFF is plain:
   groups too; JUNK, other streams and OpenDML `ix##` index chunks are
   skipped, and a zero-length chunk (a dropped frame) repeats the frame
   before it, as cv2's CAP_OPENCV_MJPEG reader gives it. idx1, where
-  present, only cross-checks the walk. In an MPEG-4 stream a zero-length
-  chunk is dropped rather than repeated (the decoder has nothing to
-  decode). A file that is no RIFF AVI, holds no video stream, or whose
-  video is neither Motion-JPEG (MJPG, mjpg or jpeg), MPEG-4 Part 2, VP8
-  (VP80, which cv2's VP80 writer gives an `.avi`; data/vp8.py decodes it)
-  nor VP9 (VP90, data/vp9.py) raises ValueError naming what it found. `tag` is the
-  BITMAPINFOHEADER's fourcc, the codec tag libavcodec's MPEG-4 decoder
-  reads.
+  present, only cross-checks the walk. In a stream of another codec a
+  zero-length chunk is dropped rather than repeated (the decoder has
+  nothing to decode). The BITMAPINFOHEADER's fourcc picks the codec as
+  libavformat's riff.c does (`fourcc_codec`, exact or in upper case):
+  Motion-JPEG (MJPEG_FOURCCS: MJPG, JPGL, LJPG, jpeg, ...; the stream
+  header's handler empty or one of them), MPEG-4 Part 2, VP8 (VP80, which
+  cv2's VP80 writer gives an `.avi`; data/vp8.py decodes it), VP9 (VP90,
+  data/vp9.py), PNG frames (MPNG, PNG1, png ), JPEG 2000 frames (MJ2C,
+  mjp2, ...: one JP2 file a chunk) or raw video (data/rawvideo.py's
+  AVI_FOURCCS, its layout in `pix_fmt`: a Y800 stream from cv2 holds I420
+  planes, its grey frame their Y plane; UYVY and YUY2 streams from cv2
+  hold packets too short for their layout, and give no frame). Anything
+  else, or a file that is no RIFF AVI or holds no video stream, raises
+  ValueError naming what it found. `tag` is the BITMAPINFOHEADER's
+  fourcc, the codec tag libavcodec's MPEG-4 decoder reads.
 - `AviWriter(path, fps, fourcc=b"MJPG")`: RIFF `AVI ` with `hdrl` (avih,
   strl: strh vids with the fourcc as its handler, and a BITMAPINFOHEADER
   of that fourcc: MJPG, or for MPEG-4 mp4v as cv2's mp4v writer writes
@@ -46,9 +53,17 @@ import fractions
 import os
 import struct
 
+from vision_kit_tpu_torch.data import rawvideo
 from vision_kit_tpu_torch.utils.logging_utils import logger
 
-MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"jpeg")
+# the fourccs libavformat's riff.c maps to Motion-JPEG (any case; MJLS is
+# JPEG-LS there, AVRn and AVDJ Avid's own decoder)
+MJPEG_FOURCCS = (b"MJPG", b"LJPG", b"DMB1", b"MJPA", b"JR24", b"JPGL", b"JPEG", b"IJPG",
+                 b"ACDV", b"QIVG", b"SLMJ", b"CJPG", b"IJLV", b"MVJP", b"AVI1", b"AVI2",
+                 b"MTSJ", b"ZJPG", b"MMJP")
+# riff.c's fourccs of PNG and JPEG 2000 frames (any case)
+PNG_FOURCCS = (b"MPNG", b"PNG1", b"PNG ")
+JPEG2000_FOURCCS = (b"MJP2", b"MJ2C", b"LJ2C", b"LJ2K", b"IPJ2", b"AVJ2")
 # the fourccs libavformat's riff.c maps to MPEG-4 Part 2 that this cv2 reads
 # and decodes as the port does (any case; GEOV and GEOX, GeoVision's, it
 # decodes otherwise and the port refuses)
@@ -75,7 +90,8 @@ RIFF_MAX = (1 << 32) - 1
 class AviMovie:
     """An AVI's video stream: `frames` holds each frame's (file offset,
     size) in presentation order; `codec` is "mjpeg", "mpeg4" (whose
-    headers come in band: `config` is empty), "vp8" or "vp9"."""
+    headers come in band: `config` is empty), "vp8", "vp9", "png",
+    "jpeg2000" or "raw" (its layout in `pix_fmt`)."""
 
     path: str
     width: int
@@ -86,6 +102,7 @@ class AviMovie:
     codec: str = "mjpeg"
     config: bytes = b""
     tag: bytes = b""        # the BITMAPINFOHEADER's biCompression
+    pix_fmt: str = ""       # a raw stream's layout (data/rawvideo.py)
 
     @property
     def fps(self) -> float:
@@ -154,7 +171,8 @@ def read_avi(path: str) -> AviMovie:
             logger.warning("%s: idx1 lists %d video chunks that differ from the %d "
                            "in movi; reading movi's", path, len(idx1_sizes), len(sizes))
     return AviMovie(path, header["width"], header["height"], header["rate"],
-                    header["scale"], frames, header["codec"], tag=header["tag"])
+                    header["scale"], frames, header["codec"], tag=header["tag"],
+                    pix_fmt=header["pix_fmt"])
 
 
 def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
@@ -175,27 +193,39 @@ def _parse_hdrl(f, start: int, length: int, path: str) -> dict:
         if strf is None or len(strf) < 20:
             raise ValueError(f"{path}: video stream {n} has no BITMAPINFOHEADER")
         handler, compression = strh[4:8], strf[16:20]
-        if compression in MJPEG_FOURCCS and handler.strip(b"\0 ") in (
-                b"", *MJPEG_FOURCCS):
-            codec = "mjpeg"
-        elif compression.upper() in MPEG4_FOURCCS:
-            codec = "mpeg4"
-        elif compression.upper() in VP8_FOURCCS:
-            codec = "vp8"
-        elif compression.upper() in VP9_FOURCCS:
-            codec = "vp9"
-        else:
+        codec, pix_fmt = fourcc_codec(compression), ""
+        if codec == "mjpeg" and handler.strip(b"\0 ").upper() not in (b"", *MJPEG_FOURCCS):
+            codec = None
+        elif codec == "raw":
+            pix_fmt = rawvideo.fourcc_format(compression)
+        if codec is None:
             name = OTHER_FOURCCS.get(compression.upper(), "")
             raise ValueError(
                 f"{path}: video stream {n} is {_fourcc_text(compression)}"
                 f"{' (' + name + ')' if name else ''} (handler {_fourcc_text(handler)}): "
-                "the port decodes Motion-JPEG, MPEG-4 Part 2, VP8 and VP9 only")
+                f"the port decodes {DECODED} only")
         scale, rate = struct.unpack("<II", strh[20:28])
         width, height = struct.unpack("<ii", strf[4:12])
         ids = (f"{n:02d}dc".encode(), f"{n:02d}db".encode())
         return dict(width=width, height=abs(height), rate=rate, scale=scale, ids=ids,
-                    codec=codec, tag=compression)
+                    codec=codec, tag=compression, pix_fmt=pix_fmt)
     raise ValueError(f"{path}: no video stream in the AVI header")
+
+
+DECODED = "Motion-JPEG, MPEG-4 Part 2, VP8, VP9, PNG, JPEG 2000 and raw video"
+
+
+def fourcc_codec(tag: bytes) -> str | None:
+    """The port's codec for a BITMAPINFOHEADER fourcc, as libavformat's
+    riff.c maps it (exact or upper case): "mjpeg", "mpeg4", "vp8", "vp9",
+    "png", "jpeg2000", "raw" (data/rawvideo.py's AVI_FOURCCS), or None."""
+    upper = tag.upper()
+    for codec, tags in (("mjpeg", MJPEG_FOURCCS), ("mpeg4", MPEG4_FOURCCS),
+                        ("vp8", VP8_FOURCCS), ("vp9", VP9_FOURCCS), ("png", PNG_FOURCCS),
+                        ("jpeg2000", JPEG2000_FOURCCS)):
+        if upper in tags:
+            return codec
+    return "raw" if rawvideo.fourcc_format(tag) else None
 
 
 def _walk_movi(f, start: int, length: int, ids, frames: list, sizes: list,

@@ -20,11 +20,14 @@ hand each coded frame to data/mpeg4.py or data/decode.py:
   Xiph, fixed-size or EBML lacing. The video track's frames come in block
   order. Codecs: `V_MPEG4/ISO/SP`, `ASP` and `AP` (MPEG-4 Part 2, the VOL
   in CodecPrivate), `V_MJPEG`, `V_VP8` (data/vp8.py), `V_VP9`
-  (data/vp9.py), and `V_MS/VFW/FOURCC`, whose CodecPrivate is a
-  BITMAPINFOHEADER whose fourcc utils/avi.py's lists route (MPEG-4,
-  Motion-JPEG, VP80 or VP90; the bytes after its 40 are the decoder
-  configuration). Every other CodecID raises a ValueError naming it (AV1,
-  H.264, HEVC, ...).
+  (data/vp9.py), `V_UNCOMPRESSED` (raw video in the layout its Video
+  ColourSpace fourcc names, data/rawvideo.py: cv2's I420, Y800 and RGBA
+  .mkv; a Y800 track's blocks hold I420 planes, its frame their Y plane),
+  and `V_MS/VFW/FOURCC`, whose CodecPrivate is a BITMAPINFOHEADER whose
+  fourcc utils/avi.py's `fourcc_codec` routes (MPEG-4, Motion-JPEG, VP80,
+  VP90, PNG or JPEG 2000 frames, raw; the bytes after its 40 are an
+  MPEG-4 decoder configuration). Every other CodecID raises a ValueError
+  naming it (AV1, H.264, HEVC, ...).
   `fps` is what cv2's CAP_PROP_FPS gives: 1e9 / DefaultDuration reduced
   as libavformat's av_reduce reduces it (denominators to 30000); without
   a DefaultDuration, an MPEG-4 track's VOL rate (time resolution over the
@@ -52,8 +55,8 @@ import os
 import struct
 import zlib
 
-from vision_kit_tpu_torch.utils.avi import (MJPEG_FOURCCS, MPEG4_FOURCCS, OTHER_FOURCCS,
-                                            VP8_FOURCCS, VP9_FOURCCS)
+from vision_kit_tpu_torch.data import rawvideo
+from vision_kit_tpu_torch.utils.avi import DECODED, OTHER_FOURCCS, fourcc_codec
 
 # element IDs, with their marker bits
 EBML, DOC_TYPE, DOC_TYPE_READ_VERSION = 0x1A45DFA3, 0x4282, 0x4285
@@ -63,6 +66,7 @@ MUXING_APP, WRITING_APP = 0x4D80, 0x5741
 TRACKS, TRACK_ENTRY, TRACK_NUMBER, TRACK_UID, TRACK_TYPE = 0x1654AE6B, 0xAE, 0xD7, 0x73C5, 0x83
 FLAG_LACING, LANGUAGE, CODEC_ID, CODEC_PRIVATE = 0x9C, 0x22B59C, 0x86, 0x63A2
 DEFAULT_DURATION, VIDEO, PIXEL_WIDTH, PIXEL_HEIGHT = 0x23E383, 0xE0, 0xB0, 0xBA
+COLOUR_SPACE = 0x2EB524
 CONTENT_ENCODINGS, CONTENT_ENCODING = 0x6D80, 0x6240
 CONTENT_ENCODING_SCOPE, CONTENT_ENCODING_TYPE = 0x5032, 0x5033
 CONTENT_COMPRESSION, CONTENT_COMP_ALGO, CONTENT_COMP_SETTINGS = 0x5034, 0x4254, 0x4255
@@ -78,10 +82,11 @@ CLUSTER_CHILDREN = {TIMESTAMP, SIMPLE_BLOCK, BLOCK_GROUP, 0xA7, 0xAB, 0x5854, 0x
 
 MPEG4_CODECS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 VFW = "V_MS/VFW/FOURCC"
+RAW = "V_UNCOMPRESSED"
 CODEC_NAMES = {
     "V_VP8": "VP8", "V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
     "V_MPEGH/ISO/HEVC": "HEVC", "V_MPEG1": "MPEG-1 video", "V_MPEG2": "MPEG-2 video",
-    "V_THEORA": "Theora", "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_UNCOMPRESSED": "raw video",
+    "V_THEORA": "Theora", "V_MPEG4/MS/V3": "MS MPEG-4 v3",
     "V_QUICKTIME": "a QuickTime codec", "V_PRORES": "ProRes", "V_FFV1": "FFV1"}
 COMP_ALGOS = {0: "zlib", 1: "bzlib", 2: "lzo", 3: "header stripping"}
 MAX_READ_VERSION = 3        # libavformat refuses a DocTypeReadVersion above
@@ -168,8 +173,8 @@ class _Reader:
 class MkvMovie:
     """A Matroska file's first video track: `frames` holds each frame's
     (file offset, size) in block order, `keyframes` their flags, `times`
-    their timestamps in TimestampScale units; `codec` is "mpeg4" or
-    "mjpeg"; `config` the decoder configuration (an MPEG-4 track's VOL
+    their timestamps in TimestampScale units; `codec` the port's codec
+    (utils/avi.py's names); `config` the decoder configuration (an MPEG-4 track's VOL
     headers); `tag` the codec tag libavcodec sees (a VFW track's fourcc,
     else empty); `encodings` the track's content encodings, (algorithm,
     settings) in the order they are undone."""
@@ -189,6 +194,7 @@ class MkvMovie:
     tag: bytes = b""
     encodings: tuple = ()
     vol_rate: fractions.Fraction | None = None     # set by read_mkv for MPEG-4
+    pix_fmt: str = ""       # a raw track's layout (data/rawvideo.py)
 
     @property
     def fps(self) -> float:
@@ -285,7 +291,7 @@ def _segment(r: _Reader, doc: str, start: int, size: int | None) -> MkvMovie:
     movie = MkvMovie(r.path, track["width"], track["height"], track["codec"],
                      track["codec_id"], frames, keys, times, scale,
                      track["default_duration"], duration, track["config"], track["tag"],
-                     track["encodings"])
+                     track["encodings"], pix_fmt=track["pix_fmt"])
     if movie.codec == "mpeg4":
         movie.vol_rate = _vol_rate(movie)
     return movie
@@ -330,12 +336,13 @@ def _video_track(r: _Reader, start: int, size: int, doc: str) -> dict:
         if _uint(entry.get(TRACK_TYPE, [b""])[0]) != 1:
             continue
         width = height = 0
-        encodings = []
+        encodings, colour_space = [], b""
         for sub, sbody, sn in r.children(body, body + n):
             if sub == VIDEO:
                 v = r.fields(sbody, sn)
                 width = _uint(v.get(PIXEL_WIDTH, [b""])[0])
                 height = _uint(v.get(PIXEL_HEIGHT, [b""])[0])
+                colour_space = v.get(COLOUR_SPACE, [b""])[0]
             elif sub == CONTENT_ENCODINGS:
                 encodings = [_encoding(r, ebody, en)
                              for eid2, ebody, en in r.children(sbody, sbody + sn)
@@ -346,12 +353,13 @@ def _video_track(r: _Reader, start: int, size: int, doc: str) -> dict:
         codec_id = entry.get(CODEC_ID, [b""])[0].rstrip(b"\0").decode("latin-1")
         private = entry.get(CODEC_PRIVATE, [b""])[0]
         private = _decode(private, tuple((a, st) for scope, a, st in encodings if scope & 2))
-        codec, config, tag, size_hint = _codec(r.path, codec_id, private)
+        codec, config, tag, size_hint = _codec(r.path, codec_id, private, colour_space)
         if not (width and height) and size_hint:
             width, height = size_hint
         return {"number": _uint(entry.get(TRACK_NUMBER, [b""])[0]), "codec_id": codec_id,
                 "codec": codec, "config": config, "tag": tag, "width": width,
-                "height": height,
+                "height": height, "pix_fmt": rawvideo.fourcc_format(tag) if codec == "raw"
+                else "",
                 "encodings": tuple((a, st) for scope, a, st in encodings if scope & 1),
                 "default_duration": _uint(entry.get(DEFAULT_DURATION, [b""])[0])}
     kind = "WebM" if doc == "webm" else "Matroska"
@@ -379,37 +387,35 @@ def _encoding(r: _Reader, start: int, size: int) -> tuple:
     return scope, algo, settings
 
 
-def _codec(path: str, codec_id: str, private: bytes) -> tuple:
+def _codec(path: str, codec_id: str, private: bytes, colour_space: bytes = b"") -> tuple:
     """(codec, decoder configuration, codec tag, (width, height) or None)
-    of a video track; ValueError naming a codec the port does not decode."""
+    of a video track; ValueError naming a codec the port does not decode.
+    A V_UNCOMPRESSED track's tag is its ColourSpace fourcc."""
     if codec_id in MPEG4_CODECS:
         return "mpeg4", private, b"", None
-    if codec_id == "V_MJPEG":
-        return "mjpeg", b"", b"", None
-    if codec_id == "V_VP8":
-        return "vp8", b"", b"", None
-    if codec_id == "V_VP9":
-        return "vp9", b"", b"", None
+    if codec_id in ("V_MJPEG", "V_VP8", "V_VP9"):
+        return codec_id[2:].lower(), b"", b"", None
+    if codec_id == RAW:
+        if rawvideo.fourcc_format(colour_space) is None:
+            raise ValueError(f"{path}: the video is {RAW!r} (raw video) of ColourSpace "
+                             f"{colour_space!r}: the port reads the layouts of "
+                             "data/rawvideo.py's AVI_FOURCCS only")
+        return "raw", b"", colour_space, None
     if codec_id == VFW:
         if len(private) < 40:
             raise ValueError(f"{path}: a {VFW} track without a BITMAPINFOHEADER")
         width, height = struct.unpack("<ii", private[4:12])
         tag = private[16:20]
-        if tag.upper() in MPEG4_FOURCCS:
-            return "mpeg4", private[40:], tag, (width, abs(height))
-        if tag in MJPEG_FOURCCS:
-            return "mjpeg", b"", tag, (width, abs(height))
-        if tag.upper() in VP8_FOURCCS:
-            return "vp8", b"", tag, (width, abs(height))
-        if tag.upper() in VP9_FOURCCS:
-            return "vp9", b"", tag, (width, abs(height))
+        codec = fourcc_codec(tag)
+        if codec is not None:
+            return codec, private[40:] if codec == "mpeg4" else b"", tag, (width, abs(height))
         name = OTHER_FOURCCS.get(tag.upper(), "")
         raise ValueError(f"{path}: the video is {VFW} {tag.decode('latin-1')!r}"
-                         f"{' (' + name + ')' if name else ''}: the port decodes Motion-JPEG, "
-                         "MPEG-4 Part 2, VP8 and VP9 only")
+                         f"{' (' + name + ')' if name else ''}: the port decodes {DECODED} "
+                         "only")
     name = CODEC_NAMES.get(codec_id)
     raise ValueError(f"{path}: the video is {codec_id!r}{' (' + name + ')' if name else ''}: "
-                     "the port decodes MPEG-4 Part 2, Motion-JPEG, VP8 and VP9 only")
+                     f"the port decodes {DECODED} only")
 
 
 def _cluster(r: _Reader, start: int, end: int, track: dict, frames: list, keys: list,

@@ -1,6 +1,7 @@
 """ISO base media files (MP4, and QuickTime .mov) in and out: the
 demultiplexer and multiplexer of the demo's MPEG-4 video (and the
-demultiplexer of its VP8 and VP9 in MP4).
+demultiplexer of its VP8, VP9, Motion-JPEG, PNG, JPEG 2000 and raw video
+in MP4 and QuickTime).
 
 The JAX package reads and writes video through cv2 (FFMPEG's libavformat);
 the card's machine has neither. Only the first video track's sample table
@@ -8,11 +9,18 @@ is needed to hand each coded frame to data/mpeg4.py:
 
 - `read_mp4(path)`: the top-level boxes in any order (`moov` before or
   after `mdat`, 64-bit box sizes), then the first track whose `hdlr` is
-  `vide`: `mdhd`'s timescale, `stsd`'s first sample entry (`mp4v` with its
-  `esds` DecoderSpecificInfo, the VOS/VO/VOL headers; `vp08` or `vp09`
-  with its `vpcC`, each sample a frame for data/vp8.py or data/vp9.py;
-  another entry such as `avc1` or `av01` raises naming it, as does an
-  `mp4v` entry whose esds names another objectTypeIndication), `stts`, `stsc`, `stsz`, `stco` or
+  `vide`: `mdhd`'s timescale, `stsd`'s first sample entry, mapped as
+  libavformat's mov demuxer maps it (`_entry_codec`): `mp4v` by its
+  `esds` objectTypeIndication (0x20 MPEG-4 Part 2 with the
+  DecoderSpecificInfo, the VOS/VO/VOL headers; 0x6C Motion-JPEG, 0x6D PNG,
+  0x6E JPEG 2000: cv2's .mp4 of those codecs); `vp08` or `vp09` with its
+  `vpcC`, each sample a frame for data/vp8.py or data/vp9.py; QuickTime's
+  `jpeg`, `mjpa`, `dmb1` (Motion-JPEG), `png `, `mjp2`, `RGBA` (raw) and
+  `raw ` (by its depth; depth 12, cv2's I420 .mov, opens nothing: codec
+  "none"); then riff.c's BMP fourccs (XVID and DIVX are MPEG-4 Part 2,
+  their VOL in a `glbl` box, the tag passed on for libavcodec's XviD
+  rule). Another entry such as `avc1` or `av01` raises naming it, as does
+  an `mp4v` entry whose esds names another objectTypeIndication), `stts`, `stsc`, `stsz`, `stco` or
   `co64` and `stss`. Each frame's file offset and size follow from the
   chunk offsets and the samples each chunk holds. `fps` is what cv2's
   CAP_PROP_FPS gives (libavformat's avg_frame_rate: samples times the
@@ -38,18 +46,30 @@ import struct
 MPEG4_VISUAL = 0x20     # esds objectTypeIndication of MPEG-4 Part 2
 SAMPLE_ENTRY_NAMES = {
     b"avc1": "H.264 (avc1)", b"avc3": "H.264 (avc3)", b"hvc1": "HEVC (hvc1)",
-    b"hev1": "HEVC (hev1)", b"av01": "AV1 (av01)", b"vp08": "VP8 (vp08)",
-    b"vp09": "VP9 (vp09)", b"jpeg": "Motion-JPEG (jpeg)", b"mjpa": "Motion-JPEG (mjpa)",
-    b"s263": "H.263 (s263)", b"mp4s": "an MPEG-4 systems stream (mp4s)"}
-OBJECT_TYPES = {0x21: "H.264", 0x23: "HEVC", 0x6C: "JPEG", 0x6A: "MPEG-1 video",
-                0x60: "MPEG-2 video", 0x61: "MPEG-2 video"}
+    b"hev1": "HEVC (hev1)", b"av01": "AV1 (av01)", b"AVDJ": "Avid Motion-JPEG (AVDJ)",
+    b"mjpb": "Motion-JPEG format B (mjpb)", b"s263": "H.263 (s263)",
+    b"mp4s": "an MPEG-4 systems stream (mp4s)"}
+# the esds objectTypeIndications of isom.c's ff_mp4_obj_type: the port's
+# codec for those it decodes, a name for the others
+OBJECT_CODECS = {MPEG4_VISUAL: "mpeg4", 0x6C: "mjpeg", 0x6D: "png", 0x6E: "jpeg2000"}
+OBJECT_TYPES = {0x21: "H.264", 0x23: "HEVC", 0x6A: "MPEG-1 video", 0x60: "MPEG-2 video",
+                0x61: "MPEG-2 video", 0x62: "MPEG-2 video", 0x63: "MPEG-2 video",
+                0x64: "MPEG-2 video", 0x65: "MPEG-2 video", 0xA3: "VC-1", 0xA4: "Dirac",
+                0xB1: "VP9"}
+# the layouts libavcodec's rawvideo decoder gives a 'raw ' entry by its
+# depth; at any other depth it finds none, and cv2 opens nothing (cv2's
+# I420, IYUV and Y800 .mov, of depth 12)
+RAW_DEPTHS = {1: "monob", 2: "pal8", 4: "pal8", 8: "pal8", 16: "rgb555be", 24: "rgb24",
+              32: "argb", 33: "monow", 34: "pal8", 36: "pal8", 40: "gray"}
 FILE_KINDS = ((b"RIFF", "a RIFF (AVI) file"), (b"\x1a\x45\xdf\xa3", "a Matroska/WebM file"))
 
 
 @dataclasses.dataclass
 class Mp4Movie:
     """An MP4's video track: `frames` holds each sample's (file offset,
-    size) in decode order; `config` the esds DecoderSpecificInfo."""
+    size) in decode order; `config` the esds DecoderSpecificInfo (or an
+    XVID/DIVX entry's glbl); `codec` the port's codec ("none": cv2 opens
+    nothing)."""
 
     path: str
     width: int
@@ -62,6 +82,7 @@ class Mp4Movie:
     config: bytes = b""
     brand: bytes = b""
     tag: bytes = b"mp4v"    # the sample entry, the codec tag libavcodec sees
+    pix_fmt: str = ""       # a raw track's layout (data/rawvideo.py)
 
     @property
     def fps(self) -> float:
@@ -168,18 +189,9 @@ def _track(f, path: str, mdia) -> Mp4Movie:
 
     stsd = box(b"stsd")
     entry_size, entry = struct.unpack(">I4s", stsd[8:16])
-    if entry not in (b"mp4v", b"vp08", b"vp09"):
-        name = SAMPLE_ENTRY_NAMES.get(entry, repr(entry.decode("latin-1")))
-        raise ValueError(f"{path}: the video is {name}, not MPEG-4 Part 2 (mp4v), VP8 (vp08) "
-                         "or VP9 (vp09): the port decodes MPEG-4 Part 2, Motion-JPEG, VP8 and "
-                         "VP9 only")
     body = stsd[16:8 + entry_size]
     width, height = struct.unpack(">HH", body[24:28])
-    if entry == b"mp4v":
-        codec, config = "mpeg4", _esds_config(path, body[78:])
-    else:
-        codec, config = ("vp8" if entry == b"vp08" else "vp9"), b""
-        _vpcc(path, body[78:])
+    codec, config, pix_fmt = _entry_codec(path, entry, body)
     durations = []
     stts = box(b"stts")
     for i in range(struct.unpack(">I", stts[4:8])[0]):
@@ -218,7 +230,59 @@ def _track(f, path: str, mdia) -> Mp4Movie:
                  [v - 1 for v in struct.unpack(f">{struct.unpack('>I', stss[4:8])[0]}I",
                                                stss[8:])])
     return Mp4Movie(path, width, height, timescale, durations[:len(frames)], frames,
-                    keyframes, codec, config, tag=entry)
+                    keyframes, codec, config, tag=entry, pix_fmt=pix_fmt)
+
+
+def _entry_codec(path: str, entry: bytes, body: bytes) -> tuple:
+    """(codec, decoder configuration, raw layout) of a visual sample entry,
+    as libavformat's mov demuxer maps it: `mp4v` by its esds
+    objectTypeIndication; `vp08`, `vp09`; `raw ` by its depth (one that
+    names no layout gives codec "none": cv2 opens nothing); then the
+    fourccs of isom.c's QuickTime entries and riff.c's BMP tags, which
+    utils/avi.py's fourcc_codec maps (`jpeg`, `mjpa`, `png `, `mjp2`,
+    `RGBA`; XVID and DIVX are MPEG-4 Part 2, their VOL in a `glbl` or
+    `esds` box). Anything else raises naming it."""
+    from vision_kit_tpu_torch.data import rawvideo
+    from vision_kit_tpu_torch.utils.avi import DECODED, fourcc_codec
+
+    children = body[78:]
+    if entry == b"mp4v":
+        oti, config = _esds(path, children)
+        if oti not in OBJECT_CODECS:
+            name = OBJECT_TYPES.get(oti, f"objectTypeIndication 0x{oti:02x}")
+            raise ValueError(f"{path}: the mp4v track holds {name}: the port decodes "
+                             f"{DECODED} only")
+        return OBJECT_CODECS[oti], config if oti == MPEG4_VISUAL else b"", ""
+    if entry in (b"vp08", b"vp09"):
+        _vpcc(path, children)
+        return ("vp8" if entry == b"vp08" else "vp9"), b"", ""
+    if entry == b"raw ":
+        depth = struct.unpack(">H", body[74:76])[0]
+        if depth not in RAW_DEPTHS:
+            return "none", b"", ""
+        raise ValueError(f"{path}: the video is QuickTime 'raw ' of depth {depth} "
+                         f"({RAW_DEPTHS[depth]}): the port converts the layouts of "
+                         "data/rawvideo.py's CONVERTED only")
+    codec = None if entry in SAMPLE_ENTRY_NAMES else fourcc_codec(entry)
+    if codec is None:
+        name = SAMPLE_ENTRY_NAMES.get(entry, repr(entry.decode("latin-1")))
+        raise ValueError(f"{path}: the video is {name}: the port decodes {DECODED} only")
+    if codec == "mpeg4":
+        return codec, _child(children, b"glbl") or _esds(path, children)[1], ""
+    return codec, b"", rawvideo.fourcc_format(entry) if codec == "raw" else ""
+
+
+def _child(boxes: bytes, kind: bytes) -> bytes:
+    """The body of the first box `kind` among a sample entry's boxes."""
+    pos = 0
+    while pos + 8 <= len(boxes):
+        size, k = struct.unpack(">I4s", boxes[pos:pos + 8])
+        if size < 8:
+            break
+        if k == kind:
+            return boxes[pos + 8:pos + size]
+        pos += size
+    return b""
 
 
 def _vpcc(path: str, boxes: bytes):
@@ -253,37 +317,30 @@ def _descriptor(data: bytes, pos: int) -> tuple:
     return tag, pos, pos + size
 
 
-def _esds_config(path: str, boxes: bytes) -> bytes:
-    """The DecoderSpecificInfo of an mp4v entry's esds box."""
-    pos = 0
-    while pos + 8 <= len(boxes):
-        size, kind = struct.unpack(">I4s", boxes[pos:pos + 8])
-        if kind == b"esds":
-            data = boxes[pos + 12:pos + size]
-            tag, p, end = _descriptor(data, 0)
-            if tag != 3:
-                break
-            flags = data[p + 2]
-            p += 3 + (2 if flags & 0x80 else 0) + (2 if flags & 0x20 else 0)
-            if flags & 0x40:
-                p += 1 + data[p]
-            tag, p, end = _descriptor(data, p)
-            if tag != 4:
-                break
-            if data[p] != MPEG4_VISUAL:
-                name = OBJECT_TYPES.get(data[p], f"objectTypeIndication 0x{data[p]:02x}")
-                raise ValueError(f"{path}: the mp4v track holds {name}, not MPEG-4 Part 2")
-            p += 13
-            while p < end:
-                tag, q, qend = _descriptor(data, p)
-                if tag == 5:
-                    return data[q:qend]
-                p = qend
-            return b""
-        if size < 8:
-            break
-        pos += size
-    return b""
+def _esds(path: str, boxes: bytes) -> tuple:
+    """(objectTypeIndication, DecoderSpecificInfo) of an entry's esds box;
+    (MPEG4_VISUAL, b"") without one."""
+    data = _child(boxes, b"esds")[4:]
+    if not data:
+        return MPEG4_VISUAL, b""
+    tag, p, end = _descriptor(data, 0)
+    if tag != 3:
+        return MPEG4_VISUAL, b""
+    flags = data[p + 2]
+    p += 3 + (2 if flags & 0x80 else 0) + (2 if flags & 0x20 else 0)
+    if flags & 0x40:
+        p += 1 + data[p]
+    tag, p, end = _descriptor(data, p)
+    if tag != 4:
+        return MPEG4_VISUAL, b""
+    oti = data[p]
+    p += 13
+    while p < end:
+        tag, q, qend = _descriptor(data, p)
+        if tag == 5:
+            return oti, data[q:qend]
+        p = qend
+    return oti, b""
 
 
 # -- the writer ------------------------------------------------------------

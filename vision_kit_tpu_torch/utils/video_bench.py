@@ -349,3 +349,85 @@ def _vpx_disagreements(decoder, hd: str, small_clip: str, is_key, device, reps) 
             ms[route] = {kind: float(np.median([b for b, k in zip(best, keys) if k == want]))
                          for kind, want in (("key", True), ("inter", False))}
     return bad, ms
+
+
+# -- the tags and containers of the codecs above -------------------------------
+
+TAG_SAMPLES = os.path.join(VIDEO_SAMPLES, "tags")
+MJ2_MOV = "mjp2_64x96.mov"          # the demo's Motion JPEG 2000 run on the card
+
+
+def tag_manifest() -> dict:
+    """data/video_samples/tags/MANIFEST.json's files
+    (tests/torch_video_tag_samples.py): each fixture's cv2 count, fps,
+    frames read and their sha256; for Motion-JPEG the port's plain frames'
+    sha256 and their largest difference from cv2's."""
+    import json
+
+    with open(os.path.join(TAG_SAMPLES, "MANIFEST.json")) as f:
+        return json.load(f)["files"]
+
+
+def tag_disagreements(device="cuda") -> tuple:
+    """Every fixture of data/video_samples/tags/ through VideoReader on
+    `device`, threaded and unthreaded: cv2's count (len) and fps, cv2's
+    number of frames and then one (False, None); the plain read on the CPU
+    at the manifest's sha256 (cv2's frames; for Motion-JPEG the port's
+    plain frames, libjpeg's, within the manifest's max_abs of cv2's);
+    the device's frames equal to the plain ones bit for bit (nvJPEG's
+    Motion-JPEG within decode.NVJPEG_TOLERANCE). On a CUDA device the
+    Motion JPEG 2000 frames go through the host C++ twin in its video mode
+    (jp2.video_counts["host_cpp"]) and none counts as a still image
+    (decode.route_counts["host_jp2"]). Returns (disagreements, {name:
+    {"codec", "route": the reader's decoder, "frames", "s": host-clock
+    seconds of the three reads}})."""
+    import hashlib
+
+    from vision_kit_tpu_torch.data import jp2
+    from vision_kit_tpu_torch.utils.readers import VideoReader
+
+    def digests(frames):
+        return [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in frames]
+
+    def read(path, what, **kw):
+        reader = VideoReader(path, **kw)
+        meta_count = (reader.total_frames, reader.fps)
+        items = list(iter(reader))      # len() raises for cv2's negative counts
+        reader.stop()
+        if items[-1] != (False, None) or not all(ok for ok, _ in items[:-1]):
+            bad.append(f"{what}: the stream did not end with one (False, None)")
+        return reader, meta_count, [f for ok, f in items if ok]
+
+    bad, info = [], {}
+    card = torch.device(device).type == "cuda"
+    stills, twin = decode.route_counts["host_jp2"], jp2.video_counts["host_cpp"]
+    for name, meta in tag_manifest().items():
+        path = os.path.join(TAG_SAMPLES, name)
+        t0 = time.perf_counter()
+        _, _, plain = read(path, f"{name} plain", device="cpu", use_thread=False)
+        key = "plain_rgb_sha256" if "plain_rgb_sha256" in meta else "rgb_sha256"
+        if digests(plain) != meta[key]:
+            bad.append(f"{name}: the plain read is not the manifest's {key}")
+        for use_thread in (True, False):
+            what = f"{name} on {device}, use_thread={use_thread}"
+            reader, (count, fps), frames = read(path, what, device=device,
+                                                use_thread=use_thread)
+            if (count, fps, len(frames)) != (meta["frames"], meta["fps"], meta["read"]):
+                bad.append(f"{what}: {len(frames)} frames, count {count} at {fps} fps, not "
+                           f"the manifest's {meta['read']}, {meta['frames']} at {meta['fps']}")
+            for i, (got, want) in enumerate(zip(frames, plain)):
+                if got.device.type != torch.device(device).type:
+                    bad.append(f"{what}: frame {i} on {got.device}")
+                elif reader.decoder == "nvjpeg":
+                    agreement = decode.pixel_agreement(got, want.numpy())
+                    if any(agreement[k] > v for k, v in decode.NVJPEG_TOLERANCE.items()):
+                        bad.append(f"{what}: nvJPEG frame {i} {agreement}")
+                elif not torch.equal(got.cpu(), want):
+                    bad.append(f"{what}: frame {i} differs from the plain read")
+        info[name] = {"codec": meta["codec"], "route": reader.decoder, "frames": len(frames),
+                      "s": time.perf_counter() - t0}
+    if card and jp2.video_counts["host_cpp"] == twin:
+        bad.append("the Motion JPEG 2000 frames did not go through the C++ twin")
+    if decode.route_counts["host_jp2"] != stills:
+        bad.append("a video-mode JPEG 2000 decode counted as a host_jp2 still image")
+    return bad, info
